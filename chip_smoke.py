@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,bundle,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,grad_study,bundle,cli]
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -25,28 +25,45 @@ printing one JSON line:
            the path's shapes beside its bound, its plain version and
            torch.nn.LSTM.
   train_kernels
-           holds the four training kernels against their plain versions on
-           the card at full width (L=3, H=1024, B=64): the training forward
-           and the reverse diagonal with ragged lengths (a zero-length row),
-           non-zero h0/c0 and upstream dh/dc, strictly at T=16 and looser at
-           T=512 and the train path's T=3510, each beside planted faults
-           that must fail the same check; both weight-gradient reductions
-           at the full N = 224,640 rows (LSTM: D=H=1024, G=4096;
-           projections: D=120, G=1024 and D=1024, G=80).
-  train    ``train_step`` at the flagship train shape (B=64 clips of 35.1 s,
-           T=3510 frames, labels of length 250, one microbatch, lr 3e-4,
-           random weights from a fixed torch.Generator, keep probabilities
-           1, scan CTC): 2 warm-up steps, then the median and spread of 3
-           reps of 3 steps on the repeated batch, then one step split into
-           its stages by the step's own marks (``rnn_speech_tpu_torch.
-           stages``, CUDA events); the loss must be finite and falling, and
-           all four training kernels' launch counters, zeroed before the
-           phase, non-zero after it.  Prints ms per step, utterances/s,
-           peak memory, the stage split, each training kernel's time at the
-           path's shapes beside its bound, its plain version and one
-           PyTorch call, and one step's gradients through the kernels at
-           T=256 against the same route on the kernels' plain versions and
-           against the plain route.
+           holds the training kernels against their plain versions on the
+           card at full width (L=3, H=1024, B=64): the training forward and
+           the reverse diagonal in drop modes 0, 1 and 2 with ragged lengths
+           (a zero-length row), non-zero h0/c0 and upstream dh/dc, strictly
+           at T=16 and looser at T=512 and the train path's T=3510; both
+           weight-gradient reductions at the full N = 224,640 rows (LSTM:
+           D=H=1024, G=4096; projections: D=120, G=1024 and D=1024, G=80);
+           the three CTC kernels at B=64, T=3510, U=600 with labels of 250,
+           a zero-length input and a label longer than its input (loss,
+           checkpoints, last row, gradient); the dropout kernel at
+           (3510, 64, 1024) in float32 and bf16 (bit for bit, and the kept
+           fraction within 4 sigma of the keep).  Planted faults stand
+           beside the checks and must fail them.
+  train    ``train_step`` with the default StepConfig (keep probabilities
+           0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
+           clips of 35.1 s, T=3510 frames, labels of length 250, one
+           microbatch, lr 3e-4, random weights from a fixed
+           torch.Generator): 2 warm-up steps, then the median and spread of
+           3 reps of 3 steps on the repeated batch, then one step split
+           into its stages by the step's own marks (``rnn_speech_tpu_torch.
+           stages``, CUDA events); the loss must be finite and the mean of
+           the last 3 of the 12 steps below the first, and all seven
+           training kernels' launch counters, zeroed before the phase,
+           non-zero after it.  Then ``eval_step`` with the CTC kernels
+           (the loss-only kernel must launch; its loss within the CTC
+           tolerance of the scan CTC's), and the previous configuration
+           (keep probabilities 1, scan CTC) for 3 timed steps.  Prints ms
+           per step, utterances/s, peak memory, the stage split, each
+           training kernel's time at the path's shapes beside its bound, its
+           plain version and one PyTorch call, and one step's gradients
+           through the kernels at T=256 against the same route on the
+           kernels' plain versions with the same seed words, beside a
+           planted fault that must fail that gate (and, for the keep-1
+           configuration, against the plain route).
+  grad_study
+           that gradient check, gated the same way, at three seeds and at
+           keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
+           per parameter tensor and for the cotangent that reaches the
+           input projection: the readings that set its limit.
   bundle   the committed trained bundle transcribes 32 rendered held-out
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths at CER <= 2%, and both equal the plain path's transcripts.
@@ -110,10 +127,33 @@ TRAIN_TOL_SHORT, TRAIN_TOL_LONG, WGRAD_TOL = 8e-3, 1.2e-2, 5e-4
 # error per parameter tensor: against the same route with each kernel's
 # plain version in its place (both keep bf16 residuals; the gate), and
 # against the plain route, the time loop under autograd with float32
-# residuals (a loose gate beside the reading).  On the H100 (run F):
-# 4.7e-4 against the plain versions; up to 3.9e-2 (the W_h gradients)
-# against the time loop, the cost of bf16 residuals.
+# residuals (a loose gate beside the reading).  The worst tensor is the
+# input projection's W: its cotangent arrives rounded to bf16 (dx in the
+# compute dtype, as the JAX package casts it), where the two routes'
+# summation orders flip roundings (3.0e-3 to 3.6e-3 relative), and the
+# reduction over the rows averages that down, less so once dropout masks
+# the rows.  On the H100 (the grad_study phase, seeds 2, 5, 8): keep 1
+# read 4.45e-4 to 4.65e-4, the default keeps 8.19e-4 to 8.54e-4, and the
+# backward's inter-layer scale 1% too large (the planted fault) 1.97e-2.
+# 1e-3 is the acceptance bound of the default step.  Against the time
+# loop the keep-1 step read up to 3.9e-2 (the W_h gradients), the cost of
+# bf16 residuals.
 GRAD_REL_TOL, TIME_LOOP_TOL = 1e-3, 1e-1
+# The CTC kernels against their plain versions (the same float32
+# recursion; the posteriors of a label summed in another order): losses
+# and alpha rows over their own largest magnitude, the gradient over its
+# largest magnitude.  On the H100 the loss, checkpoints and last row were
+# bit-equal and the gradient read 4.5e-7; the skip-transition fault read
+# 8.7e-3.
+CTC_LOSS_TOL, CTC_GRAD_TOL = 1e-5, 1e-5
+# Dropout keeps of the default step and the f32 peak for CUDA-core work.
+INPUT_KEEP, OUTPUT_KEEP = 0.8, 0.5
+PEAK_F32_FLOPS = 67e12
+# Operations per live lattice state and time step (log_add3: 3 max, 3
+# subtractions, 3 exp, 2 additions, 1 log, plus the log-prob): the alpha
+# recursion; the backward rebuilds alpha, runs beta, forms the posterior
+# (add, subtract, min, exp) and adds it to its label's sum.
+CTC_ALPHA_OPS, CTC_BETA_POST_OPS = 13, 31
 
 RECORD = {}
 
@@ -645,6 +685,179 @@ def _bwd_inputs(inp, outs, gates, cseq, seed):
                 c0=inp["c0"], dhn=r(L, Bn, H), dcn=r(L, Bn, H))
 
 
+KEEP_PROB = OUTPUT_KEEP * INPUT_KEEP      # one boundary's Bernoulli (ko·ki)
+
+
+def _drop(mode, T, Bn, seed):
+    """wavefront_train/_bwd drop arguments: mode 1 with random {0, 1}
+    masks, mode 2 with two seed words."""
+    import torch
+
+    if mode == 1:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        masks = (torch.rand((L - 1, T, Bn, H), generator=g, device=DEVICE)
+                 < KEEP_PROB).to(torch.bfloat16)
+        return (1, masks, 1.0 / KEEP_PROB, 1.0)
+    return (2, (seed * 7919 + 1, seed * 104729 + 3), 1.0 / KEEP_PROB, KEEP_PROB)
+
+
+def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
+    """Both wavefront kernels in drop modes 1 and 2 against their plain
+    versions, with the backward's xdrop streams; beside mode 2, the plain
+    backward fed the neighbouring boundary's bits (boundary l+1's instead
+    of l's) must fail the check."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.ops import random_bits
+
+    bf = torch.bfloat16
+    args = [inp[k] for k in FWD_ARGS]
+    T, Bn = inp["x"].shape[:2]
+    for mode in (1, 2):
+        drop = _drop(mode, T, Bn, seed)
+        got = wf.wavefront_train(*args, bf, *drop)
+        ref = wf.wavefront_train_plain(*args, bf, *drop)
+        torch.cuda.synchronize()
+        worst["wavefront_train"] = max(worst["wavefront_train"], _rel_check(
+            f"wavefront_train mode {mode} {tag}", got, ref, tol, checks))
+        del got
+        b_in = _bwd_inputs(inp, *ref[:3], seed=seed + mode)
+        plain_args = lambda: [b_in[k].clone() for k in BWD_ARGS] + [ref[0]]
+        ref_b = wf.wavefront_bwd_plain(*plain_args(), *drop)
+        if mode == 2:
+            masks = random_bits.wavefront_masks(drop[1], L - 1, T, Bn, H, KEEP_PROB,
+                                                DEVICE)
+            _fault_check(f"wavefront_bwd mode 2 {tag}: boundary l+1's bits for l's",
+                         wf.wavefront_bwd_plain(*plain_args(), 1, masks.roll(1, 0),
+                                                drop[2], 1.0), ref_b, tol, checks)
+            del masks
+        got_b = wf.wavefront_bwd(*[b_in[k] for k in BWD_ARGS], ref[0], *drop)
+        torch.cuda.synchronize()
+        worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
+            f"wavefront_bwd mode {mode} {tag}", got_b, ref_b, tol, checks))
+        del ref, ref_b, got_b, b_in
+
+
+def _ctc_batch(seed):
+    """The CTC kernels' inputs at the train shape: (T, B, V) logits, input
+    lengths ragged with a zero-length row and a row shorter than its
+    label, labels of LABEL_LEN in a MAX_LABEL-wide buffer."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    T, Bn = TRAIN_T, TRAIN_B
+    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
+    ll = torch.as_tensor([T - (37 * b) % (T // 2) if b % 5 else T for b in range(Bn)])
+    ll[3] = 0                                    # a zero-length input
+    ll[5] = LABEL_LEN - 1                        # label longer than its input
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    labels[:, LABEL_LEN:] = -1
+    ul = torch.full((Bn,), LABEL_LEN)
+    return logits, ll.to(DEVICE), labels.to(DEVICE), ul.to(DEVICE)
+
+
+def _ctc_rel(got, ref):
+    """Error over the reference's largest magnitude, on the entries that
+    are not the -1e30 sentinel (which must match exactly)."""
+    import torch
+
+    live = ref > -1e29
+    if not torch.equal(live, got > -1e29):
+        return float("inf")
+    d = (got - ref)[live].abs().max() if bool(live.any()) else got.new_zeros(())
+    scale = ref[live].abs().max() if bool(live.any()) else got.new_ones(())
+    return float(d / scale)
+
+
+def _ctc_checks(checks):
+    """The three CTC kernels against their plain versions at the train
+    shape; the plain recursion without its skip transition must fail."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    logits, ll, labels, ul = _ctc_batch(81)
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    S = ext.shape[1]
+    K = tck.ctc_block(S, V)
+    ck, last = tck.ctc_alpha_ckpt(log_probs, ext, skip_ok, ll, ul, K)
+    last_l = tck.ctc_alpha_lossonly(log_probs, ext, skip_ok, ll, ul)
+    ck_p, last_p = tck.alpha_plain(log_probs, ext, skip_ok, ll, ul, K, True)
+    loss, _ = tck._loss(last, ul, valid)
+    loss_l, _ = tck._loss(last_l, ul, valid)
+    loss_p, logp_p = tck._loss(last_p, ul, valid)
+    ones = torch.ones_like(loss)
+    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K)
+    post_p = tck.beta_post_plain(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K)
+    grad = tck.ctc_grad(log_probs, post, ll, valid, ones)
+    grad_p = tck.ctc_grad(log_probs, post_p, ll, valid, ones)
+    torch.cuda.synchronize()
+    rels = {"loss": _ctc_rel(loss, loss_p), "ckpts": _ctc_rel(ck, ck_p),
+            "last": _ctc_rel(last, last_p), "lossonly_loss": _ctc_rel(loss_l, loss_p),
+            "lossonly_last": _ctc_rel(last_l, last_p), "grad": _ctc_rel(grad, grad_p)}
+    tols = {k: CTC_GRAD_TOL if k == "grad" else CTC_LOSS_TOL for k in rels}
+    entry = {"check": f"ctc B={TRAIN_B} T={TRAIN_T} U={MAX_LABEL} labels {LABEL_LEN} K={K}",
+             "rel_err": rels, "tol": tols, "lossonly_equals_ckpt_last": torch.equal(last_l, last),
+             "max_abs_err": {"loss": float((loss - loss_p).abs().max()),
+                             "lossonly_loss": float((loss_l - loss_p).abs().max()),
+                             "grad": float((grad - grad_p).abs().max())},
+             "zero_length_loss": float(loss[3]), "label_too_long_loss": float(loss[5]),
+             "grad_finite": bool(torch.isfinite(grad).all())}
+    checks.append(entry)
+    if (any(rels[k] > tols[k] for k in rels) or not entry["lossonly_equals_ckpt_last"]
+            or not entry["grad_finite"] or loss[3] != 0 or loss[5] != 0):
+        fail(f"ctc: kernels disagree with their plain versions: {entry}")
+    del ck, ck_p, post, post_p, grad, grad_p
+    _, last_f = tck.alpha_plain(log_probs, ext, torch.zeros_like(skip_ok), ll, ul, K, False)
+    rel = _ctc_rel(tck._loss(last_f, ul, valid)[0], loss_p)
+    checks.append({"planted_fault": "ctc: skip transition dropped", "rel_err": rel,
+                   "tol": CTC_LOSS_TOL})
+    if rel <= CTC_LOSS_TOL:
+        fail(f"ctc: the check does not see the dropped skip transition ({rel})")
+    worst = entry["max_abs_err"]
+    return {"ctc_alpha_ckpt": worst["loss"], "ctc_alpha_lossonly": worst["lossonly_loss"],
+            "ctc_beta_post": worst["grad"]}
+
+
+def _dropout_checks(checks):
+    """The dropout kernel at the top site's (3510, 64, 1024) in float32
+    (keep 0.8, the input site's) and bf16 (keep 0.5, the top site's): bit
+    for bit against its plain version, the kept fraction within 4 sigma;
+    the plain version scaled by 1 instead of 1/keep must fail."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+
+    g = torch.Generator(device=DEVICE).manual_seed(90)
+    errs = []
+    for dtype, keep in ((torch.float32, INPUT_KEEP), (torch.bfloat16, OUTPUT_KEEP)):
+        x = torch.randn((TRAIN_T, TRAIN_B, H), generator=g, device=DEVICE).to(dtype)
+        seed = (2024, 1017)
+        got = tdrop.dropout_kernel(x, seed, [keep])
+        ref = tdrop.dropout_plain(x, seed, [keep])
+        torch.cuda.synchronize()
+        n = x.numel()
+        frac = float((ref != 0).float().mean())
+        sigma = (keep * (1 - keep) / n) ** 0.5
+        equal = torch.equal(got, ref)
+        entry = {"check": f"dropout {tuple(x.shape)} {str(dtype)[6:]} keep {keep}",
+                 "bit_equal": equal, "kept_fraction": frac, "sigmas": (frac - keep) / sigma,
+                 "max_abs_err": float((got.float() - ref.float()).abs().max())}
+        checks.append(entry)
+        errs.append(entry["max_abs_err"])
+        if not equal or abs(frac - keep) > 4 * sigma:
+            fail(f"dropout: kernel disagrees with its plain version: {entry}")
+        faulty = torch.where(ref != 0, x, torch.zeros((), dtype=dtype, device=DEVICE))
+        seen = not torch.equal(faulty, ref)
+        checks.append({"planted_fault": f"dropout {str(dtype)[6:]}: scaled by 1",
+                       "bit_equal": not seen})
+        if not seen:
+            fail("dropout: the check does not see a scale of 1")
+        del x, got, ref, faulty
+    return max(errs)
+
+
 def phase_train_kernels():
     import torch
 
@@ -690,7 +903,9 @@ def phase_train_kernels():
         torch.cuda.synchronize()
         worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
             f"wavefront_bwd {tag}", got_b, ref_b, tol, checks))
-        del ref, got_b, ref_b, b_in, inp
+        del ref, got_b, ref_b, b_in
+        _drop_mode_checks(inp, tag, tol, checks, worst, seed=60 + i)
+        del inp
 
     N = TRAIN_T * TRAIN_B
     g = torch.Generator().manual_seed(60)
@@ -713,14 +928,19 @@ def phase_train_kernels():
         worst["weight_grad"] = max(worst["weight_grad"], _rel_check(
             f"weight_grad N={N} D={D} G={G} dg {str(gd)[6:]}", got, ref, WGRAD_TOL,
             checks))
+    del xx, dg, got, ref
+    worst.update(_ctc_checks(checks))
+    worst["dropout"] = _dropout_checks(checks)
     emit("train_kernels", checks=checks, max_abs_err=worst)
 
 
-def _train_setup(T_frames, label_width, label_len, seed):
+def _train_setup(T_frames, label_width, label_len, seed,
+                 keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True):
     """(step config, train state, one-microbatch batch) at the flagship
-    width: fbank frontend, 3x1024 bf16 kernel route, keep probabilities 1,
-    scan CTC, random weights from a fixed torch.Generator, audio and
-    labels from a fixed numpy seed as bench.py builds them."""
+    width: fbank frontend, 3x1024 bf16 kernel route, by default the
+    default StepConfig (keep probabilities 0.8 / 0.5, the CTC kernels);
+    random weights from a fixed torch.Generator, audio and labels from a
+    fixed numpy seed as bench.py builds them."""
     import numpy as np
     import torch
 
@@ -734,8 +954,8 @@ def _train_setup(T_frames, label_width, label_len, seed):
     cfg = acoustic.AcousticConfig(
         num_layers=L, hidden_size=H, input_dim=fe.feature_size, num_labels=V,
         compute_dtype=torch.bfloat16, use_kernels=True, wavefront=True)
-    scfg = step.StepConfig(model=cfg, frontend=fe, input_keep_prob=1.0,
-                           output_keep_prob=1.0, use_pallas_ctc=False)
+    scfg = step.StepConfig(model=cfg, frontend=fe, input_keep_prob=keeps[0],
+                           output_keep_prob=keeps[1], use_pallas_ctc=pallas_ctc)
     state = step.init_train_state(torch.Generator().manual_seed(seed), cfg, TRAIN_B,
                                   TRAIN_LR, DEVICE)
     rng = np.random.default_rng(1)
@@ -749,13 +969,27 @@ def _train_setup(T_frames, label_width, label_len, seed):
     return scfg, state, batch
 
 
-def _train_counters():
+def _train_counters(default=True):
+    """The wrappers whose kernels a train step launches: the four of the
+    keep-1 scan-CTC step, and with the default step dropout and the CTC
+    checkpoint and backward kernels."""
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
-    return {"wavefront_train": wf.wavefront_train, "wavefront_bwd": wf.wavefront_bwd,
-            "dgates_weight_grads": gm.dgates_weight_grads,
-            "weight_grad": gm.weight_grad}
+    out = {"wavefront_train": wf.wavefront_train, "wavefront_bwd": wf.wavefront_bwd,
+           "dgates_weight_grads": gm.dgates_weight_grads, "weight_grad": gm.weight_grad}
+    if default:
+        out.update(dropout=tdrop.dropout_kernel, ctc_alpha_ckpt=tck.ctc_alpha_ckpt,
+                   ctc_beta_post=tck.ctc_beta_post)
+    return out
+
+
+def _all_counters():
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    return {**_train_counters(), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly}
 
 
 @contextlib.contextmanager
@@ -765,51 +999,128 @@ def _plain_versions():
     from unittest import mock
 
     from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
+    alpha = lambda *a: tck.alpha_plain(*a, True)
+    lossonly = lambda *a: tck.alpha_plain(*a, 1, False)[1]
     with mock.patch.object(wf, "wavefront_train", wf.wavefront_train_plain), \
             mock.patch.object(wf, "wavefront_bwd", wf.wavefront_bwd_plain), \
             mock.patch.object(wf, "dgates_weight_grads", gm.dgates_weight_grads_plain), \
-            mock.patch.object(acoustic, "weight_grad", gm.weight_grad_plain):
+            mock.patch.object(acoustic, "weight_grad", gm.weight_grad_plain), \
+            mock.patch.object(acoustic, "dropout_kernel", tdrop.dropout_plain), \
+            mock.patch.object(tdrop, "dropout_kernel", tdrop.dropout_plain), \
+            mock.patch.object(tck, "ctc_alpha_ckpt", alpha), \
+            mock.patch.object(tck, "ctc_alpha_lossonly", lossonly), \
+            mock.patch.object(tck, "ctc_beta_post", tck.beta_post_plain):
         yield
 
 
-def _grad_check():
+def _scale_fault(bwd_plain):
+    """The plain reverse diagonal with its inter-layer keep scale 1% too
+    large (the cotangent and the xdrop streams): a planted fault."""
+    def faulty(*args):
+        args = list(args)
+        args[12] *= 1.01                            # drop_scale
+        return bwd_plain(*args)
+    return faulty
+
+
+def _capture_weight_grad(fn, seen):
+    """``fn`` (a weight_grad) that keeps the cotangent of its last call:
+    after a backward, that of the input projection."""
+    def wrapped(h, g, **kw):
+        seen["input_projection_cotangent"] = g.detach().float().clone()
+        return fn(h, g, **kw)
+    return wrapped
+
+
+def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2):
     """One step's gradients through the kernels at T=GRAD_T, full width,
     against the same route on the kernels' plain versions (bf16 residuals
-    too) and against the plain route (the time loop under autograd,
-    float32 residuals).  Neither yardstick may launch a kernel."""
+    too; the same seed words, so the same dropout masks) and, at keep 1
+    with the scan CTC, against the plain route (the time loop under
+    autograd, float32 residuals).  With inter-layer dropout, the
+    plain-version route with the backward's inter-layer keep scale 1% too
+    large must fail the gate.  Per parameter tensor, relative Frobenius error; also
+    that of the cotangent that reaches the input projection.  No
+    yardstick may launch a kernel."""
     import dataclasses
+    from unittest import mock
 
     import torch
 
-    from rnn_speech_tpu_torch.train import optim, step
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.params import flatten
+    from rnn_speech_tpu_torch.train import step
 
-    scfg, state, batch = _train_setup(GRAD_T, 100, 50, seed=2)
-    counters = _train_counters()
+    scfg, state, batch = _train_setup(GRAD_T, 100, 50, seed=seed, keeps=keeps,
+                                      pallas_ctc=pallas_ctc)
+    counters = _all_counters()
     out = {}
-    for name, kernels, swap in (("kernels", True, False),
-                                ("plain_versions", True, True),
-                                ("time_loop", False, False)):
+    routes = [("kernels", True, False), ("plain_versions", True, True)]
+    if keeps == (1.0, 1.0):
+        if not pallas_ctc:
+            routes.append(("time_loop", False, False))
+    else:
+        routes.append(("planted_fault", True, True))
+    for name, kernels, swap in routes:
         sc = dataclasses.replace(scfg, model=dataclasses.replace(
             scfg.model, use_kernels=kernels))
         before = sum(fn.launches for fn in counters.values())
-        with _plain_versions() if swap else contextlib.nullcontext():
+        seen = {}
+        with contextlib.ExitStack() as stack:
+            if swap:
+                stack.enter_context(_plain_versions())
+            if name == "planted_fault":
+                stack.enter_context(mock.patch.object(
+                    wf, "wavefront_bwd", _scale_fault(wf.wavefront_bwd_plain)))
+            stack.enter_context(mock.patch.object(
+                acoustic, "weight_grad", _capture_weight_grad(acoustic.weight_grad, seen)))
             _, grads, loss_sum, _, _ = step.accumulate_grads(
-                sc, state["params"], state["states"], batch, torch.Generator())
+                sc, state["params"], state["states"], batch,
+                torch.Generator().manual_seed(seed + 1))
         torch.cuda.synchronize()
         if name != "kernels" and sum(fn.launches for fn in counters.values()) != before:
             fail(f"train: the {name} yardstick launched a kernel")
-        out[name] = (optim.tree_leaves(grads), float(loss_sum))
-    entry = {"T": GRAD_T, "mean_loss": {k: v[1] for k, v in out.items()}}
-    for name, tol in (("plain_versions", GRAD_REL_TOL), ("time_loop", TIME_LOOP_TOL)):
-        rel = [float((a - b).norm() / b.norm().clamp(min=1e-30))
-               for a, b in zip(out["kernels"][0], out[name][0])]
-        entry[name] = {"rel_frobenius": rel, "worst": max(rel), "tol": tol}
-        if not all(v == v for v in rel) or max(rel) > tol:
+        out[name] = (flatten(grads), float(loss_sum), seen.get("input_projection_cotangent"))
+    rel = lambda a, b: float((a - b).float().norm() / b.float().norm().clamp(min=1e-30))
+    entry = {"T": GRAD_T, "keep_probs": list(keeps), "use_pallas_ctc": pallas_ctc,
+             "seed": seed, "mean_loss": {k: v[1] for k, v in out.items()}}
+    for name, tol in (("plain_versions", GRAD_REL_TOL), ("time_loop", TIME_LOOP_TOL),
+                      ("planted_fault", GRAD_REL_TOL)):
+        if name not in out:
+            continue
+        ref, got = out[name][0], out["kernels"][0]
+        per = {k: rel(got[k], ref[k]) for k in ref}
+        worst = max(per.values())
+        cot = out[name][2]
+        entry[name] = {"rel_frobenius": per, "worst": worst, "worst_tensor": max(per, key=per.get),
+                       "tol": tol, "input_projection_cotangent": None if cot is None else
+                       rel(out["kernels"][2], cot)}
+        if name == "planted_fault":
+            entry[name]["over_limit"] = worst / tol
+            if not worst > tol:
+                fail(f"train: the gradient gate does not see the planted fault: {entry}")
+        elif not all(v == v for v in per.values()) or worst > tol:
             fail(f"train: kernel-route gradients disagree with {name}: {entry}")
     return entry
+
+
+def phase_grad_study():
+    """The gradient gate's readings over seeds and keep probabilities
+    (input, output) of 1 and the defaults, each site alone and both, on
+    the CTC kernels, with the planted fault wherever the inter-layer
+    boundary drops: the readings behind GRAD_REL_TOL."""
+    readings = []
+    for seed in (2, 5, 8):
+        for keeps in ((1.0, 1.0), (INPUT_KEEP, 1.0), (1.0, OUTPUT_KEEP),
+                      (INPUT_KEEP, OUTPUT_KEEP)):
+            readings.append(_grad_check(keeps, True, seed))
+    emit("grad_study", readings=readings)
 
 
 def _nn_lstm_train_ms(T):
@@ -833,7 +1144,8 @@ def _nn_lstm_train_ms(T):
 def _train_kernel_timing(state):
     """Each training kernel alone at the train path's shapes (full-length
     rows): ms, its plain version's ms, one PyTorch call's ms and the bound.
-    Times are per train step: one call of the two wavefront kernels, L
+    Times are per train step: one call of the two wavefront kernels (drop
+    mode 2, the default step's; mode 0 timed beside it as ``ms_mode0``), L
     calls of dgates_weight_grads, two calls of weight_grad (input and
     output projection)."""
     import torch
@@ -847,30 +1159,39 @@ def _train_kernel_timing(state):
     args = [inp[k] for k in FWD_ARGS]
     out = {}
     lib_fwd, lib_bwd = _nn_lstm_train_ms(T)
-    ms = cuda_ms(lambda: wf.wavefront_train(*args, bf), iters=2)
-    plain = cuda_ms(lambda: wf.wavefront_train_plain(*args, bf), iters=1, warmup=0)
+    drop = _drop(2, T, Bn, 72)
+    ms0 = cuda_ms(lambda: wf.wavefront_train(*args, bf), iters=2)
+    ms = cuda_ms(lambda: wf.wavefront_train(*args, bf, *drop), iters=2)
+    plain = cuda_ms(lambda: wf.wavefront_train_plain(*args, bf, *drop), iters=1,
+                    warmup=0)
     flops = 2 * T * Bn * H * G * 2 * L
     nbytes = (T * Bn * H * 2 + 2 * L * H * G * 2 + L * G * 4    # x, W_x0, W_h, W_x, b
               + T * Bn * 4 + 2 * L * Bn * H * 4            # inputs
               + L * T * Bn * (H + G + H) * 2 + 2 * L * Bn * H * 4)   # outputs
     bound, by = _bounds(flops, nbytes)
-    out["wavefront_train"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                                  library_ms=lib_fwd, flops=flops, bytes=nbytes)
+    out["wavefront_train"] = dict(ms=ms, ms_mode0=ms0, plain_ms=plain, bound_ms=bound,
+                                  bound_by=by, library_ms=lib_fwd, flops=flops,
+                                  bytes=nbytes)
 
-    outs, gates, cseq, _, _ = wf.wavefront_train(*args, bf)
+    outs, gates, cseq, _, _ = wf.wavefront_train(*args, bf, *drop)
     b_in = _bwd_inputs(inp, outs, gates, cseq, seed=71)
     # Each call writes dgates over its gates: the plain version gets a copy
     # of the residual, the kernel's later calls run on dgates (same work).
     pargs = [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS]
     bargs = [b_in[k] for k in BWD_ARGS]
-    ms = cuda_ms(lambda: wf.wavefront_bwd(*bargs), iters=2)
-    plain = cuda_ms(lambda: wf.wavefront_bwd_plain(*pargs), iters=1, warmup=0)
+    ms0 = cuda_ms(lambda: wf.wavefront_bwd(*bargs), iters=2)
+    ms = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2)
+    plain = cuda_ms(lambda: wf.wavefront_bwd_plain(*pargs, outs, *drop), iters=1,
+                    warmup=0)
     flops = 2 * T * Bn * H * G * (2 * L - 1)
     nbytes = (T * Bn * H * 2 + (2 * L - 1) * H * G * 2 + T * Bn * 4
               + L * T * Bn * (G + H) * 2 + 3 * L * Bn * H * 4      # inputs
-              + L * T * Bn * G * 2 + 2 * L * Bn * H * 4)            # outputs
+              + (L - 1) * T * Bn * H * 2                            # outs read
+              + L * T * Bn * G * 2 + 2 * L * Bn * H * 4             # outputs
+              + (L - 1) * T * Bn * H * 2)                           # xdrop
     bound, by = _bounds(flops, nbytes)
-    out["wavefront_bwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+    out["wavefront_bwd"] = dict(ms=ms, ms_mode0=ms0, plain_ms=plain, bound_ms=bound,
+                                bound_by=by,
                                 library_ms=lib_bwd, library="torch.nn.LSTM backward "
                                 "(with its weight gradients)", flops=flops, bytes=nbytes)
 
@@ -912,24 +1233,99 @@ def _train_kernel_timing(state):
     return out
 
 
-def phase_train():
+def _ctc_dropout_timing():
+    """The CTC kernels and the dropout kernel alone at the default step's
+    shapes (full-length rows, labels of LABEL_LEN): ms, the plain
+    version's ms, one PyTorch call's ms and the bound.  The CTC bound
+    counts this batch's live lattice entries (each row's T_b steps of
+    2·label_length + 1 states) against the float32 rate, or the bytes of
+    the log-probs, checkpoints and outputs; dropout's covers the step's
+    five passes (input site forward and backward in float32, top site
+    forward, rebuild and dy), bound by bytes."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+
+    T, Bn = TRAIN_T, TRAIN_B
+    g = torch.Generator().manual_seed(95)
+    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    labels[:, LABEL_LEN:] = -1
+    ll = torch.full((Bn,), T, device=DEVICE)
+    ul = torch.full((Bn,), LABEL_LEN, device=DEVICE)
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels.to(DEVICE), ul, -1)
+    K = tck.ctc_block(ext.shape[1], V)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    ckpts, last = tck.ctc_alpha_ckpt(*args, K)
+    logp = tck._loss(last, ul, valid)[1]
+    live = int((ll * (2 * ul + 1)).sum())
+    s_live = 2 * LABEL_LEN + 1
+    n_ck = -(-T // K)
+    lp_bytes = T * Bn * V * 4
+    lp_lib = log_probs.clone().requires_grad_(True)
+    targets = labels[:, :LABEL_LEN].to(DEVICE)
+    ctc_lib = lambda: torch.nn.functional.ctc_loss(lp_lib, targets, ll, ul, blank=V - 1,
+                                                   reduction="sum")
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(ctc_lib(), lp_lib))
+    with torch.no_grad():
+        lib_f = cuda_ms(ctc_lib)
+    out = {}
+    for name, run, plain, ops, nbytes, lib in (
+        ("ctc_alpha_ckpt", lambda: tck.ctc_alpha_ckpt(*args, K),
+         lambda: tck.alpha_plain(*args, K, True), CTC_ALPHA_OPS * live,
+         lp_bytes + (n_ck + 1) * Bn * s_live * 4, lib_fb),
+        ("ctc_alpha_lossonly", lambda: tck.ctc_alpha_lossonly(*args),
+         lambda: tck.alpha_plain(*args, 1, False), CTC_ALPHA_OPS * live,
+         lp_bytes + Bn * s_live * 4, lib_f),
+        ("ctc_beta_post", lambda: tck.ctc_beta_post(*args, logp, ckpts, K),
+         lambda: tck.beta_post_plain(*args, logp, ckpts, K), CTC_BETA_POST_OPS * live,
+         2 * lp_bytes + n_ck * Bn * s_live * 4, lib_fb),
+    ):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1, warmup=0),
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         library_ms=lib, library="torch.nn.functional.ctc_loss " + (
+                             "forward" if name == "ctc_alpha_lossonly" else
+                             "forward + backward"),
+                         ops=ops, bytes=nbytes, live_entries=live, K=K)
+    del logits, log_probs, ckpts, lp_lib
+
+    gd = torch.Generator(device=DEVICE).manual_seed(96)
+    f32x = torch.randn((T, Bn, H), generator=gd, device=DEVICE)
+    bf16x = f32x.to(torch.bfloat16)
+    passes = ((f32x, INPUT_KEEP), (f32x, INPUT_KEEP), (bf16x, OUTPUT_KEEP),
+              (bf16x, OUTPUT_KEEP), (f32x, OUTPUT_KEEP))
+    seed = (31, 41)
+    ms = sum(cuda_ms(lambda: tdrop.dropout_kernel(x, seed, [k])) for x, k in passes)
+    plain = sum(cuda_ms(lambda: tdrop.dropout_plain(x, seed, [k]), iters=1, warmup=0)
+                for x, k in passes)
+    lib = sum(cuda_ms(lambda: torch.nn.functional.dropout(x, 1 - k)) for x, k in passes)
+    nbytes = sum(2 * x.numel() * x.element_size() for x, _ in passes)
+    out["dropout"] = dict(ms=ms, plain_ms=plain, bound_ms=nbytes / PEAK_BYTES * 1e3,
+                          bound_by="bytes", library_ms=lib,
+                          library="torch.nn.functional.dropout", calls=len(passes),
+                          bytes=nbytes)
+    return out
+
+
+def _run_steps(scfg, state, batch, reps, record_stages):
+    """2 warm-up steps, ``reps`` reps of 3 timed steps on the repeated
+    batch, and with ``record_stages`` one more step split by its marks.
+    Counters are zeroed before and read after.  Returns (record, state)."""
     import statistics
 
     import torch
 
     from rnn_speech_tpu_torch import stages
-    from rnn_speech_tpu_torch.models import acoustic
     from rnn_speech_tpu_torch.train import step
 
-    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0)
-    plan = acoustic.training_memory_plan(scfg.model, TRAIN_T, TRAIN_B)
-    if plan != (0, "gates"):
-        fail(f"train: memory plan {plan} at B=64, T=3510; expected (0, 'gates')")
-    counters = _train_counters()
-    for fn in counters.values():
+    counters = _train_counters(scfg.use_pallas_ctc)
+    for fn in _all_counters().values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator()
+    gen = torch.Generator().manual_seed(11)
     losses = []
 
     def run():
@@ -943,46 +1339,108 @@ def phase_train():
     first_ms = 1e3 * (time.perf_counter() - t0)
     run()
     vals = []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
             run()
         torch.cuda.synchronize()
         vals.append(1e3 * (time.perf_counter() - t0) / 3)
-    with stages.record() as marks:                 # one more step, split by stage
-        run()
-    stage_ms = stages.stage_ms(marks)
+    stage_ms = {}
+    if record_stages:
+        with stages.record() as marks:             # one more step, split by stage
+            run()
+        stage_ms = stages.stage_ms(marks)
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
+    ms = statistics.median(vals)
     if not all(v == v and abs(v) < float("inf") for v in losses):
         fail(f"train: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall on the repeated batch: {losses}")
     if not all(launches.values()):
         fail(f"train: the step did not go through every training kernel: {launches}")
-    ms = statistics.median(vals)
+    return dict(steps=len(losses), train_ms_per_step=ms, train_utt_per_sec=TRAIN_B / (ms / 1e3),
+                train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
+                first_step_ms=first_ms, losses=losses, launches=launches,
+                peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
+                stage_sum_ms=sum(stage_ms.values())), state
+
+
+def _eval_check(scfg, state, batch):
+    """``eval_step`` with the CTC kernels (the loss-only kernel must
+    launch) against the same step on the scan CTC."""
+    import dataclasses
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.train import step
+
+    tck.ctc_alpha_lossonly.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step.eval_step(scfg, state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = tck.ctc_alpha_lossonly.launches
+    ref = step.eval_step(dataclasses.replace(scfg, use_pallas_ctc=False), state, batch)
+    rel = abs(float(got["mean_loss"]) - float(ref["mean_loss"])) / abs(float(ref["mean_loss"]))
+    entry = {"mean_loss": float(got["mean_loss"]), "scan_ctc_mean_loss": float(ref["mean_loss"]),
+             "rel_err": rel, "tol": CTC_LOSS_TOL, "ms": ms,
+             "mean_error_rate": float(got["mean_error_rate"]),
+             "launches": {"ctc_alpha_lossonly": launches}}
+    if not launches or rel > CTC_LOSS_TOL:
+        fail(f"eval_step: the CTC kernels' loss disagrees or did not launch: {entry}")
+    return entry
+
+
+def phase_train():
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0)
+    plan = acoustic.training_memory_plan(scfg.model, TRAIN_T, TRAIN_B)
+    if plan != (0, "gates"):
+        fail(f"train: memory plan {plan} at B=64, T=3510; expected (0, 'gates')")
+    default, state = _run_steps(scfg, state, batch, reps=3, record_stages=True)
+    losses = default["losses"]
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        fail(f"train: the mean of the last 3 losses is not below the first: {losses}")
+    eval_entry = _eval_check(scfg, state, batch)
     del batch
+    keep1_cfg, keep1_state, keep1_batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN,
+                                                       seed=0, keeps=(1.0, 1.0),
+                                                       pallas_ctc=False)
+    keep1, _ = _run_steps(keep1_cfg, keep1_state, keep1_batch, reps=1, record_stages=False)
+    if not keep1["losses"][-1] < keep1["losses"][0]:
+        fail(f"train (keep 1, scan CTC): the loss did not fall: {keep1['losses']}")
+    del keep1_state, keep1_batch
+    torch.cuda.empty_cache()
     grad_check = _grad_check()
+    keep1["grad_check"] = _grad_check((1.0, 1.0), False)
     timing = _train_kernel_timing(state)
+    timing.update(_ctc_dropout_timing())
     emit("train", batch=TRAIN_B, frames=TRAIN_T, label_length=LABEL_LEN,
-         memory_plan=list(plan), train_ms_per_step=ms,
-         train_utt_per_sec=TRAIN_B / (ms / 1e3),
-         train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
-         first_step_ms=first_ms, losses=losses, launches=launches,
-         peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
-         stage_sum_ms=sum(stage_ms.values()), grad_check=grad_check, timing=timing)
+         keep_probs=[scfg.input_keep_prob, scfg.output_keep_prob],
+         use_pallas_ctc=scfg.use_pallas_ctc, memory_plan=list(plan), **default,
+         grad_check=grad_check, eval_step=eval_entry, keep1_scan_ctc=keep1,
+         timing=timing)
 
 
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
-    inference kernels) or one train step (the four training kernels)."""
+    inference kernels), one default train step (the training, dropout and
+    CTC kernels) or one ``eval_step`` batch (the loss-only CTC kernel).
+    Launches are those of the main path's run: the eval phase, the
+    default train step's 12 steps, the ``eval_step`` call."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
     tk = RECORD.get("train_kernels", {})
+    launches = {**tr.get("launches", {}),
+                **tr.get("eval_step", {}).get("launches", {})}
     rows = []
     for name, src, replaces, kind in (
         ("lstm_wavefront", "rnn_speech_tpu_torch/csrc/lstm_wavefront.cu",
@@ -999,20 +1457,25 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+    csrc = "rnn_speech_tpu_torch/csrc/"
     for name, src, replaces in (
-        ("wavefront_train", "rnn_speech_tpu_torch/csrc/lstm_wavefront_train.cu",
+        ("wavefront_train", csrc + "lstm_wavefront_train.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:230"),
-        ("wavefront_bwd", "rnn_speech_tpu_torch/csrc/lstm_wavefront_bwd.cu",
+        ("wavefront_bwd", csrc + "lstm_wavefront_bwd.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:433"),
-        ("dgates_weight_grads", "rnn_speech_tpu_torch/csrc/grad_matmul.cu",
+        ("dgates_weight_grads", csrc + "grad_matmul.cu",
          "rnn_speech_tpu/ops/grad_matmul_pallas.py:52"),
-        ("weight_grad", "rnn_speech_tpu_torch/csrc/grad_matmul.cu",
+        ("weight_grad", csrc + "grad_matmul.cu",
          "rnn_speech_tpu/ops/grad_matmul_pallas.py:96"),
+        ("dropout", csrc + "dropout.cu", "rnn_speech_tpu/ops/dropout_pallas.py:55"),
+        ("ctc_alpha_ckpt", csrc + "ctc.cu", "rnn_speech_tpu/ops/ctc_pallas.py:144"),
+        ("ctc_alpha_lossonly", csrc + "ctc.cu", "rnn_speech_tpu/ops/ctc_pallas.py:137"),
+        ("ctc_beta_post", csrc + "ctc.cu", "rnn_speech_tpu/ops/ctc_pallas.py:291"),
     ):
         t = tr.get("timing", {}).get(name, {})
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": tr.get("launches", {}).get(name),
+            "launches": launches.get(name),
             "max_abs_err": tk.get("max_abs_err", {}).get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
@@ -1021,8 +1484,8 @@ def kernels_line():
     return {"kernels": rows}
 
 
-PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "bundle",
-          "cli")
+PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "grad_study",
+          "bundle", "cli")
 
 
 def main(argv=None) -> int:
@@ -1062,6 +1525,8 @@ def main(argv=None) -> int:
         phase_eval()
     if "train" in phases:
         phase_train()
+    if "grad_study" in phases:
+        phase_grad_study()
     if "bundle" in phases or "cli" in phases:
         held = phase_bundle()
         if "cli" in phases:

@@ -16,7 +16,10 @@
 //
 // The training forward also stores the backward's residuals in bf16: the
 // activated gates (i, g, f, o) = (sig(i), tanh(g), sig(f + 1), sig(o)),
-// the carried c and the masked output m·h'.
+// the carried c and the masked output m·h'.  With inter-layer dropout it
+// also writes bf16(h·keep·scale), the dropped copy the layer above reads:
+// the mask applies where the float32 h is produced, so the one bf16
+// rounding of the product's operand is the TPU kernel's.
 //
 // The product walks K in chunks of kKC = 64.  Each chunk of the block's
 // A rows (bf16 h) and of its 64 weight columns is copied to shared memory
@@ -38,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "philox.cuh"
 
 namespace rst {
 
@@ -68,6 +73,15 @@ struct CellStep {
   bf16* gates_res = nullptr;    // (B, 4H) activated gates, or null
   bf16* c_res = nullptr;        // (B, H) carried c (with gates_res)
   bf16* out_res = nullptr;      // (B, H) masked output (with gates_res)
+  // Inter-layer dropout of the training forward (drop modes 1, 2): the
+  // dropped bf16 copy bf16(h·keep·drop_scale) of the carried h, which the
+  // layer above reads as its input, or null.  keep comes from drop_mask
+  // (mode 1, (B, H) {0, 1}) or from the Philox bits of (drop_l, drop_t).
+  bf16* x_drop = nullptr;       // (Bp, H)
+  const bf16* drop_mask = nullptr;
+  unsigned seed0 = 0, seed1 = 0, drop_thr = 0;
+  int drop_l = 0, drop_t = 0;
+  float drop_scale = 1.0f;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -204,6 +218,15 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
     s.c[e] = c_sel;
     s.h[e] = h_sel;
     s.h_out[e] = __float2bfloat16(h_sel);
+    if (s.x_drop != nullptr) {
+      const float keep =
+          s.drop_mask != nullptr
+              ? __bfloat162float(s.drop_mask[e])
+              : (wavefront_keep(s.seed0, s.seed1, s.drop_thr, s.drop_l, s.drop_t, b, j)
+                     ? 1.0f
+                     : 0.0f);
+      s.x_drop[e] = __float2bfloat16(h_sel * (keep * s.drop_scale));
+    }
     if (s.out != nullptr) s.out[e] = m * h_new;
     if (s.gates_res != nullptr) {
       bf16* gr = s.gates_res + (size_t)b * ld;

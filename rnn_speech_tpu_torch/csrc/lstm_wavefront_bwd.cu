@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_wavefront_bwd_kernel` of
-// rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, drop mode
-// 0, dW_x not fused): reverse diagonal s runs every layer l with
+// rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, drop modes
+// 0, 1 and 2, dW_x not fused): reverse diagonal s runs every layer l with
 // 0 <= s - (L-1-l) < T at t = T-1 - (s - (L-1-l)), so the top layer leads
 // and layer l's upstream cotangent dout_l(t) = dgates_{l+1}(t)·W_x,l+1ᵀ
 // comes from the diagonal before.  Per (layer, step) it computes, from the
@@ -16,6 +16,13 @@
 //
 // with c_prev = cseq[t-1] (c0 at t = 0).  Rows past their length have
 // m = 0: their dgates are zero and dh/dc pass through.
+//
+// Inter-layer dropout (modes 1, 2): below the top, dout is the product
+// times boundary l's keep·scale, whose bit comes from the explicit mask
+// (mode 1) or is regenerated from the seed words for (l, t) exactly as the
+// forward drew it (mode 2, csrc/philox.cuh).  At the same element the
+// kernel emits xdrop_l(t) = bf16(outs_l(t)·keep·scale), the dropped input
+// of layer l+1's dW_x contraction, so no mask stream exists in mode 2.
 //
 // The difference forced by the card: the TPU computes dgates·W_hᵀ and
 // dgates·W_xᵀ on the producing step and hands the results to the next
@@ -70,6 +77,12 @@ struct BwdArgs {
   float* dhc;            // (L, B, H) (1-m)·dh_carry; dh0 at the end
   float* dcc;            // (L, B, H) dc_carry; dc0 at the end
   int T, B, Bp, H, L;
+  // Inter-layer dropout (modes 1, 2; xdrop == nullptr in mode 0).
+  const bf16* masks;     // (L-1, T, B, H) {0, 1} in mode 1, else null
+  const bf16* outs;      // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
+  bf16* xdrop;           // (L-1, T, B, H) dropped boundary inputs, out
+  unsigned seed0, seed1, thr;
+  float scale;
 };
 
 // Stage K columns [k0, k0 + kBKC) of `rows` rows of A (row-major, ld 4H)
@@ -187,6 +200,7 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
   const bf16* dtop = l == L - 1 ? p.dout_top + (size_t)t * B * H : nullptr;
   const float* mask = p.mask + (size_t)t * B;
   bf16* wpar = p.par + (size_t)((s & 1) * L + l) * pplane;
+  const size_t step_b = step * B * H;  // (l, t) plane of a (·, T, B, H) stream
   for (int idx = threadIdx.x; idx < rows * rst::kJT; idx += rst::kThreads) {
     const int r = idx / rst::kJT;
     const int b = row0 + r;
@@ -194,7 +208,20 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
     const int j = j0 + idx % rst::kJT;
     const size_t e = (size_t)b * H + j;
     const float m = mask[b];
-    const float dout = dtop != nullptr ? bf(dtop[e]) : px[idx];
+    float dout = dtop != nullptr ? bf(dtop[e]) : px[idx];
+    if (p.xdrop != nullptr && l < L - 1) {
+      // Boundary l's keep·scale at its producer's diagonal: it scales the
+      // cotangent from the layer above and gives the dropped input that
+      // the dW_x contraction of layer l+1 reads.
+      const size_t de = step_b + e;
+      const float keep =
+          p.masks != nullptr
+              ? bf(p.masks[de])
+              : (rst::wavefront_keep(p.seed0, p.seed1, p.thr, l, t, b, j) ? 1.0f : 0.0f);
+      const float ks = keep * p.scale;
+      dout *= ks;
+      p.xdrop[de] = __float2bfloat16(bf(p.outs[de]) * ks);
+    }
     const float dh_carry = dhc[e] + ph[idx];  // ph is zero at t = T-1
     const float dc_carry = dcc[e];
     bf16* g = gates + (size_t)b * G;
@@ -231,13 +258,19 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
 // cseq (L, T, B, H) bf16 carried c; c0 (L, B, H) f32;
 // par (2, L, Bp, 4H) bf16 scratch, zero;
 // dhc, dcc (L, B, H) f32 holding dhn, dcn on entry and dh0, dc0 on return.
+// Dropout: drop_mode 0 (none), 1 (masks (L-1, T, B, H) bf16 {0, 1}) or 2
+// (Philox bits of (seed0, seed1) under threshold thr), scale = 1/keep;
+// outs (L, T, B, H) bf16, the forward's masked outputs; xdrop
+// (L-1, T, B, H) bf16 receives bf16(outs·keep·scale) of boundaries 0..L-2.
 // Bp = B rounded up to 16; H a multiple of 32.
 // Returns the CUDA error code of the launches (0 = success).
 extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
                                       const void* w_x, const float* mask, void* gates,
                                       const void* cseq, const float* c0, void* par,
                                       float* dhc, float* dcc, int T, int B, int H, int L,
-                                      void* stream) {
+                                      int drop_mode, const void* masks, const void* outs,
+                                      void* xdrop, unsigned seed0, unsigned seed1,
+                                      unsigned thr, float scale, void* stream) {
   BwdArgs p;
   p.dout_top = static_cast<const bf16*>(dout_top);
   p.w_h = static_cast<const bf16*>(w_h);
@@ -254,6 +287,13 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
   p.Bp = (B + 15) / 16 * 16;
   p.H = H;
   p.L = L;
+  p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
+  p.outs = static_cast<const bf16*>(outs);
+  p.xdrop = drop_mode != 0 ? static_cast<bf16*>(xdrop) : nullptr;
+  p.seed0 = seed0;
+  p.seed1 = seed1;
+  p.thr = thr;
+  p.scale = scale;
   const dim3 grid(H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows, L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int s = 0; s < T + L; ++s) {

@@ -6,7 +6,9 @@ stacked LSTM layers, and an output projection to the char map, with the
 recurrent state passed in and returned.  Time-major (T, B, D) throughout.
 The projections are matmuls in the compute dtype with float32
 accumulation, plus the bias; on the kernel route their weight gradients
-come from the weight-gradient kernel (``_Dense``).  The training memory
+come from the weight-gradient kernel (``_Dense``), and the top dropout
+site and the output projection are one op (``_DroppedDense``) whose
+backward rebuilds the dropped copy from the seed.  The training memory
 plan is re-derived for the card's memory (``default_residual_budget``).
 """
 
@@ -19,6 +21,7 @@ import torch
 
 from rnn_speech_tpu_torch import resolve_device, stages
 from rnn_speech_tpu_torch.ops import lstm
+from rnn_speech_tpu_torch.ops.dropout import dropout_kernel
 from rnn_speech_tpu_torch.ops.grad_matmul import weight_grad
 
 Tensor = torch.Tensor
@@ -140,6 +143,31 @@ class _Dense(torch.autograd.Function):
         return dh, dw.to(w.dtype), db.to(ctx.b_dtype), None
 
 
+class _DroppedDense(torch.autograd.Function):
+    """drop(h)·W + b as one op (``_dropped_dense``): the top dropout site
+    fused with the output projection.  The residual is (seed, h, W): the
+    backward rebuilds the dropped copy with the dropout kernel instead of
+    keeping it, then dy = g·Wᵀ (float32), dh = the same mask·scale applied
+    to dy, and (dW, db) from the weight-gradient kernel on the rebuilt
+    copy."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, seed, keep, cd):
+        ctx.save_for_backward(h, w)
+        ctx.seed, ctx.keep, ctx.cd, ctx.b_dtype = seed, keep, cd, b.dtype
+        return _plain_dense(dropout_kernel(h, seed, [keep]), w, b, cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        stages.mark("projection_backward")
+        h, w = ctx.saved_tensors
+        dropped = dropout_kernel(h, ctx.seed, [ctx.keep])
+        dy = lstm.dot_f32(g, w.t(), ctx.cd)
+        dh = dropout_kernel(dy, ctx.seed, [ctx.keep]).to(h.dtype)
+        dw, db = weight_grad(dropped, g, compute_dtype=ctx.cd)
+        return dh, dw.to(w.dtype), db.to(ctx.b_dtype), None, None, None
+
+
 def dense(h: Tensor, w: Tensor, b: Tensor, cd, use_kernels: bool) -> Tensor:
     """The projection: ``_Dense`` on the kernel route, else plain."""
     return _Dense.apply(h, w, b, cd) if use_kernels else _plain_dense(h, w, b, cd)
@@ -151,9 +179,9 @@ def forward(params: Params, cfg: AcousticConfig, inputs: Tensor,
             input_keep_prob: float = 1.0,
             output_keep_prob: float = 1.0) -> Tuple[Tensor, States]:
     """Forward -> (logits (T', B, num_labels) float32, new states),
-    T' = ceil(T / frame_stack).  Pass ``dropout_rng`` to train (keep
-    probabilities below 1 raise until the dropout slice); without it the
-    keep probabilities are ignored."""
+    T' = ceil(T / frame_stack).  Pass ``dropout_rng`` (a CPU
+    ``torch.Generator``) to train with the keep probabilities; without it
+    they are ignored."""
     if cfg.frame_stack > 1:
         inputs, seq_lengths = stack_frames(inputs, seq_lengths, cfg.frame_stack)
     cd = cfg.compute_dtype
@@ -162,6 +190,11 @@ def forward(params: Params, cfg: AcousticConfig, inputs: Tensor,
     def head(h):
         stages.mark("head_ctc")
         return proj(h, params["output"])
+
+    def head_fused(seed, h):
+        stages.mark("head_ctc")
+        return _DroppedDense.apply(h, params["output"]["w"], params["output"]["b"],
+                                   seed, float(output_keep_prob), cd)
 
     x = proj(inputs, params["input"])
     if cfg.normalization:
@@ -172,7 +205,7 @@ def forward(params: Params, cfg: AcousticConfig, inputs: Tensor,
         input_keep_prob=input_keep_prob, output_keep_prob=output_keep_prob,
         use_kernels=cfg.use_kernels, remat=cfg.remat, time_chunk=cfg.time_chunk,
         residual_mode=cfg.residual_mode, wavefront=cfg.wavefront,
-        head=head,
+        head=head, head_fused=head_fused if cfg.use_kernels else None,
     )
 
 
@@ -193,9 +226,11 @@ def param_count(params: Params) -> int:
 
 #: Share of the card's memory given to the LSTM stack's backward residuals
 #: by default.  The rest holds the parameters, gradients and Adam state
-#: (about 0.5 GB at 3x1024), the f32 projections, the logits, the CTC
-#: lattices (four (T, B, 2U+1) f32 arrays, about 4.3 GB at B=64, T=3510,
-#: U=600) and the allocator's transients.
+#: (about 0.5 GB at 3x1024), the f32 projections, the logits and their
+#: log-softmax, the CTC kernels' alpha checkpoints (one (B, 2U+1) f32 row
+#: per 32 steps, 34 MB at B=64, T=3510, U=600; the scan CTC instead keeps
+#: four (T, B, 2U+1) f32 arrays, about 4.3 GB), the xdrop streams of
+#: inter-layer dropout (0.9 GB) and the allocator's transients.
 RESIDUAL_SHARE = 0.6
 
 

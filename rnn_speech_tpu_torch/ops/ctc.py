@@ -16,8 +16,11 @@ JAX train step runs with ``use_pallas_ctc = False``):
 * -1e30 stands in for -inf, so masked states never produce NaN via
   inf - inf.
 
-The CTC kernels of the JAX package (``ops/ctc_pallas.py``) come with a
-later slice.
+The CTC kernels of the JAX package (``ops/ctc_pallas.py``) are ported in
+``ops/ctc_kernel.py``, which the train step takes with ``use_pallas_ctc``;
+its plain versions share this module's lattice helpers (``_prepare``,
+``_alpha_init``/``_alpha_step``, ``_beta_setup``/``_beta_step``,
+``_terminal_logp``) and ``ctc_grad``.
 """
 
 from __future__ import annotations
@@ -63,21 +66,55 @@ def _prepare(labels: Tensor, blank_id: int) -> Tuple[Tensor, Tensor]:
     return ext, (ext != blank_id) & (ext != ext_m2)
 
 
+def _alpha_init(lp_0: Tensor, states: Tensor = None) -> Tensor:
+    """The first alpha row (B, S): the first two extended states (of
+    ``states`` where given) take their log-prob, the rest the sentinel."""
+    s_idx = torch.arange(lp_0.shape[-1], device=lp_0.device)[None, :]
+    first = s_idx < 2 if states is None else states & (s_idx < 2)
+    return torch.where(first, lp_0, torch.full_like(lp_0, NEG_INF))
+
+
+def _alpha_step(alpha: Tensor, lp_t: Tensor, skip_ok: Tensor, live: Tensor,
+                states: Tensor = None) -> Tensor:
+    """One step of the alpha recursion; rows whose ``live`` (B,) is False
+    keep their alpha, and states outside ``states`` (B, S) stay at the
+    sentinel."""
+    a1 = _shift(alpha, 1, NEG_INF)
+    a2 = torch.where(skip_ok, _shift(alpha, 2, NEG_INF), NEG_INF)
+    new = torch.where(live[:, None], _log_add3(alpha, a1, a2) + lp_t, alpha)
+    return new if states is None else torch.where(states, new, NEG_INF)
+
+
+def _beta_setup(skip_ok: Tensor, label_lengths: Tensor) -> Tuple[Tensor, Tensor]:
+    """(beta_init (B, S): 0 at the terminal states, the sentinel elsewhere;
+    skip_next2 (B, S): the s -> s+2 transition is allowed)."""
+    S = skip_ok.shape[1]
+    dev = skip_ok.device
+    s_idx = torch.arange(S, device=dev)[None, :]
+    end = (2 * label_lengths.to(torch.int64))[:, None]
+    beta_init = torch.where(
+        (s_idx == end) | ((s_idx == end - 1) & (label_lengths[:, None] > 0)),
+        torch.zeros((), device=dev), torch.full((), NEG_INF, device=dev))
+    return beta_init, _shift(skip_ok.to(f32), 2, 0.0, right=False) > 0.5
+
+
+def _beta_step(bstar: Tensor, skip_next2: Tensor, restart: Tensor,
+               beta_init: Tensor) -> Tensor:
+    """beta_t from bstar = beta_{t+1} + lp_{t+1}; rows whose ``restart``
+    (B,) is True (their last frame) start again from ``beta_init``."""
+    b1 = _shift(bstar, 1, NEG_INF, right=False)
+    b2 = torch.where(skip_next2, _shift(bstar, 2, NEG_INF, right=False), NEG_INF)
+    return torch.where(restart[:, None], beta_init, _log_add3(bstar, b1, b2))
+
+
 def _forward_alphas(lp_ext: Tensor, logit_lengths: Tensor,
                     skip_ok: Tensor) -> Tensor:
-    """alphas (T, B, S) from the log-probs of the extended labels."""
-    T, B, S = lp_ext.shape
-    s_idx = torch.arange(S, device=lp_ext.device)[None, :]
+    """alphas (T, B, S) from the log-probs of the extended labels (frozen
+    past each example's true input length)."""
     alphas = torch.empty_like(lp_ext)
-    alpha = torch.where(s_idx < 2, lp_ext[0], torch.full_like(lp_ext[0], NEG_INF))
-    alphas[0] = alpha
-    for t in range(1, T):
-        a1 = _shift(alpha, 1, NEG_INF)
-        a2 = torch.where(skip_ok, _shift(alpha, 2, NEG_INF), NEG_INF)
-        new = _log_add3(alpha, a1, a2) + lp_ext[t]
-        # Freeze past each example's true input length.
-        alpha = torch.where((t < logit_lengths)[:, None], new, alpha)
-        alphas[t] = alpha
+    alpha = alphas[0] = _alpha_init(lp_ext[0])
+    for t in range(1, lp_ext.shape[0]):
+        alpha = alphas[t] = _alpha_step(alpha, lp_ext[t], skip_ok, t < logit_lengths)
     return alphas
 
 
@@ -108,39 +145,37 @@ def _ctc_fwd_impl(logits, logit_lengths, labels, label_lengths, blank_id):
                   label_lengths, valid)
 
 
+def ctc_grad(log_probs: Tensor, label_post: Tensor, logit_lengths: Tensor,
+             valid: Tensor, g: Tensor) -> Tensor:
+    """d loss / d logits (T, B, V) float32 from the label posteriors:
+    exp(log_probs) - label_post, zero past each row's length and on
+    invalid rows, times the cotangent ``g`` (B,)."""
+    T = log_probs.shape[0]
+    dev = log_probs.device
+    grad = torch.exp(log_probs) - label_post
+    t_mask = (torch.arange(T, device=dev)[:, None] < logit_lengths[None, :])[:, :, None]
+    keep = t_mask & valid[None, :, None]
+    return torch.where(keep, grad, torch.zeros((), device=dev)) * g.to(f32)[None, :, None]
+
+
 def _ctc_bwd(residuals, g: Tensor) -> Tensor:
     """d loss / d logits (T, B, V) float32 for the cotangent ``g`` (B,)."""
     (log_probs, lp_ext, alphas, logp, ext, skip_ok, logit_lengths,
      label_lengths, valid) = residuals
     T, B, V = log_probs.shape
-    S = ext.shape[1]
-    dev = log_probs.device
-    s_idx = torch.arange(S, device=dev)[None, :]
-    end = (2 * label_lengths)[:, None]
-    beta_init = torch.where(
-        (s_idx == end) | ((s_idx == end - 1) & (label_lengths[:, None] > 0)),
-        torch.zeros((), device=dev), torch.full((), NEG_INF, device=dev))
-    skip_next2 = _shift(skip_ok.to(f32), 2, 0.0, right=False) > 0.5
+    beta_init, skip_next2 = _beta_setup(skip_ok, label_lengths)
     betas = torch.empty_like(alphas)
-    beta = torch.where((logit_lengths == T)[:, None], beta_init, NEG_INF)
-    betas[T - 1] = beta
+    beta = betas[T - 1] = torch.where((logit_lengths == T)[:, None], beta_init, NEG_INF)
     for t in range(T - 2, -1, -1):
-        term0 = beta + lp_ext[t + 1]
-        b1 = _shift(term0, 1, NEG_INF, right=False)
-        b2 = torch.where(skip_next2, _shift(term0, 2, NEG_INF, right=False), NEG_INF)
-        beta = _log_add3(term0, b1, b2)
         # The recursion restarts from the terminal condition at each
-        # example's last frame; later frames are masked below.
-        beta = torch.where((t == logit_lengths - 1)[:, None], beta_init, beta)
-        betas[t] = beta
+        # example's last frame; later frames are masked in ctc_grad.
+        beta = betas[t] = _beta_step(beta + lp_ext[t + 1], skip_next2,
+                                     t == logit_lengths - 1, beta_init)
     gamma = alphas + betas - logp[None, :, None]
     post = torch.exp(torch.clamp(gamma, max=0.0))                  # (T, B, S)
     onehot = torch.nn.functional.one_hot(ext, V).to(f32)           # (B, S, V)
     label_post = torch.einsum("tbs,bsv->tbv", post, onehot)
-    grad = torch.exp(log_probs) - label_post
-    t_mask = (torch.arange(T, device=dev)[:, None] < logit_lengths[None, :])[:, :, None]
-    keep = t_mask & valid[None, :, None]
-    return torch.where(keep, grad, torch.zeros((), device=dev)) * g.to(f32)[None, :, None]
+    return ctc_grad(log_probs, label_post, logit_lengths, valid, g)
 
 
 class _CTCLoss(torch.autograd.Function):

@@ -18,13 +18,19 @@ path) or one of the two hand-written kernels:
 
 A kernel wrapper given CPU tensors runs its plain version.
 
-Training (``dropout_rng`` given) runs the differentiable wavefront stack
-(``lstm_stack_wavefront_train``: training forward and reverse-diagonal
-kernels) when ``use_kernels`` and ``wavefront`` with >= 2 layers, and the
-plain time loop under autograd (the JAX scan path) without kernels.
-What later slices bring raises ``NotImplementedError`` naming the slice:
-dropout (keep < 1), ``time_chunk``, ``remat``, recompute residuals and
-the layered kernel-training route.
+Training (``dropout_rng`` given, a CPU ``torch.Generator``) runs the
+differentiable wavefront stack (``lstm_stack_wavefront_train``: training
+forward and reverse-diagonal kernels) when ``use_kernels`` and
+``wavefront`` with >= 2 layers, and the plain time loop under autograd
+(the JAX scan path) without kernels.  Dropout follows the JAX package's
+sites (``ops/dropout.py``; one seed draw per site): on the wavefront
+route the input site is the fused dropout, each inter-layer output +
+input pair is one Bernoulli(ko·ki) drawn inside both wavefront kernels
+(drop mode 2), and the top site goes to ``head_fused`` when given; the
+layered route drops [output, input] before each layer above the first and
+the output after the top.  What later slices bring raises
+``NotImplementedError`` naming the slice: ``time_chunk``, ``remat``,
+recompute residuals and the layered kernel-training route.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rnn_speech_tpu_torch.ops import random_bits
+from rnn_speech_tpu_torch.ops.dropout import dropout_site
 from rnn_speech_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 
 Tensor = torch.Tensor
@@ -147,16 +155,13 @@ def lstm_layer(params: Params, x: Tensor, seq_lengths: Tensor,
     return out, (cn, hn)
 
 
-DROPOUT_SLICE = "the 'train step with CTC kernels and dropout' slice"
 OFF_PATH_SLICE = "the off-path training slice (ROADMAP Queue B 11-12)"
 
 
-def check_training_supported(*, keep_probs=(), time_chunk: int = 0, T: int = 0,
+def check_training_supported(*, time_chunk: int = 0, T: int = 0,
                              remat: bool = False, residual_mode: str = "gates"):
     """Raise ``NotImplementedError`` naming the slice that brings each
     training variant this slice leaves out."""
-    if any(k < 1.0 for k in keep_probs):
-        raise NotImplementedError(f"dropout (keep < 1) comes with {DROPOUT_SLICE}")
     if time_chunk and T > time_chunk:
         raise NotImplementedError(f"time_chunk training comes with {OFF_PATH_SLICE}")
     if remat:
@@ -183,18 +188,21 @@ def lstm_stack(
     residual_mode: str = "gates",
     wavefront: bool = False,
     head=None,
+    head_fused=None,
 ) -> Tuple[Tensor, List[LayerState]]:
     """Run the full stack.  Returns (outputs (T, B, H), or ``head(outputs)``
     when given, and the new per-layer (c, h) states).
 
     Pass ``dropout_rng`` to train (the result is differentiable); without
     it the stack runs inference and the training options are ignored, as
-    in the JAX package."""
+    in the JAX package.  ``head_fused(seed, out)`` applies the top
+    dropout site and the head as one op on the wavefront training route
+    (``models/acoustic.py``'s ``_DroppedDense``)."""
     wave = wavefront and use_kernels and len(layers) >= 2
-    if dropout_rng is not None:
-        check_training_supported(
-            keep_probs=(input_keep_prob, output_keep_prob), time_chunk=time_chunk,
-            T=x.shape[0], remat=remat, residual_mode=residual_mode)
+    rng = dropout_rng
+    if rng is not None:
+        check_training_supported(time_chunk=time_chunk, T=x.shape[0], remat=remat,
+                                 residual_mode=residual_mode)
         if use_kernels and not wave:
             raise NotImplementedError(
                 "kernel training without the wavefront (wavefront off or one "
@@ -202,20 +210,37 @@ def lstm_stack(
     if wave:
         from rnn_speech_tpu_torch.ops import lstm_wavefront
 
-        if dropout_rng is None:
+        x = dropout_site(rng, x, [input_keep_prob])
+        if rng is None:
             out, new_states = lstm_wavefront.lstm_stack_wavefront_apply(
                 layers, x, seq_lengths, states, compute_dtype=compute_dtype
             )
         else:
+            # Each boundary's output + input pair is one Bernoulli(ko·ki),
+            # drawn inside both wavefront kernels from one seed.
+            kp = 1.0
+            for p in (output_keep_prob, input_keep_prob):
+                if p < 1.0:
+                    kp *= float(p)
+            drop = {}
+            if kp < 1.0:
+                drop = dict(drop_seed=random_bits.seed_words(rng), drop_keep=kp,
+                            drop_scale=1.0 / kp)
             out, new_states = lstm_wavefront.lstm_stack_wavefront_train(
-                layers, x, seq_lengths, states, compute_dtype=compute_dtype
+                layers, x, seq_lengths, states, compute_dtype=compute_dtype, **drop
             )
+            if head_fused is not None and output_keep_prob < 1.0:
+                return head_fused(random_bits.seed_words(rng), out), new_states
     else:
         layer_fn = lstm_layer if use_kernels else lstm_layer_scan
         out = x
         new_states: List[LayerState] = []
-        for params, state in zip(layers, states):
+        for idx, (params, state) in enumerate(zip(layers, states)):
+            # Layer idx-1's output site and layer idx's input site, fused.
+            keeps = ([output_keep_prob] if idx > 0 else []) + [input_keep_prob]
+            out = dropout_site(rng, out, keeps)
             out, state = layer_fn(params, out, seq_lengths, state,
                                   compute_dtype=compute_dtype)
             new_states.append(state)
+    out = dropout_site(rng, out, [output_keep_prob])
     return (head(out) if head is not None else out), new_states

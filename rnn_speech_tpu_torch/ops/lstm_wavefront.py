@@ -19,9 +19,16 @@ only the schedule differs.
   layer written over the gates residual, and dh0, dc0.
 * ``lstm_stack_wavefront_train``: the differentiable stack
   (``_wavefront_stack_core`` and its VJP) over those two kernels and the
-  weight-gradient kernel of ``ops/grad_matmul.py``.  Inter-layer dropout
-  (drop modes 1 and 2) and the in-kernel dW_x accumulation (``fuse_dwx``)
-  are not ported: the train step here runs with keep probabilities 1.
+  weight-gradient kernel of ``ops/grad_matmul.py``.
+
+Both training kernels take the JAX package's inter-layer dropout: drop
+mode 0 (none), 1 (explicit (L-1, T, B, H) {0, 1} masks) or 2 (two seed
+words; both kernels draw the bits of boundary l at step t from
+``csrc/philox.cuh``, and the plain versions from ``ops/random_bits.py``).
+Layer l >= 1 reads bf16(h^{l-1}·keep·drop_scale); the outs residual stays
+undropped, and the backward emits the dropped boundary inputs (xdrop) for
+the dW_x contractions.  The in-kernel dW_x accumulation (``fuse_dwx``)
+is not ported: the xdrop streams are emitted at every size.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises; there is no fallback.
@@ -37,7 +44,7 @@ from typing import List, Tuple
 import torch
 
 from rnn_speech_tpu_torch import stages
-from rnn_speech_tpu_torch.ops import _build
+from rnn_speech_tpu_torch.ops import _build, random_bits
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_recurrence import check_kernel_inputs
@@ -85,6 +92,10 @@ def lstm_stack_wavefront_plain(
             if l == L - 1:
                 out[t] = m * h_new
     return out, torch.stack(h_s), torch.stack(c_s)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _lib_fn():
@@ -203,16 +214,37 @@ def _layer_train_plain(xp: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
     return outs, gates, cseq, hcar, h, c
 
 
+def drop_keeps(drop_mode: int, drop_arr, keep_prob: float, shape, device):
+    """The (L-1, T, B, H) float32 {0, 1} inter-layer keep bits of a drop
+    mode: the explicit masks (mode 1), the generator's bits for the seed
+    words (mode 2), or None (mode 0)."""
+    if drop_mode == 0:
+        return None
+    if drop_mode == 1:
+        if tuple(drop_arr.shape) != tuple(shape):
+            raise ValueError(f"drop masks must have shape {tuple(shape)}, "
+                             f"got {tuple(drop_arr.shape)}")
+        return drop_arr.to(device=device, dtype=f32)
+    if drop_mode == 2:
+        return random_bits.wavefront_masks(drop_arr, *shape, keep_prob, device).to(f32)
+    raise ValueError(f"drop_mode must be 0, 1 or 2, got {drop_mode}")
+
+
 def wavefront_train_plain(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                           b_all: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
-                          res_dtype) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+                          res_dtype, drop_mode: int = 0, drop_arr=None,
+                          drop_scale: float = 1.0, keep_prob: float = 1.0,
+                          ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """The training forward in plain PyTorch, layer by layer (the same
     math as the diagonal: layer l reads the lower layer's carried h at the
-    same t).  Operands are rounded to the weights' dtype, sums are
-    float32.  Returns (outs (L, T, B, H), gates (L, T, B, 4H),
-    cseq (L, T, B, H)) in ``res_dtype`` and (hn, cn) (L, B, H) float32."""
-    L = w_h.shape[0]
+    same t, times its boundary's keep·drop_scale in drop modes 1 and 2).
+    Operands are rounded to the weights' dtype, sums are float32.  Returns
+    (outs (L, T, B, H), gates (L, T, B, 4H), cseq (L, T, B, H)) in
+    ``res_dtype`` and (hn, cn) (L, B, H) float32."""
+    L, H = w_h.shape[0], w_h.shape[1]
+    T, B = x.shape[:2]
     cd = w_h.dtype
+    keeps = drop_keeps(drop_mode, drop_arr, keep_prob, (L - 1, T, B, H), x.device)
     res = [], [], []
     hn, cn = [], []
     x_in, w_in = x, w_x0
@@ -225,15 +257,37 @@ def wavefront_train_plain(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor
         hn.append(h)
         cn.append(c)
         if l + 1 < L:
-            x_in, w_in = hcar, w_x_rest[l]
+            x_in = hcar if keeps is None else hcar * (keeps[l] * drop_scale)
+            w_in = w_x_rest[l]
     return (torch.stack(res[0]), torch.stack(res[1]), torch.stack(res[2]),
             torch.stack(hn), torch.stack(cn))
 
 
+def _drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale, shape, dev):
+    """(masks tensor or None, seed0, seed1, threshold, scale) for a kernel."""
+    if drop_mode == 1:
+        masks = drop_arr.to(bf16).contiguous()
+        check_kernel_inputs([("drop_masks", masks, bf16, shape)], dev, shape[-1])
+        return masks, 0, 0, 0, float(drop_scale)
+    if drop_mode == 2:
+        seed = [int(w) & 0xFFFFFFFF for w in drop_arr]
+        return None, seed[0], seed[1], random_bits.threshold(keep_prob), float(drop_scale)
+    if drop_mode != 0:
+        raise ValueError(f"drop_mode must be 0, 1 or 2, got {drop_mode}")
+    return None, 0, 0, 0, 1.0
+
+
 def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                     b_all: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
-                    res_dtype) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Training forward of the whole stack (drop mode 0).
+                    res_dtype, drop_mode: int = 0, drop_arr=None,
+                    drop_scale: float = 1.0, keep_prob: float = 1.0,
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Training forward of the whole stack.
+
+    Inter-layer dropout: ``drop_mode`` 0 (none), 1 (``drop_arr`` holds
+    (L-1, T, B, H) {0, 1} masks) or 2 (``drop_arr`` holds two uint32 seed
+    words, ``keep_prob`` the keep of the bits); ``drop_scale`` multiplies
+    the kept values (1/keep).
 
     x (T, B, D) and the weights w_x0 (D, 4H), w_h (L, H, 4H),
     w_x_rest (L-1, H, 4H) in the compute dtype; b_all (L, 4H), mask
@@ -247,7 +301,8 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
         raise ValueError("w_x_rest must cover layers 1..L-1 and b_all all L")
     if not x.is_cuda:
         return wavefront_train_plain(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0,
-                                     res_dtype)
+                                     res_dtype, drop_mode, drop_arr, drop_scale,
+                                     keep_prob)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
     if res_dtype != bf16:
@@ -265,8 +320,13 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
         ("h0", h0, f32, (L, B, H)),
         ("c0", c0, f32, (L, B, H)),
     ], dev, H)
+    masks, seed0, seed1, thr, scale = _drop_launch_args(
+        drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
+        # The dropped copies the layers above read, by diagonal parity.
+        xb = (torch.zeros((2, L - 1, Bp, H), dtype=bf16, device=dev)
+              if drop_mode else None)
         if Bp != B:  # the cell reads whole 16-row tiles of x
             x = torch.nn.functional.pad(x, (0, 0, 0, Bp - B))
         hb = torch.zeros((2, L, Bp, H), dtype=bf16, device=dev)
@@ -278,12 +338,15 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
         if T == 0:
             return outs, gates, cseq, h, c
         fn = _build.load("lstm_wavefront_train").rst_lstm_wavefront_train
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_uint] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         rc = fn(x.data_ptr(), w_x0.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
                 b_all.data_ptr(), mask.data_ptr(), hb.data_ptr(), h.data_ptr(),
                 c.data_ptr(), outs.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
-                T, B, H, D, L, torch.cuda.current_stream(dev).cuda_stream)
+                T, B, H, D, L, drop_mode, _ptr(masks), _ptr(xb), seed0, seed1, thr,
+                scale, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_train kernel launch failed: CUDA error {rc}")
     wavefront_train.launches += 1
@@ -295,15 +358,22 @@ wavefront_train.launches = 0
 
 def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
                         mask: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor,
-                        dhn: Tensor, dcn: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                        dhn: Tensor, dcn: Tensor, outs: Tensor = None,
+                        drop_mode: int = 0, drop_arr=None, drop_scale: float = 1.0,
+                        keep_prob: float = 1.0):
     """The reverse diagonal in plain PyTorch, layer by layer from the top
     (the same math: layer l's upstream cotangent is the layer above's
-    dgates·W_xᵀ at the same t).  dgates products round dgates to the
-    weights' dtype and sum in float32.  Overwrites ``gates`` with dgates
-    (in its dtype), as the kernel does; returns (dgates, dh0, dc0)."""
+    dgates·W_xᵀ at the same t, times boundary l's keep·drop_scale in drop
+    modes 1 and 2).  dgates products round dgates to the weights' dtype
+    and sum in float32.  Overwrites ``gates`` with dgates (in its dtype),
+    as the kernel does; returns (dgates, dh0, dc0), and in drop modes 1
+    and 2 also xdrop (L-1, T, B, H) = outs·keep·drop_scale of boundaries
+    0..L-2 in the residual dtype."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
     wd = w_h.dtype
+    keeps = drop_keeps(drop_mode, drop_arr, keep_prob, (L - 1, T, B, H), gates.device)
+    xdrop = None if keeps is None else gates.new_empty((L - 1, T, B, H))
     dh0, dc0 = [], []
     dout = dout_top.to(f32)
     for l in reversed(range(L)):
@@ -330,13 +400,23 @@ def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
         dc0.append(dc_carry)
         if l > 0:
             dout = torch.matmul(dg_f32.to(wd).to(f32), w_x_rest[l - 1].to(f32).t())
-    return gates, torch.stack(dh0[::-1]), torch.stack(dc0[::-1])
+            if keeps is not None:
+                ks = keeps[l - 1] * drop_scale
+                dout = dout * ks
+                xdrop[l - 1] = (outs[l - 1].to(f32) * ks).to(xdrop.dtype)
+    res = (gates, torch.stack(dh0[::-1]), torch.stack(dc0[::-1]))
+    return res if keeps is None else res + (xdrop,)
 
 
 def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
                   gates: Tensor, cseq: Tensor, c0: Tensor, dhn: Tensor,
-                  dcn: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """Backward of the whole stack on the reverse diagonal (drop mode 0).
+                  dcn: Tensor, outs: Tensor = None, drop_mode: int = 0, drop_arr=None,
+                  drop_scale: float = 1.0, keep_prob: float = 1.0):
+    """Backward of the whole stack on the reverse diagonal.
+
+    In drop modes 1 and 2 (arguments as ``wavefront_train``'s) it also
+    reads ``outs`` (L, T, B, H), the forward's masked outputs, and returns
+    xdrop (L-1, T, B, H) after dh0, dc0.
 
     dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
     in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
@@ -350,7 +430,8 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
         raise ValueError("w_h must cover all L layers and w_x_rest layers 1..L-1")
     if not gates.is_cuda:
         return wavefront_bwd_plain(dout_top, w_h, w_x_rest, mask, gates, cseq, c0,
-                                   dhn, dcn)
+                                   dhn, dcn, outs, drop_mode, drop_arr, drop_scale,
+                                   keep_prob)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
     dev = gates.device
@@ -364,37 +445,46 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
         ("c0", c0, f32, (L, B, H)),
         ("dhn", dhn, f32, (L, B, H)),
         ("dcn", dcn, f32, (L, B, H)),
-    ], dev, H)
+    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode else []), dev, H)
+    masks, seed0, seed1, thr, scale = _drop_launch_args(
+        drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
+        xdrop = (torch.empty((L - 1, T, B, H), dtype=bf16, device=dev)
+                 if drop_mode else None)
+        res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
         if T == 0:
-            return gates, dh, dc
+            return res
         Bp = -(-B // 16) * 16
         par = torch.zeros((2, L, Bp, 4 * H), dtype=bf16, device=dev)
         fn = _build.load("lstm_wavefront_bwd").rst_lstm_wavefront_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
                 mask.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
-                par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L,
-                torch.cuda.current_stream(dev).cuda_stream)
+                par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
+                _ptr(masks), _ptr(outs if drop_mode else None), _ptr(xdrop), seed0,
+                seed1, thr, scale, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
     wavefront_bwd.launches += 1
-    return gates, dh, dc
+    return res
 
 
 wavefront_bwd.launches = 0
 
 
 def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
-                       w_x0: Tensor, cd) -> Tuple[Tensor, ...]:
+                       w_x0: Tensor, cd, xdrop: Tensor = None) -> Tuple[Tensor, ...]:
     """The weight gradients and dx of the stack from its dgates
     (``_wavefront_stack_bwd`` after the reverse kernel, unfused dW_x).
 
     Per layer, h_prev is the layer's output shifted one step later behind
-    bf16(h0) (the shift copy), its input is x_c for layer 0 and the lower
-    layer's output otherwise, and one ``dgates_weight_grads`` pass gives
+    bf16(h0) (the shift copy), its input is x_c for layer 0 and otherwise
+    the lower layer's output, or its dropped copy ``xdrop[l-1]`` when a
+    drop mode is on, and one ``dgates_weight_grads`` pass gives
     (dW_h, dW_x, db).  dx = dgates_0·W_x0ᵀ stays a matmul, cast to the
     compute dtype as the JAX package casts it.  Returns (dw_x0, dw_x_rest,
     dw_h, db0, db_rest, dx)."""
@@ -403,7 +493,10 @@ def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
     dw_h, dw_x, db = [], [], []
     for l in range(L):
         h_prev = torch.cat([h0[l].to(rd)[None], outs[l, :-1]], dim=0)
-        x_l = x_c if l == 0 else outs[l - 1]
+        if l == 0:
+            x_l = x_c
+        else:
+            x_l = outs[l - 1] if xdrop is None else xdrop[l - 1]
         g_h, g_x, g_b = dgates_weight_grads(h_prev, x_l, dgates[l], compute_dtype=cd)
         dw_h.append(g_h)
         dw_x.append(g_x)
@@ -415,20 +508,24 @@ def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
 
 class _WavefrontStackTrain(torch.autograd.Function):
     """Differentiable L-layer wavefront stack with gates-mode residuals
-    (``_wavefront_stack_core``/``_fwd``/``_bwd``).  The backward consumes
-    the saved gates residual (dgates overwrite it), so it runs once."""
+    (``_wavefront_stack_core``/``_fwd``/``_bwd``).  ``drop`` is
+    (drop_mode, drop_arr, drop_scale, keep_prob): ``drop_arr`` holds the
+    (L-1, T, B, H) masks (mode 1) or the two seed words (mode 2), carried
+    to the backward as they are.  The backward consumes the saved gates
+    residual (dgates overwrite it), so it runs once."""
 
     @staticmethod
-    def forward(ctx, w_x0, w_x_rest, w_h, b0, b_rest, x, c0, h0, mask, cd, rd):
+    def forward(ctx, w_x0, w_x_rest, w_h, b0, b_rest, x, c0, h0, mask, cd, rd, drop):
         b_all = torch.cat([b0.to(f32)[None], b_rest.to(f32)], dim=0)
         x_c = x.to(cd)
         outs, gates, cseq, hn, cn = wavefront_train(
             x_c.contiguous(), w_x0.to(cd).contiguous(), w_h.to(cd).contiguous(),
             w_x_rest.to(cd).contiguous(), b_all.contiguous(), mask,
-            h0.to(f32).contiguous(), c0.to(f32).contiguous(), rd)
+            h0.to(f32).contiguous(), c0.to(f32).contiguous(), rd, *drop)
         ctx.save_for_backward(w_x0, w_x_rest, w_h, x_c, mask, c0, h0, outs, gates,
                               cseq)
         ctx.cd = cd
+        ctx.drop = drop
         ctx.consumed = False
         return outs[-1], cn, hn
 
@@ -442,32 +539,49 @@ class _WavefrontStackTrain(torch.autograd.Function):
         (w_x0, w_x_rest, w_h, x_c, mask, c0, h0, outs, gates,
          cseq) = ctx.saved_tensors
         cd = ctx.cd
-        dgates, dh0, dc0 = wavefront_bwd(
+        res = wavefront_bwd(
             dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
             w_x_rest.to(cd).contiguous(), mask, gates, cseq,
             c0.to(f32).contiguous(), dhn.to(f32).contiguous(),
-            dcn.to(f32).contiguous())
+            dcn.to(f32).contiguous(), outs, *ctx.drop)
+        dgates, dh0, dc0 = res[:3]
+        xdrop = res[3] if len(res) > 3 else None
         stages.mark("weight_grads")
         dw_x0, dw_x_rest, dw_h, db0, db_rest, dx = stack_weight_grads(
-            x_c, h0, outs, dgates, w_x0, cd)
+            x_c, h0, outs, dgates, w_x0, cd, xdrop)
         return (dw_x0.to(w_x0.dtype), dw_x_rest.to(w_x_rest.dtype),
                 dw_h.to(w_h.dtype), db0, db_rest, dx, dc0.to(c0.dtype),
-                dh0.to(h0.dtype), None, None, None)
+                dh0.to(h0.dtype), None, None, None, None)
 
 
 def lstm_stack_wavefront_train(layer_params, x: Tensor, seq_lengths: Tensor,
-                               states: List[LayerState], compute_dtype=f32,
+                               states: List[LayerState], drop_masks: Tensor = None,
+                               drop_scale: float = 1.0, drop_seed=None,
+                               drop_keep: float = 1.0, compute_dtype=f32,
                                residual_dtype=None) -> Tuple[Tensor, List[LayerState]]:
     """Differentiable wavefront stack matching the layered stack's
-    gates-mode semantics (no inter-layer dropout).  Returns (out (T, B, H)
-    in the residual dtype, [(c, h)] per layer).  ``residual_dtype``
-    defaults to bf16 for bf16 compute, else float32."""
+    gates-mode semantics, given the same inter-layer dropout masks.
+    Returns (out (T, B, H) in the residual dtype, [(c, h)] per layer).
+    ``residual_dtype`` defaults to bf16 for bf16 compute, else float32.
+
+    Inter-layer dropout comes in two forms: ``drop_masks`` (L-1, T, B, H)
+    {0, 1} times the static ``drop_scale`` (mode 1, the parity-testable
+    form), or ``drop_seed`` (two uint32 words) with ``drop_keep`` (mode 2:
+    both kernels draw the bits, no mask stream exists)."""
+    if drop_masks is not None and drop_seed is not None:
+        raise ValueError("pass drop_masks or drop_seed, not both")
     T = x.shape[0]
     L = len(layer_params)
     if L < 2:
         raise ValueError("the wavefront stack needs >= 2 layers")
     cd = compute_dtype
     rd = residual_dtype or (bf16 if cd == bf16 else f32)
+    if drop_seed is not None:
+        drop = (2, tuple(int(w) for w in drop_seed), float(drop_scale), float(drop_keep))
+    elif drop_masks is not None:
+        drop = (1, drop_masks.detach(), float(drop_scale), 1.0)
+    else:
+        drop = (0, None, 1.0, 1.0)
     mask = length_mask(T, seq_lengths, x.device)
     w_x_rest = torch.stack([p["w_x"] for p in layer_params[1:]])
     b_rest = torch.stack([p["b"] for p in layer_params[1:]])
@@ -476,5 +590,5 @@ def lstm_stack_wavefront_train(layer_params, x: Tensor, seq_lengths: Tensor,
     h0 = torch.stack([h for _, h in states])
     out, cn, hn = _WavefrontStackTrain.apply(
         layer_params[0]["w_x"], w_x_rest, w_h, layer_params[0]["b"], b_rest, x,
-        c0, h0, mask, cd, rd)
+        c0, h0, mask, cd, rd, drop)
     return out, [(cn[l], hn[l]) for l in range(L)]

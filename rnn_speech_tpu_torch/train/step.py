@@ -6,12 +6,16 @@ the greedy error-rate metric while threading the recurrent state; then the
 summed gradients are global-norm clipped and applied with TF-style Adam,
 and the host's state-reset coin zeroes the recurrent state.
 
-This slice runs the step with keep probabilities 1 and the scan CTC
-(``ops/ctc.py``), the JAX configuration ``dropout_*_keep_prob = 1.0``,
-``use_pallas_ctc = False``.  Dropout, the CTC kernels (``use_pallas_ctc``
-on a CUDA device) and ``spec_augment`` raise ``NotImplementedError``
-naming the slice that brings them; they never quietly take another path.
-The multi-device ``axis_name`` form comes with the multi-GPU slice.
+The step runs the JAX package's default configuration: keep
+probabilities 0.8 (input) and 0.5 (output) with the dropout of
+``ops/lstm.py`` (the fused dropout kernel at the input site, drop mode 2
+inside both wavefront kernels between layers, the top site fused with the
+output projection), seeded by draws from ``rng``, a CPU
+``torch.Generator``; and, with ``use_pallas_ctc``, the CTC kernels
+(``ops/ctc_kernel.py``), else the scan CTC (``ops/ctc.py``).  On CPU
+tensors every kernel wrapper takes its plain version.  ``spec_augment``
+raises ``NotImplementedError``; it never quietly takes another path.  The
+multi-device ``axis_name`` form comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from rnn_speech_tpu_torch import resolve_device, stages
 from rnn_speech_tpu_torch.models import acoustic
-from rnn_speech_tpu_torch.ops import ctc, decode, editdistance, lstm
+from rnn_speech_tpu_torch.ops import ctc, ctc_kernel, decode, editdistance
 from rnn_speech_tpu_torch.train import optim
 
 Tensor = torch.Tensor
@@ -38,23 +42,16 @@ class StepConfig:
     output_keep_prob: float = 0.5
     frontend: Optional[Any] = None        # DeviceFrontend for raw-audio batches
     greedy_metric_max_out: int = 0        # cap decode width for the metric
-    use_pallas_ctc: bool = False          # the CTC kernels (a later slice)
+    use_pallas_ctc: bool = False          # the CTC kernels (ops/ctc_kernel.py)
     spec_augment: bool = False            # time/frequency masking (not ported)
     # Compute the greedy-decode + edit-distance train metric in this step;
     # False reports error-rate 0 with count 0 (the loss still accumulates).
     train_metric: bool = True
 
 
-def _on_cuda(t: Tensor) -> bool:
-    return t.is_cuda
-
-
 def check_supported(cfg: StepConfig) -> None:
     """Raise ``NotImplementedError`` before any work for the step options
-    this slice does not run (the CTC kernels are checked where the loss is
-    chosen, on the logits' device)."""
-    lstm.check_training_supported(
-        keep_probs=(cfg.input_keep_prob, cfg.output_keep_prob))
+    the port does not run yet."""
     if cfg.spec_augment:
         raise NotImplementedError(
             "spec_augment (ops/augment.py) is not ported yet (ROADMAP Queue A 7)")
@@ -85,11 +82,8 @@ def _featurize_micro(cfg: StepConfig, micro: Dict[str, Tensor]) -> Tuple[Tensor,
     return feats.transpose(0, 1), nf
 
 
-def _ctc_loss_fn(cfg: StepConfig, logits: Tensor):
-    if cfg.use_pallas_ctc and _on_cuda(logits):
-        raise NotImplementedError(
-            f"the CTC kernels (use_pallas_ctc) come with {lstm.DROPOUT_SLICE}")
-    return ctc.ctc_loss
+def _ctc_loss_fn(cfg: StepConfig):
+    return ctc_kernel.ctc_loss if cfg.use_pallas_ctc else ctc.ctc_loss
 
 
 def _micro_loss(params, cfg: StepConfig, states, feats, frame_lengths, labels,
@@ -99,7 +93,7 @@ def _micro_loss(params, cfg: StepConfig, states, feats, frame_lengths, labels,
         params, cfg.model, feats, frame_lengths, states, dropout_rng=rng,
         input_keep_prob=cfg.input_keep_prob, output_keep_prob=cfg.output_keep_prob)
     out_lengths = acoustic.output_lengths(cfg.model, frame_lengths)
-    per_example = _ctc_loss_fn(cfg, logits)(logits, out_lengths, labels, label_lengths)
+    per_example = _ctc_loss_fn(cfg)(logits, out_lengths, labels, label_lengths)
     total = per_example.sum()          # grads of the SUM, like TF's Adam
     # Per-logit-frame normalisation; padded rows (frame_lengths == 0) are
     # left out of the mean.
@@ -208,8 +202,8 @@ def eval_step(cfg: StepConfig, state: TrainState,
         logits, _ = acoustic.forward(params, cfg.model, feats, frame_lengths,
                                      acoustic.zero_state(cfg.model, B, device=dev))
         out_lengths = acoustic.output_lengths(cfg.model, frame_lengths)
-        per = _ctc_loss_fn(cfg, logits)(logits, out_lengths, micro["labels"],
-                                        micro["label_lengths"])
+        per = _ctc_loss_fn(cfg)(logits, out_lengths, micro["labels"],
+                                micro["label_lengths"])
         denom = torch.clamp(out_lengths.to(torch.float32), min=1.0)
         real = (frame_lengths > 0).to(torch.float32)
         loss_sum = loss_sum + (per / denom * real).sum() / torch.clamp(real.sum(), min=1.0)

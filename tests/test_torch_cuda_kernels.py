@@ -19,12 +19,16 @@ inference kernels' float32 outputs stay below 2e-3 over these short
 runs; the training kernels' bf16 residuals and dgates may differ by such
 a flip of values of magnitude <= 2, hence 1e-2 there; the weight
 gradients sum up to ~5000 rows of magnitude-1 products, 1e-4 relative
-plus 1e-3 absolute.
+plus 1e-3 absolute.  The dropout kernel draws the plain version's bits
+and rounds as it does: equal bit for bit.  The CTC kernels run the plain
+versions' float32 recursion with other exp/log roundings: 1e-4.
 """
 
 import pytest
 import torch
 
+from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+from rnn_speech_tpu_torch.ops import dropout as tdrop
 from rnn_speech_tpu_torch.ops import grad_matmul as tgm
 from rnn_speech_tpu_torch.ops import lstm as tlstm
 from rnn_speech_tpu_torch.ops import lstm_recurrence as trec
@@ -296,3 +300,96 @@ def test_training_launch_counters_count_kernel_calls(cuda):
     tgm.weight_grad_plain(outs[0], outs[1])
     assert [fn.launches for fn in (twave.wavefront_train, twave.wavefront_bwd,
                                    tgm.weight_grad, tgm.dgates_weight_grads)] == [1] * 4
+
+
+# ------------------------------------------- dropout, drop modes and CTC
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,keeps", [((37, 5, 64), [0.8]), ((1001,), [0.5]),
+                                         ((3, 7, 130), [0.8, 0.5]), ((2,), [0.4])])
+def test_dropout_kernel_matches_plain_bit_for_bit(cuda, dtype, shape, keeps):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(len(shape))).to(
+        cuda, dtype)
+    got = tdrop.dropout_kernel(x, (123, 456), keeps)
+    ref = tdrop.dropout_plain(x, (123, 456), keeps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def _drop(mode, L, T, B, H, seed):
+    if mode == 1:
+        g = torch.Generator().manual_seed(seed)
+        masks = (torch.rand((L - 1, T, B, H), generator=g) < 0.4).float()
+        return (1, masks.to("cuda"), 2.5, 1.0)
+    return (2, (seed, seed + 7), 2.5, 0.4)
+
+
+@pytest.mark.parametrize("mode", [1, 2])
+@pytest.mark.parametrize("L,B,H,D,T", [(2, 3, 64, 64, 7), (3, 70, 128, 128, 10),
+                                       (3, 5, 64, 64, 1)])
+def test_wavefront_train_and_bwd_drop_modes_match_plain(cuda, mode, L, B, H, D, T):
+    x = _train_inputs(L, T, B, H, D, seed=L + B + T + mode, dev=cuda)
+    drop = _drop(mode, L, T, B, H, seed=B + T)
+    args = [x[k] for k in ("x", "w_x0", "w_h", "w_x_rest", "b_all", "mask", "h0", "c0")]
+    got = twave.wavefront_train(*args, torch.bfloat16, *drop)
+    ref = twave.wavefront_train_plain(*args, torch.bfloat16, *drop)
+    torch.cuda.synchronize()
+    _close_to(got, ref, TRAIN_TOL)
+    outs, gates, cseq = ref[:3]
+    g = torch.Generator().manual_seed(T)
+    dtop = torch.randn((T, B, H), generator=g).to(cuda, torch.bfloat16)
+    dhn, dcn = (torch.randn((L, B, H), generator=g).to(cuda) * 0.5 for _ in "hc")
+    bwd = lambda fn, gt: fn(dtop, x["w_h"], x["w_x_rest"], x["mask"], gt, cseq, x["c0"],
+                            dhn, dcn, outs, *drop)
+    ref_b = bwd(twave.wavefront_bwd_plain, gates.clone())
+    got_b = bwd(twave.wavefront_bwd, gates.clone())
+    torch.cuda.synchronize()
+    assert len(got_b) == len(ref_b) == 4
+    _close_to(got_b, ref_b, TRAIN_TOL)
+
+
+def _ctc_inputs(T, B, V, U, seed):
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((T, B, V), generator=g) * 2
+    ll = torch.as_tensor([T - (5 * b) % (T + 1) for b in range(B)])
+    ll[0] = T
+    ul = torch.as_tensor([(3 * b) % (U + 1) for b in range(B)])
+    labels = torch.randint(0, V - 1, (B, U), generator=g)
+    labels[torch.arange(U)[None] >= ul[:, None]] = -1
+    return logits, ll, labels, ul
+
+
+@pytest.mark.parametrize("T,B,V,U", [(9, 3, 5, 2), (70, 17, 29, 12), (200, 5, 80, 60)])
+def test_ctc_kernels_match_plain(cuda, T, B, V, U):
+    """Loss-only and checkpoint recursions, then the fused backward, against
+    their plain versions: same float32 recursion, 1e-4 relative."""
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, T + B))
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    K = tck.ctc_block(ext.shape[1], V)
+    ck, last = tck.ctc_alpha_ckpt(log_probs, ext, skip_ok, ll, ul, K)
+    ck_p, last_p = tck.alpha_plain(log_probs, ext, skip_ok, ll, ul, K, True)
+    last_l = tck.ctc_alpha_lossonly(log_probs, ext, skip_ok, ll, ul)
+    logp = tck._loss(last_p, ul, valid)[1]
+    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
+    post_p = tck.beta_post_plain(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
+    again = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
+    torch.cuda.synchronize()
+    assert torch.equal(last, last_l) and torch.equal(post, again)
+    for a, b in ((ck, ck_p), (last, last_p), (post, post_p)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_new_launch_counters_count_kernel_calls(cuda):
+    for fn in (tdrop.dropout_kernel, tck.ctc_alpha_ckpt, tck.ctc_alpha_lossonly,
+               tck.ctc_beta_post):
+        fn.launches = 0
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(12, 4, 6, 3, 1))
+    z = logits.clone().requires_grad_(True)
+    tck.ctc_loss(z, ll, labels, ul).sum().backward()
+    with torch.no_grad():
+        tck.ctc_loss(logits, ll, labels, ul)
+    tdrop.dropout(z, (1, 2), [0.5]).sum().backward()
+    tdrop.dropout_plain(logits, (1, 2), [0.5])
+    assert [fn.launches for fn in (tdrop.dropout_kernel, tck.ctc_alpha_ckpt,
+                                   tck.ctc_alpha_lossonly, tck.ctc_beta_post)] == [2, 1, 1, 1]

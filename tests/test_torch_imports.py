@@ -122,6 +122,9 @@ PORT_MODULES = [
     "rnn_speech_tpu_torch.ops.grad_matmul", "rnn_speech_tpu_torch.ops.ctc",
     "rnn_speech_tpu_torch.ops.editdistance", "rnn_speech_tpu_torch.train.optim",
     "rnn_speech_tpu_torch.train.step",
+    # slice 3: the default train step
+    "rnn_speech_tpu_torch.ops.random_bits", "rnn_speech_tpu_torch.ops.dropout",
+    "rnn_speech_tpu_torch.ops.ctc_kernel",
 ]
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,grad_study,bundle,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,grad_study,bundle,cli]
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -59,11 +59,31 @@ printing one JSON line:
            kernels' plain versions with the same seed words, beside a
            planted fault that must fail that gate (and, for the keep-1
            configuration, against the plain route).
+  train_layered
+           the layered training route (``ops/lstm_layer_train.py``): its
+           four kernels against their plain versions at full width (H=D=
+           1024, B=64; ragged lengths with a zero-length row, non-zero
+           state and upstream dh/dc), strictly at T=16 and looser at T=512
+           and 3510, each beside a planted fault that must fail its check;
+           the default StepConfig with the wavefront off at B=64, T=3510
+           (12 steps as in ``train``; the gates-mode kernels, dropout, CTC
+           and weight-gradient kernels must launch and the wavefront
+           kernels must not); the recompute route at the smallest batch
+           (a multiple of 16) at which ``training_memory_plan`` answers
+           (0, "recompute") on this card, 1 warm-up and 3 timed steps and
+           one split by its marks, the plan's estimate beside the
+           measured peak memory; each layered
+           kernel's time at its route's shapes beside its bound, its plain
+           version and torch.nn.LSTM (one layer); and one step's gradients
+           at T=256 through the kernels against the same route on the
+           plain versions for the layered gates route, recompute, remat
+           and time_chunk=64, each beside a planted fault.
   grad_study
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
            per parameter tensor and for the cotangent that reaches the
-           input projection: the readings that set its limit.
+           input projection: the readings that set its limit; and the
+           recompute route's check at the same three seeds.
   bundle   the committed trained bundle transcribes 32 rendered held-out
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths at CER <= 2%, and both equal the plain path's transcripts.
@@ -139,6 +159,14 @@ TRAIN_TOL_SHORT, TRAIN_TOL_LONG, WGRAD_TOL = 8e-3, 1.2e-2, 5e-4
 # loop the keep-1 step read up to 3.9e-2 (the W_h gradients), the cost of
 # bf16 residuals.
 GRAD_REL_TOL, TIME_LOOP_TOL = 1e-3, 1e-1
+# The recompute route's gate: its bf16 chain (activations between layers,
+# the projected gates, dx) adds rounding points where the kernel and
+# plain-version routes flip roundings apart.  On the H100 (the grad_study
+# phase, seeds 2, 5, 8) it read 9.33e-4 to 9.69e-4 (the layered gates
+# route 7.71e-4, time_chunk=64 8.58e-4), within 3% of 1e-3; 1.5e-3 leaves
+# a margin of about 1.5x, and the planted fault (dgates 1% too large)
+# read 2.87e-2.
+RECOMPUTE_GRAD_TOL = 1.5e-3
 # The CTC kernels against their plain versions (the same float32
 # recursion; the posteriors of a label summed in another order): losses
 # and alpha rows over their own largest magnitude, the gradient over its
@@ -146,6 +174,8 @@ GRAD_REL_TOL, TIME_LOOP_TOL = 1e-3, 1e-1
 # bit-equal and the gradient read 4.5e-7; the skip-transition fault read
 # 8.7e-3.
 CTC_LOSS_TOL, CTC_GRAD_TOL = 1e-5, 1e-5
+# The layered route's gradient checks: the chunk of the time_chunk route.
+LAYERED_CHUNK = 64
 # Dropout keeps of the default step and the f32 peak for CUDA-core work.
 INPUT_KEEP, OUTPUT_KEEP = 0.8, 0.5
 PEAK_F32_FLOPS = 67e12
@@ -935,12 +965,15 @@ def phase_train_kernels():
 
 
 def _train_setup(T_frames, label_width, label_len, seed,
-                 keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True):
+                 keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, Bn=None,
+                 **model_kw):
     """(step config, train state, one-microbatch batch) at the flagship
     width: fbank frontend, 3x1024 bf16 kernel route, by default the
-    default StepConfig (keep probabilities 0.8 / 0.5, the CTC kernels);
+    default StepConfig (keep probabilities 0.8 / 0.5, the CTC kernels)
+    on the wavefront (``model_kw`` sets other AcousticConfig options);
     random weights from a fixed torch.Generator, audio and labels from a
-    fixed numpy seed as bench.py builds them."""
+    fixed numpy seed as bench.py builds them, ``Bn`` utterances (TRAIN_B
+    by default)."""
     import numpy as np
     import torch
 
@@ -949,37 +982,52 @@ def _train_setup(T_frames, label_width, label_len, seed,
     from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
     from rnn_speech_tpu_torch.train import step
 
+    Bn = Bn or TRAIN_B
     n = T_frames * int(round(FRAME_STRIDE * SR)) + int(round(FRAME_SIZE * SR))
     fe = DeviceFrontend("fbank", sr=SR, max_samples=n, device=DEVICE)
     cfg = acoustic.AcousticConfig(
         num_layers=L, hidden_size=H, input_dim=fe.feature_size, num_labels=V,
-        compute_dtype=torch.bfloat16, use_kernels=True, wavefront=True)
+        compute_dtype=torch.bfloat16, use_kernels=True, **{"wavefront": True, **model_kw})
     scfg = step.StepConfig(model=cfg, frontend=fe, input_keep_prob=keeps[0],
                            output_keep_prob=keeps[1], use_pallas_ctc=pallas_ctc)
-    state = step.init_train_state(torch.Generator().manual_seed(seed), cfg, TRAIN_B,
+    state = step.init_train_state(torch.Generator().manual_seed(seed), cfg, Bn,
                                   TRAIN_LR, DEVICE)
     rng = np.random.default_rng(1)
     batch = {
-        "audio": rng.normal(0, 0.1, (1, TRAIN_B, n)).astype(np.float32),
-        "audio_lengths": np.full((1, TRAIN_B), n, np.int32),
-        "labels": rng.integers(1, V - 1, (1, TRAIN_B, label_width)).astype(np.int32),
-        "label_lengths": np.full((1, TRAIN_B), label_len, np.int32),
+        "audio": rng.normal(0, 0.1, (1, Bn, n)).astype(np.float32),
+        "audio_lengths": np.full((1, Bn), n, np.int32),
+        "labels": rng.integers(1, V - 1, (1, Bn, label_width)).astype(np.int32),
+        "label_lengths": np.full((1, Bn), label_len, np.int32),
     }
     batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
     return scfg, state, batch
 
 
-def _train_counters(default=True):
-    """The wrappers whose kernels a train step launches: the four of the
-    keep-1 scan-CTC step, and with the default step dropout and the CTC
-    checkpoint and backward kernels."""
+def _stack_counters(route):
+    """The stack's two training kernels on a route: the wavefront, or the
+    layered route in gates or recompute mode."""
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    return {"wavefront": {"wavefront_train": wf.wavefront_train,
+                          "wavefront_bwd": wf.wavefront_bwd},
+            "gates": {"recurrence_train": tlt.recurrence_train,
+                      "recurrence_bwd": tlt.recurrence_bwd},
+            "recompute": {"recurrence_train_lean": tlt.recurrence_train_lean,
+                          "recurrence_bwd_recompute": tlt.recurrence_bwd_recompute}}[route]
+
+
+def _train_counters(default=True, route="wavefront"):
+    """The wrappers whose kernels a train step launches: the stack's two on
+    ``route`` and the two weight-gradient kernels (the keep-1 scan-CTC
+    step), and with the default step dropout and the CTC checkpoint and
+    backward kernels."""
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
     from rnn_speech_tpu_torch.ops import dropout as tdrop
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
-    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
-    out = {"wavefront_train": wf.wavefront_train, "wavefront_bwd": wf.wavefront_bwd,
-           "dgates_weight_grads": gm.dgates_weight_grads, "weight_grad": gm.weight_grad}
+    out = {**_stack_counters(route), "dgates_weight_grads": gm.dgates_weight_grads,
+           "weight_grad": gm.weight_grad}
     if default:
         out.update(dropout=tdrop.dropout_kernel, ctc_alpha_ckpt=tck.ctc_alpha_ckpt,
                    ctc_beta_post=tck.ctc_beta_post)
@@ -989,7 +1037,8 @@ def _train_counters(default=True):
 def _all_counters():
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
 
-    return {**_train_counters(), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly}
+    return {**_train_counters(), **_stack_counters("gates"),
+            **_stack_counters("recompute"), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly}
 
 
 @contextlib.contextmanager
@@ -1002,6 +1051,7 @@ def _plain_versions():
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
     from rnn_speech_tpu_torch.ops import dropout as tdrop
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     alpha = lambda *a: tck.alpha_plain(*a, True)
@@ -1009,6 +1059,12 @@ def _plain_versions():
     with mock.patch.object(wf, "wavefront_train", wf.wavefront_train_plain), \
             mock.patch.object(wf, "wavefront_bwd", wf.wavefront_bwd_plain), \
             mock.patch.object(wf, "dgates_weight_grads", gm.dgates_weight_grads_plain), \
+            mock.patch.object(tlt, "recurrence_train", tlt.recurrence_train_plain), \
+            mock.patch.object(tlt, "recurrence_bwd", tlt.recurrence_bwd_plain), \
+            mock.patch.object(tlt, "recurrence_train_lean", tlt.recurrence_train_lean_plain), \
+            mock.patch.object(tlt, "recurrence_bwd_recompute",
+                              tlt.recurrence_bwd_recompute_plain), \
+            mock.patch.object(tlt, "dgates_weight_grads", gm.dgates_weight_grads_plain), \
             mock.patch.object(acoustic, "weight_grad", gm.weight_grad_plain), \
             mock.patch.object(acoustic, "dropout_kernel", tdrop.dropout_plain), \
             mock.patch.object(tdrop, "dropout_kernel", tdrop.dropout_plain), \
@@ -1028,6 +1084,35 @@ def _scale_fault(bwd_plain):
     return faulty
 
 
+def _wavefront_fault():
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    return mock.patch.object(wf, "wavefront_bwd", _scale_fault(wf.wavefront_bwd_plain))
+
+
+def _dgates_fault(bwd_plain):
+    """A plain layer backward whose emitted dgates are 1% too large: a
+    planted fault."""
+    def faulty(*args):
+        dgates, dh0, dc0 = bwd_plain(*args)
+        dgates *= 1.01
+        return dgates, dh0, dc0
+    return faulty
+
+
+def _layer_fault(name):
+    """Returns a planted-fault context for the layered backward ``name``."""
+    def fault():
+        from unittest import mock
+
+        from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+        return mock.patch.object(tlt, name, _dgates_fault(getattr(tlt, name + "_plain")))
+    return fault
+
+
 def _capture_weight_grad(fn, seen):
     """``fn`` (a weight_grad) that keeps the cotangent of its last call:
     after a backward, that of the input projection."""
@@ -1037,28 +1122,30 @@ def _capture_weight_grad(fn, seen):
     return wrapped
 
 
-def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2):
+def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2, model_kw=None,
+                fault=_wavefront_fault, tol=GRAD_REL_TOL):
     """One step's gradients through the kernels at T=GRAD_T, full width,
     against the same route on the kernels' plain versions (bf16 residuals
     too; the same seed words, so the same dropout masks) and, at keep 1
     with the scan CTC, against the plain route (the time loop under
-    autograd, float32 residuals).  With inter-layer dropout, the
-    plain-version route with the backward's inter-layer keep scale 1% too
-    large must fail the gate.  Per parameter tensor, relative Frobenius error; also
-    that of the cotangent that reaches the input projection.  No
-    yardstick may launch a kernel."""
+    autograd, float32 residuals).  With dropout, the plain-version route
+    with a planted fault (``fault()``, a context; by default the wavefront
+    backward's inter-layer keep scale 1% too large) must fail the gate.
+    ``model_kw`` sets AcousticConfig options (the route), ``tol`` the
+    gate's limit against the plain versions.  Per parameter
+    tensor, relative Frobenius error; also that of the cotangent that
+    reaches the input projection.  No yardstick may launch a kernel."""
     import dataclasses
     from unittest import mock
 
     import torch
 
     from rnn_speech_tpu_torch.models import acoustic
-    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
     from rnn_speech_tpu_torch.params import flatten
     from rnn_speech_tpu_torch.train import step
 
     scfg, state, batch = _train_setup(GRAD_T, 100, 50, seed=seed, keeps=keeps,
-                                      pallas_ctc=pallas_ctc)
+                                      pallas_ctc=pallas_ctc, **(model_kw or {}))
     counters = _all_counters()
     out = {}
     routes = [("kernels", True, False), ("plain_versions", True, True)]
@@ -1076,8 +1163,7 @@ def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2):
             if swap:
                 stack.enter_context(_plain_versions())
             if name == "planted_fault":
-                stack.enter_context(mock.patch.object(
-                    wf, "wavefront_bwd", _scale_fault(wf.wavefront_bwd_plain)))
+                stack.enter_context(fault())
             stack.enter_context(mock.patch.object(
                 acoustic, "weight_grad", _capture_weight_grad(acoustic.weight_grad, seen)))
             _, grads, loss_sum, _, _ = step.accumulate_grads(
@@ -1089,9 +1175,10 @@ def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2):
         out[name] = (flatten(grads), float(loss_sum), seen.get("input_projection_cotangent"))
     rel = lambda a, b: float((a - b).float().norm() / b.float().norm().clamp(min=1e-30))
     entry = {"T": GRAD_T, "keep_probs": list(keeps), "use_pallas_ctc": pallas_ctc,
-             "seed": seed, "mean_loss": {k: v[1] for k, v in out.items()}}
-    for name, tol in (("plain_versions", GRAD_REL_TOL), ("time_loop", TIME_LOOP_TOL),
-                      ("planted_fault", GRAD_REL_TOL)):
+             "seed": seed, "model": model_kw or {},
+             "mean_loss": {k: v[1] for k, v in out.items()}}
+    for name, limit in (("plain_versions", tol), ("time_loop", TIME_LOOP_TOL),
+                        ("planted_fault", tol)):
         if name not in out:
             continue
         ref, got = out[name][0], out["kernels"][0]
@@ -1099,39 +1186,46 @@ def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2):
         worst = max(per.values())
         cot = out[name][2]
         entry[name] = {"rel_frobenius": per, "worst": worst, "worst_tensor": max(per, key=per.get),
-                       "tol": tol, "input_projection_cotangent": None if cot is None else
+                       "tol": limit, "input_projection_cotangent": None if cot is None else
                        rel(out["kernels"][2], cot)}
         if name == "planted_fault":
-            entry[name]["over_limit"] = worst / tol
-            if not worst > tol:
+            entry[name]["over_limit"] = worst / limit
+            if not worst > limit:
                 fail(f"train: the gradient gate does not see the planted fault: {entry}")
-        elif not all(v == v for v in per.values()) or worst > tol:
+        elif not all(v == v for v in per.values()) or worst > limit:
             fail(f"train: kernel-route gradients disagree with {name}: {entry}")
     return entry
+
+
+# The recompute route's gradient gate: its route, planted fault and limit.
+RECOMPUTE_GATE = dict(model_kw=dict(residual_mode="recompute"),
+                      fault=_layer_fault("recurrence_bwd_recompute"), tol=RECOMPUTE_GRAD_TOL)
 
 
 def phase_grad_study():
     """The gradient gate's readings over seeds and keep probabilities
     (input, output) of 1 and the defaults, each site alone and both, on
     the CTC kernels, with the planted fault wherever the inter-layer
-    boundary drops: the readings behind GRAD_REL_TOL."""
-    readings = []
+    boundary drops: the readings behind GRAD_REL_TOL; and the recompute
+    route's at the default keeps, the readings behind RECOMPUTE_GRAD_TOL."""
+    readings, recompute = [], []
     for seed in (2, 5, 8):
         for keeps in ((1.0, 1.0), (INPUT_KEEP, 1.0), (1.0, OUTPUT_KEEP),
                       (INPUT_KEEP, OUTPUT_KEEP)):
             readings.append(_grad_check(keeps, True, seed))
-    emit("grad_study", readings=readings)
+        recompute.append(_grad_check(seed=seed, **RECOMPUTE_GATE))
+    emit("grad_study", readings=readings, recompute=recompute)
 
 
-def _nn_lstm_train_ms(T):
-    """torch.nn.LSTM (cuDNN, bf16, 3x1024) forward on an input that needs
-    its gradient, and its backward (which also computes the weight
-    gradients), at the train shape: timed as a yardstick only."""
+def _nn_lstm_train_ms(T, n_layers=L, Bn=TRAIN_B):
+    """torch.nn.LSTM (cuDNN, bf16, n_layers x 1024) forward on an input
+    that needs its gradient, and its backward (which also computes the
+    weight gradients), at T steps and Bn rows: timed as a yardstick only."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=L).to(DEVICE, torch.bfloat16)
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
     m.flatten_parameters()
-    x = torch.randn((T, TRAIN_B, H), device=DEVICE, dtype=torch.bfloat16,
+    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16,
                     requires_grad=True)
     fwd = cuda_ms(lambda: m(x), iters=2)
     y, _ = m(x)
@@ -1310,10 +1404,12 @@ def _ctc_dropout_timing():
     return out
 
 
-def _run_steps(scfg, state, batch, reps, record_stages):
-    """2 warm-up steps, ``reps`` reps of 3 timed steps on the repeated
-    batch, and with ``record_stages`` one more step split by its marks.
-    Counters are zeroed before and read after.  Returns (record, state)."""
+def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmup=2):
+    """``warmup`` steps (the first timed alone), ``reps`` reps of 3 timed
+    steps on the repeated batch, and with ``record_stages`` one more step
+    split by its marks.  Counters are zeroed before and read after: the
+    kernels of the stack's ``route`` must launch, and off the wavefront
+    the wavefront kernels must not.  Returns (record, state)."""
     import statistics
 
     import torch
@@ -1321,7 +1417,8 @@ def _run_steps(scfg, state, batch, reps, record_stages):
     from rnn_speech_tpu_torch import stages
     from rnn_speech_tpu_torch.train import step
 
-    counters = _train_counters(scfg.use_pallas_ctc)
+    Bn = batch["labels"].shape[1]
+    counters = _train_counters(scfg.use_pallas_ctc, route)
     for fn in _all_counters().values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1337,7 +1434,8 @@ def _run_steps(scfg, state, batch, reps, record_stages):
     run()
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
-    run()
+    for _ in range(warmup - 1):
+        run()
     vals = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1352,6 +1450,8 @@ def _run_steps(scfg, state, batch, reps, record_stages):
             run()
         stage_ms = stages.stage_ms(marks)
     launches = {name: fn.launches for name, fn in counters.items()}
+    idle = ({} if route == "wavefront" else
+            {name: fn.launches for name, fn in _stack_counters("wavefront").items()})
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
     ms = statistics.median(vals)
@@ -1359,10 +1459,13 @@ def _run_steps(scfg, state, batch, reps, record_stages):
         fail(f"train: non-finite loss {losses}")
     if not all(launches.values()):
         fail(f"train: the step did not go through every training kernel: {launches}")
-    return dict(steps=len(losses), train_ms_per_step=ms, train_utt_per_sec=TRAIN_B / (ms / 1e3),
+    if any(idle.values()):
+        fail(f"train: the {route} route launched the wavefront kernels: {idle}")
+    return dict(steps=len(losses), batch=Bn, train_ms_per_step=ms,
+                train_utt_per_sec=Bn / (ms / 1e3),
                 train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
                 first_step_ms=first_ms, losses=losses, launches=launches,
-                peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
+                idle_launches=idle, peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
                 stage_sum_ms=sum(stage_ms.values())), state
 
 
@@ -1421,11 +1524,236 @@ def phase_train():
     keep1["grad_check"] = _grad_check((1.0, 1.0), False)
     timing = _train_kernel_timing(state)
     timing.update(_ctc_dropout_timing())
-    emit("train", batch=TRAIN_B, frames=TRAIN_T, label_length=LABEL_LEN,
+    emit("train", frames=TRAIN_T, label_length=LABEL_LEN,
          keep_probs=[scfg.input_keep_prob, scfg.output_keep_prob],
          use_pallas_ctc=scfg.use_pallas_ctc, memory_plan=list(plan), **default,
          grad_check=grad_check, eval_step=eval_entry, keep1_scan_ctc=keep1,
          timing=timing)
+
+
+LAYER_KERNELS = ("recurrence_train", "recurrence_bwd", "recurrence_train_lean",
+                 "recurrence_bwd_recompute")
+
+
+def _layer_inputs(T, Bn, lengths, seed, proj_dtype=None):
+    """One layer's kernel inputs at full width on the card: a bf16 input x,
+    xavier-uniform bf16 W_x and W_h, an f32 bias, x_proj = x·W_x + b
+    (f32 sums, in ``proj_dtype``, float32 by default), non-zero h0, c0,
+    f32 cotangents dout, dhn, dcn and the (T, 1, B) length mask."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops.lstm_layer_train import input_projection
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (H + 4 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(DEVICE, bf)
+    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(DEVICE)
+    lens = torch.as_tensor(lengths)
+    mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(DEVICE)
+    x, w_x, w_h, b = r(T, Bn, H, scale=1.0).to(bf), w(H, 4 * H), w(H, 4 * H), r(4 * H, scale=0.1)
+    return dict(x=x, w_x=w_x, w_h=w_h, b=b, mask=mask,
+                x_proj=input_projection(x, w_x, b, bf, proj_dtype or torch.float32),
+                h0=r(Bn, H, scale=0.2), c0=r(Bn, H, scale=0.2), dout=r(T, Bn, H, scale=0.1),
+                dhn=r(Bn, H, scale=0.1), dcn=r(Bn, H, scale=0.1))
+
+
+def _layer_kernel_checks(checks, worst):
+    """The four layered kernels against their plain versions at full width
+    (H=D=1024, B=64), strictly at T=16 and looser at T=512 and 3510, each
+    beside a planted fault that must fail its check: both forwards with
+    the forget gate's +1 left out, both backwards with df scaled by 0.9,
+    the recompute backward's rebuild without the bias.  The lean forward
+    fed float32 x_proj instead of bf16 is read beside its check (the bf16
+    projection's share of the difference), not gated."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf = torch.bfloat16
+    f_cols = slice(2 * H, 3 * H)                     # the forget gate's block
+
+    def df_scaled(res):
+        scaled = res[0].clone()
+        scaled[..., f_cols] *= 0.9
+        return (scaled, *res[1:])
+
+    cases = ((16, TRAIN_TOL_SHORT), (512, TRAIN_TOL_LONG), (TRAIN_T, TRAIN_TOL_LONG))
+    for i, (T, tol) in enumerate(cases):
+        lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(TRAIN_B)]
+        lens[2] = 0                                  # a zero-length row
+        inp = _layer_inputs(T, TRAIN_B, lens, seed=140 + i)
+        tag = f"H={H} B={TRAIN_B} T={T}"
+        tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+        c0r = inp["c0"].to(bf).float()
+        btail = (inp["mask"], inp["w_h"], inp["dhn"], inp["dcn"])
+        for lean in (False, True):
+            name = "recurrence_train_lean" if lean else "recurrence_train"
+            xp = inp["x_proj"].to(bf) if lean else inp["x_proj"]
+            fwd, fwd_plain = getattr(tlt, name), getattr(tlt, name + "_plain")
+            got = fwd(xp, *tail)
+            ref = fwd_plain(xp, *tail)
+            torch.cuda.synchronize()
+            worst[name] = max(worst[name], _rel_check(f"{name} {tag}", got, ref, tol, checks))
+            del got
+            xp_nof = xp.clone()
+            xp_nof[..., f_cols] -= 1.0
+            _fault_check(f"{name} {tag}: forget-gate +1 left out", fwd_plain(xp_nof, *tail),
+                         ref, tol, checks)
+            del xp_nof
+            if lean:
+                checks.append({"reading": f"{name} {tag}: plain version fed float32 x_proj",
+                               "rel_err": _rel_errs(fwd_plain(inp["x_proj"], *tail), ref)[1]})
+                out, cseq = ref[0], ref[3]
+                h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
+                args = [inp["dout"], inp["x"], h_prev, cseq, c0r, inp["mask"], inp["w_x"],
+                        inp["b"], inp["w_h"], inp["dhn"], inp["dcn"]]
+                name = "recurrence_bwd_recompute"
+                ref_b = tlt.recurrence_bwd_recompute_plain(*args)
+                no_bias = args[:7] + [torch.zeros_like(inp["b"])] + args[8:]
+                _fault_check(f"{name} {tag}: bias left out of the rebuild",
+                             tlt.recurrence_bwd_recompute_plain(*no_bias), ref_b, tol, checks)
+                got_b = tlt.recurrence_bwd_recompute(*args)
+            else:
+                gates, cseq = ref[3], ref[4]
+                name = "recurrence_bwd"
+                ref_b = tlt.recurrence_bwd_plain(inp["dout"], gates.clone(), cseq, c0r, *btail)
+                got_b = tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail)
+            _fault_check(f"{name} {tag}: df scaled by 0.9", df_scaled(ref_b), ref_b, tol,
+                         checks)
+            torch.cuda.synchronize()
+            worst[name] = max(worst[name], _rel_check(f"{name} {tag}", got_b, ref_b, tol,
+                                                      checks))
+            del ref, ref_b, got_b
+        del inp
+
+
+def _layer_kernel_timing(rec_B):
+    """Each layered kernel alone at its route's shapes (full-length rows,
+    T=3510): the gates-mode pair at B=64 (the layered default step), the
+    recompute pair at ``rec_B`` (the recompute step).  Times are per train
+    step: L calls of one layer each (``ms_per_call`` beside).  The library
+    yardstick is torch.nn.LSTM with one layer at the same T and B: its
+    cuDNN forward for the forwards (which also computes the input
+    product), its backward with the weight gradients for the backwards."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T, G = torch.bfloat16, TRAIN_T, 4 * H
+    out = {}
+    for (fwd_name, bwd_name), Bn in ((("recurrence_train", "recurrence_bwd"), TRAIN_B),
+                                     (("recurrence_train_lean", "recurrence_bwd_recompute"),
+                                      rec_B)):
+        lean = fwd_name.endswith("lean")
+        lib_fwd, lib_bwd = _nn_lstm_train_ms(T, 1, Bn)
+        torch.cuda.empty_cache()
+        inp = _layer_inputs(T, Bn, [T] * Bn, seed=170, proj_dtype=bf if lean else None)
+        tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+        xp = inp["x_proj"]
+        fwd, fwd_plain = getattr(tlt, fwd_name), getattr(tlt, fwd_name + "_plain")
+        ms = cuda_ms(lambda: fwd(xp, *tail), iters=2)
+        plain = cuda_ms(lambda: fwd_plain(xp, *tail), iters=1, warmup=0)
+        res = fwd(xp, *tail)
+        states = 2 * Bn * H * 4                      # h0 and c0, or hn and cn
+        streams = T * Bn * H * (4 + 2)               # out f32, cseq bf16
+        nbytes = (T * Bn * G * xp.element_size() + H * G * 2 + T * Bn * 4 + 2 * states
+                  + streams + (0 if lean else T * Bn * G * 2))
+        bound, by = _bounds(2 * T * Bn * H * G, nbytes)
+        out[fwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
+                             library_ms=L * lib_fwd, library="torch.nn.LSTM forward (1 layer)",
+                             calls=L, ms_per_call=ms, batch=Bn, flops=L * 2 * T * Bn * H * G,
+                             bytes=L * nbytes)
+        del xp
+        inp.pop("x_proj")
+        c0r = inp["c0"].to(bf).float()
+        if lean:
+            h_prev = torch.cat([inp["h0"].to(bf)[None], res[0].to(bf)[:-1]])
+            cseq = res[3]
+            del res
+            args = (inp["dout"], inp["x"], h_prev, cseq, c0r, inp["mask"], inp["w_x"],
+                    inp["b"], inp["w_h"], inp["dhn"], inp["dcn"])
+            ms = cuda_ms(lambda: tlt.recurrence_bwd_recompute(*args), iters=2)
+            plain = cuda_ms(lambda: tlt.recurrence_bwd_recompute_plain(*args), iters=1,
+                            warmup=0)
+            flops = 2 * T * Bn * G * (2 * H + H)
+            nbytes = (T * Bn * H * (4 + 2 + 2 + 2) + 2 * H * G * 2 + G * 4 + T * Bn * 4
+                      + 3 * Bn * H * 4 + T * Bn * G * 2 + 2 * Bn * H * 4)
+        else:
+            gates, cseq = res[3], res[4]
+            del res
+            btail = (inp["mask"], inp["w_h"], inp["dhn"], inp["dcn"])
+            # Each call writes dgates over its gates: the plain version gets
+            # a copy of the residual, the kernel's later calls run on dgates
+            # (the same work).
+            pgates = gates.clone()
+            ms = cuda_ms(lambda: tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail),
+                         iters=2)
+            plain = cuda_ms(lambda: tlt.recurrence_bwd_plain(inp["dout"], pgates, cseq, c0r,
+                                                             *btail), iters=1, warmup=0)
+            del gates, pgates
+            flops = 2 * T * Bn * G * H
+            nbytes = (T * Bn * H * (4 + 2) + T * Bn * G * 2 + H * G * 2 + T * Bn * 4
+                      + 3 * Bn * H * 4 + T * Bn * G * 2 + 2 * Bn * H * 4)
+        bound, by = _bounds(flops, nbytes)
+        out[bwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
+                             library_ms=L * lib_bwd, library="torch.nn.LSTM backward "
+                             "(1 layer, with its weight gradients)", calls=L,
+                             ms_per_call=ms, batch=Bn, flops=L * flops, bytes=L * nbytes)
+        del inp, cseq
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_layered():
+    import dataclasses
+
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+
+    checks, worst = [], {k: 0.0 for k in LAYER_KERNELS}
+    _layer_kernel_checks(checks, worst)
+    torch.cuda.empty_cache()
+
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, wavefront=False)
+    plan = acoustic.training_memory_plan(scfg.model, TRAIN_T, TRAIN_B)
+    layered, state = _run_steps(scfg, state, batch, reps=3, record_stages=True,
+                                route="gates")
+    losses = layered["losses"]
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        fail(f"train_layered: the mean of the last 3 losses is not below the first: {losses}")
+    layered["memory_plan"] = list(plan)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # The recompute route where the default configuration's plan sends it.
+    cfg = dataclasses.replace(scfg.model, wavefront=True)
+    rec_B = next(b for b in range(16, 4096, 16)
+                 if acoustic.training_memory_plan(cfg, TRAIN_T, b) == (0, "recompute"))
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, Bn=rec_B,
+                                      residual_mode="recompute")
+    recompute, state = _run_steps(scfg, state, batch, reps=1, record_stages=True,
+                                  route="recompute", warmup=1)
+    if not recompute["losses"][-1] < recompute["losses"][0]:
+        fail(f"train_layered (recompute): the loss did not fall: {recompute['losses']}")
+    recompute.update(
+        memory_plan=[0, "recompute"], budget_gib=acoustic.default_residual_budget() / 2**30,
+        plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
+        gates_estimate_gib=acoustic.training_residual_bytes(cfg, TRAIN_T, rec_B) / 2**30)
+    del state, batch
+    torch.cuda.empty_cache()
+    timing = _layer_kernel_timing(rec_B)
+
+    grads = {"recompute": _grad_check(**RECOMPUTE_GATE)}
+    for name, model_kw, fault in (
+            ("layered", dict(wavefront=False), _layer_fault("recurrence_bwd")),
+            ("remat", dict(remat=True), _layer_fault("recurrence_bwd")),
+            ("time_chunk", dict(time_chunk=LAYERED_CHUNK), _wavefront_fault)):
+        grads[name] = _grad_check(model_kw=model_kw, fault=fault)
+    emit("train_layered", checks=checks, max_abs_err=worst, frames=TRAIN_T,
+         label_length=LABEL_LEN, keep_probs=[INPUT_KEEP, OUTPUT_KEEP], layered=layered,
+         recompute=recompute, timing=timing, grad_check=grads)
 
 
 def kernels_line():
@@ -1434,7 +1762,9 @@ def kernels_line():
     inference kernels), one default train step (the training, dropout and
     CTC kernels) or one ``eval_step`` batch (the loss-only CTC kernel).
     Launches are those of the main path's run: the eval phase, the
-    default train step's 12 steps, the ``eval_step`` call."""
+    default train step's 12 steps, the ``eval_step`` call; for the layered
+    kernels one layered default step's pass and launches of its 12 steps
+    (gates mode) or the recompute step's pass and its 5 steps."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
@@ -1481,11 +1811,31 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+    tl = RECORD.get("train_layered", {})
+    for name, src, replaces, run in (
+        ("recurrence_train", csrc + "lstm_layer_train.cu",
+         "rnn_speech_tpu/ops/lstm_pallas.py:144", "layered"),
+        ("recurrence_bwd", csrc + "lstm_layer_bwd.cu",
+         "rnn_speech_tpu/ops/lstm_pallas.py:232", "layered"),
+        ("recurrence_train_lean", csrc + "lstm_layer_train.cu",
+         "rnn_speech_tpu/ops/lstm_pallas.py:342", "recompute"),
+        ("recurrence_bwd_recompute", csrc + "lstm_layer_bwd.cu",
+         "rnn_speech_tpu/ops/lstm_pallas.py:429", "recompute"),
+    ):
+        t = tl.get("timing", {}).get(name, {})
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": tl.get(run, {}).get("launches", {}).get(name),
+            "max_abs_err": tl.get("max_abs_err", {}).get(name),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"),
+        })
     return {"kernels": rows}
 
 
-PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "grad_study",
-          "bundle", "cli")
+PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
+          "grad_study", "bundle", "cli")
 
 
 def main(argv=None) -> int:
@@ -1525,6 +1875,8 @@ def main(argv=None) -> int:
         phase_eval()
     if "train" in phases:
         phase_train()
+    if "train_layered" in phases:
+        phase_train_layered()
     if "grad_study" in phases:
         phase_grad_study()
     if "bundle" in phases or "cli" in phases:

@@ -1,6 +1,7 @@
 // One LSTM timestep for one tile of hidden units: the cell the forward
 // kernels share (lstm_recurrence.cu, lstm_wavefront.cu,
-// lstm_wavefront_train.cu).
+// lstm_wavefront_train.cu, lstm_layer_train.cu), and its gate products,
+// which the recompute backward (lstm_layer_bwd.cu) also runs.
 //
 // A block owns kJT = 16 hidden units j0..j0+15 and up to kMaxMT 16-row
 // batch tiles (64 rows).  Its four warps compute the four gate columns of
@@ -10,13 +11,14 @@
 // the cell update stays local: no gate pre-activation goes to device
 // memory.
 //
-//   gates = [xp | b + bf16(x_in)·W_x] + bf16(h_in)·W_h
+//   gates = [xp | b + bf16(x_in)·W_x] + bf16(h_in)·W_h   (xp f32 or bf16)
 //   c' = sigmoid(f + 1)·c + sigmoid(i)·tanh(g);  h' = sigmoid(o)·tanh(c')
 //   c, h <- m·(c', h') + (1 - m)·(c, h);  out <- m·h'
 //
-// The training forward also stores the backward's residuals in bf16: the
-// activated gates (i, g, f, o) = (sig(i), tanh(g), sig(f + 1), sig(o)),
-// the carried c and the masked output m·h'.  With inter-layer dropout it
+// The training forwards also store the backward's residuals in bf16, each
+// where its pointer is set: the activated gates (i, g, f, o) =
+// (sig(i), tanh(g), sig(f + 1), sig(o)), the carried c and the masked
+// output m·h'.  With inter-layer dropout it
 // also writes bf16(h·keep·scale), the dropped copy the layer above reads:
 // the mask applies where the float32 h is produced, so the one bf16
 // rounding of the product's operand is the TPU kernel's.
@@ -58,6 +60,7 @@ constexpr int kTile = kRows * kLd;  // elements of one staged 64x64 tile
 
 struct CellStep {
   const float* xp;     // (B, 4H) input pre-activations of this step, or null
+  const bf16* xp_bf = nullptr;  // (B, 4H) the same in bf16, or null
   const float* bias;   // (4H) input bias, or null
   const bf16* x_in;    // (Bp, Kx) bf16 input (lower layer's h, or x), or null
   const bf16* w_x;     // (Kx, 4H) input weights, or null
@@ -71,8 +74,8 @@ struct CellStep {
   int B, Bp, H;
   int Kx = 0;                   // width of x_in; 0 means H
   bf16* gates_res = nullptr;    // (B, 4H) activated gates, or null
-  bf16* c_res = nullptr;        // (B, H) carried c (with gates_res)
-  bf16* out_res = nullptr;      // (B, H) masked output (with gates_res)
+  bf16* c_res = nullptr;        // (B, H) carried c, or null
+  bf16* out_res = nullptr;      // (B, H) masked output, or null
   // Inter-layer dropout of the training forward (drop modes 1, 2): the
   // dropped bf16 copy bf16(h·keep·drop_scale) of the carried h, which the
   // layer above reads as its input, or null.  keep comes from drop_mask
@@ -117,12 +120,15 @@ __device__ __forceinline__ void stage_chunk(bf16* As, bf16* Bs, const bf16* a,
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// The products of the block's rows and units, bf16(h_in)·W_h followed by
+// bf16(x_in)·W_x when x_in is set (s.h_in, s.w_h, s.x_in, s.w_x, s.Kx,
+// s.H, s.Bp are read), as f32 sums gates[4][kRows][kJT] at the start of
+// smem, which holds kCellSmem bf16.  Ends with a __syncthreads.
 // Grid: x = H / kJT unit tiles, y = batch tiles of kRows rows.
-__device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
-  using namespace nvcuda;
-  // Two stages of {A, B} tiles; reused for the gate sums after the loop.
-  __shared__ __align__(128) bf16 smem[2 * 2 * kTile];
+constexpr int kCellSmem = 2 * 2 * kTile;
 
+__device__ __forceinline__ const float* cell_products(bf16* smem, const CellStep& s) {
+  using namespace nvcuda;
   const int warp = threadIdx.x / 32;  // the gate this warp computes
   const int j0 = blockIdx.x * kJT;
   const int row0 = blockIdx.y * kRows;
@@ -180,7 +186,18 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
     }
   }
   __syncthreads();
+  return gates;
+}
 
+__device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
+  // Two stages of {A, B} tiles; reused for the gate sums after the loop.
+  __shared__ __align__(128) bf16 smem[kCellSmem];
+  const float* gates = cell_products(smem, s);
+
+  const int j0 = blockIdx.x * kJT;
+  const int row0 = blockIdx.y * kRows;
+  const int rows = min(kMaxMT, (s.Bp - row0) / 16) * 16;
+  const int H = s.H;
   const int ld = 4 * H;
   for (int idx = threadIdx.x; idx < rows * kJT; idx += kThreads) {
     const int r = idx / kJT;
@@ -198,6 +215,13 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
       gg += x[H + j];
       gf += x[2 * H + j];
       go += x[3 * H + j];
+    }
+    if (s.xp_bf != nullptr) {
+      const bf16* x = s.xp_bf + (size_t)b * ld;
+      gi += __bfloat162float(x[j]);
+      gg += __bfloat162float(x[H + j]);
+      gf += __bfloat162float(x[2 * H + j]);
+      go += __bfloat162float(x[3 * H + j]);
     }
     if (s.bias != nullptr) {
       gi += s.bias[j];
@@ -234,9 +258,9 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStep& s) {
       gr[H + j] = __float2bfloat16(g_a);
       gr[2 * H + j] = __float2bfloat16(f_a);
       gr[3 * H + j] = __float2bfloat16(o_a);
-      s.c_res[e] = __float2bfloat16(c_sel);
-      s.out_res[e] = __float2bfloat16(m * h_new);
     }
+    if (s.c_res != nullptr) s.c_res[e] = __float2bfloat16(c_sel);
+    if (s.out_res != nullptr) s.out_res[e] = __float2bfloat16(m * h_new);
   }
 }
 

@@ -46,8 +46,9 @@ class AcousticConfig:
     wavefront: bool = False
     # Stack N adjacent frames and subsample time by N before the LSTM.
     frame_stack: int = 1
-    # Training memory policies of the JAX package; only the whole-sequence
-    # gates-residual plan is ported (the others raise NotImplementedError).
+    # Training memory policies of the JAX package (``training_memory_plan``
+    # picks among them): per-layer rematerialisation, chunks of time_chunk
+    # steps with carried state, and "gates" or "recompute" residuals.
     remat: bool = False
     time_chunk: int = 0
     residual_mode: str = "gates"
@@ -282,14 +283,19 @@ def training_memory_plan(cfg: AcousticConfig, T: int, B: int,
     Ts = _stacked_T(cfg, T)
     if training_residual_bytes(cfg, Ts, B) <= budget_bytes:
         return 0, "gates"
-    # Recompute mode also holds one layer's dgates and the dout and
-    # activation-copy streams next to its residuals.
-    rb, H = _res_bytes(cfg), cfg.hidden_size
-    recompute = (training_residual_bytes(cfg, Ts, B, "recompute")
-                 + Ts * B * 4 * H * rb + Ts * B * 4 * H)
-    if cfg.use_kernels and recompute <= budget_bytes:
+    if cfg.use_kernels and recompute_footprint(cfg, T, B) <= budget_bytes:
         return 0, "recompute"
     return auto_time_chunk(cfg, T, B, budget_bytes), "gates"
+
+
+def recompute_footprint(cfg: AcousticConfig, T: int, B: int) -> int:
+    """The plan's estimate for whole-sequence recompute residuals: the
+    residuals plus one layer's dgates and the float32 dout and
+    activation-copy streams next to them."""
+    Ts = _stacked_T(cfg, T)
+    rb, H = _res_bytes(cfg), cfg.hidden_size
+    return (training_residual_bytes(cfg, Ts, B, "recompute")
+            + Ts * B * 4 * H * rb + Ts * B * 4 * H)
 
 
 def auto_time_chunk(cfg: AcousticConfig, T: int, B: int, budget_bytes: int) -> int:

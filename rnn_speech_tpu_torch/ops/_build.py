@@ -27,7 +27,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("lstm_recurrence", "lstm_wavefront", "lstm_wavefront_train",
-           "lstm_wavefront_bwd", "grad_matmul", "dropout", "ctc")
+           "lstm_wavefront_bwd", "grad_matmul", "dropout", "ctc", "lstm_layer_train",
+           "lstm_layer_bwd")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

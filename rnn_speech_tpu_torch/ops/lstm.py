@@ -11,26 +11,33 @@ large matmul before the recurrence; the recurrence itself is either the
 plain loop here (``lstm_layer_scan``, the counterpart of the JAX scan
 path) or one of the two hand-written kernels:
 
-* ``use_kernels`` and ``wavefront`` with >= 2 layers: the whole stack as
-  one diagonal walk (``ops/lstm_wavefront.py``);
+* ``use_kernels`` and ``wavefront`` with >= 2 layers, gates residuals and
+  no ``remat``: the whole stack as one diagonal walk
+  (``ops/lstm_wavefront.py``);
 * ``use_kernels`` otherwise: one recurrence kernel per layer
-  (``ops/lstm_recurrence.py``).
+  (``ops/lstm_recurrence.py``; in training ``ops/lstm_layer_train.py``).
 
 A kernel wrapper given CPU tensors runs its plain version.
 
 Training (``dropout_rng`` given, a CPU ``torch.Generator``) runs the
 differentiable wavefront stack (``lstm_stack_wavefront_train``: training
 forward and reverse-diagonal kernels) when ``use_kernels`` and
-``wavefront`` with >= 2 layers, and the plain time loop under autograd
-(the JAX scan path) without kernels.  Dropout follows the JAX package's
-sites (``ops/dropout.py``; one seed draw per site): on the wavefront
-route the input site is the fused dropout, each inter-layer output +
-input pair is one Bernoulli(ko·ki) drawn inside both wavefront kernels
-(drop mode 2), and the top site goes to ``head_fused`` when given; the
-layered route drops [output, input] before each layer above the first and
-the output after the top.  What later slices bring raises
-``NotImplementedError`` naming the slice: ``time_chunk``, ``remat``,
-recompute residuals and the layered kernel-training route.
+``wavefront`` with >= 2 layers, gates residuals and no ``remat``; else,
+with ``use_kernels``, the layered route: one differentiable layer at a
+time (``ops/lstm_layer_train.py``, gates or recompute residuals); and
+without kernels the plain time loop under autograd (the JAX scan path).
+Dropout follows the JAX package's sites (``ops/dropout.py``; one seed
+draw per site): on the wavefront route the input site is the fused
+dropout, each inter-layer output + input pair is one Bernoulli(ko·ki)
+drawn inside both wavefront kernels (drop mode 2), and the top site goes
+to ``head_fused`` when given; the layered route drops [output, input]
+before each layer above the first and the output after the top.
+
+``remat`` runs each layer of the layered route under
+``torch.utils.checkpoint``; ``time_chunk`` runs the stack in checkpointed
+chunks of that many steps with carried state (``_lstm_stack_chunked``).
+Recompute residuals in a low-precision compute dtype keep the activations
+between layers in that dtype (the JAX package's low-precision chain).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rnn_speech_tpu_torch.ops import random_bits
 from rnn_speech_tpu_torch.ops.dropout import dropout_site
@@ -155,23 +163,6 @@ def lstm_layer(params: Params, x: Tensor, seq_lengths: Tensor,
     return out, (cn, hn)
 
 
-OFF_PATH_SLICE = "the off-path training slice (ROADMAP Queue B 11-12)"
-
-
-def check_training_supported(*, time_chunk: int = 0, T: int = 0,
-                             remat: bool = False, residual_mode: str = "gates"):
-    """Raise ``NotImplementedError`` naming the slice that brings each
-    training variant this slice leaves out."""
-    if time_chunk and T > time_chunk:
-        raise NotImplementedError(f"time_chunk training comes with {OFF_PATH_SLICE}")
-    if remat:
-        raise NotImplementedError(f"remat comes with {OFF_PATH_SLICE}")
-    if residual_mode != "gates":
-        raise NotImplementedError(
-            f"residual_mode={residual_mode!r} (recompute kernels, B12) comes with "
-            f"{OFF_PATH_SLICE}")
-
-
 def lstm_stack(
     layers: Sequence[Params],
     x: Tensor,                     # (T, B, D)
@@ -194,19 +185,21 @@ def lstm_stack(
     when given, and the new per-layer (c, h) states).
 
     Pass ``dropout_rng`` to train (the result is differentiable); without
-    it the stack runs inference and the training options are ignored, as
-    in the JAX package.  ``head_fused(seed, out)`` applies the top
-    dropout site and the head as one op on the wavefront training route
-    (``models/acoustic.py``'s ``_DroppedDense``)."""
-    wave = wavefront and use_kernels and len(layers) >= 2
+    it the stack runs inference: the keep probabilities, ``remat`` and the
+    residual mode's storage are then moot, as in the JAX package.
+    ``head_fused(seed, out)`` applies the top dropout site and the head as
+    one op on the wavefront training route (``models/acoustic.py``'s
+    ``_DroppedDense``)."""
+    kw = dict(compute_dtype=compute_dtype, input_keep_prob=input_keep_prob,
+              output_keep_prob=output_keep_prob, use_kernels=use_kernels,
+              residual_mode=residual_mode, wavefront=wavefront)
+    if time_chunk and x.shape[0] > time_chunk:
+        out, new_states = _lstm_stack_chunked(layers, x, seq_lengths, states,
+                                              dropout_rng, time_chunk, kw)
+        return (head(out) if head is not None else out), new_states
+    wave = (wavefront and use_kernels and len(layers) >= 2
+            and residual_mode == "gates" and not remat)
     rng = dropout_rng
-    if rng is not None:
-        check_training_supported(time_chunk=time_chunk, T=x.shape[0], remat=remat,
-                                 residual_mode=residual_mode)
-        if use_kernels and not wave:
-            raise NotImplementedError(
-                "kernel training without the wavefront (wavefront off or one "
-                f"layer: the layered train kernels, B11) comes with {OFF_PATH_SLICE}")
     if wave:
         from rnn_speech_tpu_torch.ops import lstm_wavefront
 
@@ -232,15 +225,82 @@ def lstm_stack(
             if head_fused is not None and output_keep_prob < 1.0:
                 return head_fused(random_bits.seed_words(rng), out), new_states
     else:
-        layer_fn = lstm_layer if use_kernels else lstm_layer_scan
-        out = x
-        new_states: List[LayerState] = []
-        for idx, (params, state) in enumerate(zip(layers, states)):
-            # Layer idx-1's output site and layer idx's input site, fused.
-            keeps = ([output_keep_prob] if idx > 0 else []) + [input_keep_prob]
-            out = dropout_site(rng, out, keeps)
-            out, state = layer_fn(params, out, seq_lengths, state,
-                                  compute_dtype=compute_dtype)
-            new_states.append(state)
+        out, new_states = _lstm_stack_layered(layers, x, seq_lengths, states, rng,
+                                              remat, kw)
     out = dropout_site(rng, out, [output_keep_prob])
     return (head(out) if head is not None else out), new_states
+
+
+def _lstm_stack_layered(layers, x, seq_lengths, states, rng, remat, kw):
+    """The layered route up to the top dropout site: [output, input] sites
+    fused before each layer above the first, the input site before it."""
+    cd = kw["compute_dtype"]
+    if not kw["use_kernels"]:
+        layer_fn = lambda p, o, s: lstm_layer_scan(p, o, seq_lengths, s, compute_dtype=cd)
+    elif rng is None:
+        layer_fn = lambda p, o, s: lstm_layer(p, o, seq_lengths, s, compute_dtype=cd)
+    else:
+        from rnn_speech_tpu_torch.ops.lstm_layer_train import lstm_layer_train
+
+        layer_fn = lambda p, o, s: lstm_layer_train(
+            p, o, seq_lengths, s, compute_dtype=cd, residual_mode=kw["residual_mode"])
+    if remat and rng is not None:
+        inner = layer_fn
+        layer_fn = lambda p, o, s: checkpoint(inner, p, o, s, use_reentrant=False)
+    # Recompute residuals in a low-precision compute dtype keep the
+    # activations between layers in that dtype: the layer products round
+    # to it anyway and its saved inputs are low-precision by design.
+    low_precision_chain = (kw["use_kernels"] and kw["residual_mode"] == "recompute"
+                           and cd != torch.float32)
+    out = x.to(cd) if low_precision_chain else x
+    new_states: List[LayerState] = []
+    for idx, (params, state) in enumerate(zip(layers, states)):
+        # Layer idx-1's output site and layer idx's input site, fused.
+        keeps = ([kw["output_keep_prob"]] if idx > 0 else []) + [kw["input_keep_prob"]]
+        out = dropout_site(rng, out, keeps)
+        out, state = layer_fn(params, out, state)
+        if low_precision_chain:
+            out = out.to(cd)
+        new_states.append(state)
+    return out, new_states
+
+
+def _chunk_seed(rng: torch.Generator) -> int:
+    """A 64-bit seed for one chunk's own generator, drawn from ``rng``."""
+    w0, w1 = random_bits.seed_words(rng)
+    return (w0 << 32) | w1
+
+
+def _run_chunk(layers, x_c, lens_c, states, seed, kw):
+    """One chunk of the stack (no head).  Its dropout sites draw from a
+    generator made here from ``seed``, so the backward's recomputation of
+    a checkpointed chunk draws the forward's seed words again."""
+    rng = None if seed is None else torch.Generator().manual_seed(seed)
+    return lstm_stack(layers, x_c, lens_c, states, dropout_rng=rng, **kw)
+
+
+def _lstm_stack_chunked(layers, x, seq_lengths, states, rng, time_chunk, kw):
+    """The stack over chunks of ``time_chunk`` steps with carried states
+    (``_lstm_stack_chunked``): x padded to whole chunks, each row's length
+    clipped per chunk, each chunk checkpointed when training.  Returns
+    (out (T, B, H), states)."""
+    T = x.shape[0]
+    C = time_chunk
+    n_chunks = -(-T // C)
+    xc = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n_chunks * C - T))
+    lens = torch.as_tensor(seq_lengths, device=x.device)
+    states = list(states)
+    outs = []
+    for i in range(n_chunks):
+        # Rows ending before or inside this chunk freeze via clipped lengths.
+        lens_c = torch.clamp(lens - i * C, 0, C)
+        x_c = xc[i * C:(i + 1) * C]
+        if rng is None:
+            out, states = _run_chunk(layers, x_c, lens_c, states, None, kw)
+        else:
+            # The seed is drawn here, outside the checkpoint: the
+            # recomputation must not draw from ``rng`` again.
+            out, states = checkpoint(_run_chunk, layers, x_c, lens_c, states,
+                                     _chunk_seed(rng), kw, use_reentrant=False)
+        outs.append(out)
+    return torch.cat(outs)[:T], list(states)

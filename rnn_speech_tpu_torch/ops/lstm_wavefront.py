@@ -47,6 +47,7 @@ from rnn_speech_tpu_torch import stages
 from rnn_speech_tpu_torch.ops import _build, random_bits
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
+from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
 from rnn_speech_tpu_torch.ops.lstm_recurrence import check_kernel_inputs
 
 Tensor = torch.Tensor
@@ -184,36 +185,6 @@ def lstm_stack_wavefront_apply(
 # ------------------------------------------------------------------ training
 
 
-def _layer_train_plain(xp: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
-                       c0: Tensor, rd):
-    """One layer's training forward given its input pre-activations
-    ``xp`` (T, B, 4H) f32.  Returns (outs, gates, cseq) in ``rd`` and the
-    float32 carried-h sequence, hn, cn."""
-    T, B, four_h = xp.shape
-    H = four_h // 4
-    w = w_h.to(f32)
-    h, c = h0.to(f32), c0.to(f32)
-    outs = xp.new_empty((T, B, H), dtype=rd)
-    gates = xp.new_empty((T, B, four_h), dtype=rd)
-    cseq = xp.new_empty((T, B, H), dtype=rd)
-    hcar = xp.new_empty((T, B, H))
-    for t in range(T):
-        pre = xp[t] + torch.matmul(h.to(w_h.dtype).to(f32), w)
-        i, g, f, o = pre.split(H, dim=-1)
-        i_a, g_a = torch.sigmoid(i), torch.tanh(g)
-        f_a, o_a = torch.sigmoid(f + 1.0), torch.sigmoid(o)
-        c_new = f_a * c + i_a * g_a
-        h_new = o_a * torch.tanh(c_new)
-        m = mask[t, 0][:, None]
-        c = m * c_new + (1.0 - m) * c
-        h = m * h_new + (1.0 - m) * h
-        outs[t] = m * h_new
-        gates[t] = torch.cat([i_a, g_a, f_a, o_a], dim=-1)
-        cseq[t] = c
-        hcar[t] = h
-    return outs, gates, cseq, hcar, h, c
-
-
 def drop_keeps(drop_mode: int, drop_arr, keep_prob: float, shape, device):
     """The (L-1, T, B, H) float32 {0, 1} inter-layer keep bits of a drop
     mode: the explicit masks (mode 1), the generator's bits for the seed
@@ -250,9 +221,9 @@ def wavefront_train_plain(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor
     x_in, w_in = x, w_x0
     for l in range(L):
         xp = b_all[l].to(f32) + torch.matmul(x_in.to(cd).to(f32), w_in.to(f32))
-        outs, gates, cseq, hcar, h, c = _layer_train_plain(
-            xp, w_h[l], mask, h0[l], c0[l], res_dtype)
-        for acc, val in zip(res, (outs, gates, cseq)):
+        out, h, c, gates, cseq, hcar = forward_plain(
+            xp, w_h[l], mask, h0[l], c0[l], res_dtype, keep_gates=True, keep_h=True)
+        for acc, val in zip(res, (out.to(res_dtype), gates, cseq)):
             acc.append(val)
         hn.append(h)
         cn.append(c)

@@ -2,7 +2,9 @@
 the card, at small ragged shapes the checks in ``chip_smoke.py`` do not
 reach: batch sizes that fill a 64-row tile partly or spill into a third
 one, T shorter than the stack depth, zero-length rows, T = 0, and
-weight-gradient shapes with ragged D, G and N edges.
+weight-gradient shapes with ragged D, G and N edges; the layered training
+route's four kernels and its stack options (wavefront off, recompute,
+remat, time_chunk) on the card against their plain versions.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -31,6 +33,7 @@ from rnn_speech_tpu_torch.ops import ctc_kernel as tck
 from rnn_speech_tpu_torch.ops import dropout as tdrop
 from rnn_speech_tpu_torch.ops import grad_matmul as tgm
 from rnn_speech_tpu_torch.ops import lstm as tlstm
+from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
 from rnn_speech_tpu_torch.ops import lstm_recurrence as trec
 from rnn_speech_tpu_torch.ops import lstm_wavefront as twave
 
@@ -393,3 +396,139 @@ def test_new_launch_counters_count_kernel_calls(cuda):
     tdrop.dropout_plain(logits, (1, 2), [0.5])
     assert [fn.launches for fn in (tdrop.dropout_kernel, tck.ctc_alpha_ckpt,
                                    tck.ctc_alpha_lossonly, tck.ctc_beta_post)] == [2, 1, 1, 1]
+
+
+# ------------------------------------------------ the layered training route
+
+
+def _layer_inputs(T, B, H, D, seed, dev):
+    """One layer's kernel inputs: f32 x_proj, bf16 weights and layer input,
+    f32 bias, states and cotangents, the (T, 1, B) mask."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale: torch.randn(s, generator=g) * scale
+    lens = _lengths(T, B)
+    bf = torch.bfloat16
+    return dict(
+        x_proj=r(T, B, 4 * H, scale=1.0).to(dev), w_h=r(H, 4 * H, scale=0.1).to(dev, bf),
+        w_x=r(D, 4 * H, scale=0.1).to(dev, bf), b=r(4 * H, scale=0.1).to(dev),
+        x=r(T, B, D, scale=1.0).to(dev, bf),
+        mask=(torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(dev),
+        h0=r(B, H, scale=0.2).to(dev), c0=r(B, H, scale=0.2).to(dev),
+        dout=r(T, B, H, scale=1.0).to(dev), dhn=r(B, H, scale=0.5).to(dev),
+        dcn=r(B, H, scale=0.5).to(dev))
+
+
+LAYER_SHAPES = [(3, 64, 64, 7), (70, 128, 128, 10), (17, 64, 128, 3), (5, 64, 64, 1),
+                (130, 64, 192, 4)]
+
+
+@pytest.mark.parametrize("B,H,D,T", LAYER_SHAPES)
+def test_layer_train_kernels_match_plain(cuda, B, H, D, T):
+    """Both layer training forwards: gates mode (f32 x_proj) and the lean
+    recompute mode (bf16 x_proj)."""
+    x = _layer_inputs(T, B, H, D, seed=B + H + T, dev=cuda)
+    tail = (x["w_h"], x["mask"], x["h0"], x["c0"], torch.bfloat16)
+    got = tlt.recurrence_train(x["x_proj"], *tail)
+    ref = tlt.recurrence_train_plain(x["x_proj"], *tail)
+    xp_bf = x["x_proj"].to(torch.bfloat16)
+    got_l = tlt.recurrence_train_lean(xp_bf, *tail)
+    ref_l = tlt.recurrence_train_lean_plain(xp_bf, *tail)
+    torch.cuda.synchronize()
+    _close_to(got, ref, TRAIN_TOL)
+    _close_to(got_l, ref_l, TRAIN_TOL)
+
+
+@pytest.mark.parametrize("B,H,D,T", LAYER_SHAPES)
+def test_layer_bwd_kernels_match_plain(cuda, B, H, D, T):
+    """Both layer backwards on the plain forward's residuals: gates mode
+    (dgates in place of the gates) and recompute mode (gates rebuilt from
+    x and h_prev, B not a multiple of 16 included)."""
+    x = _layer_inputs(T, B, H, D, seed=B + H + T + 1, dev=cuda)
+    bf = torch.bfloat16
+    out, _, _, gates, cseq = tlt.recurrence_train_plain(
+        x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"], bf)
+    c0 = x["c0"].to(bf).float()
+    tail = (x["mask"], x["w_h"], x["dhn"], x["dcn"])
+    ref = tlt.recurrence_bwd_plain(x["dout"], gates.clone(), cseq, c0, *tail)
+    res = gates.clone()
+    got = tlt.recurrence_bwd(x["dout"], res, cseq, c0, *tail)
+    h_prev = torch.cat([x["h0"].to(bf)[None], out.to(bf)[:-1]])
+    rargs = (x["dout"], x["x"], h_prev, cseq, c0, x["mask"], x["w_x"], x["b"], x["w_h"],
+             x["dhn"], x["dcn"])
+    ref_r = tlt.recurrence_bwd_recompute_plain(*rargs)
+    got_r = tlt.recurrence_bwd_recompute(*rargs)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == res.data_ptr()           # dgates in place
+    _close_to(got, ref, TRAIN_TOL)
+    _close_to(got_r, ref_r, TRAIN_TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(wavefront=False), dict(residual_mode="recompute"),
+                                dict(remat=True), dict(time_chunk=4)],
+                         ids=["layered", "recompute", "remat", "time_chunk"])
+def test_layered_stack_through_kernels_matches_plain_versions_on_card(cuda, kw):
+    """The layered training route on the card (both kernels of its residual
+    mode, the weight-gradient kernel) against the same route's plain
+    versions on the CPU: outputs, final states and every gradient."""
+    L, T, B, D, H = 2, 9, 5, 64, 64
+    g = torch.Generator().manual_seed(7)
+    layers = tlstm.init_lstm_stack(g, L, D, H)
+    x = torch.randn((T, B, D), generator=g)
+    lens = _lengths(T, B)
+    states = [(torch.randn((B, H), generator=g) * 0.2,
+               torch.randn((B, H), generator=g) * 0.2) for _ in range(L)]
+    cot = torch.randn((T, B, H), generator=g)
+    results = []
+    for dev in ("cpu", cuda):
+        tl = [{k: v.detach().to(dev).requires_grad_(True) for k, v in p.items()}
+              for p in layers]
+        tx = x.detach().to(dev).requires_grad_(True)
+        out, ns = tlstm.lstm_stack(
+            tl, tx, lens.to(dev), [(c.to(dev), h.to(dev)) for c, h in states],
+            compute_dtype=torch.bfloat16, use_kernels=True,
+            dropout_rng=torch.Generator().manual_seed(1),
+            **{"wavefront": True, **kw})
+        loss = (out.float() * cot.to(dev)).sum() + sum(c.sum() + h.sum() for c, h in ns)
+        loss.backward()
+        results.append([out.float(), *[t for pair in ns for t in pair]]
+                       + [p[k].grad for p in tl for k in sorted(p)] + [tx.grad])
+    torch.cuda.synchronize()
+    for a, b in zip(*results):
+        a, b = a.detach(), b.detach().cpu()
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= TRAIN_TOL * scale
+
+
+def test_layer_launch_counters_count_kernel_calls(cuda):
+    x = _layer_inputs(4, 3, 64, 64, seed=8, dev=cuda)
+    kernels = (tlt.recurrence_train, tlt.recurrence_bwd, tlt.recurrence_train_lean,
+               tlt.recurrence_bwd_recompute)
+    for fn in kernels:
+        fn.launches = 0
+    bf = torch.bfloat16
+    tail = (x["w_h"], x["mask"], x["h0"], x["c0"], bf)
+    out, _, _, gates, cseq = tlt.recurrence_train(x["x_proj"], *tail)
+    tlt.recurrence_train_lean(x["x_proj"].to(bf), *tail)
+    tlt.recurrence_train_plain(x["x_proj"], *tail)
+    tlt.recurrence_bwd(x["dout"], gates, cseq, x["c0"], x["mask"], x["w_h"], x["dhn"],
+                       x["dcn"])
+    tlt.recurrence_bwd_recompute(x["dout"], x["x"], out.to(bf), cseq, x["c0"], x["mask"],
+                                 x["w_x"], x["b"], x["w_h"], x["dhn"], x["dcn"])
+    assert [fn.launches for fn in kernels] == [1] * 4
+
+
+def test_layer_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """A CUDA tensor the layer kernels cannot take raises; they never fall
+    back to the plain version."""
+    x = _layer_inputs(4, 3, 64, 64, seed=9, dev=cuda)
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):          # the lean forward takes bf16 x_proj
+        tlt.recurrence_train_lean(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"], bf)
+    with pytest.raises(TypeError):          # bf16 residuals only
+        tlt.recurrence_train(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"],
+                             torch.float32)
+    y = _layer_inputs(4, 3, 64, 40, seed=10, dev=cuda)
+    hc = torch.zeros((4, 3, 64), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="D % 64"):
+        tlt.recurrence_bwd_recompute(y["dout"], y["x"], hc, hc, y["c0"], y["mask"],
+                                     y["w_x"], y["b"], y["w_h"], y["dhn"], y["dcn"])

@@ -125,6 +125,8 @@ PORT_MODULES = [
     # slice 3: the default train step
     "rnn_speech_tpu_torch.ops.random_bits", "rnn_speech_tpu_torch.ops.dropout",
     "rnn_speech_tpu_torch.ops.ctc_kernel",
+    # slice 4: the layered training route
+    "rnn_speech_tpu_torch.ops.lstm_layer_train",
 ]
 
 

@@ -284,7 +284,9 @@ def test_default_budget_comes_from_the_card(monkeypatch):
     """On an 80 GB card the flagship train shape (B=64, T=3510) trains
     whole-sequence with gates residuals (8.3 GB), where the JAX package's
     16 GiB-chip budget would not matter; the budget is a fixed share of
-    the card's memory."""
+    the card's memory.  Wider batches go to whole-sequence recompute
+    residuals (B=400: 51.8 GB of gates residuals exceed the 48 GB budget)
+    and then to chunked remat (B=512)."""
     class Props:
         total_memory = 80 * 10**9
 
@@ -296,6 +298,9 @@ def test_default_budget_comes_from_the_card(monkeypatch):
     assert tac.default_residual_budget() == int(tac.RESIDUAL_SHARE * 80 * 10**9)
     assert tac.training_memory_plan(cfg, 3510, 64) == (0, "gates")
     assert tac.training_residual_bytes(cfg, 3510, 64) < tac.default_residual_budget()
+    assert tac.training_memory_plan(cfg, 3510, 400) == (0, "recompute")
+    chunk, mode = tac.training_memory_plan(cfg, 3510, 512)
+    assert chunk > 0 and mode == "gates"
     with pytest.raises(ValueError):
         tac.default_residual_budget("cpu")
 
@@ -320,20 +325,23 @@ def _tiny_step(L=2, **model_kw):
 @pytest.mark.parametrize("change,slice_words", [
     (dict(step=dict(input_keep_prob=0.8)), None),
     (dict(step=dict(output_keep_prob=0.5)), None),
-    (dict(model=dict(time_chunk=4)), "off-path training"),
-    (dict(model=dict(remat=True)), "off-path training"),
-    (dict(model=dict(residual_mode="recompute")), "off-path training"),
-    (dict(model=dict(wavefront=False)), "off-path training"),
-    (dict(L=1), "off-path training"),
+    (dict(model=dict(time_chunk=4)), None),
+    (dict(model=dict(remat=True)), None),
+    (dict(model=dict(residual_mode="recompute")), None),
+    (dict(model=dict(wavefront=False)), None),
+    (dict(L=1), None),
     (dict(step=dict(use_pallas_ctc=True)), None),
     (dict(step=dict(spec_augment=True)), "ROADMAP Queue A 7"),
 ], ids=["input_keep", "output_keep", "time_chunk", "remat", "recompute",
         "layered_kernels", "one_layer_kernels", "pallas_ctc_on_cuda", "spec_augment"])
 def test_unported_configurations_raise_naming_their_slice(change, slice_words):
-    """Each configuration a later slice brings raises naming that slice;
-    those the dropout slice brought (keeps below 1, the CTC kernels, which
-    take their plain versions here as on any CPU tensor) now take a step
-    with finite metrics (``slice_words`` None)."""
+    """Each configuration a later slice brings raises naming that slice
+    (``spec_augment``); those that earlier slices brought take a step with
+    finite metrics (``slice_words`` None): keeps below 1 and the CTC
+    kernels (the dropout slice; their plain versions here, as on any CPU
+    tensor), and ``time_chunk``, ``remat``, recompute residuals and the
+    layered kernel route with the wavefront off or one layer (the layered
+    training slice)."""
     scfg, state, batch = _tiny_step(change.get("L", 2), **change.get("model", {}))
     scfg = dataclasses.replace(scfg, **change.get("step", {}))
     if slice_words is None:

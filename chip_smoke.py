@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,grad_study,bundle,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,grad_study,bundle,cli]
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -15,7 +15,10 @@ printing one JSON line:
   kernels  holds each kernel against its plain PyTorch version on the card
            at the serving shape (L=3, H=1024, B=128, T=1024: 10.24 s clips),
            with ragged lengths and non-zero initial state, strictly at small
-           T, by logit argmax at T=1024, and at B=1.
+           T, by logit argmax at T=1024, and at B=1; the fbank kernel against
+           its plain version at B=128 on 10.24 s clips (22050 Hz) and at 16
+           kHz with a short ragged row and an empty one, each beside a
+           planted fault that must fail its check.
   eval     random weights from a fixed torch.Generator, then fbank frontend
            -> 3x1024 bf16 forward -> greedy decode at B=128 on 10.24 s
            clips, through the wavefront kernel and through the layered
@@ -36,8 +39,13 @@ printing one JSON line:
            a zero-length input and a label longer than its input (loss,
            checkpoints, last row, gradient); the dropout kernel at
            (3510, 64, 1024) in float32 and bf16 (bit for bit, and the kept
-           fraction within 4 sigma of the keep).  Planted faults stand
-           beside the checks and must fail them.
+           fraction within 4 sigma of the keep); the Bernoulli mask kernel
+           at (2, 3510, 64, 1024) bf16 (bit for bit, the kept fraction
+           within 4 sigma); the alpha-stream pair at the CTC shape (the
+           stream's rows at every block end equal to the checkpoint
+           kernel's, bit for bit, and its last row; the stream backward's
+           gradient within the CTC tolerance of the checkpoint backward's).
+           Planted faults stand beside the checks and must fail them.
   train    ``train_step`` with the default StepConfig (keep probabilities
            0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
            clips of 35.1 s, T=3510 frames, labels of length 250, one
@@ -78,15 +86,33 @@ printing one JSON line:
            at T=256 through the kernels against the same route on the
            plain versions for the layered gates route, recompute, remat
            and time_chunk=64, each beside a planted fault.
+  alt_routes
+           the switches of the JAX package's other training routes, one
+           train step each at B=64, T=3510 (the default StepConfig, 1
+           warm-up and 3 timed steps, one split by its marks, peak memory,
+           a finite loss; counters zeroed before and read after):
+           RST_WAVEFRONT_BWD=0 (the mask, wavefront-train and layered
+           backward kernels launch, the reverse diagonal does not),
+           RST_WAVEFRONT_SEED_DROP=0 (the mask kernel launches, both
+           wavefront kernels run drop mode 1) and RST_CTC_ALPHA_STREAM=1
+           (both stream kernels launch, the checkpoint backward does not);
+           each route's gradients at T=256 through the kernels against the
+           same route on the plain versions at 1e-3, beside a planted
+           fault.  Then the eval path at B=128 with DeviceFrontend(
+           use_kernel=True): throughput and the frontend stage against the
+           matmul frontend's; and the four kernels' times beside their
+           bounds, plain versions and one PyTorch call each.
   grad_study
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
            per parameter tensor and for the cotangent that reaches the
            input projection: the readings that set its limit; and the
-           recompute route's check at the same three seeds.
+           recompute route's check and each alt route's (its switch set
+           around it) at the same three seeds.
   bundle   the committed trained bundle transcribes 32 rendered held-out
            sentences (sigma=900 noise) on the wavefront and layered kernel
-           paths at CER <= 2%, and both equal the plain path's transcripts.
+           paths and through the fbank kernel at CER <= 2%, and all equal
+           the plain path's transcripts.
   cli      ``python -m rnn_speech_tpu_torch.cli --file`` on one rendered
            clip prints its text.
 
@@ -101,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -184,6 +211,10 @@ PEAK_F32_FLOPS = 67e12
 # recursion; the backward rebuilds alpha, runs beta, forms the posterior
 # (add, subtract, min, exp) and adds it to its label's sum.
 CTC_ALPHA_OPS, CTC_BETA_POST_OPS = 13, 31
+# The fbank kernel against its plain version: max abs error of the log-mel
+# banks over their largest magnitude, the JAX package's own limit for its
+# kernel (both sum the float32 DFT and mel products in another order).
+FBANK_TOL = 2e-3
 
 RECORD = {}
 
@@ -344,7 +375,73 @@ def phase_kernels():
         if T == 1024 and Bn == B:
             worst[kind] = max(entry["err_out"], entry["err_hn"], entry["err_cn"])
         checks.append(entry)
+    worst["fbank"] = _fbank_checks(checks)
     emit("kernels", checks=checks, max_abs_err=worst)
+
+
+def _fbank_case(sr, lengths, seconds, seed):
+    """(frontend, pre-emphasised padding-zeroed signals, frame count) of a
+    batch of noisy tones at ``sr``: rows of ``lengths`` samples in a
+    buffer of ``seconds``."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    n = int(sr * seconds)
+    g = torch.Generator().manual_seed(seed)
+    audio = torch.randn((len(lengths), n), generator=g) * 0.1
+    audio += 0.3 * torch.sin(2 * torch.pi * 300.0 * torch.arange(n) / sr)[None]
+    for i, m in enumerate(lengths):
+        audio[i, m:] = 0.0
+    fe = DeviceFrontend("fbank", sr=sr, max_samples=n, device=DEVICE)
+    audio = audio.to(DEVICE)
+    pre = torch.cat([audio[:, :1], audio[:, 1:] - 0.97 * audio[:, :-1]], dim=1)
+    return fe, pre, fe._frames_for_width(n)
+
+
+def _fbank_checks(checks):
+    """The fbank kernel against its plain version at the eval shape (B=128,
+    10.24 s at 22050 Hz) and at 16 kHz with a short ragged row and an empty
+    one; beside them the plain version with the 1/n_fft left out (22050 Hz)
+    and with frames 4 samples further apart (16 kHz) must fail."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+
+    worst = 0.0
+    n16 = int(16000 * SECONDS)
+    for tag, sr, lengths, fault in (
+            (f"B={B} 10.24 s at {SR} Hz", SR, [int(SR * SECONDS)] * B, "n_fft"),
+            ("B=16 10.24 s at 16000 Hz, a 2000-sample row and an empty one", 16000,
+             [n16] * 3 + [2000, 0] + [n16 - 997 * i for i in range(11)], "step")):
+        fe, pre, n_frames = _fbank_case(sr, lengths, SECONDS, seed=sr)
+        args = (fe._basis, fe._mel, fe.frame_step, n_frames, fe.n_fft)
+        got = tfk.fbank_banks(pre, *args)
+        ref = tfk.fbank_banks_plain(pre, *args)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        entry = {"check": f"fbank {tag}", "max_abs_err": err, "rel_err": err / scale,
+                 "tol": FBANK_TOL, "frames": n_frames,
+                 "finite": bool(torch.isfinite(got).all())}
+        checks.append(entry)
+        if not entry["finite"] or err / scale > FBANK_TOL or got.shape != ref.shape:
+            fail(f"fbank: kernel disagrees with its plain version: {entry}")
+        worst = max(worst, err)
+        if fault == "n_fft":
+            faulty = tfk.fbank_banks_plain(pre, fe._basis, fe._mel * fe.n_fft, fe.frame_step,
+                                           n_frames, fe.n_fft)
+        else:
+            faulty = tfk.fbank_banks_plain(pre, fe._basis, fe._mel, fe.frame_step + 4,
+                                           n_frames, fe.n_fft)
+        rel = float((faulty - ref).abs().max()) / scale
+        checks.append({"planted_fault": f"fbank {tag}: " + (
+            "1/n_fft left out" if fault == "n_fft" else "frames 4 samples further apart"),
+            "rel_err": rel, "tol": FBANK_TOL})
+        if rel <= FBANK_TOL:
+            fail(f"fbank: the check does not see the planted fault ({rel})")
+        del fe, pre, got, ref, faulty
+    return worst
 
 
 def _eval_setup(wavefront: bool):
@@ -544,6 +641,8 @@ def phase_bundle():
 
     from rnn_speech_tpu_torch import cli, params as params_mod
     from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
 
     params = params_mod.load_bundle(BUNDLE, device="cuda")
     texts, sigs = _held_out()
@@ -554,16 +653,24 @@ def phase_bundle():
     lengths = np.asarray([len(s) for s in sigs], np.int32)
     truth = [t.lower() for t in texts]
     out = {}
-    for name, kw in (("wavefront", dict(use_kernels=True, wavefront=True)),
-                     ("layered", dict(use_kernels=True, wavefront=False)),
-                     ("plain", dict(use_kernels=False))):
+    tfk.fbank_banks.launches = 0
+    for name, kw, fbank_kernel in (
+            ("wavefront", dict(use_kernels=True, wavefront=True), False),
+            ("layered", dict(use_kernels=True, wavefront=False), False),
+            ("fbank_kernel", dict(use_kernels=True, wavefront=True), True),
+            ("plain", dict(use_kernels=False), False)):
         cfg = acoustic.config_for_params(params, compute_dtype=torch.bfloat16, **kw)
+        frontend = (DeviceFrontend("fbank", sr=SR, max_samples=width, device="cuda",
+                                   use_kernel=True) if fbank_kernel else None)
         with torch.no_grad():
-            hyps = cli.transcribe(params, cfg, audio, lengths, device="cuda")
+            hyps = cli.transcribe(params, cfg, audio, lengths, frontend=frontend,
+                                  device="cuda")
         cers = [_edit_distance(t, h.strip()) / max(len(t), 1)
                 for t, h in zip(truth, hyps)]
         out[name] = {"hyps": hyps, "cer_pct": 100.0 * float(np.mean(cers))}
-    for name in ("wavefront", "layered"):
+    if not tfk.fbank_banks.launches:
+        fail("bundle: the fbank kernel did not launch")
+    for name in ("wavefront", "layered", "fbank_kernel"):
         if out[name]["cer_pct"] > CER_LIMIT:
             fail(f"bundle: {name} CER {out[name]['cer_pct']:.3f}% > {CER_LIMIT}%")
         if out[name]["hyps"] != out["plain"]["hyps"]:
@@ -572,7 +679,8 @@ def phase_bundle():
              if t == h]
     emit("bundle", clips=len(texts), truth=truth,
          cer_pct={k: v["cer_pct"] for k, v in out.items()},
-         exact_clips=len(exact), hyps=out["wavefront"]["hyps"])
+         exact_clips=len(exact), hyps=out["wavefront"]["hyps"],
+         fbank_kernel_launches=tfk.fbank_banks.launches)
     return texts, sigs, exact
 
 
@@ -961,7 +1069,107 @@ def phase_train_kernels():
     del xx, dg, got, ref
     worst.update(_ctc_checks(checks))
     worst["dropout"] = _dropout_checks(checks)
+    worst["bernoulli_mask"] = _mask_checks(checks)
+    worst.update(_ctc_stream_checks(checks))
     emit("train_kernels", checks=checks, max_abs_err=worst)
+
+
+MASK_SHAPE = (L - 1, TRAIN_T, TRAIN_B, H)     # the inter-layer masks of a train step
+
+
+def _mask_checks(checks):
+    """The Bernoulli mask kernel at the train step's (L-1, T, B, H) bf16
+    with the boundary keep ko·ki: bit for bit against its plain version,
+    the kept fraction within 4 sigma; the plain version with the seed
+    words swapped must differ."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+
+    seed = (2718, 2818)
+    got = tdrop.bernoulli_mask(seed, MASK_SHAPE, KEEP_PROB, torch.bfloat16, DEVICE)
+    ref = tdrop.bernoulli_mask_plain(seed, MASK_SHAPE, KEEP_PROB, torch.bfloat16, DEVICE)
+    torch.cuda.synchronize()
+    n = ref.numel()
+    frac = float(ref.float().mean())
+    sigma = (KEEP_PROB * (1 - KEEP_PROB) / n) ** 0.5
+    entry = {"check": f"bernoulli_mask {MASK_SHAPE} bf16 keep {KEEP_PROB}",
+             "bit_equal": torch.equal(got, ref), "kept_fraction": frac,
+             "sigmas": (frac - KEEP_PROB) / sigma,
+             "max_abs_err": float((got.float() - ref.float()).abs().max())}
+    checks.append(entry)
+    if not entry["bit_equal"] or abs(frac - KEEP_PROB) > 4 * sigma:
+        fail(f"bernoulli_mask: kernel disagrees with its plain version: {entry}")
+    del ref
+    faulty = tdrop.bernoulli_mask_plain(seed[::-1], MASK_SHAPE, KEEP_PROB, torch.bfloat16,
+                                        DEVICE)
+    seen = not torch.equal(faulty, got)
+    checks.append({"planted_fault": "bernoulli_mask: seed words swapped", "bit_equal": not seen})
+    if not seen:
+        fail("bernoulli_mask: the check does not see swapped seed words")
+    return entry["max_abs_err"]
+
+
+def _ctc_stream_checks(checks):
+    """The alpha-stream pair at the CTC kernels' train shape (``_ctc_batch``):
+    the stream kernel's rows at every block end and its last row equal the
+    checkpoint kernel's bit for bit and its rows are within the CTC
+    tolerance of the plain stream; the stream backward's gradient is
+    within it of the checkpoint backward's and of its plain version's.
+    Beside them the plain stream without the skip transition and the
+    stream backward fed the stream one step late must fail."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    logits, ll, labels, ul = _ctc_batch(81)
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    T = log_probs.shape[0]
+    K = tck.ctc_block(ext.shape[1], V)
+    ck, last_ck = tck.ctc_alpha_ckpt(*args, K)
+    alphas, last = tck.ctc_alpha_stream(*args)
+    ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
+    ones = torch.ones((TRAIN_B,), device=DEVICE)
+    logp = tck._loss(last_ck, ul, valid)[1]
+    grad_ck = tck.ctc_grad(log_probs, tck.ctc_beta_post(*args, logp, ck, K), ll, valid, ones)
+    grad = tck.ctc_grad(log_probs, tck.ctc_beta_post_stream(*args, logp, alphas), ll, valid,
+                        ones)
+    alphas_p, _ = tck.alpha_stream_plain(*args)
+    grad_p = tck.ctc_grad(log_probs, tck.beta_post_stream_plain(*args, logp, alphas), ll,
+                          valid, ones)
+    torch.cuda.synchronize()
+    live = alphas_p > -1e29
+    rels = {"alphas": _ctc_rel(alphas, alphas_p), "grad_vs_plain": _ctc_rel(grad, grad_p),
+            "grad_vs_ckpt": _ctc_rel(grad, grad_ck)}
+    tols = {"alphas": CTC_LOSS_TOL, "grad_vs_plain": CTC_GRAD_TOL,
+            "grad_vs_ckpt": CTC_GRAD_TOL}
+    entry = {"check": f"ctc alpha stream B={TRAIN_B} T={TRAIN_T} U={MAX_LABEL} K={K}",
+             "block_ends_equal_ckpts": torch.equal(alphas[ends], ck),
+             "last_equal": torch.equal(last, last_ck),
+             "grad_equal_ckpt_route": torch.equal(grad, grad_ck),
+             "rel_err": rels, "tol": tols,
+             "max_abs_err": {"alphas": float((alphas - alphas_p)[live].abs().max()),
+                             "grad_vs_plain": float((grad - grad_p).abs().max()),
+                             "grad_vs_ckpt": float((grad - grad_ck).abs().max())}}
+    checks.append(entry)
+    del alphas_p, live, grad_p, ck
+    if (not entry["block_ends_equal_ckpts"] or not entry["last_equal"]
+            or any(rels[k] > tols[k] for k in rels)):
+        fail(f"ctc alpha stream: kernels disagree: {entry}")
+    _, last_f = tck.alpha_plain(log_probs, ext, torch.zeros_like(skip_ok), ll, ul, 1, False)
+    rel = _ctc_rel(last_f, last)
+    late = tck.ctc_grad(log_probs, tck.beta_post_stream_plain(*args, logp, alphas.roll(1, 0)),
+                        ll, valid, ones)
+    rel_late = _ctc_rel(late, grad)
+    checks.append({"planted_fault": "ctc alpha stream: skip transition dropped",
+                   "rel_err": rel, "tol": CTC_LOSS_TOL})
+    checks.append({"planted_fault": "ctc beta stream: the stream one step late",
+                   "rel_err": rel_late, "tol": CTC_GRAD_TOL})
+    if rel <= CTC_LOSS_TOL or rel_late <= CTC_GRAD_TOL:
+        fail(f"ctc alpha stream: a planted fault passes ({rel}, {rel_late})")
+    return {"ctc_alpha_stream": entry["max_abs_err"]["alphas"],
+            "ctc_beta_post_stream": entry["max_abs_err"]["grad_vs_plain"]}
 
 
 def _train_setup(T_frames, label_width, label_len, seed,
@@ -1036,9 +1244,14 @@ def _train_counters(default=True, route="wavefront"):
 
 def _all_counters():
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
 
     return {**_train_counters(), **_stack_counters("gates"),
-            **_stack_counters("recompute"), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly}
+            **_stack_counters("recompute"), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly,
+            "bernoulli_mask": tdrop.bernoulli_mask, "ctc_alpha_stream": tck.ctc_alpha_stream,
+            "ctc_beta_post_stream": tck.ctc_beta_post_stream,
+            "fbank_banks": tfk.fbank_banks}
 
 
 @contextlib.contextmanager
@@ -1050,6 +1263,7 @@ def _plain_versions():
     from rnn_speech_tpu_torch.models import acoustic
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
     from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1070,7 +1284,11 @@ def _plain_versions():
             mock.patch.object(tdrop, "dropout_kernel", tdrop.dropout_plain), \
             mock.patch.object(tck, "ctc_alpha_ckpt", alpha), \
             mock.patch.object(tck, "ctc_alpha_lossonly", lossonly), \
-            mock.patch.object(tck, "ctc_beta_post", tck.beta_post_plain):
+            mock.patch.object(tck, "ctc_beta_post", tck.beta_post_plain), \
+            mock.patch.object(tdrop, "bernoulli_mask", tdrop.bernoulli_mask_plain), \
+            mock.patch.object(tck, "ctc_alpha_stream", tck.alpha_stream_plain), \
+            mock.patch.object(tck, "ctc_beta_post_stream", tck.beta_post_stream_plain), \
+            mock.patch.object(tfk, "fbank_banks", tfk.fbank_banks_plain):
         yield
 
 
@@ -1206,15 +1424,20 @@ def phase_grad_study():
     """The gradient gate's readings over seeds and keep probabilities
     (input, output) of 1 and the defaults, each site alone and both, on
     the CTC kernels, with the planted fault wherever the inter-layer
-    boundary drops: the readings behind GRAD_REL_TOL; and the recompute
-    route's at the default keeps, the readings behind RECOMPUTE_GRAD_TOL."""
-    readings, recompute = [], []
+    boundary drops: the readings behind GRAD_REL_TOL; the recompute
+    route's at the default keeps, the readings behind RECOMPUTE_GRAD_TOL;
+    and each alt route's (``_alt_route_specs``, its switch set around it)
+    at the default keeps under GRAD_REL_TOL."""
+    readings, recompute, alt = [], [], {}
     for seed in (2, 5, 8):
         for keeps in ((1.0, 1.0), (INPUT_KEEP, 1.0), (1.0, OUTPUT_KEEP),
                       (INPUT_KEEP, OUTPUT_KEEP)):
             readings.append(_grad_check(keeps, True, seed))
         recompute.append(_grad_check(seed=seed, **RECOMPUTE_GATE))
-    emit("grad_study", readings=readings, recompute=recompute)
+        for name, env, _, _, fault, _ in _alt_route_specs():
+            with _environ(**env):
+                alt.setdefault(name, []).append(_grad_check(seed=seed, fault=fault))
+    emit("grad_study", readings=readings, recompute=recompute, alt_routes=alt)
 
 
 def _nn_lstm_train_ms(T, n_layers=L, Bn=TRAIN_B):
@@ -1404,12 +1627,14 @@ def _ctc_dropout_timing():
     return out
 
 
-def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmup=2):
+def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmup=2,
+               counters=None, idle=None):
     """``warmup`` steps (the first timed alone), ``reps`` reps of 3 timed
     steps on the repeated batch, and with ``record_stages`` one more step
     split by its marks.  Counters are zeroed before and read after: the
-    kernels of the stack's ``route`` must launch, and off the wavefront
-    the wavefront kernels must not.  Returns (record, state)."""
+    kernels of the stack's ``route`` (or ``counters``, {name: wrapper})
+    must launch, and off the wavefront the wavefront kernels (or ``idle``)
+    must not.  Returns (record, state)."""
     import statistics
 
     import torch
@@ -1418,7 +1643,9 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
     from rnn_speech_tpu_torch.train import step
 
     Bn = batch["labels"].shape[1]
-    counters = _train_counters(scfg.use_pallas_ctc, route)
+    counters = counters or _train_counters(scfg.use_pallas_ctc, route)
+    if idle is None:
+        idle = {} if route == "wavefront" else _stack_counters("wavefront")
     for fn in _all_counters().values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1450,8 +1677,7 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
             run()
         stage_ms = stages.stage_ms(marks)
     launches = {name: fn.launches for name, fn in counters.items()}
-    idle = ({} if route == "wavefront" else
-            {name: fn.launches for name, fn in _stack_counters("wavefront").items()})
+    idle = {name: fn.launches for name, fn in idle.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
     ms = statistics.median(vals)
@@ -1460,7 +1686,7 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
     if not all(launches.values()):
         fail(f"train: the step did not go through every training kernel: {launches}")
     if any(idle.values()):
-        fail(f"train: the {route} route launched the wavefront kernels: {idle}")
+        fail(f"train: the {route} route launched kernels it must not: {idle}")
     return dict(steps=len(losses), batch=Bn, train_ms_per_step=ms,
                 train_utt_per_sec=Bn / (ms / 1e3),
                 train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
@@ -1756,6 +1982,246 @@ def phase_train_layered():
          recompute=recompute, timing=timing, grad_check=grads)
 
 
+@contextlib.contextmanager
+def _environ(**env):
+    """The environment variables ``env`` set inside the block, restored
+    after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _drop_modes(seen):
+    """Adds to ``seen`` the drop mode of every wavefront kernel launch."""
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    launch_args = wf._drop_launch_args
+
+    def recording(drop_mode, *args):
+        seen.add(drop_mode)
+        return launch_args(drop_mode, *args)
+
+    with mock.patch.object(wf, "_drop_launch_args", recording):
+        yield
+
+
+def _beta_stream_fault():
+    """The plain stream backward with label_post 1% too large: a planted
+    fault."""
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    plain = tck.beta_post_stream_plain
+    return mock.patch.object(tck, "ctc_beta_post_stream", lambda *a: plain(*a) * 1.01)
+
+
+def _alt_route_specs():
+    """(name, environment, kernels that must launch, kernels that must not,
+    planted fault of the gradient gate, drop modes of the wavefront
+    kernels) of each route the switches select."""
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    base = _train_counters()
+    without = lambda *names: {k: v for k, v in base.items() if k not in names}
+    mask = {"bernoulli_mask": tdrop.bernoulli_mask}
+    return (
+        ("wavefront_bwd_off", {"RST_WAVEFRONT_BWD": "0"},
+         {**without("wavefront_bwd"), **mask, "recurrence_bwd": tlt.recurrence_bwd},
+         {"wavefront_bwd": wf.wavefront_bwd, "recurrence_train": tlt.recurrence_train},
+         _layer_fault("recurrence_bwd"), {1}),
+        ("seed_drop_off", {"RST_WAVEFRONT_SEED_DROP": "0"}, {**base, **mask},
+         {"recurrence_bwd": tlt.recurrence_bwd}, _wavefront_fault, {1}),
+        ("ctc_alpha_stream", {"RST_CTC_ALPHA_STREAM": "1"},
+         {**without("ctc_beta_post"), "ctc_alpha_stream": tck.ctc_alpha_stream,
+          "ctc_beta_post_stream": tck.ctc_beta_post_stream},
+         {"ctc_beta_post": tck.ctc_beta_post, **mask}, _beta_stream_fault, {2}),
+    )
+
+
+def _kernel_frontend_eval():
+    """The eval path at B=128 on 10.24 s clips with the fbank kernel: the
+    kernel must launch and its features agree with the matmul frontend's
+    (FBANK_TOL of their largest magnitude); throughput, and the stage split
+    against the matmul frontend's, in turns (matmul, kernel, kernel,
+    matmul)."""
+    import torch
+
+    from rnn_speech_tpu_torch import cli
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    fe, cfg, params, audio, lengths = _eval_setup(True)
+    fe_k = DeviceFrontend("fbank", sr=SR, max_samples=fe.max_samples, device="cuda",
+                          use_kernel=True)
+    with torch.no_grad():
+        feats, _ = fe_k(audio, lengths)
+        feats_p, _ = fe(audio, lengths)
+        torch.cuda.synchronize()
+        rel = float((feats - feats_p).abs().max() / feats_p.abs().max())
+        del feats, feats_p
+        # Only the eval path's own launches count from here.
+        tfk.fbank_banks.launches = 0
+        run = lambda: cli.infer(params, cfg, fe_k, audio, lengths)
+        labels, lab_len = run()
+        ref_labels, ref_len = cli.infer(params, cfg, fe, audio, lengths)
+        med, spread, vals = _throughput(run)
+        split = [_stage_ms(params, cfg, f, audio, lengths) for f in (fe, fe_k, fe_k, fe)]
+    launches = tfk.fbank_banks.launches
+    same_rows = sum(int(a == b) and bool(torch.equal(x[:a], y[:b]))
+                    for x, y, a, b in zip(labels, ref_labels, lab_len.tolist(),
+                                          ref_len.tolist()))
+    entry = {"utt_per_s": med, "spread_pct": spread, "values": vals,
+             "stage_ms_kernel": [split[1], split[2]], "stage_ms_matmul": [split[0], split[3]],
+             "features_rel_err": rel, "tol": FBANK_TOL,
+             "launches": {"fbank_banks": launches},
+             "rows_decoded_as_with_the_matmul_frontend": same_rows}
+    if not launches or rel > FBANK_TOL:
+        fail(f"alt_routes: the eval path with the fbank kernel: {entry}")
+    return entry
+
+
+def _alt_kernel_timing():
+    """The four kernels of these routes alone at their paths' shapes: the
+    mask at the train step's (L-1, T, B, H) bf16 (one call a step), the
+    alpha-stream pair at the CTC shape with full-length rows (one call
+    each a step), the fbank kernel at the eval batch (B=128, 10.24 s):
+    ms, the plain version's ms, one PyTorch call's ms and the bound.  The
+    stream pair's bounds are bytes: the (T, B, S) float32 stream written
+    once and read once, beside the log-probs and label_post; their
+    operations are counted over the live lattice entries (the beta pass
+    without the rebuild's CTC_ALPHA_OPS).  The fbank bound counts what the
+    function needs, not the kernel's DFT product: per frame a real FFT of
+    n_fft points, 5·(n_fft/2)·log2(n_fft) operations, the window's L_eff
+    multiplies, 4 per bin for the scaled power and 2·bins·n_mels for the
+    mel product, in float32; its bytes are the signal, the basis and the
+    mel matrix read once and the banks written once."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+
+    bf, out = torch.bfloat16, {}
+    seed = (31, 41)
+    n = 1
+    for d in MASK_SHAPE:
+        n *= d
+    out["bernoulli_mask"] = dict(
+        ms=cuda_ms(lambda: tdrop.bernoulli_mask(seed, MASK_SHAPE, KEEP_PROB, bf, DEVICE)),
+        plain_ms=cuda_ms(lambda: tdrop.bernoulli_mask_plain(seed, MASK_SHAPE, KEEP_PROB, bf,
+                                                            DEVICE), iters=1, warmup=0),
+        bound_ms=2 * n / PEAK_BYTES * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: (torch.rand(MASK_SHAPE, device=DEVICE)
+                                    < KEEP_PROB).to(bf)),
+        library="(torch.rand(...) < keep).to(bf16)", bytes=2 * n, calls=1)
+
+    T, Bn = TRAIN_T, TRAIN_B
+    g = torch.Generator().manual_seed(95)
+    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    labels[:, LABEL_LEN:] = -1
+    ll = torch.full((Bn,), T, device=DEVICE)
+    ul = torch.full((Bn,), LABEL_LEN, device=DEVICE)
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels.to(DEVICE), ul, -1)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    S = ext.shape[1]
+    alphas, last = tck.ctc_alpha_stream(*args)
+    logp = tck._loss(last, ul, valid)[1]
+    live = int((ll * (2 * ul + 1)).sum())
+    lp_bytes, stream_bytes = T * Bn * V * 4, T * Bn * S * 4
+    lp_lib = log_probs.clone().requires_grad_(True)
+    targets = labels[:, :LABEL_LEN].to(DEVICE)
+    ctc_lib = lambda: torch.nn.functional.ctc_loss(lp_lib, targets, ll, ul, blank=V - 1,
+                                                   reduction="sum")
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(ctc_lib(), lp_lib))
+    with torch.no_grad():
+        lib_f = cuda_ms(ctc_lib)
+    for name, run, plain, ops, nbytes, lib, lib_name in (
+        ("ctc_alpha_stream", lambda: tck.ctc_alpha_stream(*args),
+         lambda: tck.alpha_stream_plain(*args), CTC_ALPHA_OPS * live,
+         lp_bytes + stream_bytes + Bn * S * 4, lib_f, "forward"),
+        ("ctc_beta_post_stream", lambda: tck.ctc_beta_post_stream(*args, logp, alphas),
+         lambda: tck.beta_post_stream_plain(*args, logp, alphas),
+         (CTC_BETA_POST_OPS - CTC_ALPHA_OPS) * live, 2 * lp_bytes + stream_bytes, lib_fb,
+         "forward + backward"),
+    ):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1, warmup=0),
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         library_ms=lib, library="torch.nn.functional.ctc_loss " + lib_name,
+                         ops=ops, bytes=nbytes, live_entries=live)
+    del logits, log_probs, alphas, lp_lib
+
+    fe, pre, n_frames = _fbank_case(SR, [int(SR * SECONDS)] * B, SECONDS, seed=5)
+    fargs = (pre, fe._basis, fe._mel, fe.frame_step, n_frames, fe.n_fft)
+    bins, n_mels = fe._mel.shape
+    l_eff = min(fe.frame_length, fe.n_fft)
+    window = torch.hamming_window(fe.frame_length, periodic=False, device=DEVICE)[:fe.n_fft]
+    eps = torch.full((), tfk.EPS, device=DEVICE)
+
+    def stft_banks():
+        spec = torch.stft(pre, fe.n_fft, fe.frame_step, window=window, center=False,
+                          return_complex=True)
+        power = spec.abs().square().transpose(1, 2) / fe.n_fft
+        banks = torch.matmul(power, fe._mel)
+        return 10.0 * torch.log10(torch.where(banks == 0.0, eps, banks))
+
+    fft = 5 * (fe.n_fft // 2) * math.log2(fe.n_fft)
+    flops = B * n_frames * (fft + l_eff + 4 * bins + 2 * bins * n_mels)
+    nbytes = (pre.numel() + B * n_frames * n_mels + l_eff * 2 * bins + bins * n_mels) * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    out["fbank_banks"] = dict(
+        ms=cuda_ms(lambda: tfk.fbank_banks(*fargs)),
+        plain_ms=cuda_ms(lambda: tfk.fbank_banks_plain(*fargs)),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(stft_banks),
+        library="torch.stft power -> matmul mel -> log10", flops=flops, bytes=nbytes,
+        frames=n_frames)
+    return out
+
+
+def phase_alt_routes():
+    import torch
+
+    routes = {}
+    for name, env, counters, idle, fault, modes in _alt_route_specs():
+        with _environ(**env):
+            scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0)
+            seen = set()
+            with _drop_modes(seen):
+                rec, state = _run_steps(scfg, state, batch, reps=1, record_stages=True,
+                                        route=name, warmup=1, counters=counters, idle=idle)
+            if seen != modes:
+                fail(f"alt_routes {name}: the wavefront kernels ran drop modes "
+                     f"{sorted(seen)}, expected {sorted(modes)}")
+            del state, batch
+            torch.cuda.empty_cache()
+            rec.update(environment=env, drop_modes=sorted(seen),
+                       grad_check=_grad_check(fault=fault))
+        routes[name] = rec
+        torch.cuda.empty_cache()
+    eval_entry = _kernel_frontend_eval()
+    torch.cuda.empty_cache()
+    emit("alt_routes", frames=TRAIN_T, label_length=LABEL_LEN,
+         keep_probs=[INPUT_KEEP, OUTPUT_KEEP], routes=routes, eval_fbank_kernel=eval_entry,
+         timing=_alt_kernel_timing())
+
+
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
@@ -1764,7 +2230,10 @@ def kernels_line():
     Launches are those of the main path's run: the eval phase, the
     default train step's 12 steps, the ``eval_step`` call; for the layered
     kernels one layered default step's pass and launches of its 12 steps
-    (gates mode) or the recompute step's pass and its 5 steps."""
+    (gates mode) or the recompute step's pass and its 5 steps; for the
+    mask and the alpha-stream pair one step of the routes that run them
+    and the launches of their 5 steps each (the mask on two routes), for
+    the fbank kernel one eval batch and the launches of its eval run."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
@@ -1831,11 +2300,36 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+    alt = RECORD.get("alt_routes", {})
+    routes = alt.get("routes", {})
+    route_launches = lambda name, *runs: (
+        sum(routes[r]["launches"][name] for r in runs)
+        if all(r in routes for r in runs) else None)
+    for name, src, replaces, launched, errs in (
+        ("bernoulli_mask", csrc + "dropout.cu", "rnn_speech_tpu/ops/dropout_pallas.py:122",
+         route_launches("bernoulli_mask", "wavefront_bwd_off", "seed_drop_off"), tk),
+        ("ctc_alpha_stream", csrc + "ctc.cu", "rnn_speech_tpu/ops/ctc_pallas.py:100",
+         route_launches("ctc_alpha_stream", "ctc_alpha_stream"), tk),
+        ("ctc_beta_post_stream", csrc + "ctc.cu", "rnn_speech_tpu/ops/ctc_pallas.py:247",
+         route_launches("ctc_beta_post_stream", "ctc_alpha_stream"), tk),
+        ("fbank_banks", csrc + "fbank.cu", "rnn_speech_tpu/ops/frontend_pallas.py:58",
+         alt.get("eval_fbank_kernel", {}).get("launches", {}).get("fbank_banks"), kn),
+    ):
+        t = alt.get("timing", {}).get(name, {})
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launched,
+            "max_abs_err": errs.get("max_abs_err", {}).get(
+                "fbank" if name == "fbank_banks" else name),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"),
+        })
     return {"kernels": rows}
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "grad_study", "bundle", "cli")
+          "alt_routes", "grad_study", "bundle", "cli")
 
 
 def main(argv=None) -> int:
@@ -1863,26 +2357,25 @@ def main(argv=None) -> int:
     for phase in phases:
         if phase not in PHASES:
             fail(f"unknown phase {phase!r}")
-    if "device" in phases:
-        phase_device()
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        phase_kernels()
-    if "train_kernels" in phases:
-        phase_train_kernels()
-    if "eval" in phases:
-        phase_eval()
-    if "train" in phases:
-        phase_train()
-    if "train_layered" in phases:
-        phase_train_layered()
-    if "grad_study" in phases:
-        phase_grad_study()
+    seconds = RECORD.setdefault("phase_seconds", {})
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    for name, fn in (("device", phase_device), ("build", phase_build),
+                     ("kernels", phase_kernels), ("train_kernels", phase_train_kernels),
+                     ("eval", phase_eval), ("train", phase_train),
+                     ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
+                     ("grad_study", phase_grad_study)):
+        if name in phases:
+            timed(name, fn)
     if "bundle" in phases or "cli" in phases:
-        held = phase_bundle()
+        held = timed("bundle", phase_bundle)
         if "cli" in phases:
-            phase_cli(*held)
+            timed("cli", phase_cli, *held)
     kl = kernels_line()
     RECORD["total_seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

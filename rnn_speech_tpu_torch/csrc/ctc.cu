@@ -10,6 +10,14 @@
 //                            rebuilt from its checkpoint, beta in the
 //                            bstar = beta + lp form, the state posteriors
 //                            exp(min(alpha + beta - logP, 0)) (rst_ctc_beta_post).
+// and the two of its alpha-stream backward (RST_CTC_ALPHA_STREAM=1):
+//   `_alpha_kernel`          every alpha row into a (T, B, S) f32 stream and
+//                            the last row (rst_ctc_alpha_stream: the same
+//                            recursion as the checkpoint kernel, a store per
+//                            step instead of per K steps);
+//   `_beta_post_kernel`      beta, the posteriors and their per-label sums as
+//                            rst_ctc_beta_post, each alpha row read from the
+//                            stream instead of rebuilt (rst_ctc_beta_post_stream).
 // S = 2U + 1 extended states (labels interleaved with blanks), -1e30 for
 // -inf, log_add3 with m_safe, the freeze past each row's input length and
 // the t = 0 seeding are the TPU kernels'.
@@ -34,7 +42,10 @@
 // (64 blocks at B = 64), the alpha row, ext and the skip flags in shared
 // memory, one barrier per time step (rows double-buffered by parity), and
 // in the backward a K-row block of rebuilt alpha in shared memory (K = 32:
-// 154 KB at S = 1201).
+// 154 KB at S = 1201).  The stream pair moves 1.08 GB of f32 alpha rows at
+// the flagship shape (B = 64, T = 3510, S = 1201), 0.32 ms at 3.35 TB/s:
+// still far below the serial chain, so the same design; each step's row
+// store (alpha) or load (beta) is coalesced across the block's threads.
 
 #include <cuda_runtime.h>
 
@@ -60,7 +71,11 @@ __device__ __forceinline__ float alpha_step(const float* prev, int s, bool skip,
   return log_add3(prev[s], a1, a2) + lp;
 }
 
-template <bool kCkpt>
+// What the alpha pass keeps: the last row only, a checkpoint every K
+// steps, or every row (the stream).
+enum AlphaOut { kLastOnly = 0, kCkpt = 1, kStream = 2 };
+
+template <int kOut>
 __global__ void __launch_bounds__(kThreads)
     ctc_alpha(const float* __restrict__ lp, const int* __restrict__ ext,
               const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
@@ -80,9 +95,11 @@ __global__ void __launch_bounds__(kThreads)
     buf[S + s] = kNegInf;
   }
   __syncthreads();
+  // Checkpoint i is the row after step t = iK + K - 1 (or T - 1); the
+  // stream keeps row t at index t.
   auto store_ckpt = [&](const float* row, int t) {
-    if (kCkpt && ((t + 1) % K == 0 || t == T - 1)) {
-      float* dst = ckpt + ((size_t)(t / K) * B + b) * S;
+    if (kOut == kStream || (kOut == kCkpt && ((t + 1) % K == 0 || t == T - 1))) {
+      float* dst = ckpt + ((size_t)(kOut == kStream ? t : t / K) * B + b) * S;
       for (int s = threadIdx.x; s < S; s += kThreads) dst[s] = row[s];
     }
   };
@@ -108,16 +125,20 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = threadIdx.x; s < S; s += kThreads) last[(size_t)b * S + s] = buf[cur * S + s];
 }
 
+// kStream: `alphas` is the (T, B, S) alpha stream and row t is read from
+// it; else `alphas` holds the checkpoints and each K-step block's rows are
+// rebuilt in shared memory.
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
     ctc_beta_post(const float* __restrict__ lp, const int* __restrict__ ext,
                   const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
                   const int* __restrict__ label_len, const float* __restrict__ logp,
-                  const float* __restrict__ ckpt, const int* __restrict__ offs,
+                  const float* __restrict__ alphas, const int* __restrict__ offs,
                   const int* __restrict__ idx, float* __restrict__ label_post, int T,
                   int B, int S, int V, int K) {
   extern __shared__ float smem[];
-  float* alpha = smem;                                  // [K][S]
-  float* post = alpha + (size_t)K * S;                  // [2][S]
+  float* alpha = smem;                                  // [K][S], none for kStream
+  float* post = alpha + (kStream ? 0 : (size_t)K * S);  // [2][S]
   float* bstar = post + 2 * S;                          // [2][S + 2]
   int* ext_s = reinterpret_cast<int*>(bstar + 2 * (S + 2));  // [S]
   int* idx_s = ext_s + S;                               // [S]
@@ -144,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
     const int t0 = i * K;
     const int nk = min(K, T - t0);
     // Rebuild this block's alpha rows from the previous block's checkpoint.
-    for (int k = 0; k < nk; ++k) {
+    for (int k = 0; k < nk && !kStream; ++k) {
       const int t = t0 + k;
       const float* row = lp + ((size_t)t * B + b) * V;
       float* dst = alpha + (size_t)k * S;
@@ -153,8 +174,8 @@ __global__ void __launch_bounds__(kThreads)
           dst[s] = s < 2 ? row[ext_s[s]] : kNegInf;
         }
       } else {
-        const float* prev =
-            k == 0 ? ckpt + ((size_t)(i - 1) * B + b) * S : alpha + (size_t)(k - 1) * S;
+        const float* prev = k == 0 ? alphas + ((size_t)(i - 1) * B + b) * S
+                                   : alpha + (size_t)(k - 1) * S;
         const bool live = t < Tb;
         for (int s = threadIdx.x; s < Sb; s += kThreads) {
           dst[s] = live ? alpha_step(prev, s, skip_s[s], row[ext_s[s]]) : prev[s];
@@ -171,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
       float* pp = post + (t & 1) * S;
       const bool live = t < Tb;
       const bool islast = t == Tb - 1;
-      const float* arow = alpha + (size_t)k * S;
+      const float* arow = kStream ? alphas + ((size_t)t * B + b) * S : alpha + (size_t)k * S;
       for (int s = threadIdx.x; s < Sb; s += kThreads) {
         float beta;
         if (islast) {
@@ -208,6 +229,34 @@ size_t beta_smem_bytes(int S, int V, int K) {
          sizeof(int) * (2 * (size_t)S + V + 1) + S;
 }
 
+template <int kOut>
+int launch_alpha(const float* lp, const int* ext, const uint8_t* skip, const int* logit_len,
+                 const int* label_len, float* ckpt, float* last, int T, int B, int S, int V,
+                 int K, void* stream) {
+  const size_t smem = sizeof(float) * 2 * (size_t)S + sizeof(int) * (size_t)S + S;
+  cudaError_t err = cudaFuncSetAttribute(
+      ctc_alpha<kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ctc_alpha<kOut><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V, K);
+  return (int)cudaGetLastError();
+}
+
+template <bool kStream>
+int launch_beta_post(const float* lp, const int* ext, const uint8_t* skip,
+                     const int* logit_len, const int* label_len, const float* logp,
+                     const float* alphas, const int* offs, const int* idx,
+                     float* label_post, int T, int B, int S, int V, int K, void* stream) {
+  const size_t smem = beta_smem_bytes(S, V, kStream ? 0 : K);
+  cudaError_t err = cudaFuncSetAttribute(
+      ctc_beta_post<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ctc_beta_post<kStream><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lp, ext, skip, logit_len, label_len, logp, alphas, offs, idx, label_post, T, B, S, V,
+      K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // lp (T, B, V) f32 log-probs; ext (B, S) int32 extended labels; skip (B, S)
@@ -218,23 +267,22 @@ extern "C" int rst_ctc_alpha(const float* lp, const int* ext, const uint8_t* ski
                              const int* logit_len, const int* label_len, float* ckpt,
                              float* last, int T, int B, int S, int V, int K,
                              void* stream) {
-  const size_t smem = sizeof(float) * 2 * (size_t)S + sizeof(int) * (size_t)S + S;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (ckpt != nullptr) {
-    err = cudaFuncSetAttribute(ctc_alpha<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ctc_alpha<true><<<B, kThreads, smem, st>>>(lp, ext, skip, logit_len, label_len, ckpt,
-                                               last, T, B, S, V, K);
-  } else {
-    err = cudaFuncSetAttribute(ctc_alpha<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ctc_alpha<false><<<B, kThreads, smem, st>>>(lp, ext, skip, logit_len, label_len,
-                                                nullptr, last, T, B, S, V, K);
+    return launch_alpha<kCkpt>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V,
+                               K, stream);
   }
-  return (int)cudaGetLastError();
+  return launch_alpha<kLastOnly>(lp, ext, skip, logit_len, label_len, nullptr, last, T, B,
+                                 S, V, K, stream);
+}
+
+// The same inputs; alphas (T, B, S) f32 receives every alpha row (the
+// stream of `_alpha_kernel`), last (B, S) the last one.
+extern "C" int rst_ctc_alpha_stream(const float* lp, const int* ext, const uint8_t* skip,
+                                    const int* logit_len, const int* label_len,
+                                    float* alphas, float* last, int T, int B, int S, int V,
+                                    void* stream) {
+  return launch_alpha<kStream>(lp, ext, skip, logit_len, label_len, alphas, last, T, B, S,
+                               V, 1, stream);
 }
 
 // Also logp (B) f32, the rows' log-likelihoods; ckpt from rst_ctc_alpha;
@@ -246,14 +294,20 @@ extern "C" int rst_ctc_beta_post(const float* lp, const int* ext, const uint8_t*
                                  const float* logp, const float* ckpt, const int* offs,
                                  const int* idx, float* label_post, int T, int B, int S,
                                  int V, int K, void* stream) {
-  const size_t smem = beta_smem_bytes(S, V, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      ctc_beta_post, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ctc_beta_post<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lp, ext, skip, logit_len, label_len, logp, ckpt, offs, idx, label_post, T, B, S, V,
-      K);
-  return (int)cudaGetLastError();
+  return launch_beta_post<false>(lp, ext, skip, logit_len, label_len, logp, ckpt, offs, idx,
+                                 label_post, T, B, S, V, K, stream);
+}
+
+// The same with alphas (T, B, S) f32 from rst_ctc_alpha_stream in place of
+// the checkpoints (`_beta_post_kernel`): no rebuild, the alpha row of each
+// step read from the stream.
+extern "C" int rst_ctc_beta_post_stream(const float* lp, const int* ext, const uint8_t* skip,
+                                        const int* logit_len, const int* label_len,
+                                        const float* logp, const float* alphas,
+                                        const int* offs, const int* idx, float* label_post,
+                                        int T, int B, int S, int V, void* stream) {
+  return launch_beta_post<true>(lp, ext, skip, logit_len, label_len, logp, alphas, offs, idx,
+                                label_post, T, B, S, V, 32, stream);
 }
 
 // Dynamic shared memory of rst_ctc_beta_post at (S, V, K), in bytes.

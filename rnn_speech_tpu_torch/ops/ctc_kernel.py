@@ -1,7 +1,8 @@
 """CTC loss on the CTC kernels: CUDA kernels, wrappers, plain versions.
 
 Counterpart of ``rnn_speech_tpu/ops/ctc_pallas.py``, the CTC that the JAX
-train step runs with ``use_pallas_ctc``.  Three kernels (``csrc/ctc.cu``):
+train step runs with ``use_pallas_ctc``.  Five kernels (``csrc/ctc.cu``),
+three on the default route:
 
 * ``ctc_alpha_ckpt`` (``_alpha_kernel_ckpt``): the alpha recursion, one
   (B, S) float32 checkpoint per K steps and the last row;
@@ -9,11 +10,21 @@ train step runs with ``use_pallas_ctc``.  Three kernels (``csrc/ctc.cu``):
 * ``ctc_beta_post`` (``_beta_post_ckpt_kernel``): each K-step block's
   alpha rows rebuilt from its checkpoint, beta in the bstar = beta + lp
   form and the state posteriors, summed per vocabulary entry into
-  label_post (T, B, V).
+  label_post (T, B, V);
+
+and the two of the alpha-stream backward (``RST_CTC_ALPHA_STREAM=1``):
+
+* ``ctc_alpha_stream`` (``_alpha_kernel``, ``emit_alphas=True``): every
+  alpha row into a (T, B, S) float32 stream, and the last row;
+* ``ctc_beta_post_stream`` (``_beta_post_kernel``): beta and the
+  per-label posterior sums as ``ctc_beta_post``, each alpha row read from
+  the stream.
 
 ``ctc_loss`` is an ``autograd.Function``: without a gradient its forward
 runs the loss-only kernel, with one the checkpoint kernel, and its
-backward the fused rebuild/beta/posterior kernel; then the gradient is
+backward the fused rebuild/beta/posterior kernel (or, with
+``RST_CTC_ALPHA_STREAM=1``, the forward re-run as a stream and the stream
+kernel, as the JAX ``_ctc_bwd`` does); then the gradient is
 exp(log_probs) - label_post, zero past each row's length and on invalid
 rows, times the cotangent (``ctc_grad``).  The plain versions take their
 recursion steps from ``ops/ctc.py`` (``_prepare``'s extended labels and
@@ -37,6 +48,7 @@ its kernel for tensors on a CUDA device, or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -89,12 +101,18 @@ def alpha_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor, logit_lengths: 
     return ckpts, alpha
 
 
-def beta_post_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
-                    logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
-                    ckpts: Tensor, K: int) -> Tensor:
-    """label_post (T, B, V): the state posteriors of each step, summed per
-    vocabulary entry, in plain PyTorch (alpha rebuilt block by block from
-    the checkpoints, beta carried as bstar = beta + lp)."""
+def alpha_stream_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
+                       logit_lengths: Tensor, label_lengths: Tensor
+                       ) -> Tuple[Tensor, Tensor]:
+    """(alphas (T, B, S), last row (B, S)): every alpha row, in plain
+    PyTorch (the checkpoints of one-step blocks)."""
+    return alpha_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths, 1, True)
+
+
+def _beta_post(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, K,
+               block_rows):
+    """label_post (T, B, V) in plain PyTorch over K-step blocks in reverse,
+    ``block_rows(i, t0, t1, states)`` giving block i's alpha rows."""
     T, B, V = log_probs.shape
     S = ext.shape[1]
     dev = log_probs.device
@@ -104,13 +122,7 @@ def beta_post_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     bstar = torch.full((B, S), NEG_INF, device=dev)
     for i in reversed(range(-(-T // K))):
         t0, t1 = i * K, min((i + 1) * K, T)
-        rows = []
-        alpha = ckpts[i - 1] if i else None
-        for t in range(t0, t1):
-            lp_t = log_probs[t].gather(1, ext)
-            alpha = (_alpha_init(lp_t, states) if t == 0 else
-                     _alpha_step(alpha, lp_t, skip_ok, t < logit_lengths, states))
-            rows.append(alpha)
+        rows = block_rows(i, t0, t1, states)
         for t in reversed(range(t0, t1)):
             beta = _beta_step(bstar, skip_next2, t == logit_lengths - 1, beta_init)
             gamma = rows[t - t0] + beta - logp[:, None]
@@ -119,6 +131,35 @@ def beta_post_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
             label_post[t] = torch.zeros((B, V), device=dev).scatter_add_(1, ext, post)
             bstar = torch.where(states, beta + log_probs[t].gather(1, ext), NEG_INF)
     return label_post
+
+
+def beta_post_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
+                    logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
+                    ckpts: Tensor, K: int) -> Tensor:
+    """label_post (T, B, V): the state posteriors of each step, summed per
+    vocabulary entry, in plain PyTorch (alpha rebuilt block by block from
+    the checkpoints, beta carried as bstar = beta + lp)."""
+    def rebuild(i, t0, t1, states):
+        rows = []
+        alpha = ckpts[i - 1] if i else None
+        for t in range(t0, t1):
+            lp_t = log_probs[t].gather(1, ext)
+            alpha = (_alpha_init(lp_t, states) if t == 0 else
+                     _alpha_step(alpha, lp_t, skip_ok, t < logit_lengths, states))
+            rows.append(alpha)
+        return rows
+
+    return _beta_post(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, K,
+                      rebuild)
+
+
+def beta_post_stream_plain(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
+                           logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
+                           alphas: Tensor) -> Tensor:
+    """label_post (T, B, V) as ``beta_post_plain``, each step's alpha row
+    read from the (T, B, S) stream."""
+    return _beta_post(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, K_MAX,
+                      lambda i, t0, t1, states: alphas[t0:t1])
 
 
 # ------------------------------------------------------------------ kernels
@@ -212,6 +253,41 @@ def label_lists(ext: Tensor, label_lengths: Tensor, V: int) -> Tuple[Tensor, Ten
     return offs.to(torch.int32).contiguous(), idx.to(torch.int32).contiguous()
 
 
+def _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, alphas,
+                 n_rows, K):
+    """Run the beta/posterior kernel on ``alphas``: the checkpoints of K
+    steps (K > 0) or the (T, B, S) stream (K = 0, n_rows = T)."""
+    T, B, V = log_probs.shape
+    S = ext.shape[1]
+    dev = log_probs.device
+    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
+                                     label_lengths)
+    if tuple(alphas.shape) != (n_rows, B, S) or alphas.dtype != f32:
+        raise ValueError(f"the alpha rows must be ({n_rows}, {B}, {S}) float32")
+    offs, idx = label_lists(ext, label_lengths, V)
+    logp = logp.to(f32).contiguous()
+    alphas = alphas.contiguous()
+    out = torch.empty((T, B, V), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        head = [lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
+                logp.data_ptr(), alphas.data_ptr(), offs.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), T, B, S, V]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if K:
+            fn = _lib().rst_ctc_beta_post
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            rc = fn(*head, K, stream)
+        else:
+            fn = _lib().rst_ctc_beta_post_stream
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            rc = fn(*head, stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc beta/posterior kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def ctc_beta_post(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
                   logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
                   ckpts: Tensor, K: int) -> Tensor:
@@ -220,31 +296,61 @@ def ctc_beta_post(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     if not log_probs.is_cuda:
         return beta_post_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths,
                                logp, ckpts, K)
-    T, B, V = log_probs.shape
-    S = ext.shape[1]
-    dev = log_probs.device
-    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
-                                     label_lengths)
-    if tuple(ckpts.shape) != (-(-T // K), B, S) or ckpts.dtype != f32:
-        raise ValueError(f"ckpts must be ({-(-T // K)}, {B}, {S}) float32")
-    offs, idx = label_lists(ext, label_lengths, V)
-    logp = logp.to(f32).contiguous()
-    ckpts = ckpts.contiguous()
-    out = torch.empty((T, B, V), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        fn = _lib().rst_ctc_beta_post
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
-                logp.data_ptr(), ckpts.data_ptr(), offs.data_ptr(), idx.data_ptr(),
-                out.data_ptr(), T, B, S, V, K, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ctc beta/posterior kernel launch failed: CUDA error {rc}")
+    out = _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, ckpts,
+                       -(-log_probs.shape[0] // K), K)
     ctc_beta_post.launches += 1
     return out
 
 
 ctc_beta_post.launches = 0
+
+
+def ctc_alpha_stream(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
+                     logit_lengths: Tensor, label_lengths: Tensor) -> Tuple[Tensor, Tensor]:
+    """(alphas (T, B, S) float32, last row (B, S)): every row of the alpha
+    recursion (``_alpha_kernel`` with ``emit_alphas=True``); the kernel on
+    a CUDA device, the plain version on the CPU."""
+    if not log_probs.is_cuda:
+        return alpha_stream_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths)
+    T, B, V = log_probs.shape
+    S = ext.shape[1]
+    dev = log_probs.device
+    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
+                                     label_lengths)
+    alphas = torch.empty((T, B, S), dtype=f32, device=dev)
+    last = torch.empty((B, S), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        fn = _lib().rst_ctc_alpha_stream
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
+                alphas.data_ptr(), last.data_ptr(), T, B, S, V,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc alpha-stream kernel launch failed: CUDA error {rc}")
+    ctc_alpha_stream.launches += 1
+    return alphas, last
+
+
+ctc_alpha_stream.launches = 0
+
+
+def ctc_beta_post_stream(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
+                         logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
+                         alphas: Tensor) -> Tensor:
+    """label_post (T, B, V) float32 from the (T, B, S) alpha stream
+    (``_beta_post_kernel``); the kernel on a CUDA device, the plain version
+    on the CPU."""
+    if not log_probs.is_cuda:
+        return beta_post_stream_plain(log_probs, ext, skip_ok, logit_lengths,
+                                      label_lengths, logp, alphas)
+    out = _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, alphas,
+                       log_probs.shape[0], 0)
+    ctc_beta_post_stream.launches += 1
+    return out
+
+
+ctc_beta_post_stream.launches = 0
 
 
 # ------------------------------------------------------------------ the loss
@@ -293,7 +399,15 @@ class _CTCKernelLoss(torch.autograd.Function):
                     None, None, None, None)
         log_probs, ckpts, logp, ext, skip_ok, ll, ul, valid, K = ctx.residuals
         del ctx.residuals
-        label_post = ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ckpts, K)
+        if os.environ.get("RST_CTC_ALPHA_STREAM", "0") == "1":
+            # The alpha-stream backward: the forward re-run as a (T, B, S)
+            # stream, read by the beta pass instead of the checkpoints.
+            del ckpts
+            alphas, _ = ctc_alpha_stream(log_probs, ext, skip_ok, ll, ul)
+            label_post = ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas)
+            del alphas
+        else:
+            label_post = ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ckpts, K)
         grad = ctc_grad(log_probs, label_post, ll, valid, g)
         return grad.to(ctx.logits_dtype), None, None, None, None
 

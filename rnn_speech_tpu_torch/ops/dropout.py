@@ -14,10 +14,16 @@ runs the same kernel on the cotangent, which has x's shape, so it draws
 the forward's bits again (``ops/random_bits.py`` states the counter
 layout; ``csrc/philox.cuh`` holds the generator).
 
-``dropout_kernel`` takes the plain version for tensors on the CPU and
-launches the kernel (``csrc/dropout.cu``) for tensors on a CUDA device,
-or raises; there is no fallback.  ``dropout_kernel.launches`` counts the
-calls that launched it.
+``bernoulli_mask(seed, shape, keep, dtype)`` (``_mask_kernel`` through
+``bernoulli_mask_pallas``) writes a {0, 1} mask that several consumers
+share: the wavefront's inter-layer masks on the layered-backward and
+materialized-mask training routes.  Its bits are the dropout kernel's
+for the first keep on the same flat index.
+
+``dropout_kernel`` and ``bernoulli_mask`` take their plain versions for
+the CPU and launch their kernels (``csrc/dropout.cu``) on a CUDA device,
+or raise; there is no fallback.  ``<wrapper>.launches`` counts the calls
+that launched the kernel.
 """
 
 from __future__ import annotations
@@ -93,6 +99,53 @@ def dropout_kernel(x: Tensor, seed: Seed, keeps: Sequence[float]) -> Tensor:
 
 
 dropout_kernel.launches = 0
+
+
+def bernoulli_mask_plain(seed: Seed, shape, keep: float, dtype=torch.bfloat16,
+                         device="cpu") -> Tensor:
+    """The {0, 1} Bernoulli(keep) mask of ``shape`` in ``dtype``, in plain
+    PyTorch: the dropout kernel's bits of its first keep on the flat index
+    (``random_bits.dropout_mask``)."""
+    return random_bits.dropout_mask(seed, shape, [keep], device).to(dtype)
+
+
+def bernoulli_mask(seed: Seed, shape, keep: float, dtype=torch.bfloat16,
+                   device="cpu") -> Tensor:
+    """{0, 1} Bernoulli(keep) mask of ``shape`` (``bernoulli_mask_pallas``):
+    the kernel for a CUDA ``device`` (float32 or bf16), the plain version
+    on the CPU.  It reads nothing; ``bernoulli_mask.launches`` counts the
+    calls that launched the kernel."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return bernoulli_mask_plain(seed, shape, keep, dtype, device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the mask kernel writes float32 or bfloat16, got {dtype}")
+    thr = random_bits.threshold(keep)
+    out = torch.empty(tuple(int(d) for d in shape), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        fn = _build.load("dropout").rst_bernoulli_mask
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        rc = fn(out.data_ptr(), out.numel(), int(dtype == torch.float32),
+                int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF, thr, sms,
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mask kernel launch failed: CUDA error {rc}")
+    bernoulli_mask.launches += 1
+    return out
+
+
+bernoulli_mask.launches = 0
+
+
+def boundary_masks(seed: Seed, shape, keep: float, device="cpu") -> Tuple[Tensor, float]:
+    """The wavefront's materialized inter-layer dropout from a site's seed
+    words: the (L-1, T, B, H) bf16 ``bernoulli_mask`` stream and its
+    drop_scale 1/keep (drop mode 1)."""
+    masks = bernoulli_mask(tuple(int(w) for w in seed), shape, keep, torch.bfloat16, device)
+    return masks, 1.0 / float(keep)
 
 
 class _Dropout(torch.autograd.Function):

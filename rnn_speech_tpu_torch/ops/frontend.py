@@ -7,7 +7,9 @@ Counterpart of ``rnn_speech_tpu/ops/frontend_jax.py``:
 * The windowed rFFT is a matmul against a precomputed DFT basis, summed
   over the K shifted (rows, step) views of the signal so the framed
   (B, T, frame_len) tensor is never built; power, mel projection and
-  ``10*log10`` with the float64-eps floor follow.
+  ``10*log10`` with the float64-eps floor follow
+  (``frontend_kernel.fbank_banks_plain``).  With ``use_kernel`` the fbank
+  path runs these stages as one CUDA kernel (``fbank_banks``).
 * Masked mean normalisation over each row's valid frames, then
   Savitzky-Golay deltas with scipy's 'interp' edge handling and the
   short-clip line fit.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from rnn_speech_tpu_torch import frontend as host
+from rnn_speech_tpu_torch.ops import frontend_kernel
 
 FRAME_STRIDE = host.FRAME_STRIDE
 FRAME_SIZE = host.FRAME_SIZE
@@ -104,14 +107,17 @@ def _savgol_delta(x: torch.Tensor, n_valid: torch.Tensor,
 
 class DeviceFrontend:
     """Featurizer for a fixed (feature_type, sr) on one device; every shape
-    follows the width of the signal buffer it is given."""
+    follows the width of the signal buffer it is given.  ``use_kernel``
+    (the JAX ``use_pallas``, fbank only, off by default) takes the
+    spectrogram stages from the fused kernel (``ops/frontend_kernel.py``)."""
 
     def __init__(self, feature_type: str, sr: int = 22050,
-                 max_samples: int = 22050 * 10, device=None):
+                 max_samples: int = 22050 * 10, device=None, use_kernel: bool = False):
         from rnn_speech_tpu_torch import resolve_device
 
         self.device = resolve_device(device)
         self.feature_type = feature_type
+        self.use_kernel = bool(use_kernel) and feature_type == "fbank"
         self.sr = sr
         self.max_samples = max_samples
         self.frame_step = int(round(FRAME_STRIDE * sr))
@@ -201,7 +207,7 @@ class DeviceFrontend:
         return torch.cat(pieces, dim=-1)[:, :, :length]
 
     def _fbank(self, signals, lengths):
-        B, n_samples = signals.shape
+        n_samples = signals.shape[1]
         n_frames = self._frames_for_width(n_samples)
         s_idx = torch.arange(n_samples, device=self.device)[None, :]
         signals = torch.where(s_idx < lengths[:, None], signals,
@@ -210,31 +216,12 @@ class DeviceFrontend:
             [signals[:, :1], signals[:, 1:] - 0.97 * signals[:, :-1]], dim=1
         )
 
-        # Windowed DFT as K matmuls over shifted views:
-        # spec = sum_k view[:, k:k+T] @ basis[k*step:(k+1)*step].
-        step, length = self.frame_step, self.frame_length
-        K = -(-length // step)
-        rows = n_frames + K
-        need = rows * step
-        if pre.shape[1] < need:
-            pre = torch.nn.functional.pad(pre, (0, need - pre.shape[1]))
-        view = pre[:, :need].reshape(B, rows, step)
-        spec = None
-        for k in range(K):
-            hi = min((k + 1) * step, length)
-            part = torch.matmul(
-                view[:, k : k + n_frames, : hi - k * step],
-                self._basis[k * step : hi],
-            )
-            spec = part if spec is None else spec + part
-        bins = self.n_fft // 2 + 1
-        power = (spec[..., :bins] ** 2 + spec[..., bins:] ** 2) / self.n_fft
-
-        banks = torch.matmul(power, self._mel)                   # (B, T, nfilt)
-        banks = torch.where(banks == 0.0,
-                            torch.full((), np.finfo(np.float64).eps,
-                                       device=self.device), banks)
-        banks = 10.0 * torch.log10(banks)
+        # Framing, windowed DFT, power, mel and log: the fused kernel, or
+        # K matmuls over shifted views of the signal.
+        spectrogram = (frontend_kernel.fbank_banks if self.use_kernel
+                       else frontend_kernel.fbank_banks_plain)
+        banks = spectrogram(pre, self._basis, self._mel, self.frame_step, n_frames,
+                            self.n_fft)                          # (B, T, nfilt)
 
         nf = self.num_frames_for(lengths, limit=n_frames)
         t_idx = torch.arange(n_frames, device=self.device)[None, :]

@@ -29,9 +29,11 @@ without kernels the plain time loop under autograd (the JAX scan path).
 Dropout follows the JAX package's sites (``ops/dropout.py``; one seed
 draw per site): on the wavefront route the input site is the fused
 dropout, each inter-layer output + input pair is one Bernoulli(ko·ki)
-drawn inside both wavefront kernels (drop mode 2), and the top site goes
-to ``head_fused`` when given; the layered route drops [output, input]
-before each layer above the first and the output after the top.
+drawn inside both wavefront kernels (drop mode 2; with
+``RST_WAVEFRONT_SEED_DROP=0`` a materialized bf16 mask stream, drop mode
+1, see ``_boundary_dropout``), and the top site goes to ``head_fused``
+when given; the layered route drops [output, input] before each layer
+above the first and the output after the top.
 
 ``remat`` runs each layer of the layered route under
 ``torch.utils.checkpoint``; ``time_chunk`` runs the stack in checkpointed
@@ -42,13 +44,14 @@ between layers in that dtype (the JAX package's low-precision chain).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rnn_speech_tpu_torch.ops import random_bits
+from rnn_speech_tpu_torch.ops import dropout, random_bits
 from rnn_speech_tpu_torch.ops.dropout import dropout_site
 from rnn_speech_tpu_torch.ops.lstm_recurrence import lstm_recurrence
 
@@ -217,8 +220,8 @@ def lstm_stack(
                     kp *= float(p)
             drop = {}
             if kp < 1.0:
-                drop = dict(drop_seed=random_bits.seed_words(rng), drop_keep=kp,
-                            drop_scale=1.0 / kp)
+                drop = _boundary_dropout(random_bits.seed_words(rng), kp, x, len(layers),
+                                         layers[0]["w_h"].shape[0])
             out, new_states = lstm_wavefront.lstm_stack_wavefront_train(
                 layers, x, seq_lengths, states, compute_dtype=compute_dtype, **drop
             )
@@ -229,6 +232,30 @@ def lstm_stack(
                                               remat, kw)
     out = dropout_site(rng, out, [output_keep_prob])
     return (head(out) if head is not None else out), new_states
+
+
+def _boundary_dropout(seed, kp: float, x: Tensor, L: int, H: int) -> dict:
+    """The wavefront's inter-layer dropout arguments from the site's seed
+    words: drop mode 2 (both kernels draw the bits) unless
+    ``RST_WAVEFRONT_SEED_DROP=0``, which materializes the (L-1, T, B, H)
+    bf16 masks for drop mode 1 from the mask kernel
+    (``dropout.boundary_masks``).
+
+    ``RST_PALLAS_MASKGEN=0`` draws those masks from torch's own generator
+    seeded with the seed words instead: the JAX package's A/B line
+    (``jax.random.bernoulli``, no kernel), kept as it kept it.  Its bits
+    differ between the CPU's and the card's generators and match no plain
+    version, and no measurement of the port covers it: ``chip_smoke.py``
+    does not drive it."""
+    if os.environ.get("RST_WAVEFRONT_SEED_DROP", "1") != "0":
+        return dict(drop_seed=seed, drop_keep=kp, drop_scale=1.0 / kp)
+    shape = (L - 1, x.shape[0], x.shape[1], H)
+    if os.environ.get("RST_PALLAS_MASKGEN", "1") == "0":
+        g = torch.Generator(device=x.device).manual_seed((seed[0] << 32) | seed[1])
+        masks = (torch.rand(shape, generator=g, device=x.device) < kp).to(torch.bfloat16)
+        return dict(drop_masks=masks, drop_scale=1.0 / kp)
+    masks, scale = dropout.boundary_masks(seed, shape, kp, x.device)
+    return dict(drop_masks=masks, drop_scale=scale)
 
 
 def _lstm_stack_layered(layers, x, seq_lengths, states, rng, remat, kw):

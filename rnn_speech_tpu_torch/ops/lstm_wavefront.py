@@ -19,7 +19,11 @@ only the schedule differs.
   layer written over the gates residual, and dh0, dc0.
 * ``lstm_stack_wavefront_train``: the differentiable stack
   (``_wavefront_stack_core`` and its VJP) over those two kernels and the
-  weight-gradient kernel of ``ops/grad_matmul.py``.
+  weight-gradient kernel of ``ops/grad_matmul.py``.  With
+  ``bwd_wavefront`` off (``RST_WAVEFRONT_BWD=0``) its backward runs layer
+  by layer from the top through ``lstm_layer_train.recurrence_bwd``
+  instead of the reverse diagonal (``layered_stack_bwd``), and seed-mode
+  dropout becomes a mask stream from ``dropout.bernoulli_mask`` first.
 
 Both training kernels take the JAX package's inter-layer dropout: drop
 mode 0 (none), 1 (explicit (L-1, T, B, H) {0, 1} masks) or 2 (two seed
@@ -39,12 +43,13 @@ issues one CUDA launch per diagonal from one host call).
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Tuple
 
 import torch
 
 from rnn_speech_tpu_torch import stages
-from rnn_speech_tpu_torch.ops import _build, random_bits
+from rnn_speech_tpu_torch.ops import _build, dropout, lstm_layer_train, random_bits
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
@@ -447,6 +452,42 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
 wavefront_bwd.launches = 0
 
 
+def layered_stack_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
+                      gates: Tensor, cseq: Tensor, c0: Tensor, dhn: Tensor, dcn: Tensor,
+                      outs: Tensor, cd, drop_mode: int = 0, drop_arr=None,
+                      drop_scale: float = 1.0):
+    """Backward of the stack layer by layer from the top (the layered
+    fallback of ``_wavefront_stack_bwd``): each layer's reverse runs on
+    its gates and cseq residuals through ``lstm_layer_train.recurrence_bwd``
+    (dgates written over ``gates[l]``), from c0 rounded to the residual
+    dtype; the cotangent of the layer below is dgates_l·W_x,lᵀ (float32
+    sums of compute-dtype operands), times boundary l-1's mask·drop_scale
+    in drop mode 1.  Drop mode 2 is not taken: its bits must be a mask
+    stream first.  Returns (dgates, dh0, dc0, xdrop) with xdrop (L-1, T,
+    B, H) = outs·mask·drop_scale in the compute dtype (mode 1) or None."""
+    if drop_mode not in (0, 1):
+        raise ValueError(f"the layered stack backward takes drop mode 0 or 1, got "
+                         f"{drop_mode}")
+    L = gates.shape[0]
+    rd = gates.dtype
+    dh0, dc0 = [None] * L, [None] * L
+    dout = dout_top.to(f32)
+    for l in reversed(range(L)):
+        _, dh0[l], dc0[l] = lstm_layer_train.recurrence_bwd(
+            dout.contiguous(), gates[l], cseq[l], c0[l].to(rd).to(f32).contiguous(), mask,
+            w_h[l].to(cd).contiguous(), dhn[l].to(f32).contiguous(),
+            dcn[l].to(f32).contiguous())
+        if l > 0:
+            dout = dot_f32(gates[l], w_x_rest[l - 1].t(), cd)
+            if drop_mode == 1:
+                dout = dout * (drop_arr[l - 1].to(f32) * drop_scale)
+    xdrop = None
+    if drop_mode == 1:
+        xdrop = torch.stack([(outs[l].to(f32) * (drop_arr[l].to(f32) * drop_scale)).to(cd)
+                             for l in range(L - 1)])
+    return gates, torch.stack(dh0), torch.stack(dc0), xdrop
+
+
 def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
                        w_x0: Tensor, cd, xdrop: Tensor = None) -> Tuple[Tensor, ...]:
     """The weight gradients and dx of the stack from its dgates
@@ -482,11 +523,14 @@ class _WavefrontStackTrain(torch.autograd.Function):
     (``_wavefront_stack_core``/``_fwd``/``_bwd``).  ``drop`` is
     (drop_mode, drop_arr, drop_scale, keep_prob): ``drop_arr`` holds the
     (L-1, T, B, H) masks (mode 1) or the two seed words (mode 2), carried
-    to the backward as they are.  The backward consumes the saved gates
-    residual (dgates overwrite it), so it runs once."""
+    to the backward as they are.  ``bwd_wavefront`` picks the reverse
+    diagonal or the layered backward (drop modes 0 and 1 only).  The
+    backward consumes the saved gates residual (dgates overwrite it), so
+    it runs once."""
 
     @staticmethod
-    def forward(ctx, w_x0, w_x_rest, w_h, b0, b_rest, x, c0, h0, mask, cd, rd, drop):
+    def forward(ctx, w_x0, w_x_rest, w_h, b0, b_rest, x, c0, h0, mask, cd, rd, drop,
+                bwd_wavefront):
         b_all = torch.cat([b0.to(f32)[None], b_rest.to(f32)], dim=0)
         x_c = x.to(cd)
         outs, gates, cseq, hn, cn = wavefront_train(
@@ -497,6 +541,7 @@ class _WavefrontStackTrain(torch.autograd.Function):
                               cseq)
         ctx.cd = cd
         ctx.drop = drop
+        ctx.bwd_wavefront = bwd_wavefront
         ctx.consumed = False
         return outs[-1], cn, hn
 
@@ -510,26 +555,32 @@ class _WavefrontStackTrain(torch.autograd.Function):
         (w_x0, w_x_rest, w_h, x_c, mask, c0, h0, outs, gates,
          cseq) = ctx.saved_tensors
         cd = ctx.cd
-        res = wavefront_bwd(
-            dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
-            w_x_rest.to(cd).contiguous(), mask, gates, cseq,
-            c0.to(f32).contiguous(), dhn.to(f32).contiguous(),
-            dcn.to(f32).contiguous(), outs, *ctx.drop)
-        dgates, dh0, dc0 = res[:3]
-        xdrop = res[3] if len(res) > 3 else None
+        if ctx.bwd_wavefront:
+            res = wavefront_bwd(
+                dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
+                w_x_rest.to(cd).contiguous(), mask, gates, cseq,
+                c0.to(f32).contiguous(), dhn.to(f32).contiguous(),
+                dcn.to(f32).contiguous(), outs, *ctx.drop)
+            dgates, dh0, dc0 = res[:3]
+            xdrop = res[3] if len(res) > 3 else None
+        else:
+            dgates, dh0, dc0, xdrop = layered_stack_bwd(
+                dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, cd,
+                *ctx.drop[:3])
         stages.mark("weight_grads")
         dw_x0, dw_x_rest, dw_h, db0, db_rest, dx = stack_weight_grads(
             x_c, h0, outs, dgates, w_x0, cd, xdrop)
         return (dw_x0.to(w_x0.dtype), dw_x_rest.to(w_x_rest.dtype),
                 dw_h.to(w_h.dtype), db0, db_rest, dx, dc0.to(c0.dtype),
-                dh0.to(h0.dtype), None, None, None, None)
+                dh0.to(h0.dtype), None, None, None, None, None)
 
 
 def lstm_stack_wavefront_train(layer_params, x: Tensor, seq_lengths: Tensor,
                                states: List[LayerState], drop_masks: Tensor = None,
                                drop_scale: float = 1.0, drop_seed=None,
                                drop_keep: float = 1.0, compute_dtype=f32,
-                               residual_dtype=None) -> Tuple[Tensor, List[LayerState]]:
+                               residual_dtype=None, bwd_wavefront=None,
+                               ) -> Tuple[Tensor, List[LayerState]]:
     """Differentiable wavefront stack matching the layered stack's
     gates-mode semantics, given the same inter-layer dropout masks.
     Returns (out (T, B, H) in the residual dtype, [(c, h)] per layer).
@@ -538,15 +589,29 @@ def lstm_stack_wavefront_train(layer_params, x: Tensor, seq_lengths: Tensor,
     Inter-layer dropout comes in two forms: ``drop_masks`` (L-1, T, B, H)
     {0, 1} times the static ``drop_scale`` (mode 1, the parity-testable
     form), or ``drop_seed`` (two uint32 words) with ``drop_keep`` (mode 2:
-    both kernels draw the bits, no mask stream exists)."""
+    both kernels draw the bits, no mask stream exists).
+
+    ``bwd_wavefront`` picks the backward: the reverse diagonal (True) or
+    the layered per-layer reverse (False); None reads
+    ``RST_WAVEFRONT_BWD`` (on unless "0").  The layered backward consumes
+    the masks outside the kernels, so seed-mode dropout becomes the mask
+    stream ``dropout.bernoulli_mask(drop_seed, (L-1, T, B, H), drop_keep)``
+    in bf16 with drop_scale = 1/drop_keep (mode 1) there."""
+    if bwd_wavefront is None:
+        bwd_wavefront = os.environ.get("RST_WAVEFRONT_BWD", "1") != "0"
     if drop_masks is not None and drop_seed is not None:
         raise ValueError("pass drop_masks or drop_seed, not both")
-    T = x.shape[0]
+    T, B = x.shape[:2]
     L = len(layer_params)
     if L < 2:
         raise ValueError("the wavefront stack needs >= 2 layers")
     cd = compute_dtype
     rd = residual_dtype or (bf16 if cd == bf16 else f32)
+    if drop_seed is not None and not bwd_wavefront:
+        H = layer_params[0]["w_h"].shape[0]
+        drop_masks, drop_scale = dropout.boundary_masks(drop_seed, (L - 1, T, B, H),
+                                                        drop_keep, x.device)
+        drop_seed = None
     if drop_seed is not None:
         drop = (2, tuple(int(w) for w in drop_seed), float(drop_scale), float(drop_keep))
     elif drop_masks is not None:
@@ -561,5 +626,5 @@ def lstm_stack_wavefront_train(layer_params, x: Tensor, seq_lengths: Tensor,
     h0 = torch.stack([h for _, h in states])
     out, cn, hn = _WavefrontStackTrain.apply(
         layer_params[0]["w_x"], w_x_rest, w_h, layer_params[0]["b"], b_rest, x,
-        c0, h0, mask, cd, rd, drop)
+        c0, h0, mask, cd, rd, drop, bool(bwd_wavefront))
     return out, [(cn[l], hn[l]) for l in range(L)]

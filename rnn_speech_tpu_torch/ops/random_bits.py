@@ -13,6 +13,9 @@ version draw the same bits:
 
 * dropout (``ops/dropout.py``): element n of the flat tensor, keep k of
   the site: counter (n >> 2, n >> 34, k, 0), word n & 3;
+* the Bernoulli mask stream (``dropout.bernoulli_mask``): the dropout
+  layout with k = 0, so the mask of a shape is ``dropout_mask(seed,
+  shape, [keep])``;
 * wavefront inter-layer boundary l at step t, row b, unit j
   (``ops/lstm_wavefront.py``): counter (j >> 2, b, t, l), word j & 3.
 

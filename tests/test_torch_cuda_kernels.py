@@ -4,7 +4,10 @@ reach: batch sizes that fill a 64-row tile partly or spill into a third
 one, T shorter than the stack depth, zero-length rows, T = 0, and
 weight-gradient shapes with ragged D, G and N edges; the layered training
 route's four kernels and its stack options (wavefront off, recompute,
-remat, time_chunk) on the card against their plain versions.
+remat, time_chunk) on the card against their plain versions; the Bernoulli
+mask kernel, the alpha-stream CTC pair and the fbank kernel, with the
+routes that launch them (the layered stack backward, the alpha-stream CTC
+backward, the fbank frontend).
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -23,7 +26,11 @@ a flip of values of magnitude <= 2, hence 1e-2 there; the weight
 gradients sum up to ~5000 rows of magnitude-1 products, 1e-4 relative
 plus 1e-3 absolute.  The dropout kernel draws the plain version's bits
 and rounds as it does: equal bit for bit.  The CTC kernels run the plain
-versions' float32 recursion with other exp/log roundings: 1e-4.
+versions' float32 recursion with other exp/log roundings: 1e-4; the
+alpha stream repeats the checkpoint kernel's rows bit for bit.  The mask
+kernel draws its plain version's bits: equal bit for bit.  The fbank
+kernel sums the float32 DFT and mel products in another order: 2e-3 of
+the largest magnitude, the JAX package's limit for its own kernel.
 """
 
 import pytest
@@ -532,3 +539,124 @@ def test_layer_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="D % 64"):
         tlt.recurrence_bwd_recompute(y["dout"], y["x"], hc, hc, y["c0"], y["mask"],
                                      y["w_x"], y["b"], y["w_h"], y["dhn"], y["dcn"])
+
+
+# ------------------- the mask stream, the alpha-stream CTC pair, the fbank kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 5, 64), (1001,), (2, 3, 7, 130), (2,)])
+def test_bernoulli_mask_kernel_matches_plain_bit_for_bit(cuda, dtype, shape):
+    got = tdrop.bernoulli_mask((77, 9), shape, 0.4, dtype, cuda)
+    ref = tdrop.bernoulli_mask_plain((77, 9), shape, 0.4, dtype, cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("T,B,V,U", [(9, 3, 5, 2), (70, 17, 29, 12), (200, 5, 80, 60)])
+def test_ctc_stream_kernels_match_plain(cuda, T, B, V, U):
+    """The alpha stream equals the checkpoint kernel's rows at every block
+    end bit for bit; both stream kernels against their plain versions at
+    the CTC kernels' 1e-4."""
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, T + B + 1))
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    K = tck.ctc_block(ext.shape[1], V)
+    ck, last_ck = tck.ctc_alpha_ckpt(log_probs, ext, skip_ok, ll, ul, K)
+    alphas, last = tck.ctc_alpha_stream(log_probs, ext, skip_ok, ll, ul)
+    alphas_p, last_p = tck.alpha_stream_plain(log_probs, ext, skip_ok, ll, ul)
+    logp = tck._loss(last_p, ul, valid)[1]
+    post = tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas_p)
+    post_p = tck.beta_post_stream_plain(log_probs, ext, skip_ok, ll, ul, logp, alphas_p)
+    torch.cuda.synchronize()
+    ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
+    assert torch.equal(alphas[ends], ck) and torch.equal(last, last_ck)
+    for a, b in ((alphas, alphas_p), (last, last_p), (post, post_p)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _fbank_signals(sr, lengths, width, seed):
+    g = torch.Generator().manual_seed(seed)
+    audio = torch.randn((len(lengths), width), generator=g) * 0.1
+    t = torch.arange(width) / sr
+    audio += 0.3 * torch.sin(2 * torch.pi * 220.0 * t)[None]
+    for i, n in enumerate(lengths):
+        audio[i, n:] = 0.0
+    return audio, torch.as_tensor(lengths)
+
+
+@pytest.mark.parametrize("sr,lengths,width", [(22050, [22050, 0, 9000, 700], 22050),
+                                              (16000, [3000, 16000, 401], 16000),
+                                              (16000, [150, 399, 2000], 2000)])
+def test_fbank_kernel_matches_plain(cuda, sr, lengths, width):
+    """The banks against the plain version (2e-3 of their largest
+    magnitude, the JAX kernel's own limit; float32 sums in another order),
+    then the whole frontend with and without the kernel."""
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    audio, lens = _fbank_signals(sr, lengths, width, seed=sr + width)
+    fe = DeviceFrontend("fbank", sr=sr, max_samples=width, device=cuda)
+    fk = DeviceFrontend("fbank", sr=sr, max_samples=width, device=cuda, use_kernel=True)
+    pre = torch.cat([audio[:, :1], audio[:, 1:] - 0.97 * audio[:, :-1]], dim=1).to(cuda)
+    n_frames = fe._frames_for_width(width)
+    args = (pre, fe._basis, fe._mel, fe.frame_step, n_frames, fe.n_fft)
+    got = tfk.fbank_banks(*args)
+    ref = tfk.fbank_banks_plain(*args)
+    feats, nf = fk(audio.to(cuda), lens.to(cuda))
+    feats_p, nf_p = fe(audio.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (len(lengths), n_frames, 40)
+    for a, b in ((got, ref), (feats, feats_p)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+    assert torch.equal(nf, nf_p)
+
+
+def test_alt_route_launch_counters_count_kernel_calls(cuda, monkeypatch):
+    """The layered stack backward, the alpha-stream CTC backward and the
+    fbank frontend each launch their kernels; the reverse diagonal and the
+    checkpoint backward stay idle there."""
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    kernels = (tdrop.bernoulli_mask, twave.wavefront_train, twave.wavefront_bwd,
+               tlt.recurrence_bwd, tck.ctc_alpha_stream, tck.ctc_beta_post_stream,
+               tck.ctc_beta_post, tfk.fbank_banks)
+    for fn in kernels:
+        fn.launches = 0
+    monkeypatch.setenv("RST_WAVEFRONT_BWD", "0")
+    monkeypatch.setenv("RST_CTC_ALPHA_STREAM", "1")
+    L, T, B, D, H = 3, 6, 4, 64, 64
+    g = torch.Generator().manual_seed(9)
+    layers = [{k: v.requires_grad_(True) for k, v in p.items()}
+              for p in tlstm.init_lstm_stack(g, L, D, H, cuda)]
+    states = [(torch.zeros((B, H), device=cuda),) * 2 for _ in range(L)]
+    out, _ = twave.lstm_stack_wavefront_train(
+        layers, torch.randn((T, B, D), generator=g).to(cuda), _lengths(T, B).to(cuda),
+        states, drop_seed=(3, 4), drop_keep=0.4, drop_scale=2.5,
+        compute_dtype=torch.bfloat16)
+    out.float().sum().backward()
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(12, 4, 6, 3, 2))
+    tck.ctc_loss(logits.requires_grad_(True), ll, labels, ul).sum().backward()
+    fe = DeviceFrontend("fbank", sr=16000, max_samples=4000, device=cuda, use_kernel=True)
+    fe(torch.zeros((2, 4000), device=cuda), torch.as_tensor([4000, 100], device=cuda))
+    assert [fn.launches for fn in kernels] == [1, 1, 0, L, 1, 1, 0, 1]
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+
+    with pytest.raises(TypeError):          # the mask kernel writes f32 or bf16
+        tdrop.bernoulli_mask((1, 2), (8,), 0.5, torch.float16, cuda)
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(9, 3, 5, 2, 3))
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    with pytest.raises(ValueError):         # the stream has T rows
+        tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, torch.zeros(3, device=cuda),
+                                 torch.zeros((8, 3, ext.shape[1]), device=cuda))
+    pre = torch.zeros((2, 1000), device=cuda)
+    basis = torch.zeros((551, 514), device=cuda)
+    mel = torch.zeros((257, 40), device=cuda)
+    with pytest.raises(ValueError, match="step % 4"):
+        tfk.fbank_banks(pre, basis, mel, 221, 3, 512)
+    with pytest.raises(ValueError):         # float32 only
+        tfk.fbank_banks(pre.double(), basis, mel, 220, 3, 512)

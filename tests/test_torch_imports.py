@@ -127,6 +127,8 @@ PORT_MODULES = [
     "rnn_speech_tpu_torch.ops.ctc_kernel",
     # slice 4: the layered training route
     "rnn_speech_tpu_torch.ops.lstm_layer_train",
+    # slice 5: the fused fbank frontend
+    "rnn_speech_tpu_torch.ops.frontend_kernel",
 ]
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,grad_study,bundle,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,bundle,beam,cli]
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -19,7 +19,8 @@ printing one JSON line:
            its plain version at B=128 on 10.24 s clips (22050 Hz) and at 16
            kHz with a short ragged row and an empty one, each beside a
            planted fault that must fail its check.
-  eval     random weights from a fixed torch.Generator, then fbank frontend
+  eval     (the peak-memory counter reset first) random weights from a
+           fixed torch.Generator, then fbank frontend
            -> 3x1024 bf16 forward -> greedy decode at B=128 on 10.24 s
            clips, through the wavefront kernel and through the layered
            recurrence kernel; launch counters are zeroed before this phase
@@ -44,7 +45,11 @@ printing one JSON line:
            within 4 sigma); the alpha-stream pair at the CTC shape (the
            stream's rows at every block end equal to the checkpoint
            kernel's, bit for bit, and its last row; the stream backward's
-           gradient within the CTC tolerance of the checkpoint backward's).
+           gradient within the CTC tolerance of the checkpoint backward's);
+           the reverse diagonal with its fused dW_x at T=16 and 512, B=16
+           and 96, drop modes 0 and 2 (dW_x per boundary, dgates, dh0 and
+           dc0 against the plain version, and dgates, dh0, dc0 bit for bit
+           against the unfused pass).
            Planted faults stand beside the checks and must fail them.
   train    ``train_step`` with the default StepConfig (keep probabilities
            0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
@@ -102,6 +107,20 @@ printing one JSON line:
            use_kernel=True): throughput and the frontend stage against the
            matmul frontend's; and the four kernels' times beside their
            bounds, plain versions and one PyTorch call each.
+  train_wide
+           the default StepConfig at the widest batch the memory plan sends
+           to gates residuals on this card (B=394 on the H100, T=3510), with
+           the fused dW_x chosen by its switch alone (1 warm-up, 3 timed
+           steps, one split by its marks, peak memory after a reset; the
+           fused pass must launch) and the fused kernel's time at that
+           batch; the B=64 step with RST_WAVEFRONT_FUSE_DWX=1 against =0 in
+           turns (off, on, on, off); one step's gradients at T=256 with the
+           fused pass forced against the unfused route on the same seed
+           words at 1e-3, beside a planted fault; the recompute step at the
+           widest batch the plan sends to recompute residuals (B=473 on the
+           H100; 1 warm-up, 2 timed, peak); the fused pass alone at B=96,
+           T=3510 beside its bound, the unfused pass, its plain version and
+           torch.mm for the same dW_x.
   grad_study
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
@@ -113,8 +132,13 @@ printing one JSON line:
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths and through the fbank kernel at CER <= 2%, and all equal
            the plain path's transcripts.
+  beam     the AM-only beam search at width 16 on the committed bundle's
+           logits of the 32 held-out clips on the card: CER <= 2%, best
+           beams equal to the same function's on the CPU on the same
+           logits, and the decode's time at B=1 (a ``--file`` clip) and at
+           the eval batch (B=128, T=1024).
   cli      ``python -m rnn_speech_tpu_torch.cli --file`` on one rendered
-           clip prints its text.
+           clip prints its text (the default beam width, 16).
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -548,6 +572,10 @@ def phase_eval():
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     results = {}
+    # The peak memory below is this phase's own, not a high-water mark of
+    # the phases before it.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rec.lstm_recurrence.launches = 0
     wf.lstm_stack_wavefront.launches = 0
     for wavefront in (True, False):
@@ -564,6 +592,9 @@ def phase_eval():
             "utt_per_s": med, "spread_pct": spread, "values": vals,
             "stage_ms": stages,
         }
+    # The eval path's own peak, read before the kernels are timed alone
+    # below beside their plain versions and torch.nn.LSTM.
+    peak = torch.cuda.max_memory_allocated()
     launches = {"lstm_wavefront": wf.lstm_stack_wavefront.launches,
                 "lstm_recurrence": rec.lstm_recurrence.launches}
     if not all(launches.values()):
@@ -602,8 +633,7 @@ def phase_eval():
     for name, ms in b1_ms.items():
         timing[name]["ms_b1"] = ms
     emit("eval", batch=B, seconds=SECONDS, frames=T, throughput=results,
-         launches=launches, timing=timing,
-         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+         launches=launches, timing=timing, peak_memory_gib=peak / 2**30)
 
 
 def _held_out(n_clips=32, noise=900.0):
@@ -636,6 +666,8 @@ def _edit_distance(a: str, b: str) -> int:
 
 
 def phase_bundle():
+    """Greedy transcripts of the held-out clips on each route (the beam
+    search has its own phase)."""
     import numpy as np
     import torch
 
@@ -664,7 +696,7 @@ def phase_bundle():
                                    use_kernel=True) if fbank_kernel else None)
         with torch.no_grad():
             hyps = cli.transcribe(params, cfg, audio, lengths, frontend=frontend,
-                                  device="cuda")
+                                  device="cuda", beam_width=1)
         cers = [_edit_distance(t, h.strip()) / max(len(t), 1)
                 for t, h in zip(truth, hyps)]
         out[name] = {"hyps": hyps, "cer_pct": 100.0 * float(np.mean(cers))}
@@ -749,25 +781,31 @@ def _rel_errs(got, ref):
     """(max abs errors, relative errors) of each output pair: the error
     over the plain result's own largest magnitude, gate by gate for
     outputs whose last axis holds the four gate blocks (i, g, f, o), so a
-    small gate's term is held to its own scale."""
+    small gate's term is held to its own scale.  Outputs of three or more
+    axes are read one leading index at a time, so a float32 copy of a
+    full-length dgates (15 GiB at B=96) is never formed."""
     import torch
 
     errs, rels = [], []
     for g, r in zip(got, ref):
-        if g.shape != r.shape or not bool(torch.isfinite(g.float()).all()):
+        if g.shape != r.shape:
             fail("bad shape or non-finite output")
         if not g.numel():
             errs.append(0.0)
             rels.append(0.0)
             continue
         n_blocks = 4 if r.shape[-1] == 4 * H else 1
-        rel = 0.0
-        for gb, rb in zip(g.chunk(n_blocks, -1), r.chunk(n_blocks, -1)):
-            err = float((gb.float() - rb.float()).abs().max())
-            scale = float(rb.float().abs().max())
-            rel = max(rel, err / scale if scale else (0.0 if err == 0 else float("inf")))
-        errs.append(float((g.float() - r.float()).abs().max()))
-        rels.append(rel)
+        err, scale = [0.0] * n_blocks, [0.0] * n_blocks
+        for gp, rp in zip(g.unbind(0), r.unbind(0)) if g.dim() > 2 else ((g, r),):
+            for i, (gb, rb) in enumerate(zip(gp.chunk(n_blocks, -1), rp.chunk(n_blocks, -1))):
+                gf, rf = gb.float(), rb.float()
+                if not bool(torch.isfinite(gf).all()):
+                    fail("bad shape or non-finite output")
+                err[i] = max(err[i], float((gf - rf).abs().max()))
+                scale[i] = max(scale[i], float(rf.abs().max()))
+        errs.append(max(err))
+        rels.append(max(e / s if s else (0.0 if e == 0 else float("inf"))
+                        for e, s in zip(err, scale)))
     return errs, rels
 
 
@@ -875,6 +913,68 @@ def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
         worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
             f"wavefront_bwd mode {mode} {tag}", got_b, ref_b, tol, checks))
         del ref, ref_b, got_b, b_in
+
+
+FUSED_CHECK_B = (16, 96)   # batches of the fused dW_x's checks (on from B=83 at T=3510)
+
+
+def _fused_checks(checks, worst):
+    """The reverse diagonal with its fused dW_x (drop modes 0 and 2, L=3)
+    against its plain version at T=16 and 512, B=16 and 96, and at the
+    main path's T=TRAIN_T (full windows and a ragged last one), B=96;
+    ragged lengths with a zero-length row: dW_x per boundary, dgates, dh0
+    and dc0, each over its own largest magnitude; and the fused pass's
+    dgates, dh0 and dc0 bit for bit against the unfused pass's.  Beside
+    mode 0 the plain dW_x with the steps of one window (the last W) left
+    out, beside mode 2 the plain dW_x with keep·scale left out, must fail
+    the check."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    bf = torch.bfloat16
+    split = lambda r: (*r[:3], *r[3].unbind(0))      # dW_x per boundary
+    for T, tol, batches in ((16, TRAIN_TOL_SHORT, FUSED_CHECK_B),
+                            (512, TRAIN_TOL_LONG, FUSED_CHECK_B),
+                            (TRAIN_T, TRAIN_TOL_LONG, FUSED_CHECK_B[-1:])):
+        for Bn in batches:
+            lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(Bn)]
+            lens[2] = 0
+            inp = _train_inputs(T, Bn, lens, seed=140 + T + Bn)
+            for mode in (0, 2):
+                drop = (0, None, 1.0, 1.0) if mode == 0 else _drop(2, T, Bn, seed=T + Bn)
+                outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf,
+                                                             *drop)
+                b_in = _bwd_inputs(inp, outs, gates, cseq, seed=150 + T + Bn + mode)
+                args = lambda: [b_in[k].clone() for k in BWD_ARGS] + [outs, *drop]
+                ref = wf.wavefront_bwd_plain(*args(), fuse_dwx=True)
+                got = wf.wavefront_bwd(*args(), fuse_dwx=True)
+                unfused = wf.wavefront_bwd(*args())
+                torch.cuda.synchronize()
+                tag = f"wavefront_bwd fused dW_x mode {mode} L={L} B={Bn} T={T}"
+                same = all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
+                del unfused
+                checks.append({"check": f"{tag}: dgates, dh0, dc0 of the unfused pass",
+                               "bit_equal": same})
+                if not same:
+                    fail(f"{tag}: dgates, dh0 or dc0 differ from the unfused pass's")
+                worst["wavefront_bwd_fused"] = max(worst["wavefront_bwd_fused"], _rel_check(
+                    tag, split(got), split(ref), tol, checks))
+                if mode == 0:
+                    w = min(wf.FUSE_DWX_WINDOW, T)
+                    name = f"the last {w} steps left out"
+                    faulty = ref[3] - torch.stack([
+                        gm.weight_grad_plain(outs[l, T - w:], ref[0][l + 1, T - w:])[0]
+                        for l in range(L - 1)])
+                else:
+                    name = "keep·scale left out"
+                    faulty = torch.stack([gm.weight_grad_plain(outs[l], ref[0][l + 1])[0]
+                                          for l in range(L - 1)])
+                _fault_check(f"{tag}: {name}", split((*ref[:3], faulty)), split(ref), tol,
+                             checks)
+                del outs, gates, cseq, b_in, ref, got, faulty
+            del inp
 
 
 def _ctc_batch(seed):
@@ -1003,7 +1103,7 @@ def phase_train_kernels():
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     checks = []
-    worst = {"wavefront_train": 0.0, "wavefront_bwd": 0.0,
+    worst = {"wavefront_train": 0.0, "wavefront_bwd": 0.0, "wavefront_bwd_fused": 0.0,
              "dgates_weight_grads": 0.0, "weight_grad": 0.0}
     bf = torch.bfloat16
     f_cols = slice(2 * H, 3 * H)                     # the forget gate's block
@@ -1044,6 +1144,7 @@ def phase_train_kernels():
         del ref, got_b, ref_b, b_in
         _drop_mode_checks(inp, tag, tol, checks, worst, seed=60 + i)
         del inp
+    _fused_checks(checks, worst)
 
     N = TRAIN_T * TRAIN_B
     g = torch.Generator().manual_seed(60)
@@ -1273,6 +1374,7 @@ def _plain_versions():
     with mock.patch.object(wf, "wavefront_train", wf.wavefront_train_plain), \
             mock.patch.object(wf, "wavefront_bwd", wf.wavefront_bwd_plain), \
             mock.patch.object(wf, "dgates_weight_grads", gm.dgates_weight_grads_plain), \
+            mock.patch.object(wf, "weight_grad", gm.weight_grad_plain), \
             mock.patch.object(tlt, "recurrence_train", tlt.recurrence_train_plain), \
             mock.patch.object(tlt, "recurrence_bwd", tlt.recurrence_bwd_plain), \
             mock.patch.object(tlt, "recurrence_train_lean", tlt.recurrence_train_lean_plain), \
@@ -1295,10 +1397,10 @@ def _plain_versions():
 def _scale_fault(bwd_plain):
     """The plain reverse diagonal with its inter-layer keep scale 1% too
     large (the cotangent and the xdrop streams): a planted fault."""
-    def faulty(*args):
+    def faulty(*args, **kw):
         args = list(args)
         args[12] *= 1.01                            # drop_scale
-        return bwd_plain(*args)
+        return bwd_plain(*args, **kw)
     return faulty
 
 
@@ -1628,18 +1730,20 @@ def _ctc_dropout_timing():
 
 
 def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmup=2,
-               counters=None, idle=None):
-    """``warmup`` steps (the first timed alone), ``reps`` reps of 3 timed
-    steps on the repeated batch, and with ``record_stages`` one more step
-    split by its marks.  Counters are zeroed before and read after: the
-    kernels of the stack's ``route`` (or ``counters``, {name: wrapper})
-    must launch, and off the wavefront the wavefront kernels (or ``idle``)
-    must not.  Returns (record, state)."""
+               counters=None, idle=None, per_rep=3):
+    """``warmup`` steps (the first timed alone), ``reps`` reps of
+    ``per_rep`` timed steps on the repeated batch, and with
+    ``record_stages`` one more step split by its marks.  Counters are
+    zeroed before and read after: the kernels of the stack's ``route`` (or
+    ``counters``, {name: wrapper}) must launch, and off the wavefront the
+    wavefront kernels (or ``idle``) must not; ``fused_launches`` counts the
+    reverse passes with the fused dW_x.  Returns (record, state)."""
     import statistics
 
     import torch
 
     from rnn_speech_tpu_torch import stages
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
     from rnn_speech_tpu_torch.train import step
 
     Bn = batch["labels"].shape[1]
@@ -1648,6 +1752,7 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
         idle = {} if route == "wavefront" else _stack_counters("wavefront")
     for fn in _all_counters().values():
         fn.launches = 0
+    wf.wavefront_bwd.fused_launches = 0
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator().manual_seed(11)
     losses = []
@@ -1667,16 +1772,17 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(per_rep):
             run()
         torch.cuda.synchronize()
-        vals.append(1e3 * (time.perf_counter() - t0) / 3)
+        vals.append(1e3 * (time.perf_counter() - t0) / per_rep)
     stage_ms = {}
     if record_stages:
         with stages.record() as marks:             # one more step, split by stage
             run()
         stage_ms = stages.stage_ms(marks)
     launches = {name: fn.launches for name, fn in counters.items()}
+    fused_launches = wf.wavefront_bwd.fused_launches
     idle = {name: fn.launches for name, fn in idle.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
@@ -1691,7 +1797,8 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
                 train_utt_per_sec=Bn / (ms / 1e3),
                 train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
                 first_step_ms=first_ms, losses=losses, launches=launches,
-                idle_launches=idle, peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
+                fused_launches=fused_launches, idle_launches=idle,
+                peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
                 stage_sum_ms=sum(stage_ms.values())), state
 
 
@@ -2222,6 +2329,288 @@ def phase_alt_routes():
          timing=_alt_kernel_timing())
 
 
+def _plan_edge(cfg, start, mode):
+    """The largest batch from ``start`` up for which the memory plan on
+    this card answers (0, ``mode``)."""
+    from rnn_speech_tpu_torch.models import acoustic
+
+    b = start
+    while acoustic.training_memory_plan(cfg, TRAIN_T, b + 1) == (0, mode):
+        b += 1
+    return b
+
+
+def _fused_pass_timing(Bn, plain):
+    """The reverse pass with its fused dW_x alone at T=TRAIN_T, batch Bn,
+    full-length rows, drop mode 2 (the default step's): ms beside the
+    unfused pass's (``ms_unfused``) and its bound; with ``plain`` also its
+    plain version's ms and the library yardstick, one torch.mm (bf16
+    operands, f32 out) per boundary for the same dW_x.  The bound counts
+    2·T·B·H·4H·(2L-1 + L-1) operations, or the bytes of the unfused pass's
+    inputs and outputs without the xdrop stream plus the (L-1, H, 4H) f32
+    dW_x.  Each call writes dgates over its gates residual: later calls
+    run on dgates (the same work), the plain version on a copy."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    T, bf, f32, G = TRAIN_T, torch.bfloat16, torch.float32, 4 * H
+    N = T * Bn
+    inp = _train_inputs(T, Bn, [T] * Bn, seed=170)
+    drop = _drop(2, T, Bn, 172)
+    outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
+    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=171)
+    del inp, gates
+    bargs = [b_in[k] for k in BWD_ARGS]
+    out = {"batch": Bn, "frames": T, "drop_mode": 2}
+    if plain:
+        pargs = [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS]
+        out["plain_ms"] = cuda_ms(lambda: wf.wavefront_bwd_plain(*pargs, outs, *drop,
+                                                                 fuse_dwx=True),
+                                  iters=1, warmup=0)
+        del pargs
+        torch.cuda.empty_cache()
+    out["ms"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop, fuse_dwx=True),
+                        iters=2)
+    out["ms_unfused"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2)
+    if plain:
+        dg = b_in["gates"]
+        out["library_ms"] = cuda_ms(lambda: [
+            torch.mm(outs[l].reshape(N, H).t(), dg[l + 1].reshape(N, G), out_dtype=f32)
+            for l in range(L - 1)])
+        out["library"] = "torch.mm (bf16, f32 out) per boundary for dW_x of layers 1..L-1"
+    flops = 2 * T * Bn * H * G * (2 * L - 1 + L - 1)
+    nbytes = (T * Bn * H * 2 + (2 * L - 1) * H * G * 2 + T * Bn * 4
+              + L * T * Bn * (G + H) * 2 + 3 * L * Bn * H * 4         # inputs
+              + (L - 1) * T * Bn * H * 2                               # outs read
+              + L * T * Bn * G * 2 + 2 * L * Bn * H * 4                # outputs
+              + (L - 1) * H * G * 4)                                   # dW_x
+    out["bound_ms"], out["bound_by"] = _bounds(flops, nbytes)
+    out.update(flops=flops, bytes=nbytes)
+    return out
+
+
+def _fused_grad_gate(seed=2):
+    """One step's gradients at T=GRAD_T through the kernels with the fused
+    dW_x forced (RST_WAVEFRONT_FUSE_DWX=1) against the unfused route (=0)
+    on the same seed words: relative Frobenius error per parameter tensor
+    under GRAD_REL_TOL.  Beside it the fused route with dW_x's keep·scale
+    left out (each boundary's dW_x from the undropped outs, a planted
+    fault) must fail the gate."""
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.params import flatten
+    from rnn_speech_tpu_torch.train import step
+
+    scfg, state, batch = _train_setup(GRAD_T, 100, 50, seed=seed)
+    kernel = wf.wavefront_bwd
+
+    def keep_left_out(*args, fuse_dwx=False):
+        res = kernel(*args, fuse_dwx=fuse_dwx)
+        if fuse_dwx:
+            outs = args[9]
+            for l in range(L - 1):
+                res[3][l] = gm.weight_grad(outs[l], res[0][l + 1])[0]
+        return res
+
+    # The wrapper counts its launches on the module's name, here the fault.
+    keep_left_out.launches = keep_left_out.fused_launches = 0
+    grads, fused = {}, {}
+    for name, flag, patch in (("unfused", "0", None), ("fused", "1", None),
+                              ("planted_fault", "1", keep_left_out)):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_environ(RST_WAVEFRONT_FUSE_DWX=flag))
+            if patch is not None:
+                stack.enter_context(mock.patch.object(wf, "wavefront_bwd", patch))
+            wf.wavefront_bwd.fused_launches = 0
+            _, g, _, _, _ = step.accumulate_grads(scfg, state["params"], state["states"],
+                                                  batch, torch.Generator().manual_seed(seed + 1))
+            torch.cuda.synchronize()
+            fused[name] = wf.wavefront_bwd.fused_launches
+        grads[name] = flatten(g)
+    rel = lambda a, b: float((a - b).float().norm() / b.float().norm().clamp(min=1e-30))
+    entry = {"T": GRAD_T, "seed": seed, "keep_probs": [INPUT_KEEP, OUTPUT_KEEP],
+             "fused_launches": fused, "tol": GRAD_REL_TOL}
+    if fused != {"unfused": 0, "fused": 1, "planted_fault": 1}:
+        fail(f"train_wide: the gradient gate's routes did not run as set: {fused}")
+    for name in ("fused", "planted_fault"):
+        per = {k: rel(grads[name][k], grads["unfused"][k]) for k in grads["unfused"]}
+        worst = max(per.values())
+        entry[name] = {"rel_frobenius": per, "worst": worst,
+                       "worst_tensor": max(per, key=per.get)}
+        if name == "fused" and not worst <= GRAD_REL_TOL:
+            fail(f"train_wide: fused-route gradients disagree with the unfused route: {entry}")
+        if name == "planted_fault":
+            entry[name]["over_limit"] = worst / GRAD_REL_TOL
+            if not worst > GRAD_REL_TOL:
+                fail(f"train_wide: the gradient gate does not see the planted fault: {entry}")
+    return entry
+
+
+def phase_train_wide():
+    """The default step at the widest batch the plan sends to gates
+    residuals, with the fused dW_x by its switch alone, then forced off
+    (its peak and time, or that it does not fit); the B=64 step with
+    the fused pass forced on and off in turns; the fused route's gradient
+    gate; the recompute step at the widest batch the plan sends to
+    recompute; the fused pass's timing."""
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    if os.environ.get("RST_WAVEFRONT_FUSE_DWX"):
+        fail("train_wide: RST_WAVEFRONT_FUSE_DWX is set; the switch must decide alone")
+    torch.cuda.empty_cache()
+    cfg = acoustic.AcousticConfig(num_layers=L, hidden_size=H, input_dim=120, num_labels=V,
+                                  compute_dtype=torch.bfloat16, use_kernels=True,
+                                  wavefront=True)
+    wide_B = _plan_edge(cfg, TRAIN_B, "gates")
+    if not wf.fuse_dwx_enabled(L, TRAIN_T, wide_B, H, 2, 2):
+        fail(f"train_wide: the switch does not fuse dW_x at B={wide_B}")
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, Bn=wide_B)
+    wide, state = _run_steps(scfg, state, batch, reps=1, record_stages=True, warmup=1)
+    if not wide["fused_launches"]:
+        fail(f"train_wide: the B={wide_B} step did not run the fused pass: {wide}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    wide.update(memory_plan=[0, "gates"], budget_gib=acoustic.default_residual_budget() / 2**30,
+                gates_estimate_gib=acoustic.training_residual_bytes(
+                    cfg, TRAIN_T, wide_B) / 2**30,
+                card_gib=card / 2**30, headroom_gib=(card / 2**30 - wide["peak_memory_gib"]))
+    # The same step with the fused dW_x forced off: its peak and time say
+    # what the fused mode buys at this batch.  Whether it fits is what is
+    # measured, so running out of memory is recorded, not a failure.
+    torch.cuda.empty_cache()
+    try:
+        with _environ(RST_WAVEFRONT_FUSE_DWX="0"):
+            rec, state = _run_steps(scfg, state, batch, reps=1, record_stages=False,
+                                    warmup=1, per_rep=1)
+        if rec["fused_launches"]:
+            fail(f"train_wide: RST_WAVEFRONT_FUSE_DWX=0 ran {rec['fused_launches']} "
+                 f"fused passes at B={wide_B}")
+        wide_unfused = {"fits": True, **{k: rec[k] for k in (
+            "train_ms_per_step", "train_utt_per_sec", "values_ms", "first_step_ms",
+            "peak_memory_gib", "fused_launches", "launches")}}
+    except torch.cuda.OutOfMemoryError as err:
+        wide_unfused = {"fits": False, "error": str(err).splitlines()[0]}
+    del state, batch
+    torch.cuda.empty_cache()
+    fused_wide = _fused_pass_timing(wide_B, plain=False)
+    torch.cuda.empty_cache()
+
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0)
+    turns = []
+    for flag in ("0", "1", "1", "0"):
+        with _environ(RST_WAVEFRONT_FUSE_DWX=flag):
+            rec, state = _run_steps(scfg, state, batch, reps=1, record_stages=True, warmup=1)
+        if bool(rec["fused_launches"]) != (flag == "1"):
+            fail(f"train_wide: RST_WAVEFRONT_FUSE_DWX={flag} ran {rec['fused_launches']} "
+                 f"fused passes")
+        turns.append({"fuse_dwx": flag, **{k: rec[k] for k in (
+            "train_ms_per_step", "values_ms", "peak_memory_gib", "stage_ms",
+            "fused_launches", "launches")}})
+    del state, batch
+    torch.cuda.empty_cache()
+    grad_check = _fused_grad_gate()
+    torch.cuda.empty_cache()
+
+    if acoustic.training_memory_plan(cfg, TRAIN_T, wide_B + 1) != (0, "recompute"):
+        fail(f"train_wide: the plan does not send B={wide_B + 1} to recompute residuals")
+    rec_B = _plan_edge(cfg, wide_B + 1, "recompute")
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, Bn=rec_B,
+                                      residual_mode="recompute")
+    recompute, state = _run_steps(scfg, state, batch, reps=1, record_stages=False,
+                                  route="recompute", warmup=1, per_rep=2)
+    recompute.update(
+        memory_plan=[0, "recompute"],
+        plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
+        card_gib=card / 2**30)
+    del state, batch
+    torch.cuda.empty_cache()
+    timing = {"wavefront_bwd_fuse_dwx": _fused_pass_timing(max(FUSED_CHECK_B), plain=True)}
+    torch.cuda.empty_cache()
+    emit("train_wide", frames=TRAIN_T, label_length=LABEL_LEN,
+         keep_probs=[INPUT_KEEP, OUTPUT_KEEP], wide=wide, wide_unfused=wide_unfused,
+         fused_pass_wide=fused_wide,
+         b64_turns=turns, grad_check=grad_check, recompute=recompute, timing=timing)
+
+
+def phase_beam():
+    """The beam search at the CLI's default width on the committed bundle's
+    logits of the held-out clips, on the card and on the CPU; its time at
+    B=1 and at the eval batch."""
+    import numpy as np
+    import torch
+
+    from rnn_speech_tpu_torch import cli, params as params_mod
+    from rnn_speech_tpu_torch.charmap import get_char_map
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import decode
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    K = cli.DEFAULT_BEAM_WIDTH
+    params = params_mod.load_bundle(BUNDLE, device=DEVICE)
+    cfg = acoustic.config_for_params(params, compute_dtype=torch.bfloat16, use_kernels=True,
+                                     wavefront=True)
+    texts, sigs = _held_out()
+    width = max(len(s) for s in sigs)
+    audio = np.zeros((len(sigs), width), np.float32)
+    for i, sig in enumerate(sigs):
+        audio[i, : len(sig)] = sig
+    lengths = np.asarray([len(sig) for sig in sigs], np.int32)
+    fe = DeviceFrontend("fbank", sr=SR, max_samples=width, device=DEVICE)
+    with torch.no_grad():
+        feats, nf = fe(torch.as_tensor(audio, device=DEVICE),
+                       torch.as_tensor(lengths, device=DEVICE))
+        logits, _ = acoustic.forward(params, cfg, feats.transpose(0, 1), nf,
+                                     acoustic.zero_state(cfg, len(sigs), device=DEVICE))
+        out_len = acoustic.output_lengths(cfg, nf)
+        labels, lab_len, scores = decode.beam_search_decode(logits, out_len, K)
+        cpu = decode.beam_search_decode(logits.cpu(), out_len.cpu(), K)
+        hyps_cli = cli.transcribe(params, cfg, audio, lengths, device=DEVICE)
+    torch.cuda.synchronize()
+    char_map = get_char_map("english")
+    best, best_len = labels[:, 0].cpu(), lab_len[:, 0].cpu()
+    hyps = [char_map.decode(list(best[b, : int(best_len[b])].numpy()))
+            for b in range(len(sigs))]
+    truth = [t.lower() for t in texts]
+    cer = 100.0 * float(np.mean([_edit_distance(t, h.strip()) / max(len(t), 1)
+                                 for t, h in zip(truth, hyps)]))
+    entry = {"clips": len(sigs), "beam_width": K, "frames": int(logits.shape[0]),
+             "cer_pct": cer, "cer_limit_pct": CER_LIMIT,
+             "best_equal_cpu": bool(torch.equal(best, cpu[0][:, 0])
+                                    and torch.equal(best_len, cpu[1][:, 0])),
+             "all_beams_equal_cpu": bool(torch.equal(labels.cpu(), cpu[0])),
+             "scores_max_abs_diff_cpu": float((scores.cpu() - cpu[2]).abs().max()),
+             "cli_transcribe_equal": hyps == hyps_cli,
+             "exact_clips": sum(int(t == h) for t, h in zip(truth, hyps)), "hyps": hyps}
+    if cer > CER_LIMIT or not entry["best_equal_cpu"] or not entry["cli_transcribe_equal"]:
+        fail(f"beam: {entry}")
+
+    # The decode's time at B=1 (one clip, the --file case) and at the eval
+    # batch (B=128, 10.24 s clips, random weights), beside greedy.
+    timing = {}
+    with torch.no_grad():
+        timing["b1"] = {"frames": int(out_len[0]),
+                        "ms": cuda_ms(lambda: decode.beam_search_decode(
+                            logits[: int(out_len[0]), :1], out_len[:1], K), iters=3)}
+        del params, logits, feats
+        fe_e, cfg_e, params_e, audio_e, lengths_e = _eval_setup(True)
+        feats_e, nf_e = fe_e(audio_e, lengths_e)
+        logits_e, _ = acoustic.forward(params_e, cfg_e, feats_e.transpose(0, 1), nf_e,
+                                       acoustic.zero_state(cfg_e, B, device=DEVICE))
+        len_e = acoustic.output_lengths(cfg_e, nf_e)
+        timing["eval_batch"] = {
+            "batch": B, "frames": int(logits_e.shape[0]),
+            "ms": cuda_ms(lambda: decode.beam_search_decode(logits_e, len_e, K), iters=2),
+            "greedy_ms": cuda_ms(lambda: decode.greedy_decode(logits_e, len_e))}
+    emit("beam", **entry, timing=timing)
+
+
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
@@ -2233,7 +2622,9 @@ def kernels_line():
     (gates mode) or the recompute step's pass and its 5 steps; for the
     mask and the alpha-stream pair one step of the routes that run them
     and the launches of their 5 steps each (the mask on two routes), for
-    the fbank kernel one eval batch and the launches of its eval run."""
+    the fbank kernel one eval batch and the launches of its eval run; for
+    the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
+    launches of the widest gates-residual step's 5 steps (train_wide)."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
@@ -2300,6 +2691,18 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+    tw = RECORD.get("train_wide", {})
+    t = tw.get("timing", {}).get("wavefront_bwd_fuse_dwx", {})
+    rows.append({
+        "name": "wavefront_bwd_fuse_dwx", "route": "cuda",
+        "source": csrc + "lstm_wavefront_bwd.cu",
+        "replaces": "rnn_speech_tpu/ops/lstm_wavefront.py:574",
+        "launches": tw.get("wide", {}).get("fused_launches"),
+        "max_abs_err": tk.get("max_abs_err", {}).get("wavefront_bwd_fused"),
+        "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+        "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+        "library_ms": t.get("library_ms"),
+    })
     alt = RECORD.get("alt_routes", {})
     routes = alt.get("routes", {})
     route_launches = lambda name, *runs: (
@@ -2329,7 +2732,7 @@ def kernels_line():
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "alt_routes", "grad_study", "bundle", "cli")
+          "alt_routes", "train_wide", "grad_study", "bundle", "beam", "cli")
 
 
 def main(argv=None) -> int:
@@ -2369,13 +2772,16 @@ def main(argv=None) -> int:
                      ("kernels", phase_kernels), ("train_kernels", phase_train_kernels),
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
-                     ("grad_study", phase_grad_study)):
+                     ("train_wide", phase_train_wide), ("grad_study", phase_grad_study)):
         if name in phases:
             timed(name, fn)
+    held = None
     if "bundle" in phases or "cli" in phases:
         held = timed("bundle", phase_bundle)
-        if "cli" in phases:
-            timed("cli", phase_cli, *held)
+    if "beam" in phases:
+        timed("beam", phase_beam)
+    if "cli" in phases:
+        timed("cli", phase_cli, *held)
     kl = kernels_line()
     RECORD["total_seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -1,13 +1,16 @@
 """Command line of the port: transcribe a file on the GPU.
 
     python -m rnn_speech_tpu_torch.cli --file clip.wav --config my.ini
-                                       [--device cuda|cpu]
+                                       [--device cuda|cpu] [--beam_width K]
 
 Counterpart of the ``--file`` mode of ``rnn_speech_tpu/cli.py``: the same
 ini (``checkpoint_dir`` names the bundle whose ``acoustic/`` checkpoint is
 restored), the same on-device fbank/MFCC frontend, the same audio-width
-bucketing, and greedy CTC decoding.  It runs on ``cuda`` unless
-``--device cpu`` is given.
+bucketing, and the same decoding: the AM-only prefix beam search at
+``--beam_width`` (16 by default, as in the JAX CLI), its best beam, or
+greedy CTC at width 1.  ``--lm_weight`` above 0 (LM shallow fusion) raises
+until the language-model slice.  It runs on ``cuda`` unless ``--device
+cpu`` is given.
 
 ``transcribe(params, cfg, audio, lengths)`` is the library entry: raw
 audio rows (B, S) in, one string per row out.
@@ -31,6 +34,7 @@ from rnn_speech_tpu_torch import resolve_device
 logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 22050
+DEFAULT_BEAM_WIDTH = 16    # the JAX CLI's --beam_width default
 
 _LATER = {
     "evaluate": "the evaluate slice (corpus readers, device edit distance, "
@@ -81,9 +85,12 @@ def build_forward(config, char_map, device=None):
     return model_cfg, fe, params
 
 
-def infer(params, model_cfg, fe, audio: torch.Tensor, lengths: torch.Tensor):
+def infer(params, model_cfg, fe, audio: torch.Tensor, lengths: torch.Tensor,
+          beam_width: int = 1):
     """Raw audio (B, S) -> (labels (B, U) padded with -1, lengths (B,)):
-    frontend, forward with zero state, greedy decode."""
+    frontend, forward with zero state, then greedy decode (``beam_width``
+    1, the default: the eval program of ``bench.py``) or the beam search's
+    best beam (``_make_infer`` of the JAX CLI)."""
     from rnn_speech_tpu_torch.models import acoustic
     from rnn_speech_tpu_torch.ops import decode
 
@@ -93,12 +100,17 @@ def infer(params, model_cfg, fe, audio: torch.Tensor, lengths: torch.Tensor):
         params, model_cfg, feats_bm.transpose(0, 1), frame_lengths, states
     )
     out_lengths = acoustic.output_lengths(model_cfg, frame_lengths)
+    if beam_width > 1:
+        labels, label_lengths, _ = decode.beam_search_decode(
+            logits, out_lengths, beam_width=beam_width)
+        return labels[:, 0], label_lengths[:, 0]
     return decode.greedy_decode(logits, out_lengths)
 
 
 def transcribe(params, cfg, audio, lengths, *, frontend=None, char_map=None,
-               device=None) -> List[str]:
-    """Greedy transcripts of raw audio rows.
+               device=None, beam_width: int = DEFAULT_BEAM_WIDTH) -> List[str]:
+    """Transcripts of raw audio rows: the best beam of the beam search at
+    ``beam_width`` (16 by default, the CLI's), greedy at 1.
 
     ``audio`` (B, S) float samples in [-1, 1] at 22050 Hz, ``lengths`` (B,)
     valid samples per row; ``cfg`` the AcousticConfig of ``params``, which
@@ -118,14 +130,15 @@ def transcribe(params, cfg, audio, lengths, *, frontend=None, char_map=None,
         frontend = DeviceFrontend(kind, sr=SAMPLE_RATE,
                                   max_samples=audio.shape[1], device=dev)
     char_map = char_map or get_char_map("english")
-    labels, out_lengths = infer(params, cfg, frontend, audio, lengths)
+    labels, out_lengths = infer(params, cfg, frontend, audio, lengths, beam_width)
     labels = labels.cpu().numpy()
     out_lengths = out_lengths.cpu().numpy()
     return [char_map.decode(list(labels[b, : int(out_lengths[b])]))
             for b in range(labels.shape[0])]
 
 
-def process_file(config, char_map, file_path, device) -> int:
+def process_file(config, char_map, file_path, device,
+                 beam_width: int = DEFAULT_BEAM_WIDTH) -> int:
     from rnn_speech_tpu_torch import audio_io
 
     model_cfg, fe, params = build_forward(config, char_map, device)
@@ -142,7 +155,7 @@ def process_file(config, char_map, file_path, device) -> int:
     padded = np.zeros((1, width), np.float32)
     padded[0, : len(sig)] = sig
     text = transcribe(params, model_cfg, padded, [len(sig)], frontend=fe,
-                      char_map=char_map, device=device)[0]
+                      char_map=char_map, device=device, beam_width=beam_width)[0]
     print(text)
     return 0
 
@@ -154,8 +167,11 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Device to run on (default cuda; cpu runs the "
                              "plain PyTorch path)")
-    parser.add_argument("--beam_width", type=int, default=1,
-                        help="CTC beam width (only 1 = greedy in this slice)")
+    parser.add_argument("--beam_width", type=int, default=DEFAULT_BEAM_WIDTH,
+                        help="CTC beam width for decoding (1 = greedy)")
+    parser.add_argument("--lm_weight", type=float, default=0.0,
+                        help="Shallow-fusion weight of the char LM (0 = AM only; "
+                             "above 0 comes with the language-model slice)")
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--file", type=str, default=None,
                        help="Path to an audio file to process")
@@ -172,10 +188,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     for mode, slice_name in _LATER.items():
         if prog[mode]:
             raise NotImplementedError(f"--{mode} comes with {slice_name}")
-    if prog["beam_width"] > 1:
+    if prog["lm_weight"] > 0.0:
         raise NotImplementedError(
-            "beam search and LM fusion come with the decoding slice; use "
-            "--beam_width 1"
+            "--lm_weight (LM shallow fusion) comes with the language-model slice "
+            "(ROADMAP Queue A 5); use --lm_weight 0"
         )
 
     from rnn_speech_tpu_torch.charmap import get_char_map
@@ -187,7 +203,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     setup_logging(config)
     config = HyperParamStore(config).config
     char_map = get_char_map(config.language)
-    return process_file(config, char_map, prog["file"], device)
+    return process_file(config, char_map, prog["file"], device, prog["beam_width"])
 
 
 if __name__ == "__main__":

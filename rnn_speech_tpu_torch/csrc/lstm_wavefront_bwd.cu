@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel `_wavefront_bwd_kernel` of
 // rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, drop modes
-// 0, 1 and 2, dW_x not fused): reverse diagonal s runs every layer l with
-// 0 <= s - (L-1-l) < T at t = T-1 - (s - (L-1-l)), so the top layer leads
+// 0, 1 and 2, and its fused dW_x): reverse diagonal s runs every layer l
+// with 0 <= s - (L-1-l) < T at t = T-1 - (s - (L-1-l)), so the top layer leads
 // and layer l's upstream cotangent dout_l(t) = dgates_{l+1}(t)·W_x,l+1ᵀ
 // comes from the diagonal before.  Per (layer, step) it computes, from the
 // forward's bf16 residuals (activated gates, carried c):
@@ -39,8 +39,31 @@
 // place, as the TPU kernel aliases it: each element is read and then
 // written by the same thread, and no other step reads it.
 //
+// Fused dW_x (the TPU kernel's `fuse_dwx` mode, drop modes 0 and 2): the
+// pass also returns dW_x of layers 1..L-1, (L-1, H, 4H) f32,
+//
+//   dW_x,l+1 = Σ_t bf16(outs_l(t)·keep·scale)ᵀ · dgates_{l+1}(t)
+//
+// without the (L-1, T, B, H) xdrop stream.  The TPU folds each step's
+// rank-B update into a VMEM-resident accumulator; here a rank-B update of
+// the 32 MiB (L = 3) accumulator per diagonal would move it through device
+// memory 3512 times.  Instead the pass works in windows of W diagonals.
+// In drop mode 2 the blocks write xdrop_l(t), whose keep bit they draw
+// anyway for the cotangent, into slot W-1-(s mod W) of a ring
+// (L-1, W, B, H): slot j of boundary l then holds step t = t_base + j,
+// ascending in t like the gates buffer, where layer l+1's dgates(t) was
+// written one diagonal earlier.  After the window's last diagonal (and
+// after the last diagonal of all) one launch per boundary adds ringᵀ ·
+// dgates over the window's steps, K = (steps)·B rows, into dW_x with the
+// tile product of grad_matmul.cuh in accumulate mode.  In drop mode 0 the
+// A operand is the outs residual itself and no ring exists.  The launches
+// share the stream, so a ring slot is read before the next window writes
+// it, and each output element has one owner block, so the sums repeat bit
+// for bit.  dgates, dh0 and dc0 are those of the unfused pass, bit for bit.
+//
 // What bounds it on the H100: 2·T·B·H·4H·(2L-1) operations, 9.4 TFLOP at
-// the flagship train shape, 9.5 ms at the bf16 tensor rate.  In practice
+// the flagship train shape, 9.5 ms at the bf16 tensor rate; the fused dW_x
+// adds 2·T·B·H·4H·(L-1), 3.8 ms at B = 64.  In practice
 // the serial chain of T + L diagonals is the limit: per diagonal each
 // block walks 2·4H/128 dependent K chunks.
 //
@@ -50,6 +73,9 @@
 // warps owning one 16-row batch tile.  Keeping W resident on chip and
 // splitting K across warps is later work.
 
+#include <algorithm>
+
+#include "grad_matmul.cuh"
 #include "lstm_cell.cuh"
 
 namespace {
@@ -80,7 +106,9 @@ struct BwdArgs {
   // Inter-layer dropout (modes 1, 2; xdrop == nullptr in mode 0).
   const bf16* masks;     // (L-1, T, B, H) {0, 1} in mode 1, else null
   const bf16* outs;      // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
-  bf16* xdrop;           // (L-1, T, B, H) dropped boundary inputs, out
+  bf16* xdrop;           // (L-1, T, B, H) dropped boundary inputs, out, or the
+                         // (L-1, W, B, H) ring of the fused dW_x (W = ring)
+  int ring;              // W when xdrop is the ring, else 0
   unsigned seed0, seed1, thr;
   float scale;
 };
@@ -220,7 +248,9 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
               : (rst::wavefront_keep(p.seed0, p.seed1, p.thr, l, t, b, j) ? 1.0f : 0.0f);
       const float ks = keep * p.scale;
       dout *= ks;
-      p.xdrop[de] = __float2bfloat16(bf(p.outs[de]) * ks);
+      const size_t xe =
+          p.ring > 0 ? ((size_t)l * p.ring + (p.ring - 1 - s % p.ring)) * B * H + e : de;
+      p.xdrop[xe] = __float2bfloat16(bf(p.outs[de]) * ks);
     }
     const float dh_carry = dhc[e] + ph[idx];  // ph is zero at t = T-1
     const float dc_carry = dcc[e];
@@ -250,6 +280,28 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
   }
 }
 
+// The fused dW_x of the window of diagonals [s0, s1] (W wide): per boundary
+// l, the steps t whose dropped input layer l produced in the window, from
+// the ring (drop mode 2) or the outs residual (mode 0), times layer l+1's
+// dgates, added into dwx[l].  Returns the CUDA error code.
+int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, float* dwx, cudaStream_t st) {
+  const int T = p.T, B = p.B, H = p.H, L = p.L, G = 4 * H;
+  for (int l = 0; l + 1 < L; ++l) {
+    const int off = L - 1 - l;
+    const int t_lo = std::max(0, T - 1 - s1 + off), t_hi = std::min(T - 1, T - 1 - s0 + off);
+    if (t_lo > t_hi) continue;
+    const int n = (t_hi - t_lo + 1) * B;
+    const int slot = t_lo - (T - W + off - s0);  // ring slot of step t_lo
+    const bf16* a = p.xdrop != nullptr ? p.xdrop + ((size_t)l * W + slot) * B * H
+                                       : p.outs + ((size_t)l * T + t_lo) * B * H;
+    const bf16* dg = p.gates + ((size_t)(l + 1) * T + t_lo) * B * G;
+    const int err = rst_grad::launch(a, H, nullptr, 0, dg, 0, n, G, 1, n, nullptr, nullptr,
+                                     dwx + (size_t)l * H * G, nullptr, 1, st);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // dout_top (T, B, H) bf16: cotangent of the top layer's output;
@@ -262,6 +314,9 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
 // (Philox bits of (seed0, seed1) under threshold thr), scale = 1/keep;
 // outs (L, T, B, H) bf16, the forward's masked outputs; xdrop
 // (L-1, T, B, H) bf16 receives bf16(outs·keep·scale) of boundaries 0..L-2.
+// Fused dW_x (window W > 0, drop modes 0 and 2): dwx (L-1, H, 4H) f32, zero
+// on entry, receives dW_x of layers 1..L-1; outs is read in both modes, and
+// xdrop is the (L-1, W, B, H) bf16 ring in mode 2 (null in mode 0).
 // Bp = B rounded up to 16; H a multiple of 32.
 // Returns the CUDA error code of the launches (0 = success).
 extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
@@ -270,7 +325,11 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
                                       float* dhc, float* dcc, int T, int B, int H, int L,
                                       int drop_mode, const void* masks, const void* outs,
                                       void* xdrop, unsigned seed0, unsigned seed1,
-                                      unsigned thr, float scale, void* stream) {
+                                      unsigned thr, float scale, int window, float* dwx,
+                                      void* stream) {
+  if (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   BwdArgs p;
   p.dout_top = static_cast<const bf16*>(dout_top);
   p.w_h = static_cast<const bf16*>(w_h);
@@ -290,17 +349,23 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
   p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
   p.outs = static_cast<const bf16*>(outs);
   p.xdrop = drop_mode != 0 ? static_cast<bf16*>(xdrop) : nullptr;
+  p.ring = window > 0 ? window : 0;
   p.seed0 = seed0;
   p.seed1 = seed1;
   p.thr = thr;
   p.scale = scale;
   const dim3 grid(H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows, L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_diag = T + L - 1;
   for (int s = 0; s < T + L; ++s) {
     wavefront_bwd_step<<<grid, rst::kThreads, 0, st>>>(s, p);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
+    }
+    if (window > 0 && s < n_diag && ((s + 1) % window == 0 || s == n_diag - 1)) {
+      const int err = accumulate_dwx(p, s - s % window, s, window, dwx, st);
+      if (err != 0) return err;
     }
   }
   return (int)cudaGetLastError();

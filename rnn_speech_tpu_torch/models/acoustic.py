@@ -230,8 +230,15 @@ def param_count(params: Params) -> int:
 #: (about 0.5 GB at 3x1024), the f32 projections, the logits and their
 #: log-softmax, the CTC kernels' alpha checkpoints (one (B, 2U+1) f32 row
 #: per 32 steps, 34 MB at B=64, T=3510, U=600; the scan CTC instead keeps
-#: four (T, B, 2U+1) f32 arrays, about 4.3 GB), the xdrop streams of
-#: inter-layer dropout (0.9 GB) and the allocator's transients.
+#: four (T, B, 2U+1) f32 arrays, about 4.3 GB), what the reverse diagonal
+#: adds for the dW_x contractions, and the allocator's transients.  Below
+#: the fused-dW_x threshold (``lstm_wavefront.fuse_dwx_enabled``:
+#: L·T·B·6H·2 bytes of residuals under 10 GiB, B < 83 at T=3510) the pass
+#: emits the (L-1, T, B, H) bf16 xdrop stream of inter-layer dropout (0.92
+#: GB at B=64), held until the weight gradients; above it, as on the
+#: widest batch this share admits (B=394 on an 80 GB card), it holds only
+#: a (L-1, 128, B, H) bf16 ring (0.21 GB at B=394) and the (L-1, H, 4H) f32
+#: dW_x (32 MiB).
 RESIDUAL_SHARE = 0.6
 
 
@@ -256,7 +263,11 @@ def training_residual_bytes(cfg: AcousticConfig, T: int, B: int,
     step the wavefront keeps the activated gates, the carried c and the
     output in the residual dtype (6H values; dgates overwrite the gates);
     the layered path also keeps f32 layer inputs and outputs (8H bytes);
-    recompute keeps 3H values."""
+    recompute keeps 3H values.  The JAX package's count, whose wavefront
+    premise, dW_x accumulated by the reverse pass, holds here from 10 GiB
+    of residuals up (``lstm_wavefront.fuse_dwx_enabled``); below that the
+    unfused pass's xdrop stream, (L-1)·T·B·H more values with dropout on,
+    is left to the rest of the card (``RESIDUAL_SHARE``)."""
     H, L, rb = cfg.hidden_size, cfg.num_layers, _res_bytes(cfg)
     if residual_mode == "recompute":
         per_step_layer = B * 3 * H * rb

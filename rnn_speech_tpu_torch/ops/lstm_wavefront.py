@@ -16,7 +16,8 @@ only the schedule differs.
   (activated gates, carried c, masked output of every layer).
 * ``wavefront_bwd`` (``_wavefront_bwd_kernel``,
   ``csrc/lstm_wavefront_bwd.cu``): the reverse diagonal, dgates of every
-  layer written over the gates residual, and dh0, dc0.
+  layer written over the gates residual, and dh0, dc0; with ``fuse_dwx``
+  also dW_x of layers 1..L-1 (the TPU kernel's ``fuse_dwx`` mode).
 * ``lstm_stack_wavefront_train``: the differentiable stack
   (``_wavefront_stack_core`` and its VJP) over those two kernels and the
   weight-gradient kernel of ``ops/grad_matmul.py``.  With
@@ -30,9 +31,13 @@ mode 0 (none), 1 (explicit (L-1, T, B, H) {0, 1} masks) or 2 (two seed
 words; both kernels draw the bits of boundary l at step t from
 ``csrc/philox.cuh``, and the plain versions from ``ops/random_bits.py``).
 Layer l >= 1 reads bf16(h^{l-1}·keep·drop_scale); the outs residual stays
-undropped, and the backward emits the dropped boundary inputs (xdrop) for
-the dW_x contractions.  The in-kernel dW_x accumulation (``fuse_dwx``)
-is not ported: the xdrop streams are emitted at every size.
+undropped.  The dW_x contractions of layers 1..L-1 take one of two forms,
+chosen by ``fuse_dwx_enabled`` as the JAX package chooses them: the
+backward emits the dropped boundary inputs (xdrop, (L-1, T, B, H)) for one
+weight-gradient pass per layer, or, in drop modes 0 and 2 once the
+residuals reach 10 GiB (``RST_WAVEFRONT_FUSE_DWX`` forces either), the
+reverse pass accumulates dW_x itself and no xdrop stream exists; then
+``_hgrad_only`` gives each layer's dW_h and db.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises; there is no fallback.
@@ -50,7 +55,7 @@ import torch
 
 from rnn_speech_tpu_torch import stages
 from rnn_speech_tpu_torch.ops import _build, dropout, lstm_layer_train, random_bits
-from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads
+from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads, weight_grad
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
 from rnn_speech_tpu_torch.ops.lstm_recurrence import check_kernel_inputs
@@ -206,6 +211,38 @@ def drop_keeps(drop_mode: int, drop_arr, keep_prob: float, shape, device):
     raise ValueError(f"drop_mode must be 0, 1 or 2, got {drop_mode}")
 
 
+#: Residual footprint L·T·B·6H·itemsize at which the reverse pass fuses the
+#: dW_x contractions (the JAX package's threshold, ``_wavefront_bwd``).
+FUSE_DWX_BYTES = 10 << 30
+#: Diagonals per accumulation window of the fused dW_x on the card.
+FUSE_DWX_WINDOW = 128
+
+
+def fuse_dwx_enabled(L: int, T: int, B: int, H: int, rd_itemsize: int,
+                     drop_mode: int) -> bool:
+    """Whether the reverse diagonal fuses the dW_x contractions: the JAX
+    package's switch (``_wavefront_bwd``).  ``RST_WAVEFRONT_FUSE_DWX`` set to
+    "0" or "1" forces it; otherwise it is on once the residuals
+    L·T·B·6H·rd_itemsize (T the frame count at the kernel) reach
+    ``FUSE_DWX_BYTES``.  Never in drop mode 1 (the explicit masks keep the
+    xdrop stream) or for one layer."""
+    if drop_mode == 1 or L < 2:
+        return False
+    forced = os.environ.get("RST_WAVEFRONT_FUSE_DWX", "")
+    if forced in ("0", "1"):
+        return forced == "1"
+    return L * T * B * 6 * H * rd_itemsize >= FUSE_DWX_BYTES
+
+
+def _check_fuse(fuse_dwx: bool, drop_mode: int, L: int, outs) -> None:
+    if not fuse_dwx:
+        return
+    if drop_mode == 1 or L < 2:
+        raise ValueError("the fused dW_x takes drop mode 0 or 2 and at least 2 layers")
+    if outs is None:
+        raise ValueError("the fused dW_x reads the outs residual")
+
+
 def wavefront_train_plain(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                           b_all: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
                           res_dtype, drop_mode: int = 0, drop_arr=None,
@@ -336,7 +373,7 @@ def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
                         mask: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor,
                         dhn: Tensor, dcn: Tensor, outs: Tensor = None,
                         drop_mode: int = 0, drop_arr=None, drop_scale: float = 1.0,
-                        keep_prob: float = 1.0):
+                        keep_prob: float = 1.0, fuse_dwx: bool = False):
     """The reverse diagonal in plain PyTorch, layer by layer from the top
     (the same math: layer l's upstream cotangent is the layer above's
     dgates·W_xᵀ at the same t, times boundary l's keep·drop_scale in drop
@@ -344,12 +381,18 @@ def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
     and sum in float32.  Overwrites ``gates`` with dgates (in its dtype),
     as the kernel does; returns (dgates, dh0, dc0), and in drop modes 1
     and 2 also xdrop (L-1, T, B, H) = outs·keep·drop_scale of boundaries
-    0..L-2 in the residual dtype."""
+    0..L-2 in the residual dtype.  With ``fuse_dwx`` (drop modes 0 and 2)
+    the fourth result is dwx (L-1, H, 4H) float32 instead, dW_x of layers
+    1..L-1 = Σ_t x_inᵀ·dgates over one boundary's rows at a time, both
+    operands rounded to the weights' dtype (x_in = outs·keep·drop_scale,
+    or outs in mode 0), and no xdrop is formed."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
     wd = w_h.dtype
+    _check_fuse(fuse_dwx, drop_mode, L, outs)
     keeps = drop_keeps(drop_mode, drop_arr, keep_prob, (L - 1, T, B, H), gates.device)
-    xdrop = None if keeps is None else gates.new_empty((L - 1, T, B, H))
+    xdrop = None if keeps is None or fuse_dwx else gates.new_empty((L - 1, T, B, H))
+    dwx = gates.new_zeros((L - 1, H, four_h), dtype=f32) if fuse_dwx else None
     dh0, dc0 = [], []
     dout = dout_top.to(f32)
     for l in reversed(range(L)):
@@ -375,24 +418,56 @@ def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
         dh0.append(dh_carry)
         dc0.append(dc_carry)
         if l > 0:
-            dout = torch.matmul(dg_f32.to(wd).to(f32), w_x_rest[l - 1].to(f32).t())
-            if keeps is not None:
-                ks = keeps[l - 1] * drop_scale
+            dg_c = dg_f32.to(wd).to(f32)
+            dout = torch.matmul(dg_c, w_x_rest[l - 1].to(f32).t())
+            ks = None if keeps is None else keeps[l - 1] * drop_scale
+            if ks is not None:
                 dout = dout * ks
+            if fuse_dwx:
+                x_in = outs[l - 1].to(f32) if ks is None else outs[l - 1].to(f32) * ks
+                dwx[l - 1] = torch.matmul(x_in.to(wd).to(f32).reshape(-1, H).t(),
+                                          dg_c.reshape(-1, four_h))
+            elif ks is not None:
                 xdrop[l - 1] = (outs[l - 1].to(f32) * ks).to(xdrop.dtype)
     res = (gates, torch.stack(dh0[::-1]), torch.stack(dc0[::-1]))
-    return res if keeps is None else res + (xdrop,)
+    if fuse_dwx:
+        return res + (dwx,)
+    return res if xdrop is None else res + (xdrop,)
+
+
+def _bwd_buffers(L: int, T: int, B: int, H: int, drop_mode: int, fuse_dwx: bool,
+                 device) -> Tuple[Tensor, Tensor, int]:
+    """(xdrop, dwx, window): the kernel's outputs beside dgates, dh0 and dc0
+    and its accumulation window.  Unfused: the (L-1, T, B, H) bf16 xdrop
+    stream in drop modes 1 and 2 (None in mode 0), no dwx, window 0.
+    Fused: the (L-1, W, B, H) bf16 ring of W = min(FUSE_DWX_WINDOW,
+    T + L - 1) diagonals in mode 2 (None in mode 0), the zeroed
+    (L-1, H, 4H) float32 dwx and W."""
+    if not fuse_dwx:
+        xdrop = (torch.empty((L - 1, T, B, H), dtype=bf16, device=device)
+                 if drop_mode else None)
+        return xdrop, None, 0
+    W = min(FUSE_DWX_WINDOW, T + L - 1)
+    ring = (torch.empty((L - 1, W, B, H), dtype=bf16, device=device)
+            if drop_mode == 2 else None)
+    return ring, torch.zeros((L - 1, H, 4 * H), dtype=f32, device=device), W
 
 
 def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
                   gates: Tensor, cseq: Tensor, c0: Tensor, dhn: Tensor,
                   dcn: Tensor, outs: Tensor = None, drop_mode: int = 0, drop_arr=None,
-                  drop_scale: float = 1.0, keep_prob: float = 1.0):
+                  drop_scale: float = 1.0, keep_prob: float = 1.0,
+                  fuse_dwx: bool = False):
     """Backward of the whole stack on the reverse diagonal.
 
     In drop modes 1 and 2 (arguments as ``wavefront_train``'s) it also
     reads ``outs`` (L, T, B, H), the forward's masked outputs, and returns
-    xdrop (L-1, T, B, H) after dh0, dc0.
+    xdrop (L-1, T, B, H) after dh0, dc0.  With ``fuse_dwx`` (drop modes 0
+    and 2; it reads ``outs`` in both) it returns instead dwx (L-1, H, 4H)
+    float32, dW_x of layers 1..L-1, accumulated by the pass in windows of
+    ``FUSE_DWX_WINDOW`` diagonals; no xdrop stream is allocated
+    (``_bwd_buffers``).  ``wavefront_bwd.fused_launches`` counts the fused
+    calls that launched the kernel.
 
     dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
     in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
@@ -407,9 +482,10 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     if not gates.is_cuda:
         return wavefront_bwd_plain(dout_top, w_h, w_x_rest, mask, gates, cseq, c0,
                                    dhn, dcn, outs, drop_mode, drop_arr, drop_scale,
-                                   keep_prob)
+                                   keep_prob, fuse_dwx)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
+    _check_fuse(fuse_dwx, drop_mode, L, outs)
     dev = gates.device
     check_kernel_inputs([
         ("dout_top", dout_top, bf16, (T, B, H)),
@@ -421,14 +497,16 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
         ("c0", c0, f32, (L, B, H)),
         ("dhn", dhn, f32, (L, B, H)),
         ("dcn", dcn, f32, (L, B, H)),
-    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode else []), dev, H)
+    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
     masks, seed0, seed1, thr, scale = _drop_launch_args(
         drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        xdrop = (torch.empty((L - 1, T, B, H), dtype=bf16, device=dev)
-                 if drop_mode else None)
-        res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
+        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev)
+        if fuse_dwx:
+            res = (gates, dh, dc, dwx)
+        else:
+            res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
         if T == 0:
             return res
         Bp = -(-B // 16) * 16
@@ -436,20 +514,23 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
         fn = _build.load("lstm_wavefront_bwd").rst_lstm_wavefront_bwd
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
                 mask.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
-                _ptr(masks), _ptr(outs if drop_mode else None), _ptr(xdrop), seed0,
-                seed1, thr, scale, torch.cuda.current_stream(dev).cuda_stream)
+                _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
+                seed0, seed1, thr, scale, window, _ptr(dwx),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
     wavefront_bwd.launches += 1
+    wavefront_bwd.fused_launches += int(fuse_dwx)
     return res
 
 
 wavefront_bwd.launches = 0
+wavefront_bwd.fused_launches = 0
 
 
 def layered_stack_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
@@ -488,16 +569,31 @@ def layered_stack_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Ten
     return gates, torch.stack(dh0), torch.stack(dc0), xdrop
 
 
+def _hgrad_only(h_prev: Tensor, dgates: Tensor, cd) -> Tuple[Tensor, Tensor]:
+    """(dW_h, db) of a layer whose dW_x came out of the fused reverse pass
+    (``_hgrad_only``): the one-operand weight-gradient kernel
+    (``weight_grad``) by default, the two-product plain form under
+    ``RST_FUSED_WGRAD=0``."""
+    if os.environ.get("RST_FUSED_WGRAD", "1") != "0":
+        return weight_grad(h_prev, dgates, compute_dtype=cd)
+    dg = dgates.reshape(-1, dgates.shape[-1])
+    return (dot_f32(h_prev.reshape(-1, h_prev.shape[-1]).t(), dg, cd),
+            dg.to(f32).sum(0))
+
+
 def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
-                       w_x0: Tensor, cd, xdrop: Tensor = None) -> Tuple[Tensor, ...]:
+                       w_x0: Tensor, cd, xdrop: Tensor = None,
+                       dwx: Tensor = None) -> Tuple[Tensor, ...]:
     """The weight gradients and dx of the stack from its dgates
-    (``_wavefront_stack_bwd`` after the reverse kernel, unfused dW_x).
+    (``_wavefront_stack_bwd`` after the reverse kernel).
 
     Per layer, h_prev is the layer's output shifted one step later behind
     bf16(h0) (the shift copy), its input is x_c for layer 0 and otherwise
     the lower layer's output, or its dropped copy ``xdrop[l-1]`` when a
     drop mode is on, and one ``dgates_weight_grads`` pass gives
-    (dW_h, dW_x, db).  dx = dgates_0·W_x0ᵀ stays a matmul, cast to the
+    (dW_h, dW_x, db).  With ``dwx`` (the fused reverse pass's dW_x of
+    layers 1..L-1) those layers take dW_x from it and (dW_h, db) from
+    ``_hgrad_only``.  dx = dgates_0·W_x0ᵀ stays a matmul, cast to the
     compute dtype as the JAX package casts it.  Returns (dw_x0, dw_x_rest,
     dw_h, db0, db_rest, dx)."""
     L = dgates.shape[0]
@@ -505,6 +601,12 @@ def stack_weight_grads(x_c: Tensor, h0: Tensor, outs: Tensor, dgates: Tensor,
     dw_h, dw_x, db = [], [], []
     for l in range(L):
         h_prev = torch.cat([h0[l].to(rd)[None], outs[l, :-1]], dim=0)
+        if l > 0 and dwx is not None:
+            g_h, g_b = _hgrad_only(h_prev, dgates[l], cd)
+            dw_h.append(g_h)
+            dw_x.append(dwx[l - 1])
+            db.append(g_b)
+            continue
         if l == 0:
             x_l = x_c
         else:
@@ -524,7 +626,8 @@ class _WavefrontStackTrain(torch.autograd.Function):
     (drop_mode, drop_arr, drop_scale, keep_prob): ``drop_arr`` holds the
     (L-1, T, B, H) masks (mode 1) or the two seed words (mode 2), carried
     to the backward as they are.  ``bwd_wavefront`` picks the reverse
-    diagonal or the layered backward (drop modes 0 and 1 only).  The
+    diagonal or the layered backward (drop modes 0 and 1 only); on the
+    reverse diagonal ``fuse_dwx_enabled`` picks the fused dW_x.  The
     backward consumes the saved gates residual (dgates overwrite it), so
     it runs once."""
 
@@ -555,21 +658,26 @@ class _WavefrontStackTrain(torch.autograd.Function):
         (w_x0, w_x_rest, w_h, x_c, mask, c0, h0, outs, gates,
          cseq) = ctx.saved_tensors
         cd = ctx.cd
+        dwx = None
         if ctx.bwd_wavefront:
+            L, T, B = gates.shape[:3]
+            fuse = fuse_dwx_enabled(L, T, B, w_h.shape[1], gates.element_size(),
+                                    ctx.drop[0])
             res = wavefront_bwd(
                 dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
                 w_x_rest.to(cd).contiguous(), mask, gates, cseq,
                 c0.to(f32).contiguous(), dhn.to(f32).contiguous(),
-                dcn.to(f32).contiguous(), outs, *ctx.drop)
+                dcn.to(f32).contiguous(), outs, *ctx.drop, fuse_dwx=fuse)
             dgates, dh0, dc0 = res[:3]
-            xdrop = res[3] if len(res) > 3 else None
+            xdrop = res[3] if len(res) > 3 and not fuse else None
+            dwx = res[3] if fuse else None
         else:
             dgates, dh0, dc0, xdrop = layered_stack_bwd(
                 dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, cd,
                 *ctx.drop[:3])
         stages.mark("weight_grads")
         dw_x0, dw_x_rest, dw_h, db0, db_rest, dx = stack_weight_grads(
-            x_c, h0, outs, dgates, w_x0, cd, xdrop)
+            x_c, h0, outs, dgates, w_x0, cd, xdrop, dwx)
         return (dw_x0.to(w_x0.dtype), dw_x_rest.to(w_x_rest.dtype),
                 dw_h.to(w_h.dtype), db0, db_rest, dx, dc0.to(c0.dtype),
                 dh0.to(h0.dtype), None, None, None, None, None)

@@ -103,10 +103,10 @@ def _micro_loss(params, cfg: StepConfig, states, feats, frame_lengths, labels,
     return total, (mean_loss, logits, new_states)
 
 
-def _error_rate(cfg: StepConfig, logits, frame_lengths, labels, label_lengths):
+def _error_rate(cfg: StepConfig, logits, frame_lengths, labels, label_lengths,
+                max_output: int):
     pred, pred_len = decode.greedy_decode(
-        logits, acoustic.output_lengths(cfg.model, frame_lengths),
-        max_output=cfg.greedy_metric_max_out or labels.shape[1])
+        logits, acoustic.output_lengths(cfg.model, frame_lengths), max_output=max_output)
     return editdistance.error_rate(pred, pred_len, labels, label_lengths)
 
 
@@ -136,7 +136,7 @@ def accumulate_grads(cfg: StepConfig, params, states, batch: Dict[str, Tensor],
         stages.mark("metric")
         if cfg.train_metric:
             err = _error_rate(cfg, logits.detach(), frame_lengths, labels,
-                              label_lengths)
+                              label_lengths, cfg.greedy_metric_max_out or labels.shape[1])
         else:
             err = torch.zeros((), device=dev)
         states = [(c.detach(), h.detach()) for c, h in new_states]
@@ -189,7 +189,9 @@ def train_step(cfg: StepConfig, state: TrainState, batch: Dict[str, Tensor],
 def eval_step(cfg: StepConfig, state: TrainState,
               batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """Loss + greedy error rate over a batch, no dropout, fresh zero state
-    per microbatch (the reference always reset state in evaluation)."""
+    per microbatch (the reference always reset state in evaluation).  The
+    decode runs at the labels' width, whatever ``greedy_metric_max_out``
+    (which caps only the train step's metric), as the JAX package's does."""
     params = state["params"]
     B = batch["labels"].shape[1]
     dev = batch["labels"].device
@@ -208,7 +210,7 @@ def eval_step(cfg: StepConfig, state: TrainState,
         real = (frame_lengths > 0).to(torch.float32)
         loss_sum = loss_sum + (per / denom * real).sum() / torch.clamp(real.sum(), min=1.0)
         err_sum = err_sum + _error_rate(cfg, logits, frame_lengths, micro["labels"],
-                                        micro["label_lengths"])
+                                        micro["label_lengths"], micro["labels"].shape[1])
         cnt = cnt + (real.sum() > 0).to(torch.float32)
     denom = torch.clamp(cnt, min=1.0)
     return {"mean_loss": loss_sum / denom, "mean_error_rate": err_sum / denom}

@@ -7,7 +7,8 @@ route's four kernels and its stack options (wavefront off, recompute,
 remat, time_chunk) on the card against their plain versions; the Bernoulli
 mask kernel, the alpha-stream CTC pair and the fbank kernel, with the
 routes that launch them (the layered stack backward, the alpha-stream CTC
-backward, the fbank frontend).
+backward, the fbank frontend); the reverse diagonal's fused dW_x over
+several accumulation windows.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -30,7 +31,11 @@ versions' float32 recursion with other exp/log roundings: 1e-4; the
 alpha stream repeats the checkpoint kernel's rows bit for bit.  The mask
 kernel draws its plain version's bits: equal bit for bit.  The fbank
 kernel sums the float32 DFT and mel products in another order: 2e-3 of
-the largest magnitude, the JAX package's limit for its own kernel.
+the largest magnitude, the JAX package's limit for its own kernel.  The
+fused dW_x sums T·B products of those bf16 dgates: 1e-2 of each
+boundary's own largest magnitude, a bound that one accumulation window
+left out fails; the fused pass's dgates, dh0 and dc0 equal the unfused
+pass's bit for bit.
 """
 
 import pytest
@@ -357,6 +362,45 @@ def test_wavefront_train_and_bwd_drop_modes_match_plain(cuda, mode, L, B, H, D, 
     torch.cuda.synchronize()
     assert len(got_b) == len(ref_b) == 4
     _close_to(got_b, ref_b, TRAIN_TOL)
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+@pytest.mark.parametrize("L,B,H,T", [(3, 5, 64, 10), (2, 17, 128, 7), (3, 70, 64, 3)])
+def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypatch):
+    """The fused pass in windows of 4 diagonals (several windows, a
+    ragged last one) against its plain version; its dgates, dh0 and dc0
+    bit for bit against the unfused pass's; the fused calls counted."""
+    monkeypatch.setattr(twave, "FUSE_DWX_WINDOW", 4)
+    x = _train_inputs(L, T, B, H, H, seed=L + B + T + 11 * mode, dev=cuda)
+    drop = _drop(2, L, T, B, H, seed=B + T) if mode == 2 else (0, None, 1.0, 1.0)
+    args = [x[k] for k in ("x", "w_x0", "w_h", "w_x_rest", "b_all", "mask", "h0", "c0")]
+    outs, gates, cseq, _, _ = twave.wavefront_train_plain(*args, torch.bfloat16, *drop)
+    g = torch.Generator().manual_seed(T + 1)
+    dtop = torch.randn((T, B, H), generator=g).to(cuda, torch.bfloat16)
+    dhn, dcn = (torch.randn((L, B, H), generator=g).to(cuda) * 0.5 for _ in "hc")
+    bwd = lambda fn, **kw: fn(dtop, x["w_h"], x["w_x_rest"], x["mask"], gates.clone(), cseq,
+                              x["c0"], dhn, dcn, outs, *drop, **kw)
+    ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
+    twave.wavefront_bwd.fused_launches = 0
+    got = bwd(twave.wavefront_bwd, fuse_dwx=True)
+    unfused = bwd(twave.wavefront_bwd)
+    torch.cuda.synchronize()
+    assert twave.wavefront_bwd.fused_launches == 1
+    assert got[3].shape == (L - 1, H, 4 * H) and got[3].dtype == torch.float32
+    _close_to(got[:3], ref[:3], TRAIN_TOL)
+    w = min(4, T)
+    for l in range(L - 1):
+        bound = TRAIN_TOL * float(ref[3][l].abs().max())
+        assert float((got[3][l] - ref[3][l]).abs().max()) <= bound
+        # A planted fault fails the same bound: in mode 0 the last window's
+        # steps left out, in mode 2 keep·scale left out.
+        if mode == 0:
+            faulty = ref[3][l] - tgm.weight_grad_plain(outs[l, T - w:],
+                                                       ref[0][l + 1, T - w:])[0]
+        else:
+            faulty = tgm.weight_grad_plain(outs[l], ref[0][l + 1])[0]
+        assert float((faulty - ref[3][l]).abs().max()) > bound
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
 
 
 def _ctc_inputs(T, B, V, U, seed):

@@ -95,7 +95,7 @@ def test_cli_modes_of_later_slices_raise_not_implemented():
     from rnn_speech_tpu_torch import cli
 
     for argv in (["--evaluate"], ["--record"], ["--train_acoustic"],
-                 ["--file", "x.wav", "--beam_width", "4"]):
+                 ["--file", "x.wav", "--lm_weight", "0.5"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + ["--device", "cpu"])
 

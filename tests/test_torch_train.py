@@ -257,6 +257,38 @@ def test_eval_step_matches_jax():
         np.testing.assert_allclose(float(got[key]), float(ref[key]), **F32)
 
 
+def test_eval_step_decodes_at_the_label_width_like_jax():
+    """``greedy_metric_max_out`` below the labels' width caps only the
+    train metric: ``eval_step`` of both packages decodes at the labels'
+    width, so the error rates are equal and the losses agree to 1e-5
+    (float32); the capped decode would give another error rate."""
+    jcfg, tcfg = _configs(2, "f32")
+    jcfg = dataclasses.replace(jcfg, greedy_metric_max_out=1)
+    tcfg = dataclasses.replace(tcfg, greedy_metric_max_out=1)
+    state, batch = _state_and_batch(2, seed=2)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jstep.eval_step(jcfg, jax.tree.map(jnp.asarray, state),
+                              jax.tree.map(jnp.asarray, batch))
+    tst, tb = _port(state, batch)
+    got = tstep.eval_step(tcfg, tst, tb)
+    assert float(got["mean_error_rate"]) == float(ref["mean_error_rate"])
+    np.testing.assert_allclose(float(got["mean_loss"]), float(ref["mean_loss"]), **F32)
+    first = _eval_logits(tcfg, tst, tb)
+    assert float(tstep._error_rate(tcfg, *first, max_output=1)) != \
+        float(tstep._error_rate(tcfg, *first, max_output=U))
+
+
+def _eval_logits(cfg, state, batch):
+    """(logits, frame_lengths, labels, label_lengths) of the first
+    microbatch's eval forward."""
+    B_ = batch["labels"].shape[1]
+    feats, nf = batch["features"][0].transpose(0, 1), batch["frame_lengths"][0]
+    with torch.no_grad():
+        logits, _ = tac.forward(state["params"], cfg.model, feats, nf,
+                                tac.zero_state(cfg.model, B_, device="cpu"))
+    return logits, nf, batch["labels"][0], batch["label_lengths"][0]
+
+
 # ---------------------------------------------------------- memory plan
 
 

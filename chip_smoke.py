@@ -35,7 +35,10 @@ printing one JSON line:
            (a zero-length row), non-zero h0/c0 and upstream dh/dc, strictly
            at T=16 and looser at T=512 and the train path's T=3510; both
            weight-gradient reductions at the full N = 224,640 rows (LSTM:
-           D=H=1024, G=4096; projections: D=120, G=1024 and D=1024, G=80);
+           D=H=1024, G=4096, on the Hopper tile: two operands, bit for bit
+           on repeat, beside the last K stage left out and the two stacked
+           A operands swapped, and one operand; projections: D=120,
+           G=1024 and D=1024, G=80);
            the three CTC kernels at B=64, T=3510, U=600 with labels of 250,
            a zero-length input and a label longer than its input (loss,
            checkpoints, last row, gradient); the dropout kernel at
@@ -61,13 +64,15 @@ printing one JSON line:
            stages``, CUDA events); the loss must be finite and the mean of
            the last 3 of the 12 steps below the first, and all seven
            training kernels' launch counters, zeroed before the phase,
-           non-zero after it.  Then ``eval_step`` with the CTC kernels
+           non-zero after it, dgates_weight_grads' on the Hopper tile too.  Then ``eval_step`` with the CTC kernels
            (the loss-only kernel must launch; its loss within the CTC
            tolerance of the scan CTC's), and the previous configuration
            (keep probabilities 1, scan CTC) for 3 timed steps.  Prints ms
            per step, utterances/s, peak memory, the stage split, each
            training kernel's time at the path's shapes beside its bound, its
-           plain version and one PyTorch call, and one step's gradients
+           plain version and one PyTorch call (dgates_weight_grads in turns
+           with its yardstick and beside the WMMA tile, with TFLOP/s and
+           the card's clocks), and one step's gradients
            through the kernels at T=256 against the same route on the
            kernels' plain versions with the same seed words, beside a
            planted fault that must fail that gate (and, for the keep-1
@@ -112,15 +117,17 @@ printing one JSON line:
            to gates residuals on this card (B=394 on the H100, T=3510), with
            the fused dW_x chosen by its switch alone (1 warm-up, 3 timed
            steps, one split by its marks, peak memory after a reset; the
-           fused pass must launch) and the fused kernel's time at that
-           batch; the B=64 step with RST_WAVEFRONT_FUSE_DWX=1 against =0 in
+           fused pass must launch, and _hgrad_only's weight_grad and the
+           window products on the Hopper tile) and the fused kernel's time
+           at that batch; the B=64 step with RST_WAVEFRONT_FUSE_DWX=1 against =0 in
            turns (off, on, on, off); one step's gradients at T=256 with the
            fused pass forced against the unfused route on the same seed
            words at 1e-3, beside a planted fault; the recompute step at the
            widest batch the plan sends to recompute residuals (B=473 on the
            H100; 1 warm-up, 2 timed, peak); the fused pass alone at B=96,
-           T=3510 beside its bound, the unfused pass, its plain version and
-           torch.mm for the same dW_x.
+           T=3510 beside its bound, the unfused pass and its plain version;
+           at both batches its window products alone in turns with torch.mm
+           for the same dW_x on the same operands.
   grad_study
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
@@ -258,6 +265,26 @@ def nvidia_smi_name_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def smi_clocks() -> str:
+    """The card's SM clock, power draw and power limit now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def in_turns(library, kernel, iters: int = 3) -> dict:
+    """Device ms of ``library`` and ``kernel`` on the same operands in turns
+    (library, kernel, kernel, library), each beside the card's clock, power
+    draw and limit read right after it: the mean of each pair and the turns."""
+    turns = []
+    for name, fn in (("library", library), ("kernel", kernel), ("kernel", kernel),
+                     ("library", library)):
+        turns.append({"fn": name, "ms": cuda_ms(fn, iters=iters), "smi": smi_clocks()})
+    mean = lambda name: sum(t["ms"] for t in turns if t["fn"] == name) / 2
+    return {"ms": mean("kernel"), "library_ms": mean("library"), "turns": turns}
 
 
 def cuda_ms(fn, iters: int = 3, warmup: int = 1) -> float:
@@ -1151,12 +1178,34 @@ def phase_train_kernels():
     r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(DEVICE)
     h_prev, x = r(N, H, scale=0.5).to(bf), r(N, H, scale=0.5).to(bf)
     dgates = r(N, 4 * H, scale=0.01).to(bf)
+    path = gm.product_path([H, H], 4 * H, bf)
+    if path != "wgmma":
+        fail(f"train_kernels: the LSTM weight gradients plan the {path} tile, not wgmma")
     got = gm.dgates_weight_grads(h_prev, x, dgates)
+    again = gm.dgates_weight_grads(h_prev, x, dgates)
     ref = gm.dgates_weight_grads_plain(h_prev, x, dgates)
     torch.cuda.synchronize()
-    worst["dgates_weight_grads"] = _rel_check(
-        f"dgates_weight_grads N={N} D=H={H} G={4 * H}", got, ref, WGRAD_TOL, checks)
-    del h_prev, x, dgates, got, ref
+    tag = f"dgates_weight_grads N={N} D=H={H} G={4 * H} ({path} tile)"
+    worst["dgates_weight_grads"] = _rel_check(tag, got, ref, WGRAD_TOL, checks)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks.append({"check": f"{tag}: repeat", "bit_equal": same})
+    if not same:
+        fail(f"{tag}: two calls on the same inputs differ")
+    step = gm.TILES[path][2]
+    _fault_check(f"{tag}: the last K stage ({step} rows) left out",
+                 gm.dgates_weight_grads_plain(h_prev[:-step], x[:-step], dgates[:-step]),
+                 ref, WGRAD_TOL, checks)
+    _fault_check(f"{tag}: the two stacked A operands swapped", (ref[1], ref[0], ref[2]), ref,
+                 WGRAD_TOL, checks)
+    del h_prev, x, got, again, ref
+    xx = r(N, H, scale=0.5).to(bf)                   # _hgrad_only's one-operand product
+    got = gm.weight_grad(xx, dgates)
+    ref = gm.weight_grad_plain(xx, dgates)
+    torch.cuda.synchronize()
+    worst["weight_grad"] = _rel_check(
+        f"weight_grad N={N} D={H} G={4 * H} dg bfloat16 ({path} tile)", got, ref, WGRAD_TOL,
+        checks)
+    del xx, dgates, got, ref
     for D, G, xd, gd in ((120, H, torch.float32, torch.float32),
                          (120, H, torch.float32, bf),
                          (H, V, bf, torch.float32)):
@@ -1353,6 +1402,27 @@ def _all_counters():
             "bernoulli_mask": tdrop.bernoulli_mask, "ctc_alpha_stream": tck.ctc_alpha_stream,
             "ctc_beta_post_stream": tck.ctc_beta_post_stream,
             "fbank_banks": tfk.fbank_banks}
+
+
+def _path_counters():
+    """Products on the Hopper tile (TMA + wgmma) at its three call sites:
+    ``dgates_weight_grads`` (every layer's weight gradients; the default
+    step), ``weight_grad`` at the LSTM shape (``_hgrad_only`` after the
+    fused pass; the wide step) and the fused pass's window products."""
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    return {"dgates_weight_grads": gm.dgates_weight_grads.wgmma_launches,
+            "weight_grad": gm.weight_grad.wgmma_launches,
+            "fused_windows": wf.wavefront_bwd.wgmma_products}
+
+
+def _zero_path_counters():
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    gm.dgates_weight_grads.wgmma_launches = gm.weight_grad.wgmma_launches = 0
+    wf.wavefront_bwd.wgmma_products = 0
 
 
 @contextlib.contextmanager
@@ -1566,7 +1636,13 @@ def _train_kernel_timing(state):
     Times are per train step: one call of the two wavefront kernels (drop
     mode 2, the default step's; mode 0 timed beside it as ``ms_mode0``), L
     calls of dgates_weight_grads, two calls of weight_grad (input and
-    output projection)."""
+    output projection).  dgates_weight_grads is timed in turns with its
+    library yardstick (two torch.mm with float32 results and a float32
+    column sum), beside the card's clocks, and beside the WMMA tile at
+    the same shape (``wmma_ms_per_call``); each product reports its
+    TFLOP/s."""
+    from unittest import mock
+
     import torch
 
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
@@ -1616,16 +1692,25 @@ def _train_kernel_timing(state):
 
     h_prev = torch.cat([inp["h0"][0].to(bf)[None], outs[0, :-1]]).reshape(N, H)
     x2, dg2 = outs[1].reshape(N, H), pargs[BWD_ARGS.index("gates")][0].reshape(N, G)
-    ms = cuda_ms(lambda: gm.dgates_weight_grads(h_prev, x2, dg2))
+    kernel = lambda: gm.dgates_weight_grads(h_prev, x2, dg2)
+    # The library yardstick: two products and db with float32 results, no
+    # float32 copy of dg.
+    turns = in_turns(lambda: (torch.mm(h_prev.t(), dg2, out_dtype=f32),
+                              torch.mm(x2.t(), dg2, out_dtype=f32), dg2.sum(0, dtype=f32)),
+                     kernel)
+    ms, lib = turns["ms"], turns["library_ms"]
+    with mock.patch.object(gm, "product_path", lambda *a: "wmma"):   # the WMMA tile
+        wmma = cuda_ms(kernel)
     plain = cuda_ms(lambda: gm.dgates_weight_grads_plain(h_prev, x2, dg2), iters=1)
-    lib = cuda_ms(lambda: (torch.mm(h_prev.t(), dg2, out_dtype=f32),
-                           torch.mm(x2.t(), dg2, out_dtype=f32), dg2.float().sum(0)))
     flops = 2 * N * 2 * H * G
     nbytes = N * (2 * H + G) * 2 + (2 * H + 1) * G * 4
     bound, by = _bounds(flops, nbytes)
-    out["dgates_weight_grads"] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound,
-                                      bound_by=by, library_ms=L * lib, calls=L,
-                                      ms_per_call=ms, flops=L * flops, bytes=L * nbytes)
+    out["dgates_weight_grads"] = dict(
+        ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by, library_ms=L * lib,
+        calls=L, ms_per_call=ms, tflops=flops / ms / 1e9, library_tflops=flops / lib / 1e9,
+        wmma_ms_per_call=wmma, wmma_tflops=flops / wmma / 1e9,
+        path=gm.product_path([H, H], G, bf), turns=turns["turns"], flops=L * flops,
+        bytes=L * nbytes)
     del gates, cseq, b_in, bargs, pargs, dg2
 
     g = torch.Generator().manual_seed(72)
@@ -1639,14 +1724,17 @@ def _train_kernel_timing(state):
         ms = cuda_ms(lambda: gm.weight_grad(xx, dg))
         plain = cuda_ms(lambda: gm.weight_grad_plain(xx, dg), iters=1)
         lib = cuda_ms(lambda: (torch.mm(xx.to(bf).t(), dg.to(bf), out_dtype=f32),
-                               dg.sum(0)))
+                               dg.sum(0, dtype=f32)))
         nbytes = N * (D * xx.element_size() + Gs * dg.element_size()) + (D + 1) * Gs * 4
         bound, by = _bounds(2 * N * D * Gs, nbytes)
         per[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                          library_ms=lib, D=D, G=Gs, dg=str(dg.dtype)[6:],
-                         flops=2 * N * D * Gs, bytes=nbytes)
+                         path=gm.product_path([D], Gs, dg.dtype),
+                         tflops=2 * N * D * Gs / ms / 1e9, flops=2 * N * D * Gs,
+                         bytes=nbytes)
     out["weight_grad"] = {k: sum(per[n][k] for n in per)
-                          for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "flops")}
+    out["weight_grad"]["tflops"] = out["weight_grad"]["flops"] / out["weight_grad"]["ms"] / 1e9
     out["weight_grad"].update(bound_by="bytes" if all(
         v["bound_by"] == "bytes" for v in per.values()) else "operations", calls=per)
     return out
@@ -1737,7 +1825,9 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
     zeroed before and read after: the kernels of the stack's ``route`` (or
     ``counters``, {name: wrapper}) must launch, and off the wavefront the
     wavefront kernels (or ``idle``) must not; ``fused_launches`` counts the
-    reverse passes with the fused dW_x.  Returns (record, state)."""
+    reverse passes with the fused dW_x, ``wgmma_launches`` the weight-gradient
+    products on the Hopper tile at each call site (``_path_counters``).
+    Returns (record, state)."""
     import statistics
 
     import torch
@@ -1753,6 +1843,7 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
     for fn in _all_counters().values():
         fn.launches = 0
     wf.wavefront_bwd.fused_launches = 0
+    _zero_path_counters()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator().manual_seed(11)
     losses = []
@@ -1783,6 +1874,7 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
         stage_ms = stages.stage_ms(marks)
     launches = {name: fn.launches for name, fn in counters.items()}
     fused_launches = wf.wavefront_bwd.fused_launches
+    path_launches = _path_counters()
     idle = {name: fn.launches for name, fn in idle.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
@@ -1797,7 +1889,8 @@ def _run_steps(scfg, state, batch, reps, record_stages, route="wavefront", warmu
                 train_utt_per_sec=Bn / (ms / 1e3),
                 train_spread_pct=100.0 * (max(vals) - min(vals)) / ms, values_ms=vals,
                 first_step_ms=first_ms, losses=losses, launches=launches,
-                fused_launches=fused_launches, idle_launches=idle,
+                fused_launches=fused_launches, wgmma_launches=path_launches,
+                idle_launches=idle,
                 peak_memory_gib=peak / 2**30, stage_ms=stage_ms,
                 stage_sum_ms=sum(stage_ms.values())), state
 
@@ -1840,6 +1933,8 @@ def phase_train():
     if plan != (0, "gates"):
         fail(f"train: memory plan {plan} at B=64, T=3510; expected (0, 'gates')")
     default, state = _run_steps(scfg, state, batch, reps=3, record_stages=True)
+    if not default["wgmma_launches"]["dgates_weight_grads"]:
+        fail(f"train: dgates_weight_grads never ran the Hopper tile: {default['wgmma_launches']}")
     losses = default["losses"]
     if not sum(losses[-3:]) / 3 < losses[0]:
         fail(f"train: the mean of the last 3 losses is not below the first: {losses}")
@@ -2343,9 +2438,11 @@ def _plan_edge(cfg, start, mode):
 def _fused_pass_timing(Bn, plain):
     """The reverse pass with its fused dW_x alone at T=TRAIN_T, batch Bn,
     full-length rows, drop mode 2 (the default step's): ms beside the
-    unfused pass's (``ms_unfused``) and its bound; with ``plain`` also its
-    plain version's ms and the library yardstick, one torch.mm (bf16
-    operands, f32 out) per boundary for the same dW_x.  The bound counts
+    unfused pass's (``ms_unfused``) and its bound; its window products
+    alone (``lstm_wavefront.dwx_windows``) in turns with the library
+    yardstick, one torch.mm (bf16 operands, f32 out) per boundary for the
+    same dW_x, on the same operands, beside the card's clocks; with
+    ``plain`` also its plain version's ms.  The bound counts
     2·T·B·H·4H·(2L-1 + L-1) operations, or the bytes of the unfused pass's
     inputs and outputs without the xdrop stream plus the (L-1, H, 4H) f32
     dW_x.  Each call writes dgates over its gates residual: later calls
@@ -2373,12 +2470,17 @@ def _fused_pass_timing(Bn, plain):
     out["ms"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop, fuse_dwx=True),
                         iters=2)
     out["ms_unfused"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2)
-    if plain:
-        dg = b_in["gates"]
-        out["library_ms"] = cuda_ms(lambda: [
-            torch.mm(outs[l].reshape(N, H).t(), dg[l + 1].reshape(N, G), out_dtype=f32)
-            for l in range(L - 1)])
-        out["library"] = "torch.mm (bf16, f32 out) per boundary for dW_x of layers 1..L-1"
+    # The window products alone (as drop mode 0 runs them, on the Hopper
+    # tile) and the library yardstick, on the same operands in turns.
+    dg = b_in["gates"]
+    turns = in_turns(lambda: [torch.mm(outs[l].reshape(N, H).t(), dg[l + 1].reshape(N, G),
+                                       out_dtype=f32) for l in range(L - 1)],
+                     lambda: wf.dwx_windows(outs, dg), iters=2)
+    wflops = 2 * T * Bn * H * G * (L - 1)
+    out.update(window_products_ms=turns["ms"], window_products_tflops=wflops / turns["ms"] / 1e9,
+               library_ms=turns["library_ms"], library_tflops=wflops / turns["library_ms"] / 1e9,
+               library="torch.mm (bf16, f32 out) per boundary for dW_x of layers 1..L-1",
+               turns=turns["turns"])
     flops = 2 * T * Bn * H * G * (2 * L - 1 + L - 1)
     nbytes = (T * Bn * H * 2 + (2 * L - 1) * H * G * 2 + T * Bn * 4
               + L * T * Bn * (G + H) * 2 + 3 * L * Bn * H * 4         # inputs
@@ -2418,7 +2520,7 @@ def _fused_grad_gate(seed=2):
         return res
 
     # The wrapper counts its launches on the module's name, here the fault.
-    keep_left_out.launches = keep_left_out.fused_launches = 0
+    keep_left_out.launches = keep_left_out.fused_launches = keep_left_out.wgmma_products = 0
     grads, fused = {}, {}
     for name, flag, patch in (("unfused", "0", None), ("fused", "1", None),
                               ("planted_fault", "1", keep_left_out)):
@@ -2476,6 +2578,9 @@ def phase_train_wide():
     wide, state = _run_steps(scfg, state, batch, reps=1, record_stages=True, warmup=1)
     if not wide["fused_launches"]:
         fail(f"train_wide: the B={wide_B} step did not run the fused pass: {wide}")
+    if not (wide["wgmma_launches"]["weight_grad"] and wide["wgmma_launches"]["fused_windows"]):
+        fail(f"train_wide: _hgrad_only's weight_grad or the fused windows never ran the "
+             f"Hopper tile at B={wide_B}: {wide['wgmma_launches']}")
     card = torch.cuda.get_device_properties(0).total_memory
     wide.update(memory_plan=[0, "gates"], budget_gib=acoustic.default_residual_budget() / 2**30,
                 gates_estimate_gib=acoustic.training_residual_bytes(
@@ -2624,7 +2729,9 @@ def kernels_line():
     and the launches of their 5 steps each (the mask on two routes), for
     the fbank kernel one eval batch and the launches of its eval run; for
     the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
-    launches of the widest gates-residual step's 5 steps (train_wide)."""
+    launches of the widest gates-residual step's 5 steps (train_wide).  The
+    weight-gradient rows add their TFLOP/s, the fused row its window
+    products' ms and TFLOP/s (its library_ms times the same dW_x)."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
@@ -2671,6 +2778,8 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+        if "tflops" in t:                            # the weight-gradient products
+            rows[-1]["tflops"] = t["tflops"]
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_train.cu",
@@ -2702,6 +2811,8 @@ def kernels_line():
         "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
         "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
         "library_ms": t.get("library_ms"),
+        "window_products_ms": t.get("window_products_ms"),
+        "tflops": t.get("window_products_tflops"),
     })
     alt = RECORD.get("alt_routes", {})
     routes = alt.get("routes", {})

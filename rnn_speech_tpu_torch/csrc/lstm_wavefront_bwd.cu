@@ -54,12 +54,16 @@
 // ascending in t like the gates buffer, where layer l+1's dgates(t) was
 // written one diagonal earlier.  After the window's last diagonal (and
 // after the last diagonal of all) one launch per boundary adds ringᵀ ·
-// dgates over the window's steps, K = (steps)·B rows, into dW_x with the
-// tile product of grad_matmul.cuh in accumulate mode.  In drop mode 0 the
-// A operand is the outs residual itself and no ring exists.  The launches
-// share the stream, so a ring slot is read before the next window writes
-// it, and each output element has one owner block, so the sums repeat bit
-// for bit.  dgates, dh0 and dc0 are those of the unfused pass, bit for bit.
+// dgates over the window's steps, K = (steps)·B rows, into dW_x with a
+// tile product of grad_matmul.cuh in accumulate mode: the Hopper tile
+// (TMA + wgmma) at the LSTM widths, whose tensor maps span exactly the
+// window's steps·B rows, so TMA zero-fills the K tail instead of reading
+// the next steps' rows; the WMMA tile where the caller's plan says so
+// (dwx_path).  In drop mode 0 the A operand is the outs residual itself
+// and no ring exists.  The launches share the stream, so a ring slot is
+// read before the next window writes it, and each output element has one
+// owner block, so the sums repeat bit for bit.  dgates, dh0 and dc0 are
+// those of the unfused pass, bit for bit.
 //
 // What bounds it on the H100: 2·T·B·H·4H·(2L-1) operations, 9.4 TFLOP at
 // the flagship train shape, 9.5 ms at the bf16 tensor rate; the fused dW_x
@@ -87,6 +91,8 @@ constexpr int kBLd = kBKC + 8;             // padded shared row (bf16)
 constexpr int kATile = rst::kRows * kBLd;  // 64 rows of A
 constexpr int kWTile = rst::kJT * kBLd;    // 16 rows of W
 constexpr int kStage = kATile + kWTile;
+
+long long g_wgmma_products = 0;   // window products launched on the Hopper tile
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
@@ -283,8 +289,10 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
 // The fused dW_x of the window of diagonals [s0, s1] (W wide): per boundary
 // l, the steps t whose dropped input layer l produced in the window, from
 // the ring (drop mode 2) or the outs residual (mode 0), times layer l+1's
-// dgates, added into dwx[l].  Returns the CUDA error code.
-int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, float* dwx, cudaStream_t st) {
+// dgates, added into dwx[l] by the product on `path`.  Returns the CUDA
+// error code.
+int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, int path, float* dwx,
+                   cudaStream_t st) {
   const int T = p.T, B = p.B, H = p.H, L = p.L, G = 4 * H;
   for (int l = 0; l + 1 < L; ++l) {
     const int off = L - 1 - l;
@@ -295,9 +303,10 @@ int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, float* dwx, cudaStre
     const bf16* a = p.xdrop != nullptr ? p.xdrop + ((size_t)l * W + slot) * B * H
                                        : p.outs + ((size_t)l * T + t_lo) * B * H;
     const bf16* dg = p.gates + ((size_t)(l + 1) * T + t_lo) * B * G;
-    const int err = rst_grad::launch(a, H, nullptr, 0, dg, 0, n, G, 1, n, nullptr, nullptr,
-                                     dwx + (size_t)l * H * G, nullptr, 1, st);
+    const int err = rst_grad::launch(path, a, H, nullptr, 0, dg, 0, n, G, 1, n, nullptr,
+                                     nullptr, dwx + (size_t)l * H * G, nullptr, 1, st);
     if (err != 0) return err;
+    g_wgmma_products += path == rst_grad::kWgmma;
   }
   return 0;
 }
@@ -316,7 +325,8 @@ int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, float* dwx, cudaStre
 // (L-1, T, B, H) bf16 receives bf16(outs·keep·scale) of boundaries 0..L-2.
 // Fused dW_x (window W > 0, drop modes 0 and 2): dwx (L-1, H, 4H) f32, zero
 // on entry, receives dW_x of layers 1..L-1; outs is read in both modes, and
-// xdrop is the (L-1, W, B, H) bf16 ring in mode 2 (null in mode 0).
+// xdrop is the (L-1, W, B, H) bf16 ring in mode 2 (null in mode 0);
+// dwx_path picks the window products' tile (rst_grad::Path).
 // Bp = B rounded up to 16; H a multiple of 32.
 // Returns the CUDA error code of the launches (0 = success).
 extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
@@ -326,7 +336,7 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
                                       int drop_mode, const void* masks, const void* outs,
                                       void* xdrop, unsigned seed0, unsigned seed1,
                                       unsigned thr, float scale, int window, float* dwx,
-                                      void* stream) {
+                                      int dwx_path, void* stream) {
   if (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -364,9 +374,33 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
       if (err != cudaSuccess) return (int)err;
     }
     if (window > 0 && s < n_diag && ((s + 1) % window == 0 || s == n_diag - 1)) {
-      const int err = accumulate_dwx(p, s - s % window, s, window, dwx, st);
+      const int err = accumulate_dwx(p, s - s % window, s, window, dwx_path, dwx, st);
       if (err != 0) return err;
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Window products launched on the Hopper tile so far.
+extern "C" long long rst_wgmma_products() { return g_wgmma_products; }
+
+// The pass's window products alone, as drop mode 0 runs them: outs (L, T,
+// B, H) and dgates (L, T, B, 4H) bf16; dwx (L-1, H, 4H) f32 receives, window
+// by window, dW_x of layers 1..L-1 from outs (for timing and tests).
+extern "C" int rst_dwx_windows(const void* outs, const void* dgates, int T, int B, int H,
+                               int L, int window, float* dwx, int dwx_path, void* stream) {
+  BwdArgs p = {};
+  p.outs = static_cast<const bf16*>(outs);
+  p.gates = static_cast<bf16*>(const_cast<void*>(dgates));
+  p.T = T;
+  p.B = B;
+  p.H = H;
+  p.L = L;
+  const int n_diag = T + L - 1;
+  for (int s0 = 0; s0 < n_diag; s0 += window) {
+    const int err = accumulate_dwx(p, s0, std::min(s0 + window, n_diag) - 1, window, dwx_path,
+                                   dwx, static_cast<cudaStream_t>(stream));
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -16,14 +16,20 @@ cotangent, bf16 dgates) and db sums it UNROUNDED in float32.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 the kernel (``csrc/grad_matmul.cu``) for tensors on a CUDA device, or
-raises; there is no fallback.  ``<wrapper>.launches`` counts the calls
-that launched the kernel.
+raises; there is no fallback.  ``plan`` chooses, by shape alone, which of
+the kernel's two tile products runs and how K is split: the Hopper tile
+(``"wgmma"``: TMA loads feeding ``wgmma``, 128x256 output tiles) for bf16
+dg with widths that are multiples of 64 and G of 256 (the LSTM products),
+the WMMA tile (``"wmma"``) for every other shape.  ``<wrapper>.launches``
+counts the calls that launched the kernel, ``<wrapper>.wgmma_launches``
+those on the Hopper tile.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,8 +38,75 @@ from rnn_speech_tpu_torch.ops import _build
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
 
-_BM, _BK = 128, 32          # the kernel's output-row tile and K step
+#: Tile products of the kernel: their ids in the C interface and their
+#: (output rows, output columns, K rows per step) per block.
+PATH_IDS = {"wmma": 0, "wgmma": 1}
+TILES = {"wmma": (128, 128, 32), "wgmma": (128, 256, 64)}
+COLUMN_ROWS = 4096          # dg rows per db partial of the Hopper tile (kColRows in C)
 _MIN_ROWS_PER_SPLIT = 1024  # K slices shorter than this cost more than they add
+_MAX_SPLITS = 8             # of the Hopper tile, whose blocks fill an SM each
+_FILL = 0.9                 # share of the last wave the Hopper tile's plan wants busy
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one product runs: the tile (``path``) and the K partition,
+    ``splits`` slices of ``rows_per_split`` rows (a multiple of the tile's
+    K step; the last slice ends at N)."""
+    path: str
+    splits: int
+    rows_per_split: int
+
+
+def product_path(dims: Sequence[int], G: int, dg_dtype) -> str:
+    """The tile product for A operands of widths ``dims`` and a dg of G
+    columns in ``dg_dtype``: ``"wgmma"`` (the Hopper tile) for bf16 dg,
+    every width a positive multiple of 64 and G of 256; else ``"wmma"``."""
+    if (dg_dtype == bf16 and G > 0 and G % 256 == 0
+            and all(d > 0 and d % 64 == 0 for d in dims)):
+        return "wgmma"
+    return "wmma"
+
+
+def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int) -> Plan:
+    """The product's path and K partition on a card of ``sms`` SMs, from
+    the shapes alone, so every call at one shape runs the same sums.  The
+    WMMA tile splits K until there are four blocks per SM; the Hopper tile,
+    one block per SM, takes the fewest splits (at most 8) that keep 90% of
+    its last wave busy, or the busiest.  A slice keeps at least 1024 rows."""
+    path = product_path(dims, G, dg_dtype)
+    bm, bn, bk = TILES[path]
+    tiles = sum(-(-d // bm) for d in dims) * -(-G // bn)
+    steps = -(-N // bk)
+    most = max(1, N // _MIN_ROWS_PER_SPLIT)
+    if path == "wmma":
+        splits = min(-(-4 * sms // tiles), most)
+    else:
+        def fill(s):
+            return tiles * s / (-(-tiles * s // sms) * sms)
+        options = range(1, min(_MAX_SPLITS, most) + 1)
+        splits = next((s for s in options if fill(s) >= _FILL), None) or max(options, key=fill)
+    per = max(1, -(-steps // splits))
+    return Plan(path, max(1, -(-steps // per)), per * bk)
+
+
+def _buffers(pl: Plan, rows: int, N: int, G: int,
+             device) -> Tuple[Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
+    """(dw (rows, G), db (G,), partial, partial_db) float32.  partial
+    (splits, rows, G) only when K is split.  partial_db: on the WMMA tile
+    (splits, G) when K is split; on the Hopper tile, whose db is a
+    separate fixed-order column-sum pass, (ceil(N / COLUMN_ROWS), G)
+    whatever the split."""
+    dw = torch.zeros((rows, G), dtype=f32, device=device)
+    db = torch.zeros((G,), dtype=f32, device=device)
+    partial = partial_db = None
+    if pl.splits > 1:
+        partial = torch.empty((pl.splits, rows, G), dtype=f32, device=device)
+    if pl.path == "wgmma" and N:
+        partial_db = torch.empty((-(-N // COLUMN_ROWS), G), dtype=f32, device=device)
+    elif pl.splits > 1:
+        partial_db = torch.empty((pl.splits, G), dtype=f32, device=device)
+    return dw, db, partial, partial_db
 
 
 def _rows(t: Tensor) -> Tensor:
@@ -67,9 +140,10 @@ def _lib_fn(name: str, argtypes: List[type]):
     return fn
 
 
-def _launch(operands: List[Tensor], dg: Tensor, compute_dtype) -> Tuple[Tensor, Tensor]:
+def _launch(operands: List[Tensor], dg: Tensor, compute_dtype) -> Tuple[Tensor, Tensor, str]:
     """Run the kernel on the (N, d) bf16 operands and the (N, G) dg;
-    returns (dw (Σd, G) with the operands' rows stacked, db (G,))."""
+    returns (dw (Σd, G) with the operands' rows stacked, db (G,), the
+    path that ran)."""
     if compute_dtype != bf16:
         raise TypeError(f"the weight-gradient kernel computes in bf16, got {compute_dtype}")
     dev = dg.device
@@ -88,38 +162,28 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype) -> Tuple[Tensor, 
     if N >= 2**31:
         raise ValueError(f"N = {N} rows exceed the kernel's int32 indexing")
     dims = [a.shape[1] for a in ops]
-    dw = torch.zeros((sum(dims), G), dtype=f32, device=dev)
-    db = torch.zeros((G,), dtype=f32, device=dev)
-    if N == 0:
-        return dw, db
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = sum(-(-d // _BM) for d in dims) * -(-G // 128)
-        # Enough blocks for four per SM, in slices of whole K steps.
-        splits = max(1, min(-(-4 * sms // tiles), N // _MIN_ROWS_PER_SPLIT))
-        per_split = -(-N // splits)
-        rows = -(-per_split // _BK) * _BK
-        splits = -(-N // rows)
-        partial = partial_db = None
-        if splits > 1:
-            partial = torch.empty((splits, sum(dims), G), dtype=f32, device=dev)
-            partial_db = torch.empty((splits, G), dtype=f32, device=dev)
+        pl = plan(dims, N, G, dg.dtype,
+                  torch.cuda.get_device_properties(dev).multi_processor_count)
+        dw, db, partial, partial_db = _buffers(pl, sum(dims), N, G, dev)
+        if N == 0:
+            return dw, db, pl.path
         ptr = lambda t: None if t is None else t.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tail = [int(dg.dtype == f32), N, G, splits, rows, ptr(partial),
+        tail = [int(dg.dtype == f32), N, G, pl.splits, pl.rows_per_split, ptr(partial),
                 ptr(partial_db), dw.data_ptr(), db.data_ptr(), stream]
         P, I = ctypes.c_void_p, ctypes.c_int
         if len(ops) == 2:
             fn = _lib_fn("rst_dgates_weight_grads",
-                         [P, I, P, I, P, I, I, I, I, I, P, P, P, P, P])
-            rc = fn(ops[0].data_ptr(), dims[0], ops[1].data_ptr(), dims[1],
-                    dg.data_ptr(), *tail)
+                         [I, P, I, P, I, P, I, I, I, I, I, P, P, P, P, P])
+            rc = fn(PATH_IDS[pl.path], ops[0].data_ptr(), dims[0], ops[1].data_ptr(),
+                    dims[1], dg.data_ptr(), *tail)
         else:
-            fn = _lib_fn("rst_weight_grad", [P, I, P, I, I, I, I, I, P, P, P, P, P])
-            rc = fn(ops[0].data_ptr(), dims[0], dg.data_ptr(), *tail)
+            fn = _lib_fn("rst_weight_grad", [I, P, I, P, I, I, I, I, I, P, P, P, P, P])
+            rc = fn(PATH_IDS[pl.path], ops[0].data_ptr(), dims[0], dg.data_ptr(), *tail)
     if rc != 0:
-        raise RuntimeError(f"grad_matmul kernel launch failed: CUDA error {rc}")
-    return dw, db
+        raise RuntimeError(f"grad_matmul kernel launch ({pl.path} tile) failed: CUDA error {rc}")
+    return dw, db, pl.path
 
 
 def weight_grad(x: Tensor, dg: Tensor, *,
@@ -129,12 +193,14 @@ def weight_grad(x: Tensor, dg: Tensor, *,
     CPU."""
     if not x.is_cuda:
         return weight_grad_plain(x, dg, compute_dtype)
-    dw, db = _launch([_rows(x)], _rows(dg), compute_dtype)
+    dw, db, path = _launch([_rows(x)], _rows(dg), compute_dtype)
     weight_grad.launches += 1
+    weight_grad.wgmma_launches += path == "wgmma"
     return dw, db
 
 
 weight_grad.launches = 0
+weight_grad.wgmma_launches = 0
 
 
 def dgates_weight_grads(h_prev: Tensor, x: Tensor, dgates: Tensor, *,
@@ -145,9 +211,11 @@ def dgates_weight_grads(h_prev: Tensor, x: Tensor, dgates: Tensor, *,
     if not dgates.is_cuda:
         return dgates_weight_grads_plain(h_prev, x, dgates, compute_dtype)
     H = h_prev.shape[-1]
-    dw, db = _launch([_rows(h_prev), _rows(x)], _rows(dgates), compute_dtype)
+    dw, db, path = _launch([_rows(h_prev), _rows(x)], _rows(dgates), compute_dtype)
     dgates_weight_grads.launches += 1
+    dgates_weight_grads.wgmma_launches += path == "wgmma"
     return dw[:H], dw[H:], db
 
 
 dgates_weight_grads.launches = 0
+dgates_weight_grads.wgmma_launches = 0

@@ -54,7 +54,7 @@ from typing import List, Tuple
 import torch
 
 from rnn_speech_tpu_torch import stages
-from rnn_speech_tpu_torch.ops import _build, dropout, lstm_layer_train, random_bits
+from rnn_speech_tpu_torch.ops import _build, dropout, grad_matmul, lstm_layer_train, random_bits
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads, weight_grad
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
@@ -466,8 +466,11 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     and 2; it reads ``outs`` in both) it returns instead dwx (L-1, H, 4H)
     float32, dW_x of layers 1..L-1, accumulated by the pass in windows of
     ``FUSE_DWX_WINDOW`` diagonals; no xdrop stream is allocated
-    (``_bwd_buffers``).  ``wavefront_bwd.fused_launches`` counts the fused
-    calls that launched the kernel.
+    (``_bwd_buffers``); the window products take the tile that
+    ``grad_matmul.product_path`` picks for (H, 4H, bf16) dgates, the Hopper
+    tile at H a multiple of 64.  ``wavefront_bwd.fused_launches`` counts the
+    fused calls that launched the kernel, ``wavefront_bwd.wgmma_products``
+    the window products they launched on the Hopper tile.
 
     dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
     in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
@@ -511,26 +514,70 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
             return res
         Bp = -(-B // 16) * 16
         par = torch.zeros((2, L, Bp, 4 * H), dtype=bf16, device=dev)
-        fn = _build.load("lstm_wavefront_bwd").rst_lstm_wavefront_bwd
+        lib = _build.load("lstm_wavefront_bwd")
+        fn = lib.rst_lstm_wavefront_bwd
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3
-                       + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        products = lib.rst_wgmma_products
+        products.argtypes, products.restype = [], ctypes.c_longlong
+        before = products()
         rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
                 mask.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
                 _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
                 seed0, seed1, thr, scale, window, _ptr(dwx),
+                grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
     wavefront_bwd.launches += 1
     wavefront_bwd.fused_launches += int(fuse_dwx)
+    wavefront_bwd.wgmma_products += products() - before
     return res
 
 
 wavefront_bwd.launches = 0
 wavefront_bwd.fused_launches = 0
+wavefront_bwd.wgmma_products = 0
+
+
+def dwx_windows_plain(outs: Tensor, dgates: Tensor) -> Tensor:
+    """dW_x of layers 1..L-1 from the outs residual: (L-1, H, 4H) float32,
+    Σ_t bf16(outs_l(t))ᵀ·bf16(dgates_{l+1}(t)) with float32 sums."""
+    return torch.stack([grad_matmul.weight_grad_plain(outs[l], dgates[l + 1])[0]
+                        for l in range(outs.shape[0] - 1)])
+
+
+def dwx_windows(outs: Tensor, dgates: Tensor, window: int = None) -> Tensor:
+    """The fused reverse pass's window products alone, as drop mode 0 runs
+    them (``rst_dwx_windows``): dW_x of layers 1..L-1, (L-1, H, 4H)
+    float32, added window by window of ``window`` diagonals
+    (``FUSE_DWX_WINDOW``) on the tile ``grad_matmul.product_path`` picks.
+    For timing and tests of the window products; the plain version on
+    the CPU.  outs (L, T, B, H) and dgates (L, T, B, 4H) bf16."""
+    if not dgates.is_cuda:
+        return dwx_windows_plain(outs, dgates)
+    L, T, B, H = outs.shape
+    check_kernel_inputs([("outs", outs, bf16, (L, T, B, H)),
+                         ("dgates", dgates, bf16, (L, T, B, 4 * H))], dgates.device, H)
+    W = min(window or FUSE_DWX_WINDOW, T + L - 1)
+    dwx = torch.zeros((L - 1, H, 4 * H), dtype=f32, device=dgates.device)
+    if T == 0:
+        return dwx
+    with torch.cuda.device(dgates.device):
+        fn = _build.load("lstm_wavefront_bwd").rst_dwx_windows
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(outs.data_ptr(), dgates.data_ptr(), T, B, H, L, W, dwx.data_ptr(),
+                grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
+                torch.cuda.current_stream(dgates.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_wavefront_bwd window products failed: CUDA error {rc}")
+    return dwx
 
 
 def layered_stack_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,

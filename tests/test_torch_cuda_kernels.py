@@ -269,6 +269,36 @@ def test_grad_matmul_kernels_match_plain(cuda, dg_dtype, N, H, D, G):
     assert all(torch.equal(a, b) for a, b in zip(again, got1))   # bit for bit
 
 
+@pytest.mark.parametrize("two", [False, True], ids=["one operand", "two operands"])
+@pytest.mark.parametrize("N,D,G", [(1, 128, 256), (333, 128, 4096), (4999, 1024, 256),
+                                   (2085, 1024, 4096), (64, 128, 256)])
+def test_hopper_weight_grad_tile_matches_plain(cuda, two, N, D, G):
+    """The Hopper tile (TMA + wgmma; the plan picks it for bf16 dg, widths
+    that are multiples of 64 and G of 256) against the plain versions at
+    ragged N (the K tail TMA fills with zeros, split K at N=4999),
+    bit for bit on repeat; the wrapper counts it."""
+    g = torch.Generator().manual_seed(N + D + G)
+    h, x, dg = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+                for s in ((N, D), (N, 64 if two else D), (N, G)))
+    dims = [D, 64] if two else [D]
+    assert tgm.product_path(dims, G, torch.bfloat16) == "wgmma"
+    counted = tgm.dgates_weight_grads if two else tgm.weight_grad
+    counted.launches = counted.wgmma_launches = 0
+    if two:
+        run = lambda: tgm.dgates_weight_grads(h, x, dg)
+        ref = tgm.dgates_weight_grads_plain(h, x, dg)
+    else:
+        run = lambda: tgm.weight_grad(h, dg)
+        ref = tgm.weight_grad_plain(h, dg)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bit for bit
+    assert counted.wgmma_launches == counted.launches == 2
+
+
 def test_train_stack_through_kernels_matches_plain_versions_on_card(cuda):
     """The differentiable stack on the card (both training kernels and the
     weight-gradient kernel) against the same Function's plain versions on
@@ -401,6 +431,42 @@ def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypat
             faulty = tgm.weight_grad_plain(outs[l], ref[0][l + 1])[0]
         assert float((faulty - ref[3][l]).abs().max()) > bound
     assert all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_fused_dwx_windows_on_the_hopper_tile(cuda, mode, monkeypatch):
+    """The fused pass at H=128 (the window products take the Hopper tile)
+    in windows of 8 diagonals over T + L - 1 = 23 (a ragged last window of
+    7), against its plain version; dgates, dh0 and dc0 bit for bit against
+    the unfused pass; the window products counted on the Hopper tile; and
+    the window products alone (``dwx_windows``, drop mode 0's operands)
+    against their plain version."""
+    monkeypatch.setattr(twave, "FUSE_DWX_WINDOW", 8)
+    L, B, H, T = 3, 9, 128, 21
+    assert tgm.product_path([H], 4 * H, torch.bfloat16) == "wgmma"
+    x = _train_inputs(L, T, B, H, H, seed=31 + mode, dev=cuda)
+    drop = _drop(2, L, T, B, H, seed=B + T) if mode == 2 else (0, None, 1.0, 1.0)
+    args = [x[k] for k in ("x", "w_x0", "w_h", "w_x_rest", "b_all", "mask", "h0", "c0")]
+    outs, gates, cseq, _, _ = twave.wavefront_train_plain(*args, torch.bfloat16, *drop)
+    g = torch.Generator().manual_seed(T + 3)
+    dtop = torch.randn((T, B, H), generator=g).to(cuda, torch.bfloat16)
+    dhn, dcn = (torch.randn((L, B, H), generator=g).to(cuda) * 0.5 for _ in "hc")
+    bwd = lambda fn, **kw: fn(dtop, x["w_h"], x["w_x_rest"], x["mask"], gates.clone(), cseq,
+                              x["c0"], dhn, dcn, outs, *drop, **kw)
+    ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
+    twave.wavefront_bwd.wgmma_products = 0
+    got = bwd(twave.wavefront_bwd, fuse_dwx=True)
+    unfused = bwd(twave.wavefront_bwd)
+    torch.cuda.synchronize()
+    assert twave.wavefront_bwd.wgmma_products == 3 * (L - 1)   # 3 windows per boundary
+    for l in range(L - 1):
+        bound = TRAIN_TOL * float(ref[3][l].abs().max())
+        assert float((got[3][l] - ref[3][l]).abs().max()) <= bound
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
+    alone = twave.dwx_windows(outs, got[0], window=8)
+    plain = twave.dwx_windows_plain(outs, got[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(alone, plain, **GRAD_TOL)
 
 
 def _ctc_inputs(T, B, V, U, seed):

@@ -220,3 +220,16 @@ def test_fused_mode_refuses_drop_mode_1_and_needs_outs():
                                   2.5, 1.0, fuse_dwx=True)
     with pytest.raises(ValueError, match="outs"):
         twave.wavefront_bwd_plain(*args[:9], None, fuse_dwx=True)
+
+
+def test_window_products_alone_equal_the_fused_pass_dwx():
+    """``dwx_windows`` (the fused pass's window products alone, for timing
+    and card tests) takes its plain version on the CPU: in drop mode 0 it
+    gives the fused plain pass's dW_x from the outs residual and that
+    pass's dgates."""
+    args, outs = _bwd_case(0)
+    fused = twave.wavefront_bwd_plain(*[a.clone() if isinstance(a, torch.Tensor) else a
+                                        for a in args], fuse_dwx=True)
+    got = twave.dwx_windows(outs, fused[0])
+    assert got.shape == (L - 1, H, 4 * H) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), fused[3].numpy(), **ROUTES)

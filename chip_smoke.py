@@ -83,6 +83,11 @@ printing one JSON line:
            1024, B=64; ragged lengths with a zero-length row, non-zero
            state and upstream dh/dc), strictly at T=16 and looser at T=512
            and 3510, each beside a planted fault that must fail its check;
+           the recompute backward also at its route's batch (B=400 on the
+           H100, T=512) and at a chunk edge of its rebuild (T one step
+           past a chunk, B=70), and its rebuild product alone at one chunk
+           of that batch (relative Frobenius, bit for bit on repeat,
+           beside the last K stage left out);
            the default StepConfig with the wavefront off at B=64, T=3510
            (12 steps as in ``train``; the gates-mode kernels, dropout, CTC
            and weight-gradient kernels must launch and the wavefront
@@ -90,12 +95,15 @@ printing one JSON line:
            (a multiple of 16) at which ``training_memory_plan`` answers
            (0, "recompute") on this card, 1 warm-up and 3 timed steps and
            one split by its marks, the plan's estimate beside the
-           measured peak memory; each layered
-           kernel's time at its route's shapes beside its bound, its plain
-           version and torch.nn.LSTM (one layer); and one step's gradients
-           at T=256 through the kernels against the same route on the
-           plain versions for the layered gates route, recompute, remat
-           and time_chunk=64, each beside a planted fault.
+           measured peak memory (the backward must launch its rebuild
+           products); each layered kernel's time at its route's shapes
+           beside its bound, its plain version and torch.nn.LSTM (one
+           layer), the recompute backward's rebuild products on the
+           call's own operands (every chunk, TFLOP/s; one whole chunk
+           also in turns with torch.mm of the same product); and one
+           step's gradients at T=256 through the kernels against the
+           same route on the plain versions for the layered gates route, recompute, remat and
+           time_chunk=64, each beside a planted fault.
   alt_routes
            the switches of the JAX package's other training routes, one
            train step each at B=64, T=3510 (the default StepConfig, 1
@@ -225,6 +233,13 @@ GRAD_REL_TOL, TIME_LOOP_TOL = 1e-3, 1e-1
 # a margin of about 1.5x, and the planted fault (dgates 1% too large)
 # read 2.87e-2.
 RECOMPUTE_GRAD_TOL = 1.5e-3
+# The recompute backward's rebuild product against its plain version:
+# relative Frobenius error of the float32 activated gates.  Both sum the
+# same bf16 products (K = D + H = 2048) in float32, in another order, and
+# the activations' slopes are at most 1, so the error is a few float32
+# ulps of each sum (~1e-7 relative); the planted fault (the last K stage of
+# 64 left out) moves every gate by a 1/32 share of its sum.
+REBUILD_TOL = 1e-5
 # The CTC kernels against their plain versions (the same float32
 # recursion; the posteriors of a label summed in another order): losses
 # and alpha rows over their own largest magnitude, the gradient over its
@@ -453,8 +468,9 @@ def _fbank_case(sr, lengths, seconds, seed):
 def _fbank_checks(checks):
     """The fbank kernel against its plain version at the eval shape (B=128,
     10.24 s at 22050 Hz) and at 16 kHz with a short ragged row and an empty
-    one; beside them the plain version with the 1/n_fft left out (22050 Hz)
-    and with frames 4 samples further apart (16 kHz) must fail."""
+    one (whose banks must equal the plain version's eps floor exactly);
+    beside them the plain version with the 1/n_fft left out (22050 Hz) and
+    with frames 4 samples further apart (16 kHz) must fail."""
     import torch
 
     from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
@@ -472,11 +488,14 @@ def _fbank_checks(checks):
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
+        empty = [i for i, m in enumerate(lengths) if m == 0]
         entry = {"check": f"fbank {tag}", "max_abs_err": err, "rel_err": err / scale,
                  "tol": FBANK_TOL, "frames": n_frames,
-                 "finite": bool(torch.isfinite(got).all())}
+                 "finite": bool(torch.isfinite(got).all()),
+                 "empty_rows_exact": all(torch.equal(got[i], ref[i]) for i in empty)}
         checks.append(entry)
-        if not entry["finite"] or err / scale > FBANK_TOL or got.shape != ref.shape:
+        if (not entry["finite"] or err / scale > FBANK_TOL or got.shape != ref.shape
+                or not entry["empty_rows_exact"]):
             fail(f"fbank: kernel disagrees with its plain version: {entry}")
         worst = max(worst, err)
         if fault == "n_fft":
@@ -1405,24 +1424,30 @@ def _all_counters():
 
 
 def _path_counters():
-    """Products on the Hopper tile (TMA + wgmma) at its three call sites:
+    """Products on the Hopper tile (TMA + wgmma) at its four call sites:
     ``dgates_weight_grads`` (every layer's weight gradients; the default
     step), ``weight_grad`` at the LSTM shape (``_hgrad_only`` after the
-    fused pass; the wide step) and the fused pass's window products."""
+    fused pass; the wide step), the fused pass's window products and the
+    recompute backward's gate rebuilds (one per chunk; the recompute
+    steps)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     return {"dgates_weight_grads": gm.dgates_weight_grads.wgmma_launches,
             "weight_grad": gm.weight_grad.wgmma_launches,
-            "fused_windows": wf.wavefront_bwd.wgmma_products}
+            "fused_windows": wf.wavefront_bwd.wgmma_products,
+            "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches}
 
 
 def _zero_path_counters():
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     gm.dgates_weight_grads.wgmma_launches = gm.weight_grad.wgmma_launches = 0
     wf.wavefront_bwd.wgmma_products = 0
+    tlt.recurrence_bwd_recompute.rebuild_launches = 0
 
 
 @contextlib.contextmanager
@@ -1460,7 +1485,8 @@ def _plain_versions():
             mock.patch.object(tdrop, "bernoulli_mask", tdrop.bernoulli_mask_plain), \
             mock.patch.object(tck, "ctc_alpha_stream", tck.alpha_stream_plain), \
             mock.patch.object(tck, "ctc_beta_post_stream", tck.beta_post_stream_plain), \
-            mock.patch.object(tfk, "fbank_banks", tfk.fbank_banks_plain):
+            mock.patch.object(tfk, "fbank_banks",
+                              lambda *a, tables=None: tfk.fbank_banks_plain(*a)):
         yield
 
 
@@ -1986,14 +2012,18 @@ def _layer_inputs(T, Bn, lengths, seed, proj_dtype=None):
                 dhn=r(Bn, H, scale=0.1), dcn=r(Bn, H, scale=0.1))
 
 
-def _layer_kernel_checks(checks, worst):
+def _layer_kernel_checks(checks, worst, rec_B):
     """The four layered kernels against their plain versions at full width
     (H=D=1024, B=64), strictly at T=16 and looser at T=512 and 3510, each
     beside a planted fault that must fail its check: both forwards with
     the forget gate's +1 left out, both backwards with df scaled by 0.9,
     the recompute backward's rebuild without the bias.  The lean forward
     fed float32 x_proj instead of bf16 is read beside its check (the bf16
-    projection's share of the difference), not gated."""
+    projection's share of the difference), not gated.  The recompute
+    backward also at its route's batch ``rec_B`` (T=512) and at a chunk
+    edge (T one step past a chunk of its rebuild, B=70: not a multiple of
+    16), beside the same faults; and its rebuild product alone
+    (``_rebuild_product_check``)."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
@@ -2055,6 +2085,75 @@ def _layer_kernel_checks(checks, worst):
             del ref, ref_b, got_b
         del inp
 
+    name = "recurrence_bwd_recompute"
+    edge_T = tlt.rebuild_chunk(TRAIN_T, 70, H) + 1
+    for i, (T, Bn) in enumerate(((512, rec_B), (edge_T, 70))):
+        lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(Bn)]
+        lens[2] = 0                                  # a zero-length row
+        inp = _layer_inputs(T, Bn, lens, seed=150 + i, proj_dtype=bf)
+        tag = f"H={H} B={Bn} T={T} (rebuild chunks of {tlt.rebuild_chunk(T, Bn, H)} steps)"
+        out, _, _, cseq = tlt.recurrence_train_lean_plain(
+            inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+        h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
+        del out
+        args = [inp["dout"], inp["x"], h_prev, cseq, inp["c0"].to(bf).float(), inp["mask"],
+                inp["w_x"], inp["b"], inp["w_h"], inp["dhn"], inp["dcn"]]
+        ref_b = tlt.recurrence_bwd_recompute_plain(*args)
+        no_bias = args[:7] + [torch.zeros_like(inp["b"])] + args[8:]
+        _fault_check(f"{name} {tag}: bias left out of the rebuild",
+                     tlt.recurrence_bwd_recompute_plain(*no_bias), ref_b, TRAIN_TOL_LONG, checks)
+        _fault_check(f"{name} {tag}: df scaled by 0.9", df_scaled(ref_b), ref_b, TRAIN_TOL_LONG,
+                     checks)
+        got_b = tlt.recurrence_bwd_recompute(*args)
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], _rel_check(f"{name} {tag}", got_b, ref_b,
+                                                  TRAIN_TOL_LONG, checks))
+        del inp, args, no_bias, ref_b, got_b, h_prev, cseq
+    worst["rebuild_gates"] = _rebuild_product_check(checks, rec_B)
+
+
+def _rebuild_product_check(checks, rec_B):
+    """The recompute backward's rebuild product alone at one chunk of the
+    route's batch (C·B rows, D = H = 1024; bf16 x and h_prev, xavier-uniform
+    bf16 W_x and W_h, an f32 bias) against its plain version (relative
+    Frobenius, REBUILD_TOL), bit for bit on repeat, beside the last K stage
+    (64 columns of h_prev and rows of W_h) left out, which must fail the
+    check.  Returns the error."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf = torch.bfloat16
+    chunk = tlt.rebuild_chunk(TRAIN_T, rec_B, H)
+    rows = chunk * rec_B
+    g = torch.Generator().manual_seed(160)
+    lim = (6.0 / (H + 4 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(DEVICE, bf)
+    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(DEVICE)
+    args = (r(rows, H, scale=1.0).to(bf), r(rows, H, scale=0.5).to(bf), w(H, 4 * H),
+            w(H, 4 * H), r(4 * H, scale=0.1))
+    got = tlt.rebuild_gates(*args)
+    again = tlt.rebuild_gates(*args)
+    ref = tlt.rebuild_gates_plain(*args)
+    torch.cuda.synchronize()
+    rel = lambda a: float(torch.linalg.norm(a - ref) / torch.linalg.norm(ref))
+    tag = f"rebuild_gates rows={rows} ({chunk} steps x B={rec_B}) D=H={H}"
+    entry = {"check": tag, "rel_frobenius": rel(got), "tol": REBUILD_TOL,
+             "bit_equal_on_repeat": bool(torch.equal(got, again)),
+             "finite": bool(torch.isfinite(got).all())}
+    checks.append(entry)
+    if not entry["finite"] or entry["rel_frobenius"] > REBUILD_TOL or got.shape != ref.shape:
+        fail(f"{tag}: kernel disagrees with its plain version: {entry}")
+    if not entry["bit_equal_on_repeat"]:
+        fail(f"{tag}: two calls on the same inputs differ")
+    x, h_prev, w_x, w_h, b = args
+    faulty = rel(tlt.rebuild_gates_plain(x, h_prev[:, :-64], w_x, w_h[:-64], b))
+    checks.append({"planted_fault": f"{tag}: the last K stage (64) left out",
+                   "rel_frobenius": faulty, "tol": REBUILD_TOL})
+    if faulty <= REBUILD_TOL:
+        fail(f"{tag}: the check does not see the planted fault ({faulty})")
+    return entry["rel_frobenius"]
+
 
 def _layer_kernel_timing(rec_B):
     """Each layered kernel alone at its route's shapes (full-length rows,
@@ -2091,7 +2190,7 @@ def _layer_kernel_timing(rec_B):
         out[fwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
                              library_ms=L * lib_fwd, library="torch.nn.LSTM forward (1 layer)",
                              calls=L, ms_per_call=ms, batch=Bn, flops=L * 2 * T * Bn * H * G,
-                             bytes=L * nbytes)
+                             bytes=L * nbytes, tflops=2 * T * Bn * H * G / ms / 1e9)
         del xp
         inp.pop("x_proj")
         c0r = inp["c0"].to(bf).float()
@@ -2104,6 +2203,7 @@ def _layer_kernel_timing(rec_B):
             ms = cuda_ms(lambda: tlt.recurrence_bwd_recompute(*args), iters=2)
             plain = cuda_ms(lambda: tlt.recurrence_bwd_recompute_plain(*args), iters=1,
                             warmup=0)
+            rebuild = _rebuild_timing(inp["x"], h_prev, inp["w_x"], inp["w_h"], inp["b"])
             flops = 2 * T * Bn * G * (2 * H + H)
             nbytes = (T * Bn * H * (4 + 2 + 2 + 2) + 2 * H * G * 2 + G * 4 + T * Bn * 4
                       + 3 * Bn * H * 4 + T * Bn * G * 2 + 2 * Bn * H * 4)
@@ -2128,20 +2228,67 @@ def _layer_kernel_timing(rec_B):
                              library_ms=L * lib_bwd, library="torch.nn.LSTM backward "
                              "(1 layer, with its weight gradients)", calls=L,
                              ms_per_call=ms, batch=Bn, flops=L * flops, bytes=L * nbytes)
+        out[bwd_name]["tflops"] = flops / ms / 1e9
+        if lean:
+            # Row 8 split: its rebuild products, all chunks of the call's
+            # own operands; the chain's share is the difference (derived).
+            rb = L * rebuild["call_ms"]
+            out[bwd_name].update(rebuild_ms=rb, rebuild_tflops=rebuild["call_tflops"],
+                                 chain_ms_derived=L * ms - rb, rebuild=rebuild)
         del inp, cseq
         torch.cuda.empty_cache()
     return out
 
 
-def phase_train_layered():
-    import dataclasses
+def _rebuild_timing(x, h_prev, w_x, w_h, b):
+    """The recompute backward's rebuild products alone on one call's x and
+    h_prev (T, B, ·): ``call_ms``, every chunk of ``rebuild_chunks`` in the
+    kernel's order between two CUDA events, and its TFLOP/s; and the
+    chunk of steps [0, C) (a whole chunk, launched last) in turns with
+    ``torch.mm`` of the same product ([x | h_prev] · [W_x ; W_h], float32
+    result, no activations), beside the card's clocks."""
+    import torch
 
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    T, Bn, D = x.shape
+    chunk = tlt.rebuild_chunk(T, Bn, H)
+    chunks = tlt.rebuild_chunks(T, chunk)
+    parts = [(x[t0:t1].reshape(-1, D), h_prev[t0:t1].reshape(-1, H)) for t0, t1 in chunks]
+
+    def call():
+        for xc, hc in parts:
+            tlt.rebuild_gates(xc, hc, w_x, w_h, b)
+
+    call_ms = cuda_ms(call, iters=2)
+    x2, h2 = parts[-1]
+    rows = x2.shape[0]
+    a_cat, w_cat = torch.cat([x2, h2], dim=1), torch.cat([w_x, w_h])
+    turns = in_turns(lambda: torch.mm(a_cat, w_cat, out_dtype=torch.float32),
+                     lambda: tlt.rebuild_gates(x2, h2, w_x, w_h, b))
+    flops = lambda r: 2 * r * (D + H) * 4 * H
+    return dict(chunk_steps=chunk, chunks=len(chunks), call_ms=call_ms,
+                call_tflops=flops(T * Bn) / call_ms / 1e9,
+                whole_chunk=dict(rows=rows, ms=turns["ms"], library_ms=turns["library_ms"],
+                                 tflops=flops(rows) / turns["ms"] / 1e9,
+                                 library_tflops=flops(rows) / turns["library_ms"] / 1e9,
+                                 turns=turns["turns"]),
+                library="torch.mm([x | h_prev], [W_x ; W_h], out_dtype=float32)")
+
+
+def phase_train_layered():
     import torch
 
     from rnn_speech_tpu_torch.models import acoustic
 
+    # The recompute route where the default configuration's plan sends it.
+    cfg = acoustic.AcousticConfig(num_layers=L, hidden_size=H, input_dim=120, num_labels=V,
+                                  compute_dtype=torch.bfloat16, use_kernels=True,
+                                  wavefront=True)
+    rec_B = next(b for b in range(16, 4096, 16)
+                 if acoustic.training_memory_plan(cfg, TRAIN_T, b) == (0, "recompute"))
     checks, worst = [], {k: 0.0 for k in LAYER_KERNELS}
-    _layer_kernel_checks(checks, worst)
+    _layer_kernel_checks(checks, worst, rec_B)
     torch.cuda.empty_cache()
 
     scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, wavefront=False)
@@ -2155,16 +2302,14 @@ def phase_train_layered():
     del state, batch
     torch.cuda.empty_cache()
 
-    # The recompute route where the default configuration's plan sends it.
-    cfg = dataclasses.replace(scfg.model, wavefront=True)
-    rec_B = next(b for b in range(16, 4096, 16)
-                 if acoustic.training_memory_plan(cfg, TRAIN_T, b) == (0, "recompute"))
     scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, Bn=rec_B,
                                       residual_mode="recompute")
     recompute, state = _run_steps(scfg, state, batch, reps=1, record_stages=True,
                                   route="recompute", warmup=1)
     if not recompute["losses"][-1] < recompute["losses"][0]:
         fail(f"train_layered (recompute): the loss did not fall: {recompute['losses']}")
+    if not recompute["wgmma_launches"]["recompute_rebuild"]:
+        fail("train_layered (recompute): the backward launched no rebuild product")
     recompute.update(
         memory_plan=[0, "recompute"], budget_gib=acoustic.default_residual_budget() / 2**30,
         plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
@@ -2387,8 +2532,9 @@ def _alt_kernel_timing():
     flops = B * n_frames * (fft + l_eff + 4 * bins + 2 * bins * n_mels)
     nbytes = (pre.numel() + B * n_frames * n_mels + l_eff * 2 * bins + bins * n_mels) * 4
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    tables = tfk.kernel_tables(fe._basis, fe._mel, fe.n_fft)   # built once, as the frontend does
     out["fbank_banks"] = dict(
-        ms=cuda_ms(lambda: tfk.fbank_banks(*fargs)),
+        ms=cuda_ms(lambda: tfk.fbank_banks(*fargs, tables=tables)),
         plain_ms=cuda_ms(lambda: tfk.fbank_banks_plain(*fargs)),
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=cuda_ms(stft_banks),
@@ -2630,6 +2776,8 @@ def phase_train_wide():
                                       residual_mode="recompute")
     recompute, state = _run_steps(scfg, state, batch, reps=1, record_stages=False,
                                   route="recompute", warmup=1, per_rep=2)
+    if not recompute["wgmma_launches"]["recompute_rebuild"]:
+        fail("train_wide (recompute): the backward launched no rebuild product")
     recompute.update(
         memory_plan=[0, "recompute"],
         plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
@@ -2731,7 +2879,10 @@ def kernels_line():
     the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
     launches of the widest gates-residual step's 5 steps (train_wide).  The
     weight-gradient rows add their TFLOP/s, the fused row its window
-    products' ms and TFLOP/s (its library_ms times the same dW_x)."""
+    products' ms and TFLOP/s (its library_ms times the same dW_x), the
+    layered rows their own TFLOP/s, and the recompute backward's row the
+    ms and TFLOP/s of its rebuild products (``csrc/rebuild_gates.cuh``) on
+    the call's own operands, every chunk."""
     ev = RECORD.get("eval", {})
     kn = RECORD.get("kernels", {})
     tr = RECORD.get("train", {})
@@ -2800,6 +2951,9 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+        rows[-1]["tflops"] = t.get("tflops")
+        if "rebuild_ms" in t:                        # the recompute backward's rebuild
+            rows[-1].update(rebuild_ms=t["rebuild_ms"], rebuild_tflops=t["rebuild_tflops"])
     tw = RECORD.get("train_wide", {})
     t = tw.get("timing", {}).get("wavefront_bwd_fuse_dwx", {})
     rows.append({

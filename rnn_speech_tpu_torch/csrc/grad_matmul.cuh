@@ -357,8 +357,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
-// d (64x256 f32, this warpgroup's) = aᵀ·b + (keep ? d : 0) over 16 K rows:
-// a (16, 64) and b (16, 256), both MN-major (transpose bits set).
+// d (64x256 f32, this warpgroup's) = a·b + (keep ? d : 0) over 16 K rows:
+// b (16, 256) MN-major (transpose bit set); a (64, 16) MN-major (kTransA = 1,
+// the weight-gradient tile's Aᵀ) or K-major (kTransA = 0, the recompute
+// backward's gate rebuild, rebuild_gates.cuh).
+template <int kTransA = 1>
 __device__ __forceinline__ void mma_64x256x16(float (&d)[128], uint64_t a, uint64_t b,
                                               uint32_t keep) {
   asm volatile(
@@ -374,12 +377,12 @@ __device__ __forceinline__ void mma_64x256x16(float (&d)[128], uint64_t a, uint6
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}, %128, %129, p, 1, 1, 1, 1;\n"
+      "%124, %125, %126, %127}, %128, %129, p, 1, 1, %131, 1;\n"
       "}\n"
       : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24), RST_ACC8(32), RST_ACC8(40),
         RST_ACC8(48), RST_ACC8(56), RST_ACC8(64), RST_ACC8(72), RST_ACC8(80), RST_ACC8(88),
         RST_ACC8(96), RST_ACC8(104), RST_ACC8(112), RST_ACC8(120)
-      : "l"(a), "l"(b), "r"(keep));
+      : "l"(a), "l"(b), "r"(keep), "n"(kTransA));
 }
 
 #undef RST_ACC8
@@ -416,27 +419,38 @@ __device__ __forceinline__ void put_tile(const float (&d)[128], float* out, int 
   }
 }
 
-// Block (x: row tile of either operand, y: column tile, z: K split).
-// Warpgroup 0: one thread issues the loads; warpgroups 1, 2: the two
-// 64-row halves of the output tile.
-__global__ void __launch_bounds__(kThreads, 1)
-    tile_kernel(const __grid_constant__ CUtensorMap map_a0,
-                const __grid_constant__ CUtensorMap map_a1,
-                const __grid_constant__ CUtensorMap map_dg, Args p) {
+// wgmma descriptor of a K-major operand in 128-byte swizzle, as TMA writes
+// a 64-column box: rows of 128 bytes, groups of 8 rows 1024 bytes apart
+// (the stride byte offset; the leading byte offset is unused for swizzled
+// K-major layouts and set to 1).  16 K columns further is 32 bytes further
+// inside the swizzle atom.
+__device__ __forceinline__ uint64_t k_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// The main loop of a block's 128x256 output tile over K stages [k0, k1),
+// which tile_kernel and the recompute backward's gate rebuild
+// (rebuild_gates.cuh) share.  Warpgroup 0: one thread issues the loads of
+// each stage into a ring of kStages buffers with full and empty mbarriers:
+// `load(st, bar, k)` puts n_a A strips and then kTN / 64 B strips of stage
+// k at st, each kStrip bytes, completing on bar.  Warpgroups 1, 2: the two
+// 64-row halves of the tile (those below n_a), each running wgmma
+// m64n256k16 into a 64x256 f32 accumulator; A is MN-major (kTransA = 1) or
+// K-major (kTransA = 0), B MN-major.  `epi(d, c, chain)` takes half c's
+// accumulator after each chain of at most kFlushSteps stages (chain 0
+// first); an empty K range gives one call with zeros.  kOneChain: the
+// caller guarantees k1 - k0 <= kFlushSteps and the chain loop goes; inside
+// it the compiler builds the K-major descriptors in vector registers and
+// moves them to uniform ones at every product, which slows the rebuild.
+template <int kTransA, bool kOneChain, class Load, class Epi>
+__device__ __forceinline__ void tile_loop(int n_a, int k0, int k1, const Load& load,
+                                          const Epi& epi) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
-
-  const bool second = blockIdx.x >= p.mt0;
-  const CUtensorMap* map_a = second ? &map_a1 : &map_a0;
-  const int D = second ? p.d1 : p.d0;
-  const int m0 = (second ? blockIdx.x - p.mt0 : blockIdx.x) * kTM;
-  const int n_a = min(kTM / 64, (D - m0) / 64);   // 64-row halves this tile has
-  const int g0 = blockIdx.y * kTN;
-  const int k0 = blockIdx.z * p.steps_per_split;
-  const int k1 = min(p.steps, k0 + p.steps_per_split);
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -455,30 +469,25 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int i = k - k0, s = i % kStages;
         bar_wait(smem_addr(&empty[s]), ((i / kStages) & 1) ^ 1);   // first round passes
         const uint32_t bar = smem_addr(&full[s]);
-        const uint32_t st = smem_addr(smem + s * kStageBytes);
         bar_expect_tx(bar, (n_a + kTN / 64) * kStrip);
-        for (int c = 0; c < n_a; ++c) load_box(st + c * kStrip, map_a, bar, m0 + 64 * c, k * kTK);
-        for (int q = 0; q < kTN / 64; ++q) {
-          load_box(st + (kTM / 64 + q) * kStrip, &map_dg, bar, g0 + 64 * q, k * kTK);
-        }
+        load(smem_addr(smem + s * kStageBytes), bar, k);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int c = wg - 1;   // this warpgroup's 64-row half
     if (c < n_a) {
-      const int row = (second ? p.d0 : 0) + m0 + 64 * c + 16 * warp + lane / 4;
-      float* out = p.out + ((size_t)blockIdx.z * (p.d0 + p.d1) + row) * p.G + g0 +
-                   2 * (lane % 4);
-      bool add = p.accumulate;   // a store first, unless accumulating into dW
       float d[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) d[i] = 0.0f;
-      // Chains of at most kFlushSteps stages; a chain's first product
-      // overwrites d (keep = 0), so no other instruction writes the
-      // accumulators inside the loop, and the flush stays out of it.
-      for (int c0 = k0; c0 < k1; c0 += kFlushSteps) {
-        const int c1 = min(k1, c0 + kFlushSteps);
+      // Chains of at most kFlushSteps stages (at least one, so an empty
+      // range gives its zeros through the same epilogue); a chain's first
+      // product overwrites d (keep = 0), so no other instruction writes
+      // the accumulators inside the loop, and the epilogue stays out of it.
+      const int chains = kOneChain ? 1 : max(1, (k1 - k0 + kFlushSteps - 1) / kFlushSteps);
+      for (int chain = 0; chain < chains; ++chain) {
+        const int c0 = k0 + chain * kFlushSteps;
+        const int c1 = kOneChain ? k1 : min(k1, c0 + kFlushSteps);
         for (int k = c0; k < c1; ++k) {
           const int i = k - k0, s = i % kStages;
           bar_wait(smem_addr(&full[s]), (i / kStages) & 1);
@@ -486,10 +495,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           fence_acc(d);
           asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-          for (int kk = 0; kk < kTK / 16; ++kk) {   // 16 K rows = two 1024-byte row groups
-            mma_64x256x16(d, mn_desc(st + c * kStrip + kk * 2048, kStrip),
-                          mn_desc(st + (kTM / 64) * kStrip + kk * 2048, kStrip),
-                          (k > c0) | kk);
+          for (int kk = 0; kk < kTK / 16; ++kk) {
+            // 16 K rows: two 1024-byte row groups of an MN-major strip, or
+            // 32 bytes of each row of a K-major one.
+            const uint32_t a = st + c * kStrip;
+            mma_64x256x16<kTransA>(
+                d, kTransA ? mn_desc(a + kk * 2048, kStrip) : k_desc(a + kk * 32),
+                mn_desc(st + (kTM / 64) * kStrip + kk * 2048, kStrip), (k > c0) | kk);
           }
           asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
           fence_acc(d);
@@ -499,12 +511,44 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         fence_acc(d);
-        put_tile(d, out, p.G, add);
-        add = true;
+        epi(d, c, chain);
       }
-      if (k0 >= k1) put_tile(d, out, p.G, add);   // an empty K slice: zeros
     }
   }
+}
+
+// Block (x: row tile of either operand, y: column tile, z: K split): the
+// dW tile aᵀ·dg, a and dg both MN-major.
+__global__ void __launch_bounds__(kThreads, 1)
+    tile_kernel(const __grid_constant__ CUtensorMap map_a0,
+                const __grid_constant__ CUtensorMap map_a1,
+                const __grid_constant__ CUtensorMap map_dg, Args p) {
+  const bool second = blockIdx.x >= p.mt0;
+  const CUtensorMap* map_a = second ? &map_a1 : &map_a0;
+  const CUtensorMap* dg = &map_dg;
+  const int D = second ? p.d1 : p.d0;
+  const int m0 = (second ? blockIdx.x - p.mt0 : blockIdx.x) * kTM;
+  const int n_a = min(kTM / 64, (D - m0) / 64);   // 64-row halves this tile has
+  const int g0 = blockIdx.y * kTN;
+  const int k0 = blockIdx.z * p.steps_per_split;
+  const int k1 = min(p.steps, k0 + p.steps_per_split);
+  const int row0 = (second ? p.d0 : 0) + m0;
+  tile_loop<1, false>(
+      n_a, k0, k1,
+      [=](uint32_t st, uint32_t bar, int k) {
+        for (int c = 0; c < n_a; ++c) load_box(st + c * kStrip, map_a, bar, m0 + 64 * c, k * kTK);
+        for (int q = 0; q < kTN / 64; ++q) {
+          load_box(st + (kTM / 64 + q) * kStrip, dg, bar, g0 + 64 * q, k * kTK);
+        }
+      },
+      [=](const float(&d)[128], int c, int chain) {
+        const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+        const int row = row0 + 64 * c + 16 * warp + lane / 4;
+        float* out = p.out + ((size_t)blockIdx.z * (p.d0 + p.d1) + row) * p.G + g0 +
+                     2 * (lane % 4);
+        // A store first, unless accumulating into dW.
+        put_tile(d, out, p.G, p.accumulate || chain > 0);
+      });
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

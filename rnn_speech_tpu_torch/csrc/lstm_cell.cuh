@@ -1,7 +1,7 @@
 // One LSTM timestep for one tile of hidden units: the cell the forward
 // kernels share (lstm_recurrence.cu, lstm_wavefront.cu,
-// lstm_wavefront_train.cu, lstm_layer_train.cu), and its gate products,
-// which the recompute backward (lstm_layer_bwd.cu) also runs.
+// lstm_wavefront_train.cu, lstm_layer_train.cu).  The recompute backward's
+// gate rebuild (rebuild_gates.cuh) applies its activations.
 //
 // A block owns kJT = 16 hidden units j0..j0+15 and up to kMaxMT 16-row
 // batch tiles (64 rows).  Its four warps compute the four gate columns of

@@ -7,8 +7,10 @@
 //   reads the forward's bf16 activated gates and carried c;
 // * `_recurrence_bwd_recompute_kernel` (entry
 //   `_lstm_recurrence_bwd_recompute`, recompute mode): rebuilds the gates
-//   each step as sig/tanh of bf16(x[t])·W_x + bf16(h_prev[t])·W_h + b from
-//   the bf16 residuals, with the forward cell's products (lstm_cell.cuh).
+//   as sig/tanh of bf16(x[t])·W_x + bf16(h_prev[t])·W_h + b from the bf16
+//   residuals.  The TPU kernel forms them inside each step; here they are
+//   one Hopper product per chunk of steps (rebuild_gates.cuh), ahead of
+//   the chunk's serial chain.
 //
 // Per step t = T-1 .. 0, with c_prev = cseq[t-1] (the initial c at t = 0):
 //
@@ -37,13 +39,16 @@
 // in recompute mode, whose two rebuild products (K = D and K = H) depend
 // only on the residuals, not on the reverse carry.  In practice the serial
 // chain of T steps is the limit.  What this design does about it: one
-// launch per step from one host call, 128-wide K chunks for the carry's
-// product and the forward cell's 64-wide ones for the rebuild, each
-// double-buffered through cp.async.  Moving the rebuild products off the
-// serial chain (one large product before the loop, or overlapped) is
-// later work.
+// launch per step from one host call, the carry's product in 128-wide K
+// chunks double-buffered through cp.async.  In recompute mode the chain
+// keeps only that product: for chunks of at most C steps, last first, one
+// launch of the rebuild product writes the chunk's activated gates (C·B,
+// 4H) in float32 at the tensor-core rate, then the chunk's steps read them.
+// The chunks are the caller's (ops/lstm_layer_train.py `rebuild_chunks`:
+// a byte cap on the chunk buffer), checked here to cover [0, T) once.
 
 #include "lstm_cell.cuh"
+#include "rebuild_gates.cuh"
 
 namespace {
 
@@ -54,7 +59,7 @@ constexpr int kBLd = kBKC + 8;             // padded shared row (bf16)
 constexpr int kATile = rst::kRows * kBLd;  // 64 rows of A
 constexpr int kWTile = rst::kJT * kBLd;    // 16 rows of W
 constexpr int kStage = kATile + kWTile;
-constexpr int kSmem = 2 * kStage > rst::kCellSmem ? 2 * kStage : rst::kCellSmem;
+constexpr int kSmem = 2 * kStage;
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
@@ -69,12 +74,11 @@ struct LayerBwd {
   bf16* par;           // (2, Bp, 4H) dgates by step parity
   float* dhc;          // (B, H) (1-m)·dh_carry; dh0 at the end
   float* dcc;          // (B, H) dc_carry; dc0 at the end
-  // Recompute mode (x == nullptr in gates mode):
-  const bf16* x;       // (T, Bp, D) layer input
-  const bf16* h_prev;  // (T, Bp, H) h entering each step
-  const bf16* w_x;     // (D, 4H)
-  const float* bias;   // (4H)
-  int T, B, Bp, H, D;
+  // Recompute mode (act == nullptr in gates mode): the activated gates of
+  // steps t0 .. t0 + C - 1, row (t - t0)·B + b, from the rebuild product.
+  const float* act;    // (C·B, 4H)
+  int t0;
+  int T, B, Bp, H;
 };
 
 // Stage K columns [k0, k0 + kBKC) of `rows` rows of A (row-major, ld 4H)
@@ -162,18 +166,8 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
     return;
   }
 
-  const float* pre = nullptr;  // recompute mode: gate sums [4][kRows][kJT]
-  if (p.x != nullptr) {
-    rst::CellStep cs;
-    cs.x_in = p.x + (size_t)t * Bp * p.D;
-    cs.w_x = p.w_x;
-    cs.Kx = p.D;
-    cs.h_in = p.h_prev + (size_t)t * Bp * H;
-    cs.w_h = p.w_h;
-    cs.H = H;
-    cs.Bp = Bp;
-    pre = rst::cell_products(smem, cs);
-  }
+  // Recompute mode: this step's rows of the chunk's activated gates.
+  const float* act = p.act != nullptr ? p.act + (size_t)(t - p.t0) * B * G : nullptr;
 
   const size_t th = (size_t)t * B * H;
   bf16* wpar = p.par + (s & 1) * pplane;
@@ -187,13 +181,12 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
     const float m = p.mask[(size_t)t * B + b];
     bf16* g = p.gates + ((size_t)t * B + b) * G;
     float i_a, g_a, f_a, o_a;
-    if (pre != nullptr) {
-      const float* bias = p.bias;
-      i_a = rst::sigmoidf_(pre[(0 * rst::kRows + r) * rst::kJT + jj] + bias[j]);
-      g_a = tanhf(pre[(1 * rst::kRows + r) * rst::kJT + jj] + bias[H + j]);
-      f_a = rst::sigmoidf_(pre[(2 * rst::kRows + r) * rst::kJT + jj] + bias[2 * H + j] +
-                           1.0f);
-      o_a = rst::sigmoidf_(pre[(3 * rst::kRows + r) * rst::kJT + jj] + bias[3 * H + j]);
+    if (act != nullptr) {
+      const float* a = act + (size_t)b * G;
+      i_a = a[j];
+      g_a = a[H + j];
+      f_a = a[2 * H + j];
+      o_a = a[3 * H + j];
     } else {
       i_a = bf(g[j]);
       g_a = bf(g[H + j]);
@@ -225,16 +218,48 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
   }
 }
 
+dim3 step_grid(const LayerBwd& p) {
+  return dim3(p.H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows);
+}
+
 int launch(LayerBwd p, void* stream) {
-  const dim3 grid(p.H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int s = 0; s <= p.T; ++s) {
-    layer_bwd_step<<<grid, rst::kThreads, 0, st>>>(s, p);
+    layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(s, p);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
   }
+  return (int)cudaGetLastError();
+}
+
+long long g_rebuild_launches = 0;   // rebuild products launched by launch_recompute
+
+// Recompute mode: for the caller's chunks, in its order (starts t0[0] >
+// t0[1] > ... > t0[n - 1] = 0; chunk k spans [t0[k], t0[k - 1]), chunk 0
+// ends at T; each at most `chunk` steps), the rebuild product of the chunk
+// into act, then its steps t1-1 .. t0; then the final pass.
+int launch_recompute(LayerBwd p, const rst_rebuild::Maps& maps, int D, const float* bias,
+                     float* act, const int* starts, int n_chunks, int chunk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.act = act;
+  for (int k = 0, t1 = p.T; k < n_chunks; t1 = starts[k++]) {
+    const int t0 = starts[k];
+    if (t0 < 0 || t0 >= t1 || t1 - t0 > chunk || (k == n_chunks - 1) != (t0 == 0)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int err = rst_rebuild::launch(maps, t0 * p.B, (t1 - t0) * p.B, D, p.H, bias, act, st);
+    if (err != 0) return err;
+    ++g_rebuild_launches;
+    p.t0 = t0;
+    for (int t = t1 - 1; t >= t0; --t) {
+      layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(p.T - 1 - t, p);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(p.T, p);
   return (int)cudaGetLastError();
 }
 
@@ -251,15 +276,12 @@ LayerBwd common(const float* dout, void* dgates, const void* cseq, const float* 
   p.par = static_cast<bf16*>(par);
   p.dhc = dhc;
   p.dcc = dcc;
-  p.x = nullptr;
-  p.h_prev = nullptr;
-  p.w_x = nullptr;
-  p.bias = nullptr;
+  p.act = nullptr;
+  p.t0 = 0;
   p.T = T;
   p.B = B;
   p.Bp = (B + 15) / 16 * 16;
   p.H = H;
-  p.D = 0;
   return p;
 }
 
@@ -279,20 +301,39 @@ extern "C" int rst_lstm_layer_bwd(const float* dout, void* gates, const void* cs
 }
 
 // Recompute mode: as above, with dgates (T, B, 4H) bf16 written fresh and
-// the gates rebuilt from x (T, Bp, D) and h_prev (T, Bp, H) bf16 (rows
-// >= B zero), w_x (D, 4H) bf16 and bias (4H) f32.  D a multiple of 64.
+// the gates rebuilt from x (T, B, D) and h_prev (T, B, H) bf16, w_x (D, 4H)
+// bf16 and bias (4H) f32, over the n_chunks chunks that `starts` gives (as
+// launch_recompute reads them) into act (chunk·B, 4H) f32 scratch.  D a
+// multiple of 64; x, h_prev, w_x, w_h 16-byte aligned.
 extern "C" int rst_lstm_layer_bwd_recompute(const float* dout, void* dgates,
                                             const void* cseq, const float* c0,
                                             const float* mask, const void* w_h,
                                             const void* x, const void* h_prev,
                                             const void* w_x, const float* bias, void* par,
-                                            float* dhc, float* dcc, int T, int B, int H,
-                                            int D, void* stream) {
+                                            float* dhc, float* dcc, float* act,
+                                            const int* starts, int n_chunks, int chunk,
+                                            int T, int B, int H, int D, void* stream) {
+  if (T <= 0 || B <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
+  rst_rebuild::Maps maps;
+  if (!rst_rebuild::make_maps(&maps, x, h_prev, w_x, w_h, T * B, D, H)) {
+    return (int)cudaErrorInvalidValue;
+  }
   LayerBwd p = common(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H);
-  p.x = static_cast<const bf16*>(x);
-  p.h_prev = static_cast<const bf16*>(h_prev);
-  p.w_x = static_cast<const bf16*>(w_x);
-  p.bias = bias;
-  p.D = D;
-  return launch(p, stream);
+  return launch_recompute(p, maps, D, bias, act, starts, n_chunks, chunk, stream);
+}
+
+// Rebuild products that rst_lstm_layer_bwd_recompute has launched.
+extern "C" long long rst_rebuild_launches() { return g_rebuild_launches; }
+
+// The rebuild product alone: act (rows, 4H) f32 = the activated gates of
+// x (rows, D) and h_prev (rows, H) bf16 with w_x (D, 4H), w_h (H, 4H) bf16
+// and bias (4H) f32.  D and H multiples of 64, operands 16-byte aligned.
+extern "C" int rst_rebuild_gates(const void* x, const void* h_prev, const void* w_x,
+                                 const void* w_h, const float* bias, float* act, int rows, int D,
+                                 int H, void* stream) {
+  rst_rebuild::Maps maps;
+  if (!rst_rebuild::make_maps(&maps, x, h_prev, w_x, w_h, rows, D, H)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return rst_rebuild::launch(maps, 0, rows, D, H, bias, act, static_cast<cudaStream_t>(stream));
 }

@@ -133,6 +133,9 @@ class DeviceFrontend:
                 _windowed_dft_basis(self.frame_length, self.n_fft, window)
             )
             self._mel = as_t(host.fbank_mel_matrix(sr).T)
+            if self.use_kernel:
+                self._kernel_tables = frontend_kernel.kernel_tables(
+                    self._basis, self._mel, self.n_fft)
         elif feature_type == "mfcc":
             self.n_fft = int(round(sr * FRAME_SIZE))
             self.frame_length = self.n_fft
@@ -218,10 +221,11 @@ class DeviceFrontend:
 
         # Framing, windowed DFT, power, mel and log: the fused kernel, or
         # K matmuls over shifted views of the signal.
-        spectrogram = (frontend_kernel.fbank_banks if self.use_kernel
-                       else frontend_kernel.fbank_banks_plain)
-        banks = spectrogram(pre, self._basis, self._mel, self.frame_step, n_frames,
-                            self.n_fft)                          # (B, T, nfilt)
+        args = (pre, self._basis, self._mel, self.frame_step, n_frames, self.n_fft)
+        if self.use_kernel:
+            banks = frontend_kernel.fbank_banks(*args, tables=self._kernel_tables)
+        else:
+            banks = frontend_kernel.fbank_banks_plain(*args)     # (B, T, nfilt)
 
         nf = self.num_frames_for(lengths, limit=n_frames)
         t_idx = torch.arange(n_frames, device=self.device)[None, :]

@@ -16,15 +16,22 @@ modes:
 * recompute mode: ``recurrence_train_lean`` (``_recurrence_train_lean_kernel``)
   reads ``x_proj`` in the residual dtype and stores only c;
   ``recurrence_bwd_recompute`` (``_recurrence_bwd_recompute_kernel``)
-  rebuilds the gates each step from the residual-dtype layer input and
-  h_prev, then runs the same backward into a fresh dgates stream.
+  rebuilds the gates from the residual-dtype layer input and h_prev, then
+  runs the same backward into a fresh dgates stream.  The TPU kernel
+  rebuilds them inside each step; here the rebuild is one tensor-core
+  product per chunk of ``rebuild_chunk`` steps (``rebuild_gates``: float32
+  activated gates, at most ``REBUILD_BYTES`` of them), launched ahead of
+  the chunk's serial steps, which keep only the carry's product.
 
 The forward kernels are ``csrc/lstm_layer_train.cu``, the backward ones
-``csrc/lstm_layer_bwd.cu``.  Each wrapper takes the plain version for
-tensors on the CPU and launches its kernel for tensors on a CUDA device
-(bf16 weights and residuals, float32 carries), or raises; there is no
-fallback.  ``<wrapper>.launches`` counts the calls that launched the
-kernel (each call issues one CUDA launch per step from one host call).
+``csrc/lstm_layer_bwd.cu`` (the rebuild product ``csrc/rebuild_gates.cuh``).
+Each wrapper takes the plain version for tensors on the CPU and launches
+its kernel for tensors on a CUDA device (bf16 weights and residuals,
+float32 carries), or raises; there is no fallback.  ``<wrapper>.launches``
+counts the calls that launched the kernel (each call issues one CUDA
+launch per step from one host call); ``recurrence_bwd_recompute.
+rebuild_launches`` counts the rebuild products its kernel launched (read
+from the library's own count).
 
 ``lstm_layer_train`` (``lstm_layer_pallas``) is the differentiable layer:
 ``_LayerTrain`` (``_lstm_core``) and ``_LayerTrainRecompute``
@@ -52,6 +59,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # Rows of the recompute forward's input projection per chunk: 2^17 rows of
 # 4H = 4096 float32 are 2 GiB of transient.
 _PROJ_ROWS = 1 << 17
+# Bytes of the recompute backward's chunk of rebuilt gates, (C·B, 4H)
+# float32: C = 40 steps at B=400, H=1024 (262 MB, 2,000 output tiles of the
+# rebuild product); under the memory plan's slack for transients.
+REBUILD_BYTES = 256 << 20
 
 
 def _lib_fn(lib: str, name: str, argtypes):
@@ -214,17 +225,76 @@ def recurrence_bwd_plain(dout, gates, cseq, c0, mask, w_h, dhn, dcn):
     return _backward_plain(dout, acts, cseq, c0, mask, w_h, dhn, dcn, gates)
 
 
+def rebuild_gates_plain(x, h_prev, w_x, w_h, b):
+    """The activated gates [σ(i) | tanh(g) | σ(f + 1) | σ(o)] (rows, 4H)
+    float32 of x (rows, D)·W_x + h_prev (rows, H)·W_h + b, float32 sums of
+    the residual-dtype operands."""
+    H = w_h.shape[1] // 4
+    pre = (torch.matmul(x.to(f32), w_x.to(f32)) + torch.matmul(h_prev.to(f32), w_h.to(f32))
+           + b.to(f32).reshape(-1))
+    return torch.cat(_activations(pre, H), dim=-1)
+
+
 def recurrence_bwd_recompute_plain(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn,
                                    dcn):
-    """Recompute-mode backward in plain PyTorch: step t's gates are
-    x[t]·W_x + h_prev[t]·W_h + b in float32 from the residual-dtype x and
-    h_prev.  Returns (dgates in x's dtype, dh0, dc0)."""
+    """Recompute-mode backward in plain PyTorch: step t's gates are rebuilt
+    as ``rebuild_gates_plain(x[t], h_prev[t], ...)``.  Returns (dgates in
+    x's dtype, dh0, dc0)."""
     T, B, H = cseq.shape
-    wx, wh, bias = w_x.to(f32), w_h.to(f32), b.to(f32).reshape(-1)
-    acts = lambda t: _activations(
-        torch.matmul(x[t].to(f32), wx) + torch.matmul(h_prev[t].to(f32), wh) + bias, H)
+    acts = lambda t: rebuild_gates_plain(x[t], h_prev[t], w_x, w_h, b).split(H, dim=-1)
     dgates = cseq.new_empty((T, B, 4 * H), dtype=x.dtype)
     return _backward_plain(dout, acts, cseq, c0, mask, w_h, dhn, dcn, dgates)
+
+
+def rebuild_chunk(T: int, B: int, H: int) -> int:
+    """Steps per chunk of the recompute backward's rebuild: as many (B, 4H)
+    float32 steps as ``REBUILD_BYTES`` holds, at least 1, at most T."""
+    return max(1, min(T, REBUILD_BYTES // (16 * max(1, B) * H)))
+
+
+def rebuild_chunks(T: int, chunk: int):
+    """The chunks [t0, t1) of [0, T), ``chunk`` steps each but the last,
+    in the order the kernel runs them: last first.  The wrapper passes
+    their starts to the kernel, which runs them in this order."""
+    return [(t0, min(T, t0 + chunk)) for t0 in reversed(range(0, T, chunk))]
+
+
+def _rebuild_checks(x, h_prev, w_x, b):
+    """The rebuild product's operands for ``check_kernel_inputs``; raises
+    unless D is a multiple of 64 (the product's K stage)."""
+    D, H = x.shape[-1], h_prev.shape[-1]
+    if D % 64:
+        raise ValueError(f"the recompute backward kernel needs D % 64 == 0, got D={D}")
+    return [("x", x, bf16, (*x.shape[:-1], D)), ("h_prev", h_prev, bf16, (*x.shape[:-1], H)),
+            ("w_x", w_x, bf16, (D, 4 * H)), ("b", b, f32, (4 * H,))]
+
+
+def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor) -> Tensor:
+    """The recompute backward's rebuild product alone: (rows, 4H) float32
+    activated gates as ``rebuild_gates_plain`` for x (rows, D) and h_prev
+    (rows, H) bf16, w_x (D, 4H), w_h (H, 4H) bf16 and b (4H,) float32; the
+    kernel on a CUDA device, the plain version on the CPU."""
+    if not x.is_cuda:
+        return rebuild_gates_plain(x, h_prev, w_x, w_h, b)
+    rows, H = h_prev.shape[0], w_h.shape[0]
+    D = x.shape[-1]
+    dev = x.device
+    check_kernel_inputs(_rebuild_checks(x, h_prev, w_x, b) + [("w_h", w_h, bf16, (H, 4 * H))],
+                        dev, H)
+    with torch.cuda.device(dev):
+        act = torch.empty((rows, 4 * H), dtype=f32, device=dev)
+        if rows == 0:
+            return act
+        fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates", [P] * 6 + [I] * 3 + [P])
+        rc = fn(x.data_ptr(), h_prev.data_ptr(), w_x.data_ptr(), w_h.data_ptr(), b.data_ptr(),
+                act.data_ptr(), rows, D, H, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rebuild_gates kernel launch failed: CUDA error {rc}")
+    rebuild_gates.launches += 1
+    return act
+
+
+rebuild_gates.launches = 0
 
 
 def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra):
@@ -285,38 +355,37 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
                                               w_h, dhn, dcn)
     T, B, H = cseq.shape
     D = x.shape[-1]
-    if D % 64:
-        raise ValueError(f"the recompute backward kernel needs D % 64 == 0, got D={D}")
-    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, [
-        ("x", x, bf16, (T, B, D)),
-        ("h_prev", h_prev, bf16, (T, B, H)),
-        ("w_x", w_x, bf16, (D, 4 * H)),
-        ("b", b, f32, (4 * H,)),
-    ])
     dev = cseq.device
+    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, _rebuild_checks(x, h_prev, w_x, b))
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
         dgates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
-        if T == 0:
+        if T == 0 or B == 0:
             return dgates, dh, dc
+        chunk = rebuild_chunk(T, B, H)
+        starts = [t0 for t0, _ in rebuild_chunks(T, chunk)]
         Bp = -(-B // 16) * 16
-        if Bp != B:  # the rebuild reads whole 16-row tiles of x and h_prev
-            x = torch.nn.functional.pad(x, (0, 0, 0, Bp - B))
-            h_prev = torch.nn.functional.pad(h_prev, (0, 0, 0, Bp - B))
         par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
+        act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
         fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute",
-                     [P] * 13 + [I] * 4 + [P])
+                     [P] * 15 + [I] * 6 + [P])
+        rebuilds = _build.load("lstm_layer_bwd").rst_rebuild_launches
+        rebuilds.argtypes, rebuilds.restype = [], ctypes.c_longlong
+        before = rebuilds()
         rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
                 w_x.data_ptr(), b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+                act.data_ptr(), (ctypes.c_int * len(starts))(*starts), len(starts), chunk,
                 T, B, H, D, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_layer_bwd_recompute kernel launch failed: CUDA error {rc}")
     recurrence_bwd_recompute.launches += 1
+    recurrence_bwd_recompute.rebuild_launches += rebuilds() - before
     return dgates, dh, dc
 
 
 recurrence_bwd_recompute.launches = 0
+recurrence_bwd_recompute.rebuild_launches = 0
 
 
 # ------------------------------------------------------- differentiable layer

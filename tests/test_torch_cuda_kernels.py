@@ -5,10 +5,11 @@ one, T shorter than the stack depth, zero-length rows, T = 0, and
 weight-gradient shapes with ragged D, G and N edges; the layered training
 route's four kernels and its stack options (wavefront off, recompute,
 remat, time_chunk) on the card against their plain versions; the Bernoulli
-mask kernel, the alpha-stream CTC pair and the fbank kernel, with the
+mask kernel, the alpha-stream CTC pair and the fbank kernel (an FFT), with the
 routes that launch them (the layered stack backward, the alpha-stream CTC
 backward, the fbank frontend); the reverse diagonal's fused dW_x over
-several accumulation windows.
+several accumulation windows; the recompute backward's rebuild product
+alone and the recompute backward at the edges of its chunks.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -30,8 +31,11 @@ and rounds as it does: equal bit for bit.  The CTC kernels run the plain
 versions' float32 recursion with other exp/log roundings: 1e-4; the
 alpha stream repeats the checkpoint kernel's rows bit for bit.  The mask
 kernel draws its plain version's bits: equal bit for bit.  The fbank
-kernel sums the float32 DFT and mel products in another order: 2e-3 of
-the largest magnitude, the JAX package's limit for its own kernel.  The
+kernel (an FFT) sums float32 products in another order than the plain
+version's DFT and mel matmuls: 2e-3 of the largest magnitude, the JAX
+package's limit for its own kernel.  The rebuild product sums the same bf16
+products in float32 in another order than its plain version: 1e-5
+relative Frobenius, and equal bit for bit on repeat.  The
 fused dW_x sums T·B products of those bf16 dgates: 1e-2 of each
 boundary's own largest magnitude, a bound that one accumulation window
 left out fails; the fused pass's dgates, dh0 and dc0 equal the unfused
@@ -649,6 +653,71 @@ def test_layer_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="D % 64"):
         tlt.recurrence_bwd_recompute(y["dout"], y["x"], hc, hc, y["c0"], y["mask"],
                                      y["w_x"], y["b"], y["w_h"], y["dhn"], y["dcn"])
+
+
+@pytest.mark.parametrize("rows,H,D", [(1, 64, 64), (70, 64, 128), (333, 128, 64),
+                                       (1000, 64, 192)])
+def test_rebuild_gates_kernel_matches_plain(cuda, rows, H, D):
+    """The recompute backward's rebuild product alone (TMA + wgmma): within
+    1e-5 relative Frobenius of its plain version (float32 sums of the same
+    bf16 products in another order) and bit for bit on repeat."""
+    g = torch.Generator().manual_seed(rows + H + D)
+    bf = torch.bfloat16
+    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(cuda)
+    args = (r(rows, D, scale=1.0).to(bf), r(rows, H, scale=0.5).to(bf),
+            r(D, 4 * H, scale=0.1).to(bf), r(H, 4 * H, scale=0.1).to(bf), r(4 * H, scale=0.1))
+    got = tlt.rebuild_gates(*args)
+    again = tlt.rebuild_gates(*args)
+    ref = tlt.rebuild_gates_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (rows, 4 * H) and got.dtype == torch.float32
+    assert float((got - ref).norm()) <= 1e-5 * float(ref.norm())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("T", [3, 4, 5, 9])
+def test_recompute_bwd_at_chunk_edges_matches_plain(cuda, T, monkeypatch):
+    """The recompute backward with the rebuild in chunks of 4 steps (the
+    byte cap patched down), B=70 (not a multiple of 16): T shorter than a
+    chunk, one chunk, one step past it, two chunks and a step."""
+    B, H, D, chunk = 70, 64, 128, 4
+    monkeypatch.setattr(tlt, "REBUILD_BYTES", chunk * B * 4 * H * 4)
+    assert tlt.rebuild_chunk(T, B, H) == min(T, chunk)
+    x = _layer_inputs(T, B, H, D, seed=T + 40, dev=cuda)
+    bf = torch.bfloat16
+    out, _, _, cseq = tlt.recurrence_train_lean_plain(
+        x["x_proj"].to(bf), x["w_h"], x["mask"], x["h0"], x["c0"], bf)
+    h_prev = torch.cat([x["h0"].to(bf)[None], out.to(bf)[:-1]])
+    args = (x["dout"], x["x"], h_prev, cseq, x["c0"].to(bf).float(), x["mask"], x["w_x"],
+            x["b"], x["w_h"], x["dhn"], x["dcn"])
+    before = tlt.recurrence_bwd_recompute.rebuild_launches
+    got = tlt.recurrence_bwd_recompute(*args)
+    ref = tlt.recurrence_bwd_recompute_plain(*args)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_bwd_recompute.rebuild_launches - before == -(-T // chunk)
+    _close_to(got, ref, TRAIN_TOL)
+
+
+@pytest.mark.parametrize("sr", [16000, 22050])
+def test_fft_fbank_kernel_matches_plain_at_full_width(cuda, sr):
+    """The FFT kernel on 10.24 s rows with an empty row and one shorter
+    than a frame: 2e-3 of the largest magnitude, finite, and the empty
+    row's banks exactly the eps floor, as the plain version's."""
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    width = int(sr * 10.24)
+    audio, _ = _fbank_signals(sr, [width, 0, 300, width - 4321], width, seed=sr)
+    fe = DeviceFrontend("fbank", sr=sr, max_samples=width, device=cuda)
+    pre = torch.cat([audio[:, :1], audio[:, 1:] - 0.97 * audio[:, :-1]], dim=1).to(cuda)
+    n_frames = fe._frames_for_width(width)
+    args = (pre, fe._basis, fe._mel, fe.frame_step, n_frames, fe.n_fft)
+    got = tfk.fbank_banks(*args)
+    ref = tfk.fbank_banks_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 2e-3 * float(ref.abs().max())
+    assert torch.equal(got[1], ref[1])
 
 
 # ------------------- the mask stream, the alpha-stream CTC pair, the fbank kernel

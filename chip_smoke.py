@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,bundle,beam,cli]
+    python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -41,7 +42,8 @@ printing one JSON line:
            G=1024 and D=1024, G=80);
            the three CTC kernels at B=64, T=3510, U=600 with labels of 250,
            a zero-length input and a label longer than its input (loss,
-           checkpoints, last row, gradient); the dropout kernel at
+           checkpoints, last row, gradient; the backward bit for bit on
+           repeat, beside its label sums filed one step late); the dropout kernel at
            (3510, 64, 1024) in float32 and bf16 (bit for bit, and the kept
            fraction within 4 sigma of the keep); the Bernoulli mask kernel
            at (2, 3510, 64, 1024) bf16 (bit for bit, the kept fraction
@@ -72,7 +74,9 @@ printing one JSON line:
            training kernel's time at the path's shapes beside its bound, its
            plain version and one PyTorch call (dgates_weight_grads in turns
            with its yardstick and beside the WMMA tile, with TFLOP/s and
-           the card's clocks), and one step's gradients
+           the card's clocks; each CTC kernel in turns with its own half of
+           F.ctc_loss, the forward or the backward alone, the pair
+           beside), and one step's gradients
            through the kernels at T=256 against the same route on the
            kernels' plain versions with the same seed words, beside a
            planted fault that must fail that gate (and, for the keep-1
@@ -87,7 +91,10 @@ printing one JSON line:
            H100, T=512) and at a chunk edge of its rebuild (T one step
            past a chunk, B=70), and its rebuild product alone at one chunk
            of that batch (relative Frobenius, bit for bit on repeat,
-           beside the last K stage left out);
+           beside the last K stage left out); the recompute forward on its
+           persistent kernel at T=3510 and the route's two batches (B=400
+           and 473 on the H100: bit for bit on repeat, beside the kernel
+           with its step barrier left out);
            the default StepConfig with the wavefront off at B=64, T=3510
            (12 steps as in ``train``; the gates-mode kernels, dropout, CTC
            and weight-gradient kernels must launch and the wavefront
@@ -96,9 +103,11 @@ printing one JSON line:
            (0, "recompute") on this card, 1 warm-up and 3 timed steps and
            one split by its marks, the plan's estimate beside the
            measured peak memory (the backward must launch its rebuild
-           products); each layered kernel's time at its route's shapes
+           products, the forward its persistent kernel); each layered
+           kernel's time at its route's shapes
            beside its bound, its plain version and torch.nn.LSTM (one
-           layer), the recompute backward's rebuild products on the
+           layer; the recompute forward in turns with it), the recompute
+           backward's rebuild products on the
            call's own operands (every chunk, TFLOP/s; one whole chunk
            also in turns with torch.mm of the same product); and one
            step's gradients at T=256 through the kernels against the
@@ -154,6 +163,11 @@ printing one JSON line:
            the eval batch (B=128, T=1024).
   cli      ``python -m rnn_speech_tpu_torch.cli --file`` on one rendered
            clip prints its text (the default beam width, 16).
+  lean_study (opt-in: only where ``--phases`` names it)
+           where the persistent lean forward's step goes: at B=400 and
+           B=64, T=3510, its time a call, and at B=400 the per-step design
+           (forced through ``lean_plan``) and the same launch without its
+           step barrier (wrong results: the barrier's share).
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -1072,7 +1086,9 @@ def _ctc_checks(checks):
     loss_l, _ = tck._loss(last_l, ul, valid)
     loss_p, logp_p = tck._loss(last_p, ul, valid)
     ones = torch.ones_like(loss)
-    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K)
+    lists = tck.label_lists(ext, ul, V)
+    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K, lists)
+    again = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K, lists)
     post_p = tck.beta_post_plain(log_probs, ext, skip_ok, ll, ul, logp_p, ck_p, K)
     grad = tck.ctc_grad(log_probs, post, ll, valid, ones)
     grad_p = tck.ctc_grad(log_probs, post_p, ll, valid, ones)
@@ -1087,12 +1103,21 @@ def _ctc_checks(checks):
                              "lossonly_loss": float((loss_l - loss_p).abs().max()),
                              "grad": float((grad - grad_p).abs().max())},
              "zero_length_loss": float(loss[3]), "label_too_long_loss": float(loss[5]),
-             "grad_finite": bool(torch.isfinite(grad).all())}
+             "grad_finite": bool(torch.isfinite(grad).all()),
+             "beta_post_bit_equal_on_repeat": torch.equal(post, again)}
     checks.append(entry)
     if (any(rels[k] > tols[k] for k in rels) or not entry["lossonly_equals_ckpt_last"]
-            or not entry["grad_finite"] or loss[3] != 0 or loss[5] != 0):
+            or not entry["grad_finite"] or loss[3] != 0 or loss[5] != 0
+            or not entry["beta_post_bit_equal_on_repeat"]):
         fail(f"ctc: kernels disagree with their plain versions: {entry}")
-    del ck, ck_p, post, post_p, grad, grad_p
+    # The backward sums a step's labels one tick after the step: the sums
+    # filed one step late must fail the gradient check.
+    late = _ctc_rel(tck.ctc_grad(log_probs, post_p.roll(1, 0), ll, valid, ones), grad_p)
+    checks.append({"planted_fault": "ctc backward: label sums one step late",
+                   "rel_err": late, "tol": CTC_GRAD_TOL})
+    if late <= CTC_GRAD_TOL:
+        fail(f"ctc: the check does not see the label sums one step late ({late})")
+    del ck, ck_p, post, post_p, grad, grad_p, again
     _, last_f = tck.alpha_plain(log_probs, ext, torch.zeros_like(skip_ok), ll, ul, K, False)
     rel = _ctc_rel(tck._loss(last_f, ul, valid)[0], loss_p)
     checks.append({"planted_fault": "ctc: skip transition dropped", "rel_err": rel,
@@ -1301,9 +1326,11 @@ def _ctc_stream_checks(checks):
     ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
     ones = torch.ones((TRAIN_B,), device=DEVICE)
     logp = tck._loss(last_ck, ul, valid)[1]
-    grad_ck = tck.ctc_grad(log_probs, tck.ctc_beta_post(*args, logp, ck, K), ll, valid, ones)
-    grad = tck.ctc_grad(log_probs, tck.ctc_beta_post_stream(*args, logp, alphas), ll, valid,
-                        ones)
+    lists = tck.label_lists(ext, ul, V)
+    grad_ck = tck.ctc_grad(log_probs, tck.ctc_beta_post(*args, logp, ck, K, lists), ll, valid,
+                           ones)
+    grad = tck.ctc_grad(log_probs, tck.ctc_beta_post_stream(*args, logp, alphas, lists), ll,
+                        valid, ones)
     alphas_p, _ = tck.alpha_stream_plain(*args)
     grad_p = tck.ctc_grad(log_probs, tck.beta_post_stream_plain(*args, logp, alphas), ll,
                           valid, ones)
@@ -1429,7 +1456,8 @@ def _path_counters():
     step), ``weight_grad`` at the LSTM shape (``_hgrad_only`` after the
     fused pass; the wide step), the fused pass's window products and the
     recompute backward's gate rebuilds (one per chunk; the recompute
-    steps)."""
+    steps); and the persistent lean forward's launches (wgmma on a
+    resident W_h, csrc/lstm_layer_lean.cu; the recompute steps)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1437,7 +1465,8 @@ def _path_counters():
     return {"dgates_weight_grads": gm.dgates_weight_grads.wgmma_launches,
             "weight_grad": gm.weight_grad.wgmma_launches,
             "fused_windows": wf.wavefront_bwd.wgmma_products,
-            "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches}
+            "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches,
+            "lean_persistent": tlt.recurrence_train_lean.persistent_launches}
 
 
 def _zero_path_counters():
@@ -1448,6 +1477,7 @@ def _zero_path_counters():
     gm.dgates_weight_grads.wgmma_launches = gm.weight_grad.wgmma_launches = 0
     wf.wavefront_bwd.wgmma_products = 0
     tlt.recurrence_bwd_recompute.rebuild_launches = 0
+    tlt.recurrence_train_lean.persistent_launches = 0
 
 
 @contextlib.contextmanager
@@ -1481,10 +1511,11 @@ def _plain_versions():
             mock.patch.object(tdrop, "dropout_kernel", tdrop.dropout_plain), \
             mock.patch.object(tck, "ctc_alpha_ckpt", alpha), \
             mock.patch.object(tck, "ctc_alpha_lossonly", lossonly), \
-            mock.patch.object(tck, "ctc_beta_post", tck.beta_post_plain), \
+            mock.patch.object(tck, "ctc_beta_post", lambda *a: tck.beta_post_plain(*a[:8])), \
             mock.patch.object(tdrop, "bernoulli_mask", tdrop.bernoulli_mask_plain), \
             mock.patch.object(tck, "ctc_alpha_stream", tck.alpha_stream_plain), \
-            mock.patch.object(tck, "ctc_beta_post_stream", tck.beta_post_stream_plain), \
+            mock.patch.object(tck, "ctc_beta_post_stream",
+                              lambda *a: tck.beta_post_stream_plain(*a[:7])), \
             mock.patch.object(tfk, "fbank_banks",
                               lambda *a, tables=None: tfk.fbank_banks_plain(*a)):
         yield
@@ -1656,6 +1687,18 @@ def _nn_lstm_train_ms(T, n_layers=L, Bn=TRAIN_B):
     return fwd, bwd
 
 
+def _nn_lstm_forward(T, Bn):
+    """One call of torch.nn.LSTM's (cuDNN, bf16, one layer of 1024) forward
+    on an input that needs its gradient, at T steps and Bn rows: a
+    yardstick only."""
+    import torch
+
+    m = torch.nn.LSTM(H, H, num_layers=1).to(DEVICE, torch.bfloat16)
+    m.flatten_parameters()
+    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    return lambda: m(x)
+
+
 def _train_kernel_timing(state):
     """Each training kernel alone at the train path's shapes (full-length
     rows): ms, its plain version's ms, one PyTorch call's ms and the bound.
@@ -1766,6 +1809,60 @@ def _train_kernel_timing(state):
     return out
 
 
+def _ctc_timing_batch():
+    """The CTC kernels' timing batch at the default step's shapes:
+    full-length rows, labels of LABEL_LEN in a MAX_LABEL-wide buffer.
+    Returns ``_setup``'s (log_probs, ext, skip_ok, ll, ul, valid) and the
+    (B, LABEL_LEN) targets of the library call."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    T, Bn = TRAIN_T, TRAIN_B
+    g = torch.Generator().manual_seed(95)
+    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    labels[:, LABEL_LEN:] = -1
+    ll = torch.full((Bn,), T, device=DEVICE)
+    ul = torch.full((Bn,), LABEL_LEN, device=DEVICE)
+    return (*tck._setup(logits, ll, labels.to(DEVICE), ul, -1),
+            labels[:, :LABEL_LEN].to(DEVICE))
+
+
+def _ctc_library(log_probs, targets, ll, ul):
+    """``torch.nn.functional.ctc_loss``'s own halves on the kernels'
+    operands, each one PyTorch call: ``forward`` (``aten._ctc_loss``, what
+    ``ctc_loss`` runs here: blank V-1 keeps it off cuDNN), ``backward``
+    alone (``aten._ctc_loss_backward`` on that forward's saved
+    neg_log_likelihood and log_alpha) and ``pair``, the two in a row."""
+    import torch
+
+    il, tl = ll.long(), ul.long()
+    fwd = lambda: torch.ops.aten._ctc_loss(log_probs, targets, il, tl, V - 1, False)
+    nll, log_alpha = fwd()
+    grad = torch.ones_like(nll)
+    bwd = lambda nl, la: torch.ops.aten._ctc_loss_backward(grad, log_probs, targets, il, tl,
+                                                           nl, la, V - 1, False)
+    return {"forward": fwd, "backward": lambda: bwd(nll, log_alpha),
+            "pair": lambda: bwd(*fwd())}
+
+
+def _ctc_row(run, plain, ops, nbytes, lib, half):
+    """One CTC kernel's timing row: the kernel in turns with the library
+    call of its own half (``forward`` or ``backward``, ``_ctc_library``),
+    the pair's time beside, the plain version's time and the bound."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    turns = in_turns(lib[half], run)
+    return dict(ms=turns["ms"], plain_ms=cuda_ms(plain, iters=1, warmup=0),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=turns["library_ms"],
+                library=f"torch.nn.functional.ctc_loss {half} alone (aten._ctc_loss"
+                        f"{'' if half == 'forward' else '_backward'})",
+                library_pair_ms=cuda_ms(lib["pair"]), turns=turns["turns"], ops=ops,
+                bytes=nbytes)
+
+
 def _ctc_dropout_timing():
     """The CTC kernels and the dropout kernel alone at the default step's
     shapes (full-length rows, labels of LABEL_LEN): ms, the plain
@@ -1781,49 +1878,32 @@ def _ctc_dropout_timing():
     from rnn_speech_tpu_torch.ops import dropout as tdrop
 
     T, Bn = TRAIN_T, TRAIN_B
-    g = torch.Generator().manual_seed(95)
-    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
-    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
-    labels[:, LABEL_LEN:] = -1
-    ll = torch.full((Bn,), T, device=DEVICE)
-    ul = torch.full((Bn,), LABEL_LEN, device=DEVICE)
-    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels.to(DEVICE), ul, -1)
+    log_probs, ext, skip_ok, ll, ul, valid, targets = _ctc_timing_batch()
     K = tck.ctc_block(ext.shape[1], V)
     args = (log_probs, ext, skip_ok, ll, ul)
     ckpts, last = tck.ctc_alpha_ckpt(*args, K)
     logp = tck._loss(last, ul, valid)[1]
+    lists = tck.label_lists(ext, ul, V)            # built once, as the loss's forward does
     live = int((ll * (2 * ul + 1)).sum())
     s_live = 2 * LABEL_LEN + 1
     n_ck = -(-T // K)
     lp_bytes = T * Bn * V * 4
-    lp_lib = log_probs.clone().requires_grad_(True)
-    targets = labels[:, :LABEL_LEN].to(DEVICE)
-    ctc_lib = lambda: torch.nn.functional.ctc_loss(lp_lib, targets, ll, ul, blank=V - 1,
-                                                   reduction="sum")
-    lib_fb = cuda_ms(lambda: torch.autograd.grad(ctc_lib(), lp_lib))
-    with torch.no_grad():
-        lib_f = cuda_ms(ctc_lib)
+    lib = _ctc_library(log_probs, targets, ll, ul)
     out = {}
-    for name, run, plain, ops, nbytes, lib in (
+    for name, run, plain, ops, nbytes, half in (
         ("ctc_alpha_ckpt", lambda: tck.ctc_alpha_ckpt(*args, K),
          lambda: tck.alpha_plain(*args, K, True), CTC_ALPHA_OPS * live,
-         lp_bytes + (n_ck + 1) * Bn * s_live * 4, lib_fb),
+         lp_bytes + (n_ck + 1) * Bn * s_live * 4, "forward"),
         ("ctc_alpha_lossonly", lambda: tck.ctc_alpha_lossonly(*args),
          lambda: tck.alpha_plain(*args, 1, False), CTC_ALPHA_OPS * live,
-         lp_bytes + Bn * s_live * 4, lib_f),
-        ("ctc_beta_post", lambda: tck.ctc_beta_post(*args, logp, ckpts, K),
+         lp_bytes + Bn * s_live * 4, "forward"),
+        ("ctc_beta_post", lambda: tck.ctc_beta_post(*args, logp, ckpts, K, lists),
          lambda: tck.beta_post_plain(*args, logp, ckpts, K), CTC_BETA_POST_OPS * live,
-         2 * lp_bytes + n_ck * Bn * s_live * 4, lib_fb),
+         2 * lp_bytes + n_ck * Bn * s_live * 4, "backward"),
     ):
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[name] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1, warmup=0),
-                         bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         library_ms=lib, library="torch.nn.functional.ctc_loss " + (
-                             "forward" if name == "ctc_alpha_lossonly" else
-                             "forward + backward"),
-                         ops=ops, bytes=nbytes, live_entries=live, K=K)
-    del logits, log_probs, ckpts, lp_lib
+        out[name] = _ctc_row(run, plain, ops, nbytes, lib, half)
+        out[name]["K"] = K
+    del log_probs, ckpts, lib
 
     gd = torch.Generator(device=DEVICE).manual_seed(96)
     f32x = torch.randn((T, Bn, H), generator=gd, device=DEVICE)
@@ -2112,6 +2192,58 @@ def _layer_kernel_checks(checks, worst, rec_B):
     worst["rebuild_gates"] = _rebuild_product_check(checks, rec_B)
 
 
+def _lean_persistent_checks(checks, worst, batches):
+    """The persistent lean forward (csrc/lstm_layer_lean.cu) at its path's
+    shapes: H=1024, T=3510 and each batch of ``batches`` (the recompute
+    step's B=400 and the widest recompute batch, B=473 on the H100), with
+    ragged lengths and a zero-length row, against its plain version at
+    TRAIN_TOL_LONG, bit for bit on repeat, the plan's choice checked;
+    beside the kernel with its grid barrier left out (each CTA reads h
+    without waiting for the others: stale h), which must fail the check."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T, name = torch.bfloat16, TRAIN_T, "recurrence_train_lean"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lim = (6.0 / (H + 4 * H)) ** 0.5
+    for i, Bn in enumerate(batches):
+        plan = tlt.lean_plan(Bn, H, sms)
+        if plan["kernel"] != "persistent":
+            fail(f"{name}: the plan does not send B={Bn}, H={H} to the persistent kernel: "
+                 f"{plan}")
+        g = torch.Generator(device=DEVICE).manual_seed(180 + i)
+        xp = torch.empty((T, Bn, 4 * H), dtype=bf, device=DEVICE)
+        for t0 in range(0, T, 256):
+            xp[t0:t0 + 256] = torch.randn(xp[t0:t0 + 256].shape, generator=g,
+                                          device=DEVICE) * 0.5
+        w_h = ((torch.rand((H, 4 * H), generator=g, device=DEVICE) * 2 - 1) * lim).to(bf)
+        h0 = torch.randn((Bn, H), generator=g, device=DEVICE) * 0.2
+        c0 = torch.randn((Bn, H), generator=g, device=DEVICE) * 0.2
+        lens = torch.as_tensor([max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T
+                                for b in range(Bn)])
+        lens[2] = 0                                   # a zero-length row
+        mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(DEVICE)
+        args = (xp, w_h, mask, h0, c0)
+        tag = f"{name} persistent H={H} B={Bn} T={T} (grid {plan['grid']})"
+        got = tlt.recurrence_train_lean(*args, bf)
+        again = tlt.recurrence_train_lean(*args, bf)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        checks.append({"check": f"{tag}: bit for bit on repeat", "equal": same})
+        if not same:
+            fail(f"{tag}: two calls on the same inputs differ")
+        ref = tlt.recurrence_train_lean_plain(*args, bf)
+        worst[name] = max(worst[name], _rel_check(tag, got, ref, TRAIN_TOL_LONG, checks))
+        del got
+        _fault_check(f"{tag}: grid barrier left out (stale h)",
+                     tlt._lean_persistent_launch(*args, plan, skip_barrier=1), ref,
+                     TRAIN_TOL_LONG, checks)
+        del ref, args, xp
+        torch.cuda.empty_cache()
+
+
 def _rebuild_product_check(checks, rec_B):
     """The recompute backward's rebuild product alone at one chunk of the
     route's batch (C·B rows, D = H = 1024; bf16 x and h_prev, xavier-uniform
@@ -2155,6 +2287,38 @@ def _rebuild_product_check(checks, rec_B):
     return entry["rel_frobenius"]
 
 
+def phase_lean_study():
+    """Where the persistent lean forward's step goes (opt-in): at B=400
+    and B=64, T=3510 (full-length rows), its time a call; at B=400 also the
+    per-step design, forced through ``lean_plan``, and the same launch
+    without its step barrier (wrong results: the barrier's share)."""
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T = torch.bfloat16, TRAIN_T
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for Bn in (400, TRAIN_B):
+        inp = _layer_inputs(T, Bn, [T] * Bn, seed=170, proj_dtype=bf)
+        args = (inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+        plan = tlt.lean_plan(Bn, H, sms)
+        ms = cuda_ms(lambda: tlt.recurrence_train_lean(*args), iters=2)
+        row = dict(plan=plan, ms_per_call=ms, us_per_step=1e3 * ms / T)
+        if Bn == 400:
+            with mock.patch.object(tlt, "lean_plan", lambda *a: {"kernel": "per_step"}):
+                row["per_step_ms_per_call"] = cuda_ms(
+                    lambda: tlt.recurrence_train_lean(*args), iters=2)
+            row["no_barrier_ms_per_call"] = cuda_ms(lambda: tlt._lean_persistent_launch(
+                *args[:5], plan, skip_barrier=1), iters=2)
+        out[f"B={Bn}"] = row
+        del inp, args
+        torch.cuda.empty_cache()
+    emit("lean_study", **out)
+
+
 def _layer_kernel_timing(rec_B):
     """Each layered kernel alone at its route's shapes (full-length rows,
     T=3510): the gates-mode pair at B=64 (the layered default step), the
@@ -2179,7 +2343,16 @@ def _layer_kernel_timing(rec_B):
         tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
         xp = inp["x_proj"]
         fwd, fwd_plain = getattr(tlt, fwd_name), getattr(tlt, fwd_name + "_plain")
-        ms = cuda_ms(lambda: fwd(xp, *tail), iters=2)
+        extra = {}
+        if lean:
+            # The persistent kernel in turns with cuDNN's one-layer forward.
+            turns = in_turns(_nn_lstm_forward(T, Bn), lambda: fwd(xp, *tail), iters=2)
+            ms, lib_fwd = turns["ms"], turns["library_ms"]
+            plan = tlt.lean_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count)
+            extra = dict(turns=turns["turns"], plan=plan, us_per_step=1e3 * ms / T)
+            torch.cuda.empty_cache()
+        else:
+            ms = cuda_ms(lambda: fwd(xp, *tail), iters=2)
         plain = cuda_ms(lambda: fwd_plain(xp, *tail), iters=1, warmup=0)
         res = fwd(xp, *tail)
         states = 2 * Bn * H * 4                      # h0 and c0, or hn and cn
@@ -2190,7 +2363,7 @@ def _layer_kernel_timing(rec_B):
         out[fwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
                              library_ms=L * lib_fwd, library="torch.nn.LSTM forward (1 layer)",
                              calls=L, ms_per_call=ms, batch=Bn, flops=L * 2 * T * Bn * H * G,
-                             bytes=L * nbytes, tflops=2 * T * Bn * H * G / ms / 1e9)
+                             bytes=L * nbytes, tflops=2 * T * Bn * H * G / ms / 1e9, **extra)
         del xp
         inp.pop("x_proj")
         c0r = inp["c0"].to(bf).float()
@@ -2290,6 +2463,8 @@ def phase_train_layered():
     checks, worst = [], {k: 0.0 for k in LAYER_KERNELS}
     _layer_kernel_checks(checks, worst, rec_B)
     torch.cuda.empty_cache()
+    wide_rec_B = _plan_edge(cfg, rec_B, "recompute")
+    _lean_persistent_checks(checks, worst, (rec_B, wide_rec_B))
 
     scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, wavefront=False)
     plan = acoustic.training_memory_plan(scfg.model, TRAIN_T, TRAIN_B)
@@ -2310,6 +2485,8 @@ def phase_train_layered():
         fail(f"train_layered (recompute): the loss did not fall: {recompute['losses']}")
     if not recompute["wgmma_launches"]["recompute_rebuild"]:
         fail("train_layered (recompute): the backward launched no rebuild product")
+    if not recompute["wgmma_launches"]["lean_persistent"]:
+        fail("train_layered (recompute): the forward never ran the persistent kernel")
     recompute.update(
         memory_plan=[0, "recompute"], budget_gib=acoustic.default_residual_budget() / 2**30,
         plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
@@ -2370,7 +2547,7 @@ def _beta_stream_fault():
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
 
     plain = tck.beta_post_stream_plain
-    return mock.patch.object(tck, "ctc_beta_post_stream", lambda *a: plain(*a) * 1.01)
+    return mock.patch.object(tck, "ctc_beta_post_stream", lambda *a: plain(*a[:7]) * 1.01)
 
 
 def _alt_route_specs():
@@ -2477,42 +2654,26 @@ def _alt_kernel_timing():
         library="(torch.rand(...) < keep).to(bf16)", bytes=2 * n, calls=1)
 
     T, Bn = TRAIN_T, TRAIN_B
-    g = torch.Generator().manual_seed(95)
-    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
-    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
-    labels[:, LABEL_LEN:] = -1
-    ll = torch.full((Bn,), T, device=DEVICE)
-    ul = torch.full((Bn,), LABEL_LEN, device=DEVICE)
-    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels.to(DEVICE), ul, -1)
+    log_probs, ext, skip_ok, ll, ul, valid, targets = _ctc_timing_batch()
     args = (log_probs, ext, skip_ok, ll, ul)
     S = ext.shape[1]
     alphas, last = tck.ctc_alpha_stream(*args)
     logp = tck._loss(last, ul, valid)[1]
+    lists = tck.label_lists(ext, ul, V)
     live = int((ll * (2 * ul + 1)).sum())
     lp_bytes, stream_bytes = T * Bn * V * 4, T * Bn * S * 4
-    lp_lib = log_probs.clone().requires_grad_(True)
-    targets = labels[:, :LABEL_LEN].to(DEVICE)
-    ctc_lib = lambda: torch.nn.functional.ctc_loss(lp_lib, targets, ll, ul, blank=V - 1,
-                                                   reduction="sum")
-    lib_fb = cuda_ms(lambda: torch.autograd.grad(ctc_lib(), lp_lib))
-    with torch.no_grad():
-        lib_f = cuda_ms(ctc_lib)
-    for name, run, plain, ops, nbytes, lib, lib_name in (
+    lib = _ctc_library(log_probs, targets, ll, ul)
+    for name, run, plain, ops, nbytes, half in (
         ("ctc_alpha_stream", lambda: tck.ctc_alpha_stream(*args),
          lambda: tck.alpha_stream_plain(*args), CTC_ALPHA_OPS * live,
-         lp_bytes + stream_bytes + Bn * S * 4, lib_f, "forward"),
-        ("ctc_beta_post_stream", lambda: tck.ctc_beta_post_stream(*args, logp, alphas),
+         lp_bytes + stream_bytes + Bn * S * 4, "forward"),
+        ("ctc_beta_post_stream", lambda: tck.ctc_beta_post_stream(*args, logp, alphas, lists),
          lambda: tck.beta_post_stream_plain(*args, logp, alphas),
-         (CTC_BETA_POST_OPS - CTC_ALPHA_OPS) * live, 2 * lp_bytes + stream_bytes, lib_fb,
-         "forward + backward"),
+         (CTC_BETA_POST_OPS - CTC_ALPHA_OPS) * live, 2 * lp_bytes + stream_bytes, "backward"),
     ):
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[name] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1, warmup=0),
-                         bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         library_ms=lib, library="torch.nn.functional.ctc_loss " + lib_name,
-                         ops=ops, bytes=nbytes, live_entries=live)
-    del logits, log_probs, alphas, lp_lib
+        out[name] = _ctc_row(run, plain, ops, nbytes, lib, half)
+        out[name]["live_entries"] = live
+    del log_probs, alphas, lib
 
     fe, pre, n_frames = _fbank_case(SR, [int(SR * SECONDS)] * B, SECONDS, seed=5)
     fargs = (pre, fe._basis, fe._mel, fe.frame_step, n_frames, fe.n_fft)
@@ -2778,6 +2939,8 @@ def phase_train_wide():
                                   route="recompute", warmup=1, per_rep=2)
     if not recompute["wgmma_launches"]["recompute_rebuild"]:
         fail("train_wide (recompute): the backward launched no rebuild product")
+    if not recompute["wgmma_launches"]["lean_persistent"]:
+        fail("train_wide (recompute): the forward never ran the persistent kernel")
     recompute.update(
         memory_plan=[0, "recompute"],
         plan_estimate_gib=acoustic.recompute_footprint(cfg, TRAIN_T, rec_B) / 2**30,
@@ -2931,13 +3094,15 @@ def kernels_line():
         })
         if "tflops" in t:                            # the weight-gradient products
             rows[-1]["tflops"] = t["tflops"]
+        if "library_pair_ms" in t:                   # CTC: the library's forward + backward
+            rows[-1]["library_pair_ms"] = t["library_pair_ms"]
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_train.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:144", "layered"),
         ("recurrence_bwd", csrc + "lstm_layer_bwd.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:232", "layered"),
-        ("recurrence_train_lean", csrc + "lstm_layer_train.cu",
+        ("recurrence_train_lean", csrc + "lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:342", "recompute"),
         ("recurrence_bwd_recompute", csrc + "lstm_layer_bwd.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:429", "recompute"),
@@ -2993,11 +3158,14 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+        if "library_pair_ms" in t:
+            rows[-1]["library_pair_ms"] = t["library_pair_ms"]
     return {"kernels": rows}
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
           "alt_routes", "train_wide", "grad_study", "bundle", "beam", "cli")
+OPT_IN_PHASES = ("lean_study",)
 
 
 def main(argv=None) -> int:
@@ -3023,7 +3191,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     for phase in phases:
-        if phase not in PHASES:
+        if phase not in PHASES + OPT_IN_PHASES:
             fail(f"unknown phase {phase!r}")
     seconds = RECORD.setdefault("phase_seconds", {})
 
@@ -3037,7 +3205,8 @@ def main(argv=None) -> int:
                      ("kernels", phase_kernels), ("train_kernels", phase_train_kernels),
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
-                     ("train_wide", phase_train_wide), ("grad_study", phase_grad_study)):
+                     ("train_wide", phase_train_wide), ("grad_study", phase_grad_study),
+                     ("lean_study", phase_lean_study)):
         if name in phases:
             timed(name, fn)
     held = None

@@ -8,9 +8,12 @@ three on the default route:
   (B, S) float32 checkpoint per K steps and the last row;
 * ``ctc_alpha_lossonly`` (``_alpha_kernel_lossonly``): the last row only;
 * ``ctc_beta_post`` (``_beta_post_ckpt_kernel``): each K-step block's
-  alpha rows rebuilt from its checkpoint, beta in the bstar = beta + lp
-  form and the state posteriors, summed per vocabulary entry into
-  label_post (T, B, V);
+  alpha rows rebuilt from its checkpoint (by a second thread group, beside
+  beta's pass over the block before), beta in the bstar = beta + lp form
+  and the state posteriors, summed per vocabulary entry into label_post
+  (T, B, V): the blank's even states by a fixed tree, the other labels by
+  their lists of odd states (``label_lists``, built once in the loss's
+  forward and saved for its backward);
 
 and the two of the alpha-stream backward (``RST_CTC_ALPHA_STREAM=1``):
 
@@ -66,12 +69,13 @@ SMEM_LIMIT = 220 * 1024      # of the H100's 227 KB a block may use
 
 def ctc_block(S: int, V: int) -> int:
     """Steps per checkpoint block: 32, or fewer where the backward's K
-    rebuilt alpha rows of S float32 would not fit in shared memory."""
-    fixed = 4 * (4 * S + 4) + 4 * (2 * S + V + 1) + S
+    rebuilt alpha rows of S float32 would not fit in shared memory
+    (``beta_smem_bytes``: one K-row buffer, which the rebuild refills in
+    the order beta frees it)."""
     K = K_MAX
-    while K > 1 and fixed + 4 * K * S > SMEM_LIMIT:
+    while K > 1 and beta_smem_bytes(S, V, K) > SMEM_LIMIT:
         K //= 2
-    if fixed + 4 * K * S > SMEM_LIMIT:
+    if beta_smem_bytes(S, V, K) > SMEM_LIMIT:
         raise ValueError(f"S = {S} extended states exceed the CTC kernels' shared memory")
     return K
 
@@ -238,14 +242,17 @@ ctc_alpha_lossonly.launches = 0
 
 
 def label_lists(ext: Tensor, label_lengths: Tensor, V: int) -> Tuple[Tensor, Tensor]:
-    """(offs (B, V+1), idx (B, S)) int32: row b's live states sorted by
-    their label, entry v's states being idx[b, offs[b, v]:offs[b, v+1]] in
-    ascending s (the fixed summation order of the posteriors)."""
+    """(offs (B, V+1), idx (B, S)) int32: row b's live odd (label) states
+    sorted by their label, entry v's states being
+    idx[b, offs[b, v]:offs[b, v+1]] in ascending s (the fixed summation
+    order of the posteriors); the backward kernels sum the blank's even
+    states by a tree instead.  ``_CTCKernelLoss`` builds them once in its
+    forward."""
     B, S = ext.shape
-    states = _live_states(label_lengths, S)
+    s = torch.arange(S, device=ext.device)
+    states = _live_states(label_lengths, S) & (s % 2 == 1)[None, :]
     key = torch.where(states, ext.to(torch.int64), V)
-    s = torch.arange(S, device=ext.device)[None, :]
-    idx = torch.argsort(key * S + s, dim=1)
+    idx = torch.argsort(key * S + s[None, :], dim=1)
     counts = torch.zeros((B, V + 1), dtype=torch.int64, device=ext.device)
     counts.scatter_add_(1, key, torch.ones_like(key))
     offs = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=ext.device),
@@ -253,10 +260,20 @@ def label_lists(ext: Tensor, label_lengths: Tensor, V: int) -> Tuple[Tensor, Ten
     return offs.to(torch.int32).contiguous(), idx.to(torch.int32).contiguous()
 
 
+def beta_smem_bytes(S: int, V: int, K: int) -> int:
+    """Dynamic shared memory of the backward kernels (``ctc.cu``'s
+    ``beta_smem_bytes``): K rebuilt alpha rows (none for the stream), the
+    bstar rows, the odd states' posteriors and the blank's warp sums in
+    float32, ext, the lists and offsets in int32, the skip flags."""
+    return (4 * (K * S + 2 * (S + 2) + 2 * ((S + 1) // 2) + 2 * 8)
+            + 4 * (2 * S + V + 1) + S)
+
+
 def _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, alphas,
-                 n_rows, K):
+                 n_rows, K, lists):
     """Run the beta/posterior kernel on ``alphas``: the checkpoints of K
-    steps (K > 0) or the (T, B, S) stream (K = 0, n_rows = T)."""
+    steps (K > 0) or the (T, B, S) stream (K = 0, n_rows = T), with the
+    ``label_lists`` ``lists``."""
     T, B, V = log_probs.shape
     S = ext.shape[1]
     dev = log_probs.device
@@ -264,7 +281,7 @@ def _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, al
                                      label_lengths)
     if tuple(alphas.shape) != (n_rows, B, S) or alphas.dtype != f32:
         raise ValueError(f"the alpha rows must be ({n_rows}, {B}, {S}) float32")
-    offs, idx = label_lists(ext, label_lengths, V)
+    offs, idx = lists
     logp = logp.to(f32).contiguous()
     alphas = alphas.contiguous()
     out = torch.empty((T, B, V), dtype=f32, device=dev)
@@ -290,14 +307,15 @@ def _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, al
 
 def ctc_beta_post(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
                   logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
-                  ckpts: Tensor, K: int) -> Tensor:
+                  ckpts: Tensor, K: int, lists: Tuple[Tensor, Tensor]) -> Tensor:
     """label_post (T, B, V) float32 from the alpha checkpoints; the kernel
-    on a CUDA device, the plain version on the CPU."""
+    on a CUDA device (``lists``: ``label_lists``), the plain version on the
+    CPU."""
     if not log_probs.is_cuda:
         return beta_post_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths,
                                logp, ckpts, K)
     out = _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, ckpts,
-                       -(-log_probs.shape[0] // K), K)
+                       -(-log_probs.shape[0] // K), K, lists)
     ctc_beta_post.launches += 1
     return out
 
@@ -337,15 +355,15 @@ ctc_alpha_stream.launches = 0
 
 def ctc_beta_post_stream(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
                          logit_lengths: Tensor, label_lengths: Tensor, logp: Tensor,
-                         alphas: Tensor) -> Tensor:
+                         alphas: Tensor, lists: Tuple[Tensor, Tensor]) -> Tensor:
     """label_post (T, B, V) float32 from the (T, B, S) alpha stream
-    (``_beta_post_kernel``); the kernel on a CUDA device, the plain version
-    on the CPU."""
+    (``_beta_post_kernel``); the kernel on a CUDA device (``lists`` as for
+    ``ctc_beta_post``), the plain version on the CPU."""
     if not log_probs.is_cuda:
         return beta_post_stream_plain(log_probs, ext, skip_ok, logit_lengths,
                                       label_lengths, logp, alphas)
     out = _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, alphas,
-                       log_probs.shape[0], 0)
+                       log_probs.shape[0], 0, lists)
     ctc_beta_post_stream.launches += 1
     return out
 
@@ -388,7 +406,9 @@ class _CTCKernelLoss(torch.autograd.Function):
         K = ctc_block(ext.shape[1], V)
         ckpts, last = ctc_alpha_ckpt(log_probs, ext, skip_ok, ll, ul, K)
         loss, logp = _loss(last, ul, valid)
-        ctx.residuals = (log_probs, ckpts, logp, ext, skip_ok, ll, ul, valid, K)
+        # The backward kernels' label lists, built once here and saved.
+        lists = label_lists(ext, ul, V)
+        ctx.residuals = (log_probs, ckpts, logp, ext, skip_ok, ll, ul, valid, K, lists)
         return loss
 
     @staticmethod
@@ -397,17 +417,18 @@ class _CTCKernelLoss(torch.autograd.Function):
         if ctx.residuals is None:
             return (torch.zeros(ctx.shape, dtype=ctx.logits_dtype, device=g.device),
                     None, None, None, None)
-        log_probs, ckpts, logp, ext, skip_ok, ll, ul, valid, K = ctx.residuals
+        log_probs, ckpts, logp, ext, skip_ok, ll, ul, valid, K, lists = ctx.residuals
         del ctx.residuals
         if os.environ.get("RST_CTC_ALPHA_STREAM", "0") == "1":
             # The alpha-stream backward: the forward re-run as a (T, B, S)
             # stream, read by the beta pass instead of the checkpoints.
             del ckpts
             alphas, _ = ctc_alpha_stream(log_probs, ext, skip_ok, ll, ul)
-            label_post = ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas)
+            label_post = ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas,
+                                              lists)
             del alphas
         else:
-            label_post = ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ckpts, K)
+            label_post = ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ckpts, K, lists)
         grad = ctc_grad(log_probs, label_post, ll, valid, g)
         return grad.to(ctx.logits_dtype), None, None, None, None
 

@@ -14,7 +14,10 @@ modes:
   (``_recurrence_bwd_kernel``) walks back and writes the pre-activation
   dgates over the gates residual;
 * recompute mode: ``recurrence_train_lean`` (``_recurrence_train_lean_kernel``)
-  reads ``x_proj`` in the residual dtype and stores only c;
+  reads ``x_proj`` in the residual dtype and stores only c.  ``lean_plan``
+  sends it by shape to a persistent kernel (``csrc/lstm_layer_lean.cu``:
+  W_h resident in shared memory in ``lean_column_order``, wgmma, one
+  grid-wide barrier a step; both path shapes) or to the per-step kernel;
   ``recurrence_bwd_recompute`` (``_recurrence_bwd_recompute_kernel``)
   rebuilds the gates from the residual-dtype layer input and h_prev, then
   runs the same backward into a fresh dgates stream.  The TPU kernel
@@ -23,15 +26,17 @@ modes:
   activated gates, at most ``REBUILD_BYTES`` of them), launched ahead of
   the chunk's serial steps, which keep only the carry's product.
 
-The forward kernels are ``csrc/lstm_layer_train.cu``, the backward ones
+The forward kernels are ``csrc/lstm_layer_train.cu`` and
+``csrc/lstm_layer_lean.cu``, the backward ones
 ``csrc/lstm_layer_bwd.cu`` (the rebuild product ``csrc/rebuild_gates.cuh``).
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device (bf16 weights and residuals,
 float32 carries), or raises; there is no fallback.  ``<wrapper>.launches``
 counts the calls that launched the kernel (each call issues one CUDA
 launch per step from one host call); ``recurrence_bwd_recompute.
-rebuild_launches`` counts the rebuild products its kernel launched (read
-from the library's own count).
+rebuild_launches`` counts the rebuild products its kernel launched and
+``recurrence_train_lean.persistent_launches`` the persistent forward's
+launches (each read from its library's own count at the launch site).
 
 ``lstm_layer_train`` (``lstm_layer_pallas``) is the differentiable layer:
 ``_LayerTrain`` (``_lstm_core``) and ``_LayerTrainRecompute``
@@ -175,19 +180,141 @@ def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: 
 recurrence_train.launches = 0
 
 
+# The persistent lean forward (csrc/lstm_layer_lean.cu): hidden units a
+# CTA owns, 64-row tiles a CTA computes at most, the ring's stages, the
+# bytes of one 64x64 bf16 TMA box, a block's shared memory on the H100,
+# and the H100 SXM's SM count (the plan's default card).
+LEAN_UNITS, LEAN_MAX_TILES, LEAN_MAX_STAGES = 16, 4, 8
+_BOX = 64 * 64 * 2
+SMEM_LIMIT = 232448
+H100_SMS = 132
+
+
+def lean_smem(H: int, tiles: int, stages: int) -> int:
+    """Dynamic shared memory of the persistent lean forward: the resident
+    W_h slice (H/64 boxes of 64 columns), the h ring, its mbarriers and the
+    1024-byte alignment slack (the kernel's ``smem_bytes``)."""
+    return (H // 64) * _BOX + stages * tiles * _BOX + 8 * (1 + 2 * stages) + 1024
+
+
+def lean_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
+    """Which kernel runs the recompute-mode forward at (B, H) on a card of
+    ``sms`` SMs, decided by shape alone.
+
+    The persistent kernel needs its whole grid co-resident, one CTA an SM:
+    ``slices`` = H/16 unit slices times ``groups`` row groups of at most
+    ``tiles`` <= 4 64-row tiles.  Row groups are as many as the card holds
+    (fewer rows a CTA: less h to read every step), at least enough for the
+    batch.  ``stages`` is the deepest h ring (<= LEAN_MAX_STAGES) that fits
+    beside the resident W_h slice: the h stream's latency sets the step.
+    Shapes it cannot take (H not a multiple of 64, a grid larger than the
+    card, no two stages) go to the per-step kernel.
+    Returns {"kernel": "persistent", "groups", "tiles", "slices", "grid",
+    "stages", "rows" (the padded h rows), "smem"} or {"kernel": "per_step"}."""
+    per_step = {"kernel": "per_step"}
+    if B < 1 or H < 64 or H % 64:
+        return per_step
+    slices = H // LEAN_UNITS
+    m_tiles = -(-B // 64)
+    groups = max(-(-m_tiles // LEAN_MAX_TILES), min(m_tiles, sms // slices))
+    tiles = -(-m_tiles // groups)
+    stages = next((s for s in range(LEAN_MAX_STAGES, 1, -1)
+                   if lean_smem(H, tiles, s) <= SMEM_LIMIT), 0)
+    if groups * slices > sms or not stages:
+        return per_step
+    return {"kernel": "persistent", "groups": groups, "tiles": tiles, "slices": slices,
+            "grid": groups * slices, "stages": stages, "rows": groups * tiles * 64,
+            "smem": lean_smem(H, tiles, stages)}
+
+
+def lean_column_order(H: int) -> Tensor:
+    """(4H,) int64: the persistent kernel's order of the 4H gate columns.
+    Slot 64u + 16g + v holds column g·H + 16u + v (gate g of unit 16u + v),
+    so CTA u's 64 columns, [i(16) | g(16) | f(16) | o(16)] of its units, are
+    one contiguous slice."""
+    slot = torch.arange(4 * H)
+    u, g, v = slot // (4 * LEAN_UNITS), slot // LEAN_UNITS % 4, slot % LEAN_UNITS
+    return g * H + u * LEAN_UNITS + v
+
+
+def lean_weights(w_h: Tensor) -> Tensor:
+    """W_h (H, 4H) as the persistent kernel reads it: its columns in
+    ``lean_column_order`` as the rows of a (4H, H) array (K contiguous)."""
+    H = w_h.shape[0]
+    return w_h.t()[lean_column_order(H).to(w_h.device)].contiguous()
+
+
+def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
+    """The persistent kernel on the plan's grid; ``skip_barrier`` plants a
+    fault (each CTA reads h without waiting for the others), for checks."""
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+    dev = x_proj.device
+    with torch.cuda.device(dev):
+        hb = torch.zeros((2, plan["rows"], H), dtype=bf16, device=dev)
+        hb[0, :B] = h0.to(bf16)
+        h, c = h0.clone(), c0.clone()
+        out = torch.empty((T, B, H), dtype=f32, device=dev)
+        cseq = torch.empty((T, B, H), dtype=bf16, device=dev)
+        if T == 0:
+            return out, h, c, cseq
+        w_perm = lean_weights(w_h)
+        counter = torch.zeros((plan["groups"],), dtype=torch.int32, device=dev)
+        fn = _lib_fn("lstm_layer_lean", "rst_lstm_layer_train_lean_persistent",
+                     [P] * 9 + [I] * 7 + [P])
+        rc = fn(x_proj.data_ptr(), w_perm.data_ptr(), mask.data_ptr(), hb.data_ptr(),
+                h.data_ptr(), c.data_ptr(), out.data_ptr(), cseq.data_ptr(),
+                counter.data_ptr(), T, B, H, plan["groups"], plan["tiles"], plan["stages"],
+                skip_barrier, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_layer_train_lean kernel launch failed: "
+                           f"CUDA error {rc} (plan {plan})")
+    return out, h, c, cseq
+
+
+def persistent_launches() -> int:
+    """Launches of the persistent lean forward so far, as its library
+    counts them at the launch site."""
+    fn = _build.load("lstm_layer_lean").rst_lean_persistent_launches
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
 def recurrence_train_lean(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
                           c0: Tensor, res_dtype) -> Tuple[Tensor, ...]:
     """Recompute-mode training forward: as ``recurrence_train`` with x_proj
-    in the residual dtype; returns (out, hn, cn, cseq)."""
+    in the residual dtype; returns (out, hn, cn, cseq).  On a CUDA device
+    ``lean_plan`` picks the kernel by shape: the persistent one
+    (``persistent_launches`` adds the library's count of its launches), or
+    the per-step one; a failed launch raises."""
     if not x_proj.is_cuda:
         return recurrence_train_lean_plain(x_proj, w_h, mask, h0, c0, res_dtype)
-    out, h, c, _, cseq = _forward_launch("lstm_layer_train_lean", x_proj, w_h, mask, h0,
-                                         c0, res_dtype, False)
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+    sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
+    plan = lean_plan(B, H, sms)
+    if plan["kernel"] == "per_step":
+        out, h, c, _, cseq = _forward_launch("lstm_layer_train_lean", x_proj, w_h, mask, h0,
+                                             c0, res_dtype, False)
+    else:
+        if res_dtype != bf16:
+            raise TypeError(f"the layer training kernels store bf16 residuals, got {res_dtype}")
+        check_kernel_inputs([
+            ("x_proj", x_proj, bf16, (T, B, 4 * H)),
+            ("w_h", w_h, bf16, (H, 4 * H)),
+            ("mask", mask, f32, (T, 1, B)),
+            ("h0", h0, f32, (B, H)),
+            ("c0", c0, f32, (B, H)),
+        ], x_proj.device, H)
+        before = persistent_launches()
+        out, h, c, cseq = _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan)
+        recurrence_train_lean.persistent_launches += persistent_launches() - before
     recurrence_train_lean.launches += 1
     return out, h, c, cseq
 
 
 recurrence_train_lean.launches = 0
+recurrence_train_lean.persistent_launches = 0
 
 
 def _backward_plain(dout, activations, cseq, c0, mask, w_h, dhn, dcn, dgates):

@@ -161,13 +161,15 @@ def test_empty_time_axis_and_all_empty_labels():
 
 
 def test_label_lists_sort_live_states_by_label():
+    """The live odd (label) states of each row, grouped by label in
+    ascending s; the blank's even states are not listed."""
     ext = torch.as_tensor([[4, 1, 4, 1, 4, 2, 4], [4, 3, 4, 0, 4, 0, 4]])
     offs, idx = tck.label_lists(ext, torch.as_tensor([3, 1]), 5)
     for b in range(2):
         S_b = 2 * [3, 1][b] + 1
         for v in range(5):
             got = idx[b, offs[b, v]:offs[b, v + 1]].tolist()
-            want = [s for s in range(S_b) if int(ext[b, s]) == v]
+            want = [s for s in range(1, S_b, 2) if int(ext[b, s]) == v]
             assert got == want
 
 

@@ -101,7 +101,8 @@ def test_stream_rows_equal_the_checkpoints_at_every_block_end(K):
     ends = [min(T, (i + 1) * K) - 1 for i in range(ckpts.shape[0])]
     assert torch.equal(alphas[ends], ckpts) and torch.equal(last, last_ck)
     logp = tck._loss(last, ul, valid)[1]
-    post = tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas)
+    lists = tck.label_lists(ext, ul, log_probs.shape[-1])
+    post = tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas, lists)
     assert torch.equal(post, tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp,
-                                               ckpts, K))
+                                               ckpts, K, lists))
     assert tck.ctc_alpha_stream.launches == tck.ctc_beta_post_stream.launches == 0

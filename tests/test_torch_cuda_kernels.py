@@ -9,7 +9,10 @@ mask kernel, the alpha-stream CTC pair and the fbank kernel (an FFT), with the
 routes that launch them (the layered stack backward, the alpha-stream CTC
 backward, the fbank frontend); the reverse diagonal's fused dW_x over
 several accumulation windows; the recompute backward's rebuild product
-alone and the recompute backward at the edges of its chunks.
+alone and the recompute backward at the edges of its chunks; the
+persistent recompute-mode forward at B=1 to 473 (and without its step
+barrier, a planted fault that must fail) and the per-step one past its
+plan; the redesigned CTC backward bit for bit on repeat.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -33,7 +36,10 @@ alpha stream repeats the checkpoint kernel's rows bit for bit.  The mask
 kernel draws its plain version's bits: equal bit for bit.  The fbank
 kernel (an FFT) sums float32 products in another order than the plain
 version's DFT and mel matmuls: 2e-3 of the largest magnitude, the JAX
-package's limit for its own kernel.  The rebuild product sums the same bf16
+package's limit for its own kernel.  The persistent recompute-mode forward
+keeps the per-step kernel's tolerances, relative to each output's largest
+magnitude: 8e-3 at T=16, 1.2e-2 longer.  The redesigned CTC backward sums
+the same posteriors in another fixed order: 1e-5.  The rebuild product sums the same bf16
 products in float32 in another order than its plain version: 1e-5
 relative Frobenius, and equal bit for bit on repeat.  The
 fused dW_x sums T·B products of those bf16 dgates: 1e-2 of each
@@ -495,9 +501,10 @@ def test_ctc_kernels_match_plain(cuda, T, B, V, U):
     ck_p, last_p = tck.alpha_plain(log_probs, ext, skip_ok, ll, ul, K, True)
     last_l = tck.ctc_alpha_lossonly(log_probs, ext, skip_ok, ll, ul)
     logp = tck._loss(last_p, ul, valid)[1]
-    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
+    lists = tck.label_lists(ext, ul, V)
+    post = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K, lists)
     post_p = tck.beta_post_plain(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
-    again = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K)
+    again = tck.ctc_beta_post(log_probs, ext, skip_ok, ll, ul, logp, ck_p, K, lists)
     torch.cuda.synchronize()
     assert torch.equal(last, last_l) and torch.equal(post, again)
     for a, b in ((ck, ck_p), (last, last_p), (post, post_p)):
@@ -744,7 +751,8 @@ def test_ctc_stream_kernels_match_plain(cuda, T, B, V, U):
     alphas, last = tck.ctc_alpha_stream(log_probs, ext, skip_ok, ll, ul)
     alphas_p, last_p = tck.alpha_stream_plain(log_probs, ext, skip_ok, ll, ul)
     logp = tck._loss(last_p, ul, valid)[1]
-    post = tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas_p)
+    post = tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, logp, alphas_p,
+                                    tck.label_lists(ext, ul, V))
     post_p = tck.beta_post_stream_plain(log_probs, ext, skip_ok, ll, ul, logp, alphas_p)
     torch.cuda.synchronize()
     ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
@@ -831,7 +839,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
     with pytest.raises(ValueError):         # the stream has T rows
         tck.ctc_beta_post_stream(log_probs, ext, skip_ok, ll, ul, torch.zeros(3, device=cuda),
-                                 torch.zeros((8, 3, ext.shape[1]), device=cuda))
+                                 torch.zeros((8, 3, ext.shape[1]), device=cuda),
+                                 tck.label_lists(ext, ul, 5))
     pre = torch.zeros((2, 1000), device=cuda)
     basis = torch.zeros((551, 514), device=cuda)
     mel = torch.zeros((257, 40), device=cuda)
@@ -839,3 +848,120 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tfk.fbank_banks(pre, basis, mel, 221, 3, 512)
     with pytest.raises(ValueError):         # float32 only
         tfk.fbank_banks(pre.double(), basis, mel, 220, 3, 512)
+
+
+# ------------------------------------- the persistent lean forward (row 7)
+
+
+def _rel_max(got, ref):
+    """The largest error of each output over that output's own largest
+    magnitude (the checks' measure in chip_smoke.py)."""
+    out = []
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert bool(torch.isfinite(g).all())
+        scale = float(r.float().abs().max())
+        out.append(float((g.float() - r.float()).abs().max()) / scale if scale else 0.0)
+    return max(out)
+
+
+@pytest.mark.parametrize("T,B", [(16, 1), (512, 17), (512, 400), (3510, 400), (512, 473)])
+def test_persistent_lean_forward_matches_plain(cuda, T, B):
+    """The recompute-mode forward at H=1024 on the persistent kernel (the
+    plan's choice at these shapes, counted at its launch site) against its
+    plain version, ragged lengths with a zero-length row: 8e-3 of each
+    output's largest magnitude at T=16, 1.2e-2 longer (a bf16 rounding of
+    h flipped by the summation order propagates, as for the per-step
+    kernel); equal bit for bit on repeat."""
+    H, bf = 1024, torch.bfloat16
+    assert tlt.lean_plan(B, H)["kernel"] == "persistent"
+    g = torch.Generator().manual_seed(T + B)
+    lim = (6.0 / (5 * H)) ** 0.5
+    lens = _lengths(T, B)
+    mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(cuda)
+    xp = (torch.randn((T, B, 4 * H), generator=g) * 0.5).to(cuda, bf)
+    w_h = ((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(cuda, bf)
+    h0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    c0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    before = tlt.recurrence_train_lean.persistent_launches
+    got = tlt.recurrence_train_lean(xp, w_h, mask, h0, c0, bf)
+    again = tlt.recurrence_train_lean(xp, w_h, mask, h0, c0, bf)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_train_lean.persistent_launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    ref = tlt.recurrence_train_lean_plain(xp, w_h, mask, h0, c0, bf)
+    assert _rel_max(got, ref) <= (8e-3 if T <= 16 else 1.2e-2)
+    if B > 2:                                # the zero-length row keeps its state
+        assert torch.equal(got[1][2], h0[2]) and torch.equal(got[2][2], c0[2])
+        assert not bool(got[0][:, 2].any())
+
+
+def test_lean_forward_past_the_plans_grid_runs_the_per_step_kernel(cuda):
+    """B=600 at H=1024 needs three row groups, 192 CTAs, more than the
+    card's SMs: the plan sends it to the per-step kernel, which must still
+    match the plain version (8e-3 at T=16)."""
+    T, B, H, bf = 16, 600, 1024, torch.bfloat16
+    assert tlt.lean_plan(B, H)["kernel"] == "per_step"
+    g = torch.Generator().manual_seed(5)
+    lens = _lengths(T, B)
+    mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(cuda)
+    xp = (torch.randn((T, B, 4 * H), generator=g) * 0.5).to(cuda, bf)
+    w_h = (torch.randn((H, 4 * H), generator=g) * 0.02).to(cuda, bf)
+    h0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    c0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    before = tlt.recurrence_train_lean.persistent_launches
+    got = tlt.recurrence_train_lean(xp, w_h, mask, h0, c0, bf)
+    ref = tlt.recurrence_train_lean_plain(xp, w_h, mask, h0, c0, bf)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_train_lean.persistent_launches == before
+    assert _rel_max(got, ref) <= 8e-3
+
+
+def test_persistent_lean_forward_without_its_barrier_fails_the_check(cuda):
+    """The planted fault of chip_smoke.py: each CTA reads h without waiting
+    for the others; the result must leave the tolerance (and not hang)."""
+    T, B, H, bf = 512, 400, 1024, torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+    lim = (6.0 / (5 * H)) ** 0.5
+    mask = torch.ones((T, 1, B), device=cuda)
+    xp = (torch.randn((T, B, 4 * H), generator=g) * 0.5).to(cuda, bf)
+    w_h = ((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(cuda, bf)
+    h0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    c0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
+    bad = tlt._lean_persistent_launch(xp, w_h, mask, h0, c0, tlt.lean_plan(B, H),
+                                      skip_barrier=1)
+    ref = tlt.recurrence_train_lean_plain(xp, w_h, mask, h0, c0, bf)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2
+
+
+@pytest.mark.parametrize("T,B,V,U", [(9, 3, 5, 2), (70, 17, 29, 12), (200, 5, 80, 60),
+                                     (100, 6, 80, 40), (1500, 4, 80, 700),
+                                     (1800, 4, 80, 800)])
+def test_ctc_backward_kernels_match_plain_bit_for_bit_on_repeat(cuda, T, B, V, U):
+    """The redesigned backward (blank by a tree, rebuild beside beta) and its
+    stream variant against their plain versions at 1e-5, at ragged input
+    lengths and labels of 0, 1 and U, equal bit for bit on repeat.  The last
+    two cases reach the states past the prefetched ones (S > 1280), the
+    last at a K that ``ctc_block`` halves (S = 1601)."""
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, T + 2 * B))
+    ul[0], ul[1], ul[-1] = 0, 1, U
+    labels = torch.where(torch.arange(U, device=cuda)[None] < ul[:, None],
+                         labels.clamp(min=0), -1)
+    log_probs, ext, skip_ok, ll, ul, valid = tck._setup(logits, ll, labels, ul, -1)
+    K = tck.ctc_block(ext.shape[1], V)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    ck, last = tck.alpha_plain(*args, K, True)
+    alphas, _ = tck.alpha_stream_plain(*args)
+    logp = tck._loss(last, ul, valid)[1]
+    lists = tck.label_lists(ext, ul, V)
+    post = tck.ctc_beta_post(*args, logp, ck, K, lists)
+    again = tck.ctc_beta_post(*args, logp, ck, K, lists)
+    post_s = tck.ctc_beta_post_stream(*args, logp, alphas, lists)
+    again_s = tck.ctc_beta_post_stream(*args, logp, alphas, lists)
+    ref = tck.beta_post_plain(*args, logp, ck, K)
+    torch.cuda.synchronize()
+    assert torch.equal(post, again) and torch.equal(post_s, again_s)
+    for a in (post, post_s):
+        torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5)

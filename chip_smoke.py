@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,bundle,beam,cli]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
+    python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -16,7 +17,10 @@ printing one JSON line:
   kernels  holds each kernel against its plain PyTorch version on the card
            at the serving shape (L=3, H=1024, B=128, T=1024: 10.24 s clips),
            with ragged lengths and non-zero initial state, strictly at small
-           T, by logit argmax at T=1024, and at B=1; the fbank kernel against
+           T, by logit argmax at T=1024, and at B=1; the recurrence on its
+           persistent kernel at B=128, T=1024 (the plan's choice, bit for
+           bit on repeat, beside the launch without its step barrier) and
+           past its plan (B=400, the per-step kernel); the fbank kernel against
            its plain version at B=128 on 10.24 s clips (22050 Hz) and at 16
            kHz with a short ragged row and an empty one, each beside a
            planted fault that must fail its check.
@@ -25,10 +29,12 @@ printing one JSON line:
            -> 3x1024 bf16 forward -> greedy decode at B=128 on 10.24 s
            clips, through the wavefront kernel and through the layered
            recurrence kernel; launch counters are zeroed before this phase
-           and must be non-zero after it.  Times the path's stages
-           (frontend, forward, decode) on the stream, and each kernel at
-           the path's shapes beside its bound, its plain version and
-           torch.nn.LSTM.
+           and must be non-zero after it, the recurrence's persistent
+           kernel's too.  Times the path's stages (frontend, forward,
+           decode) on the stream, and each kernel at the path's shapes
+           beside its bound, its plain version and torch.nn.LSTM (the
+           recurrence, one call of the three a layered batch makes, in
+           turns with cuDNN's one-layer forward, at B=128 and at B=1).
   train_kernels
            holds the training kernels against their plain versions on the
            card at full width (L=3, H=1024, B=64): the training forward and
@@ -86,7 +92,11 @@ printing one JSON line:
            four kernels against their plain versions at full width (H=D=
            1024, B=64; ragged lengths with a zero-length row, non-zero
            state and upstream dh/dc), strictly at T=16 and looser at T=512
-           and 3510, each beside a planted fault that must fail its check;
+           and 3510, each beside a planted fault that must fail its check
+           (the gates-mode backward on its persistent kernel, the plan's
+           choice at B=64: bit for bit on repeat, beside the launch without
+           its step barrier; and at B=70, past its plan, on the per-step
+           kernel);
            the recompute backward also at its route's batch (B=400 on the
            H100, T=512) and at a chunk edge of its rebuild (T one step
            past a chunk, B=70), and its rebuild product alone at one chunk
@@ -103,10 +113,13 @@ printing one JSON line:
            (0, "recompute") on this card, 1 warm-up and 3 timed steps and
            one split by its marks, the plan's estimate beside the
            measured peak memory (the backward must launch its rebuild
-           products, the forward its persistent kernel); each layered
+           products, the forward its persistent kernel; the layered step's
+           backward its persistent kernel); each layered
            kernel's time at its route's shapes
            beside its bound, its plain version and torch.nn.LSTM (one
-           layer; the recompute forward in turns with it), the recompute
+           layer; the recompute forward in turns with its forward, the
+           backwards in turns with its backward without weight gradients,
+           its backward with them beside), the recompute
            backward's rebuild products on the
            call's own operands (every chunk, TFLOP/s; one whole chunk
            also in turns with torch.mm of the same product); and one
@@ -168,6 +181,17 @@ printing one JSON line:
            B=64, T=3510, its time a call, and at B=400 the per-step design
            (forced through ``lean_plan``) and the same launch without its
            step barrier (wrong results: the barrier's share).
+  persistent_study (opt-in)
+           the persistent gates-mode backward (B=64, T=3510) and the
+           recurrence on the persistent forward (B=128 and B=1, T=1024)
+           beside the per-step designs they replace (forced through their
+           plans) and without their step barriers; where the backward's
+           step goes (CTA 0's SM clock at four points of each pass); how
+           many clusters of 1, 2, 4 and 8 CTAs of the backward's size the
+           card co-schedules;
+           with ``--parent DIR`` (a checkout of the previous tree) the
+           recompute forward's outputs at T=512, B=400 and 473 there and
+           here, which must be equal bit for bit.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -210,6 +234,12 @@ PEAK_BYTES = 3.35e12
 # looser over 1024 steps, where the logits' argmax must still agree.
 TOL_SHORT = 2e-3
 TOL_LONG = 5e-2
+# The largest mean abs error of the inference recurrence's outputs at
+# T=16 (B=128, H=1024) against the plain version: the persistent kernel
+# 1.2e-5 (its own sums and transcendentals flip a few bf16 roundings of h),
+# the same kernel fed bf16(x_proj) 3.5e-4 (NVIDIA H100 80GB HBM3); the
+# limit lies between them, about 5x from each.
+XPROJ_MEAN_TOL = 6e-5
 ARGMAX_AGREE = 0.999
 CER_LIMIT = 2.0          # percent; the bundle's recorded greedy CER is 0.06%
 # Training kernels against their plain versions: per output, max abs
@@ -304,16 +334,19 @@ def smi_clocks() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def in_turns(library, kernel, iters: int = 3) -> dict:
+def in_turns(library, kernel, iters: int = 3, **more) -> dict:
     """Device ms of ``library`` and ``kernel`` on the same operands in turns
     (library, kernel, kernel, library), each beside the card's clock, power
-    draw and limit read right after it: the mean of each pair and the turns."""
+    draw and limit read right after it: the mean of each pair and the turns.
+    ``more`` names further yardsticks, timed in the same turns around the
+    kernel (library, *more, kernel, kernel, *reversed(more), library) and
+    returned as ``<name>_ms``."""
+    order = [("library", library), *more.items()]
     turns = []
-    for name, fn in (("library", library), ("kernel", kernel), ("kernel", kernel),
-                     ("library", library)):
+    for name, fn in order + [("kernel", kernel)] * 2 + order[::-1]:
         turns.append({"fn": name, "ms": cuda_ms(fn, iters=iters), "smi": smi_clocks()})
     mean = lambda name: sum(t["ms"] for t in turns if t["fn"] == name) / 2
-    return {"ms": mean("kernel"), "library_ms": mean("library"), "turns": turns}
+    return {"ms": mean("kernel"), "turns": turns, **{f"{n}_ms": mean(n) for n, _ in order}}
 
 
 def cuda_ms(fn, iters: int = 3, warmup: int = 1) -> float:
@@ -455,8 +488,105 @@ def phase_kernels():
         if T == 1024 and Bn == B:
             worst[kind] = max(entry["err_out"], entry["err_hn"], entry["err_cn"])
         checks.append(entry)
+    _recurrence_persistent_checks(checks)
     worst["fbank"] = _fbank_checks(checks)
     emit("kernels", checks=checks, max_abs_err=worst)
+
+
+def _recurrence_persistent_checks(checks):
+    """The inference recurrence on the persistent forward (row 2:
+    csrc/lstm_layer_lean.cu on f32 x_proj) at the serving shape (B=128,
+    T=1024, ragged lengths with a zero-length row): the plan's choice,
+    launched (counted at its library's launch site), bit for bit on repeat,
+    within TOL_LONG of the plain version, beside the same launch without
+    its step barrier (stale h), which must leave that bound; and B=400,
+    past the plan (four tiles a CTA leave no room for two stages beside the
+    f32 x_proj buffers), on the per-step kernel within TOL_SHORT at T=16."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = lambda T, Bn: [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T)
+                             for b in range(Bn)]
+    T = 1024
+    inp = stack_inputs(T, B, 1, lengths(T, B), seed=40)
+    plan = rec.lean_plan(B, H, sms, x_f32=True)
+    tag = f"recurrence persistent B={B} T={T} (grid {plan.get('grid')})"
+    if plan["kernel"] != "persistent":
+        fail(f"{tag}: the plan does not send the serving shape to the persistent kernel: "
+             f"{plan}")
+    before = rec.lstm_recurrence.persistent_launches
+    got = run_recurrence(inp, rec.lstm_recurrence)
+    again = run_recurrence(inp, rec.lstm_recurrence)
+    torch.cuda.synchronize()
+    launched = rec.lstm_recurrence.persistent_launches - before
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks.append({"check": f"{tag}: bit for bit on repeat", "equal": same,
+                   "persistent_launches": launched, "plan": plan})
+    if launched != 2:
+        fail(f"{tag}: {launched} persistent launches in two calls")
+    if not same:
+        fail(f"{tag}: two calls on the same inputs differ")
+    ref = run_recurrence(inp, rec.lstm_recurrence_plain)
+    checks.append(compare(tag, got, ref, inp, TOL_LONG))
+    bad = rec._persistent_launch(inp["xp0"], inp["w_h"][0], inp["mask"], inp["h0"][0],
+                                 inp["c0"][0], plan, skip_barrier=1)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(bad, (ref[0], ref[1][0], ref[2][0])))
+    checks.append({"planted_fault": f"{tag}: step barrier left out (stale h)",
+                   "max_abs_err": err, "tol": TOL_LONG})
+    if err <= TOL_LONG:
+        fail(f"{tag}: the check does not see the planted fault ({err})")
+    del inp, got, again, ref, bad
+    _x_proj_precision_check(checks, lengths)
+    Bn, T = 400, 16
+    plan = rec.lean_plan(Bn, H, sms, x_f32=True)
+    if plan["kernel"] != "per_step":
+        fail(f"recurrence B={Bn}: expected the per-step kernel past the plan, got {plan}")
+    inp = stack_inputs(T, Bn, 1, lengths(T, Bn), seed=41)
+    before = rec.lstm_recurrence.persistent_launches
+    got = run_recurrence(inp, rec.lstm_recurrence)
+    ref = run_recurrence(inp, rec.lstm_recurrence_plain)
+    torch.cuda.synchronize()
+    entry = compare(f"recurrence B={Bn} T={T} past the plan (per-step kernel)", got, ref, inp,
+                    TOL_SHORT)
+    entry["persistent_launches"] = rec.lstm_recurrence.persistent_launches - before
+    checks.append(entry)
+    if entry["persistent_launches"]:
+        fail(f"recurrence B={Bn}: ran the persistent kernel past its plan")
+
+
+def _x_proj_precision_check(checks, lengths):
+    """The TPU kernel adds x_proj in float32, so must the persistent
+    recurrence: at B=128, T=16 (before the steps amplify a difference) the
+    mean abs error of each output against the plain version stays within
+    XPROJ_MEAN_TOL, beside the same kernel fed bf16(x_proj) (what a kernel
+    that rounds x_proj computes), which must leave it.  The largest error
+    cannot tell the two apart: a flipped bf16 rounding of h moves a few
+    outputs as far as rounding x_proj moves many."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+
+    T = 16
+    inp = stack_inputs(T, B, 1, lengths(T, B), seed=42)
+    ref = run_recurrence(inp, rec.lstm_recurrence_plain)
+    got = run_recurrence(inp, rec.lstm_recurrence)
+    bad = run_recurrence(dict(inp, xp0=inp["xp0"].to(torch.bfloat16).float()),
+                         rec.lstm_recurrence)
+    torch.cuda.synchronize()
+    mean = lambda res: max(float((g - r).abs().mean()) for g, r in zip(res, ref))
+    most = lambda res: max(float((g - r).abs().max()) for g, r in zip(res, ref))
+    tag = f"recurrence persistent B={B} T={T}: x_proj added in float32"
+    entry = {"check": tag, "mean_abs_err": mean(got), "max_abs_err": most(got),
+             "tol": XPROJ_MEAN_TOL, "bf16_x_proj_mean_abs_err": mean(bad),
+             "bf16_x_proj_max_abs_err": most(bad)}
+    checks.append(entry)
+    if entry["mean_abs_err"] > XPROJ_MEAN_TOL:
+        fail(f"{tag}: {entry}")
+    if entry["bf16_x_proj_mean_abs_err"] <= XPROJ_MEAN_TOL:
+        fail(f"{tag}: the check does not see x_proj rounded to bf16: {entry}")
 
 
 def _fbank_case(sr, lengths, seconds, seed):
@@ -594,12 +724,12 @@ def _stage_ms(params, cfg, fe, audio, lengths, iters=3):
     return {n: s / iters for n, s in zip(names, sums)}
 
 
-def _nn_lstm_ms(inp, n_layers, T):
-    """torch.nn.LSTM (cuDNN, bf16) with the kernels' weights and full-length
-    rows, timed as a yardstick only.  Its gate order is (i, f, g, o), so the
-    (i, g, f, o) columns are permuted and the +1 goes into the forget bias.
-    It also computes layer 0's input product (random W_x0), which the
-    kernels take precomputed in xp0."""
+def _nn_lstm(inp, n_layers, T, Bn=B):
+    """One call of torch.nn.LSTM (cuDNN, bf16) with the kernels' weights on
+    Bn full-length rows, a yardstick only.  Its gate order is (i, f, g, o),
+    so the (i, g, f, o) columns are permuted and the +1 goes into the
+    forget bias.  It also computes layer 0's input product (random W_x0),
+    which the kernels take precomputed in xp0."""
     import torch
 
     m = torch.nn.LSTM(H, H, num_layers=n_layers).to("cuda", torch.bfloat16)
@@ -614,8 +744,13 @@ def _nn_lstm_ms(inp, n_layers, T):
             getattr(m, f"weight_hh_l{l}").copy_(inp["w_h"][l].t()[perm])
             getattr(m, f"bias_ih_l{l}").copy_(bias[perm])
             getattr(m, f"bias_hh_l{l}").zero_()
-        x = torch.randn((T, B, H), device="cuda", dtype=torch.bfloat16)
-        return cuda_ms(lambda: m(x))
+        x = torch.randn((T, Bn, H), device="cuda", dtype=torch.bfloat16)
+
+    def call():
+        with torch.no_grad():
+            return m(x)
+
+    return call
 
 
 def _bounds(flops, nbytes):
@@ -636,7 +771,7 @@ def phase_eval():
     # the phases before it.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rec.lstm_recurrence.launches = 0
+    rec.lstm_recurrence.launches = rec.lstm_recurrence.persistent_launches = 0
     wf.lstm_stack_wavefront.launches = 0
     for wavefront in (True, False):
         fe, cfg, params, audio, lengths = _eval_setup(wavefront)
@@ -656,18 +791,23 @@ def phase_eval():
     # below beside their plain versions and torch.nn.LSTM.
     peak = torch.cuda.max_memory_allocated()
     launches = {"lstm_wavefront": wf.lstm_stack_wavefront.launches,
-                "lstm_recurrence": rec.lstm_recurrence.launches}
+                "lstm_recurrence": rec.lstm_recurrence.launches,
+                "lstm_recurrence_persistent": rec.lstm_recurrence.persistent_launches}
     if not all(launches.values()):
         fail(f"eval: the path did not go through every kernel: {launches}")
 
     # Each kernel alone at the path's shapes (full-length rows), and at
-    # B=1, the ``--file`` batch, where the weights' reads dominate.
+    # B=1, the ``--file`` batch, where the weights' reads dominate.  The
+    # recurrence is one call (one layer; a layered eval batch makes L), in
+    # turns with cuDNN's one-layer forward, which also does layer 0's input
+    # product.
     T = fe._frames_for_width(int(SR * SECONDS))
     timing = {}
     with torch.no_grad():
         one = stack_inputs(T, 1, L, [T], seed=98)
-        b1_ms = {"lstm_wavefront": cuda_ms(lambda: run_wavefront(one, wf.lstm_stack_wavefront)),
-                 "lstm_recurrence": cuda_ms(lambda: run_recurrence(one, rec.lstm_recurrence))}
+        b1_ms = {"lstm_wavefront": cuda_ms(lambda: run_wavefront(one, wf.lstm_stack_wavefront))}
+        b1_turns = in_turns(_nn_lstm(one, 1, T, 1),
+                            lambda: run_recurrence(one, rec.lstm_recurrence))
         inp = stack_inputs(T, B, L, [T] * B, seed=99)
         ms = cuda_ms(lambda: run_wavefront(inp, wf.lstm_stack_wavefront))
         plain = cuda_ms(lambda: run_wavefront(inp, wf.lstm_stack_wavefront_plain),
@@ -678,18 +818,24 @@ def phase_eval():
                   + T * B * H * 4)
         bound, by = _bounds(flops, nbytes)
         timing["lstm_wavefront"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                        bound_by=by, library_ms=_nn_lstm_ms(inp, L, T),
+                                        bound_by=by, library_ms=cuda_ms(_nn_lstm(inp, L, T)),
                                         flops=flops, bytes=nbytes)
-        ms = cuda_ms(lambda: run_recurrence(inp, rec.lstm_recurrence))
+        turns = in_turns(_nn_lstm(inp, 1, T), lambda: run_recurrence(inp, rec.lstm_recurrence))
         plain = cuda_ms(lambda: run_recurrence(inp, rec.lstm_recurrence_plain),
                         iters=1)
         flops = 2 * T * B * H * 4 * H
         nbytes = (T * B * 4 * H * 4 + H * 4 * H * 2 + T * B * 4
                   + 4 * B * H * 4 + T * B * H * 4)
         bound, by = _bounds(flops, nbytes)
-        timing["lstm_recurrence"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                         bound_by=by, library_ms=_nn_lstm_ms(inp, 1, T),
-                                         flops=flops, bytes=nbytes)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        timing["lstm_recurrence"] = dict(
+            ms=turns["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=turns["library_ms"], library="torch.nn.LSTM forward (1 layer, in turns)",
+            calls_per_batch=L, us_per_step=1e3 * turns["ms"] / T,
+            tflops=flops / turns["ms"] / 1e9, turns=turns["turns"],
+            plan=rec.lean_plan(B, H, sms, x_f32=True), flops=flops, bytes=nbytes,
+            ms_b1=b1_turns["ms"], library_ms_b1=b1_turns["library_ms"],
+            turns_b1=b1_turns["turns"])
     for name, ms in b1_ms.items():
         timing[name]["ms_b1"] = ms
     emit("eval", batch=B, seconds=SECONDS, frames=T, throughput=results,
@@ -1456,8 +1602,10 @@ def _path_counters():
     step), ``weight_grad`` at the LSTM shape (``_hgrad_only`` after the
     fused pass; the wide step), the fused pass's window products and the
     recompute backward's gate rebuilds (one per chunk; the recompute
-    steps); and the persistent lean forward's launches (wgmma on a
-    resident W_h, csrc/lstm_layer_lean.cu; the recompute steps)."""
+    steps); and the persistent kernels' launches (wgmma on a resident W_h):
+    the lean forward (csrc/lstm_layer_lean.cu; the recompute steps) and the
+    gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
+    steps)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1466,7 +1614,8 @@ def _path_counters():
             "weight_grad": gm.weight_grad.wgmma_launches,
             "fused_windows": wf.wavefront_bwd.wgmma_products,
             "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches,
-            "lean_persistent": tlt.recurrence_train_lean.persistent_launches}
+            "lean_persistent": tlt.recurrence_train_lean.persistent_launches,
+            "bwd_persistent": tlt.recurrence_bwd.persistent_launches}
 
 
 def _zero_path_counters():
@@ -1478,6 +1627,7 @@ def _zero_path_counters():
     wf.wavefront_bwd.wgmma_products = 0
     tlt.recurrence_bwd_recompute.rebuild_launches = 0
     tlt.recurrence_train_lean.persistent_launches = 0
+    tlt.recurrence_bwd.persistent_launches = 0
 
 
 @contextlib.contextmanager
@@ -1685,6 +1835,25 @@ def _nn_lstm_train_ms(T, n_layers=L, Bn=TRAIN_B):
     inputs = [x, *m.parameters()]
     bwd = cuda_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True), iters=2)
     return fwd, bwd
+
+
+def _nn_lstm_backward(T, Bn):
+    """Two calls of torch.nn.LSTM's (cuDNN, bf16, one layer of 1024)
+    backward on one forward graph at T steps and Bn rows, yardsticks only:
+    (without weight gradients, with them).  The first asks
+    torch.autograd.grad for the input's gradient alone, so autograd masks
+    the weights' out of cuDNN's backward; it still computes
+    dx = dgates·W_ihᵀ, which the layer kernels leave to a matmul."""
+    import torch
+
+    m = torch.nn.LSTM(H, H, num_layers=1).to(DEVICE, torch.bfloat16)
+    m.flatten_parameters()
+    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    y, _ = m(x)
+    dy = torch.randn_like(y)
+    inputs = [x, *m.parameters()]
+    return (lambda: torch.autograd.grad(y, [x], dy, retain_graph=True),
+            lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
 
 
 def _nn_lstm_forward(T, Bn):
@@ -2156,7 +2325,8 @@ def _layer_kernel_checks(checks, worst, rec_B):
                 gates, cseq = ref[3], ref[4]
                 name = "recurrence_bwd"
                 ref_b = tlt.recurrence_bwd_plain(inp["dout"], gates.clone(), cseq, c0r, *btail)
-                got_b = tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail)
+                got_b = _bwd_persistent_checks(f"{name} {tag}", inp["dout"], gates, cseq, c0r,
+                                               btail, ref_b, tol, checks)
             _fault_check(f"{name} {tag}: df scaled by 0.9", df_scaled(ref_b), ref_b, tol,
                          checks)
             torch.cuda.synchronize()
@@ -2165,6 +2335,7 @@ def _layer_kernel_checks(checks, worst, rec_B):
             del ref, ref_b, got_b
         del inp
 
+    _bwd_past_plan_check(checks)
     name = "recurrence_bwd_recompute"
     edge_T = tlt.rebuild_chunk(TRAIN_T, 70, H) + 1
     for i, (T, Bn) in enumerate(((512, rec_B), (edge_T, 70))):
@@ -2190,6 +2361,69 @@ def _layer_kernel_checks(checks, worst, rec_B):
                                                   TRAIN_TOL_LONG, checks))
         del inp, args, no_bias, ref_b, got_b, h_prev, cseq
     worst["rebuild_gates"] = _rebuild_product_check(checks, rec_B)
+
+
+def _bwd_persistent_checks(tag, dout, gates, cseq, c0r, btail, ref, tol, checks):
+    """The gates-mode backward at the layered step's batch on its persistent
+    kernel (row 6: csrc/lstm_layer_bwd_persistent.cu): the plan's choice,
+    launched (counted at its library's launch site), bit for bit on repeat,
+    beside the same launch without its step barrier (stale dgates), which
+    must fail ``tol`` against the plain result ``ref``.  Overwrites
+    ``gates`` with dgates; returns the first call's (dgates, dh0, dc0)."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    B_, H_ = cseq.shape[1:]
+    plan = tlt.bwd_plan(B_, H_, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"{tag}: the plan does not send the layered step's batch to the persistent "
+             f"backward: {plan}")
+    before = tlt.recurrence_bwd.persistent_launches
+    again = tlt.recurrence_bwd(dout, gates.clone(), cseq, c0r, *btail)
+    bad = tlt._bwd_persistent_launch(dout, gates.clone(), cseq, c0r, *btail, plan,
+                                     skip_barrier=1)
+    got = tlt.recurrence_bwd(dout, gates, cseq, c0r, *btail)
+    torch.cuda.synchronize()
+    launched = tlt.recurrence_bwd.persistent_launches - before
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks.append({"check": f"{tag} persistent (grid {plan['grid']}): bit for bit on repeat",
+                   "equal": same, "persistent_launches": launched})
+    if launched != 2:
+        fail(f"{tag}: {launched} persistent launches in two calls")
+    if not same:
+        fail(f"{tag}: two calls on the same inputs differ")
+    del again
+    _fault_check(f"{tag}: step barrier left out (stale dgates)", bad, ref, tol, checks)
+    return got
+
+
+def _bwd_past_plan_check(checks):
+    """The gates-mode backward at B=70 (two row groups: 256 CTAs, past the
+    card) on the per-step kernel against its plain version at T=16, ragged
+    lengths with a zero-length row: the plan's choice, no persistent launch."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T, Bn = torch.bfloat16, 16, 70
+    plan = tlt.bwd_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "per_step":
+        fail(f"recurrence_bwd B={Bn}: expected the per-step kernel past the plan, got {plan}")
+    lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
+    inp = _layer_inputs(T, Bn, lens, seed=149)
+    _, _, _, gates, cseq = tlt.recurrence_train_plain(inp["x_proj"], inp["w_h"], inp["mask"],
+                                                      inp["h0"], inp["c0"], bf)
+    c0r = inp["c0"].to(bf).float()
+    btail = (inp["mask"], inp["w_h"], inp["dhn"], inp["dcn"])
+    ref = tlt.recurrence_bwd_plain(inp["dout"], gates.clone(), cseq, c0r, *btail)
+    before = tlt.recurrence_bwd.persistent_launches
+    got = tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail)
+    torch.cuda.synchronize()
+    _rel_check(f"recurrence_bwd H={H} B={Bn} T={T} past the plan (per-step kernel)", got, ref,
+               TRAIN_TOL_SHORT, checks)
+    if tlt.recurrence_bwd.persistent_launches != before:
+        fail(f"recurrence_bwd B={Bn}: ran the persistent kernel past its plan")
 
 
 def _lean_persistent_checks(checks, worst, batches):
@@ -2319,6 +2553,132 @@ def phase_lean_study():
     emit("lean_study", **out)
 
 
+# Row 7's outputs on seeded inputs at T=512 and the recompute batches, as a
+# SHA-256 of their bytes, by whichever package lies in the working directory
+# (run in this checkout and in ``--parent``'s by ``persistent_study``).
+_ROW7_DIGEST = r"""
+import hashlib, json, sys
+import torch
+sys.path.insert(0, ".")
+from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+H, T, bf = 1024, 512, torch.bfloat16
+for B in (400, 473):
+    g = torch.Generator(device="cuda").manual_seed(B)
+    xp = (torch.randn((T, B, 4 * H), generator=g, device="cuda") * 0.5).to(bf)
+    w_h = ((torch.rand((H, 4 * H), generator=g, device="cuda") * 2 - 1) * 0.035).to(bf)
+    h0 = torch.randn((B, H), generator=g, device="cuda") * 0.2
+    c0 = torch.randn((B, H), generator=g, device="cuda") * 0.2
+    lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()[:, None, :]
+    digest = hashlib.sha256()
+    for t in tlt.recurrence_train_lean(xp, w_h, mask, h0, c0, bf):
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(json.dumps({"B": B, "sha256": digest.hexdigest(),
+                      "persistent": tlt.recurrence_train_lean.persistent_launches}))
+"""
+
+
+def _row7_digests(root):
+    """{B: (sha256, persistent launches)} of ``_ROW7_DIGEST`` run in ``root``."""
+    res = subprocess.run([sys.executable, "-c", _ROW7_DIGEST], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"persistent_study: row 7's digest in {root} failed:\n{res.stderr[-2000:]}")
+    rows = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
+    return {r["B"]: (r["sha256"], r["persistent"]) for r in rows}
+
+
+def _bwd_step_breakdown(args, plan):
+    """Where the persistent backward's step goes: CTA 0's SM clock at four
+    points of every pass (the kernel's ``Args::stamps``; medians over the
+    passes with a product and a cell), in cycles and in µs at the SM clock
+    nvidia-smi reads right after."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    T = args[2].shape[0]
+    stamps = torch.zeros((T + 1, 4), dtype=torch.int64, device=DEVICE)
+    tlt._bwd_persistent_launch(*args, plan, stamps=stamps)
+    torch.cuda.synchronize()
+    smi = smi_clocks()
+    st, mid = stamps.cpu().double(), torch.arange(1, T)
+    med = lambda v: float(v.median())
+    cycles = {"a_stream_and_product": med(st[mid, 1] - st[mid, 0]),
+              "partial_exchange": med(st[mid, 2] - st[mid, 1]),
+              "partial_sum_cell_and_arrive": med(st[mid, 3] - st[mid, 2]),
+              "step_barrier": med(st[mid + 1, 0] - st[mid, 3]),
+              "step": med(st[mid + 1, 0] - st[mid, 0])}
+    mhz = float(smi.split(" MHz")[0])
+    return dict(cycles=cycles, smi=smi, us={k: v / mhz for k, v in cycles.items()})
+
+
+def phase_persistent_study(parent=None):
+    """The persistent redesigns beside the designs they replace (opt-in):
+    row 6 at B=64, T=3510 and row 2 at B=128 and B=1, T=1024 (full-length
+    rows), each a call on its persistent kernel, on the per-step kernel
+    (forced through its plan) and without its step barrier (wrong results:
+    the barrier's share); where the backward's step goes (CTA 0's SM clock
+    at four points of each pass); how many clusters of 1, 2, 4 and 8 CTAs
+    of the backward's size the card co-schedules (the reason its K split
+    meets through L2); and, given ``parent`` (a checkout of the previous tree),
+    row 7's outputs there and here, which must be equal bit for bit."""
+    import ctypes
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import _build
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+
+    bf, sms = torch.bfloat16, torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    T = TRAIN_T
+    inp = _layer_inputs(T, TRAIN_B, [T] * TRAIN_B, seed=171)
+    _, _, _, gates, cseq = tlt.recurrence_train(inp["x_proj"], inp["w_h"], inp["mask"],
+                                                inp["h0"], inp["c0"], bf)
+    args = (inp["dout"], gates, cseq, inp["c0"].to(bf).float(), inp["mask"], inp["w_h"],
+            inp["dhn"], inp["dcn"])
+    plan = tlt.bwd_plan(TRAIN_B, H, sms)
+    row = dict(plan=plan, ms_per_call=cuda_ms(lambda: tlt.recurrence_bwd(*args), iters=2))
+    with mock.patch.object(tlt, "bwd_plan", lambda *a: {"kernel": "per_step"}):
+        row["per_step_ms_per_call"] = cuda_ms(lambda: tlt.recurrence_bwd(*args), iters=2)
+    row["no_barrier_ms_per_call"] = cuda_ms(
+        lambda: tlt._bwd_persistent_launch(*args, plan, skip_barrier=1), iters=2)
+    row["us_per_step"] = 1e3 * row["ms_per_call"] / T
+    row["step_breakdown"] = _bwd_step_breakdown(args, plan)
+    lib = _build.load("lstm_layer_bwd_persistent")
+    lib.rst_layer_bwd_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rst_layer_bwd_max_clusters.restype = ctypes.c_int
+    row["max_active_clusters"] = {c: lib.rst_layer_bwd_max_clusters(c, H) for c in (1, 2, 4, 8)}
+    out[f"recurrence_bwd B={TRAIN_B} T={T}"] = row
+    del inp, gates, cseq, args
+    torch.cuda.empty_cache()
+
+    T = 1024
+    for Bn in (B, 1):
+        x = stack_inputs(T, Bn, 1, [T] * Bn, seed=172)
+        call = (x["xp0"], x["w_h"][0], x["mask"], x["h0"][0], x["c0"][0])
+        plan = rec.lean_plan(Bn, H, sms, x_f32=True)
+        row = dict(plan=plan, ms_per_call=cuda_ms(lambda: rec.lstm_recurrence(*call)))
+        with mock.patch.object(rec, "lean_plan", lambda *a, **k: {"kernel": "per_step"}):
+            row["per_step_ms_per_call"] = cuda_ms(lambda: rec.lstm_recurrence(*call))
+        row["no_barrier_ms_per_call"] = cuda_ms(
+            lambda: rec._persistent_launch(*call, plan, skip_barrier=1))
+        row["us_per_step"] = 1e3 * row["ms_per_call"] / T
+        out[f"lstm_recurrence B={Bn} T={T}"] = row
+        del x, call
+    if parent is not None:
+        here, there = _row7_digests(ROOT), _row7_digests(os.path.abspath(parent))
+        out["row7_against_parent"] = {"parent": parent, "here": here, "parent_digests": there}
+        if set(here) != {400, 473} or any(here[b][0] != there[b][0] for b in here):
+            fail(f"persistent_study: row 7's outputs differ from the parent's: {here} {there}")
+        if not all(v[1] for v in list(here.values()) + list(there.values())):
+            fail("persistent_study: row 7's digests did not run the persistent kernel")
+    emit("persistent_study", **out)
+
+
 def _layer_kernel_timing(rec_B):
     """Each layered kernel alone at its route's shapes (full-length rows,
     T=3510): the gates-mode pair at B=64 (the layered default step), the
@@ -2326,7 +2686,10 @@ def _layer_kernel_timing(rec_B):
     step: L calls of one layer each (``ms_per_call`` beside).  The library
     yardstick is torch.nn.LSTM with one layer at the same T and B: its
     cuDNN forward for the forwards (which also computes the input
-    product), its backward with the weight gradients for the backwards."""
+    product; the recompute forward in turns with it), for the backwards
+    its backward without weight gradients (``library_ms``; it still
+    computes dx) and with them (``library_wgrad_ms``), both on one forward
+    graph in turns with the kernel."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
@@ -2337,8 +2700,6 @@ def _layer_kernel_timing(rec_B):
                                      (("recurrence_train_lean", "recurrence_bwd_recompute"),
                                       rec_B)):
         lean = fwd_name.endswith("lean")
-        lib_fwd, lib_bwd = _nn_lstm_train_ms(T, 1, Bn)
-        torch.cuda.empty_cache()
         inp = _layer_inputs(T, Bn, [T] * Bn, seed=170, proj_dtype=bf if lean else None)
         tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
         xp = inp["x_proj"]
@@ -2352,6 +2713,8 @@ def _layer_kernel_timing(rec_B):
             extra = dict(turns=turns["turns"], plan=plan, us_per_step=1e3 * ms / T)
             torch.cuda.empty_cache()
         else:
+            lib_fwd = cuda_ms(_nn_lstm_forward(T, Bn), iters=2)
+            torch.cuda.empty_cache()
             ms = cuda_ms(lambda: fwd(xp, *tail), iters=2)
         plain = cuda_ms(lambda: fwd_plain(xp, *tail), iters=1, warmup=0)
         res = fwd(xp, *tail)
@@ -2373,7 +2736,12 @@ def _layer_kernel_timing(rec_B):
             del res
             args = (inp["dout"], inp["x"], h_prev, cseq, c0r, inp["mask"], inp["w_x"],
                     inp["b"], inp["w_h"], inp["dhn"], inp["dcn"])
-            ms = cuda_ms(lambda: tlt.recurrence_bwd_recompute(*args), iters=2)
+            no_dw, with_dw = _nn_lstm_backward(T, Bn)
+            turns = in_turns(no_dw, lambda: tlt.recurrence_bwd_recompute(*args), iters=2,
+                             library_wgrad=with_dw)
+            del no_dw, with_dw
+            ms = turns["ms"]
+            torch.cuda.empty_cache()
             plain = cuda_ms(lambda: tlt.recurrence_bwd_recompute_plain(*args), iters=1,
                             warmup=0)
             rebuild = _rebuild_timing(inp["x"], h_prev, inp["w_x"], inp["w_h"], inp["b"])
@@ -2388,8 +2756,13 @@ def _layer_kernel_timing(rec_B):
             # a copy of the residual, the kernel's later calls run on dgates
             # (the same work).
             pgates = gates.clone()
-            ms = cuda_ms(lambda: tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail),
-                         iters=2)
+            no_dw, with_dw = _nn_lstm_backward(T, Bn)
+            turns = in_turns(no_dw,
+                             lambda: tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail),
+                             iters=2, library_wgrad=with_dw)
+            del no_dw, with_dw
+            ms = turns["ms"]
+            torch.cuda.empty_cache()
             plain = cuda_ms(lambda: tlt.recurrence_bwd_plain(inp["dout"], pgates, cseq, c0r,
                                                              *btail), iters=1, warmup=0)
             del gates, pgates
@@ -2398,9 +2771,11 @@ def _layer_kernel_timing(rec_B):
                       + 3 * Bn * H * 4 + T * Bn * G * 2 + 2 * Bn * H * 4)
         bound, by = _bounds(flops, nbytes)
         out[bwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
-                             library_ms=L * lib_bwd, library="torch.nn.LSTM backward "
-                             "(1 layer, with its weight gradients)", calls=L,
-                             ms_per_call=ms, batch=Bn, flops=L * flops, bytes=L * nbytes)
+                             library_ms=L * turns["library_ms"], library="torch.nn.LSTM "
+                             "backward (1 layer, without weight gradients, in turns)",
+                             library_wgrad_ms=L * turns["library_wgrad_ms"], calls=L,
+                             ms_per_call=ms, us_per_step=1e3 * ms / T, batch=Bn, flops=L * flops,
+                             bytes=L * nbytes, turns=turns["turns"])
         out[bwd_name]["tflops"] = flops / ms / 1e9
         if lean:
             # Row 8 split: its rebuild products, all chunks of the call's
@@ -2473,6 +2848,8 @@ def phase_train_layered():
     losses = layered["losses"]
     if not sum(losses[-3:]) / 3 < losses[0]:
         fail(f"train_layered: the mean of the last 3 losses is not below the first: {losses}")
+    if not layered["wgmma_launches"]["bwd_persistent"]:
+        fail("train_layered: the backward never ran the persistent kernel")
     layered["memory_plan"] = list(plan)
     del state, batch
     torch.cuda.empty_cache()
@@ -3038,7 +3415,11 @@ def kernels_line():
     (gates mode) or the recompute step's pass and its 5 steps; for the
     mask and the alpha-stream pair one step of the routes that run them
     and the launches of their 5 steps each (the mask on two routes), for
-    the fbank kernel one eval batch and the launches of its eval run; for
+    the fbank kernel one eval batch and the launches of its eval run (the
+    recurrence: one call of the L a layered batch makes, its persistent
+    launches and µs a step beside; the gates-mode backward: its persistent
+    launches, µs a step and cuDNN's backward with weight gradients beside
+    the one without, ``library_ms``); for
     the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
     launches of the widest gates-residual step's 5 steps (train_wide).  The
     weight-gradient rows add their TFLOP/s, the fused row its window
@@ -3056,7 +3437,7 @@ def kernels_line():
     for name, src, replaces, kind in (
         ("lstm_wavefront", "rnn_speech_tpu_torch/csrc/lstm_wavefront.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:90", "wf"),
-        ("lstm_recurrence", "rnn_speech_tpu_torch/csrc/lstm_recurrence.cu",
+        ("lstm_recurrence", "rnn_speech_tpu_torch/csrc/lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:62", "rec"),
     ):
         t = ev.get("timing", {}).get(name, {})
@@ -3068,6 +3449,10 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+        if kind == "rec":                            # one call of the L a batch makes
+            rows[-1].update(persistent_launches=ev.get("launches", {}).get(
+                "lstm_recurrence_persistent"), us_per_step=t.get("us_per_step"),
+                ms_b1=t.get("ms_b1"), library_ms_b1=t.get("library_ms_b1"))
     csrc = "rnn_speech_tpu_torch/csrc/"
     for name, src, replaces in (
         ("wavefront_train", csrc + "lstm_wavefront_train.cu",
@@ -3100,7 +3485,7 @@ def kernels_line():
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_train.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:144", "layered"),
-        ("recurrence_bwd", csrc + "lstm_layer_bwd.cu",
+        ("recurrence_bwd", csrc + "lstm_layer_bwd_persistent.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:232", "layered"),
         ("recurrence_train_lean", csrc + "lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:342", "recompute"),
@@ -3117,6 +3502,12 @@ def kernels_line():
             "library_ms": t.get("library_ms"),
         })
         rows[-1]["tflops"] = t.get("tflops")
+        if "library_wgrad_ms" in t:                  # the backwards: cuDNN with dW beside
+            rows[-1].update(library_wgrad_ms=t["library_wgrad_ms"],
+                            us_per_step=t.get("us_per_step"))
+        if name == "recurrence_bwd":
+            rows[-1]["persistent_launches"] = tl.get(run, {}).get(
+                "wgmma_launches", {}).get("bwd_persistent")
         if "rebuild_ms" in t:                        # the recompute backward's rebuild
             rows[-1].update(rebuild_ms=t["rebuild_ms"], rebuild_tflops=t["rebuild_tflops"])
     tw = RECORD.get("train_wide", {})
@@ -3165,13 +3556,16 @@ def kernels_line():
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
           "alt_routes", "train_wide", "grad_study", "bundle", "beam", "cli")
-OPT_IN_PHASES = ("lean_study",)
+OPT_IN_PHASES = ("lean_study", "persistent_study")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
+    parser.add_argument("--parent", default=None,
+                        help="persistent_study: a checkout of the previous tree, whose "
+                             "row 7 outputs must equal this one's bit for bit")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -3206,7 +3600,8 @@ def main(argv=None) -> int:
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
                      ("train_wide", phase_train_wide), ("grad_study", phase_grad_study),
-                     ("lean_study", phase_lean_study)):
+                     ("lean_study", phase_lean_study),
+                     ("persistent_study", lambda: phase_persistent_study(args.parent))):
         if name in phases:
             timed(name, fn)
     held = None

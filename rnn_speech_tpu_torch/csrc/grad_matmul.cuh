@@ -325,6 +325,19 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Until the global `count` reaches `target` (acquire): the persistent
+// recurrences' grid barriers.  Traps after ~2^24 polls (a grid that is not
+// co-resident, or a barrier that never fills) instead of hanging.
+__device__ __forceinline__ void grid_wait(const unsigned* count, unsigned target) {
+  for (uint32_t spins = 0;; ++spins) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+    if (v >= target) break;
+    if (spins == (1u << 24)) __trap();
+    __nanosleep(32);
+  }
+}
+
 // A 64-column x kTK-row box at (col, row) of a 2-D tensor map into shared
 // memory at dst, completing on the barrier's transaction count.
 __device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -348,9 +361,10 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t strip) {
 
 // Keeps the compiler from moving accumulator registers across the
 // asynchronous wgmma region.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define RST_ACC8(i)                                                              \
@@ -383,6 +397,25 @@ __device__ __forceinline__ void mma_64x256x16(float (&d)[128], uint64_t a, uint6
         RST_ACC8(48), RST_ACC8(56), RST_ACC8(64), RST_ACC8(72), RST_ACC8(80), RST_ACC8(88),
         RST_ACC8(96), RST_ACC8(104), RST_ACC8(112), RST_ACC8(120)
       : "l"(a), "l"(b), "r"(keep), "n"(kTransA));
+}
+
+// d (64x64 f32) = a·b + (keep ? d : 0) over 16 K: a (64 x 16) and b
+// (16 x 64) both K-major (the persistent recurrences, csrc/lstm_layer_lean.cu
+// and csrc/lstm_layer_bwd_persistent.cu).  Register 4j + r holds row
+// 16·warp + lane/4 + 8·(r/2), column 8j + 2·(lane%4) + r%2.
+__device__ __forceinline__ void mma_64x64x16(float (&d)[32], uint64_t a, uint64_t b,
+                                             uint32_t keep) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24)
+      : "l"(a), "l"(b), "r"(keep));
 }
 
 #undef RST_ACC8

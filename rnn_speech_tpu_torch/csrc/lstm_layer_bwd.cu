@@ -34,6 +34,11 @@
 // (1-m)·dh_carry and dc_carry, one owner thread per element; one extra
 // launch after step 0 adds dgates(0)·W_hᵀ to give dh0.
 //
+// In gates mode the wrapper's plan (`bwd_plan`, ops/lstm_layer_train.py)
+// sends the shapes whose grid fits the card (the layered step's B=64) to
+// the persistent kernel, csrc/lstm_layer_bwd_persistent.cu; this file's
+// per-step form runs the others, and recompute mode.
+//
 // What bounds it on the H100: 2·T·B·H·4H operations in gates mode (1.9 ms
 // at the flagship train shape, H=1024, B=64, T=3510) and three times that
 // in recompute mode, whose two rebuild products (K = D and K = H) depend

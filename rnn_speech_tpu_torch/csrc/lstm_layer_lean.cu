@@ -1,26 +1,36 @@
-// The recompute-mode layer forward as one persistent Hopper kernel
-// (sm_90a): W_h stays in shared memory for all T steps, one grid-wide
-// barrier a step instead of one launch a step, the product on wgmma.
+// A layer's forward recurrence as one persistent Hopper kernel (sm_90a):
+// W_h stays in shared memory for all T steps, one grid-wide barrier a step
+// instead of one launch a step, the product on wgmma.
 //
-// Replaces `_recurrence_train_lean_kernel` (entry
-// `_lstm_recurrence_train_lean`) of rnn_speech_tpu/ops/lstm_pallas.py:
-// per step t
+// Replaces two TPU kernels of rnn_speech_tpu/ops/lstm_pallas.py, one
+// template instance each:
 //
-//   gates = x_proj[t] (bf16) + bf16(h)·W_h         (f32 sums)
+// * `_recurrence_train_lean_kernel` (entry `_lstm_recurrence_train_lean`,
+//   the recompute-mode training forward; rst_lstm_layer_train_lean_persistent):
+//   bf16 x_proj, c_seq stored;
+// * `_recurrence_kernel` (entry `lstm_recurrence_pallas`, the layered
+//   inference recurrence; rst_lstm_recurrence_persistent): float32 x_proj,
+//   no residual.
+//
+// Per step t
+//
+//   gates = x_proj[t] + bf16(h)·W_h                (f32 sums; x_proj added as stored)
 //   i, g, f, o = σ(i), tanh(g), σ(f + 1), σ(o)
 //   c' = f·c + i·g;  h' = o·tanh(c');  c, h <- m·(c', h') + (1 - m)·(c, h)
-//   out[t] = m·h' (f32);  c_seq[t] = bf16(c)
+//   out[t] = m·h' (f32);  c_seq[t] = bf16(c) (the training forward)
 //
-// and returns (out, hn, cn, c_seq).  csrc/lstm_layer_train.cu keeps the
-// per-step form (one launch a step on the shared cell, lstm_cell.cuh) for
-// the shapes the wrapper's plan (`lean_plan`, ops/lstm_layer_train.py)
-// does not send here.
+// and returns (out, hn, cn[, c_seq]).  csrc/lstm_layer_train.cu and
+// csrc/lstm_recurrence.cu keep the per-step forms (one launch a step on the
+// shared cell, lstm_cell.cuh) for the shapes the wrappers' plan
+// (`lean_plan`, ops/lstm_recurrence.py) does not send here.
 //
 // What bounds it on the H100: 2·T·B·H·4H operations, 3.4 µs a step at the
 // bf16 tensor rate (989 TFLOP/s) at B=400, H=1024, against x_proj read once
 // (3.3 MB a step).  The per-step kernel took ~43 µs a step: a launch per
 // step, W_h and h re-read from L2 by 448 blocks every step (~112 MiB),
-// legacy mma.sync products and the f32 carries through device memory.
+// legacy mma.sync products and the f32 carries through device memory.  The
+// inference recurrence at the serving batch (B=128): 1.1 µs a step at the
+// tensor rate; its per-step kernel took 26.8 µs a step.
 //
 // What this design does about it:
 // * One cooperative launch per call (co-residency guaranteed, or the
@@ -59,11 +69,24 @@
 //   a consumer thread; 288 threads, one block an SM (launch bounds), no
 //   setmaxnreg.  ptxas caps the block at 168 registers a thread and spills
 //   ~120 bytes (`-Xptxas -v` in the build log).
+// * f32 x_proj (the inference recurrence) would double that prefetch, and
+//   rounding it to bf16 would change the sum the TPU kernel forms.  So it
+//   is staged by TMA instead: per 64-row tile and gate a box of the CTA's
+//   16 units (64 x 16 f32, 4 KiB; 16 KiB a tile a step), in two step
+//   buffers with full and empty mbarriers, loaded by the producer a step
+//   ahead (after the step's h loads) and read by the cell from shared
+//   memory.  The budget at B=128 (2 row groups x 64 slices of one tile:
+//   128 CTAs): 128 KiB of resident W_h, an h ring of 8 stages x 8 KiB and
+//   32 KiB of x_proj buffers, 225 KiB of the 227.  The h stream is 128 KiB
+//   a CTA a step (one tile x K = 1024), half of it in flight at once.
 //
 // What bounds this design (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W):
 // ~22 µs a step at B=400; at B=64 (12.1 µs a step) and with the step
 // barrier left out (4% less; both in chip_smoke.py's opt-in lean_study
-// phase) it stays far from its bound.  Every step each CTA streams 512 KiB of h
+// phase) it stays far from its bound.  The inference recurrence: ~11.5 µs a
+// step at B=128 and ~11.1 at B=1 (one padded tile), the step barrier ~10%
+// of it (chip_smoke.py's opt-in persistent_study): the h ring's round trips,
+// not the rows, set the step.  Every step each CTA streams 512 KiB of h
 // (256 rows) through a ring that the resident W_h slice leaves room for
 // (3 stages of 32 KiB): too few bytes in flight for the L2's latency, so
 // the stream, not the product or the barrier, sets the step time.
@@ -75,9 +98,15 @@
 // rows, a stage refilled only when both CTAs have released it) was
 // correct and bit-equal but slower, 137.9 against 82.7 ms a call at
 // B=400 (NVIDIA H100 80GB HBM3, 700.00 W): the pair's coupled ring and
-// the halved boxes cost more than the L2 reads saved.  Not done here
-// (ROADMAP Queue B): the per-step kernel's other users (the gates-mode
-// forward, the inference recurrence).
+// the halved boxes cost more than the L2 reads saved.  Not done here: the
+// backward's K split (csrc/lstm_layer_bwd_persistent.cu) for the forward:
+// split four ways, a CTA would hold 64 units' columns of a K quarter and
+// stream a quarter of h, but exchange a (64, 256) f32 partial (64 KiB) a
+// tile a step through L2, as many bytes as the h stream it shortens.  Not
+// done either (ROADMAP Queue B): the per-step kernel's other user, the
+// gates-mode training forward.
+
+#include <type_traits>
 
 #include "grad_matmul.cuh"
 #include "lstm_cell.cuh"
@@ -94,64 +123,31 @@ constexpr int kBox = 64 * 64 * 2;               // a 64x64 bf16 TMA box (8 KiB)
 constexpr int kMaxTiles = 2 * kConsumers;       // 64-row tiles a CTA
 constexpr int kSmemLimit = 232448;              // the H100's per-block opt-in
 
-long long g_launches = 0;                       // launches of lean_persistent
+long long g_launches = 0;                       // launches with bf16 x_proj (row 7)
+long long g_rec_launches = 0;                   // launches with f32 x_proj (row 2)
 
+template <typename XT>
 struct Args {
-  const bf16* x_proj;   // (T, B, 4H) bf16
+  const XT* x_proj;     // (T, B, 4H) bf16 (row 7) or f32 (row 2)
   const float* mask;    // (T, 1, B) f32 {0, 1}
   float* h;             // (B, H) f32: h0 on entry, hn on return
   float* c;             // (B, H) f32: c0 on entry, cn on return
   float* out;           // (T, B, H) f32
-  bf16* cseq;           // (T, B, H) bf16
+  bf16* cseq;           // (T, B, H) bf16, or null (row 2 stores no residual)
   bf16* hb;             // (2, Bpa, H) bf16: hb[0] = bf16(h0), padding rows zero
   unsigned* counter;    // (groups) step barrier arrivals of each row group, zero on entry
   int T, B, H, Bpa, tiles, stages;
   int skip_barrier;     // a planted fault (chip_smoke.py): read h without waiting
 };
 
-__host__ __device__ constexpr size_t smem_bytes(int H, int tiles, int stages) {
-  return (size_t)(H / 64) * kBox + (size_t)stages * tiles * kBox + 8 * (1 + 2 * stages) + 1024;
-}
+// f32 x_proj is staged by TMA: per 64-row tile and gate a box of 16 units
+// (64 rows x 16 f32, 4 KiB), two step buffers.
+constexpr int kXBox = 64 * kUnits * 4;
+constexpr int kXTile = 4 * kXBox;
 
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define RST_ACC8(i)                                                              \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
-      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-
-// d (64x64 f32) = a·b + (keep ? d : 0) over 16 K: a (64 x 16) and b
-// (16 x 64) both K-major.  Register 4j + r holds row 16·warp + lane/4 +
-// 8·(r/2), column 8j + 2·(lane%4) + r%2.
-__device__ __forceinline__ void mma_64x64x16(float (&d)[32], uint64_t a, uint64_t b,
-                                             uint32_t keep) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24)
-      : "l"(a), "l"(b), "r"(keep));
-}
-
-#undef RST_ACC8
-
-// Until `count` reaches `target` (acquire); traps after ~2^24 polls (a grid
-// that is not co-resident, or a barrier that never fills) instead of hanging.
-__device__ __forceinline__ void grid_wait(const unsigned* count, unsigned target) {
-  for (uint32_t spins = 0;; ++spins) {
-    unsigned v;
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
-    if (v >= target) break;
-    if (spins == (1u << 24)) __trap();
-    __nanosleep(32);
-  }
+__host__ __device__ constexpr size_t smem_bytes(int H, int tiles, int stages, bool xf32) {
+  return (size_t)(H / 64) * kBox + (size_t)stages * tiles * kBox +
+         (xf32 ? (size_t)2 * tiles * kXTile : 0) + 8 * (1 + 2 * stages + (xf32 ? 4 : 0)) + 1024;
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t v) {
@@ -166,10 +162,15 @@ __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// XT: x_proj's type (bf16: row 7, read into registers; float: row 2,
+// staged by TMA through map_x).  kStoreC: store c_seq (row 7).
+template <typename XT, bool kStoreC>
 __global__ void __launch_bounds__(kThreads, 1)
     lean_persistent(const __grid_constant__ CUtensorMap map_w,
-                    const __grid_constant__ CUtensorMap map_h, Args p) {
+                    const __grid_constant__ CUtensorMap map_h,
+                    const __grid_constant__ CUtensorMap map_x, Args<XT> p) {
   using namespace tma;
+  constexpr bool kXF32 = std::is_same<XT, float>::value;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -178,9 +179,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int stage_bytes = p.tiles * kBox;
   uint8_t* w_s = smem;                           // KS boxes: the W_h slice
   uint8_t* ring = smem + (size_t)KS * kBox;      // S stages of `tiles` h boxes
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(ring + (size_t)S * stage_bytes);
+  uint8_t* xs = ring + (size_t)S * stage_bytes;  // f32 x_proj: 2 steps of `tiles` tiles
+  uint64_t* wbar =
+      reinterpret_cast<uint64_t*>(xs + (kXF32 ? (size_t)2 * p.tiles * kXTile : 0));
   uint64_t* full = wbar + 1;
   uint64_t* empty = full + S;
+  uint64_t* xfull = empty + S;                   // f32 x_proj of step buffer 0, 1 landed
+  uint64_t* xempty = xfull + 2;                  // ... read by the consumers
   const int slices = p.H / kUnits;
   const int slice = blockIdx.x % slices, group = blockIdx.x / slices;
   const int row0 = group * p.tiles * 64;         // this CTA's first row
@@ -193,6 +198,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_init(smem_addr(&full[s]), 1);
       bar_init(smem_addr(&empty[s]), 4 * kConsumers);   // each consumer warp releases
     }
+    if constexpr (kXF32) {
+      for (int i = 0; i < 2; ++i) {
+        bar_init(smem_addr(&xfull[i]), 1);
+        bar_init(smem_addr(&xempty[i]), 4 * kConsumers);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -204,6 +215,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int k = 0; k < KS; ++k) {
         load_box(smem_addr(w_s + (size_t)k * kBox), &map_w, wb, k * 64, slice * 64);
       }
+      // f32 x_proj of step t into step buffer t % 2: the four gates' boxes
+      // of 16 units per tile, once the consumers have read step t - 2's.
+      auto load_x = [&](int t) {
+        const int i = t & 1;
+        bar_wait(smem_addr(&xempty[i]), ((t >> 1) & 1) ^ 1);   // first round passes
+        const uint32_t xb = smem_addr(&xfull[i]);
+        bar_expect_tx(xb, p.tiles * kXTile);
+        const uint32_t dst = smem_addr(xs + (size_t)i * p.tiles * kXTile);
+        for (int m = 0; m < p.tiles; ++m) {
+          for (int g = 0; g < 4; ++g) {
+            load_box(dst + m * kXTile + g * kXBox, &map_x, xb, g * p.H + j0,
+                     t * p.B + row0 + 64 * m);
+          }
+        }
+      };
+      if constexpr (kXF32) load_x(0);
       int it = 0;
       for (int t = 0; t < p.T; ++t) {
         if (t > 0 && !p.skip_barrier) grid_wait(p.counter + group, (unsigned)t * slices);
@@ -218,6 +245,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int m = 0; m < p.tiles; ++m) {
             load_box(dst + m * kBox, &map_h, fb, k * 64, hrow + 64 * m);
           }
+        }
+        if constexpr (kXF32) {
+          if (t + 1 < p.T) load_x(t + 1);
         }
       }
     }
@@ -258,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0;
   for (int t = 0; t < p.T; ++t) {
     // This step's x_proj words (bf16 pairs of units e = 0, 1) and masks:
-    // in flight while the product runs.
+    // in flight while the product runs.  f32 x_proj arrives by TMA instead.
     uint32_t xr[2][2][4][2];
     float mk[2][2];
 #pragma unroll
@@ -268,15 +298,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = row_of(m, hh);
         const bool ok = m < nt && b < B;
         mk[m][hh] = ok ? p.mask[(size_t)t * B + b] : 0.0f;
-        const bf16* xrow = p.x_proj + ((size_t)t * B + b) * G + j0 + ucol;
+        if constexpr (!kXF32) {
+          const bf16* xrow = p.x_proj + ((size_t)t * B + b) * G + j0 + ucol;
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
+          for (int g = 0; g < 4; ++g)
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            xr[m][hh][g][jj] =
-                ok ? __ldg(reinterpret_cast<const unsigned int*>(xrow + (size_t)g * H + 8 * jj))
-                   : 0u;
-          }
+            for (int jj = 0; jj < 2; ++jj) {
+              xr[m][hh][g][jj] =
+                  ok ? __ldg(reinterpret_cast<const unsigned int*>(xrow + (size_t)g * H + 8 * jj))
+                     : 0u;
+            }
+        }
       }
 
     for (int k = 0; k < KS; ++k, ++it) {
@@ -311,6 +343,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // The cell, in registers; gate g of unit group jj is column group 2g + jj.
     bf16* hnext = p.hb + (size_t)((t + 1) & 1) * p.Bpa * H;
+    const float* xt = reinterpret_cast<const float*>(xs + (size_t)(t & 1) * p.tiles * kXTile);
+    if constexpr (kXF32) bar_wait(smem_addr(&xfull[t & 1]), (t >> 1) & 1);
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       if (m >= nt) continue;
@@ -326,8 +360,16 @@ __global__ void __launch_bounds__(kThreads, 1)
             float pre[4];
 #pragma unroll
             for (int g = 0; g < 4; ++g) {
-              const uint32_t x = xr[m][hh][g][jj];
-              pre[g] = d[m][4 * (2 * g + jj) + 2 * hh + e] + (e ? bf_hi(x) : bf_lo(x));
+              if constexpr (kXF32) {
+                // Box g of tile wg + 2m: (row in the tile, unit) as 64 x 16 f32.
+                const int r = 16 * (warp % 4) + lane / 4 + 8 * hh;
+                pre[g] = d[m][4 * (2 * g + jj) + 2 * hh + e] +
+                         xt[(wg + 2 * m) * (kXTile / 4) + g * (kXBox / 4) + r * kUnits +
+                            8 * jj + ucol + e];
+              } else {
+                const uint32_t x = xr[m][hh][g][jj];
+                pre[g] = d[m][4 * (2 * g + jj) + 2 * hh + e] + (e ? bf_hi(x) : bf_lo(x));
+              }
             }
             const float i_a = rst::sigmoidf_(pre[0]), g_a = tanhf(pre[1]);
             const float f_a = rst::sigmoidf_(pre[2] + 1.0f), o_a = rst::sigmoidf_(pre[3]);
@@ -346,11 +388,17 @@ __global__ void __launch_bounds__(kThreads, 1)
             const size_t i = (size_t)b * H + j0 + 8 * jj + ucol;
             const size_t ti = (size_t)t * B * H + i;
             *reinterpret_cast<float2*>(p.out + ti) = make_float2(o_v[0], o_v[1]);
-            *reinterpret_cast<uint32_t*>(p.cseq + ti) = pack_bf2(c_v[0], c_v[1]);
+            if constexpr (kStoreC) {
+              *reinterpret_cast<uint32_t*>(p.cseq + ti) = pack_bf2(c_v[0], c_v[1]);
+            }
             *reinterpret_cast<uint32_t*>(hnext + i) = pack_bf2(h_v[0], h_v[1]);
           }
         }
       }
+    }
+    if constexpr (kXF32) {                       // this warp is done with the x buffer
+      __syncwarp();
+      if (lane == 0) bar_arrive(smem_addr(&xempty[t & 1]));
     }
     // h of step t + 1 is read by TMA (the async proxy) in every CTA of the
     // row group: fence it, meet, and arrive once for the CTA.
@@ -379,42 +427,53 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-}  // namespace
+// Tensor map of the row-major (rows, 4H) f32 x_proj in boxes of 16 columns
+// (one gate of a CTA's units) by 64 rows, no swizzle; reads past `rows`
+// fill zeros.
+bool make_x_map(CUtensorMap* map, const void* base, long long rows, int cols) {
+  const tma::EncodeTiled encode = tma::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {kUnits, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
-// x_proj (T, B, 4H) bf16; w_perm (4H, H) bf16 = the columns of W_h in the
-// kernel's order, transposed (`lean_weights`); mask (T, 1, B) f32; hb
-// (2, Bpa, H) bf16 with hb[0, :B] = bf16(h0), the rest zero; h, c (B, H)
-// f32 holding h0, c0 on entry and hn, cn on return; out (T, B, H) f32;
-// cseq (T, B, H) bf16; counter `groups` uint32 of device memory.  The plan
-// (`lean_plan`): `groups` row groups of `tiles` 64-row tiles (Bpa =
-// groups·tiles·64 >= B), `stages` ring stages; H a multiple of 64.
-// skip_barrier != 0 plants a fault (no wait for the other CTAs' h).
-// Returns the CUDA error code (0 = success); cudaErrorCooperativeLaunchTooLarge
-// when the grid cannot be co-resident.
-extern "C" int rst_lstm_layer_train_lean_persistent(
-    const void* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
-    float* out, void* cseq, void* counter, int T, int B, int H, int groups, int tiles,
-    int stages, int skip_barrier, void* stream) {
+template <typename XT, bool kStoreC>
+int launch(const XT* x_proj, const void* w_perm, const float* mask, void* hb, float* h,
+           float* c, float* out, void* cseq, void* counter, int T, int B, int H, int groups,
+           int tiles, int stages, int skip_barrier, void* stream, long long* launches) {
+  constexpr bool kXF32 = std::is_same<XT, float>::value;
   if (H % 64 != 0 || tiles < 1 || tiles > kMaxTiles || stages < 2 || groups < 1 ||
       T < 1 || B < 1 || B > groups * tiles * 64) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(H, tiles, stages);
+  const size_t smem = smem_bytes(H, tiles, stages, kXF32);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   const int Bpa = groups * tiles * 64;
-  CUtensorMap map_w, map_h;
+  CUtensorMap map_w, map_h, map_x;
   if (!tma::make_map(&map_w, w_perm, 4 * H, H) || !tma::make_map(&map_h, hb, 2 * Bpa, H)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      lean_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if constexpr (kXF32) {
+    if (!make_x_map(&map_x, x_proj, (long long)T * B, 4 * H)) return (int)cudaErrorInvalidValue;
+  } else {
+    map_x = map_h;                               // unused: bf16 x_proj is read by the threads
+  }
+  auto kernel = lean_persistent<XT, kStoreC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = groups * (H / kUnits);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lean_persistent, kThreads,
-                                                           smem)) != cudaSuccess) {
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+          cudaSuccess) {
     return (int)err;
   }
   if (per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -422,8 +481,8 @@ extern "C" int rst_lstm_layer_train_lean_persistent(
   if ((err = cudaMemsetAsync(counter, 0, groups * sizeof(unsigned), st)) != cudaSuccess) {
     return (int)err;
   }
-  Args p;
-  p.x_proj = static_cast<const bf16*>(x_proj);
+  Args<XT> p;
+  p.x_proj = x_proj;
   p.mask = mask;
   p.h = h;
   p.c = c;
@@ -438,17 +497,52 @@ extern "C" int rst_lstm_layer_train_lean_persistent(
   p.tiles = tiles;
   p.stages = stages;
   p.skip_barrier = skip_barrier;
-  void* args[] = {&map_w, &map_h, &p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lean_persistent), grid,
-                                    kThreads, args, smem, st);
-  if (err == cudaSuccess) ++g_launches;
+  void* args[] = {&map_w, &map_h, &map_x, &p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, kThreads, args,
+                                    smem, st);
+  if (err == cudaSuccess) ++*launches;
   return (int)err;
 }
 
-// Launches of the persistent kernel so far (counted at the launch site).
-extern "C" long long rst_lean_persistent_launches() { return g_launches; }
+}  // namespace
 
-// Dynamic shared memory of the kernel at (H, tiles, stages), in bytes.
-extern "C" long long rst_lean_persistent_smem(int H, int tiles, int stages) {
-  return (long long)smem_bytes(H, tiles, stages);
+// Row 7, the recompute-mode forward: x_proj (T, B, 4H) bf16; w_perm (4H, H)
+// bf16 = the columns of W_h in the kernel's order, transposed
+// (`lean_weights`); mask (T, 1, B) f32; hb (2, Bpa, H) bf16 with
+// hb[0, :B] = bf16(h0), the rest zero; h, c (B, H) f32 holding h0, c0 on
+// entry and hn, cn on return; out (T, B, H) f32; cseq (T, B, H) bf16;
+// counter `groups` uint32 of device memory.  The plan (`lean_plan`):
+// `groups` row groups of `tiles` 64-row tiles (Bpa = groups·tiles·64 >= B),
+// `stages` ring stages; H a multiple of 64.  skip_barrier != 0 plants a
+// fault (no wait for the other CTAs' h).  Returns the CUDA error code (0 =
+// success); cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// co-resident.
+extern "C" int rst_lstm_layer_train_lean_persistent(
+    const void* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
+    float* out, void* cseq, void* counter, int T, int B, int H, int groups, int tiles,
+    int stages, int skip_barrier, void* stream) {
+  return launch<bf16, true>(static_cast<const bf16*>(x_proj), w_perm, mask, hb, h, c, out,
+                            cseq, counter, T, B, H, groups, tiles, stages, skip_barrier, stream,
+                            &g_launches);
+}
+
+// Row 2, the inference recurrence: as above with x_proj (T, B, 4H) f32
+// (16-byte aligned; the plan's `x_f32` shared memory) and no cseq.
+extern "C" int rst_lstm_recurrence_persistent(
+    const float* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
+    float* out, void* counter, int T, int B, int H, int groups, int tiles, int stages,
+    int skip_barrier, void* stream) {
+  return launch<float, false>(x_proj, w_perm, mask, hb, h, c, out, nullptr, counter, T, B, H,
+                              groups, tiles, stages, skip_barrier, stream, &g_rec_launches);
+}
+
+// Launches of the persistent kernel so far, each entry point's own
+// (counted at the launch site).
+extern "C" long long rst_lean_persistent_launches() { return g_launches; }
+extern "C" long long rst_recurrence_persistent_launches() { return g_rec_launches; }
+
+// Dynamic shared memory of the kernel at (H, tiles, stages), in bytes, with
+// bf16 (x_f32 = 0) or f32 x_proj.
+extern "C" long long rst_lean_persistent_smem(int H, int tiles, int stages, int x_f32) {
+  return (long long)smem_bytes(H, tiles, stages, x_f32 != 0);
 }

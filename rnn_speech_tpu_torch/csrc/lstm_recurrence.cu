@@ -21,9 +21,11 @@
 // (lstm_cell.cuh), so the cell update needs no second pass, and it stages
 // 64-wide K chunks of h and of its W_h columns through shared memory with
 // double-buffered cp.async copies, so each fragment leaves L2 once per
-// block and the copies overlap the MMAs.  A persistent kernel that keeps
-// W_h in shared memory and replaces the launches by grid-wide barriers is
-// later work.
+// block and the copies overlap the MMAs.  The persistent kernel that keeps
+// W_h in shared memory and replaces the launches by grid-wide barriers
+// (csrc/lstm_layer_lean.cu, rst_lstm_recurrence_persistent) runs the
+// shapes the wrapper's plan sends it (`lean_plan(..., x_f32=True)`,
+// ops/lstm_recurrence.py: the serving batches); this kernel the others.
 
 #include "lstm_cell.cuh"
 

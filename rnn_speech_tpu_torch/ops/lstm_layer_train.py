@@ -12,12 +12,18 @@ modes:
   the activated gates (i, g, f, o) = (σ(i), tanh(g), σ(f + 1), σ(o)) and
   the carried c in the residual dtype; ``recurrence_bwd``
   (``_recurrence_bwd_kernel``) walks back and writes the pre-activation
-  dgates over the gates residual;
+  dgates over the gates residual.  ``bwd_plan`` sends it by shape to a
+  persistent kernel (``csrc/lstm_layer_bwd_persistent.cu``: W_h resident
+  in shared memory, the carry's product's K split in eighths over the
+  eight CTAs of a 64-unit slice, wgmma, one barrier a step; the layered
+  step's B=64) or to the per-step kernel;
 * recompute mode: ``recurrence_train_lean`` (``_recurrence_train_lean_kernel``)
   reads ``x_proj`` in the residual dtype and stores only c.  ``lean_plan``
-  sends it by shape to a persistent kernel (``csrc/lstm_layer_lean.cu``:
-  W_h resident in shared memory in ``lean_column_order``, wgmma, one
-  grid-wide barrier a step; both path shapes) or to the per-step kernel;
+  (with the persistent forward's layout, in ``ops/lstm_recurrence.py``,
+  whose inference recurrence shares the kernel) sends it by shape to a
+  persistent kernel (``csrc/lstm_layer_lean.cu``: W_h resident in shared
+  memory in ``lean_column_order``, wgmma, one grid-wide barrier a step;
+  both path shapes) or to the per-step kernel;
   ``recurrence_bwd_recompute`` (``_recurrence_bwd_recompute_kernel``)
   rebuilds the gates from the residual-dtype layer input and h_prev, then
   runs the same backward into a fresh dgates stream.  The TPU kernel
@@ -28,15 +34,17 @@ modes:
 
 The forward kernels are ``csrc/lstm_layer_train.cu`` and
 ``csrc/lstm_layer_lean.cu``, the backward ones
-``csrc/lstm_layer_bwd.cu`` (the rebuild product ``csrc/rebuild_gates.cuh``).
+``csrc/lstm_layer_bwd.cu`` (the rebuild product ``csrc/rebuild_gates.cuh``)
+and ``csrc/lstm_layer_bwd_persistent.cu``.
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device (bf16 weights and residuals,
 float32 carries), or raises; there is no fallback.  ``<wrapper>.launches``
 counts the calls that launched the kernel (each call issues one CUDA
 launch per step from one host call); ``recurrence_bwd_recompute.
-rebuild_launches`` counts the rebuild products its kernel launched and
+rebuild_launches`` counts the rebuild products its kernel launched,
 ``recurrence_train_lean.persistent_launches`` the persistent forward's
-launches (each read from its library's own count at the launch site).
+launches and ``recurrence_bwd.persistent_launches`` the persistent
+backward's (each read from its library's own count at the launch site).
 
 ``lstm_layer_train`` (``lstm_layer_pallas``) is the differentiable layer:
 ``_LayerTrain`` (``_lstm_core``) and ``_LayerTrainRecompute``
@@ -56,7 +64,10 @@ from rnn_speech_tpu_torch import stages
 from rnn_speech_tpu_torch.ops import _build
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
-from rnn_speech_tpu_torch.ops.lstm_recurrence import check_kernel_inputs
+# The persistent forward's plan and weight layout live beside the inference
+# recurrence, which shares the kernel.
+from rnn_speech_tpu_torch.ops.lstm_recurrence import (
+    H100_SMS, SMEM_LIMIT, check_kernel_inputs, lean_plan, lean_weights)
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -178,70 +189,6 @@ def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: 
 
 
 recurrence_train.launches = 0
-
-
-# The persistent lean forward (csrc/lstm_layer_lean.cu): hidden units a
-# CTA owns, 64-row tiles a CTA computes at most, the ring's stages, the
-# bytes of one 64x64 bf16 TMA box, a block's shared memory on the H100,
-# and the H100 SXM's SM count (the plan's default card).
-LEAN_UNITS, LEAN_MAX_TILES, LEAN_MAX_STAGES = 16, 4, 8
-_BOX = 64 * 64 * 2
-SMEM_LIMIT = 232448
-H100_SMS = 132
-
-
-def lean_smem(H: int, tiles: int, stages: int) -> int:
-    """Dynamic shared memory of the persistent lean forward: the resident
-    W_h slice (H/64 boxes of 64 columns), the h ring, its mbarriers and the
-    1024-byte alignment slack (the kernel's ``smem_bytes``)."""
-    return (H // 64) * _BOX + stages * tiles * _BOX + 8 * (1 + 2 * stages) + 1024
-
-
-def lean_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
-    """Which kernel runs the recompute-mode forward at (B, H) on a card of
-    ``sms`` SMs, decided by shape alone.
-
-    The persistent kernel needs its whole grid co-resident, one CTA an SM:
-    ``slices`` = H/16 unit slices times ``groups`` row groups of at most
-    ``tiles`` <= 4 64-row tiles.  Row groups are as many as the card holds
-    (fewer rows a CTA: less h to read every step), at least enough for the
-    batch.  ``stages`` is the deepest h ring (<= LEAN_MAX_STAGES) that fits
-    beside the resident W_h slice: the h stream's latency sets the step.
-    Shapes it cannot take (H not a multiple of 64, a grid larger than the
-    card, no two stages) go to the per-step kernel.
-    Returns {"kernel": "persistent", "groups", "tiles", "slices", "grid",
-    "stages", "rows" (the padded h rows), "smem"} or {"kernel": "per_step"}."""
-    per_step = {"kernel": "per_step"}
-    if B < 1 or H < 64 or H % 64:
-        return per_step
-    slices = H // LEAN_UNITS
-    m_tiles = -(-B // 64)
-    groups = max(-(-m_tiles // LEAN_MAX_TILES), min(m_tiles, sms // slices))
-    tiles = -(-m_tiles // groups)
-    stages = next((s for s in range(LEAN_MAX_STAGES, 1, -1)
-                   if lean_smem(H, tiles, s) <= SMEM_LIMIT), 0)
-    if groups * slices > sms or not stages:
-        return per_step
-    return {"kernel": "persistent", "groups": groups, "tiles": tiles, "slices": slices,
-            "grid": groups * slices, "stages": stages, "rows": groups * tiles * 64,
-            "smem": lean_smem(H, tiles, stages)}
-
-
-def lean_column_order(H: int) -> Tensor:
-    """(4H,) int64: the persistent kernel's order of the 4H gate columns.
-    Slot 64u + 16g + v holds column g·H + 16u + v (gate g of unit 16u + v),
-    so CTA u's 64 columns, [i(16) | g(16) | f(16) | o(16)] of its units, are
-    one contiguous slice."""
-    slot = torch.arange(4 * H)
-    u, g, v = slot // (4 * LEAN_UNITS), slot // LEAN_UNITS % 4, slot % LEAN_UNITS
-    return g * H + u * LEAN_UNITS + v
-
-
-def lean_weights(w_h: Tensor) -> Tensor:
-    """W_h (H, 4H) as the persistent kernel reads it: its columns in
-    ``lean_column_order`` as the rows of a (4H, H) array (K contiguous)."""
-    H = w_h.shape[0]
-    return w_h.t()[lean_column_order(H).to(w_h.device)].contiguous()
 
 
 def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
@@ -437,6 +384,86 @@ def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra):
     ] + extra, cseq.device, H)
 
 
+# The persistent gates-mode backward (csrc/lstm_layer_bwd_persistent.cu):
+# CTAs of a slice (the carry product's K split), hidden units of a slice,
+# rows of a row group (one wgmma tile), and the bytes of its W_h box (64
+# units x 64 K) and dgates box (64 rows x 64 K), both bf16.
+BWD_SPLIT, BWD_UNITS, BWD_ROWS = 8, 64, 64
+_BWD_WBOX, _BWD_ABOX = BWD_UNITS * 64 * 2, BWD_ROWS * 64 * 2
+
+
+def bwd_smem(H: int) -> int:
+    """Dynamic shared memory of the persistent backward: the resident W_h
+    slice (64 units' rows, an eighth of the 4H columns) and the same eighth
+    of a step's dgates (64 rows), 4H/512 boxes each, the mbarriers and the
+    1024-byte alignment slack (the kernel's ``smem_bytes``)."""
+    boxes = 4 * H // (64 * BWD_SPLIT)
+    return boxes * (_BWD_WBOX + _BWD_ABOX) + 8 * (2 + boxes) + 1024
+
+
+def bwd_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
+    """Which kernel runs the gates-mode backward at (B, H) on a card of
+    ``sms`` SMs, decided by shape alone.
+
+    The persistent kernel needs its whole grid co-resident, one CTA an SM:
+    ``groups`` row groups of 64 rows (one wgmma tile) times ``slices`` =
+    H/64 unit slices times 8 CTAs, each an eighth of K = 4H.  Each CTA holds
+    its eighth of the slice's W_h columns and streams the same eighth of a
+    step's dgates (``bwd_smem``).  Shapes it cannot take (H not a multiple
+    of 128, a grid larger than the card, a W_h slice and dgates eighth that
+    do not fit the shared memory) go to the per-step kernel.
+    Returns {"kernel": "persistent", "groups", "slices", "grid", "rows"
+    (the row groups' rows), "smem"} or {"kernel": "per_step"}."""
+    per_step = {"kernel": "per_step"}
+    if B < 1 or H < 128 or H % 128:
+        return per_step
+    groups, slices = -(-B // BWD_ROWS), H // BWD_UNITS
+    grid = groups * slices * BWD_SPLIT
+    if grid > sms or bwd_smem(H) > SMEM_LIMIT:
+        return per_step
+    return {"kernel": "persistent", "groups": groups, "slices": slices, "grid": grid,
+            "rows": groups * BWD_ROWS, "smem": bwd_smem(H)}
+
+
+def _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan, skip_barrier=0,
+                           stamps=None):
+    """The persistent backward on the plan's grid, overwriting ``gates``
+    with dgates; ``skip_barrier`` plants a fault (each CTA reads dgates
+    without waiting for the others), for checks; ``stamps``, a (T + 1, 4)
+    int64 tensor on the device, takes CTA 0's SM clock at four points of
+    each pass (the kernel's ``Args::stamps``), for studies.  Returns
+    (gates, dh0, dc0)."""
+    T, B, H = cseq.shape
+    dev = gates.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        if T == 0:
+            return gates, dh, dc
+        groups, slices = plan["groups"], plan["slices"]
+        part = torch.empty((groups, slices, BWD_SPLIT, BWD_ROWS, BWD_UNITS), dtype=f32,
+                           device=dev)
+        counter = torch.zeros((groups * (1 + slices),), dtype=torch.int32, device=dev)
+        fn = _lib_fn("lstm_layer_bwd_persistent", "rst_lstm_layer_bwd_persistent",
+                     [P] * 10 + [I] * 5 + [P, P])
+        rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), dh.data_ptr(), dc.data_ptr(), part.data_ptr(),
+                counter.data_ptr(), T, B, H, groups, skip_barrier,
+                None if stamps is None else stamps.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_layer_bwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    return gates, dh, dc
+
+
+def bwd_persistent_launches() -> int:
+    """Launches of the persistent backward so far, as its library counts
+    them at the launch site."""
+    fn = _build.load("lstm_layer_bwd_persistent").rst_layer_bwd_persistent_launches
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
 def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: Tensor,
                    w_h: Tensor, dhn: Tensor, dcn: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Gates-mode backward of one layer: dout (T, B, H) float32, the
@@ -444,13 +471,22 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
     initial c as the residual stores it (rounded to the residual dtype),
     mask (T, 1, B), w_h (H, 4H), dhn, dcn (B, H) float32.  ``gates`` is
     overwritten with dgates.  Returns (dgates (the ``gates`` tensor), dh0,
-    dc0); the kernel on a CUDA device, the plain version on the CPU."""
+    dc0); on a CUDA device the kernel ``bwd_plan`` picks by shape, the
+    persistent one (``persistent_launches`` adds the library's count of its
+    launches) or the per-step one; the plain version on the CPU."""
     if not gates.is_cuda:
         return recurrence_bwd_plain(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
     T, B, H = cseq.shape
     _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn,
                 [("gates", gates, bf16, (T, B, 4 * H))])
     dev = gates.device
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan["kernel"] == "persistent":
+        before = bwd_persistent_launches()
+        res = _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan)
+        recurrence_bwd.persistent_launches += bwd_persistent_launches() - before
+        recurrence_bwd.launches += 1
+        return res
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
         if T == 0:
@@ -468,6 +504,7 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
 
 
 recurrence_bwd.launches = 0
+recurrence_bwd.persistent_launches = 0
 
 
 def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tensor,

@@ -12,7 +12,11 @@ several accumulation windows; the recompute backward's rebuild product
 alone and the recompute backward at the edges of its chunks; the
 persistent recompute-mode forward at B=1 to 473 (and without its step
 barrier, a planted fault that must fail) and the per-step one past its
-plan; the redesigned CTC backward bit for bit on repeat.
+plan; the persistent gates-mode backward (row 6) and the inference
+recurrence on the persistent forward (row 2) at the layered step's and the
+serving batches and small ones, bit for bit on repeat, without their step
+barriers (planted faults), and the per-step kernels past their plans; the
+redesigned CTC backward bit for bit on repeat.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -37,8 +41,9 @@ kernel draws its plain version's bits: equal bit for bit.  The fbank
 kernel (an FFT) sums float32 products in another order than the plain
 version's DFT and mel matmuls: 2e-3 of the largest magnitude, the JAX
 package's limit for its own kernel.  The persistent recompute-mode forward
-keeps the per-step kernel's tolerances, relative to each output's largest
-magnitude: 8e-3 at T=16, 1.2e-2 longer.  The redesigned CTC backward sums
+and gates-mode backward keep the per-step kernels' tolerances, relative to
+each output's largest magnitude: 8e-3 at T=16, 1.2e-2 longer; the
+inference recurrence on the persistent forward keeps 2e-3.  The redesigned CTC backward sums
 the same posteriors in another fixed order: 1e-5.  The rebuild product sums the same bf16
 products in float32 in another order than its plain version: 1e-5
 relative Frobenius, and equal bit for bit on repeat.  The
@@ -874,7 +879,7 @@ def test_persistent_lean_forward_matches_plain(cuda, T, B):
     h flipped by the summation order propagates, as for the per-step
     kernel); equal bit for bit on repeat."""
     H, bf = 1024, torch.bfloat16
-    assert tlt.lean_plan(B, H)["kernel"] == "persistent"
+    assert trec.lean_plan(B, H)["kernel"] == "persistent"
     g = torch.Generator().manual_seed(T + B)
     lim = (6.0 / (5 * H)) ** 0.5
     lens = _lengths(T, B)
@@ -902,7 +907,7 @@ def test_lean_forward_past_the_plans_grid_runs_the_per_step_kernel(cuda):
     card's SMs: the plan sends it to the per-step kernel, which must still
     match the plain version (8e-3 at T=16)."""
     T, B, H, bf = 16, 600, 1024, torch.bfloat16
-    assert tlt.lean_plan(B, H)["kernel"] == "per_step"
+    assert trec.lean_plan(B, H)["kernel"] == "per_step"
     g = torch.Generator().manual_seed(5)
     lens = _lengths(T, B)
     mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(cuda)
@@ -929,7 +934,7 @@ def test_persistent_lean_forward_without_its_barrier_fails_the_check(cuda):
     w_h = ((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(cuda, bf)
     h0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
     c0 = (torch.randn((B, H), generator=g) * 0.2).to(cuda)
-    bad = tlt._lean_persistent_launch(xp, w_h, mask, h0, c0, tlt.lean_plan(B, H),
+    bad = tlt._lean_persistent_launch(xp, w_h, mask, h0, c0, trec.lean_plan(B, H),
                                       skip_barrier=1)
     ref = tlt.recurrence_train_lean_plain(xp, w_h, mask, h0, c0, bf)
     torch.cuda.synchronize()
@@ -965,3 +970,153 @@ def test_ctc_backward_kernels_match_plain_bit_for_bit_on_repeat(cuda, T, B, V, U
     assert torch.equal(post, again) and torch.equal(post_s, again_s)
     for a in (post, post_s):
         torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5)
+
+
+# ------------------ the persistent layered backward (row 6) and recurrence (row 2)
+
+
+def _bwd_case(T, B, H, seed, dev):
+    """The gates-mode backward's inputs on the plain forward's bf16
+    residuals: (dout, gates, cseq, c0 as the residual stores it, mask, w_h,
+    dhn, dcn), ragged lengths with a zero-length row.  W_h is
+    xavier-uniform, as the model initialises it (``_layer_inputs``' N(0,
+    0.1) at H=1024 makes the reverse carry grow ~1e8-fold over 512 steps,
+    where any two summation orders part)."""
+    bf = torch.bfloat16
+    x = _layer_inputs(T, B, H, H, seed=seed, dev=dev)
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w_h = ((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(dev, bf)
+    _, _, _, gates, cseq = tlt.recurrence_train_plain(x["x_proj"], w_h, x["mask"], x["h0"],
+                                                      x["c0"], bf)
+    return (x["dout"], gates, cseq, x["c0"].to(bf).float(), x["mask"], w_h, x["dhn"],
+            x["dcn"])
+
+
+@pytest.mark.parametrize("T,B,H", [(16, 64, 1024), (512, 64, 1024), (16, 5, 1024),
+                                   (9, 33, 128), (1, 64, 1024)])
+def test_persistent_bwd_matches_plain(cuda, T, B, H):
+    """The gates-mode backward on the persistent kernel (the plan's choice
+    at these shapes, counted at its launch site) against its plain version:
+    8e-3 of each output's largest magnitude at T <= 16, 1.2e-2 longer (a
+    bf16 rounding of a dgate flipped by the summation order propagates, as
+    for the per-step kernel); equal bit for bit on repeat; dgates in place
+    of the gates."""
+    assert tlt.bwd_plan(B, H)["kernel"] == "persistent"
+    dout, gates, *rest = _bwd_case(T, B, H, seed=T + B, dev=cuda)
+    ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
+    res = gates.clone()
+    before = tlt.recurrence_bwd.persistent_launches
+    got = tlt.recurrence_bwd(dout, res, *rest)
+    again = tlt.recurrence_bwd(dout, gates.clone(), *rest)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_bwd.persistent_launches - before == 2
+    assert got[0].data_ptr() == res.data_ptr()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_max(got, ref) <= (8e-3 if T <= 16 else 1.2e-2)
+    if B > 2:                                # the zero-length row: dh, dc pass through
+        assert not bool(got[0][:, 2].float().any())
+        assert torch.equal(got[2][2], rest[-1][2])
+
+
+def test_bwd_past_the_plans_grid_runs_the_per_step_kernel(cuda):
+    """B=70 at H=1024 needs two row groups, 256 CTAs, more than the card's
+    SMs: the plan sends it to the per-step kernel, which must still match
+    the plain version (8e-3 at T=16)."""
+    T, B, H = 16, 70, 1024
+    assert tlt.bwd_plan(B, H)["kernel"] == "per_step"
+    dout, gates, *rest = _bwd_case(T, B, H, seed=6, dev=cuda)
+    ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
+    before = tlt.recurrence_bwd.persistent_launches
+    got = tlt.recurrence_bwd(dout, gates, *rest)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_bwd.persistent_launches == before
+    assert _rel_max(got, ref) <= 8e-3
+
+
+def test_persistent_bwd_without_its_barrier_fails_the_check(cuda):
+    """The planted fault of chip_smoke.py: each CTA reads the step's dgates
+    without waiting for the others; the result must leave the tolerance
+    (and not hang)."""
+    T, B, H = 512, 64, 1024
+    dout, gates, *rest = _bwd_case(T, B, H, seed=7, dev=cuda)
+    ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
+    bad = tlt._bwd_persistent_launch(dout, gates, *rest, tlt.bwd_plan(B, H), skip_barrier=1)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2
+
+
+def _recurrence_case(T, B, H, seed, dev):
+    """The inference recurrence's arguments (x_proj, w_h, mask, h0, c0) with
+    ragged lengths and a zero-length row, W_h xavier-uniform as the model
+    initialises it (``_inputs``' N(0, 0.1) at H=1024 saturates the gates,
+    where a flipped bf16 rounding of h moves the outputs past 2e-3 on
+    either kernel)."""
+    x = _inputs(1, T, B, H, seed=seed, dev=dev)
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w_h = ((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(dev, torch.bfloat16)
+    return x["xp0"], w_h, x["mask"], x["h0"][0], x["c0"][0]
+
+
+@pytest.mark.parametrize("T,B,H", [(16, 1, 1024), (16, 5, 1024), (200, 128, 1024),
+                                   (64, 64, 1024), (9, 130, 128)])
+def test_persistent_recurrence_matches_plain(cuda, T, B, H):
+    """The inference recurrence on the persistent forward (f32 x_proj staged
+    by TMA; the plan's choice, counted at its launch site) against its
+    plain version within the inference kernels' 2e-3, bit for bit on
+    repeat."""
+    assert trec.lean_plan(B, H, x_f32=True)["kernel"] == "persistent"
+    args = _recurrence_case(T, B, H, seed=T + B + H, dev=cuda)
+    before = trec.lstm_recurrence.persistent_launches
+    got = trec.lstm_recurrence(*args)
+    again = trec.lstm_recurrence(*args)
+    ref = trec.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert trec.lstm_recurrence.persistent_launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(got, ref)
+    if B > 2:                                # the zero-length row keeps its state
+        assert torch.equal(got[1][2], args[3][2]) and not bool(got[0][:, 2].any())
+
+
+def test_persistent_recurrence_adds_x_proj_in_float32(cuda):
+    """x_proj is added in float32, as the TPU kernel adds it: at B=128,
+    T=16 the mean abs error of each output stays within chip_smoke.py's
+    XPROJ_MEAN_TOL, 6e-5 (the kernel's own sums and transcendentals give
+    ~1e-5), while the same kernel fed bf16(x_proj), what a kernel that
+    rounds it computes, leaves that bound (~3e-4).  The largest error alone
+    cannot tell them apart."""
+    T, B, H = 16, 128, 1024
+    x_proj, *rest = _recurrence_case(T, B, H, seed=13, dev=cuda)
+    ref = trec.lstm_recurrence_plain(x_proj, *rest)
+    got = trec.lstm_recurrence(x_proj, *rest)
+    bad = trec.lstm_recurrence(x_proj.to(torch.bfloat16).float(), *rest)
+    torch.cuda.synchronize()
+    mean = lambda res: max(float((g - r).abs().mean()) for g, r in zip(res, ref))
+    assert mean(got) <= 6e-5 < mean(bad)
+
+
+def test_recurrence_past_the_plans_grid_runs_the_per_step_kernel(cuda):
+    """B=400 at H=1024: four tiles a CTA leave no room for two ring stages
+    beside the f32 x_proj buffers; the per-step kernel runs, within 2e-3."""
+    T, B, H = 16, 400, 1024
+    assert trec.lean_plan(B, H, x_f32=True)["kernel"] == "per_step"
+    args = _recurrence_case(T, B, H, seed=11, dev=cuda)
+    before = trec.lstm_recurrence.persistent_launches
+    got = trec.lstm_recurrence(*args)
+    ref = trec.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert trec.lstm_recurrence.persistent_launches == before
+    _close(got, ref)
+
+
+def test_persistent_recurrence_without_its_barrier_fails_the_check(cuda):
+    """Each CTA reads h without waiting for the others: stale h must leave
+    the tolerance (and not hang)."""
+    T, B, H = 512, 128, 1024
+    args = _recurrence_case(T, B, H, seed=12, dev=cuda)
+    bad = trec._persistent_launch(*args, trec.lean_plan(B, H, x_f32=True), skip_barrier=1)
+    ref = trec.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert max(float((g - r).abs().max()) for g, r in zip(bad, ref)) > TOL

@@ -1,4 +1,4 @@
-"""The persistent lean forward's plan and layout (``ops/lstm_layer_train.py``:
+"""The persistent lean forward's plan and layout (``ops/lstm_recurrence.py``:
 ``lean_plan``, ``lean_column_order``, ``lean_weights``), on the CPU.  The
 kernel (``csrc/lstm_layer_lean.cu``) runs only on the card; what decides
 its grid, its shared memory and the order of W_h's columns is Python,
@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rnn_speech_tpu.ops import lstm_pallas as jpal
 from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
 
 SMEM_OPT_IN = 232448          # bytes of shared memory a block may use on the H100
 BF16 = dict(rtol=4e-3, atol=4e-3)
@@ -34,23 +35,23 @@ def test_plan_takes_the_persistent_kernel_and_fits(B, H):
     the persistent kernel on the H100's 132 SMs: the grid fits one CTA an
     SM, the row groups cover the batch, and the resident W_h slice and the
     h ring fit the shared memory; the same plan comes back on every call."""
-    plan = tlt.lean_plan(B, H)
+    plan = rec.lean_plan(B, H)
     assert plan["kernel"] == "persistent"
     assert plan["slices"] == H // 16 and plan["grid"] == plan["groups"] * plan["slices"]
-    assert plan["grid"] <= tlt.H100_SMS
-    assert 1 <= plan["tiles"] <= 4 and 2 <= plan["stages"] <= tlt.LEAN_MAX_STAGES
+    assert plan["grid"] <= rec.H100_SMS
+    assert 1 <= plan["tiles"] <= 4 and 2 <= plan["stages"] <= rec.LEAN_MAX_STAGES
     assert plan["rows"] == plan["groups"] * plan["tiles"] * 64 >= B
     assert plan["rows"] - B < plan["groups"] * 64            # no row group left empty
-    assert plan["smem"] == tlt.lean_smem(H, plan["tiles"], plan["stages"]) <= SMEM_OPT_IN
-    assert tlt.lean_smem(H, plan["tiles"], plan["stages"] + 1) > SMEM_OPT_IN or \
-        plan["stages"] == tlt.LEAN_MAX_STAGES
-    assert all(tlt.lean_plan(B, H) == plan for _ in range(3))
-    assert tlt.lean_plan(B, H, sms=tlt.H100_SMS) == plan
+    assert plan["smem"] == rec.lean_smem(H, plan["tiles"], plan["stages"]) <= SMEM_OPT_IN
+    assert rec.lean_smem(H, plan["tiles"], plan["stages"] + 1) > SMEM_OPT_IN or \
+        plan["stages"] == rec.LEAN_MAX_STAGES
+    assert all(rec.lean_plan(B, H) == plan for _ in range(3))
+    assert rec.lean_plan(B, H, sms=rec.H100_SMS) == plan
 
 
 def test_flagship_path_shapes_use_two_row_groups_of_four_tiles():
     for B in (400, 473):
-        plan = tlt.lean_plan(B, 1024)
+        plan = rec.lean_plan(B, 1024)
         assert (plan["groups"], plan["tiles"], plan["grid"], plan["stages"]) == (2, 4, 128, 3)
 
 
@@ -58,12 +59,12 @@ def test_flagship_path_shapes_use_two_row_groups_of_four_tiles():
                                      (64, 2176, 132), (0, 1024, 132)])
 def test_plan_sends_what_the_persistent_kernel_cannot_take_to_the_per_step_kernel(B, H, sms):
     """A grid larger than the card, H not a multiple of 64, or no batch."""
-    assert tlt.lean_plan(B, H, sms) == {"kernel": "per_step"}
+    assert rec.lean_plan(B, H, sms) == {"kernel": "per_step"}
 
 
 @pytest.mark.parametrize("H", [64, 128, 1024])
 def test_column_order_is_a_permutation_with_each_ctas_slice_contiguous(H):
-    perm = tlt.lean_column_order(H)
+    perm = rec.lean_column_order(H)
     inv = torch.argsort(perm)
     assert torch.equal(perm[inv], torch.arange(4 * H))
     assert torch.equal(inv[perm], torch.arange(4 * H))
@@ -88,9 +89,9 @@ def test_weights_and_tile_gates_undo_each_other():
     g = torch.Generator().manual_seed(0)
     w = torch.randint(-4, 5, (H, 4 * H), generator=g).float()
     h = torch.randint(-4, 5, (3, H), generator=g).float()
-    wp = tlt.lean_weights(w)
+    wp = rec.lean_weights(w)
     assert wp.shape == (4 * H, H) and wp.is_contiguous()
-    assert torch.equal(wp, w.t()[tlt.lean_column_order(H)])
+    assert torch.equal(wp, w.t()[rec.lean_column_order(H)])
     for got, want in zip(_tile_gates(h @ wp.t(), H), (h @ w).split(H, dim=-1)):
         assert torch.equal(got, want)
 
@@ -101,8 +102,8 @@ def _lean_forward_in_kernel_order(x_proj, w_h, mask, h0, c0):
     per CTA tile (``_tile_gates``)."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
-    perm = tlt.lean_column_order(H)
-    xp, wp = x_proj[..., perm], tlt.lean_weights(w_h).to(torch.float32).t()
+    perm = rec.lean_column_order(H)
+    xp, wp = x_proj[..., perm], rec.lean_weights(w_h).to(torch.float32).t()
     h, c = h0.clone(), c0.clone()
     out = torch.zeros((T, B, H))
     cseq = torch.empty((T, B, H), dtype=torch.bfloat16)

@@ -33,6 +33,7 @@ printing one JSON line:
            kernel's too.  Times the path's stages (frontend, forward,
            decode) on the stream, and each kernel at the path's shapes
            beside its bound, its plain version and torch.nn.LSTM (the
+           wavefront in turns with cuDNN's 3-layer forward; the
            recurrence, one call of the three a layered batch makes, in
            turns with cuDNN's one-layer forward, at B=128 and at B=1).
   train_kernels
@@ -60,7 +61,13 @@ printing one JSON line:
            the reverse diagonal with its fused dW_x at T=16 and 512, B=16
            and 96, drop modes 0 and 2 (dW_x per boundary, dgates, dh0 and
            dc0 against the plain version, and dgates, dh0, dc0 bit for bit
-           against the unfused pass).
+           against the unfused pass); the training forward on its
+           persistent kernel at B=64 (the plan's choice: bit for bit on
+           repeat in drop modes 0 and 2, mode 2 equal to mode 1 fed
+           ``random_bits.wavefront_masks``, beside the launch without its
+           counter waits) and at B=70, past its plan, on the per-diagonal
+           kernel, which is also held against the same plain results as
+           the persistent kernel at B=64 in all three drop modes and T.
            Planted faults stand beside the checks and must fail them.
   train    ``train_step`` with the default StepConfig (keep probabilities
            0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
@@ -72,13 +79,17 @@ printing one JSON line:
            stages``, CUDA events); the loss must be finite and the mean of
            the last 3 of the 12 steps below the first, and all seven
            training kernels' launch counters, zeroed before the phase,
-           non-zero after it, dgates_weight_grads' on the Hopper tile too.  Then ``eval_step`` with the CTC kernels
+           non-zero after it, dgates_weight_grads' on the Hopper tile and
+           the training forward's persistent kernel's too.  Then ``eval_step`` with the CTC kernels
            (the loss-only kernel must launch; its loss within the CTC
            tolerance of the scan CTC's), and the previous configuration
            (keep probabilities 1, scan CTC) for 3 timed steps.  Prints ms
            per step, utterances/s, peak memory, the stage split, each
            training kernel's time at the path's shapes beside its bound, its
-           plain version and one PyTorch call (dgates_weight_grads in turns
+           plain version and one PyTorch call (the training forward in
+           turns with cuDNN's 3-layer training forward, the reverse
+           diagonal with cuDNN's 3-layer backward without weight gradients,
+           with them beside, on one graph; dgates_weight_grads in turns
            with its yardstick and beside the WMMA tile, with TFLOP/s and
            the card's clocks; each CTC kernel in turns with its own half of
            F.ctc_loss, the forward or the backward alone, the pair
@@ -96,7 +107,9 @@ printing one JSON line:
            (the gates-mode backward on its persistent kernel, the plan's
            choice at B=64: bit for bit on repeat, beside the launch without
            its step barrier; and at B=70, past its plan, on the per-step
-           kernel);
+           kernel; the gates-mode forward likewise on its persistent kernel
+           at B=64 and at B=260 on the per-step kernel, the per-step kernel
+           also at B=64 and every T, on the persistent kernel's inputs);
            the recompute backward also at its route's batch (B=400 on the
            H100, T=512) and at a chunk edge of its rebuild (T one step
            past a chunk, B=70), and its rebuild product alone at one chunk
@@ -114,10 +127,10 @@ printing one JSON line:
            one split by its marks, the plan's estimate beside the
            measured peak memory (the backward must launch its rebuild
            products, the forward its persistent kernel; the layered step's
-           backward its persistent kernel); each layered
+           forward and backward their persistent kernels); each layered
            kernel's time at its route's shapes
            beside its bound, its plain version and torch.nn.LSTM (one
-           layer; the recompute forward in turns with its forward, the
+           layer; the forwards in turns with its forward, the
            backwards in turns with its backward without weight gradients,
            its backward with them beside), the recompute
            backward's rebuild products on the
@@ -188,10 +201,15 @@ printing one JSON line:
            plans) and without their step barriers; where the backward's
            step goes (CTA 0's SM clock at four points of each pass); how
            many clusters of 1, 2, 4 and 8 CTAs of the backward's size the
-           card co-schedules;
+           card co-schedules; the gates-mode forward (B=64, T=3510) and the
+           wavefront training forward (B=64, T=3510, drop mode 2) beside
+           the per-step and per-diagonal kernels, without their waits, and
+           where a step of each goes (SM-clock stamps);
            with ``--parent DIR`` (a checkout of the previous tree) the
-           recompute forward's outputs at T=512, B=400 and 473 there and
-           here, which must be equal bit for bit.
+           recompute forward's outputs at T=512, B=400 and 473, the
+           inference recurrence's at B=128, T=1024 and the two training
+           forwards' at B=64, T=512 there and here, which must be equal
+           bit for bit.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -809,7 +827,8 @@ def phase_eval():
         b1_turns = in_turns(_nn_lstm(one, 1, T, 1),
                             lambda: run_recurrence(one, rec.lstm_recurrence))
         inp = stack_inputs(T, B, L, [T] * B, seed=99)
-        ms = cuda_ms(lambda: run_wavefront(inp, wf.lstm_stack_wavefront))
+        wf_turns = in_turns(_nn_lstm(inp, L, T),
+                            lambda: run_wavefront(inp, wf.lstm_stack_wavefront))
         plain = cuda_ms(lambda: run_wavefront(inp, wf.lstm_stack_wavefront_plain),
                         iters=1)
         flops = 2 * T * B * H * 4 * H * (2 * L - 1)
@@ -817,9 +836,11 @@ def phase_eval():
                   + (L - 1) * 4 * H * 4 + T * B * 4 + 4 * L * B * H * 4
                   + T * B * H * 4)
         bound, by = _bounds(flops, nbytes)
-        timing["lstm_wavefront"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                        bound_by=by, library_ms=cuda_ms(_nn_lstm(inp, L, T)),
-                                        flops=flops, bytes=nbytes)
+        timing["lstm_wavefront"] = dict(
+            ms=wf_turns["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=wf_turns["library_ms"],
+            library=f"torch.nn.LSTM forward ({L} layers, in turns)", turns=wf_turns["turns"],
+            flops=flops, bytes=nbytes)
         turns = in_turns(_nn_lstm(inp, 1, T), lambda: run_recurrence(inp, rec.lstm_recurrence))
         plain = cuda_ms(lambda: run_recurrence(inp, rec.lstm_recurrence_plain),
                         iters=1)
@@ -1083,9 +1104,27 @@ def _drop(mode, T, Bn, seed):
     return (2, (seed * 7919 + 1, seed * 104729 + 3), 1.0 / KEEP_PROB, KEEP_PROB)
 
 
+def _per_diagonal_check(name, args, drop, ref, tol, checks):
+    """The per-diagonal training forward (csrc/lstm_wavefront_train.cu, the
+    wide step's kernel) launched past the plan on the inputs the plan sends
+    to the persistent kernel, against the same plain result ``ref``;
+    ``drop`` is ``_drop``'s tuple, or () for drop mode 0."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    mode, arr, scale, keep = drop or (0, None, 1.0, 1.0)
+    T, Bn = args[0].shape[:2]
+    launch = wf._drop_launch_args(mode, arr, keep, scale, (L - 1, T, Bn, H), args[0].device)
+    got = wf._per_diagonal_launch(*args, (mode, *launch))
+    torch.cuda.synchronize()
+    _rel_check(f"{name} per-diagonal kernel (launched past the plan)", got, ref, tol, checks)
+
+
 def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
     """Both wavefront kernels in drop modes 1 and 2 against their plain
-    versions, with the backward's xdrop streams; beside mode 2, the plain
+    versions, with the backward's xdrop streams, the training forward on
+    the plan's kernel and on the per-diagonal one; beside mode 2, the plain
     backward fed the neighbouring boundary's bits (boundary l+1's instead
     of l's) must fail the check."""
     import torch
@@ -1104,6 +1143,7 @@ def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
         worst["wavefront_train"] = max(worst["wavefront_train"], _rel_check(
             f"wavefront_train mode {mode} {tag}", got, ref, tol, checks))
         del got
+        _per_diagonal_check(f"wavefront_train mode {mode} {tag}", args, drop, ref, tol, checks)
         b_in = _bwd_inputs(inp, *ref[:3], seed=seed + mode)
         plain_args = lambda: [b_in[k].clone() for k in BWD_ARGS] + [ref[0]]
         ref_b = wf.wavefront_bwd_plain(*plain_args(), *drop)
@@ -1119,6 +1159,88 @@ def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
         worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
             f"wavefront_bwd mode {mode} {tag}", got_b, ref_b, tol, checks))
         del ref, ref_b, got_b, b_in
+
+
+def _wavefront_persistent_checks(inp, tag, tol, checks, worst, seed):
+    """The training forward on its persistent kernel (row 3:
+    csrc/lstm_wavefront_persistent.cu) at the default step's batch: the
+    plan's choice, launched (counted at its library's launch site), bit for
+    bit on repeat in drop modes 0 and 2, beside the same launch without its
+    counter waits (stale rings), which must fail ``tol`` against the plain
+    result; and its mode-2 residuals equal to the same kernel's in mode 1
+    fed ``random_bits.wavefront_masks`` of the same seed words (the bits the
+    backward regenerates)."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.ops import random_bits
+
+    bf = torch.bfloat16
+    args = [inp[k] for k in FWD_ARGS]
+    T, Bn = inp["x"].shape[:2]
+    plan = wf.wavefront_plan(Bn, H, L, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"wavefront_train {tag}: the plan does not send the default step's batch to the "
+             f"persistent kernel: {plan}")
+    before = wf.wavefront_train.persistent_launches
+    drop = _drop(2, T, Bn, seed)
+    for mode, d in ((0, ()), (2, drop)):
+        got, again = wf.wavefront_train(*args, bf, *d), wf.wavefront_train(*args, bf, *d)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        checks.append({"check": f"wavefront_train mode {mode} {tag} persistent (grid "
+                                f"{plan['grid']}): bit for bit on repeat", "equal": same})
+        if not same:
+            fail(f"wavefront_train mode {mode} {tag}: two calls on the same inputs differ")
+        del again
+        if mode == 2:
+            masks = random_bits.wavefront_masks(drop[1], L - 1, T, Bn, H, KEEP_PROB, DEVICE)
+            fed = wf.wavefront_train(*args, bf, 1, masks, drop[2], 1.0)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, fed))
+            checks.append({"check": f"wavefront_train {tag} persistent: mode 2 equal to mode 1 "
+                                    "fed wavefront_masks", "equal": same})
+            if not same:
+                fail(f"wavefront_train {tag}: mode 2 differs from mode 1 fed its bits")
+            del masks, fed
+        del got
+    launched = wf.wavefront_train.persistent_launches - before
+    if launched != 5:
+        fail(f"wavefront_train {tag}: {launched} persistent launches in five calls")
+    ref = wf.wavefront_train_plain(*args, bf)
+    bad = wf._persistent_launch(*args, (0, None, 0, 0, 0, 1.0), plan, skip_waits=1)
+    torch.cuda.synchronize()
+    _fault_check(f"wavefront_train {tag}: counter waits left out (stale rings)", bad, ref, tol,
+                 checks)
+    del ref, bad
+
+
+def _wavefront_past_plan_check(checks, worst):
+    """The training forward at B=70 (past one 64-row tile) on the
+    per-diagonal kernel, the plan's choice, against its plain version at
+    T=16 in drop modes 0 and 2 (ragged lengths, a zero-length row): no
+    persistent launch."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    bf, T, Bn = torch.bfloat16, 16, 70
+    plan = wf.wavefront_plan(Bn, H, L, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "per_diagonal":
+        fail(f"wavefront_train B={Bn}: expected the per-diagonal kernel past the plan, got {plan}")
+    lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
+    inp = _train_inputs(T, Bn, lens, seed=48)
+    args = [inp[k] for k in FWD_ARGS]
+    before = wf.wavefront_train.persistent_launches
+    for mode, d in ((0, ()), (2, _drop(2, T, Bn, 49))):
+        got = wf.wavefront_train(*args, bf, *d)
+        ref = wf.wavefront_train_plain(*args, bf, *d)
+        torch.cuda.synchronize()
+        worst["wavefront_train"] = max(worst["wavefront_train"], _rel_check(
+            f"wavefront_train mode {mode} L={L} B={Bn} T={T} past the plan (per-diagonal "
+            "kernel)", got, ref, TRAIN_TOL_SHORT, checks))
+    if wf.wavefront_train.persistent_launches != before:
+        fail(f"wavefront_train B={Bn}: ran the persistent kernel past its plan")
 
 
 FUSED_CHECK_B = (16, 96)   # batches of the fused dW_x's checks (on from B=83 at T=3510)
@@ -1338,6 +1460,7 @@ def phase_train_kernels():
         worst["wavefront_train"] = max(worst["wavefront_train"], _rel_check(
             f"wavefront_train {tag}", got, ref, tol, checks))
         del got
+        _per_diagonal_check(f"wavefront_train {tag}", args, (), ref, tol, checks)
         b_nof = inp["b_all"].clone()
         b_nof[:, f_cols] -= 1.0                      # the forget gate's +1 left out
         _fault_check(f"wavefront_train {tag}: forget-gate +1 left out",
@@ -1360,7 +1483,9 @@ def phase_train_kernels():
             f"wavefront_bwd {tag}", got_b, ref_b, tol, checks))
         del ref, got_b, ref_b, b_in
         _drop_mode_checks(inp, tag, tol, checks, worst, seed=60 + i)
+        _wavefront_persistent_checks(inp, tag, tol, checks, worst, seed=65 + i)
         del inp
+    _wavefront_past_plan_check(checks, worst)
     _fused_checks(checks, worst)
 
     N = TRAIN_T * TRAIN_B
@@ -1603,9 +1728,11 @@ def _path_counters():
     fused pass; the wide step), the fused pass's window products and the
     recompute backward's gate rebuilds (one per chunk; the recompute
     steps); and the persistent kernels' launches (wgmma on a resident W_h):
-    the lean forward (csrc/lstm_layer_lean.cu; the recompute steps) and the
+    the lean forward (csrc/lstm_layer_lean.cu; the recompute steps), the
+    gates-mode forward (its gates instance; the layered steps), the
     gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
-    steps)."""
+    steps) and the wavefront training forward
+    (csrc/lstm_wavefront_persistent.cu; the default steps)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1615,7 +1742,9 @@ def _path_counters():
             "fused_windows": wf.wavefront_bwd.wgmma_products,
             "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches,
             "lean_persistent": tlt.recurrence_train_lean.persistent_launches,
-            "bwd_persistent": tlt.recurrence_bwd.persistent_launches}
+            "bwd_persistent": tlt.recurrence_bwd.persistent_launches,
+            "train_persistent": tlt.recurrence_train.persistent_launches,
+            "wavefront_persistent": wf.wavefront_train.persistent_launches}
 
 
 def _zero_path_counters():
@@ -1628,6 +1757,8 @@ def _zero_path_counters():
     tlt.recurrence_bwd_recompute.rebuild_launches = 0
     tlt.recurrence_train_lean.persistent_launches = 0
     tlt.recurrence_bwd.persistent_launches = 0
+    tlt.recurrence_train.persistent_launches = 0
+    wf.wavefront_train.persistent_launches = 0
 
 
 @contextlib.contextmanager
@@ -1819,34 +1950,17 @@ def phase_grad_study():
     emit("grad_study", readings=readings, recompute=recompute, alt_routes=alt)
 
 
-def _nn_lstm_train_ms(T, n_layers=L, Bn=TRAIN_B):
-    """torch.nn.LSTM (cuDNN, bf16, n_layers x 1024) forward on an input
-    that needs its gradient, and its backward (which also computes the
-    weight gradients), at T steps and Bn rows: timed as a yardstick only."""
-    import torch
-
-    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
-    m.flatten_parameters()
-    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16,
-                    requires_grad=True)
-    fwd = cuda_ms(lambda: m(x), iters=2)
-    y, _ = m(x)
-    dy = torch.randn_like(y)
-    inputs = [x, *m.parameters()]
-    bwd = cuda_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True), iters=2)
-    return fwd, bwd
-
-
-def _nn_lstm_backward(T, Bn):
-    """Two calls of torch.nn.LSTM's (cuDNN, bf16, one layer of 1024)
+def _nn_lstm_backward(T, Bn, n_layers=1):
+    """Two calls of torch.nn.LSTM's (cuDNN, bf16, n_layers of 1024)
     backward on one forward graph at T steps and Bn rows, yardsticks only:
     (without weight gradients, with them).  The first asks
     torch.autograd.grad for the input's gradient alone, so autograd masks
     the weights' out of cuDNN's backward; it still computes
-    dx = dgates·W_ihᵀ, which the layer kernels leave to a matmul."""
+    dx = dgates·W_ihᵀ (of layer 0, which the kernels leave to a matmul;
+    between layers the reverse diagonal forms it too)."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=1).to(DEVICE, torch.bfloat16)
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
     m.flatten_parameters()
     x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
     y, _ = m(x)
@@ -1856,13 +1970,13 @@ def _nn_lstm_backward(T, Bn):
             lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
 
 
-def _nn_lstm_forward(T, Bn):
-    """One call of torch.nn.LSTM's (cuDNN, bf16, one layer of 1024) forward
-    on an input that needs its gradient, at T steps and Bn rows: a
-    yardstick only."""
+def _nn_lstm_forward(T, Bn, n_layers=1):
+    """One call of torch.nn.LSTM's (cuDNN, bf16, n_layers of 1024) forward
+    on an input that needs its gradient (cuDNN's training forward, which
+    keeps its own residuals), at T steps and Bn rows: a yardstick only."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=1).to(DEVICE, torch.bfloat16)
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
     m.flatten_parameters()
     x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
     return lambda: m(x)
@@ -1874,7 +1988,12 @@ def _train_kernel_timing(state):
     Times are per train step: one call of the two wavefront kernels (drop
     mode 2, the default step's; mode 0 timed beside it as ``ms_mode0``), L
     calls of dgates_weight_grads, two calls of weight_grad (input and
-    output projection).  dgates_weight_grads is timed in turns with its
+    output projection).  The training forward is timed in turns with
+    cuDNN's L-layer training forward and with the per-diagonal kernel the
+    plan replaces at this shape (``per_diagonal_ms``), the reverse diagonal in turns with
+    cuDNN's L-layer backward without weight gradients (``library_ms``; the
+    kernel leaves them to dgates_weight_grads) and with them
+    (``library_wgrad_ms``), both on one forward graph.  dgates_weight_grads is timed in turns with its
     library yardstick (two torch.mm with float32 results and a float32
     column sum), beside the card's clocks, and beside the WMMA tile at
     the same shape (``wmma_ms_per_call``); each product reports its
@@ -1891,10 +2010,17 @@ def _train_kernel_timing(state):
     inp = _train_inputs(T, Bn, [T] * Bn, seed=70)
     args = [inp[k] for k in FWD_ARGS]
     out = {}
-    lib_fwd, lib_bwd = _nn_lstm_train_ms(T)
     drop = _drop(2, T, Bn, 72)
     ms0 = cuda_ms(lambda: wf.wavefront_train(*args, bf), iters=2)
-    ms = cuda_ms(lambda: wf.wavefront_train(*args, bf, *drop), iters=2)
+
+    def per_diagonal():                              # the design the plan replaces here
+        with mock.patch.object(wf, "wavefront_plan", lambda *a: {"kernel": "per_diagonal"}):
+            return wf.wavefront_train(*args, bf, *drop)
+
+    turns = in_turns(_nn_lstm_forward(T, Bn, L), lambda: wf.wavefront_train(*args, bf, *drop),
+                     iters=2, per_diagonal=per_diagonal)
+    ms = turns["ms"]
+    torch.cuda.empty_cache()
     plain = cuda_ms(lambda: wf.wavefront_train_plain(*args, bf, *drop), iters=1,
                     warmup=0)
     flops = 2 * T * Bn * H * G * 2 * L
@@ -1902,8 +2028,14 @@ def _train_kernel_timing(state):
               + T * Bn * 4 + 2 * L * Bn * H * 4            # inputs
               + L * T * Bn * (H + G + H) * 2 + 2 * L * Bn * H * 4)   # outputs
     bound, by = _bounds(flops, nbytes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out["wavefront_train"] = dict(ms=ms, ms_mode0=ms0, plain_ms=plain, bound_ms=bound,
-                                  bound_by=by, library_ms=lib_fwd, flops=flops,
+                                  bound_by=by, library_ms=turns["library_ms"],
+                                  library=f"torch.nn.LSTM training forward ({L} layers, in "
+                                  "turns)", per_diagonal_ms=turns["per_diagonal_ms"],
+                                  turns=turns["turns"],
+                                  us_per_diagonal=1e3 * ms / (T + L - 1),
+                                  plan=wf.wavefront_plan(Bn, H, L, H, sms), flops=flops,
                                   bytes=nbytes)
 
     outs, gates, cseq, _, _ = wf.wavefront_train(*args, bf, *drop)
@@ -1913,7 +2045,12 @@ def _train_kernel_timing(state):
     pargs = [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS]
     bargs = [b_in[k] for k in BWD_ARGS]
     ms0 = cuda_ms(lambda: wf.wavefront_bwd(*bargs), iters=2)
-    ms = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2)
+    no_dw, with_dw = _nn_lstm_backward(T, Bn, L)
+    turns = in_turns(no_dw, lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2,
+                     library_wgrad=with_dw)
+    del no_dw, with_dw
+    ms = turns["ms"]
+    torch.cuda.empty_cache()
     plain = cuda_ms(lambda: wf.wavefront_bwd_plain(*pargs, outs, *drop), iters=1,
                     warmup=0)
     flops = 2 * T * Bn * H * G * (2 * L - 1)
@@ -1924,9 +2061,11 @@ def _train_kernel_timing(state):
               + (L - 1) * T * Bn * H * 2)                           # xdrop
     bound, by = _bounds(flops, nbytes)
     out["wavefront_bwd"] = dict(ms=ms, ms_mode0=ms0, plain_ms=plain, bound_ms=bound,
-                                bound_by=by,
-                                library_ms=lib_bwd, library="torch.nn.LSTM backward "
-                                "(with its weight gradients)", flops=flops, bytes=nbytes)
+                                bound_by=by, library_ms=turns["library_ms"],
+                                library=f"torch.nn.LSTM backward ({L} layers, without weight "
+                                "gradients, in turns)",
+                                library_wgrad_ms=turns["library_wgrad_ms"],
+                                turns=turns["turns"], flops=flops, bytes=nbytes)
 
     h_prev = torch.cat([inp["h0"][0].to(bf)[None], outs[0, :-1]]).reshape(N, H)
     x2, dg2 = outs[1].reshape(N, H), pargs[BWD_ARGS.index("gates")][0].reshape(N, G)
@@ -2210,6 +2349,8 @@ def phase_train():
     default, state = _run_steps(scfg, state, batch, reps=3, record_stages=True)
     if not default["wgmma_launches"]["dgates_weight_grads"]:
         fail(f"train: dgates_weight_grads never ran the Hopper tile: {default['wgmma_launches']}")
+    if not default["wgmma_launches"]["wavefront_persistent"]:
+        fail("train: the forward never ran the persistent wavefront kernel")
     losses = default["losses"]
     if not sum(losses[-3:]) / 3 < losses[0]:
         fail(f"train: the mean of the last 3 losses is not below the first: {losses}")
@@ -2303,6 +2444,8 @@ def _layer_kernel_checks(checks, worst, rec_B):
             torch.cuda.synchronize()
             worst[name] = max(worst[name], _rel_check(f"{name} {tag}", got, ref, tol, checks))
             del got
+            if not lean:
+                _train_persistent_checks(f"{name} {tag}", xp, tail, ref, tol, checks)
             xp_nof = xp.clone()
             xp_nof[..., f_cols] -= 1.0
             _fault_check(f"{name} {tag}: forget-gate +1 left out", fwd_plain(xp_nof, *tail),
@@ -2336,6 +2479,7 @@ def _layer_kernel_checks(checks, worst, rec_B):
         del inp
 
     _bwd_past_plan_check(checks)
+    _train_past_plan_check(checks)
     name = "recurrence_bwd_recompute"
     edge_T = tlt.rebuild_chunk(TRAIN_T, 70, H) + 1
     for i, (T, Bn) in enumerate(((512, rec_B), (edge_T, 70))):
@@ -2361,6 +2505,71 @@ def _layer_kernel_checks(checks, worst, rec_B):
                                                   TRAIN_TOL_LONG, checks))
         del inp, args, no_bias, ref_b, got_b, h_prev, cseq
     worst["rebuild_gates"] = _rebuild_product_check(checks, rec_B)
+
+
+def _train_persistent_checks(tag, xp, tail, ref, tol, checks):
+    """The gates-mode forward at the layered step's batch on its persistent
+    kernel (row 5: csrc/lstm_layer_lean.cu's gates instance): the plan's
+    choice, launched (counted at its library's launch site), bit for bit on
+    repeat, beside the same launch without its step barrier (stale h),
+    which must fail ``tol`` against the plain result ``ref``; and the
+    per-step kernel (csrc/lstm_layer_train.cu) launched past the plan on
+    the same inputs, against ``ref``."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    B_ = xp.shape[1]
+    plan = tlt.lean_plan(B_, H, torch.cuda.get_device_properties(0).multi_processor_count,
+                         x_f32=True)
+    if plan["kernel"] != "persistent":
+        fail(f"{tag}: the plan does not send the layered step's batch to the persistent "
+             f"forward: {plan}")
+    before = tlt.recurrence_train.persistent_launches
+    got, again = tlt.recurrence_train(xp, *tail), tlt.recurrence_train(xp, *tail)
+    torch.cuda.synchronize()
+    launched = tlt.recurrence_train.persistent_launches - before
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    checks.append({"check": f"{tag} persistent (grid {plan['grid']}): bit for bit on repeat",
+                   "equal": same, "persistent_launches": launched})
+    if launched != 2:
+        fail(f"{tag}: {launched} persistent launches in two calls")
+    if not same:
+        fail(f"{tag}: two calls on the same inputs differ")
+    del got, again
+    _fault_check(f"{tag}: step barrier left out (stale h)",
+                 tlt._train_persistent_launch(xp, *tail[:4], plan, skip_barrier=1), ref, tol,
+                 checks)
+    got = tlt._forward_launch("lstm_layer_train", xp, *tail, True)
+    torch.cuda.synchronize()
+    _rel_check(f"{tag} per-step kernel (launched past the plan)", got, ref, tol, checks)
+
+
+def _train_past_plan_check(checks):
+    """The gates-mode forward at B=260 (two row groups of three tiles: no
+    ring stage fits beside the W_h slice and the f32 x_proj buffers) on the
+    per-step kernel, the plan's choice, against its plain version at T=16,
+    ragged lengths with a zero-length row: no persistent launch."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T, Bn = torch.bfloat16, 16, 260
+    plan = tlt.lean_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count,
+                         x_f32=True)
+    if plan["kernel"] != "per_step":
+        fail(f"recurrence_train B={Bn}: expected the per-step kernel past the plan, got {plan}")
+    lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
+    inp = _layer_inputs(T, Bn, lens, seed=148)
+    tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+    before = tlt.recurrence_train.persistent_launches
+    got = tlt.recurrence_train(inp["x_proj"], *tail)
+    ref = tlt.recurrence_train_plain(inp["x_proj"], *tail)
+    torch.cuda.synchronize()
+    _rel_check(f"recurrence_train H={H} B={Bn} T={T} past the plan (per-step kernel)", got, ref,
+               TRAIN_TOL_SHORT, checks)
+    if tlt.recurrence_train.persistent_launches != before:
+        fail(f"recurrence_train B={Bn}: ran the persistent kernel past its plan")
 
 
 def _bwd_persistent_checks(tag, dout, gates, cseq, c0r, btail, ref, tol, checks):
@@ -2553,10 +2762,12 @@ def phase_lean_study():
     emit("lean_study", **out)
 
 
-# Row 7's outputs on seeded inputs at T=512 and the recompute batches, as a
-# SHA-256 of their bytes, by whichever package lies in the working directory
-# (run in this checkout and in ``--parent``'s by ``persistent_study``).
-_ROW7_DIGEST = r"""
+# Row 7's outputs on seeded inputs at T=512 and the recompute batches, row
+# 2's at B=128, T=1024, and rows 5 and 3's at B=64, T=512 (row 3 in drop
+# mode 2), as a SHA-256 of their bytes, by whichever package lies in the
+# working directory (run in this checkout and in ``--parent``'s by
+# ``persistent_study``), each with its persistent launches.
+_PERSISTENT_DIGEST = r"""
 import hashlib, json, sys
 import torch
 sys.path.insert(0, ".")
@@ -2575,15 +2786,51 @@ for B in (400, 473):
         digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     print(json.dumps({"B": B, "sha256": digest.hexdigest(),
                       "persistent": tlt.recurrence_train_lean.persistent_launches}))
+# Row 2 (the inference recurrence on f32 x_proj) at the serving shape.
+from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+B, T = 128, 1024
+g = torch.Generator(device="cuda").manual_seed(B)
+xp = torch.randn((T, B, 4 * H), generator=g, device="cuda") * 0.5
+w_h = ((torch.rand((H, 4 * H), generator=g, device="cuda") * 2 - 1) * 0.035).to(bf)
+h0 = torch.randn((B, H), generator=g, device="cuda") * 0.2
+c0 = torch.randn((B, H), generator=g, device="cuda") * 0.2
+lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+mask = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()[:, None, :]
+digest = hashlib.sha256()
+for t in rec.lstm_recurrence(xp, w_h, mask, h0, c0):
+    digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+print(json.dumps({"B": "row2", "sha256": digest.hexdigest(),
+                  "persistent": rec.lstm_recurrence.persistent_launches}))
+# Rows 5 and 3 (the training forwards) at the default steps' batch.
+from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+B, T, L = 64, 512, 3
+g = torch.Generator(device="cuda").manual_seed(B)
+w = lambda *s: ((torch.rand(s, generator=g, device="cuda") * 2 - 1) * 0.035).to(bf)
+r = lambda *s: torch.randn(s, generator=g, device="cuda") * 0.2
+lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+mask = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()[:, None, :]
+xp = torch.randn((T, B, 4 * H), generator=g, device="cuda") * 0.5
+x = torch.randn((T, B, H), generator=g, device="cuda").to(bf)
+stack = (x, w(H, 4 * H), w(L, H, 4 * H), w(L - 1, H, 4 * H), r(L, 4 * H), mask,
+         r(L, B, H), r(L, B, H), bf, 2, (11, 13), 1.25, 0.8)
+for name, fn, args in (("row5", tlt.recurrence_train, (xp, w(H, 4 * H), mask, r(B, H),
+                                                         r(B, H), bf)),
+                       ("row3", wf.wavefront_train, stack)):
+    digest = hashlib.sha256()
+    for t in fn(*args):
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(json.dumps({"B": name, "sha256": digest.hexdigest(),
+                      "persistent": getattr(fn, "persistent_launches", 0)}))
 """
 
 
-def _row7_digests(root):
-    """{B: (sha256, persistent launches)} of ``_ROW7_DIGEST`` run in ``root``."""
-    res = subprocess.run([sys.executable, "-c", _ROW7_DIGEST], cwd=root, capture_output=True,
+def _persistent_digests(root):
+    """{B: (sha256, persistent launches)} of ``_PERSISTENT_DIGEST`` run in ``root``."""
+    res = subprocess.run([sys.executable, "-c", _PERSISTENT_DIGEST], cwd=root,
+                         capture_output=True,
                          text=True, timeout=600)
     if res.returncode != 0:
-        fail(f"persistent_study: row 7's digest in {root} failed:\n{res.stderr[-2000:]}")
+        fail(f"persistent_study: the digests in {root} failed:\n{res.stderr[-2000:]}")
     rows = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
     return {r["B"]: (r["sha256"], r["persistent"]) for r in rows}
 
@@ -2601,16 +2848,9 @@ def _bwd_step_breakdown(args, plan):
     stamps = torch.zeros((T + 1, 4), dtype=torch.int64, device=DEVICE)
     tlt._bwd_persistent_launch(*args, plan, stamps=stamps)
     torch.cuda.synchronize()
-    smi = smi_clocks()
-    st, mid = stamps.cpu().double(), torch.arange(1, T)
-    med = lambda v: float(v.median())
-    cycles = {"a_stream_and_product": med(st[mid, 1] - st[mid, 0]),
-              "partial_exchange": med(st[mid, 2] - st[mid, 1]),
-              "partial_sum_cell_and_arrive": med(st[mid, 3] - st[mid, 2]),
-              "step_barrier": med(st[mid + 1, 0] - st[mid, 3]),
-              "step": med(st[mid + 1, 0] - st[mid, 0])}
-    mhz = float(smi.split(" MHz")[0])
-    return dict(cycles=cycles, smi=smi, us={k: v / mhz for k, v in cycles.items()})
+    return _stamp_breakdown(stamps, ("a_stream_and_product", "partial_exchange",
+                                     "partial_sum_cell_and_arrive", "step_barrier"),
+                            torch.arange(1, T))
 
 
 def phase_persistent_study(parent=None):
@@ -2622,7 +2862,8 @@ def phase_persistent_study(parent=None):
     at four points of each pass); how many clusters of 1, 2, 4 and 8 CTAs
     of the backward's size the card co-schedules (the reason its K split
     meets through L2); and, given ``parent`` (a checkout of the previous tree),
-    row 7's outputs there and here, which must be equal bit for bit."""
+    rows 7, 2, 5 and 3's outputs there and here (``_PERSISTENT_DIGEST``),
+    which must be equal bit for bit."""
     import ctypes
     from unittest import mock
 
@@ -2669,14 +2910,95 @@ def phase_persistent_study(parent=None):
         row["us_per_step"] = 1e3 * row["ms_per_call"] / T
         out[f"lstm_recurrence B={Bn} T={T}"] = row
         del x, call
+    torch.cuda.empty_cache()
+    out.update(_forward_studies(sms))
     if parent is not None:
-        here, there = _row7_digests(ROOT), _row7_digests(os.path.abspath(parent))
-        out["row7_against_parent"] = {"parent": parent, "here": here, "parent_digests": there}
-        if set(here) != {400, 473} or any(here[b][0] != there[b][0] for b in here):
-            fail(f"persistent_study: row 7's outputs differ from the parent's: {here} {there}")
+        here, there = _persistent_digests(ROOT), _persistent_digests(os.path.abspath(parent))
+        out["digests_against_parent"] = {"parent": parent, "here": here,
+                                         "parent_digests": there}
+        if set(here) != {400, 473, "row2", "row5", "row3"} or any(
+                here[b][0] != there.get(b, ("",))[0] for b in here):
+            fail(f"persistent_study: rows 7, 2, 5 and 3's outputs differ from the parent's: "
+                 f"{here} {there}")
         if not all(v[1] for v in list(here.values()) + list(there.values())):
-            fail("persistent_study: row 7's digests did not run the persistent kernel")
+            fail("persistent_study: the digests did not all run the persistent kernels")
     emit("persistent_study", **out)
+
+
+def _stamp_breakdown(stamps, names, mid):
+    """Medians over the steps ``mid`` of the gaps between consecutive SM
+    clock stamps (``stamps`` (steps, k) int64 on the device, each step's k
+    points; the last gap runs to the next step's first point), in cycles
+    and in µs at the SM clock nvidia-smi reads right after."""
+    smi = smi_clocks()
+    st = stamps.cpu().double()
+    k = st.shape[1]
+    med = lambda v: float(v.median())
+    cycles = {names[i]: med(st[mid, i + 1] - st[mid, i]) for i in range(k - 1)}
+    cycles[names[k - 1]] = med(st[mid + 1, 0] - st[mid, k - 1])
+    cycles["step"] = med(st[mid + 1, 0] - st[mid, 0])
+    mhz = float(smi.split(" MHz")[0])
+    return dict(cycles=cycles, smi=smi, us={n: v / mhz for n, v in cycles.items()})
+
+
+def _forward_studies(sms):
+    """Rows 5 and 3 beside the designs they replace (persistent_study): the
+    gates-mode forward at B=64, T=3510 (one call) and the wavefront training
+    forward at B=64, T=3510 in drop mode 2 (one pass), each on its
+    persistent kernel, on the per-step or per-diagonal kernel (forced
+    through its plan) and without its waits (wrong results: their share),
+    and where a step goes by SM-clock stamps: row 5's CTA 0 at four points
+    (barrier passed, product done, cell stored, arrived), row 3's top layer's
+    first CTA at five (step begun, x product done, first h box landed, h
+    product done, cell stored and published)."""
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    bf, T, Bn = torch.bfloat16, TRAIN_T, TRAIN_B
+    out = {}
+    inp = _layer_inputs(T, Bn, [T] * Bn, seed=173)
+    args = (inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"])
+    plan = tlt.lean_plan(Bn, H, sms, x_f32=True)
+    row = dict(plan=plan, ms_per_call=cuda_ms(lambda: tlt.recurrence_train(*args, bf), iters=2))
+    with mock.patch.object(tlt, "lean_plan", lambda *a, **k: {"kernel": "per_step"}):
+        row["per_step_ms_per_call"] = cuda_ms(lambda: tlt.recurrence_train(*args, bf), iters=2)
+    row["no_barrier_ms_per_call"] = cuda_ms(
+        lambda: tlt._train_persistent_launch(*args, plan, skip_barrier=1), iters=2)
+    row["us_per_step"] = 1e3 * row["ms_per_call"] / T
+    stamps = torch.zeros((T + 1, 4), dtype=torch.int64, device=DEVICE)
+    tlt._train_persistent_launch(*args, plan, stamps=stamps)
+    torch.cuda.synchronize()
+    row["step_breakdown"] = _stamp_breakdown(
+        stamps[:T], ("product", "cell_and_stores", "arrive", "step_barrier"),
+        torch.arange(1, T - 1))
+    out[f"recurrence_train B={Bn} T={T}"] = row
+    del inp, args, stamps
+    torch.cuda.empty_cache()
+
+    inp = _train_inputs(T, Bn, [T] * Bn, seed=174)
+    fargs = [inp[k] for k in FWD_ARGS]
+    drop = _drop(2, T, Bn, 175)
+    plan = wf.wavefront_plan(Bn, H, L, H, sms)
+    run = lambda: wf.wavefront_train(*fargs, bf, *drop)
+    row = dict(plan=plan, ms_per_pass=cuda_ms(run, iters=2))
+    with mock.patch.object(wf, "wavefront_plan", lambda *a, **k: {"kernel": "per_diagonal"}):
+        row["per_diagonal_ms_per_pass"] = cuda_ms(run, iters=2)
+    launch = wf._drop_launch_args(2, drop[1], drop[3], drop[2], None, None)
+    row["no_waits_ms_per_pass"] = cuda_ms(
+        lambda: wf._persistent_launch(*fargs, (2, *launch), plan, skip_waits=1), iters=2)
+    row["us_per_diagonal"] = 1e3 * row["ms_per_pass"] / (T + L - 1)
+    stamps = torch.zeros((T, 5), dtype=torch.int64, device=DEVICE)
+    wf._persistent_launch(*fargs, (2, *launch), plan, stamps=stamps)
+    torch.cuda.synchronize()
+    row["step_breakdown"] = _stamp_breakdown(
+        stamps, ("x_product", "h_first_box", "h_product", "cell_store_publish", "to_next_step"),
+        torch.arange(1, T - 1))
+    out[f"wavefront_train B={Bn} T={T} mode 2"] = row
+    return out
 
 
 def _layer_kernel_timing(rec_B):
@@ -2686,7 +3008,7 @@ def _layer_kernel_timing(rec_B):
     step: L calls of one layer each (``ms_per_call`` beside).  The library
     yardstick is torch.nn.LSTM with one layer at the same T and B: its
     cuDNN forward for the forwards (which also computes the input
-    product; the recompute forward in turns with it), for the backwards
+    product), in turns with each, for the backwards
     its backward without weight gradients (``library_ms``; it still
     computes dx) and with them (``library_wgrad_ms``), both on one forward
     graph in turns with the kernel."""
@@ -2704,18 +3026,13 @@ def _layer_kernel_timing(rec_B):
         tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
         xp = inp["x_proj"]
         fwd, fwd_plain = getattr(tlt, fwd_name), getattr(tlt, fwd_name + "_plain")
-        extra = {}
-        if lean:
-            # The persistent kernel in turns with cuDNN's one-layer forward.
-            turns = in_turns(_nn_lstm_forward(T, Bn), lambda: fwd(xp, *tail), iters=2)
-            ms, lib_fwd = turns["ms"], turns["library_ms"]
-            plan = tlt.lean_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count)
-            extra = dict(turns=turns["turns"], plan=plan, us_per_step=1e3 * ms / T)
-            torch.cuda.empty_cache()
-        else:
-            lib_fwd = cuda_ms(_nn_lstm_forward(T, Bn), iters=2)
-            torch.cuda.empty_cache()
-            ms = cuda_ms(lambda: fwd(xp, *tail), iters=2)
+        # The persistent kernels in turns with cuDNN's one-layer forward.
+        turns = in_turns(_nn_lstm_forward(T, Bn), lambda: fwd(xp, *tail), iters=2)
+        ms, lib_fwd = turns["ms"], turns["library_ms"]
+        plan = tlt.lean_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count,
+                             x_f32=not lean)
+        extra = dict(turns=turns["turns"], plan=plan, us_per_step=1e3 * ms / T)
+        torch.cuda.empty_cache()
         plain = cuda_ms(lambda: fwd_plain(xp, *tail), iters=1, warmup=0)
         res = fwd(xp, *tail)
         states = 2 * Bn * H * 4                      # h0 and c0, or hn and cn
@@ -2724,7 +3041,8 @@ def _layer_kernel_timing(rec_B):
                   + streams + (0 if lean else T * Bn * G * 2))
         bound, by = _bounds(2 * T * Bn * H * G, nbytes)
         out[fwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
-                             library_ms=L * lib_fwd, library="torch.nn.LSTM forward (1 layer)",
+                             library_ms=L * lib_fwd,
+                             library="torch.nn.LSTM forward (1 layer, in turns)",
                              calls=L, ms_per_call=ms, batch=Bn, flops=L * 2 * T * Bn * H * G,
                              bytes=L * nbytes, tflops=2 * T * Bn * H * G / ms / 1e9, **extra)
         del xp
@@ -2850,6 +3168,8 @@ def phase_train_layered():
         fail(f"train_layered: the mean of the last 3 losses is not below the first: {losses}")
     if not layered["wgmma_launches"]["bwd_persistent"]:
         fail("train_layered: the backward never ran the persistent kernel")
+    if not layered["wgmma_launches"]["train_persistent"]:
+        fail("train_layered: the forward never ran the persistent kernel")
     layered["memory_plan"] = list(plan)
     del state, batch
     torch.cuda.empty_cache()
@@ -3417,9 +3737,12 @@ def kernels_line():
     and the launches of their 5 steps each (the mask on two routes), for
     the fbank kernel one eval batch and the launches of its eval run (the
     recurrence: one call of the L a layered batch makes, its persistent
-    launches and µs a step beside; the gates-mode backward: its persistent
-    launches, µs a step and cuDNN's backward with weight gradients beside
-    the one without, ``library_ms``); for
+    launches and µs a step beside; the gates-mode forward and backward:
+    their persistent launches and µs a step, the backward's cuDNN backward
+    with weight gradients beside the one without, ``library_ms``; the
+    wavefront training forward: its persistent launches and µs a
+    diagonal; the reverse diagonal: cuDNN's backward with weight gradients
+    beside the one without); for
     the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
     launches of the widest gates-residual step's 5 steps (train_wide).  The
     weight-gradient rows add their TFLOP/s, the fused row its window
@@ -3455,7 +3778,7 @@ def kernels_line():
                 ms_b1=t.get("ms_b1"), library_ms_b1=t.get("library_ms_b1"))
     csrc = "rnn_speech_tpu_torch/csrc/"
     for name, src, replaces in (
-        ("wavefront_train", csrc + "lstm_wavefront_train.cu",
+        ("wavefront_train", csrc + "lstm_wavefront_persistent.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:230"),
         ("wavefront_bwd", csrc + "lstm_wavefront_bwd.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:433"),
@@ -3481,9 +3804,14 @@ def kernels_line():
             rows[-1]["tflops"] = t["tflops"]
         if "library_pair_ms" in t:                   # CTC: the library's forward + backward
             rows[-1]["library_pair_ms"] = t["library_pair_ms"]
+        if "library_wgrad_ms" in t:                  # the reverse diagonal: cuDNN with dW beside
+            rows[-1]["library_wgrad_ms"] = t["library_wgrad_ms"]
+        if name == "wavefront_train":
+            rows[-1].update(persistent_launches=tr.get("wgmma_launches", {}).get(
+                "wavefront_persistent"), us_per_diagonal=t.get("us_per_diagonal"))
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
-        ("recurrence_train", csrc + "lstm_layer_train.cu",
+        ("recurrence_train", csrc + "lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:144", "layered"),
         ("recurrence_bwd", csrc + "lstm_layer_bwd_persistent.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:232", "layered"),
@@ -3505,9 +3833,10 @@ def kernels_line():
         if "library_wgrad_ms" in t:                  # the backwards: cuDNN with dW beside
             rows[-1].update(library_wgrad_ms=t["library_wgrad_ms"],
                             us_per_step=t.get("us_per_step"))
-        if name == "recurrence_bwd":
-            rows[-1]["persistent_launches"] = tl.get(run, {}).get(
-                "wgmma_launches", {}).get("bwd_persistent")
+        if name in ("recurrence_bwd", "recurrence_train"):
+            rows[-1].update(persistent_launches=tl.get(run, {}).get("wgmma_launches", {}).get(
+                "bwd_persistent" if name == "recurrence_bwd" else "train_persistent"),
+                us_per_step=t.get("us_per_step"))
         if "rebuild_ms" in t:                        # the recompute backward's rebuild
             rows[-1].update(rebuild_ms=t["rebuild_ms"], rebuild_tflops=t["rebuild_tflops"])
     tw = RECORD.get("train_wide", {})

@@ -2,7 +2,7 @@
 // W_h stays in shared memory for all T steps, one grid-wide barrier a step
 // instead of one launch a step, the product on wgmma.
 //
-// Replaces two TPU kernels of rnn_speech_tpu/ops/lstm_pallas.py, one
+// Replaces three TPU kernels of rnn_speech_tpu/ops/lstm_pallas.py, one
 // template instance each:
 //
 // * `_recurrence_train_lean_kernel` (entry `_lstm_recurrence_train_lean`,
@@ -10,16 +10,21 @@
 //   bf16 x_proj, c_seq stored;
 // * `_recurrence_kernel` (entry `lstm_recurrence_pallas`, the layered
 //   inference recurrence; rst_lstm_recurrence_persistent): float32 x_proj,
-//   no residual.
+//   no residual;
+// * `_recurrence_train_kernel` (entry `_lstm_recurrence_train`, the
+//   gates-mode training forward; rst_lstm_layer_train_persistent): float32
+//   x_proj, c_seq and the activated gates stored.
 //
 // Per step t
 //
 //   gates = x_proj[t] + bf16(h)·W_h                (f32 sums; x_proj added as stored)
 //   i, g, f, o = σ(i), tanh(g), σ(f + 1), σ(o)
 //   c' = f·c + i·g;  h' = o·tanh(c');  c, h <- m·(c', h') + (1 - m)·(c, h)
-//   out[t] = m·h' (f32);  c_seq[t] = bf16(c) (the training forward)
+//   out[t] = m·h' (f32);  c_seq[t] = bf16(c) (the training forwards)
+//   gates[t] = bf16(i, g, f, o) (the gates-mode forward, in the residual's
+//   [i | g | f | o] column order, H wide each, that the backward reads)
 //
-// and returns (out, hn, cn[, c_seq]).  csrc/lstm_layer_train.cu and
+// and returns (out, hn, cn[, c_seq[, gates]]).  csrc/lstm_layer_train.cu and
 // csrc/lstm_recurrence.cu keep the per-step forms (one launch a step on the
 // shared cell, lstm_cell.cuh) for the shapes the wrappers' plan
 // (`lean_plan`, ops/lstm_recurrence.py) does not send here.
@@ -102,9 +107,17 @@
 // backward's K split (csrc/lstm_layer_bwd_persistent.cu) for the forward:
 // split four ways, a CTA would hold 64 units' columns of a K quarter and
 // stream a quarter of h, but exchange a (64, 256) f32 partial (64 KiB) a
-// tile a step through L2, as many bytes as the h stream it shortens.  Not
-// done either (ROADMAP Queue B): the per-step kernel's other user, the
-// gates-mode training forward.
+// tile a step through L2, as many bytes as the h stream it shortens.
+//
+// The gates-mode forward (row 5 of PERF.md's table) adds to the inference
+// recurrence's instance only the two residual stores, each thread writing
+// its 2 rows x 4 units of c and of each activated gate as bf16 pairs from
+// registers: 4H·2 + H·2 bytes a row a step, 640 KiB a step at B=64, beside
+// the 1 MiB of f32 x_proj it reads.  The per-step kernel it replaces at
+// the layered step's B=64 (csrc/lstm_layer_train.cu) took 26.3 µs a step:
+// one launch a step, W_h re-staged from L2 by every block in 64-wide K
+// chunks.  Its plan is the inference recurrence's (`lean_plan(B, H, sms,
+// x_f32=True)`): at B=64, H=1024 one row group of 64 CTAs, 8 ring stages.
 
 #include <type_traits>
 
@@ -125,6 +138,7 @@ constexpr int kSmemLimit = 232448;              // the H100's per-block opt-in
 
 long long g_launches = 0;                       // launches with bf16 x_proj (row 7)
 long long g_rec_launches = 0;                   // launches with f32 x_proj (row 2)
+long long g_train_launches = 0;                 // launches with f32 x_proj and gates (row 5)
 
 template <typename XT>
 struct Args {
@@ -134,11 +148,20 @@ struct Args {
   float* c;             // (B, H) f32: c0 on entry, cn on return
   float* out;           // (T, B, H) f32
   bf16* cseq;           // (T, B, H) bf16, or null (row 2 stores no residual)
+  bf16* gates;          // (T, B, 4H) bf16 activated gates (row 5), or null
   bf16* hb;             // (2, Bpa, H) bf16: hb[0] = bf16(h0), padding rows zero
   unsigned* counter;    // (groups) step barrier arrivals of each row group, zero on entry
   int T, B, H, Bpa, tiles, stages;
   int skip_barrier;     // a planted fault (chip_smoke.py): read h without waiting
+  // (T + 1, 4) SM clocks of CTA 0 (row 5 only: chip_smoke.py's
+  // persistent_study), or null: step t's barrier passed (producer), its
+  // product done, its cell stored, its arrival (consumer 0).
+  long long* stamps;
 };
+
+__device__ __forceinline__ void stamp(long long* stamps, int t, int k) {
+  if (stamps != nullptr && blockIdx.x == 0) stamps[4 * t + k] = clock64();
+}
 
 // f32 x_proj is staged by TMA: per 64-row tile and gate a box of 16 units
 // (64 rows x 16 f32, 4 KiB), two step buffers.
@@ -162,9 +185,10 @@ __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// XT: x_proj's type (bf16: row 7, read into registers; float: row 2,
-// staged by TMA through map_x).  kStoreC: store c_seq (row 7).
-template <typename XT, bool kStoreC>
+// XT: x_proj's type (bf16: row 7, read into registers; float: rows 2 and
+// 5, staged by TMA through map_x).  kStoreC: store c_seq (rows 7 and 5).
+// kStoreGates: store the activated gates (row 5).
+template <typename XT, bool kStoreC, bool kStoreGates>
 __global__ void __launch_bounds__(kThreads, 1)
     lean_persistent(const __grid_constant__ CUtensorMap map_w,
                     const __grid_constant__ CUtensorMap map_h,
@@ -234,6 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       int it = 0;
       for (int t = 0; t < p.T; ++t) {
         if (t > 0 && !p.skip_barrier) grid_wait(p.counter + group, (unsigned)t * slices);
+        if constexpr (kStoreGates) stamp(p.stamps, t, 0);
         asm volatile("fence.proxy.async.global;" ::: "memory");
         const int hrow = (t & 1) * p.Bpa + row0;
         for (int k = 0; k < KS; ++k, ++it) {
@@ -340,6 +365,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int m = 0; m < 2; ++m) fence_acc(d[m]);
       if (lane == 0) bar_arrive(smem_addr(&empty[s]));
     }
+    if constexpr (kStoreGates) {
+      if (threadIdx.x == 0) stamp(p.stamps, t, 1);
+    }
 
     // The cell, in registers; gate g of unit group jj is column group 2g + jj.
     bf16* hnext = p.hb + (size_t)((t + 1) & 1) * p.Bpa * H;
@@ -354,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float mm = mk[m][hh];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
-          float o_v[2], c_v[2], h_v[2];
+          float o_v[2], c_v[2], h_v[2], a_v[4][2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float pre[4];
@@ -383,6 +411,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             o_v[e] = mm * h_new;
             c_v[e] = c_sel;
             h_v[e] = h_sel;
+            a_v[0][e] = i_a;
+            a_v[1][e] = g_a;
+            a_v[2][e] = f_a;
+            a_v[3][e] = o_a;
           }
           if (b < B) {
             const size_t i = (size_t)b * H + j0 + 8 * jj + ucol;
@@ -390,6 +422,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             *reinterpret_cast<float2*>(p.out + ti) = make_float2(o_v[0], o_v[1]);
             if constexpr (kStoreC) {
               *reinterpret_cast<uint32_t*>(p.cseq + ti) = pack_bf2(c_v[0], c_v[1]);
+            }
+            if constexpr (kStoreGates) {
+              bf16* gr = p.gates + ((size_t)t * B + b) * G + j0 + 8 * jj + ucol;
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                *reinterpret_cast<uint32_t*>(gr + (size_t)g * H) =
+                    pack_bf2(a_v[g][0], a_v[g][1]);
+              }
             }
             *reinterpret_cast<uint32_t*>(hnext + i) = pack_bf2(h_v[0], h_v[1]);
           }
@@ -400,6 +440,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncwarp();
       if (lane == 0) bar_arrive(smem_addr(&xempty[t & 1]));
     }
+    if constexpr (kStoreGates) {
+      if (threadIdx.x == 0) stamp(p.stamps, t, 2);
+    }
     // h of step t + 1 is read by TMA (the async proxy) in every CTA of the
     // row group: fence it, meet, and arrive once for the CTA.
     asm volatile("fence.proxy.async.global;" ::: "memory");
@@ -407,6 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       __threadfence();
       atomicAdd(p.counter + group, 1u);
+      if constexpr (kStoreGates) stamp(p.stamps, t, 3);
     }
   }
 
@@ -443,10 +487,11 @@ bool make_x_map(CUtensorMap* map, const void* base, long long rows, int cols) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename XT, bool kStoreC>
+template <typename XT, bool kStoreC, bool kStoreGates>
 int launch(const XT* x_proj, const void* w_perm, const float* mask, void* hb, float* h,
-           float* c, float* out, void* cseq, void* counter, int T, int B, int H, int groups,
-           int tiles, int stages, int skip_barrier, void* stream, long long* launches) {
+           float* c, float* out, void* cseq, void* gates, void* counter, int T, int B, int H,
+           int groups, int tiles, int stages, int skip_barrier, long long* stamps,
+           void* stream, long long* launches) {
   constexpr bool kXF32 = std::is_same<XT, float>::value;
   if (H % 64 != 0 || tiles < 1 || tiles > kMaxTiles || stages < 2 || groups < 1 ||
       T < 1 || B < 1 || B > groups * tiles * 64) {
@@ -464,7 +509,7 @@ int launch(const XT* x_proj, const void* w_perm, const float* mask, void* hb, fl
   } else {
     map_x = map_h;                               // unused: bf16 x_proj is read by the threads
   }
-  auto kernel = lean_persistent<XT, kStoreC>;
+  auto kernel = lean_persistent<XT, kStoreC, kStoreGates>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -488,6 +533,7 @@ int launch(const XT* x_proj, const void* w_perm, const float* mask, void* hb, fl
   p.c = c;
   p.out = out;
   p.cseq = static_cast<bf16*>(cseq);
+  p.gates = static_cast<bf16*>(gates);
   p.hb = static_cast<bf16*>(hb);
   p.counter = static_cast<unsigned*>(counter);
   p.T = T;
@@ -497,6 +543,7 @@ int launch(const XT* x_proj, const void* w_perm, const float* mask, void* hb, fl
   p.tiles = tiles;
   p.stages = stages;
   p.skip_barrier = skip_barrier;
+  p.stamps = stamps;
   void* args[] = {&map_w, &map_h, &map_x, &p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, kThreads, args,
                                     smem, st);
@@ -521,9 +568,9 @@ extern "C" int rst_lstm_layer_train_lean_persistent(
     const void* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
     float* out, void* cseq, void* counter, int T, int B, int H, int groups, int tiles,
     int stages, int skip_barrier, void* stream) {
-  return launch<bf16, true>(static_cast<const bf16*>(x_proj), w_perm, mask, hb, h, c, out,
-                            cseq, counter, T, B, H, groups, tiles, stages, skip_barrier, stream,
-                            &g_launches);
+  return launch<bf16, true, false>(static_cast<const bf16*>(x_proj), w_perm, mask, hb, h, c,
+                                   out, cseq, nullptr, counter, T, B, H, groups, tiles, stages,
+                                   skip_barrier, nullptr, stream, &g_launches);
 }
 
 // Row 2, the inference recurrence: as above with x_proj (T, B, 4H) f32
@@ -532,14 +579,28 @@ extern "C" int rst_lstm_recurrence_persistent(
     const float* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
     float* out, void* counter, int T, int B, int H, int groups, int tiles, int stages,
     int skip_barrier, void* stream) {
-  return launch<float, false>(x_proj, w_perm, mask, hb, h, c, out, nullptr, counter, T, B, H,
-                              groups, tiles, stages, skip_barrier, stream, &g_rec_launches);
+  return launch<float, false, false>(x_proj, w_perm, mask, hb, h, c, out, nullptr, nullptr,
+                                     counter, T, B, H, groups, tiles, stages, skip_barrier,
+                                     nullptr, stream, &g_rec_launches);
+}
+
+// Row 5, the gates-mode training forward: as row 2 with cseq (T, B, H) and
+// gates (T, B, 4H) bf16 residuals; stamps, (T + 1, 4) int64 or null, takes
+// CTA 0's SM clock at four points of each step (Args::stamps).
+extern "C" int rst_lstm_layer_train_persistent(
+    const float* x_proj, const void* w_perm, const float* mask, void* hb, float* h, float* c,
+    float* out, void* gates, void* cseq, void* counter, int T, int B, int H, int groups,
+    int tiles, int stages, int skip_barrier, long long* stamps, void* stream) {
+  return launch<float, true, true>(x_proj, w_perm, mask, hb, h, c, out, cseq, gates, counter,
+                                   T, B, H, groups, tiles, stages, skip_barrier, stamps, stream,
+                                   &g_train_launches);
 }
 
 // Launches of the persistent kernel so far, each entry point's own
 // (counted at the launch site).
 extern "C" long long rst_lean_persistent_launches() { return g_launches; }
 extern "C" long long rst_recurrence_persistent_launches() { return g_rec_launches; }
+extern "C" long long rst_train_persistent_launches() { return g_train_launches; }
 
 // Dynamic shared memory of the kernel at (H, tiles, stages), in bytes, with
 // bf16 (x_f32 = 0) or f32 x_proj.

@@ -27,11 +27,11 @@
 // microseconds of dependent K chunks per block, is the limit.
 //
 // What this design does about it: one launch per step, all T from one
-// host call, double-buffered cp.async staging of 64-wide K chunks.  The
-// recompute-mode forward runs, at the shapes `lean_plan`
-// (ops/lstm_layer_train.py) sends there, on the persistent kernel of
-// csrc/lstm_layer_lean.cu instead (W_h resident, wgmma, one grid barrier
-// a step); the lean entry below serves the shapes it does not take.
+// host call, double-buffered cp.async staging of 64-wide K chunks.  Both
+// modes run, at the shapes `lean_plan` (ops/lstm_recurrence.py) sends
+// there, on the persistent kernel of csrc/lstm_layer_lean.cu instead (W_h
+// resident, wgmma, one grid barrier a step; the gates mode with
+// `x_f32=True`); the entries below serve the shapes it does not take.
 
 #include "lstm_cell.cuh"
 

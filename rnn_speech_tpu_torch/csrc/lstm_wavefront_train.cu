@@ -34,7 +34,10 @@
 // What this design does about it: one launch per diagonal with every
 // layer's blocks in it (grid z = layer), all from one host call, and the
 // four-gate tiles of lstm_cell.cuh with double-buffered cp.async staging.
-// A persistent kernel with W resident in shared memory is later work.
+// At the shapes `wavefront_plan` (ops/lstm_wavefront.py) sends there (the
+// default step's B <= 64 at H = D = 1024) the persistent kernel of
+// csrc/lstm_wavefront_persistent.cu runs instead (W_h resident, the layers
+// paced by counters); this one serves the others (the wide step).
 
 #include "lstm_cell.cuh"
 

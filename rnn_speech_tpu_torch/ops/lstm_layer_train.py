@@ -10,7 +10,11 @@ modes:
 * gates mode: ``recurrence_train`` (``_recurrence_train_kernel``) walks
   the T steps from ``x_proj = x·W_x + b`` (T, B, 4H) float32 and stores
   the activated gates (i, g, f, o) = (σ(i), tanh(g), σ(f + 1), σ(o)) and
-  the carried c in the residual dtype; ``recurrence_bwd``
+  the carried c in the residual dtype.  ``lean_plan(..., x_f32=True)``
+  (the inference recurrence's plan) sends it by shape to the persistent
+  forward (``csrc/lstm_layer_lean.cu``'s gates instance: W_h resident,
+  x_proj staged by TMA, the gates and c stored from registers; the layered
+  step's B=64) or to the per-step kernel; ``recurrence_bwd``
   (``_recurrence_bwd_kernel``) walks back and writes the pre-activation
   dgates over the gates residual.  ``bwd_plan`` sends it by shape to a
   persistent kernel (``csrc/lstm_layer_bwd_persistent.cu``: W_h resident
@@ -39,9 +43,10 @@ and ``csrc/lstm_layer_bwd_persistent.cu``.
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device (bf16 weights and residuals,
 float32 carries), or raises; there is no fallback.  ``<wrapper>.launches``
-counts the calls that launched the kernel (each call issues one CUDA
-launch per step from one host call); ``recurrence_bwd_recompute.
+counts the calls that launched a kernel (the per-step kernels issue one
+CUDA launch per step from one host call); ``recurrence_bwd_recompute.
 rebuild_launches`` counts the rebuild products its kernel launched,
+``recurrence_train.persistent_launches`` and
 ``recurrence_train_lean.persistent_launches`` the persistent forward's
 launches and ``recurrence_bwd.persistent_launches`` the persistent
 backward's (each read from its library's own count at the launch site).
@@ -175,20 +180,83 @@ def _forward_launch(lib_name, x_proj, w_h, mask, h0, c0, res_dtype, keep_gates):
     return out, h, c, gates, cseq
 
 
+def _train_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0, stamps=None):
+    """The gates-mode forward on the persistent kernel on the plan's grid:
+    (out, hn, cn, gates, cseq).  ``skip_barrier`` plants a fault (each CTA
+    reads h without waiting for the others), for checks; ``stamps``, a
+    (T + 1, 4) int64 tensor on the device, takes CTA 0's SM clock at four
+    points of each step (the kernel's ``Args::stamps``), for studies."""
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+    dev = x_proj.device
+    with torch.cuda.device(dev):
+        hb = torch.zeros((2, plan["rows"], H), dtype=bf16, device=dev)
+        hb[0, :B] = h0.to(bf16)
+        h, c = h0.clone(), c0.clone()
+        out = torch.empty((T, B, H), dtype=f32, device=dev)
+        gates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
+        cseq = torch.empty((T, B, H), dtype=bf16, device=dev)
+        if T == 0:
+            return out, h, c, gates, cseq
+        w_perm = lean_weights(w_h)
+        counter = torch.zeros((plan["groups"],), dtype=torch.int32, device=dev)
+        fn = _lib_fn("lstm_layer_lean", "rst_lstm_layer_train_persistent",
+                     [P] * 10 + [I] * 7 + [P, P])
+        rc = fn(x_proj.data_ptr(), w_perm.data_ptr(), mask.data_ptr(), hb.data_ptr(),
+                h.data_ptr(), c.data_ptr(), out.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
+                counter.data_ptr(), T, B, H, plan["groups"], plan["tiles"], plan["stages"],
+                skip_barrier, None if stamps is None else stamps.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_layer_train kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    return out, h, c, gates, cseq
+
+
+def train_persistent_launches() -> int:
+    """Launches of the persistent gates-mode forward so far, as its
+    library counts them at the launch site."""
+    fn = _build.load("lstm_layer_lean").rst_train_persistent_launches
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
 def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
                      res_dtype) -> Tuple[Tensor, ...]:
     """Gates-mode training forward of one layer: x_proj (T, B, 4H) float32,
     w_h (H, 4H) in the compute dtype, mask (T, 1, B), h0, c0 (B, H) float32.
-    Returns (out, hn, cn, gates, cseq) as ``recurrence_train_plain``; the
-    kernel on a CUDA device, the plain version on the CPU."""
+    Returns (out, hn, cn, gates, cseq) as ``recurrence_train_plain``; on a
+    CUDA device the kernel ``lean_plan(B, H, sms, x_f32=True)`` picks by
+    shape, the persistent one (``persistent_launches`` adds the library's
+    count of its launches) or the per-step one; the plain version on the
+    CPU."""
     if not x_proj.is_cuda:
         return recurrence_train_plain(x_proj, w_h, mask, h0, c0, res_dtype)
-    res = _forward_launch("lstm_layer_train", x_proj, w_h, mask, h0, c0, res_dtype, True)
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+    sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
+    plan = lean_plan(B, H, sms, x_f32=True)
+    if plan["kernel"] == "per_step":
+        res = _forward_launch("lstm_layer_train", x_proj, w_h, mask, h0, c0, res_dtype, True)
+    else:
+        if res_dtype != bf16:
+            raise TypeError(f"the layer training kernels store bf16 residuals, got {res_dtype}")
+        check_kernel_inputs([
+            ("x_proj", x_proj, f32, (T, B, 4 * H)),
+            ("w_h", w_h, bf16, (H, 4 * H)),
+            ("mask", mask, f32, (T, 1, B)),
+            ("h0", h0, f32, (B, H)),
+            ("c0", c0, f32, (B, H)),
+        ], x_proj.device, H)
+        before = train_persistent_launches()
+        res = _train_persistent_launch(x_proj, w_h, mask, h0, c0, plan)
+        recurrence_train.persistent_launches += train_persistent_launches() - before
     recurrence_train.launches += 1
     return res
 
 
 recurrence_train.launches = 0
+recurrence_train.persistent_launches = 0
 
 
 def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):

@@ -10,10 +10,15 @@ only the schedule differs.
 
 * ``lstm_stack_wavefront`` (``_wavefront_kernel``, ``csrc/lstm_wavefront.cu``):
   inference; layer 0 adds the precomputed ``xp0 = x·W_x0 + b0``.
-* ``wavefront_train`` (``_wavefront_train_kernel``,
-  ``csrc/lstm_wavefront_train.cu``): the training forward; layer 0's input
-  product runs in the kernel and every step stores the bf16 residuals
-  (activated gates, carried c, masked output of every layer).
+* ``wavefront_train`` (``_wavefront_train_kernel``): the training forward;
+  layer 0's input product runs in the kernel and every step stores the
+  bf16 residuals (activated gates, carried c, masked output of every
+  layer).  ``wavefront_plan`` sends it by shape to a persistent kernel
+  (``csrc/lstm_wavefront_persistent.cu``: one cooperative launch, every
+  layer's W_h resident in shared memory, the layers paced by per-layer
+  counters and rings of h in global memory; B <= 64, D = H and a grid of
+  at most one CTA an SM, as at the default step) or to the per-diagonal
+  kernel (``csrc/lstm_wavefront_train.cu``).
 * ``wavefront_bwd`` (``_wavefront_bwd_kernel``,
   ``csrc/lstm_wavefront_bwd.cu``): the reverse diagonal, dgates of every
   layer written over the gates residual, and dh0, dc0; with ``fuse_dwx``
@@ -41,8 +46,10 @@ reverse pass accumulates dW_x itself and no xdrop stream exists; then
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises; there is no fallback.
-``<wrapper>.launches`` counts the calls that launched the kernel (each call
-issues one CUDA launch per diagonal from one host call).
+``<wrapper>.launches`` counts the calls that launched a kernel (the
+per-diagonal kernels issue one CUDA launch per diagonal from one host
+call); ``wavefront_train.persistent_launches`` those of the persistent
+kernel, read from its library's own count at the launch site.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from rnn_speech_tpu_torch.ops import _build, dropout, grad_matmul, lstm_layer_tr
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads, weight_grad
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
-from rnn_speech_tpu_torch.ops.lstm_recurrence import check_kernel_inputs
+from rnn_speech_tpu_torch.ops.lstm_recurrence import H100_SMS, SMEM_LIMIT, check_kernel_inputs
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -290,6 +297,129 @@ def _drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale, shape, dev):
     return None, 0, 0, 0, 1.0
 
 
+# The persistent training forward (csrc/lstm_wavefront_persistent.cu):
+# hidden units a CTA owns (of one layer; the products' N = 4 x 24), batch
+# rows (one wgmma tile), steps each layer's ring of h holds, the stages of
+# the streamed-W ring (W_x, and W_h's chunks past the resident ones) and of
+# the A ring (the kernel's kWStages and kAStages), and the bytes of one
+# 96-column and of one 64-row box (64 K, bf16).
+WAVEFRONT_UNITS, WAVEFRONT_ROWS, WAVEFRONT_RING = 24, 64, 8
+WAVEFRONT_W_STAGES, WAVEFRONT_A_STAGES = 2, 4
+_WF_BOX, _WF_ABOX = 4 * WAVEFRONT_UNITS * 64 * 2, WAVEFRONT_ROWS * 64 * 2
+
+
+def wavefront_smem(resident: int) -> int:
+    """Dynamic shared memory of the persistent forward: ``resident`` boxes
+    of W_h (64-wide K chunks of the CTA's 96 columns), the two rings' stages
+    (one W box or one A box each), the mbarriers and the 1024-byte
+    alignment slack (the kernel's ``smem_bytes``)."""
+    return ((resident + WAVEFRONT_W_STAGES) * _WF_BOX + WAVEFRONT_A_STAGES * _WF_ABOX
+            + 8 * (1 + 2 * (WAVEFRONT_W_STAGES + WAVEFRONT_A_STAGES)) + 1024)
+
+
+def wavefront_layout(B: int, H: int, L: int, D: int, sms: int = H100_SMS):
+    """The persistent forward's grid at (B, H, L, D) on a card of ``sms``
+    SMs, or None where the kernel cannot take the shape: ``slices`` =
+    ceil(H/24) CTAs a layer, one CTA an SM for all L layers, B <= 64 (one
+    tile), D = H, H a multiple of 64.  ``resident`` is as many of W_h's
+    H/64 K chunks as fit beside the rings (14 of 16 at H=1024; the kernel's
+    ``resident_chunks``).  Returns {"slices", "grid", "resident", "ring",
+    "smem"}."""
+    if not 1 <= B <= WAVEFRONT_ROWS or L < 2 or D != H or H < 64 or H % 64:
+        return None
+    slices = -(-H // WAVEFRONT_UNITS)
+    if L * slices > sms:
+        return None
+    resident = min(H // 64, (SMEM_LIMIT - wavefront_smem(0)) // _WF_BOX)
+    return {"slices": slices, "grid": L * slices, "resident": resident,
+            "ring": WAVEFRONT_RING, "smem": wavefront_smem(resident)}
+
+
+def wavefront_plan(B: int, H: int, L: int, D: int, sms: int = H100_SMS) -> dict:
+    """Which kernel runs the training forward at (B, H, L, D) on a card of
+    ``sms`` SMs, decided by shape alone: the persistent one where
+    ``wavefront_layout`` takes the shape (the default step's B=64 at H = D =
+    1024, L = 3: 3 x 43 = 129 CTAs), else the per-diagonal kernel (the wide
+    step's B=394, D != H, more CTAs than SMs).  Returns {"kernel":
+    "persistent", **layout} or {"kernel": "per_diagonal"}."""
+    layout = wavefront_layout(B, H, L, D, sms)
+    if layout is None:
+        return {"kernel": "per_diagonal"}
+    return {"kernel": "persistent", **layout}
+
+
+def wavefront_column_order(H: int, slices: int) -> Tensor:
+    """(slices·96,) int64: the gate column each CTA's product column
+    holds, CTA by CTA [i(24) | g(24) | f(24) | o(24)] of units 24u ..
+    24u + 23; -1 past H (zero weights, never stored)."""
+    n = torch.arange(slices * 4 * WAVEFRONT_UNITS)
+    u, g, v = n // (4 * WAVEFRONT_UNITS), n // WAVEFRONT_UNITS % 4, n % WAVEFRONT_UNITS
+    unit = u * WAVEFRONT_UNITS + v
+    return torch.where(unit < H, g * H + unit, torch.full_like(unit, -1))
+
+
+def wavefront_weights(w: Tensor, slices: int) -> Tensor:
+    """Per-layer weights w (L, K, 4H) as the persistent kernel reads them:
+    (L·slices·96, K), layer by layer the columns in
+    ``wavefront_column_order`` (zero rows past H) as rows, K contiguous."""
+    L, K, G = w.shape
+    cols = wavefront_column_order(G // 4, slices).to(w.device)
+    w_t = torch.cat([w.transpose(1, 2), w.new_zeros((L, 1, K))], dim=1)   # row G: zeros
+    rows = torch.where(cols < 0, torch.full_like(cols, G), cols)
+    return w_t[:, rows].reshape(-1, K).contiguous()
+
+
+def _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan,
+                       skip_waits=0, stamps=None):
+    """The persistent forward on the plan's grid.  ``drop`` is
+    ``_drop_launch_args``' (masks, seed0, seed1, threshold, scale) with the
+    drop mode first; ``skip_waits`` plants a fault (no counter waits: each
+    layer reads its rings without waiting for their producers), for checks;
+    ``stamps``, a (T, 5) int64 tensor on the device, takes the SM clock of
+    the top layer's first CTA at five points of each step (the kernel's
+    ``Args::stamps``), for studies.  Returns (outs, gates, cseq, hn, cn)."""
+    T, B, H = x.shape
+    L = w_h.shape[0]
+    drop_mode, masks, seed0, seed1, thr, scale = drop
+    dev = x.device
+    R = plan["ring"]
+    with torch.cuda.device(dev):
+        h, c = h0.clone(), c0.clone()
+        outs = torch.empty((L, T, B, H), dtype=bf16, device=dev)
+        gates = torch.empty((L, T, B, 4 * H), dtype=bf16, device=dev)
+        cseq = torch.empty((L, T, B, H), dtype=bf16, device=dev)
+        if T == 0:
+            return outs, gates, cseq, h, c
+        ring_h = torch.zeros((L, R, WAVEFRONT_ROWS, H), dtype=bf16, device=dev)
+        ring_h[:, R - 1, :B] = h0.to(bf16)
+        ring_x = (torch.zeros((L - 1, R, WAVEFRONT_ROWS, H), dtype=bf16, device=dev)
+                  if drop_mode else None)
+        wx = wavefront_weights(torch.cat([w_x0[None], w_x_rest]), plan["slices"])
+        wh = wavefront_weights(w_h, plan["slices"])
+        counter = torch.zeros((L,), dtype=torch.int32, device=dev)
+        fn = _build.load("lstm_wavefront_persistent").rst_lstm_wavefront_train_persistent
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_uint] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        rc = fn(x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b_all.data_ptr(), mask.data_ptr(),
+                h.data_ptr(), c.data_ptr(), outs.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
+                ring_h.data_ptr(), _ptr(ring_x), _ptr(masks), counter.data_ptr(), T, B, H, L,
+                plan["slices"], R, drop_mode, seed0, seed1, thr, scale,
+                skip_waits, _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_wavefront_train kernel launch failed: CUDA error "
+                           f"{rc} (plan {plan})")
+    return outs, gates, cseq, h, c
+
+
+def persistent_launches() -> int:
+    """Launches of the persistent training forward so far, as its library
+    counts them at the launch site."""
+    fn = _build.load("lstm_wavefront_persistent").rst_wavefront_persistent_launches
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
 def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                     b_all: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
                     res_dtype, drop_mode: int = 0, drop_arr=None,
@@ -306,8 +436,10 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     w_x_rest (L-1, H, 4H) in the compute dtype; b_all (L, 4H), mask
     (T, 1, B), h0, c0 (L, B, H) float32.  Returns the residual streams
     (outs, gates, cseq) and (hn, cn) as ``wavefront_train_plain`` does;
-    the kernel on a CUDA device (bf16 operands and residuals), the plain
-    version on the CPU."""
+    on a CUDA device (bf16 operands and residuals) the kernel
+    ``wavefront_plan`` picks by shape, the persistent one
+    (``persistent_launches`` adds the library's count of its launches) or
+    the per-diagonal one; the plain version on the CPU."""
     T, B, D = x.shape
     L, H = w_h.shape[0], w_h.shape[1]
     if w_x_rest.shape[0] != L - 1 or b_all.shape[0] != L:
@@ -335,6 +467,27 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     ], dev, H)
     masks, seed0, seed1, thr, scale = _drop_launch_args(
         drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
+    plan = wavefront_plan(B, H, L, D, torch.cuda.get_device_properties(dev).multi_processor_count)
+    drop = (drop_mode, masks, seed0, seed1, thr, scale)
+    if plan["kernel"] == "persistent":
+        before = persistent_launches()
+        res = _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan)
+        wavefront_train.persistent_launches += persistent_launches() - before
+    else:
+        res = _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop)
+    if T:                                            # T = 0 launches nothing
+        wavefront_train.launches += 1
+    return res
+
+
+def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
+    """The per-diagonal forward (csrc/lstm_wavefront_train.cu): one launch
+    a diagonal, any B.  ``drop`` as ``_persistent_launch`` takes it.
+    Returns (outs, gates, cseq, hn, cn)."""
+    T, B, D = x.shape
+    L, H = w_h.shape[0], w_h.shape[1]
+    drop_mode, masks, seed0, seed1, thr, scale = drop
+    dev = x.device
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
         # The dropped copies the layers above read, by diagonal parity.
@@ -362,11 +515,11 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                 scale, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_train kernel launch failed: CUDA error {rc}")
-    wavefront_train.launches += 1
     return outs, gates, cseq, h, c
 
 
 wavefront_train.launches = 0
+wavefront_train.persistent_launches = 0
 
 
 def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,

@@ -54,7 +54,7 @@ def check_supported(cfg: StepConfig) -> None:
     the port does not run yet."""
     if cfg.spec_augment:
         raise NotImplementedError(
-            "spec_augment (ops/augment.py) is not ported yet (ROADMAP Queue A 7)")
+            "spec_augment (ops/augment.py) is not ported yet (ROADMAP Queue A 3)")
 
 
 def init_train_state(generator: torch.Generator, cfg: acoustic.AcousticConfig,

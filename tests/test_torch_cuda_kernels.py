@@ -16,7 +16,12 @@ plan; the persistent gates-mode backward (row 6) and the inference
 recurrence on the persistent forward (row 2) at the layered step's and the
 serving batches and small ones, bit for bit on repeat, without their step
 barriers (planted faults), and the per-step kernels past their plans; the
-redesigned CTC backward bit for bit on repeat.
+redesigned CTC backward bit for bit on repeat; the persistent gates-mode
+forward (row 5) and the persistent wavefront training forward (row 3, in
+drop modes 0, 1 and 2) at the default steps' batch and small ragged ones,
+bit for bit on repeat, without their waits (planted faults), and the
+per-step and per-diagonal kernels they replace there, launched past the
+plans.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -43,7 +48,9 @@ version's DFT and mel matmuls: 2e-3 of the largest magnitude, the JAX
 package's limit for its own kernel.  The persistent recompute-mode forward
 and gates-mode backward keep the per-step kernels' tolerances, relative to
 each output's largest magnitude: 8e-3 at T=16, 1.2e-2 longer; the
-inference recurrence on the persistent forward keeps 2e-3.  The redesigned CTC backward sums
+inference recurrence on the persistent forward keeps 2e-3; the persistent
+gates-mode and wavefront training forwards keep 8e-3 and 1.2e-2 of each
+output's largest magnitude, with xavier-uniform weights.  The redesigned CTC backward sums
 the same posteriors in another fixed order: 1e-5.  The rebuild product sums the same bf16
 products in float32 in another order than its plain version: 1e-5
 relative Frobenius, and equal bit for bit on repeat.  The
@@ -1120,3 +1127,155 @@ def test_persistent_recurrence_without_its_barrier_fails_the_check(cuda):
     ref = trec.lstm_recurrence_plain(*args)
     torch.cuda.synchronize()
     assert max(float((g - r).abs().max()) for g, r in zip(bad, ref)) > TOL
+
+
+# ------- the persistent gates-mode forward (row 5) and wavefront forward (row 3)
+
+
+def _train_case(T, B, H, seed, dev):
+    """The gates-mode forward's arguments (x_proj f32, w_h, mask, h0, c0),
+    ragged lengths with a zero-length row, W_h xavier-uniform as the model
+    initialises it."""
+    x_proj, w_h, mask, h0, c0 = _recurrence_case(T, B, H, seed, dev)
+    return x_proj * 2.0, w_h, mask, h0, c0
+
+
+@pytest.mark.parametrize("T,B,H", [(16, 64, 1024), (512, 64, 1024), (16, 5, 1024),
+                                   (1, 64, 1024), (9, 130, 128)])
+def test_persistent_layer_train_matches_plain(cuda, T, B, H):
+    """The gates-mode forward on the persistent kernel (the plan's choice,
+    counted at its launch site) against its plain version: 8e-3 of each
+    output's largest magnitude at T <= 16, 1.2e-2 longer (the per-step
+    kernel's tolerance), bit for bit on repeat; its gates, in the residual's
+    [i | g | f | o] order, give the backward's plain version the plain
+    forward's dgates within the same bound."""
+    bf = torch.bfloat16
+    assert tlt.lean_plan(B, H, x_f32=True)["kernel"] == "persistent"
+    args = _train_case(T, B, H, seed=T + B + H, dev=cuda)
+    before = tlt.recurrence_train.persistent_launches
+    got = tlt.recurrence_train(*args, bf)
+    again = tlt.recurrence_train(*args, bf)
+    ref = tlt.recurrence_train_plain(*args, bf)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_train.persistent_launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = 8e-3 if T <= 16 else 1.2e-2
+    assert _rel_max(got, ref) <= tol
+    g = torch.Generator().manual_seed(T)
+    dout = (torch.randn((T, B, H), generator=g) * 0.5).to(cuda)
+    dhn, dcn = (torch.randn((2, B, H), generator=g) * 0.5).to(cuda)
+    tail = (args[4].to(bf).float(), args[2], args[1], dhn, dcn)
+    dg = tlt.recurrence_bwd_plain(dout, got[3].clone(), got[4], *tail)
+    dg_ref = tlt.recurrence_bwd_plain(dout, ref[3].clone(), ref[4], *tail)
+    assert _rel_max(dg, dg_ref) <= tol
+    if B > 2:                                # the zero-length row keeps its state
+        assert torch.equal(got[1][2], args[3][2]) and not bool(got[0][:, 2].any())
+
+
+def test_layer_train_past_the_plans_grid_runs_the_per_step_kernel(cuda):
+    """B=260 at H=1024: three tiles a CTA leave no ring stage beside the W_h
+    slice and the f32 x_proj buffers; the per-step kernel runs, within
+    8e-3 at T=16."""
+    T, B, H = 16, 260, 1024
+    assert tlt.lean_plan(B, H, x_f32=True)["kernel"] == "per_step"
+    args = _train_case(T, B, H, seed=21, dev=cuda)
+    before = tlt.recurrence_train.persistent_launches
+    got = tlt.recurrence_train(*args, torch.bfloat16)
+    ref = tlt.recurrence_train_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_train.persistent_launches == before
+    assert _rel_max(got, ref) <= 8e-3
+
+
+def test_persistent_layer_train_without_its_barrier_fails_the_check(cuda):
+    """Each CTA reads h without waiting for the others: stale h must leave
+    the tolerance (and not hang)."""
+    T, B, H = 512, 64, 1024
+    args = _train_case(T, B, H, seed=22, dev=cuda)
+    bad = tlt._train_persistent_launch(*args, tlt.lean_plan(B, H, x_f32=True), skip_barrier=1)
+    ref = tlt.recurrence_train_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2
+
+
+def _wavefront_case(L, T, B, H, seed, dev):
+    """The training forward's arguments at D = H, ragged lengths with a
+    zero-length row, xavier-uniform weights as the model initialises them."""
+    x = _train_inputs(L, T, B, H, H, seed, dev)
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(dev, torch.bfloat16)
+    x.update(w_x0=w(H, 4 * H), w_h=w(L, H, 4 * H), w_x_rest=w(L - 1, H, 4 * H))
+    return [x[k] for k in ("x", "w_x0", "w_h", "w_x_rest", "b_all", "mask", "h0", "c0")]
+
+
+def _launch_drop(drop):
+    """``_persistent_launch``'s drop tuple for a ``_drop`` result."""
+    if not drop:
+        return (0, None, 0, 0, 0, 1.0)
+    mode, arr, scale, keep = drop
+    if mode == 1:
+        return (1, *twave._drop_launch_args(1, arr, keep, scale, arr.shape, arr.device))
+    return (2, *twave._drop_launch_args(2, arr, keep, scale, None, None))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L,T,B,H", [(3, 7, 5, 256), (2, 40, 17, 512), (3, 16, 64, 1024),
+                                     (3, 9, 1, 1024), (2, 3, 64, 256), (3, 11, 5, 64),
+                                     (2, 9, 33, 128)])
+def test_persistent_wavefront_train_matches_plain(cuda, mode, L, T, B, H):
+    """The wavefront training forward on the persistent kernel (the plan's
+    choice at every one of these widths) against its plain version in drop
+    modes 0, 1 and 2: 8e-3 of each output's largest magnitude (T <= 16) or
+    1.2e-2, bit for bit on repeat; in mode 2 equal to mode 1 fed
+    ``random_bits.wavefront_masks`` of the same seed words."""
+    from rnn_speech_tpu_torch.ops import random_bits as rb
+
+    bf = torch.bfloat16
+    args = _wavefront_case(L, T, B, H, seed=L + T + B + H + mode, dev=cuda)
+    drop = _drop(mode, L, T, B, H, seed=B + T) if mode else ()
+    layout = twave.wavefront_layout(B, H, L, H)
+    assert twave.wavefront_plan(B, H, L, H) == {"kernel": "persistent", **layout}
+    before = twave.wavefront_train.persistent_launches
+    got = twave.wavefront_train(*args, bf, *drop)
+    assert twave.wavefront_train.persistent_launches - before == 1
+    again = twave._persistent_launch(*args, _launch_drop(drop), layout)
+    ref = twave.wavefront_train_plain(*args, bf, *drop)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_max(got, ref) <= (8e-3 if T <= 16 else 1.2e-2)
+    if mode == 2:
+        masks = rb.wavefront_masks(drop[1], L - 1, T, B, H, drop[3], cuda).float()
+        fed = twave._persistent_launch(*args, _launch_drop((1, masks, drop[2], 1.0)), layout)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, fed))
+    if B > 2:                                # the zero-length row keeps its state
+        assert torch.equal(got[3][:, 2], args[6][:, 2]) and not bool(got[0][:, :, 2].any())
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L,T,B,H", [(2, 7, 3, 64), (3, 1, 5, 64), (3, 10, 33, 128)])
+def test_per_diagonal_wavefront_train_past_the_plan_matches_plain(cuda, mode, L, T, B, H):
+    """The per-diagonal training forward (the wide step's kernel) launched
+    at shapes the plan sends to the persistent kernel (partly filled
+    16-row tiles, T shorter than the stack) against its plain version in
+    drop modes 0, 1 and 2, within 1e-2."""
+    args = _wavefront_case(L, T, B, H, seed=L + T + B + H + mode, dev=cuda)
+    drop = _drop(mode, L, T, B, H, seed=B + T) if mode else ()
+    assert twave.wavefront_plan(B, H, L, H)["kernel"] == "persistent"
+    got = twave._per_diagonal_launch(*args, _launch_drop(drop))
+    ref = twave.wavefront_train_plain(*args, torch.bfloat16, *drop)
+    torch.cuda.synchronize()
+    _close_to(got, ref, TRAIN_TOL)
+
+
+def test_persistent_wavefront_without_its_waits_fails_the_check(cuda):
+    """The layers read their rings without waiting for their producers:
+    stale h must leave the tolerance (and not hang)."""
+    L, T, B, H = 3, 64, 64, 1024
+    args = _wavefront_case(L, T, B, H, seed=31, dev=cuda)
+    bad = twave._persistent_launch(*args, (0, None, 0, 0, 0, 1.0),
+                                   twave.wavefront_plan(B, H, L, H), skip_waits=1)
+    ref = twave.wavefront_train_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2

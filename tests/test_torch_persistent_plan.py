@@ -286,3 +286,90 @@ def test_recurrence_kernel_order_matches_jax(seed):
         np.testing.assert_allclose(g_.numpy(), np.asarray(r), **BF16)
         np.testing.assert_allclose(p.numpy(), np.asarray(r), **BF16)
     assert not got[0][:, 2].any() and torch.equal(got[1][2], args[3][2])
+
+
+# ------------------------------------- the gates-mode forward's plan (row 5)
+
+
+def test_train_plan_at_the_layered_step_shape():
+    """The gates-mode forward takes the inference recurrence's plan: at the
+    layered step's B=64, H=1024 one row group of 64 slices (64 CTAs), one
+    tile each, 8 ring stages beside the W_h slice and the f32 x_proj
+    buffers; the gates and c residuals take no shared memory."""
+    plan = tlt.lean_plan(64, 1024, x_f32=True)
+    assert plan["kernel"] == "persistent"
+    assert (plan["groups"], plan["tiles"], plan["grid"], plan["stages"], plan["rows"]) == \
+        (1, 1, 64, 8, 64)
+    assert plan["smem"] == trec.lean_smem(1024, 1, 8, x_f32=True) <= SMEM_OPT_IN
+    assert tlt.lean_plan(260, 1024, x_f32=True) == {"kernel": "per_step"}
+
+
+def _train_in_kernel_order(x_proj, w_h, mask, h0, c0):
+    """``recurrence_train_plain`` as the persistent forward's gates instance
+    walks it: ``_recurrence_in_kernel_order``'s products and cells, and
+    each CTA storing its 16 units' four activated gates at their columns
+    g·H + 16u .. + 16 of the (T, B, 4H) residual and its units' carried c,
+    both bf16.  Returns (out, hn, cn, gates, cseq)."""
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+    wp = trec.lean_weights(w_h).to(f32).t()
+    h, c = h0.clone(), c0.clone()
+    out = torch.zeros((T, B, H))
+    gates = torch.zeros((T, B, four_h), dtype=bf16)
+    cseq = torch.zeros((T, B, H), dtype=bf16)
+    for t in range(T):
+        prod = h.to(bf16).to(f32) @ wp
+        m = mask[t, 0][:, None]
+        h_new = torch.empty_like(h)
+        for u in range(H // 16):
+            J = slice(16 * u, 16 * u + 16)
+            cols = [slice(g * H + 16 * u, g * H + 16 * u + 16) for g in range(4)]
+            pre = [prod[:, 64 * u + 16 * g:64 * u + 16 * g + 16] + x_proj[t][:, cols[g]]
+                   for g in range(4)]
+            act = (torch.sigmoid(pre[0]), torch.tanh(pre[1]), torch.sigmoid(pre[2] + 1.0),
+                   torch.sigmoid(pre[3]))
+            c_new = act[2] * c[:, J] + act[0] * act[1]
+            h_new[:, J] = act[3] * torch.tanh(c_new)
+            c[:, J] = m * c_new + (1 - m) * c[:, J]
+            for g in range(4):
+                gates[t][:, cols[g]] = act[g].to(bf16)
+        h = m * h_new + (1 - m) * h
+        out[t] = m * h_new
+        cseq[t] = c.to(bf16)
+    return out, h, c, gates, cseq
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_kernel_order_matches_jax_and_feeds_the_backward(seed):
+    """The walk against ``_lstm_recurrence_train`` (TPU interpret mode): out,
+    hn, cn and both residuals; then its gates and c, in the order row 6
+    reads them, through the gates-mode backward against
+    ``_lstm_recurrence_bwd`` on the JAX forward's own residuals."""
+    x = _inputs(seed)
+    lim = (6.0 / (5 * 128)) ** 0.5                       # xavier-uniform W_h
+    w_np = np.random.default_rng(10 + seed).uniform(-lim, lim, (128, 512)).astype(np.float32)
+    w_h = jnp.asarray(w_np, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.jit(jpal._lstm_recurrence_train, static_argnums=5)(
+            jnp.asarray(x["x_proj"]), w_h, x["mask"], x["h0"], x["c0"], jnp.bfloat16)
+        _, _, _, gates, cseq = ref
+        c0_rd = jnp.asarray(x["c0"]).astype(jnp.bfloat16)
+        c_prev = jnp.concatenate([c0_rd[None], cseq[:-1]], axis=0)
+        ref_b = jax.jit(jpal._lstm_recurrence_bwd)(
+            x["dout"], gates, cseq, c_prev, x["mask"], w_h, x["dhn"], x["dcn"])
+    args = (torch.tensor(x["x_proj"]), _t(w_h).to(bf16), torch.tensor(x["mask"]),
+            torch.tensor(x["h0"]), torch.tensor(x["c0"]))
+    got = _train_in_kernel_order(*args)
+    plain = tlt.recurrence_train_plain(*args, bf16)
+    for r, g_, p in zip(ref, got, plain):
+        r = np.asarray(r.astype(jnp.float32))
+        np.testing.assert_allclose(g_.float().numpy(), r, **BF16)
+        np.testing.assert_allclose(p.float().numpy(), r, **BF16)
+    assert got[3].dtype == got[4].dtype == bf16
+    assert not got[0][:, 2].any() and torch.equal(got[1][2], args[3][2])
+    dgates = tlt.recurrence_bwd_plain(torch.tensor(x["dout"]), got[3].clone(), got[4],
+                                      _t(c0_rd), args[2], args[1], torch.tensor(x["dhn"]),
+                                      torch.tensor(x["dcn"]))
+    for r, g_ in zip(ref_b, dgates):
+        np.testing.assert_allclose(g_.float().numpy(), np.asarray(r.astype(jnp.float32)),
+                                   **BF16)

@@ -363,7 +363,7 @@ def _tiny_step(L=2, **model_kw):
     (dict(model=dict(wavefront=False)), None),
     (dict(L=1), None),
     (dict(step=dict(use_pallas_ctc=True)), None),
-    (dict(step=dict(spec_augment=True)), "ROADMAP Queue A 7"),
+    (dict(step=dict(spec_augment=True)), "ROADMAP Queue A 3"),
 ], ids=["input_keep", "output_keep", "time_chunk", "remat", "recompute",
         "layered_kernels", "one_layer_kernels", "pallas_ctc_on_cuda", "spec_augment"])
 def test_unported_configurations_raise_naming_their_slice(change, slice_words):

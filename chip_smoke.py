@@ -17,7 +17,11 @@ printing one JSON line:
   kernels  holds each kernel against its plain PyTorch version on the card
            at the serving shape (L=3, H=1024, B=128, T=1024: 10.24 s clips),
            with ragged lengths and non-zero initial state, strictly at small
-           T, by logit argmax at T=1024, and at B=1; the recurrence on its
+           T, by logit argmax at T=1024, and at B=1 (the wavefront on its
+           persistent kernel, the plan's choice at B=128 and B=1: bit for
+           bit on repeat at B=128, beside the launch without its counter
+           waits; the per-diagonal kernel on the same inputs in every case,
+           and at B=129, past the plan); the recurrence on its
            persistent kernel at B=128, T=1024 (the plan's choice, bit for
            bit on repeat, beside the launch without its step barrier) and
            past its plan (B=400, the per-step kernel); the fbank kernel against
@@ -28,12 +32,16 @@ printing one JSON line:
            fixed torch.Generator, then fbank frontend
            -> 3x1024 bf16 forward -> greedy decode at B=128 on 10.24 s
            clips, through the wavefront kernel and through the layered
-           recurrence kernel; launch counters are zeroed before this phase
-           and must be non-zero after it, the recurrence's persistent
-           kernel's too.  Times the path's stages (frontend, forward,
+           recurrence kernel, and one clip (B=1, the ``--file`` batch)
+           through the wavefront; launch counters are zeroed before this
+           phase and must be non-zero after it, the recurrence's and the
+           wavefront's persistent kernels' too (the wavefront's at B=128
+           and at B=1).  Times the path's stages (frontend, forward,
            decode) on the stream, and each kernel at the path's shapes
            beside its bound, its plain version and torch.nn.LSTM (the
-           wavefront in turns with cuDNN's 3-layer forward; the
+           wavefront in turns with cuDNN's 3-layer forward and with the
+           per-diagonal kernel, at B=128, and with the per-diagonal kernel
+           at B=1; the
            recurrence, one call of the three a layered batch makes, in
            turns with cuDNN's one-layer forward, at B=128 and at B=1).
   train_kernels
@@ -67,7 +75,15 @@ printing one JSON line:
            ``random_bits.wavefront_masks``, beside the launch without its
            counter waits) and at B=70, past its plan, on the per-diagonal
            kernel, which is also held against the same plain results as
-           the persistent kernel at B=64 in all three drop modes and T.
+           the persistent kernel at B=64 in all three drop modes and T;
+           likewise the reverse diagonal on its persistent kernel at B=64
+           (the existing checks, now on it; bit for bit on repeat in drop
+           modes 0 and 2, mode 2's dgates, dh0, dc0 and xdrop equal to mode
+           1 fed ``wavefront_masks``, beside the launch without its layer
+           counter waits), the per-diagonal reverse diagonal against the
+           same plain results in every drop mode and T, and at B=70
+           through the plan; the fused pass's dgates, dh0 and dc0 are held
+           against the per-diagonal kernel's unfused pass.
            Planted faults stand beside the checks and must fail them.
   train    ``train_step`` with the default StepConfig (keep probabilities
            0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
@@ -80,7 +96,8 @@ printing one JSON line:
            the last 3 of the 12 steps below the first, and all seven
            training kernels' launch counters, zeroed before the phase,
            non-zero after it, dgates_weight_grads' on the Hopper tile and
-           the training forward's persistent kernel's too.  Then ``eval_step`` with the CTC kernels
+           the training forward's and the reverse diagonal's persistent
+           kernels' too.  Then ``eval_step`` with the CTC kernels
            (the loss-only kernel must launch; its loss within the CTC
            tolerance of the scan CTC's), and the previous configuration
            (keep probabilities 1, scan CTC) for 3 timed steps.  Prints ms
@@ -89,7 +106,8 @@ printing one JSON line:
            plain version and one PyTorch call (the training forward in
            turns with cuDNN's 3-layer training forward, the reverse
            diagonal with cuDNN's 3-layer backward without weight gradients,
-           with them beside, on one graph; dgates_weight_grads in turns
+           with them beside, on one graph, and with the per-diagonal
+           kernel; dgates_weight_grads in turns
            with its yardstick and beside the WMMA tile, with TFLOP/s and
            the card's clocks; each CTC kernel in turns with its own half of
            F.ctc_loss, the forward or the backward alone, the pair
@@ -201,10 +219,12 @@ printing one JSON line:
            plans) and without their step barriers; where the backward's
            step goes (CTA 0's SM clock at four points of each pass); how
            many clusters of 1, 2, 4 and 8 CTAs of the backward's size the
-           card co-schedules; the gates-mode forward (B=64, T=3510) and the
-           wavefront training forward (B=64, T=3510, drop mode 2) beside
-           the per-step and per-diagonal kernels, without their waits, and
-           where a step of each goes (SM-clock stamps);
+           card co-schedules; the gates-mode forward (B=64, T=3510), the
+           wavefront training forward (B=64, T=3510, drop mode 2), the
+           wavefront inference forward (B=128 and B=1, T=1024) and the
+           reverse diagonal (B=64, T=3510, drop mode 2) beside the per-step
+           and per-diagonal kernels, without their waits, and where a step
+           of each goes (SM-clock stamps);
            with ``--parent DIR`` (a checkout of the previous tree) the
            recompute forward's outputs at T=512, B=400 and 473, the
            inference recurrence's at B=128, T=1024 and the two training
@@ -506,9 +526,83 @@ def phase_kernels():
         if T == 1024 and Bn == B:
             worst[kind] = max(entry["err_out"], entry["err_hn"], entry["err_cn"])
         checks.append(entry)
+        if kind == "wf":
+            _wavefront_eval_checks(name, inp, got, ref, tol, checks)
+        del got, ref, inp
+    _wavefront_eval_past_plan_check(checks)
     _recurrence_persistent_checks(checks)
     worst["fbank"] = _fbank_checks(checks)
     emit("kernels", checks=checks, max_abs_err=worst)
+
+
+def _wavefront_eval_checks(name, inp, got, ref, tol, checks):
+    """The inference forward on its persistent kernel (row 1:
+    csrc/lstm_wavefront_eval.cu), where ``got`` came from: the plan's
+    choice at this batch, launched (counted at its library's launch site);
+    at the serving batch bit for bit on repeat, beside the same launch
+    without its counter waits (stale rings), which must leave ``tol``; and
+    the per-diagonal kernel (csrc/lstm_wavefront.cu), launched past the
+    plan on the same inputs, against the same plain result ``ref``."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    T, Bn = inp["xp0"].shape[:2]
+    plan = wf.wavefront_eval_plan(Bn, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"{name}: the plan does not send this batch to the persistent kernel: {plan}")
+    args = [inp[k] for k in ("xp0", "w_h", "w_x_rest", "b_rest", "mask", "h0", "c0")]
+    if Bn == B:
+        before = wf.lstm_stack_wavefront.persistent_launches
+        again = run_wavefront(inp, wf.lstm_stack_wavefront)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        checks.append({"check": f"{name} persistent (grid {plan['grid']}, {plan['groups']} row "
+                                "groups): bit for bit on repeat", "equal": same,
+                       "persistent_launches": wf.lstm_stack_wavefront.persistent_launches - before})
+        if checks[-1]["persistent_launches"] != 1:
+            fail(f"{name}: the call did not launch the persistent kernel")
+        if not same:
+            fail(f"{name}: two calls on the same inputs differ")
+        del again
+        bad = wf._eval_persistent_launch(*args, plan, skip_waits=1)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(bad, ref))
+        checks.append({"planted_fault": f"{name}: counter waits left out (stale rings)",
+                       "max_abs_err": err, "tol": tol})
+        if err <= tol:
+            fail(f"{name}: the check does not see the planted fault ({err})")
+        del bad
+    old = wf._eval_per_diagonal_launch(*args)
+    torch.cuda.synchronize()
+    checks.append(compare(f"{name} per-diagonal kernel (launched past the plan)", old, ref, inp,
+                          tol))
+
+
+def _wavefront_eval_past_plan_check(checks):
+    """The inference forward at B=129 (past two row groups) on the
+    per-diagonal kernel, the plan's choice, against its plain version at
+    T=16 (ragged lengths, a zero-length row): no persistent launch."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    T, Bn = 16, 2 * 64 + 1
+    plan = wf.wavefront_eval_plan(Bn, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "per_diagonal":
+        fail(f"wavefront B={Bn}: expected the per-diagonal kernel past the plan, got {plan}")
+    lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
+    inp = stack_inputs(T, Bn, L, lens, seed=47)
+    before = wf.lstm_stack_wavefront.persistent_launches
+    got = run_wavefront(inp, wf.lstm_stack_wavefront)
+    ref = run_wavefront(inp, wf.lstm_stack_wavefront_plain)
+    torch.cuda.synchronize()
+    entry = compare(f"wavefront L={L} B={Bn} T={T} past the plan (per-diagonal kernel)", got, ref,
+                    inp, TOL_SHORT)
+    entry["persistent_launches"] = wf.lstm_stack_wavefront.persistent_launches - before
+    checks.append(entry)
+    if entry["persistent_launches"]:
+        fail(f"wavefront B={Bn}: ran the persistent kernel past its plan")
 
 
 def _recurrence_persistent_checks(checks):
@@ -790,7 +884,8 @@ def phase_eval():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec.lstm_recurrence.launches = rec.lstm_recurrence.persistent_launches = 0
-    wf.lstm_stack_wavefront.launches = 0
+    wf.lstm_stack_wavefront.launches = wf.lstm_stack_wavefront.persistent_launches = 0
+    persistent_b1 = 0
     for wavefront in (True, False):
         fe, cfg, params, audio, lengths = _eval_setup(wavefront)
         with torch.no_grad():
@@ -801,6 +896,13 @@ def phase_eval():
                 fail("eval: bad decode output")
             med, spread, vals = _throughput(run)
             stages = _stage_ms(params, cfg, fe, audio, lengths)
+            if wavefront:                            # one clip, the ``--file`` batch
+                before = wf.lstm_stack_wavefront.persistent_launches
+                labels, lab_len = cli.infer(params, cfg, fe, audio[:1], lengths[:1])
+                torch.cuda.synchronize()
+                if labels.shape[0] != 1 or not bool((lab_len >= 0).all()):
+                    fail("eval: bad decode output at B=1")
+                persistent_b1 = wf.lstm_stack_wavefront.persistent_launches - before
         results["wavefront" if wavefront else "layered"] = {
             "utt_per_s": med, "spread_pct": spread, "values": vals,
             "stage_ms": stages,
@@ -809,6 +911,9 @@ def phase_eval():
     # below beside their plain versions and torch.nn.LSTM.
     peak = torch.cuda.max_memory_allocated()
     launches = {"lstm_wavefront": wf.lstm_stack_wavefront.launches,
+                "lstm_wavefront_persistent": wf.lstm_stack_wavefront.persistent_launches
+                - persistent_b1,
+                "lstm_wavefront_persistent_b1": persistent_b1,
                 "lstm_recurrence": rec.lstm_recurrence.launches,
                 "lstm_recurrence_persistent": rec.lstm_recurrence.persistent_launches}
     if not all(launches.values()):
@@ -821,14 +926,17 @@ def phase_eval():
     # product.
     T = fe._frames_for_width(int(SR * SECONDS))
     timing = {}
+    per_diagonal = lambda x: lambda: wf._eval_per_diagonal_launch(*[x[k] for k in (
+        "xp0", "w_h", "w_x_rest", "b_rest", "mask", "h0", "c0")])   # the design row 1 replaces
     with torch.no_grad():
         one = stack_inputs(T, 1, L, [T], seed=98)
-        b1_ms = {"lstm_wavefront": cuda_ms(lambda: run_wavefront(one, wf.lstm_stack_wavefront))}
+        wf_b1 = in_turns(per_diagonal(one), lambda: run_wavefront(one, wf.lstm_stack_wavefront))
         b1_turns = in_turns(_nn_lstm(one, 1, T, 1),
                             lambda: run_recurrence(one, rec.lstm_recurrence))
         inp = stack_inputs(T, B, L, [T] * B, seed=99)
         wf_turns = in_turns(_nn_lstm(inp, L, T),
-                            lambda: run_wavefront(inp, wf.lstm_stack_wavefront))
+                            lambda: run_wavefront(inp, wf.lstm_stack_wavefront),
+                            per_diagonal=per_diagonal(inp))
         plain = cuda_ms(lambda: run_wavefront(inp, wf.lstm_stack_wavefront_plain),
                         iters=1)
         flops = 2 * T * B * H * 4 * H * (2 * L - 1)
@@ -836,11 +944,16 @@ def phase_eval():
                   + (L - 1) * 4 * H * 4 + T * B * 4 + 4 * L * B * H * 4
                   + T * B * H * 4)
         bound, by = _bounds(flops, nbytes)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         timing["lstm_wavefront"] = dict(
             ms=wf_turns["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
             library_ms=wf_turns["library_ms"],
             library=f"torch.nn.LSTM forward ({L} layers, in turns)", turns=wf_turns["turns"],
-            flops=flops, bytes=nbytes)
+            per_diagonal_ms=wf_turns["per_diagonal_ms"],
+            us_per_diagonal=1e3 * wf_turns["ms"] / (T + L - 1),
+            plan=wf.wavefront_eval_plan(B, H, L, sms), flops=flops, bytes=nbytes,
+            ms_b1=wf_b1["ms"], per_diagonal_ms_b1=wf_b1["library_ms"], turns_b1=wf_b1["turns"],
+            plan_b1=wf.wavefront_eval_plan(1, H, L, sms))
         turns = in_turns(_nn_lstm(inp, 1, T), lambda: run_recurrence(inp, rec.lstm_recurrence))
         plain = cuda_ms(lambda: run_recurrence(inp, rec.lstm_recurrence_plain),
                         iters=1)
@@ -848,7 +961,6 @@ def phase_eval():
         nbytes = (T * B * 4 * H * 4 + H * 4 * H * 2 + T * B * 4
                   + 4 * B * H * 4 + T * B * H * 4)
         bound, by = _bounds(flops, nbytes)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         timing["lstm_recurrence"] = dict(
             ms=turns["ms"], plain_ms=plain, bound_ms=bound, bound_by=by,
             library_ms=turns["library_ms"], library="torch.nn.LSTM forward (1 layer, in turns)",
@@ -857,8 +969,6 @@ def phase_eval():
             plan=rec.lean_plan(B, H, sms, x_f32=True), flops=flops, bytes=nbytes,
             ms_b1=b1_turns["ms"], library_ms_b1=b1_turns["library_ms"],
             turns_b1=b1_turns["turns"])
-    for name, ms in b1_ms.items():
-        timing[name]["ms_b1"] = ms
     emit("eval", batch=B, seconds=SECONDS, frames=T, throughput=results,
          launches=launches, timing=timing, peak_memory_gib=peak / 2**30)
 
@@ -1121,12 +1231,92 @@ def _per_diagonal_check(name, args, drop, ref, tol, checks):
     _rel_check(f"{name} per-diagonal kernel (launched past the plan)", got, ref, tol, checks)
 
 
+def _bwd_per_diagonal(args, drop, fuse_dwx=False):
+    """The per-diagonal reverse diagonal (csrc/lstm_wavefront_bwd.cu, the
+    fused pass's and the wide step's kernel) launched whatever the plan
+    says: ``args`` are BWD_ARGS' values and outs (``gates`` is overwritten
+    with dgates), ``drop`` is ``_drop``'s tuple, or () for drop mode 0."""
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    mode, arr, scale, keep = drop or (0, None, 1.0, 1.0)
+    T, Bn = args[0].shape[:2]
+    launch = wf._drop_launch_args(mode, arr, keep, scale, (L - 1, T, Bn, H), args[4].device)
+    return wf._bwd_per_diagonal_launch(*args, (mode, *launch), fuse_dwx)
+
+
+def _bwd_per_diagonal_check(name, args, drop, ref, tol, checks):
+    """The per-diagonal reverse diagonal launched past the plan on the
+    inputs the plan sends to the persistent kernel, against the same plain
+    result ``ref``."""
+    import torch
+
+    got = _bwd_per_diagonal(args, drop)
+    torch.cuda.synchronize()
+    _rel_check(f"{name} per-diagonal kernel (launched past the plan)", got, ref, tol, checks)
+
+
+def _wavefront_bwd_persistent_checks(b_in, outs, drop, ref, tag, tol, checks):
+    """The reverse diagonal on its persistent kernel (row 4:
+    csrc/lstm_wavefront_bwd_persistent.cu) at the default step's batch, on
+    ``_drop_mode_checks``' drop-mode-2 inputs ``b_in`` (and ``outs``) and
+    plain result ``ref``: the plan's choice, launched (counted at its
+    library's launch site), bit for bit on repeat in drop modes 0 and 2,
+    its mode-2 results (dgates, dh0, dc0, xdrop) equal to the same
+    kernel's in mode 1 fed ``random_bits.wavefront_masks`` of the same seed
+    words, beside the same launch without its layer counter waits (dgates
+    read before they are written), which must fail ``tol`` against
+    ``ref``."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.ops import random_bits
+
+    T, Bn = outs.shape[1:3]
+    plan = wf.wavefront_bwd_plan(Bn, H, L, False,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"wavefront_bwd {tag}: the plan does not send the default step's batch to the "
+             f"persistent kernel: {plan}")
+    kargs = lambda: [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS] + [outs]
+    before = wf.wavefront_bwd.persistent_launches
+    for mode, d in ((0, ()), (2, drop)):
+        got, again = wf.wavefront_bwd(*kargs(), *d), wf.wavefront_bwd(*kargs(), *d)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        checks.append({"check": f"wavefront_bwd mode {mode} {tag} persistent (grid "
+                                f"{plan['grid']}): bit for bit on repeat", "equal": same})
+        if not same:
+            fail(f"wavefront_bwd mode {mode} {tag}: two calls on the same inputs differ")
+        del again
+        if mode == 2:
+            masks = random_bits.wavefront_masks(drop[1], L - 1, T, Bn, H, KEEP_PROB, DEVICE)
+            fed = wf.wavefront_bwd(*kargs(), 1, masks, drop[2], 1.0)
+            torch.cuda.synchronize()
+            same = len(got) == len(fed) == 4 and all(torch.equal(a, b) for a, b in zip(got, fed))
+            checks.append({"check": f"wavefront_bwd {tag} persistent: mode 2 (dgates, dh0, dc0, "
+                                    "xdrop) equal to mode 1 fed wavefront_masks", "equal": same})
+            if not same:
+                fail(f"wavefront_bwd {tag}: mode 2 differs from mode 1 fed its bits")
+            del masks, fed
+        del got
+    launched = wf.wavefront_bwd.persistent_launches - before
+    if launched != 5:
+        fail(f"wavefront_bwd {tag}: {launched} persistent launches in five calls")
+    launch = wf._drop_launch_args(2, drop[1], drop[3], drop[2], None, None)
+    bad = wf._bwd_persistent_launch(*kargs(), (2, *launch), plan, skip_waits=1)
+    torch.cuda.synchronize()
+    _fault_check(f"wavefront_bwd {tag}: layer counter waits left out (dgates read before "
+                 "they are written)", bad, ref, tol, checks)
+    del bad
+
+
 def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
     """Both wavefront kernels in drop modes 1 and 2 against their plain
-    versions, with the backward's xdrop streams, the training forward on
-    the plan's kernel and on the per-diagonal one; beside mode 2, the plain
-    backward fed the neighbouring boundary's bits (boundary l+1's instead
-    of l's) must fail the check."""
+    versions, with the backward's xdrop streams, each on the plan's kernel
+    and on the per-diagonal one (and in mode 2 the reverse diagonal's
+    persistent checks, ``_wavefront_bwd_persistent_checks``); beside mode 2,
+    the plain backward fed the neighbouring boundary's bits (boundary l+1's
+    instead of l's) must fail the check."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1154,6 +1344,10 @@ def _drop_mode_checks(inp, tag, tol, checks, worst, seed):
                          wf.wavefront_bwd_plain(*plain_args(), 1, masks.roll(1, 0),
                                                 drop[2], 1.0), ref_b, tol, checks)
             del masks
+        _bwd_per_diagonal_check(f"wavefront_bwd mode {mode} {tag}", plain_args(), drop, ref_b,
+                                tol, checks)
+        if mode == 2:
+            _wavefront_bwd_persistent_checks(b_in, ref[0], drop, ref_b, tag, tol, checks)
         got_b = wf.wavefront_bwd(*[b_in[k] for k in BWD_ARGS], ref[0], *drop)
         torch.cuda.synchronize()
         worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
@@ -1231,7 +1425,9 @@ def _wavefront_past_plan_check(checks, worst):
     lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
     inp = _train_inputs(T, Bn, lens, seed=48)
     args = [inp[k] for k in FWD_ARGS]
-    before = wf.wavefront_train.persistent_launches
+    before, before_b = wf.wavefront_train.persistent_launches, wf.wavefront_bwd.persistent_launches
+    if wf.wavefront_bwd_plan(Bn, H, L)["kernel"] != "per_diagonal":
+        fail(f"wavefront_bwd B={Bn}: expected the per-diagonal kernel past the plan")
     for mode, d in ((0, ()), (2, _drop(2, T, Bn, 49))):
         got = wf.wavefront_train(*args, bf, *d)
         ref = wf.wavefront_train_plain(*args, bf, *d)
@@ -1239,8 +1435,17 @@ def _wavefront_past_plan_check(checks, worst):
         worst["wavefront_train"] = max(worst["wavefront_train"], _rel_check(
             f"wavefront_train mode {mode} L={L} B={Bn} T={T} past the plan (per-diagonal "
             "kernel)", got, ref, TRAIN_TOL_SHORT, checks))
+        b_in = _bwd_inputs(inp, *ref[:3], seed=50)
+        bargs = [b_in[k] for k in BWD_ARGS] + [ref[0], *d]
+        ref_b = wf.wavefront_bwd_plain(*[a.clone() if i == 4 else a for i, a in enumerate(bargs)])
+        got_b = wf.wavefront_bwd(*bargs)
+        torch.cuda.synchronize()
+        _rel_check(f"wavefront_bwd mode {mode} L={L} B={Bn} T={T} past the plan (per-diagonal "
+                   "kernel)", got_b, ref_b, TRAIN_TOL_SHORT, checks)
     if wf.wavefront_train.persistent_launches != before:
         fail(f"wavefront_train B={Bn}: ran the persistent kernel past its plan")
+    if wf.wavefront_bwd.persistent_launches != before_b:
+        fail(f"wavefront_bwd B={Bn}: ran the persistent kernel past its plan")
 
 
 FUSED_CHECK_B = (16, 96)   # batches of the fused dW_x's checks (on from B=83 at T=3510)
@@ -1278,7 +1483,7 @@ def _fused_checks(checks, worst):
                 args = lambda: [b_in[k].clone() for k in BWD_ARGS] + [outs, *drop]
                 ref = wf.wavefront_bwd_plain(*args(), fuse_dwx=True)
                 got = wf.wavefront_bwd(*args(), fuse_dwx=True)
-                unfused = wf.wavefront_bwd(*args())
+                unfused = _bwd_per_diagonal(args()[:10], drop)   # the same kernel, unfused
                 torch.cuda.synchronize()
                 tag = f"wavefront_bwd fused dW_x mode {mode} L={L} B={Bn} T={T}"
                 same = all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
@@ -1477,6 +1682,8 @@ def phase_train_kernels():
         _fault_check(f"wavefront_bwd {tag}: df scaled by 0.9", (scaled, *ref_b[1:]),
                      ref_b, tol, checks)
         del scaled
+        _bwd_per_diagonal_check(f"wavefront_bwd {tag}", plain_args() + [None], (), ref_b, tol,
+                                checks)
         got_b = wf.wavefront_bwd(*[b_in[k] for k in BWD_ARGS])
         torch.cuda.synchronize()
         worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
@@ -1731,8 +1938,9 @@ def _path_counters():
     the lean forward (csrc/lstm_layer_lean.cu; the recompute steps), the
     gates-mode forward (its gates instance; the layered steps), the
     gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
-    steps) and the wavefront training forward
-    (csrc/lstm_wavefront_persistent.cu; the default steps)."""
+    steps), the wavefront training forward
+    (csrc/lstm_wavefront_persistent.cu; the default steps) and the reverse
+    diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1744,7 +1952,8 @@ def _path_counters():
             "lean_persistent": tlt.recurrence_train_lean.persistent_launches,
             "bwd_persistent": tlt.recurrence_bwd.persistent_launches,
             "train_persistent": tlt.recurrence_train.persistent_launches,
-            "wavefront_persistent": wf.wavefront_train.persistent_launches}
+            "wavefront_persistent": wf.wavefront_train.persistent_launches,
+            "wavefront_bwd_persistent": wf.wavefront_bwd.persistent_launches}
 
 
 def _zero_path_counters():
@@ -1758,7 +1967,7 @@ def _zero_path_counters():
     tlt.recurrence_train_lean.persistent_launches = 0
     tlt.recurrence_bwd.persistent_launches = 0
     tlt.recurrence_train.persistent_launches = 0
-    wf.wavefront_train.persistent_launches = 0
+    wf.wavefront_train.persistent_launches = wf.wavefront_bwd.persistent_launches = 0
 
 
 @contextlib.contextmanager
@@ -2047,7 +2256,8 @@ def _train_kernel_timing(state):
     ms0 = cuda_ms(lambda: wf.wavefront_bwd(*bargs), iters=2)
     no_dw, with_dw = _nn_lstm_backward(T, Bn, L)
     turns = in_turns(no_dw, lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2,
-                     library_wgrad=with_dw)
+                     library_wgrad=with_dw,
+                     per_diagonal=lambda: _bwd_per_diagonal(bargs + [outs], drop))
     del no_dw, with_dw
     ms = turns["ms"]
     torch.cuda.empty_cache()
@@ -2065,6 +2275,9 @@ def _train_kernel_timing(state):
                                 library=f"torch.nn.LSTM backward ({L} layers, without weight "
                                 "gradients, in turns)",
                                 library_wgrad_ms=turns["library_wgrad_ms"],
+                                per_diagonal_ms=turns["per_diagonal_ms"],
+                                us_per_diagonal=1e3 * ms / (T + L - 1),
+                                plan=wf.wavefront_bwd_plan(Bn, H, L, False, sms),
                                 turns=turns["turns"], flops=flops, bytes=nbytes)
 
     h_prev = torch.cat([inp["h0"][0].to(bf)[None], outs[0, :-1]]).reshape(N, H)
@@ -2351,6 +2564,8 @@ def phase_train():
         fail(f"train: dgates_weight_grads never ran the Hopper tile: {default['wgmma_launches']}")
     if not default["wgmma_launches"]["wavefront_persistent"]:
         fail("train: the forward never ran the persistent wavefront kernel")
+    if not default["wgmma_launches"]["wavefront_bwd_persistent"]:
+        fail("train: the backward never ran the persistent reverse diagonal")
     losses = default["losses"]
     if not sum(losses[-3:]) / 3 < losses[0]:
         fail(f"train: the mean of the last 3 losses is not below the first: {losses}")
@@ -2912,6 +3127,7 @@ def phase_persistent_study(parent=None):
         del x, call
     torch.cuda.empty_cache()
     out.update(_forward_studies(sms))
+    out.update(_wavefront_studies(sms))
     if parent is not None:
         here, there = _persistent_digests(ROOT), _persistent_digests(os.path.abspath(parent))
         out["digests_against_parent"] = {"parent": parent, "here": here,
@@ -2998,6 +3214,72 @@ def _forward_studies(sms):
         stamps, ("x_product", "h_first_box", "h_product", "cell_store_publish", "to_next_step"),
         torch.arange(1, T - 1))
     out[f"wavefront_train B={Bn} T={T} mode 2"] = row
+    return out
+
+
+def _wavefront_studies(sms):
+    """Rows 1 and 4 beside the designs they replace (persistent_study): the
+    inference forward at B=128 and B=1, T=1024 (one call) and the reverse
+    diagonal at B=64, T=3510 in drop mode 2 (one pass; each call writes
+    dgates over its gates, and the later calls run on them: the same work),
+    each on its persistent kernel, on the per-diagonal kernel (forced
+    through its plan) and without its waits (wrong results: their share),
+    and where a step goes by SM-clock stamps: row 1's top layer's first CTA
+    at five points (step begun, x product done, first h box landed, h
+    product done, cell stored and published), row 4's CTA 0 (layer 0) at
+    five (pass begun, dout product stored, carry product stored, the
+    slice's partials all arrived, cell stored and published)."""
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    bf, out = torch.bfloat16, {}
+    T = 1024
+    names = ("x_product", "h_first_box", "h_product", "cell_store_publish", "to_next_step")
+    for Bn in (B, 1):
+        x = stack_inputs(T, Bn, L, [T] * Bn, seed=176)
+        args = [x[k] for k in ("xp0", "w_h", "w_x_rest", "b_rest", "mask", "h0", "c0")]
+        plan = wf.wavefront_eval_plan(Bn, H, L, sms)
+        with torch.no_grad():
+            row = dict(plan=plan, ms_per_call=cuda_ms(lambda: wf.lstm_stack_wavefront(*args)))
+            with mock.patch.object(wf, "wavefront_eval_plan",
+                                   lambda *a, **k: {"kernel": "per_diagonal"}):
+                row["per_diagonal_ms_per_call"] = cuda_ms(lambda: wf.lstm_stack_wavefront(*args))
+            row["no_waits_ms_per_call"] = cuda_ms(
+                lambda: wf._eval_persistent_launch(*args, plan, skip_waits=1))
+            row["us_per_diagonal"] = 1e3 * row["ms_per_call"] / (T + L - 1)
+            stamps = torch.zeros((T, 5), dtype=torch.int64, device=DEVICE)
+            wf._eval_persistent_launch(*args, plan, stamps=stamps)
+            torch.cuda.synchronize()
+        row["step_breakdown"] = _stamp_breakdown(stamps, names, torch.arange(1, T - 1))
+        out[f"lstm_wavefront B={Bn} T={T}"] = row
+        del x, args, stamps
+    torch.cuda.empty_cache()
+
+    T, Bn = TRAIN_T, TRAIN_B
+    inp = _train_inputs(T, Bn, [T] * Bn, seed=177)
+    drop = _drop(2, T, Bn, 178)
+    outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
+    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=179)
+    bargs = [b_in[k] for k in BWD_ARGS] + [outs]
+    plan = wf.wavefront_bwd_plan(Bn, H, L, False, sms)
+    run = lambda: wf.wavefront_bwd(*bargs, *drop)
+    row = dict(plan=plan, ms_per_pass=cuda_ms(run, iters=2))
+    with mock.patch.object(wf, "wavefront_bwd_plan", lambda *a, **k: {"kernel": "per_diagonal"}):
+        row["per_diagonal_ms_per_pass"] = cuda_ms(run, iters=2)
+    launch = (2, *wf._drop_launch_args(2, drop[1], drop[3], drop[2], None, None))
+    row["no_waits_ms_per_pass"] = cuda_ms(
+        lambda: wf._bwd_persistent_launch(*bargs, launch, plan, skip_waits=1), iters=2)
+    row["us_per_diagonal"] = 1e3 * row["ms_per_pass"] / (T + L - 1)
+    stamps = torch.zeros((T + 1, 5), dtype=torch.int64, device=DEVICE)
+    wf._bwd_persistent_launch(*bargs, launch, plan, stamps=stamps)
+    torch.cuda.synchronize()
+    row["step_breakdown"] = _stamp_breakdown(
+        stamps, ("dout_product", "carry_product", "partial_exchange", "sum_cell_publish",
+                 "to_next_pass"), torch.arange(1, T - 1))
+    out[f"wavefront_bwd B={Bn} T={T} mode 2"] = row
     return out
 
 
@@ -3758,7 +4040,7 @@ def kernels_line():
                 **tr.get("eval_step", {}).get("launches", {})}
     rows = []
     for name, src, replaces, kind in (
-        ("lstm_wavefront", "rnn_speech_tpu_torch/csrc/lstm_wavefront.cu",
+        ("lstm_wavefront", "rnn_speech_tpu_torch/csrc/lstm_wavefront_eval.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:90", "wf"),
         ("lstm_recurrence", "rnn_speech_tpu_torch/csrc/lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:62", "rec"),
@@ -3772,6 +4054,11 @@ def kernels_line():
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
         })
+        if kind == "wf":
+            rows[-1].update(persistent_launches=ev.get("launches", {}).get(
+                "lstm_wavefront_persistent"), persistent_launches_b1=ev.get("launches", {}).get(
+                "lstm_wavefront_persistent_b1"), us_per_diagonal=t.get("us_per_diagonal"),
+                ms_b1=t.get("ms_b1"))
         if kind == "rec":                            # one call of the L a batch makes
             rows[-1].update(persistent_launches=ev.get("launches", {}).get(
                 "lstm_recurrence_persistent"), us_per_step=t.get("us_per_step"),
@@ -3780,7 +4067,7 @@ def kernels_line():
     for name, src, replaces in (
         ("wavefront_train", csrc + "lstm_wavefront_persistent.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:230"),
-        ("wavefront_bwd", csrc + "lstm_wavefront_bwd.cu",
+        ("wavefront_bwd", csrc + "lstm_wavefront_bwd_persistent.cu",
          "rnn_speech_tpu/ops/lstm_wavefront.py:433"),
         ("dgates_weight_grads", csrc + "grad_matmul.cu",
          "rnn_speech_tpu/ops/grad_matmul_pallas.py:52"),
@@ -3806,9 +4093,10 @@ def kernels_line():
             rows[-1]["library_pair_ms"] = t["library_pair_ms"]
         if "library_wgrad_ms" in t:                  # the reverse diagonal: cuDNN with dW beside
             rows[-1]["library_wgrad_ms"] = t["library_wgrad_ms"]
-        if name == "wavefront_train":
+        if name in ("wavefront_train", "wavefront_bwd"):
             rows[-1].update(persistent_launches=tr.get("wgmma_launches", {}).get(
-                "wavefront_persistent"), us_per_diagonal=t.get("us_per_diagonal"))
+                "wavefront_persistent" if name == "wavefront_train" else
+                "wavefront_bwd_persistent"), us_per_diagonal=t.get("us_per_diagonal"))
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_lean.cu",

@@ -418,7 +418,54 @@ __device__ __forceinline__ void mma_64x64x16(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(keep));
 }
 
+// d (64x96 f32) = a·b + (keep ? d : 0) over 16 K: a (64 x 16) and b
+// (16 x 96) both K-major (the persistent wavefront kernels,
+// csrc/lstm_wavefront_persistent.cu, lstm_wavefront_eval.cu and
+// lstm_wavefront_bwd_persistent.cu).  Register 4j + r holds row 16·warp +
+// lane/4 + 8·(r/2), column 8j + 2·(lane%4) + r%2.
+__device__ __forceinline__ void mma_64x96x16(float (&d)[48], uint64_t a, uint64_t b,
+                                             uint32_t keep) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24), RST_ACC8(32), RST_ACC8(40)
+      : "l"(a), "l"(b), "r"(keep));
+}
+
 #undef RST_ACC8
+
+// A ring of `n` shared-memory stages of `bytes` each with full and empty
+// mbarriers, walked in the same order by the producer (put) and the
+// consumers (get, then release); the first round's empty waits pass (the
+// persistent wavefront kernels).
+template <int n, int bytes>
+struct Ring {
+  uint32_t base, full, empty;   // shared addresses: stage 0, its full and empty barriers
+  int it;
+  __device__ __forceinline__ uint32_t put() {   // producer: the next stage, its barrier armed
+    const int s = it % n;
+    bar_wait(empty + 8 * s, ((it / n) & 1) ^ 1);
+    bar_expect_tx(full + 8 * s, bytes);
+    ++it;
+    return s;
+  }
+  __device__ __forceinline__ uint32_t get() {   // consumers: the next stage once landed
+    const int s = it % n;
+    bar_wait(full + 8 * s, (it / n) & 1);
+    return base + s * bytes;
+  }
+  __device__ __forceinline__ void release(int lane) {
+    if (lane == 0) bar_arrive(empty + 8 * (it % n));
+    ++it;
+  }
+};
 
 // Stores (or, with `add`, adds) a warpgroup's 64x256 accumulator into the
 // row-major f32 tile at `out` (row 0, column 0 of this thread's first

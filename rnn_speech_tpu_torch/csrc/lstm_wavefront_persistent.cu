@@ -131,59 +131,9 @@ __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-#define RST_ACC8(i)                                                              \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
-      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-
-// d (64x96 f32) = a·b + (keep ? d : 0) over 16 K: a (64 x 16) and b (16 x 96)
-// both K-major in shared memory.  Register 4j + r holds row 16·warp +
-// lane/4 + 8·(r/2), column 8j + 2·(lane%4) + r%2.
-__device__ __forceinline__ void mma_64x96x16(float (&d)[48], uint64_t a, uint64_t b,
-                                             uint32_t keep) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24), RST_ACC8(32), RST_ACC8(40)
-      : "l"(a), "l"(b), "r"(keep));
-}
-
-#undef RST_ACC8
-
 __device__ __forceinline__ void stamp(long long* stamps, int t, int k) {
   if (stamps != nullptr) stamps[5 * t + k] = clock64();
 }
-
-// A ring of `n` shared-memory stages of `bytes` each with full and empty
-// mbarriers, walked in the same order by the producer (put) and the
-// consumers (get, then release); the first round's empty waits pass.
-template <int n, int bytes>
-struct Ring {
-  uint32_t base, full, empty;   // shared addresses: stage 0, its full and empty barriers
-  int it;
-  __device__ __forceinline__ uint32_t put() {   // producer: the next stage, its barrier armed
-    const int s = it % n;
-    tma::bar_wait(empty + 8 * s, ((it / n) & 1) ^ 1);
-    tma::bar_expect_tx(full + 8 * s, bytes);
-    ++it;
-    return s;
-  }
-  __device__ __forceinline__ uint32_t get() {   // consumers: the next stage once landed
-    const int s = it % n;
-    tma::bar_wait(full + 8 * s, (it / n) & 1);
-    return base + s * bytes;
-  }
-  __device__ __forceinline__ void release(int lane) {
-    if (lane == 0) tma::bar_arrive(empty + 8 * (it % n));
-    ++it;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads, 1)
     wavefront_persistent(const __grid_constant__ CUtensorMap map_wh,

@@ -8,8 +8,12 @@ layers l >= 1 take the lower layer's carried h and apply their own
 one diagonal after it is produced, so the math is the layered stack's;
 only the schedule differs.
 
-* ``lstm_stack_wavefront`` (``_wavefront_kernel``, ``csrc/lstm_wavefront.cu``):
-  inference; layer 0 adds the precomputed ``xp0 = x·W_x0 + b0``.
+* ``lstm_stack_wavefront`` (``_wavefront_kernel``): inference; layer 0
+  adds the precomputed ``xp0 = x·W_x0 + b0``.  ``wavefront_eval_plan``
+  sends it by shape to a persistent kernel (``csrc/lstm_wavefront_eval.cu``:
+  the training forward's design, up to two 64-row groups a CTA, B <= 128,
+  as at the eval batch and ``--file``) or to the per-diagonal kernel
+  (``csrc/lstm_wavefront.cu``).
 * ``wavefront_train`` (``_wavefront_train_kernel``): the training forward;
   layer 0's input product runs in the kernel and every step stores the
   bf16 residuals (activated gates, carried c, masked output of every
@@ -19,10 +23,15 @@ only the schedule differs.
   counters and rings of h in global memory; B <= 64, D = H and a grid of
   at most one CTA an SM, as at the default step) or to the per-diagonal
   kernel (``csrc/lstm_wavefront_train.cu``).
-* ``wavefront_bwd`` (``_wavefront_bwd_kernel``,
-  ``csrc/lstm_wavefront_bwd.cu``): the reverse diagonal, dgates of every
-  layer written over the gates residual, and dh0, dc0; with ``fuse_dwx``
-  also dW_x of layers 1..L-1 (the TPU kernel's ``fuse_dwx`` mode).
+* ``wavefront_bwd`` (``_wavefront_bwd_kernel``): the reverse diagonal,
+  dgates of every layer written over the gates residual, and dh0, dc0;
+  with ``fuse_dwx`` also dW_x of layers 1..L-1 (the TPU kernel's
+  ``fuse_dwx`` mode).  ``wavefront_bwd_plan`` sends the unfused pass by
+  shape to a persistent kernel (``csrc/lstm_wavefront_bwd_persistent.cu``:
+  one cooperative launch, W_hᵀ resident, a slice's K split in four gates
+  whose partials meet through L2, the layers paced by per-layer counters;
+  B <= 64, as at the default step) and everything else, the fused pass
+  among it, to the per-diagonal kernel (``csrc/lstm_wavefront_bwd.cu``).
 * ``lstm_stack_wavefront_train``: the differentiable stack
   (``_wavefront_stack_core`` and its VJP) over those two kernels and the
   weight-gradient kernel of ``ops/grad_matmul.py``.  With
@@ -48,8 +57,9 @@ Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises; there is no fallback.
 ``<wrapper>.launches`` counts the calls that launched a kernel (the
 per-diagonal kernels issue one CUDA launch per diagonal from one host
-call); ``wavefront_train.persistent_launches`` those of the persistent
-kernel, read from its library's own count at the launch site.
+call); ``<wrapper>.persistent_launches`` of the three wrappers those of
+their persistent kernels, read from each library's own count at the
+launch site.
 """
 
 from __future__ import annotations
@@ -116,11 +126,135 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _lib_fn():
-    fn = _build.load("lstm_wavefront").rst_lstm_wavefront
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# The persistent forwards (csrc/lstm_wavefront_persistent.cu, training;
+# csrc/lstm_wavefront_eval.cu, inference): hidden units a CTA owns (of one
+# layer; the products' N = 4 x 24), batch rows (one wgmma tile), steps
+# each layer's ring of h holds, the stages of the streamed-W ring (W_x,
+# and W_h's chunks past the resident ones) and of the A ring (the
+# kernels' kWStages and kAStages), and the bytes of one 96-column and of
+# one 64-row box (64 K, bf16).
+WAVEFRONT_UNITS, WAVEFRONT_ROWS, WAVEFRONT_RING = 24, 64, 8
+WAVEFRONT_W_STAGES, WAVEFRONT_A_STAGES = 2, 4
+_WF_BOX, _WF_ABOX = 4 * WAVEFRONT_UNITS * 64 * 2, WAVEFRONT_ROWS * 64 * 2
+
+
+# The persistent inference forward (csrc/lstm_wavefront_eval.cu): the
+# training forward's CTA (24 units of one layer, N = 4 x 24) and rings, with
+# up to two 64-row groups a CTA, each on its own consumer warpgroup.
+WAVEFRONT_EVAL_GROUPS = 2
+
+
+def wavefront_eval_smem(resident: int, groups: int) -> int:
+    """Dynamic shared memory of the persistent inference forward:
+    ``resident`` boxes of W_h (64-wide K chunks of the CTA's 96 columns),
+    the W ring's stages, the A ring's stages of 64·``groups`` rows, the
+    mbarriers and the 1024-byte alignment slack (the kernel's
+    ``smem_bytes``)."""
+    return ((resident + WAVEFRONT_W_STAGES) * _WF_BOX
+            + WAVEFRONT_A_STAGES * groups * _WF_ABOX
+            + 8 * (1 + 2 * (WAVEFRONT_W_STAGES + WAVEFRONT_A_STAGES)) + 1024)
+
+
+def wavefront_eval_layout(B: int, H: int, L: int, sms: int = H100_SMS):
+    """The persistent inference forward's grid at (B, H, L) on a card of
+    ``sms`` SMs, or None where the kernel cannot take the shape: ``slices``
+    = ceil(H/24) CTAs a layer, one CTA an SM for all L layers, ``groups`` =
+    ceil(B/64) row groups a CTA (B <= 128), H a multiple of 64.
+    ``resident`` is as many of W_h's H/64 K chunks as fit beside the rings
+    (11 of 16 at H=1024 with two groups, 14 with one; the kernel's
+    ``resident_chunks``).  Returns {"slices", "grid", "groups", "resident",
+    "ring", "smem"}."""
+    if not 1 <= B <= WAVEFRONT_EVAL_GROUPS * WAVEFRONT_ROWS or L < 2 or H < 64 or H % 64:
+        return None
+    slices = -(-H // WAVEFRONT_UNITS)
+    if L * slices > sms:
+        return None
+    groups = -(-B // WAVEFRONT_ROWS)
+    resident = min(H // 64, (SMEM_LIMIT - wavefront_eval_smem(0, groups)) // _WF_BOX)
+    return {"slices": slices, "grid": L * slices, "groups": groups, "resident": resident,
+            "ring": WAVEFRONT_RING, "smem": wavefront_eval_smem(resident, groups)}
+
+
+def wavefront_eval_plan(B: int, H: int, L: int, sms: int = H100_SMS) -> dict:
+    """Which kernel runs the inference forward at (B, H, L) on a card of
+    ``sms`` SMs, decided by shape alone: the persistent one where
+    ``wavefront_eval_layout`` takes the shape (the eval batch's B=128 and
+    ``--file``'s B=1 at 3x1024: 129 CTAs), else the per-diagonal kernel (B
+    past two row groups, more CTAs than SMs).  Returns {"kernel":
+    "persistent", **layout} or {"kernel": "per_diagonal"}."""
+    layout = wavefront_eval_layout(B, H, L, sms)
+    if layout is None:
+        return {"kernel": "per_diagonal"}
+    return {"kernel": "persistent", **layout}
+
+
+def _library_launches(name: str, symbol: str) -> int:
+    """Launches of a persistent kernel so far, as its library counts them at
+    the launch site."""
+    fn = getattr(_build.load(name), symbol)
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
+def _eval_persistent_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0, plan, skip_waits=0,
+                            stamps=None):
+    """The persistent inference forward on the plan's grid.  ``skip_waits``
+    plants a fault (no counter waits: each layer reads its rings without
+    waiting for their producers), for checks; ``stamps``, a (T, 5) int64
+    tensor on the device, takes the SM clock of the top layer's first CTA
+    at five points of each step (the kernel's ``Args::stamps``), for
+    studies.  Returns (out, hn, cn)."""
+    T, B, four_h = xp0.shape
+    H, L = four_h // 4, w_h.shape[0]
+    dev = xp0.device
+    R, groups = plan["ring"], plan["groups"]
+    with torch.cuda.device(dev):
+        h, c = h0.clone(), c0.clone()
+        out = torch.empty((T, B, H), dtype=f32, device=dev)
+        if T == 0:
+            return out, h, c
+        ring_h = torch.zeros((L, R, groups * WAVEFRONT_ROWS, H), dtype=bf16, device=dev)
+        ring_h[:, R - 1, :B] = h0.to(bf16)
+        wh = wavefront_weights(w_h, plan["slices"])
+        wx = wavefront_weights(w_x_rest, plan["slices"])
+        counter = torch.zeros((L,), dtype=torch.int32, device=dev)
+        fn = _build.load("lstm_wavefront_eval").rst_lstm_wavefront_eval_persistent
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        rc = fn(xp0.data_ptr(), wx.data_ptr(), wh.data_ptr(), b_rest.data_ptr(),
+                mask.data_ptr(), h.data_ptr(), c.data_ptr(), out.data_ptr(), ring_h.data_ptr(),
+                counter.data_ptr(), T, B, H, L, plan["slices"], groups, R, skip_waits,
+                _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_wavefront kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    return out, h, c
+
+
+def _eval_per_diagonal_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0):
+    """The per-diagonal inference forward (csrc/lstm_wavefront.cu): one
+    launch a diagonal, any B.  Returns (out, hn, cn)."""
+    T, B, four_h = xp0.shape
+    H, L = four_h // 4, w_h.shape[0]
+    dev = xp0.device
+    with torch.cuda.device(dev):
+        Bp = -(-B // 16) * 16
+        hb = torch.zeros((2, L, Bp, H), dtype=bf16, device=dev)
+        hb[:, :, :B] = h0.to(bf16)[None]
+        h = h0.clone()
+        c = c0.clone()
+        out = torch.empty((T, B, H), dtype=f32, device=dev)
+        if T == 0:
+            return out, h, c
+        fn = _build.load("lstm_wavefront").rst_lstm_wavefront
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(xp0.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(), b_rest.data_ptr(),
+                mask.data_ptr(), hb.data_ptr(), h.data_ptr(), c.data_ptr(), out.data_ptr(),
+                T, B, H, L, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_wavefront kernel launch failed: CUDA error {rc}")
+    return out, h, c
 
 
 def lstm_stack_wavefront(
@@ -132,8 +266,10 @@ def lstm_stack_wavefront(
     h0: Tensor,         # (L, B, H) f32
     c0: Tensor,         # (L, B, H) f32
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(out (T, B, H), hn (L, B, H), cn (L, B, H)); the kernel on a CUDA
-    device (bf16 weights), the plain version on the CPU."""
+    """(out (T, B, H), hn (L, B, H), cn (L, B, H)); on a CUDA device (bf16
+    weights) the kernel ``wavefront_eval_plan`` picks by shape, the
+    persistent one (``persistent_launches`` adds the library's count of its
+    launches) or the per-diagonal one; the plain version on the CPU."""
     T, B, four_h = xp0.shape
     H = four_h // 4
     L = w_h.shape[0]
@@ -153,27 +289,21 @@ def lstm_stack_wavefront(
         ("h0", h0, f32, (L, B, H)),
         ("c0", c0, f32, (L, B, H)),
     ], dev, H)
-    with torch.cuda.device(dev):
-        Bp = -(-B // 16) * 16
-        hb = torch.zeros((2, L, Bp, H), dtype=bf16, device=dev)
-        hb[:, :, :B] = h0.to(bf16)[None]
-        h = h0.clone()
-        c = c0.clone()
-        out = torch.empty((T, B, H), dtype=f32, device=dev)
-        if T == 0:
-            return out, h, c
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib_fn()(xp0.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
-                       b_rest.data_ptr(), mask.data_ptr(), hb.data_ptr(),
-                       h.data_ptr(), c.data_ptr(), out.data_ptr(),
-                       T, B, H, L, stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_wavefront kernel launch failed: CUDA error {rc}")
-    lstm_stack_wavefront.launches += 1
-    return out, h, c
+    plan = wavefront_eval_plan(B, H, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan["kernel"] == "persistent":
+        before = _library_launches("lstm_wavefront_eval", "rst_wavefront_eval_launches")
+        res = _eval_persistent_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0, plan)
+        lstm_stack_wavefront.persistent_launches += _library_launches(
+            "lstm_wavefront_eval", "rst_wavefront_eval_launches") - before
+    else:
+        res = _eval_per_diagonal_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0)
+    if T:                                            # T = 0 launches nothing
+        lstm_stack_wavefront.launches += 1
+    return res
 
 
 lstm_stack_wavefront.launches = 0
+lstm_stack_wavefront.persistent_launches = 0
 
 
 def lstm_stack_wavefront_apply(
@@ -297,17 +427,6 @@ def _drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale, shape, dev):
     return None, 0, 0, 0, 1.0
 
 
-# The persistent training forward (csrc/lstm_wavefront_persistent.cu):
-# hidden units a CTA owns (of one layer; the products' N = 4 x 24), batch
-# rows (one wgmma tile), steps each layer's ring of h holds, the stages of
-# the streamed-W ring (W_x, and W_h's chunks past the resident ones) and of
-# the A ring (the kernel's kWStages and kAStages), and the bytes of one
-# 96-column and of one 64-row box (64 K, bf16).
-WAVEFRONT_UNITS, WAVEFRONT_ROWS, WAVEFRONT_RING = 24, 64, 8
-WAVEFRONT_W_STAGES, WAVEFRONT_A_STAGES = 2, 4
-_WF_BOX, _WF_ABOX = 4 * WAVEFRONT_UNITS * 64 * 2, WAVEFRONT_ROWS * 64 * 2
-
-
 def wavefront_smem(resident: int) -> int:
     """Dynamic shared memory of the persistent forward: ``resident`` boxes
     of W_h (64-wide K chunks of the CTA's 96 columns), the two rings' stages
@@ -415,9 +534,7 @@ def _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan,
 def persistent_launches() -> int:
     """Launches of the persistent training forward so far, as its library
     counts them at the launch site."""
-    fn = _build.load("lstm_wavefront_persistent").rst_wavefront_persistent_launches
-    fn.argtypes, fn.restype = [], ctypes.c_longlong
-    return int(fn())
+    return _library_launches("lstm_wavefront_persistent", "rst_wavefront_persistent_launches")
 
 
 def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
@@ -606,56 +723,108 @@ def _bwd_buffers(L: int, T: int, B: int, H: int, drop_mode: int, fuse_dwx: bool,
     return ring, torch.zeros((L - 1, H, 4 * H), dtype=f32, device=device), W
 
 
-def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
-                  gates: Tensor, cseq: Tensor, c0: Tensor, dhn: Tensor,
-                  dcn: Tensor, outs: Tensor = None, drop_mode: int = 0, drop_arr=None,
-                  drop_scale: float = 1.0, keep_prob: float = 1.0,
-                  fuse_dwx: bool = False):
-    """Backward of the whole stack on the reverse diagonal.
+# The persistent reverse diagonal (csrc/lstm_wavefront_bwd_persistent.cu):
+# hidden units of a slice (the products' N) and its CTAs (a K split in four,
+# one gate's H columns each), and the bytes of one 96-unit box of W (64 K,
+# bf16).  The A boxes are the forwards' 64-row boxes.
+WAVEFRONT_BWD_UNITS, WAVEFRONT_BWD_SPLIT = 96, 4
+_WB_BOX = WAVEFRONT_BWD_UNITS * 64 * 2
 
-    In drop modes 1 and 2 (arguments as ``wavefront_train``'s) it also
-    reads ``outs`` (L, T, B, H), the forward's masked outputs, and returns
-    xdrop (L-1, T, B, H) after dh0, dc0.  With ``fuse_dwx`` (drop modes 0
-    and 2; it reads ``outs`` in both) it returns instead dwx (L-1, H, 4H)
-    float32, dW_x of layers 1..L-1, accumulated by the pass in windows of
-    ``FUSE_DWX_WINDOW`` diagonals; no xdrop stream is allocated
-    (``_bwd_buffers``); the window products take the tile that
-    ``grad_matmul.product_path`` picks for (H, 4H, bf16) dgates, the Hopper
-    tile at H a multiple of 64.  ``wavefront_bwd.fused_launches`` counts the
-    fused calls that launched the kernel, ``wavefront_bwd.wgmma_products``
-    the window products they launched on the Hopper tile.
 
-    dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
-    in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
-    (L, T, B, H): the forward's residuals; c0, dhn, dcn (L, B, H) float32.
-    ``gates`` is overwritten with dgates.  Returns (dgates (the ``gates``
-    tensor), dh0, dc0); the kernel on a CUDA device (bf16 operands and
-    residuals), the plain version on the CPU."""
+def wavefront_bwd_smem(resident: int) -> int:
+    """Dynamic shared memory of the persistent reverse diagonal:
+    ``resident`` boxes of W_h (64-wide K chunks of the CTA's gate for its
+    slice's 96 units), the W ring's and the A ring's stages, the mbarriers
+    and the 1024-byte alignment slack (the kernel's ``smem_bytes``)."""
+    return ((resident + WAVEFRONT_W_STAGES) * _WB_BOX + WAVEFRONT_A_STAGES * _WF_ABOX
+            + 8 * (1 + 2 * (WAVEFRONT_W_STAGES + WAVEFRONT_A_STAGES)) + 1024)
+
+
+def wavefront_bwd_layout(B: int, H: int, L: int, sms: int = H100_SMS):
+    """The persistent reverse diagonal's grid at (B, H, L) on a card of
+    ``sms`` SMs, or None where the kernel cannot take the shape: ``slices``
+    = ceil(H/96) slices of 96 units a layer, each four CTAs (CTA (l, u, q)
+    takes gate q's H columns of K), one CTA an SM for all L layers, B <= 64
+    (one tile), H a multiple of 64.  ``resident`` is as many of the gate's
+    H/64 K chunks of W_h as fit beside the rings (14 of 16 at H=1024; the
+    kernel's ``resident_chunks``).  Returns {"slices", "grid", "resident",
+    "smem"}."""
+    if not 1 <= B <= WAVEFRONT_ROWS or L < 2 or H < 64 or H % 64:
+        return None
+    slices = -(-H // WAVEFRONT_BWD_UNITS)
+    grid = L * slices * WAVEFRONT_BWD_SPLIT
+    if grid > sms:
+        return None
+    resident = min(H // 64, (SMEM_LIMIT - wavefront_bwd_smem(0)) // _WB_BOX)
+    return {"slices": slices, "grid": grid, "resident": resident,
+            "smem": wavefront_bwd_smem(resident)}
+
+
+def wavefront_bwd_plan(B: int, H: int, L: int, fuse_dwx: bool = False,
+                       sms: int = H100_SMS) -> dict:
+    """Which kernel runs the reverse diagonal at (B, H, L) on a card of
+    ``sms`` SMs, decided by shape alone: the persistent one for the unfused
+    pass where ``wavefront_bwd_layout`` takes the shape (the default step's
+    B=64 at 3x1024: 3 x 11 x 4 = 132 CTAs), else the per-diagonal kernel
+    (the fused dW_x, B past one tile, more CTAs than SMs).  Returns
+    {"kernel": "persistent", **layout} or {"kernel": "per_diagonal"}."""
+    layout = None if fuse_dwx else wavefront_bwd_layout(B, H, L, sms)
+    if layout is None:
+        return {"kernel": "per_diagonal"}
+    return {"kernel": "persistent", **layout}
+
+
+def _bwd_persistent_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs,
+                           drop, plan, skip_waits=0, stamps=None):
+    """The persistent reverse diagonal on the plan's grid (unfused).
+    ``drop`` is ``_drop_launch_args``' (masks, seed0, seed1, threshold,
+    scale) with the drop mode first; ``skip_waits`` plants a fault (no layer
+    counter waits: each layer reads dgates before their writers publish
+    them), for checks; ``stamps``, a (T + 1, 5) int64 tensor on the device,
+    takes CTA 0's SM clock at five points of each pass (the kernel's
+    ``Args::stamps``), for studies.  Overwrites ``gates`` with dgates;
+    returns (dgates, dh0, dc0) and in drop modes 1 and 2 xdrop."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
-    if w_h.shape[0] != L or w_x_rest.shape[0] != L - 1:
-        raise ValueError("w_h must cover all L layers and w_x_rest layers 1..L-1")
-    if not gates.is_cuda:
-        return wavefront_bwd_plain(dout_top, w_h, w_x_rest, mask, gates, cseq, c0,
-                                   dhn, dcn, outs, drop_mode, drop_arr, drop_scale,
-                                   keep_prob, fuse_dwx)
-    if L < 2:
-        raise ValueError("the wavefront kernel needs >= 2 layers")
-    _check_fuse(fuse_dwx, drop_mode, L, outs)
+    drop_mode, masks, seed0, seed1, thr, scale = drop
     dev = gates.device
-    check_kernel_inputs([
-        ("dout_top", dout_top, bf16, (T, B, H)),
-        ("w_h", w_h, bf16, (L, H, 4 * H)),
-        ("w_x_rest", w_x_rest, bf16, (L - 1, H, 4 * H)),
-        ("mask", mask, f32, (T, 1, B)),
-        ("gates", gates, bf16, (L, T, B, 4 * H)),
-        ("cseq", cseq, bf16, (L, T, B, H)),
-        ("c0", c0, f32, (L, B, H)),
-        ("dhn", dhn, f32, (L, B, H)),
-        ("dcn", dcn, f32, (L, B, H)),
-    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
-    masks, seed0, seed1, thr, scale = _drop_launch_args(
-        drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
+    S = plan["slices"]
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        xdrop = torch.empty((L - 1, T, B, H), dtype=bf16, device=dev) if drop_mode else None
+        res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
+        if T == 0:
+            return res
+        part = torch.empty((L, S, 2, WAVEFRONT_BWD_SPLIT, 2, WAVEFRONT_ROWS,
+                            WAVEFRONT_BWD_UNITS), dtype=f32, device=dev)
+        counter = torch.zeros((L * (1 + S),), dtype=torch.int32, device=dev)
+        fn = _build.load("lstm_wavefront_bwd_persistent").rst_lstm_wavefront_bwd_persistent
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_uint] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(), mask.data_ptr(),
+                gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+                part.data_ptr(), counter.data_ptr(), T, B, H, L, S, drop_mode, _ptr(masks),
+                _ptr(outs if drop_mode else None), _ptr(xdrop), seed0, seed1, thr, scale,
+                skip_waits, _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_wavefront_bwd kernel launch failed: CUDA error "
+                           f"{rc} (plan {plan})")
+    return res
+
+
+def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs,
+                             drop, fuse_dwx=False):
+    """The per-diagonal reverse diagonal (csrc/lstm_wavefront_bwd.cu): one
+    launch a diagonal, any B, and the fused dW_x.  ``drop`` as
+    ``_bwd_persistent_launch`` takes it.  Returns ``wavefront_bwd``'s
+    results; adds its window products on the Hopper tile to
+    ``wavefront_bwd.wgmma_products``."""
+    L, T, B, four_h = gates.shape
+    H = four_h // 4
+    drop_mode, masks, seed0, seed1, thr, scale = drop
+    dev = gates.device
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
         xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev)
@@ -686,13 +855,80 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
-    wavefront_bwd.launches += 1
-    wavefront_bwd.fused_launches += int(fuse_dwx)
     wavefront_bwd.wgmma_products += products() - before
     return res
 
 
+def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
+                  gates: Tensor, cseq: Tensor, c0: Tensor, dhn: Tensor,
+                  dcn: Tensor, outs: Tensor = None, drop_mode: int = 0, drop_arr=None,
+                  drop_scale: float = 1.0, keep_prob: float = 1.0,
+                  fuse_dwx: bool = False):
+    """Backward of the whole stack on the reverse diagonal.
+
+    In drop modes 1 and 2 (arguments as ``wavefront_train``'s) it also
+    reads ``outs`` (L, T, B, H), the forward's masked outputs, and returns
+    xdrop (L-1, T, B, H) after dh0, dc0.  With ``fuse_dwx`` (drop modes 0
+    and 2; it reads ``outs`` in both) it returns instead dwx (L-1, H, 4H)
+    float32, dW_x of layers 1..L-1, accumulated by the pass in windows of
+    ``FUSE_DWX_WINDOW`` diagonals; no xdrop stream is allocated
+    (``_bwd_buffers``); the window products take the tile that
+    ``grad_matmul.product_path`` picks for (H, 4H, bf16) dgates, the Hopper
+    tile at H a multiple of 64.  ``wavefront_bwd.fused_launches`` counts the
+    fused calls that launched the kernel, ``wavefront_bwd.wgmma_products``
+    the window products they launched on the Hopper tile.
+
+    dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
+    in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
+    (L, T, B, H): the forward's residuals; c0, dhn, dcn (L, B, H) float32.
+    ``gates`` is overwritten with dgates.  Returns (dgates (the ``gates``
+    tensor), dh0, dc0); on a CUDA device (bf16 operands and residuals) the
+    kernel ``wavefront_bwd_plan`` picks by shape, the persistent one
+    (``persistent_launches`` adds the library's count of its launches) or
+    the per-diagonal one; the plain version on the CPU."""
+    L, T, B, four_h = gates.shape
+    H = four_h // 4
+    if w_h.shape[0] != L or w_x_rest.shape[0] != L - 1:
+        raise ValueError("w_h must cover all L layers and w_x_rest layers 1..L-1")
+    if not gates.is_cuda:
+        return wavefront_bwd_plain(dout_top, w_h, w_x_rest, mask, gates, cseq, c0,
+                                   dhn, dcn, outs, drop_mode, drop_arr, drop_scale,
+                                   keep_prob, fuse_dwx)
+    if L < 2:
+        raise ValueError("the wavefront kernel needs >= 2 layers")
+    _check_fuse(fuse_dwx, drop_mode, L, outs)
+    dev = gates.device
+    check_kernel_inputs([
+        ("dout_top", dout_top, bf16, (T, B, H)),
+        ("w_h", w_h, bf16, (L, H, 4 * H)),
+        ("w_x_rest", w_x_rest, bf16, (L - 1, H, 4 * H)),
+        ("mask", mask, f32, (T, 1, B)),
+        ("gates", gates, bf16, (L, T, B, 4 * H)),
+        ("cseq", cseq, bf16, (L, T, B, H)),
+        ("c0", c0, f32, (L, B, H)),
+        ("dhn", dhn, f32, (L, B, H)),
+        ("dcn", dcn, f32, (L, B, H)),
+    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
+    drop = (drop_mode, *_drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale,
+                                          (L - 1, T, B, H), dev))
+    plan = wavefront_bwd_plan(B, H, L, fuse_dwx,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    args = (dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, drop)
+    if plan["kernel"] == "persistent":
+        count = ("lstm_wavefront_bwd_persistent", "rst_wavefront_bwd_persistent_launches")
+        before = _library_launches(*count)
+        res = _bwd_persistent_launch(*args, plan)
+        wavefront_bwd.persistent_launches += _library_launches(*count) - before
+    else:
+        res = _bwd_per_diagonal_launch(*args, fuse_dwx)
+    if T:                                            # T = 0 launches nothing
+        wavefront_bwd.launches += 1
+        wavefront_bwd.fused_launches += int(fuse_dwx)
+    return res
+
+
 wavefront_bwd.launches = 0
+wavefront_bwd.persistent_launches = 0
 wavefront_bwd.fused_launches = 0
 wavefront_bwd.wgmma_products = 0
 

@@ -21,7 +21,9 @@ forward (row 5) and the persistent wavefront training forward (row 3, in
 drop modes 0, 1 and 2) at the default steps' batch and small ragged ones,
 bit for bit on repeat, without their waits (planted faults), and the
 per-step and per-diagonal kernels they replace there, launched past the
-plans.
+plans; likewise the persistent wavefront inference forward (row 1: one
+and two row groups) and the persistent reverse diagonal (row 4, in drop
+modes 0, 1 and 2), and the per-diagonal kernels past their plans.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -56,8 +58,11 @@ products in float32 in another order than its plain version: 1e-5
 relative Frobenius, and equal bit for bit on repeat.  The
 fused dW_x sums T·B products of those bf16 dgates: 1e-2 of each
 boundary's own largest magnitude, a bound that one accumulation window
-left out fails; the fused pass's dgates, dh0 and dc0 equal the unfused
-pass's bit for bit.
+left out fails; the fused pass's dgates, dh0 and dc0 equal the same per-diagonal
+kernel's unfused pass's bit for bit.  The persistent wavefront inference
+forward (row 1) keeps 2e-3 absolute on its float32 outputs; the
+persistent reverse diagonal (row 4) keeps the training kernels' 8e-3 and
+1.2e-2 of each output's largest magnitude, with xavier-uniform weights.
 """
 
 import pytest
@@ -416,6 +421,17 @@ def test_wavefront_train_and_bwd_drop_modes_match_plain(cuda, mode, L, B, H, D, 
     _close_to(got_b, ref_b, TRAIN_TOL)
 
 
+def _per_diagonal_bwd(*args):
+    """The per-diagonal reverse diagonal (the fused pass's kernel), unfused,
+    whatever the plan says: ``wavefront_bwd``'s positional arguments up to
+    outs, then the drop mode's four (none: drop mode 0)."""
+    mode, arr, scale, keep = args[10:] or (0, None, 1.0, 1.0)
+    T, B, H = args[0].shape
+    launch = twave._drop_launch_args(mode, arr, keep, scale, (len(args[2]), T, B, H),
+                                     args[4].device)
+    return twave._bwd_per_diagonal_launch(*args[:10], (mode, *launch))
+
+
 @pytest.mark.parametrize("mode", [0, 2])
 @pytest.mark.parametrize("L,B,H,T", [(3, 5, 64, 10), (2, 17, 128, 7), (3, 70, 64, 3)])
 def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypatch):
@@ -435,7 +451,7 @@ def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypat
     ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
     twave.wavefront_bwd.fused_launches = 0
     got = bwd(twave.wavefront_bwd, fuse_dwx=True)
-    unfused = bwd(twave.wavefront_bwd)
+    unfused = bwd(_per_diagonal_bwd)                 # the same kernel, unfused
     torch.cuda.synchronize()
     assert twave.wavefront_bwd.fused_launches == 1
     assert got[3].shape == (L - 1, H, 4 * H) and got[3].dtype == torch.float32
@@ -478,7 +494,7 @@ def test_fused_dwx_windows_on_the_hopper_tile(cuda, mode, monkeypatch):
     ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
     twave.wavefront_bwd.wgmma_products = 0
     got = bwd(twave.wavefront_bwd, fuse_dwx=True)
-    unfused = bwd(twave.wavefront_bwd)
+    unfused = bwd(_per_diagonal_bwd)                 # the same kernel, unfused
     torch.cuda.synchronize()
     assert twave.wavefront_bwd.wgmma_products == 3 * (L - 1)   # 3 windows per boundary
     for l in range(L - 1):
@@ -1277,5 +1293,155 @@ def test_persistent_wavefront_without_its_waits_fails_the_check(cuda):
     bad = twave._persistent_launch(*args, (0, None, 0, 0, 0, 1.0),
                                    twave.wavefront_plan(B, H, L, H), skip_waits=1)
     ref = twave.wavefront_train_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2
+
+
+def _wavefront_eval_case(L, T, B, H, seed, dev):
+    """The inference forward's arguments: ragged lengths with a zero-length
+    row, xavier-uniform weights as the model initialises them."""
+    x = _inputs(L, T, B, H, seed, dev)
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(dev, torch.bfloat16)
+    x.update(w_h=w(L, H, 4 * H), w_x_rest=w(L - 1, H, 4 * H))
+    return [x[k] for k in ("xp0", "w_h", "w_x_rest", "b_rest", "mask", "h0", "c0")]
+
+
+@pytest.mark.parametrize("L,T,B,H", [(3, 16, 128, 1024), (3, 9, 1, 1024), (2, 7, 70, 256),
+                                     (3, 11, 5, 64), (2, 40, 128, 512), (4, 3, 17, 64),
+                                     (3, 12, 64, 128)])
+def test_persistent_wavefront_eval_matches_plain(cuda, L, T, B, H):
+    """The wavefront inference forward on the persistent kernel (the plan's
+    choice: one row group up to B=64, two up to 128) against its plain
+    version within 2e-3, counted at its launch site, bit for bit on
+    repeat; the zero-length row keeps its state."""
+    args = _wavefront_eval_case(L, T, B, H, seed=L + T + B + H, dev=cuda)
+    layout = twave.wavefront_eval_layout(B, H, L)
+    assert twave.wavefront_eval_plan(B, H, L) == {"kernel": "persistent", **layout}
+    assert layout["groups"] == (1 if B <= 64 else 2)
+    before = twave.lstm_stack_wavefront.persistent_launches
+    got = twave.lstm_stack_wavefront(*args)
+    assert twave.lstm_stack_wavefront.persistent_launches - before == 1
+    again = twave._eval_persistent_launch(*args, layout)
+    ref = twave.lstm_stack_wavefront_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(got, ref)
+    if B > 2:
+        assert torch.equal(got[1][:, 2], args[5][:, 2]) and not bool(got[0][:, 2].any())
+
+
+@pytest.mark.parametrize("L,T,B,H", [(2, 7, 3, 64), (3, 1, 5, 64), (3, 10, 100, 128)])
+def test_per_diagonal_wavefront_eval_past_the_plan_matches_plain(cuda, L, T, B, H):
+    """The per-diagonal inference forward launched at shapes the plan sends
+    to the persistent kernel, against its plain version within 2e-3."""
+    args = _wavefront_eval_case(L, T, B, H, seed=L + T + B + H + 1, dev=cuda)
+    assert twave.wavefront_eval_plan(B, H, L)["kernel"] == "persistent"
+    got = twave._eval_per_diagonal_launch(*args)
+    ref = twave.lstm_stack_wavefront_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, ref)
+
+
+def test_persistent_wavefront_eval_without_its_waits_fails_the_check(cuda):
+    """The layers read their rings without waiting for their producers:
+    stale h must leave the tolerance (and not hang)."""
+    L, T, B, H = 3, 64, 128, 1024
+    args = _wavefront_eval_case(L, T, B, H, seed=32, dev=cuda)
+    bad = twave._eval_persistent_launch(*args, twave.wavefront_eval_plan(B, H, L), skip_waits=1)
+    ref = twave.lstm_stack_wavefront_plain(*args)
+    torch.cuda.synchronize()
+    assert max(float((a - b).abs().max()) for a, b in zip(bad, ref)) > TOL
+
+
+def _wavefront_bwd_case(L, T, B, H, mode, seed, dev):
+    """The reverse diagonal's arguments (``wavefront_bwd``'s, outs last) from
+    the plain training forward of ``_wavefront_case`` in drop mode ``mode``,
+    and its drop tuple."""
+    args = _wavefront_case(L, T, B, H, seed, dev)
+    drop = _drop(mode, L, T, B, H, seed=B + T) if mode else ()
+    outs, gates, cseq, _, _ = twave.wavefront_train_plain(*args, torch.bfloat16, *drop)
+    g = torch.Generator().manual_seed(seed + 1)
+    r = lambda *s: torch.randn(s, generator=g).to(dev)
+    bwd = [r(T, B, H).to(torch.bfloat16) * 0.1, args[2], args[3], args[5], gates, cseq, args[7],
+           r(L, B, H) * 0.1, r(L, B, H) * 0.1, outs]
+    return bwd, drop
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L,T,B,H", [(3, 7, 5, 256), (2, 40, 17, 512), (3, 16, 64, 1024),
+                                     (3, 9, 1, 1024), (3, 11, 5, 64), (2, 9, 33, 128)])
+def test_persistent_wavefront_bwd_matches_plain(cuda, mode, L, T, B, H):
+    """The reverse diagonal on the persistent kernel (the plan's choice at
+    every one of these widths) against its plain version in drop modes 0,
+    1 and 2: 8e-3 of each output's largest magnitude (T <= 16) or 1.2e-2,
+    dgates in place, counted at its launch site, bit for bit on repeat; in
+    mode 2 (dgates, dh0, dc0 and xdrop) equal to mode 1 fed
+    ``random_bits.wavefront_masks`` of the same seed words."""
+    from rnn_speech_tpu_torch.ops import random_bits as rb
+
+    bwd, drop = _wavefront_bwd_case(L, T, B, H, mode, seed=L + T + B + H + mode, dev=cuda)
+    with_gates = lambda: bwd[:4] + [bwd[4].clone()] + bwd[5:]
+    layout = twave.wavefront_bwd_layout(B, H, L)
+    assert twave.wavefront_bwd_plan(B, H, L) == {"kernel": "persistent", **layout}
+    before = twave.wavefront_bwd.persistent_launches
+    gates = bwd[4].clone()
+    got = twave.wavefront_bwd(*bwd[:4], gates, *bwd[5:], *drop)
+    assert twave.wavefront_bwd.persistent_launches - before == 1
+    assert got[0].data_ptr() == gates.data_ptr()
+    again = twave._bwd_persistent_launch(*with_gates(), _launch_drop(drop), layout)
+    ref = twave.wavefront_bwd_plain(*with_gates(), *drop)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (4 if mode else 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_max(got, ref) <= (8e-3 if T <= 16 else 1.2e-2)
+    if mode == 2:
+        masks = rb.wavefront_masks(drop[1], L - 1, T, B, H, drop[3], cuda).float()
+        fed = twave._bwd_persistent_launch(*with_gates(), _launch_drop((1, masks, drop[2], 1.0)),
+                                           layout)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, fed))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L,T,B,H", [(2, 7, 3, 64), (3, 1, 5, 64), (3, 10, 33, 128)])
+def test_per_diagonal_wavefront_bwd_past_the_plan_matches_plain(cuda, mode, L, T, B, H):
+    """The per-diagonal reverse diagonal (the fused pass's and the wide
+    step's kernel) launched at shapes the plan sends to the persistent
+    kernel, against its plain version in drop modes 0, 1 and 2, within
+    8e-3 of each output's largest magnitude."""
+    bwd, drop = _wavefront_bwd_case(L, T, B, H, mode, seed=L + T + B + H + mode + 1, dev=cuda)
+    assert twave.wavefront_bwd_plan(B, H, L)["kernel"] == "persistent"
+    got = _per_diagonal_bwd(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop)
+    ref = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop)
+    torch.cuda.synchronize()
+    assert _rel_max(got, ref) <= 8e-3
+
+
+def test_wavefront_bwd_past_the_plans_grid_runs_the_per_diagonal_kernel(cuda):
+    """B=70 (past one tile) and the fused pass take the per-diagonal kernel
+    through the plan: no persistent launch."""
+    L, T, H = 3, 5, 128
+    for B, fuse in ((70, False), (5, True)):
+        bwd, drop = _wavefront_bwd_case(L, T, B, H, 2, seed=40 + B, dev=cuda)
+        assert twave.wavefront_bwd_plan(B, H, L, fuse)["kernel"] == "per_diagonal"
+        before = twave.wavefront_bwd.persistent_launches
+        got = twave.wavefront_bwd(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop, fuse_dwx=fuse)
+        ref = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop, fuse_dwx=fuse)
+        torch.cuda.synchronize()
+        assert twave.wavefront_bwd.persistent_launches == before
+        assert _rel_max(got[:3], ref[:3]) <= 8e-3
+
+
+def test_persistent_wavefront_bwd_without_its_waits_fails_the_check(cuda):
+    """The layers read dgates without waiting for their writers: the result
+    must leave the tolerance (and not hang)."""
+    L, T, B, H = 3, 64, 64, 1024
+    bwd, _ = _wavefront_bwd_case(L, T, B, H, 0, seed=33, dev=cuda)
+    bad = twave._bwd_persistent_launch(*bwd[:4], bwd[4].clone(), *bwd[5:],
+                                       (0, None, 0, 0, 0, 1.0), twave.wavefront_bwd_plan(B, H, L),
+                                       skip_waits=1)
+    ref = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:])
     torch.cuda.synchronize()
     assert _rel_max(bad, ref) > 1.2e-2

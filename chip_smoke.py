@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,bundle,beam,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
 
@@ -196,6 +196,34 @@ printing one JSON line:
            input projection: the readings that set its limit; and the
            recompute route's check and each alt route's (its switch set
            around it) at the same three seeds.
+  train_loop (~60-80 s)
+           ``python -m rnn_speech_tpu_torch.cli --train_acoustic`` at the
+           flagship width of config.ini (3x1024, fbank, bf16; batch_size 10
+           x mini_batch_size 3 fused to 30 rows, max_input_seq_length 3510,
+           bucket_count 8, keeps 0.8/0.5, the CTC kernels, the wavefront) on
+           a LibriSpeech-layout FLAC corpus rendered by the port's synth and
+           FLAC encoder (90 train and 30 test clips of ~2-15 s at 16 kHz):
+           6 steps from a fresh checkpoint_dir with a checkpoint and an
+           evaluation pass every 3, then a second process resuming for 3
+           more.  Each run is a child process that runs the CLI module as
+           ``python -m`` does (``_cli_child``), with the launch counters
+           zeroed first, CUDA events around every train and eval step and
+           the input pipeline's waits timed.  Fails unless
+           acousticmodel-{3,6,9}.npz and the pointer are written, the resume
+           restores step 6 at the saved lr, the losses are finite, both runs
+           write metrics lines and a TensorBoard event file, restoring the
+           last bundle gives the final parameters bit for bit, and rows 3,
+           4, 9, 12, 14, 15, 16 and 10 (the evaluation pass) launch.  Prints
+           the loop's median ms a step (host included) beside the train
+           phase's step, the device's idle share of the loop (CUDA events
+           around each step) and the FLAC decode's speed on one core.
+  evaluate (~20 s)
+           the bundle phase's 32 held-out clips written as a FLAC corpus
+           (int16), then ``--evaluate`` on the committed bundle at beam
+           widths 1 and 16 (one child process, two CLI runs): CER <= 2% at
+           both, the greedy WER and CER equal to those of
+           ``cli.transcribe`` on the same decoded audio in the same batch,
+           and row 1 launches.
   bundle   the committed trained bundle transcribes 32 rendered held-out
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths and through the fbank kernel at CER <= 2%, and all equal
@@ -4006,6 +4034,486 @@ def phase_beam():
     emit("beam", **entry, timing=timing)
 
 
+# ----------------------------------------------- the CLI's training modes
+
+LOOP_SR = 16000           # LibriSpeech's rate: the pipeline resamples to 22050
+LOOP_CLIPS = (90, 30)     # train and test clips of the train_loop corpus
+LOOP_SECONDS = (2.0, 15.0)
+LOOP_STEPS, LOOP_EVERY = 6, 3   # the first run's steps; checkpoint and eval cadence
+# The counters of the default train step (rows 3, 4, 9, 12, 14, 15, 16 of
+# PERF.md's table) and of the evaluation pass (row 10).
+LOOP_TRAIN_KERNELS = ("wavefront_train", "wavefront_bwd", "ctc_alpha_ckpt",
+                      "ctc_beta_post", "dgates_weight_grads", "weight_grad", "dropout")
+LOOP_EVAL_KERNELS = ("ctc_alpha_lossonly",)
+
+
+def _render_clip(args):
+    """Worker: render sentences back to back at LOOP_SR with sigma=900
+    noise as int16, write them as FLAC; returns (path, samples)."""
+    import numpy as np
+
+    from rnn_speech_tpu_torch import synth
+    from rnn_speech_tpu_torch.runtime import flac_enc
+
+    path, sentences, seed, sr = args
+    rng = np.random.default_rng(seed)
+    clean = np.concatenate([synth.render_syllables_clean(s, sr, rng) for s in sentences])
+    pcm = np.clip(np.round(clean + rng.normal(0, 900.0, len(clean))), -32000, 32000)
+    flac_enc.encode_flac(path, pcm.astype(np.int16), sr)
+    return path, len(pcm)
+
+
+def _flac_corpora(out_dir, corpora, sr, workers=8):
+    """Write each of ``corpora`` {name: [(transcript, sentences, seed), ...]}
+    as a FLAC corpus in LibriSpeech's layout, all over one process pool;
+    returns {name: (corpus root, seconds of audio)}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    tasks, out = [], {}
+    for name, clips in corpora.items():
+        chapter = os.path.join(out_dir, name, "spk", "chap")
+        os.makedirs(chapter, exist_ok=True)
+        with open(os.path.join(chapter, "1-2.trans.txt"), "w") as fh:
+            fh.writelines(f"1-2-{i:04d} {text}\n" for i, (text, _, _) in enumerate(clips))
+        tasks += [(os.path.join(chapter, f"1-2-{i:04d}.flac"), sentences, seed, sr)
+                  for i, (_, sentences, seed) in enumerate(clips)]
+        out[name] = os.path.join(out_dir, name)
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        samples = dict(pool.map(_render_clip, tasks))
+    return {name: (root, sum(n for path, n in samples.items()
+                             if path.startswith(root + os.sep)) / sr)
+            for name, root in out.items()}
+
+
+def _loop_clips(n, seed):
+    """n clips of back-to-back sentences, each about a duration drawn from
+    LOOP_SECONDS (the renderer gives ~0.56 s a word, half a word's time
+    between sentences)."""
+    import numpy as np
+
+    from rnn_speech_tpu_torch import synth
+
+    rng = np.random.default_rng(seed)
+    sentences = iter(synth.sample_sentences(40 * n, rng))
+    clips = []
+    for i in range(n):
+        target, parts, words = rng.uniform(*LOOP_SECONDS), [], 0.0
+        while words * 0.56 < target:
+            parts.append(next(sentences))
+            words += len(parts[-1].split()) + 0.5
+        clips.append((" ".join(parts), parts, seed * 1000 + i))
+    return clips
+
+
+_CLI_CHILD = r"""
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke._cli_child({out!r}, {runs!r}))
+"""
+
+
+def _cli_child(out_path, runs):
+    """Run ``python -m rnn_speech_tpu_torch.cli <argv>`` for each argv of
+    ``runs`` in turn in this process and write a record of each to
+    ``out_path``: its exit code and standard output, each kernel's
+    launches (counters zeroed before the run), every train step's host
+    entry time and CUDA events around it, its loss, every eval batch's
+    events, the time the loop waited on the input pipeline, the checkpoint
+    it restored, and whether ``checkpoint.restore`` of the last bundle
+    equals the parameters the run ended with, bit for bit."""
+    import io
+    import runpy
+    import statistics
+
+    import torch
+
+    from rnn_speech_tpu_torch import params as params_mod
+    from rnn_speech_tpu_torch.config import load_config
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.train import checkpoint, loop, pipeline, step
+
+    counters = {**_all_counters(), "lstm_wavefront": wf.lstm_stack_wavefront,
+                "lstm_recurrence": rec.lstm_recurrence}
+    steps, evals, waits, restored, ended = [], [], [], [], []
+    in_eval = [False]
+
+    def around(fn, into):
+        def timed(*args, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            # Keep the metrics only: a train step's state would pin every
+            # step's parameters and Adam moments on the card.
+            into.append((t0, e0, e1, out[1] if isinstance(out, tuple) else out))
+            return out
+        return timed
+
+    step.train_step = around(step.train_step, steps)
+    step.eval_step = around(step.eval_step, evals)
+    base_pipeline, base_eval, base_train = (pipeline.InputPipeline, loop.evaluate_dataset,
+                                            loop.train_acoustic)
+    base_restore = checkpoint.restore
+
+    class TimedPipeline(base_pipeline):
+        def __iter__(self):
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                waits.append((in_eval[0], time.perf_counter() - t0))
+                yield batch
+
+    def evaluate_dataset(*args, **kw):
+        in_eval[0] = True
+        try:
+            return base_eval(*args, **kw)
+        finally:
+            in_eval[0] = False
+
+    def restore(*args, **kw):
+        got = base_restore(*args, **kw)
+        restored.append(None if got is None else list(got[1:]))
+        return got
+
+    def train_acoustic(*args, **kw):
+        state = base_train(*args, **kw)
+        ended.append(state)
+        return state
+
+    pipeline.InputPipeline, loop.evaluate_dataset = TimedPipeline, evaluate_dataset
+    loop.train_acoustic, checkpoint.restore = train_acoustic, restore
+    records = []
+    for argv in runs:
+        for fn in counters.values():
+            fn.launches = 0
+        wf.lstm_stack_wavefront.persistent_launches = 0
+        _zero_path_counters()
+        for seen in (steps, evals, waits, restored, ended):
+            seen.clear()
+        sys.argv = ["rnn_speech_tpu_torch.cli", *argv]
+        printed = io.StringIO()
+        t_start = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            try:
+                runpy.run_module("rnn_speech_tpu_torch.cli", run_name="__main__",
+                                 alter_sys=True)
+                rc = 0
+            except SystemExit as exc:
+                rc = exc.code if isinstance(exc.code, int) else int(exc.code is not None)
+        torch.cuda.synchronize()
+        out = {"argv": argv, "rc": rc, "stdout": printed.getvalue(),
+               "wall_s": time.perf_counter() - t_start,
+               "launches": {k: fn.launches for k, fn in counters.items()},
+               "wavefront_eval_persistent": wf.lstm_stack_wavefront.persistent_launches,
+               "path_launches": _path_counters(), "restored": restored[:1]}
+        if steps:
+            entries = [t for t, _, _, _ in steps]
+            device_ms = [e0.elapsed_time(e1) for _, e0, e1, _ in steps]
+            eval_ms = [e0.elapsed_time(e1) for _, e0, e1, _ in evals]
+            last = evals[-1] if evals and evals[-1][0] > steps[-1][0] else steps[-1]
+            span_ms = steps[0][1].elapsed_time(last[2])
+            busy_ms = sum(device_ms) + sum(ms for (t, _, _, _), ms in zip(evals, eval_ms)
+                                           if t > steps[0][0])
+            host_ms = [1e3 * (b - a) for a, b in zip(entries, entries[1:])]
+            out.update(
+                steps=len(steps), losses=[float(m["mean_loss"]) for *_, m in steps],
+                step_device_ms=device_ms, step_host_ms=host_ms,
+                loop_ms_per_step_median=statistics.median(host_ms) if host_ms else None,
+                device_ms_per_step_median=statistics.median(device_ms),
+                eval_batches=len(evals), eval_device_ms=eval_ms,
+                device_span_ms=span_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / span_ms if span_ms > 0 else None,
+                pipeline_wait_s={"train": sum(w for e, w in waits if not e),
+                                 "eval": sum(w for e, w in waits if e),
+                                 "train_batches": sum(1 for e, _ in waits if not e)})
+        if ended:
+            state = ended[0]
+            config = load_config(argv[argv.index("--config") + 1])
+            got = base_restore(config.checkpoint_dir + "/acoustic/", state["params"])
+            final, back = params_mod.flatten(state["params"]), params_mod.flatten(got[0])
+            out.update(final_step=int(state["step"]), final_lr=float(state["lr"]),
+                       restore_step=got[1], restore_lr=got[2],
+                       restore_equal=all(torch.equal(final[k], back[k]) for k in final))
+        records.append(out)
+    with open(out_path, "w") as fh:
+        json.dump(records, fh)
+    return max(r["rc"] for r in records)
+
+
+def _run_cli_child(runs, tmp, tag, timeout=600):
+    """The CLI runs ``runs`` (argv lists) in turn in one child process
+    (``_cli_child``); returns their records."""
+    out = os.path.join(tmp, f"{tag}.json")
+    code = _CLI_CHILD.format(root=ROOT, out=out, runs=[list(r) for r in runs])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"{tag}: rc={proc.returncode} stdout={proc.stdout[-1500:]} "
+             f"stderr={proc.stderr[-3000:]}")
+    with open(out) as fh:
+        records = json.load(fh)
+    for record in records:
+        record["process_s"] = seconds
+    return records
+
+
+LOOP_INI = """[acoustic_network_params]
+num_layers : {L}
+hidden_size : {H}
+dropout_input_keep_prob : {ki}
+dropout_output_keep_prob : {ko}
+batch_size : 10
+mini_batch_size : 3
+learning_rate : 0.0003
+lr_decay_factor : 0.33
+grad_clip : 1
+rnn_state_reset_ratio : 0.25
+signal_processing : fbank
+language : english
+
+[general]
+use_config_file_if_checkpoint_exists : True
+steps_per_checkpoint : {every}
+steps_per_evaluation : {every}
+checkpoint_dir : {ckpt}
+
+[training]
+training_dataset_dirs : {train}
+test_dataset_dirs : {test}
+max_input_seq_length : 3510
+max_target_seq_length : 600
+tensorboard_dir : {tb}
+dataset_size_ordering : False
+
+[logging]
+log_level : WARNING
+
+[tpu]
+compute_dtype : bfloat16
+use_pallas_lstm : True
+use_pallas_ctc : True
+wavefront : True
+bucket_count : 8
+prefetch_depth : 2
+fuse_microbatches : True
+"""
+
+
+def phase_train_loop():
+    """``--train_acoustic`` through the CLI at the flagship width on a
+    rendered FLAC corpus: 6 steps from nothing, then a resume to step 9."""
+    import glob
+
+    from rnn_speech_tpu_torch import audio_io
+    from rnn_speech_tpu_torch.train import pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        made = _flac_corpora(tmp, {"train": _loop_clips(LOOP_CLIPS[0], 14),
+                                   "test": _loop_clips(LOOP_CLIPS[1], 15)}, LOOP_SR)
+        (train_root, train_s), (test_root, test_s) = made["train"], made["test"]
+        corpus_s = time.perf_counter() - t0
+        # The decoder's own speed, one process: the first 4 train clips.
+        files = sorted(glob.glob(os.path.join(train_root, "*", "*", "*.flac")))[:4]
+        t0 = time.perf_counter()
+        decoded_s = sum(len(audio_io.load(f)[0]) for f in files) / 22050
+        decode_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(tmp, "tb"))
+        ini = os.path.join(tmp, "loop.ini")
+        with open(ini, "w") as fh:
+            fh.write(LOOP_INI.format(L=L, H=H, ki=INPUT_KEEP, ko=OUTPUT_KEEP, every=LOOP_EVERY,
+                                     ckpt=os.path.join(tmp, "ckpt"), train=train_root,
+                                     test=test_root, tb=os.path.join(tmp, "tb")))
+        base = ["--train_acoustic", "--config", ini]
+        first, = _run_cli_child([base + ["--max_steps", str(LOOP_STEPS), "--tb_name", "a"]],
+                                tmp, "train_loop_first")
+        ckpt_dir = os.path.join(tmp, "ckpt", "acoustic")
+        after_first = sorted(os.listdir(ckpt_dir))
+        # --max_steps counts this session's steps, as in the JAX CLI.
+        resume, = _run_cli_child([base + ["--max_steps", str(LOOP_EVERY), "--tb_name", "b"]],
+                                 tmp, "train_loop_resume")
+        files_after = sorted(os.listdir(ckpt_dir))
+        tb = {run: sorted(os.listdir(os.path.join(tmp, "tb", run))) for run in ("a", "b")}
+        lines = {run: sum(1 for _ in open(os.path.join(tmp, "tb", run, "events.jsonl")))
+                 for run in ("a", "b")}
+    want = [f"acousticmodel-{s}.npz" for s in (3, 6, 9)] + ["checkpoint"]
+    problems = []
+    if files_after != want or after_first != want[:2] + ["checkpoint"]:
+        problems.append(f"checkpoints {after_first} then {files_after}")
+    if first["restored"] != [None] or resume["restored"] != [[6, first["final_lr"]]]:
+        problems.append(f"restore {first['restored']} then {resume['restored']}")
+    if (first.get("final_step"), resume.get("final_step")) != (6, 9):
+        problems.append(f"final steps {first.get('final_step')}, {resume.get('final_step')}")
+    for run in (first, resume):
+        if not all(math.isfinite(v) for v in run.get("losses", [float("nan")])):
+            problems.append(f"losses {run.get('losses')}")
+        if not run.get("restore_equal"):
+            problems.append("restore of the last bundle differs from the final params")
+        for name in LOOP_TRAIN_KERNELS + LOOP_EVAL_KERNELS:
+            if not run["launches"].get(name):
+                problems.append(f"{name} did not launch: {run['launches']}")
+        if run["eval_batches"] < 1:
+            problems.append("no evaluation pass ran")
+    for run in ("a", "b"):
+        if lines[run] < 2 or not any(f.startswith("events.out.tfevents") for f in tb[run]):
+            problems.append(f"metrics of run {run}: {tb[run]}, {lines[run]} lines")
+    if problems:
+        fail("train_loop: " + "; ".join(problems))
+    train = RECORD.get("train", {})
+    keep = ("rc", "wall_s", "process_s", "stdout", "steps", "losses", "step_host_ms", "step_device_ms",
+            "loop_ms_per_step_median", "device_ms_per_step_median", "eval_batches",
+            "eval_device_ms", "device_span_ms", "device_busy_ms", "device_idle_share",
+            "pipeline_wait_s", "launches", "restored", "final_step", "final_lr",
+            "restore_equal")
+    emit("train_loop",
+         corpus={"train_clips": LOOP_CLIPS[0], "test_clips": LOOP_CLIPS[1],
+                 "train_audio_s": train_s, "test_audio_s": test_s, "sample_rate": LOOP_SR,
+                 "render_and_encode_s": corpus_s},
+         decode={"clips": len(files), "audio_s": decoded_s, "seconds": decode_s,
+                 "s_per_audio_s": decode_s / decoded_s,
+                 "workers": pipeline.default_decode_threads(), "cpu_count": os.cpu_count()},
+         batch=30, checkpoints=files_after,
+         first={k: first.get(k) for k in keep}, resume={k: resume.get(k) for k in keep},
+         loop_ms_per_step=first["loop_ms_per_step_median"],
+         loop_device_idle_share=first["device_idle_share"],
+         train_phase_ms_per_step=train.get("train_ms_per_step"),
+         train_phase_shape={"batch": TRAIN_B, "frames": TRAIN_T})
+
+
+EVAL_INI = """[acoustic_network_params]
+num_layers : 3
+hidden_size : 1024
+dropout_input_keep_prob : 0.9
+dropout_output_keep_prob : 0.6
+batch_size : 32
+mini_batch_size : 1
+learning_rate : 0.001
+lr_decay_factor : 0.33
+grad_clip : 5
+rnn_state_reset_ratio : 1.0
+signal_processing : fbank
+language : english
+
+[general]
+use_config_file_if_checkpoint_exists : True
+steps_per_checkpoint : 100
+steps_per_evaluation : 100
+checkpoint_dir : {bundle}
+
+[training]
+test_dataset_dirs : {test}
+max_input_seq_length : 600
+max_target_seq_length : 80
+
+[logging]
+log_level : WARNING
+
+[tpu]
+compute_dtype : bfloat16
+use_pallas_lstm : True
+wavefront : True
+bucket_count : 8
+prefetch_depth : 2
+"""
+
+
+def _printed_rates(stdout):
+    """(WER, CER) from the CLI's two result lines."""
+    got = {}
+    for line in stdout.splitlines():
+        for key in ("WER", "CER"):
+            if line.startswith(f"Resulting {key} : "):
+                got[key] = line.split(" : ")[1].rstrip(" %")
+    return got.get("WER"), got.get("CER")
+
+
+def phase_evaluate():
+    """``--evaluate`` through the CLI on the committed bundle over the 32
+    held-out clips written as FLAC, greedy and at beam width 16."""
+    import numpy as np
+    import torch
+
+    from rnn_speech_tpu_torch import cli, corpus
+    from rnn_speech_tpu_torch.charmap import get_char_map
+    from rnn_speech_tpu_torch.config import HyperParamStore, load_config
+    from rnn_speech_tpu_torch.runtime import flac_enc
+    from rnn_speech_tpu_torch.train import metrics, pipeline
+
+    texts, sigs = _held_out()
+    with tempfile.TemporaryDirectory() as tmp:
+        chapter = os.path.join(tmp, "held_out", "spk", "chap")
+        os.makedirs(chapter)
+        with open(os.path.join(chapter, "1-2.trans.txt"), "w") as fh:
+            for i, (text, sig) in enumerate(zip(texts, sigs)):
+                pcm = np.clip(np.round(sig * 32768.0), -32768, 32767).astype(np.int16)
+                flac_enc.encode_flac(os.path.join(chapter, f"1-2-{i:04d}.flac"), pcm, SR)
+                fh.write(f"1-2-{i:04d} {text}\n")
+        ini = os.path.join(tmp, "eval.ini")
+        with open(ini, "w") as fh:
+            fh.write(EVAL_INI.format(bundle=BUNDLE, test=os.path.join(tmp, "held_out")))
+        widths = (1, cli.DEFAULT_BEAM_WIDTH)
+        records = _run_cli_child([["--evaluate", "--config", ini, "--beam_width", str(w)]
+                                  for w in widths], tmp, "evaluate")
+        runs = dict(zip(widths, records))
+        for record in runs.values():
+            record["wer"], record["cer"] = _printed_rates(record["stdout"])
+        # The yardstick: cli.transcribe on the same decoded FLAC audio, one
+        # batch in the evaluate mode's order and width, scored the same way.
+        config = HyperParamStore(load_config(ini)).config
+        char_map = get_char_map("english")
+        test_set = sorted(corpus.DataProcessor(config.test_dataset_dirs).get_dataset(),
+                          key=lambda item: item[2])
+        clips = [sig for _, sig, _ in pipeline.load_clips(
+            [path for path, _, _ in test_set], SR, pipeline.default_decode_threads())]
+        model_cfg, fe, params = cli.build_forward(config, char_map, "cuda")
+        max_samples = cli.max_samples_for(config)
+        unit = -(-max_samples // max(config.tpu.bucket_count, 1))
+        width = min(max(1, -(-max(len(c) for c in clips) // unit)) * unit, max_samples)
+        audio = np.zeros((config.batch_size, width), np.float32)
+        lengths = np.zeros((config.batch_size,), np.int32)
+        for i, clip in enumerate(clips):
+            audio[i, : len(clip)] = clip
+            lengths[i] = len(clip)
+        with torch.no_grad():
+            hyps = cli.transcribe(params, model_cfg, audio, lengths, frontend=fe,
+                                  char_map=char_map, device="cuda", beam_width=1)
+    truths = [label for _, label, _ in test_set]
+    wer_list = [metrics.calculate_wer(h, t) / float(len(t.split()))
+                for h, t in zip(hyps, truths)]
+    cer_list = [metrics.calculate_cer(h, t) / float(len(t.replace(" ", "")))
+                for h, t in zip(hyps, truths)]
+    wer = float(sum(wer_list)) * 100 / len(wer_list)       # as the CLI averages
+    cer = float(sum(cer_list)) * 100 / len(cer_list)
+    want = ("{0:.3g}".format(wer), "{0:.3g}".format(cer))
+    problems = []
+    for width, run in runs.items():
+        if run["cer"] is None or float(run["cer"]) > CER_LIMIT:
+            problems.append(f"beam {width}: CER {run['cer']} (limit {CER_LIMIT}%)")
+        if not run["launches"].get("lstm_wavefront"):
+            problems.append(f"beam {width}: row 1 did not launch: {run['launches']}")
+    if (runs[1]["wer"], runs[1]["cer"]) != want:
+        problems.append(f"greedy printed {runs[1]['wer']}/{runs[1]['cer']}, "
+                        f"transcribe gives {want}")
+    if problems:
+        fail("evaluate: " + "; ".join(problems))
+    emit("evaluate", clips=len(test_set), batch=32, transcribe_wer_cer=want,
+         process_s=runs[1]["process_s"],
+         **{f"beam{w}": {"wer_pct": r["wer"], "cer_pct": r["cer"], "wall_s": r["wall_s"],
+                         "launches": {k: v for k, v in r["launches"].items() if v},
+                         "wavefront_eval_persistent": r["wavefront_eval_persistent"]}
+            for w, r in runs.items()})
+
+
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
@@ -4168,11 +4676,22 @@ def kernels_line():
         })
         if "library_pair_ms" in t:
             rows[-1]["library_pair_ms"] = t["library_pair_ms"]
+    # The CLI's own paths, each counted from zero in its run: the first
+    # --train_acoustic run (train steps and evaluation passes) and the
+    # greedy --evaluate run.
+    loop_launches = RECORD.get("train_loop", {}).get("first", {}).get("launches") or {}
+    eval_launches = RECORD.get("evaluate", {}).get("beam1", {}).get("launches") or {}
+    for row in rows:
+        if loop_launches:
+            row["train_loop_launches"] = loop_launches.get(row["name"], 0)
+        if eval_launches:
+            row["evaluate_launches"] = eval_launches.get(row["name"], 0)
     return {"kernels": rows}
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "alt_routes", "train_wide", "grad_study", "bundle", "beam", "cli")
+          "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle", "beam",
+          "cli")
 OPT_IN_PHASES = ("lean_study", "persistent_study")
 
 
@@ -4217,6 +4736,7 @@ def main(argv=None) -> int:
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
                      ("train_wide", phase_train_wide), ("grad_study", phase_grad_study),
+                     ("train_loop", phase_train_loop), ("evaluate", phase_evaluate),
                      ("lean_study", phase_lean_study),
                      ("persistent_study", lambda: phase_persistent_study(args.parent))):
         if name in phases:

@@ -8,18 +8,22 @@ Every entry point runs on a CUDA device unless the caller asks for the
 CPU with ``device="cpu"``; without a GPU and without that request it
 raises instead of running quietly on the CPU.  The hand-written CUDA
 kernels (``csrc/``) are built at first use by ``ops/_build.py``.
+The package itself imports ``torch`` only when a device is resolved, so
+the host-only modules (audio IO, corpus readers, the input pipeline's
+decode workers) start without it.
 """
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless ``device`` says
-    otherwise.  Raises when CUDA is asked for (or implied) and absent."""
+def resolve_device(device=None):
+    """The ``torch.device`` an entry point runs on: ``cuda`` unless
+    ``device`` says otherwise.  Raises when CUDA is asked for (or implied)
+    and absent."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"Unsupported device {device!r}: use 'cuda' or 'cpu'")

@@ -1,16 +1,18 @@
-"""Audio container IO for the serving path: WAV and NIST SPHERE (numpy).
+"""Audio container IO: WAV, NIST SPHERE and FLAC (numpy), header probes.
 
-The port's own copy of the readers in ``rnn_speech_tpu/audio_io.py``:
-WAV and uncompressed SPHERE parsed in pure Python, ``to_mono``, and the
-polyphase Kaiser-windowed sinc ``resample`` (tap-for-tap the JAX
-package's, so a clip decodes to the same waveform in both packages).
-
-FLAC and Ogg need the native decoder of the JAX package's runtime; they
-come with the port's runtime slice and raise a clear error until then.
+The port's own copy of ``rnn_speech_tpu/audio_io.py``: WAV and
+uncompressed SPHERE parsed in pure Python, FLAC through the pure-Python
+decoder ``runtime/flac_py.py`` (the JAX package's native C++ decoder and
+loader are not ported yet), duration probes that read only container
+headers, ``to_mono``, and the polyphase Kaiser-windowed sinc ``resample``
+(tap-for-tap the JAX package's, so a clip decodes to the same waveform in
+both packages).  Ogg is probed and refused, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
+import struct
 import wave
 from typing import Optional, Tuple
 
@@ -73,6 +75,14 @@ def write_wav(path: str, data: np.ndarray, rate: int) -> None:
         wf.writeframes(arr.astype("<i2").tobytes())
 
 
+def _probe_wav_duration(path: str) -> float:
+    with wave.open(path, "rb") as wf:
+        rate = wf.getframerate()
+        if rate <= 0:
+            raise AudioFormatError(f"Zero sample rate in {path}")
+        return wf.getnframes() / float(rate)
+
+
 # --------------------------------------------------------------------- SPHERE
 
 def _parse_sphere_header(fh) -> dict:
@@ -130,22 +140,116 @@ def read_sphere(path: str) -> Tuple[np.ndarray, int]:
     return data[:usable].reshape(-1, channels), rate
 
 
+def sphere_segment_to_wav(sph_file: str, wav_file: str, start: float, end: float) -> None:
+    """Cut [start, end] seconds from a SPHERE file into a 16-bit WAV."""
+    data, rate = read_sphere(sph_file)
+    lo = max(0, int(round(start * rate)))
+    hi = min(len(data), int(round(end * rate)))
+    write_wav(wav_file, data[lo:hi], rate)
+
+
+def _probe_sphere_duration(path: str) -> float:
+    with open(path, "rb") as fh:
+        hdr = _parse_sphere_header(fh)
+    rate = int(hdr.get("sample_rate", 0))
+    count = int(hdr.get("sample_count", 0))
+    if rate <= 0:
+        raise AudioFormatError(f"Zero sample rate in {path}")
+    return count / float(rate)
+
+
+# ----------------------------------------------------------------------- FLAC
+
+def _probe_flac_duration(path: str) -> float:
+    """Duration from the STREAMINFO metadata block (first block, mandatory)."""
+    with open(path, "rb") as fh:
+        if fh.read(4) != b"fLaC":
+            raise AudioFormatError(f"Not a FLAC file: {path}")
+        header = fh.read(4)
+        if len(header) < 4:
+            raise AudioFormatError(f"Truncated FLAC file: {path}")
+        block_type = header[0] & 0x7F
+        length = int.from_bytes(header[1:4], "big")
+        if block_type != 0 or length < 34:
+            raise AudioFormatError(f"Missing STREAMINFO in {path}")
+        info = fh.read(34)
+    # 16+16 blocksizes, 24+24 framesizes, then 20 bits rate, 3 bits ch,
+    # 5 bits bps, 36 bits total samples.
+    packed = int.from_bytes(info[10:18], "big")
+    sample_rate = packed >> 44
+    total_samples = packed & ((1 << 36) - 1)
+    if sample_rate == 0:
+        raise AudioFormatError(f"Zero sample rate in {path}")
+    return total_samples / float(sample_rate)
+
+
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    """Decode FLAC -> (float32 (n, ch) in [-1, 1], rate), pure Python.
+    A corrupt or truncated stream raises ``ValueError`` or ``EOFError``."""
+    from rnn_speech_tpu_torch.runtime import flac_py
+
+    return flac_py.decode_flac(path)
+
+
+# ----------------------------------------------------------------------- OGG
+
+def _probe_ogg_duration(path: str) -> float:
+    """Duration from the last Ogg page's granule position (Vorbis rate)."""
+    with open(path, "rb") as fh:
+        head = fh.read(512)
+        if not head.startswith(b"OggS"):
+            raise AudioFormatError(f"Not an Ogg file: {path}")
+        idx = head.find(b"\x01vorbis")
+        if idx < 0 or len(head) < idx + 16:
+            raise AudioFormatError(f"No Vorbis header in {path}")
+        rate = struct.unpack_from("<I", head, idx + 12)[0]
+        fh.seek(0, os.SEEK_END)
+        size = fh.tell()
+        fh.seek(max(0, size - 65536))
+        tail = fh.read()
+    pos = tail.rfind(b"OggS")
+    if pos < 0 or len(tail) < pos + 14:
+        raise AudioFormatError(f"No final Ogg page in {path}")
+    granule = struct.unpack_from("<q", tail, pos + 6)[0]
+    if rate <= 0:
+        raise AudioFormatError(f"Zero sample rate in {path}")
+    return granule / float(rate)
+
+
 # ------------------------------------------------------------------- dispatch
 
+def probe_duration(path: str) -> float:
+    """Duration in seconds from container headers only (no frame decode).
+    Ogg raises: probing stays no wider than ``decode_audio``, so an Ogg
+    corpus fails at the scan, not on every clip at load time."""
+    with open(path, "rb") as fh:
+        magic = fh.read(4)
+    if magic == b"RIFF":
+        return _probe_wav_duration(path)
+    if magic == b"fLaC":
+        return _probe_flac_duration(path)
+    if magic == b"NIST":
+        return _probe_sphere_duration(path)
+    if magic == b"OggS":
+        raise AudioFormatError(
+            f"Ogg container probed but decoding is not supported: {path}"
+        )
+    raise AudioFormatError(f"Unrecognized audio container: {path}")
+
+
 def decode_audio(path: str) -> Tuple[np.ndarray, int]:
-    """Decode a supported container -> (float32 (n, ch), rate)."""
+    """Decode a supported container -> (float32 (n, ch), rate).  Ogg
+    raises ``AudioFormatError``, as in the JAX package."""
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic == b"RIFF":
         return read_wav(path)
+    if magic == b"fLaC":
+        return read_flac(path)
     if magic == b"NIST":
         return read_sphere(path)
-    if magic in (b"fLaC", b"OggS"):
-        raise AudioFormatError(
-            f"{path}: FLAC/Ogg decoding needs the native decoder, which the "
-            "port brings with its runtime slice (native loader and FLAC "
-            "decode); convert the clip to WAV for now"
-        )
+    if magic == b"OggS":
+        raise AudioFormatError(f"Ogg/Vorbis decoding is not supported: {path}")
     raise AudioFormatError(f"Unrecognized audio container: {path}")
 
 

@@ -1,22 +1,31 @@
-"""Command line of the port: transcribe a file on the GPU.
+"""Command line of the port: train, evaluate and transcribe on the GPU.
 
-    python -m rnn_speech_tpu_torch.cli --file clip.wav --config my.ini
-                                       [--device cuda|cpu] [--beam_width K]
+    python -m rnn_speech_tpu_torch.cli --train_acoustic | --evaluate | --file F
+        [--config INI] [--device cuda|cpu] [--beam_width K] [--tb_name N]
+        [--max_epoch E] [--learn_rate LR] [--max_steps S]
+        [--mesh_data 1] [--mesh_model 1]
 
-Counterpart of the ``--file`` mode of ``rnn_speech_tpu/cli.py``: the same
-ini (``checkpoint_dir`` names the bundle whose ``acoustic/`` checkpoint is
-restored), the same on-device fbank/MFCC frontend, the same audio-width
-bucketing, and the same decoding: the AM-only prefix beam search at
+Counterpart of ``rnn_speech_tpu/cli.py`` with the same ini: ``--file``
+transcribes one clip (``checkpoint_dir`` names the bundle whose
+``acoustic/`` checkpoint is restored), ``--train_acoustic`` trains from
+the ``[training]`` corpora (``train/loop.py``; checkpoints under
+``checkpoint_dir/acoustic/``, resumed at their step and learning rate),
+and ``--evaluate`` prints the mean per-utterance WER and CER over
+``test_dataset_dirs``.  Decoding is the AM-only prefix beam search at
 ``--beam_width`` (16 by default, as in the JAX CLI), its best beam, or
-greedy CTC at width 1.  ``--lm_weight`` above 0 (LM shallow fusion) raises
-until the language-model slice.  It runs on ``cuda`` unless ``--device
+greedy CTC at width 1, after the same on-device fbank/MFCC frontend and
+audio-width bucketing.  Everything runs on ``cuda`` unless ``--device
 cpu`` is given.
 
 ``transcribe(params, cfg, audio, lengths)`` is the library entry: raw
-audio rows (B, S) in, one string per row out.
+audio rows (B, S) in, one string per row out.  The module imports
+``torch`` only inside its functions: the input pipeline's spawned decode
+workers import the main module, which is this one under ``python -m``.
 
-The other modes of the JAX CLI arrive with later slices of the port and
-raise ``NotImplementedError`` naming the slice until then.
+Not ported yet, each raising ``NotImplementedError`` naming its slice:
+``--lm_weight`` above 0, ``--record``, ``--train_language``,
+``--generate_text`` (ROADMAP Queue A 5-6), a device mesh other than 1x1
+or ``RST_MULTIHOST`` (Queue A 8) and ``--timeline`` (Queue A 9).
 """
 
 from __future__ import annotations
@@ -27,7 +36,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from rnn_speech_tpu_torch import resolve_device
 
@@ -37,13 +45,11 @@ SAMPLE_RATE = 22050
 DEFAULT_BEAM_WIDTH = 16    # the JAX CLI's --beam_width default
 
 _LATER = {
-    "evaluate": "the evaluate slice (corpus readers, device edit distance, "
-                "length bucketing)",
-    "record": "the streaming slice (--record)",
-    "train_acoustic": "the training slices (train step, loop and checkpoints)",
-    "train_language": "the decoding slice (char LM training)",
-    "generate_text": "the decoding slice (char LM)",
+    "record": "the streaming slice (--record, ROADMAP Queue A 6)",
+    "train_language": "the decoding slice (char LM training, ROADMAP Queue A 5)",
+    "generate_text": "the decoding slice (char LM, ROADMAP Queue A 5)",
 }
+PENDING_WINDOW = 4         # --evaluate batches in flight before scoring
 
 
 def max_samples_for(config) -> int:
@@ -58,6 +64,8 @@ def max_samples_for(config) -> int:
 def build_forward(config, char_map, device=None):
     """(model config, frontend, params) for inference, the parameters
     restored from ``checkpoint_dir/acoustic/`` when a bundle is there."""
+    import torch
+
     from rnn_speech_tpu_torch.models import acoustic
     from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
     from rnn_speech_tpu_torch.train import checkpoint
@@ -85,7 +93,7 @@ def build_forward(config, char_map, device=None):
     return model_cfg, fe, params
 
 
-def infer(params, model_cfg, fe, audio: torch.Tensor, lengths: torch.Tensor,
+def infer(params, model_cfg, fe, audio, lengths,
           beam_width: int = 1):
     """Raw audio (B, S) -> (labels (B, U) padded with -1, lengths (B,)):
     frontend, forward with zero state, then greedy decode (``beam_width``
@@ -116,6 +124,8 @@ def transcribe(params, cfg, audio, lengths, *, frontend=None, char_map=None,
     valid samples per row; ``cfg`` the AcousticConfig of ``params``, which
     must already lie on ``device`` (default cuda).  ``frontend`` defaults
     to the fbank (120-dim input) or MFCC (20-dim) featurizer."""
+    import torch
+
     from rnn_speech_tpu_torch.charmap import get_char_map
     from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
 
@@ -160,6 +170,137 @@ def process_file(config, char_map, file_path, device,
     return 0
 
 
+def _mesh_shape(config, prog):
+    """(data, model) from the flags, else the ``[tpu]`` section."""
+    data = prog["mesh_data"] if prog["mesh_data"] is not None else config.tpu.mesh_data
+    model = (prog["mesh_model"] if prog["mesh_model"] is not None
+             else config.tpu.mesh_model)
+    return data, model
+
+
+def train_acoustic(config, prog, char_map, device) -> int:
+    """Train the acoustic model on the ``[training]`` corpora."""
+    from rnn_speech_tpu_torch.models.recognizer import SpeechRecognizer
+    from rnn_speech_tpu_torch.train import loop
+
+    ordered = config.dataset_size_ordering in ("True", "First_run_only")
+    train_set, test_set = SpeechRecognizer.load_acoustic_dataset(
+        config.training_dataset_dirs, config.test_dataset_dirs,
+        config.training_filelist_cache, ordered, config.train_frac)
+    loop.train_acoustic(
+        config, train_set, test_set, char_map,
+        max_epoch=prog["max_epoch"], learn_rate_override=prog["learn_rate"],
+        tb_name=prog["tb_name"], timeline=prog["timeline"],
+        max_steps=prog["max_steps"], mesh_shape=_mesh_shape(config, prog), device=device)
+    return 0
+
+
+def evaluate(config, prog, char_map, device) -> int:
+    """Mean per-utterance WER and CER over ``test_dataset_dirs``: clips in
+    duration order, batches of ``batch_size`` padded to the smallest
+    audio-width bucket that covers them (at most 2 buckets for the beam
+    search), up to ``PENDING_WINDOW`` batches queued on the device before
+    the oldest is scored on the host."""
+    import torch
+
+    from rnn_speech_tpu_torch import corpus
+    from rnn_speech_tpu_torch.train import loop
+    from rnn_speech_tpu_torch.train import metrics as metrics_mod
+    from rnn_speech_tpu_torch.train import pipeline as pipe_mod
+
+    if config.test_dataset_dirs is None:
+        logger.fatal("Setting test_dataset_dirs in config file is mandatory "
+                     "for evaluation mode")
+        return 1
+    test_set = corpus.DataProcessor(config.test_dataset_dirs).get_dataset()
+    logger.info("Using %d size of test set", len(test_set))
+    if not test_set:
+        logger.fatal("No files in test set during an evaluation mode")
+        return 1
+    # Duration order keeps each batch length-homogeneous, so the bucketed
+    # padding below cuts real compute.
+    test_set = sorted(test_set, key=lambda item: item[2])
+
+    dev = resolve_device(device)
+    host_B = config.batch_size
+    model_cfg, fe, params = build_forward(config, char_map, dev)
+    max_samples = max_samples_for(config)
+    beam_width = prog["beam_width"]
+    bucket_count = max(config.tpu.bucket_count, 1)
+    if beam_width > 1 and bucket_count > 2:
+        logger.info("Beam evaluation: capping audio-width buckets at 2 "
+                    "(bucket_count %d)", bucket_count)
+        bucket_count = 2
+    unit = -(-max_samples // bucket_count)
+
+    wer_list, cer_list = [], []
+    batch_audio, batch_lengths, batch_truth = [], [], []
+    pending_batches = []
+
+    def score_oldest():
+        labels, lab_lens, truths = pending_batches.pop(0)
+        labels = labels.cpu().numpy()
+        lab_lens = lab_lens.cpu().numpy()
+        for j, truth in enumerate(truths):
+            if not truth:
+                continue
+            text = char_map.decode(list(labels[j, : int(lab_lens[j])]))
+            nb_words = len(truth.split())
+            nb_chars = len(truth.replace(" ", ""))
+            wer_list.append(metrics_mod.calculate_wer(text, truth) / float(nb_words))
+            cer_list.append(metrics_mod.calculate_cer(text, truth) / float(nb_chars))
+
+    def flush():
+        if not batch_audio:
+            return
+        longest = max(batch_lengths)
+        width = min(max(1, -(-longest // unit)) * unit, max_samples)
+        audio = np.zeros((host_B, width), np.float32)
+        lengths = np.zeros((host_B,), np.int32)
+        for i, (a, n) in enumerate(zip(batch_audio, batch_lengths)):
+            audio[i, :n] = a[:n]
+            lengths[i] = n
+        with torch.no_grad():
+            labels, lab_lens = infer(params, model_cfg, fe, loop.to_device(audio, dev),
+                                     loop.to_device(lengths, dev), beam_width)
+        pending_batches.append((labels, lab_lens, list(batch_truth)))
+        if len(pending_batches) > PENDING_WINDOW:
+            score_oldest()
+        batch_audio.clear()
+        batch_lengths.clear()
+        batch_truth.clear()
+
+    # Container decode over a process pool (the JAX package's native
+    # loader is not ported), in the test set's order.
+    paths = [item[0] for item in test_set]
+    workers = pipe_mod.default_decode_threads() if config.tpu.prefetch_depth > 0 else 0
+    for idx, sig, err in pipe_mod.load_clips(paths, SAMPLE_RATE, workers):
+        file, label, _ = test_set[idx]
+        if err is not None:
+            logger.warning("Skipping unreadable %s: %s", file, err)
+            continue
+        if len(sig) > max_samples or len(label) > config.max_target_seq_length:
+            logger.warning("Warning - sample too long : %s (input : %d)", file, len(sig))
+            continue
+        batch_audio.append(sig)
+        batch_lengths.append(len(sig))
+        batch_truth.append(label)
+        if len(batch_audio) == host_B:
+            flush()
+    flush()
+    while pending_batches:
+        score_oldest()
+
+    if not wer_list:
+        logger.fatal("No evaluable files")
+        return 1
+    wer = float(sum(wer_list)) * 100 / len(wer_list)
+    cer = float(sum(cer_list)) * 100 / len(cer_list)
+    print("Resulting WER : {0:.3g} %".format(wer))
+    print("Resulting CER : {0:.3g} %".format(cer))
+    return 0
+
+
 def parse_args(argv=None) -> dict:
     parser = argparse.ArgumentParser(prog="python -m rnn_speech_tpu_torch.cli")
     parser.add_argument("--config", type=str, default="config.ini",
@@ -167,14 +308,35 @@ def parse_args(argv=None) -> dict:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Device to run on (default cuda; cpu runs the "
                              "plain PyTorch path)")
+    parser.add_argument("--tb_name", type=str, default=None,
+                        help="Metrics run name (multiple runs, same output dir)")
+    parser.add_argument("--max_epoch", type=int, default=None,
+                        help="Max epoch to train (no limitation if not provided)")
+    parser.add_argument("--learn_rate", type=float, default=None,
+                        help="Force learning rate to start from this value "
+                             "(overriding checkpoint value)")
+    parser.add_argument("--timeline", action="store_true", default=False,
+                        help="Trace a window of training steps (not ported yet)")
     parser.add_argument("--beam_width", type=int, default=DEFAULT_BEAM_WIDTH,
                         help="CTC beam width for decoding (1 = greedy)")
     parser.add_argument("--lm_weight", type=float, default=0.0,
                         help="Shallow-fusion weight of the char LM (0 = AM only; "
                              "above 0 comes with the language-model slice)")
+    parser.add_argument("--mesh_data", type=int, default=None,
+                        help="Data-parallel mesh axis size (default: [tpu] "
+                             "mesh_data; only 1 is ported)")
+    parser.add_argument("--mesh_model", type=int, default=None,
+                        help="Model-parallel mesh axis size (default: [tpu] "
+                             "mesh_model; only 1 is ported)")
+    parser.add_argument("--max_steps", type=int, default=None,
+                        help="Stop training after this many steps")
     group = parser.add_mutually_exclusive_group(required=True)
+    group.add_argument("--train_acoustic", action="store_true", default=False,
+                       help="Train the acoustic network")
     group.add_argument("--file", type=str, default=None,
                        help="Path to an audio file to process")
+    group.add_argument("--evaluate", action="store_true", default=False,
+                       help="Evaluate WER and CER against the test set")
     for mode in _LATER:
         group.add_argument(f"--{mode}", action="store_true", default=False,
                            help=f"Not yet ported: {_LATER[mode]}")
@@ -198,11 +360,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     from rnn_speech_tpu_torch.config import (
         HyperParamStore, load_config, setup_logging,
     )
+    from rnn_speech_tpu_torch.train import loop
 
+    training = prog["train_acoustic"] or prog["evaluate"]
+    if training:
+        # The flags alone can ask for what is not ported; refuse before
+        # reading any file.
+        flags = tuple(1 if prog[k] is None else prog[k] for k in ("mesh_data", "mesh_model"))
+        loop.check_single_process(flags, prog["timeline"])
     config = load_config(prog["config"])
     setup_logging(config)
+    if training:
+        loop.check_single_process(_mesh_shape(config, prog), prog["timeline"])
     config = HyperParamStore(config).config
     char_map = get_char_map(config.language)
+    if prog["train_acoustic"]:
+        return train_acoustic(config, prog, char_map, device)
+    if prog["evaluate"]:
+        return evaluate(config, prog, char_map, device)
     return process_file(config, char_map, prog["file"], device, prog["beam_width"])
 
 

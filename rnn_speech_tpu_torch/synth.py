@@ -147,3 +147,23 @@ def sample_sentences(n: int, rng) -> list:
         seen.add(words)
         out.append(" ".join(words))
     return out
+
+
+def write_corpus(out_dir: str, texts, sigs, sr: int, name: str = "demo") -> str:
+    """Write int16 clips as FLAC in LibriSpeech's layout
+    (``<out_dir>/<name>/spk/chap/1-2-NNNN.flac`` beside ``1-2.trans.txt``),
+    as ``tools/make_demo_corpus.py`` does; returns the chapter directory."""
+    import os
+
+    from rnn_speech_tpu_torch.runtime import flac_enc
+
+    root = os.path.join(out_dir, name, "spk", "chap")
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i, (text, sig) in enumerate(zip(texts, sigs)):
+        utt = f"1-2-{i:04d}"
+        flac_enc.encode_flac(os.path.join(root, f"{utt}.flac"), sig, sr)
+        lines.append(f"{utt} {text}\n")
+    with open(os.path.join(root, "1-2.trans.txt"), "w") as fh:
+        fh.writelines(lines)
+    return root

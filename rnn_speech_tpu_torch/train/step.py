@@ -14,8 +14,9 @@ output projection), seeded by draws from ``rng``, a CPU
 ``torch.Generator``; and, with ``use_pallas_ctc``, the CTC kernels
 (``ops/ctc_kernel.py``), else the scan CTC (``ops/ctc.py``).  On CPU
 tensors every kernel wrapper takes its plain version.  ``spec_augment``
-raises ``NotImplementedError``; it never quietly takes another path.  The
-multi-device ``axis_name`` form comes with the multi-GPU slice.
+masks each microbatch's features (``ops/augment.py``) with draws from
+``rng`` before the forward, where the JAX step does.  The multi-device
+``axis_name`` form comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from rnn_speech_tpu_torch import resolve_device, stages
 from rnn_speech_tpu_torch.models import acoustic
-from rnn_speech_tpu_torch.ops import ctc, ctc_kernel, decode, editdistance
+from rnn_speech_tpu_torch.ops import augment, ctc, ctc_kernel, decode, editdistance
 from rnn_speech_tpu_torch.train import optim
 
 Tensor = torch.Tensor
@@ -43,18 +44,10 @@ class StepConfig:
     frontend: Optional[Any] = None        # DeviceFrontend for raw-audio batches
     greedy_metric_max_out: int = 0        # cap decode width for the metric
     use_pallas_ctc: bool = False          # the CTC kernels (ops/ctc_kernel.py)
-    spec_augment: bool = False            # time/frequency masking (not ported)
+    spec_augment: bool = False            # time/frequency masking (ops/augment.py)
     # Compute the greedy-decode + edit-distance train metric in this step;
     # False reports error-rate 0 with count 0 (the loss still accumulates).
     train_metric: bool = True
-
-
-def check_supported(cfg: StepConfig) -> None:
-    """Raise ``NotImplementedError`` before any work for the step options
-    the port does not run yet."""
-    if cfg.spec_augment:
-        raise NotImplementedError(
-            "spec_augment (ops/augment.py) is not ported yet (ROADMAP Queue A 3)")
 
 
 def init_train_state(generator: torch.Generator, cfg: acoustic.AcousticConfig,
@@ -116,7 +109,6 @@ def accumulate_grads(cfg: StepConfig, params, states, batch: Dict[str, Tensor],
     summed grads, metric SUMS and the threaded recurrent state.
 
     Returns (states, grad_sum, loss_sum, err_sum, real_micro_count)."""
-    check_supported(cfg)
     leaves = optim.tree_map(lambda p: p.detach().requires_grad_(True), params)
     flat = optim.tree_leaves(leaves)
     grad_sum = optim.tree_map(torch.zeros_like, params)
@@ -128,6 +120,10 @@ def accumulate_grads(cfg: StepConfig, params, states, batch: Dict[str, Tensor],
         micro = {k: v[i] for k, v in batch.items()}
         stages.mark("frontend")
         feats, frame_lengths = _featurize_micro(cfg, micro)
+        if cfg.spec_augment:
+            feats = augment.spec_augment(
+                feats, frame_lengths, rng,
+                groups=augment.groups_for_feature_dim(feats.shape[-1]))
         labels, label_lengths = micro["labels"], micro["label_lengths"]
         total, (mean_loss, logits, new_states) = _micro_loss(
             leaves, cfg, states, feats, frame_lengths, labels, label_lengths, rng)

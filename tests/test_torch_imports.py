@@ -94,19 +94,31 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 def test_cli_modes_of_later_slices_raise_not_implemented():
     from rnn_speech_tpu_torch import cli
 
-    for argv in (["--evaluate"], ["--record"], ["--train_acoustic"],
+    for argv in (["--record"], ["--train_language"], ["--generate_text"],
+                 ["--train_acoustic", "--timeline"], ["--evaluate", "--timeline"],
+                 ["--train_acoustic", "--mesh_data", "2"],
+                 ["--evaluate", "--mesh_model", "2"],
                  ["--file", "x.wav", "--lm_weight", "0.5"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + ["--device", "cpu"])
 
 
 def test_flac_raises_a_clear_error(tmp_path):
+    """FLAC decodes (``runtime/flac_py.py``): a file without a valid
+    stream raises the decoder's error, and an Ogg file still raises
+    ``AudioFormatError`` naming its container."""
     from rnn_speech_tpu_torch import audio_io
 
     path = tmp_path / "x.flac"
     path.write_bytes(b"fLaC" + b"\0" * 64)
-    with pytest.raises(audio_io.AudioFormatError, match="runtime slice"):
+    with pytest.raises(EOFError, match="FLAC bitstream"):
         audio_io.load(str(path))
+    ogg = tmp_path / "x.ogg"
+    ogg.write_bytes(b"OggS" + b"\0" * 64)
+    with pytest.raises(audio_io.AudioFormatError, match="Ogg/Vorbis decoding is not supported"):
+        audio_io.load(str(ogg))
+    with pytest.raises(audio_io.AudioFormatError, match="Ogg"):
+        audio_io.probe_duration(str(ogg))
 
 
 # The port's modules, slice by slice; each must exist, be scanned above and
@@ -129,6 +141,13 @@ PORT_MODULES = [
     "rnn_speech_tpu_torch.ops.lstm_layer_train",
     # slice 5: the fused fbank frontend
     "rnn_speech_tpu_torch.ops.frontend_kernel",
+    # slice 14: training and evaluation from the CLI
+    "rnn_speech_tpu_torch.audio_io", "rnn_speech_tpu_torch.frontend",
+    "rnn_speech_tpu_torch.runtime.flac_py", "rnn_speech_tpu_torch.runtime.flac_enc",
+    "rnn_speech_tpu_torch.corpus", "rnn_speech_tpu_torch.models.recognizer",
+    "rnn_speech_tpu_torch.train.pipeline", "rnn_speech_tpu_torch.ops.augment",
+    "rnn_speech_tpu_torch.train.metrics", "rnn_speech_tpu_torch.train.tbevents",
+    "rnn_speech_tpu_torch.train.loop", "rnn_speech_tpu_torch.synth",
 ]
 
 

@@ -205,25 +205,32 @@ printing one JSON line:
            FLAC encoder (90 train and 30 test clips of ~2-15 s at 16 kHz):
            6 steps from a fresh checkpoint_dir with a checkpoint and an
            evaluation pass every 3, then a second process resuming for 3
-           more.  Each run is a child process that runs the CLI module as
+           more.  First builds the host runtime (g++, ``runtime/
+           native_build.py``), decodes the first 8 train clips natively and
+           with ``flac_py`` (bit for bit, both timed on one thread) and
+           times the native loader over every train clip at
+           ``default_decode_threads()``.  Each run is a child process that runs the CLI module as
            ``python -m`` does (``_cli_child``), with the launch counters
            zeroed first, CUDA events around every train and eval step and
            the input pipeline's waits timed.  Fails unless
            acousticmodel-{3,6,9}.npz and the pointer are written, the resume
            restores step 6 at the saved lr, the losses are finite, both runs
            write metrics lines and a TensorBoard event file, restoring the
-           last bundle gives the final parameters bit for bit, and rows 3,
-           4, 9, 12, 14, 15, 16 and 10 (the evaluation pass) launch.  Prints
-           the loop's median ms a step (host included) beside the train
-           phase's step, the device's idle share of the loop (CUDA events
-           around each step) and the FLAC decode's speed on one core.
+           last bundle gives the final parameters bit for bit, rows 3,
+           4, 9, 12, 14, 15, 16 and 10 (the evaluation pass) launch, and
+           every batch of both runs came through the native loader
+           (``pipeline.native_batches``).  Prints the loop's median ms a
+           step (host included) beside the train phase's step, the
+           device's idle share of the loop (CUDA events around each step),
+           the pipeline's waits, and the decode and loader speeds.
   evaluate (~20 s)
            the bundle phase's 32 held-out clips written as a FLAC corpus
            (int16), then ``--evaluate`` on the committed bundle at beam
            widths 1 and 16 (one child process, two CLI runs): CER <= 2% at
            both, the greedy WER and CER equal to those of
            ``cli.transcribe`` on the same decoded audio in the same batch,
-           and row 1 launches.
+           row 1 launches, and every clip came through the native loader
+           (``loader.delivered``).
   bundle   the committed trained bundle transcribes 32 rendered held-out
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths and through the fbank kernel at CER <= 2%, and all equal
@@ -4040,6 +4047,7 @@ LOOP_SR = 16000           # LibriSpeech's rate: the pipeline resamples to 22050
 LOOP_CLIPS = (90, 30)     # train and test clips of the train_loop corpus
 LOOP_SECONDS = (2.0, 15.0)
 LOOP_STEPS, LOOP_EVERY = 6, 3   # the first run's steps; checkpoint and eval cadence
+LOOP_DECODE_CLIPS = 8     # train clips decoded natively and by flac_py, one thread
 # The counters of the default train step (rows 3, 4, 9, 12, 14, 15, 16 of
 # PERF.md's table) and of the evaluation pass (row 10).
 LOOP_TRAIN_KERNELS = ("wavefront_train", "wavefront_bwd", "ctc_alpha_ckpt",
@@ -4107,6 +4115,57 @@ def _loop_clips(n, seed):
     return clips
 
 
+def _host_runtime_study(train_root):
+    """Build the host runtime (g++), hold the native FLAC decoder against
+    ``flac_py`` on the first LOOP_DECODE_CLIPS train clips (bit for bit),
+    time both on one thread, and time the native loader over every train
+    clip with the loop's threads, truncation and capacity (resampled to
+    22.05 kHz)."""
+    import glob
+
+    from rnn_speech_tpu_torch.runtime import audiodec, flac_py, loader, native_build
+    from rnn_speech_tpu_torch.train import pipeline
+
+    t0 = time.perf_counter()
+    native_build.load()
+    build_s = time.perf_counter() - t0
+    files = sorted(glob.glob(os.path.join(train_root, "*", "*", "*.flac")))
+    head = files[:LOOP_DECODE_CLIPS]
+    t0 = time.perf_counter()
+    native = [audiodec.decode_flac(f)[0] for f in head]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [flac_py.decode_flac(f)[0] for f in head]
+    python_s = time.perf_counter() - t0
+    unequal = [os.path.basename(f) for f, a, b in zip(head, native, python)
+               if a.shape != b.shape or a.tobytes() != b.tobytes()]
+    if unequal:
+        fail(f"train_loop: native FLAC decode differs from flac_py on {unequal}")
+    audio_s = sum(len(a) for a in native) / LOOP_SR
+    threads = pipeline.default_decode_threads()
+    pcfg = pipeline.PipelineConfig(batch_size=30, max_input_seq_length=3510, prefetch_batches=2)
+    delivered, bad = 0, 0
+    t0 = time.perf_counter()
+    with loader.NativeAudioLoader(files, max_samples=pcfg.max_samples,
+                                  target_rate=pcfg.sample_rate, n_threads=threads,
+                                  capacity=max(30 * (pcfg.prefetch_batches + 1),
+                                               threads * 2)) as ld:
+        for _, audio, rc in ld:
+            bad += rc != 0
+            delivered += 0 if audio is None else len(audio)
+    loader_s = time.perf_counter() - t0
+    if bad:
+        fail(f"train_loop: the native loader could not decode {bad} train clips")
+    return {"build_s": build_s, "clips": len(head), "audio_s": audio_s, "bit_equal": True,
+            "native_s": native_s, "python_s": python_s,
+            "native_s_per_audio_s": native_s / audio_s,
+            "python_s_per_audio_s": python_s / audio_s,
+            "loader": {"clips": len(files), "threads": threads, "seconds": loader_s,
+                       "audio_s_delivered": delivered / pcfg.sample_rate,
+                       "audio_s_per_s": delivered / pcfg.sample_rate / loader_s},
+            "cpu_count": os.cpu_count()}
+
+
 _CLI_CHILD = r"""
 import sys
 sys.path.insert(0, {root!r})
@@ -4121,8 +4180,9 @@ def _cli_child(out_path, runs):
     ``out_path``: its exit code and standard output, each kernel's
     launches (counters zeroed before the run), every train step's host
     entry time and CUDA events around it, its loss, every eval batch's
-    events, the time the loop waited on the input pipeline, the checkpoint
-    it restored, and whether ``checkpoint.restore`` of the last bundle
+    events, the time the loop waited on the input pipeline, the batches
+    the pipeline yielded and those the native loader fed, the clips the
+    loader delivered, the checkpoint it restored, and whether ``checkpoint.restore`` of the last bundle
     equals the parameters the run ended with, bit for bit."""
     import io
     import runpy
@@ -4134,6 +4194,7 @@ def _cli_child(out_path, runs):
     from rnn_speech_tpu_torch.config import load_config
     from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.runtime import loader
     from rnn_speech_tpu_torch.train import checkpoint, loop, pipeline, step
 
     counters = {**_all_counters(), "lstm_wavefront": wf.lstm_stack_wavefront,
@@ -4196,6 +4257,7 @@ def _cli_child(out_path, runs):
             fn.launches = 0
         wf.lstm_stack_wavefront.persistent_launches = 0
         _zero_path_counters()
+        pipeline.native_batches = loader.delivered = 0
         for seen in (steps, evals, waits, restored, ended):
             seen.clear()
         sys.argv = ["rnn_speech_tpu_torch.cli", *argv]
@@ -4213,7 +4275,9 @@ def _cli_child(out_path, runs):
                "wall_s": time.perf_counter() - t_start,
                "launches": {k: fn.launches for k, fn in counters.items()},
                "wavefront_eval_persistent": wf.lstm_stack_wavefront.persistent_launches,
-               "path_launches": _path_counters(), "restored": restored[:1]}
+               "path_launches": _path_counters(), "restored": restored[:1],
+               "pipeline_batches": len(waits), "native_batches": pipeline.native_batches,
+               "loader_clips": loader.delivered}
         if steps:
             entries = [t for t, _, _, _ in steps]
             device_ms = [e0.elapsed_time(e1) for _, e0, e1, _ in steps]
@@ -4312,22 +4376,13 @@ fuse_microbatches : True
 def phase_train_loop():
     """``--train_acoustic`` through the CLI at the flagship width on a
     rendered FLAC corpus: 6 steps from nothing, then a resume to step 9."""
-    import glob
-
-    from rnn_speech_tpu_torch import audio_io
-    from rnn_speech_tpu_torch.train import pipeline
-
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         made = _flac_corpora(tmp, {"train": _loop_clips(LOOP_CLIPS[0], 14),
                                    "test": _loop_clips(LOOP_CLIPS[1], 15)}, LOOP_SR)
         (train_root, train_s), (test_root, test_s) = made["train"], made["test"]
         corpus_s = time.perf_counter() - t0
-        # The decoder's own speed, one process: the first 4 train clips.
-        files = sorted(glob.glob(os.path.join(train_root, "*", "*", "*.flac")))[:4]
-        t0 = time.perf_counter()
-        decoded_s = sum(len(audio_io.load(f)[0]) for f in files) / 22050
-        decode_s = time.perf_counter() - t0
+        decode = _host_runtime_study(train_root)
         os.makedirs(os.path.join(tmp, "tb"))
         ini = os.path.join(tmp, "loop.ini")
         with open(ini, "w") as fh:
@@ -4364,6 +4419,9 @@ def phase_train_loop():
                 problems.append(f"{name} did not launch: {run['launches']}")
         if run["eval_batches"] < 1:
             problems.append("no evaluation pass ran")
+        if not run["native_batches"] or run["native_batches"] != run["pipeline_batches"]:
+            problems.append(f"{run['native_batches']} of {run['pipeline_batches']} batches "
+                            "came through the native loader")
     for run in ("a", "b"):
         if lines[run] < 2 or not any(f.startswith("events.out.tfevents") for f in tb[run]):
             problems.append(f"metrics of run {run}: {tb[run]}, {lines[run]} lines")
@@ -4373,15 +4431,13 @@ def phase_train_loop():
     keep = ("rc", "wall_s", "process_s", "stdout", "steps", "losses", "step_host_ms", "step_device_ms",
             "loop_ms_per_step_median", "device_ms_per_step_median", "eval_batches",
             "eval_device_ms", "device_span_ms", "device_busy_ms", "device_idle_share",
-            "pipeline_wait_s", "launches", "restored", "final_step", "final_lr",
-            "restore_equal")
+            "pipeline_wait_s", "pipeline_batches", "native_batches", "loader_clips", "launches",
+            "restored", "final_step", "final_lr", "restore_equal")
     emit("train_loop",
          corpus={"train_clips": LOOP_CLIPS[0], "test_clips": LOOP_CLIPS[1],
                  "train_audio_s": train_s, "test_audio_s": test_s, "sample_rate": LOOP_SR,
                  "render_and_encode_s": corpus_s},
-         decode={"clips": len(files), "audio_s": decoded_s, "seconds": decode_s,
-                 "s_per_audio_s": decode_s / decoded_s,
-                 "workers": pipeline.default_decode_threads(), "cpu_count": os.cpu_count()},
+         decode=decode,
          batch=30, checkpoints=files_after,
          first={k: first.get(k) for k in keep}, resume={k: resume.get(k) for k in keep},
          loop_ms_per_step=first["loop_ms_per_step_median"],
@@ -4446,7 +4502,7 @@ def phase_evaluate():
     from rnn_speech_tpu_torch import cli, corpus
     from rnn_speech_tpu_torch.charmap import get_char_map
     from rnn_speech_tpu_torch.config import HyperParamStore, load_config
-    from rnn_speech_tpu_torch.runtime import flac_enc
+    from rnn_speech_tpu_torch.runtime import flac_enc, loader
     from rnn_speech_tpu_torch.train import metrics, pipeline
 
     texts, sigs = _held_out()
@@ -4473,10 +4529,12 @@ def phase_evaluate():
         char_map = get_char_map("english")
         test_set = sorted(corpus.DataProcessor(config.test_dataset_dirs).get_dataset(),
                           key=lambda item: item[2])
-        clips = [sig for _, sig, _ in pipeline.load_clips(
-            [path for path, _, _ in test_set], SR, pipeline.default_decode_threads())]
-        model_cfg, fe, params = cli.build_forward(config, char_map, "cuda")
         max_samples = cli.max_samples_for(config)
+        with loader.NativeAudioLoader([path for path, _, _ in test_set],
+                                      max_samples=max_samples + 1, target_rate=cli.SAMPLE_RATE,
+                                      n_threads=pipeline.default_decode_threads()) as ld:
+            clips = [sig for _, sig, _ in ld]
+        model_cfg, fe, params = cli.build_forward(config, char_map, "cuda")
         unit = -(-max_samples // max(config.tpu.bucket_count, 1))
         width = min(max(1, -(-max(len(c) for c in clips) // unit)) * unit, max_samples)
         audio = np.zeros((config.batch_size, width), np.float32)
@@ -4501,6 +4559,9 @@ def phase_evaluate():
             problems.append(f"beam {width}: CER {run['cer']} (limit {CER_LIMIT}%)")
         if not run["launches"].get("lstm_wavefront"):
             problems.append(f"beam {width}: row 1 did not launch: {run['launches']}")
+        if run["loader_clips"] != len(test_set):
+            problems.append(f"beam {width}: {run['loader_clips']} of {len(test_set)} clips "
+                            "came through the native loader")
     if (runs[1]["wer"], runs[1]["cer"]) != want:
         problems.append(f"greedy printed {runs[1]['wer']}/{runs[1]['cer']}, "
                         f"transcribe gives {want}")
@@ -4509,6 +4570,7 @@ def phase_evaluate():
     emit("evaluate", clips=len(test_set), batch=32, transcribe_wer_cer=want,
          process_s=runs[1]["process_s"],
          **{f"beam{w}": {"wer_pct": r["wer"], "cer_pct": r["cer"], "wall_s": r["wall_s"],
+                         "loader_clips": r["loader_clips"],
                          "launches": {k: v for k, v in r["launches"].items() if v},
                          "wavefront_eval_persistent": r["wavefront_eval_persistent"]}
             for w, r in runs.items()})

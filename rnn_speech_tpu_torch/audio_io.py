@@ -1,12 +1,13 @@
 """Audio container IO: WAV, NIST SPHERE and FLAC (numpy), header probes.
 
 The port's own copy of ``rnn_speech_tpu/audio_io.py``: WAV and
-uncompressed SPHERE parsed in pure Python, FLAC through the pure-Python
-decoder ``runtime/flac_py.py`` (the JAX package's native C++ decoder and
-loader are not ported yet), duration probes that read only container
-headers, ``to_mono``, and the polyphase Kaiser-windowed sinc ``resample``
-(tap-for-tap the JAX package's, so a clip decodes to the same waveform in
-both packages).  Ogg is probed and refused, as in the JAX package.
+uncompressed SPHERE parsed in pure Python, FLAC through the native C++
+decoder ``runtime/audiodec.py`` (built at first use, no fallback: the
+pure-Python ``runtime/flac_py.py`` is only the tests' plain version),
+duration probes that read only container headers, ``to_mono``, and the
+polyphase Kaiser-windowed sinc ``resample`` (tap-for-tap the JAX
+package's, so a clip decodes to the same waveform in both packages).
+Ogg is probed and refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -184,11 +185,12 @@ def _probe_flac_duration(path: str) -> float:
 
 
 def read_flac(path: str) -> Tuple[np.ndarray, int]:
-    """Decode FLAC -> (float32 (n, ch) in [-1, 1], rate), pure Python.
-    A corrupt or truncated stream raises ``ValueError`` or ``EOFError``."""
-    from rnn_speech_tpu_torch.runtime import flac_py
+    """Decode FLAC -> (float32 (n, ch) in [-1, 1], rate) with the native
+    C++ decoder.  A corrupt or truncated stream raises ``ValueError``; a
+    library that cannot be built raises ``RuntimeError``."""
+    from rnn_speech_tpu_torch.runtime import audiodec
 
-    return flac_py.decode_flac(path)
+    return audiodec.decode_flac(path)
 
 
 # ----------------------------------------------------------------------- OGG

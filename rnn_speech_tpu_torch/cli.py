@@ -204,6 +204,7 @@ def evaluate(config, prog, char_map, device) -> int:
     import torch
 
     from rnn_speech_tpu_torch import corpus
+    from rnn_speech_tpu_torch.runtime import loader as native_loader
     from rnn_speech_tpu_torch.train import loop
     from rnn_speech_tpu_torch.train import metrics as metrics_mod
     from rnn_speech_tpu_torch.train import pipeline as pipe_mod
@@ -270,23 +271,31 @@ def evaluate(config, prog, char_map, device) -> int:
         batch_lengths.clear()
         batch_truth.clear()
 
-    # Container decode over a process pool (the JAX package's native
-    # loader is not ported), in the test set's order.
-    paths = [item[0] for item in test_set]
-    workers = pipe_mod.default_decode_threads() if config.tpu.prefetch_depth > 0 else 0
-    for idx, sig, err in pipe_mod.load_clips(paths, SAMPLE_RATE, workers):
-        file, label, _ = test_set[idx]
-        if err is not None:
-            logger.warning("Skipping unreadable %s: %s", file, err)
-            continue
-        if len(sig) > max_samples or len(label) > config.max_target_seq_length:
-            logger.warning("Warning - sample too long : %s (input : %d)", file, len(sig))
-            continue
-        batch_audio.append(sig)
-        batch_lengths.append(len(sig))
-        batch_truth.append(label)
-        if len(batch_audio) == host_B:
-            flush()
+    # Decode through the native async loader, in the test set's order, so
+    # container decode and resampling overlap with inference on the device.
+    # The loader truncates at max_samples + 1, so a clip delivered longer
+    # than max_samples is exactly the "sample too long" case.
+    with native_loader.NativeAudioLoader(
+        [item[0] for item in test_set],
+        max_samples=max_samples + 1,
+        target_rate=SAMPLE_RATE,
+        n_threads=pipe_mod.default_decode_threads(),
+        capacity=max(4 * host_B, 8),
+    ) as clips:
+        for idx, sig, rc in clips:
+            file, label, _ = test_set[idx]
+            if sig is None:
+                logger.warning("Skipping unreadable %s: native decoder rc %d", file, rc)
+                continue
+            if len(sig) > max_samples or len(label) > config.max_target_seq_length:
+                logger.warning("Warning - sample too long : %s (input : %d)",
+                               file, len(sig))
+                continue
+            batch_audio.append(sig)
+            batch_lengths.append(len(sig))
+            batch_truth.append(label)
+            if len(batch_audio) == host_B:
+                flush()
     flush()
     while pending_batches:
         score_oldest()

@@ -1,9 +1,9 @@
 """Pure-Python FLAC decoder: the port's copy of ``rnn_speech_tpu/runtime/flac_py.py``.
 
 CONSTANT / VERBATIM / FIXED / LPC subframes, Rice and Rice2 residuals
-with escapes, stereo decorrelation, wasted bits.  The port decodes FLAC
-through this module alone (``audio_io.read_flac``); the input pipeline
-spreads clips over a process pool.
+with escapes, stereo decorrelation, wasted bits.  The plain version that
+the tests and ``chip_smoke.py`` hold the native decoder
+(``runtime/audiodec.py``) against; nothing on the main path calls it.
 """
 
 from __future__ import annotations

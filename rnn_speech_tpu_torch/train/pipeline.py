@@ -1,27 +1,30 @@
 """Host input pipeline: parallel decode and padded batching (numpy).
 
 The port's own copy of the host half of ``rnn_speech_tpu/train/
-pipeline.py``: a plain-Python process-pool pipeline over ``[path, label,
-duration]`` triples that yields numpy "macro batches": ``mini_batch_size``
-microbatches of ``batch_size`` clips each, exactly the unit one train step
-consumes.
+pipeline.py``: a pipeline over ``[path, label, duration]`` triples that
+yields numpy "macro batches": ``mini_batch_size`` microbatches of
+``batch_size`` clips each, exactly the unit one train step consumes.
 
 Two feed modes:
   * ``on_device_frontend=True`` (default): workers only decode + resample;
     raw padded audio goes to the device and featurization runs inside the
     step (``ops/frontend.py``).  Host CPU cost per clip is container decode.
+    With ``num_workers > 0`` and ``use_native_loader`` (the default) the
+    workers are the C++ loader's threads (``runtime/loader.py``); the main
+    process only encodes labels and assembles batches.
   * ``on_device_frontend=False``: workers run the numpy frontend and ship
     features (kept for CPU-only use and tests).
+
+Where neither the native loader nor ``num_workers`` 0 (decode inline)
+applies, clips are decoded in a spawned process pool, as in the JAX
+package.  A native loader whose library cannot be built raises; the
+pipeline does not fall back to the pool.
 
 Short final batches are padded with empty items (zero lengths); the CTC
 loss and the metrics mask them to zero contribution.  With ``bucket_count
 > 1`` each macro batch pads its audio to the smallest of ``bucket_count``
 even divisions of the max length that covers it; ``order_by_duration``
 windows keep batch members of similar length.
-
-The JAX package's native C++ loader (its ``use_native_loader`` branch) is
-not ported yet: the port always decodes in the process pool (or inline
-with ``num_workers`` 0), and ``use_native_loader`` only logs that once.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class PipelineConfig:
     num_workers: int = 0              # 0 = synchronous (tests)
     prefetch_batches: int = 2
     add_eos: bool = False             # EOS id == CTC blank; see charmap notes
-    use_native_loader: bool = True    # the JAX package's C++ loader: not ported
+    use_native_loader: bool = True    # C++ thread pool (runtime/loader.py)
     bucket_count: int = 1             # audio-width buckets (1 = full padding)
 
     @property
@@ -124,15 +127,8 @@ def _empty_item(cfg: PipelineConfig, feature_size: int) -> Dict:
     }
 
 
-_NATIVE_NOTED = False
-
-
-def _note_no_native_loader() -> None:
-    global _NATIVE_NOTED
-    if not _NATIVE_NOTED:
-        _NATIVE_NOTED = True
-        logger.info("The native loader is not ported; the port decodes in "
-                    "the Python process pool")
+# Macro batches assembled from the native loader's clips, in this process.
+native_batches = 0
 
 
 class InputPipeline:
@@ -208,12 +204,56 @@ class InputPipeline:
 
     # ------------------------------------------------------------- iteration
 
+    def _iter_native(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Decode through the C++ async loader (``runtime/loader.py``):
+        native worker threads own decode/downmix/resample/truncate, the
+        main process only encodes labels and assembles batches."""
+        from rnn_speech_tpu_torch.runtime import loader as native_loader
+
+        global native_batches
+        cfg = self.cfg
+        need = cfg.mini_batch_size * cfg.batch_size
+        paths = [item[0] for item in self.dataset]
+        texts = [item[1] for item in self.dataset]
+        items: List[Dict] = []
+        with native_loader.NativeAudioLoader(
+            paths,
+            max_samples=cfg.max_samples,
+            target_rate=cfg.sample_rate,
+            n_threads=cfg.num_workers,
+            capacity=max(need * (cfg.prefetch_batches + 1), cfg.num_workers * 2),
+        ) as ld:
+            for idx, audio, rc in ld:
+                if audio is None:
+                    logger.warning(
+                        "Skipping unreadable audio %s (native decoder rc %d)",
+                        paths[idx], rc,
+                    )
+                    continue
+                labels, label_len = self.char_map.encode_padded(
+                    texts[idx], cfg.max_target_seq_length, add_eos=cfg.add_eos
+                )
+                items.append({
+                    "audio": audio,
+                    "audio_length": len(audio),
+                    "labels": labels,
+                    "label_length": label_len,
+                })
+                if len(items) == need:
+                    native_batches += 1
+                    yield self._assemble(items)
+                    items = []
+        if items:
+            native_batches += 1
+            yield self._assemble(items)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         cfg = self.cfg
         need = cfg.mini_batch_size * cfg.batch_size
 
         if cfg.num_workers > 0 and cfg.on_device_frontend and cfg.use_native_loader:
-            _note_no_native_loader()
+            yield from self._iter_native()
+            return
 
         tasks = [
             (path, label, cfg, self.char_map.tokens)
@@ -280,34 +320,6 @@ class InputPipeline:
                             items = []
             if items:
                 yield self._assemble(items)
-
-
-def _load_clip(args):
-    path, sample_rate = args
-    try:
-        return audio_io.load(path, sr=sample_rate)[0], None
-    except (audio_io.AudioFormatError, OSError, ValueError, EOFError) as exc:
-        return None, str(exc)
-
-
-def load_clips(paths: Sequence[str], sample_rate: int,
-               num_workers: int = 0) -> Iterator:
-    """(index, mono float32 signal at ``sample_rate`` or None, error or
-    None) for each path, in order: ``audio_io.load`` inline with
-    ``num_workers`` 0, else over a spawned process pool (the JAX package's
-    native loader is not ported)."""
-    tasks = [(path, sample_rate) for path in paths]
-    if num_workers <= 0 or len(tasks) <= 1:
-        for idx, task in enumerate(tasks):
-            sig, err = _load_clip(task)
-            yield idx, sig, err
-        return
-    import multiprocessing
-
-    with ProcessPoolExecutor(max_workers=num_workers,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        for idx, (sig, err) in enumerate(pool.map(_load_clip, tasks)):
-            yield idx, sig, err
 
 
 def shard_for_host(

@@ -104,14 +104,14 @@ def test_cli_modes_of_later_slices_raise_not_implemented():
 
 
 def test_flac_raises_a_clear_error(tmp_path):
-    """FLAC decodes (``runtime/flac_py.py``): a file without a valid
-    stream raises the decoder's error, and an Ogg file still raises
-    ``AudioFormatError`` naming its container."""
+    """FLAC decodes (the native decoder, ``runtime/audiodec.py``): a file
+    without a valid stream raises the decoder's error, and an Ogg file
+    still raises ``AudioFormatError`` naming its container."""
     from rnn_speech_tpu_torch import audio_io
 
     path = tmp_path / "x.flac"
     path.write_bytes(b"fLaC" + b"\0" * 64)
-    with pytest.raises(EOFError, match="FLAC bitstream"):
+    with pytest.raises(ValueError, match="FLAC decode failed"):
         audio_io.load(str(path))
     ogg = tmp_path / "x.ogg"
     ogg.write_bytes(b"OggS" + b"\0" * 64)
@@ -148,6 +148,9 @@ PORT_MODULES = [
     "rnn_speech_tpu_torch.train.pipeline", "rnn_speech_tpu_torch.ops.augment",
     "rnn_speech_tpu_torch.train.metrics", "rnn_speech_tpu_torch.train.tbevents",
     "rnn_speech_tpu_torch.train.loop", "rnn_speech_tpu_torch.synth",
+    # slice 15: the native host runtime
+    "rnn_speech_tpu_torch.runtime.native_build", "rnn_speech_tpu_torch.runtime.audiodec",
+    "rnn_speech_tpu_torch.runtime.loader", "rnn_speech_tpu_torch.runtime.tsan_check",
 ]
 
 

@@ -53,12 +53,19 @@ printing one JSON line:
            weight-gradient reductions at the full N = 224,640 rows (LSTM:
            D=H=1024, G=4096, on the Hopper tile: two operands, bit for bit
            on repeat, beside the last K stage left out and the two stacked
-           A operands swapped, and one operand; projections: D=120,
-           G=1024 and D=1024, G=80);
+           A operands swapped, and one operand; projections on the skinny
+           tile: D=120 f32 x G=1024 and D=1024 bf16 x G=80, each with f32
+           and bf16 dg, and at a ragged N=100003, bit for bit on repeat,
+           counted on the skinny path, beside one K slice left out);
            the three CTC kernels at B=64, T=3510, U=600 with labels of 250,
            a zero-length input and a label longer than its input (loss,
            checkpoints, last row, gradient; the backward bit for bit on
-           repeat, beside its label sums filed one step late); the dropout kernel at
+           repeat, beside its label sums filed one step late); the
+           checkpoint forward bit for bit against the alpha stream's rows
+           at every block end and the loss-only kernel's last row on the
+           timing batch, a ragged batch (input lengths 1 to T, label
+           lengths 0 to 600) and a batch of 1201 live states, beside step
+           100 reading step 99's log-probs; the dropout kernel at
            (3510, 64, 1024) in float32 and bf16 (bit for bit, and the kept
            fraction within 4 sigma of the keep); the Bernoulli mask kernel
            at (2, 3510, 64, 1024) bf16 (bit for bit, the kept fraction
@@ -109,7 +116,10 @@ printing one JSON line:
            with them beside, on one graph, and with the per-diagonal
            kernel; dgates_weight_grads in turns
            with its yardstick and beside the WMMA tile, with TFLOP/s and
-           the card's clocks; each CTC kernel in turns with its own half of
+           the card's clocks; each projection's weight_grad in turns with
+           torch.mm + sum and the WMMA tile it ran before, each call
+           apart; the projections must all run the skinny tile; each CTC
+           kernel in turns with its own half of
            F.ctc_loss, the forward or the backward alone, the pair
            beside), and one step's gradients
            through the kernels at T=256 against the same route on the
@@ -437,6 +447,22 @@ def cuda_ms(fn, iters: int = 3, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of one ``fn()``: the kernels it launches, summed
+    by torch.profiler (CUPTI) over ``reps`` calls after a warm-up, without
+    the host's time between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
 
 
 # ----------------------------------------------------------------- inputs
@@ -1675,6 +1701,135 @@ def _dropout_checks(checks):
     return max(errs)
 
 
+# Rows of the skinny tile's ragged check: no multiple of its 32-row stage
+# (nor of the other tiles' 64 and 128).
+SKINNY_RAGGED_N = 100003
+
+
+def _skinny_checks(checks):
+    """The projections' weight gradients on the skinny tile at the default
+    step's N = T·B (the input projection: f32 x, D = 120, G = 1024; the
+    output projection: bf16 x, D = 1024, G = 80; each with f32 and bf16
+    dg) and at a ragged N: within WGRAD_TOL of the plain version, bit for
+    bit on a second call, counted on the skinny path; beside the same
+    launch with one K slice left out, which must fail the check.  Returns
+    the largest max abs error."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+
+    f32, bf = torch.float32, torch.bfloat16
+    g = torch.Generator().manual_seed(61)
+    worst = 0.0
+    cases = [(TRAIN_T * TRAIN_B, D, G, xd, gd) for D, G, xd in ((120, H, f32), (H, V, bf))
+             for gd in (f32, bf)]
+    cases += [(SKINNY_RAGGED_N, 120, H, f32, f32), (SKINNY_RAGGED_N, H, V, bf, f32)]
+    for N, D, G, xd, gd in cases:
+        xx = torch.randn((N, D), generator=g).to(DEVICE, xd)
+        dg = (torch.randn((N, G), generator=g) * 0.01).to(DEVICE, gd)
+        pl = gm.plan([D], N, G, gd, torch.cuda.get_device_properties(0).multi_processor_count,
+                     xd)
+        tag = (f"weight_grad N={N} D={D} ({str(xd)[6:]}) G={G} dg {str(gd)[6:]} "
+               f"({pl.path} tile, {pl.wide} wide, {pl.chunks} x {pl.splits} blocks)")
+        if pl.path != "skinny":
+            fail(f"{tag}: the projection does not plan the skinny tile")
+        before = gm.weight_grad.skinny_launches
+        got = gm.weight_grad(xx, dg)
+        again = gm.weight_grad(xx, dg)
+        ref = gm.weight_grad_plain(xx, dg)
+        torch.cuda.synchronize()
+        worst = max(worst, _rel_check(tag, got, ref, WGRAD_TOL, checks))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        counted = gm.weight_grad.skinny_launches - before
+        checks.append({"check": f"{tag}: repeat", "bit_equal": same, "skinny_launches": counted})
+        if not same or counted != 2:
+            fail(f"{tag}: two calls differ ({same}) or were not counted on the skinny tile "
+                 f"({counted})")
+        if N == TRAIN_T * TRAIN_B and gd == f32:
+            bad = gm._launch([xx], dg, bf, skip_split=pl.splits // 2)
+            _fault_check(f"{tag}: K slice {pl.splits // 2} of {pl.splits} left out", bad[:2],
+                         ref, WGRAD_TOL, checks)
+        del xx, dg, got, again, ref
+    return worst
+
+
+def _ctc_ckpt_batches():
+    """The checkpoint forward's batches at B=64, T=3510, V=80 in a
+    MAX_LABEL-wide label buffer (S = 1201): the timing batch (full-length
+    rows, labels of LABEL_LEN), a ragged batch (input lengths 1 to T, label
+    lengths 0 to MAX_LABEL, rows with fewer frames than their 2U + 1 states
+    among them) and a batch whose labels fill the buffer (all 1201 states
+    live).  Yields (name, _setup's tuple)."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    T, Bn = TRAIN_T, TRAIN_B
+    yield "timing", _ctc_timing_batch()[:6]
+    g = torch.Generator().manual_seed(97)
+    logits = (torch.randn((T, Bn, V), generator=g) * 2.0).to(DEVICE)
+    ll = torch.as_tensor([1 + (53 * b * b + 7 * b) % T for b in range(Bn)])
+    ll[0], ll[1], ll[2] = T, 1, 2
+    ul = torch.as_tensor([(97 * b) % (MAX_LABEL + 1) for b in range(Bn)])
+    ul[0], ul[1], ul[3] = MAX_LABEL, 0, MAX_LABEL
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    labels[torch.arange(MAX_LABEL)[None, :] >= ul[:, None]] = -1
+    if not bool((ll < 2 * ul + 1).any()):
+        fail("ctc checkpoint forward: the ragged batch has no row shorter than its states")
+    yield "ragged", tck._setup(logits, ll.to(DEVICE), labels.to(DEVICE), ul.to(DEVICE), -1)
+    labels = torch.randint(0, V - 1, (Bn, MAX_LABEL), generator=g)
+    ll = torch.full((Bn,), T)
+    ul = torch.full((Bn,), MAX_LABEL)
+    yield "S=1201 live", tck._setup(logits, ll.to(DEVICE), labels.to(DEVICE), ul.to(DEVICE),
+                                    -1)
+
+
+def _ctc_ckpt_checks(checks):
+    """The checkpoint forward (row 9) bit for bit against the alpha
+    stream's rows at every block end (row 11) and the loss-only kernel's
+    last row (row 10), both on the old recursion, on ``_ctc_ckpt_batches``;
+    beside the same launch with step 100's log-prob row taken from step
+    99, which must fail it and end (the kernel's barrier waits trap rather
+    than hang)."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+
+    for name, (log_probs, ext, skip_ok, ll, ul, _) in _ctc_ckpt_batches():
+        args = (log_probs, ext, skip_ok, ll, ul)
+        T, S = log_probs.shape[0], ext.shape[1]
+        K = tck.ctc_block(S, V)
+        ck, last = tck.ctc_alpha_ckpt(*args, K)
+        last_l = tck.ctc_alpha_lossonly(*args)
+        alphas, last_s = tck.ctc_alpha_stream(*args)
+        ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
+        rows = alphas[ends]
+        del alphas
+        torch.cuda.synchronize()
+        entry = {"check": f"ctc checkpoint forward, {name} batch: B={TRAIN_B} T={T} S={S} K={K}",
+                 "geometry": tck.alpha_ckpt_geometry(S, V)._asdict(),
+                 "ckpts_equal_stream_rows": torch.equal(ck, rows),
+                 "last_equal_lossonly": torch.equal(last, last_l),
+                 "last_equal_stream": torch.equal(last, last_s),
+                 "rel_err_vs_stream": _ctc_rel(ck, rows)}
+        checks.append(entry)
+        if not (entry["ckpts_equal_stream_rows"] and entry["last_equal_lossonly"]
+                and entry["last_equal_stream"]):
+            fail(f"ctc checkpoint forward differs from rows 10 and 11: {entry}")
+        if name == "timing":
+            bad, _ = tck._alpha_ckpt_launch(*args, K, fault_step=100)
+            torch.cuda.synchronize()
+            fault = {"planted_fault": "ctc checkpoint forward: step 100 reads step 99's "
+                                      "log-probs",
+                     "bit_equal": torch.equal(bad, rows), "rel_err": _ctc_rel(bad, rows),
+                     "tol": CTC_LOSS_TOL}
+            checks.append(fault)
+            if fault["bit_equal"] or fault["rel_err"] <= CTC_LOSS_TOL:
+                fail(f"ctc checkpoint forward: the check does not see the fault: {fault}")
+            del bad
+        del ck, rows, log_probs
+
+
 def phase_train_kernels():
     import torch
 
@@ -1763,18 +1918,9 @@ def phase_train_kernels():
         f"weight_grad N={N} D={H} G={4 * H} dg bfloat16 ({path} tile)", got, ref, WGRAD_TOL,
         checks)
     del xx, dgates, got, ref
-    for D, G, xd, gd in ((120, H, torch.float32, torch.float32),
-                         (120, H, torch.float32, bf),
-                         (H, V, bf, torch.float32)):
-        xx, dg = r(N, D, scale=1.0).to(xd), r(N, G, scale=0.01).to(gd)
-        got = gm.weight_grad(xx, dg)
-        ref = gm.weight_grad_plain(xx, dg)
-        torch.cuda.synchronize()
-        worst["weight_grad"] = max(worst["weight_grad"], _rel_check(
-            f"weight_grad N={N} D={D} G={G} dg {str(gd)[6:]}", got, ref, WGRAD_TOL,
-            checks))
-    del xx, dg, got, ref
+    worst["weight_grad"] = max(worst["weight_grad"], _skinny_checks(checks))
     worst.update(_ctc_checks(checks))
+    _ctc_ckpt_checks(checks)
     worst["dropout"] = _dropout_checks(checks)
     worst["bernoulli_mask"] = _mask_checks(checks)
     worst.update(_ctc_stream_checks(checks))
@@ -1969,7 +2115,8 @@ def _path_counters():
     step), ``weight_grad`` at the LSTM shape (``_hgrad_only`` after the
     fused pass; the wide step), the fused pass's window products and the
     recompute backward's gate rebuilds (one per chunk; the recompute
-    steps); and the persistent kernels' launches (wgmma on a resident W_h):
+    steps); ``weight_grad`` on the skinny tile (the input and output
+    projections; every train step); and the persistent kernels' launches (wgmma on a resident W_h):
     the lean forward (csrc/lstm_layer_lean.cu; the recompute steps), the
     gates-mode forward (its gates instance; the layered steps), the
     gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
@@ -1982,6 +2129,7 @@ def _path_counters():
 
     return {"dgates_weight_grads": gm.dgates_weight_grads.wgmma_launches,
             "weight_grad": gm.weight_grad.wgmma_launches,
+            "weight_grad_skinny": gm.weight_grad.skinny_launches,
             "fused_windows": wf.wavefront_bwd.wgmma_products,
             "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches,
             "lean_persistent": tlt.recurrence_train_lean.persistent_launches,
@@ -1997,6 +2145,7 @@ def _zero_path_counters():
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     gm.dgates_weight_grads.wgmma_launches = gm.weight_grad.wgmma_launches = 0
+    gm.weight_grad.skinny_launches = 0
     wf.wavefront_bwd.wgmma_products = 0
     tlt.recurrence_bwd_recompute.rebuild_launches = 0
     tlt.recurrence_train_lean.persistent_launches = 0
@@ -2241,7 +2390,12 @@ def _train_kernel_timing(state):
     library yardstick (two torch.mm with float32 results and a float32
     column sum), beside the card's clocks, and beside the WMMA tile at
     the same shape (``wmma_ms_per_call``); each product reports its
-    TFLOP/s."""
+    TFLOP/s.  Each projection's weight_grad (the skinny tile) is timed in
+    turns with one ``torch.mm`` with a float32 result and a float32 sum,
+    the WMMA tile it ran before in the same turns (``wmma_ms``), each call
+    reported apart (``calls``) with its plan, bound share and GB/s, and
+    its kernels' own device time (``device_ms``, torch.profiler: the
+    turns' CUDA events also hold the host's time between launches)."""
     from unittest import mock
 
     import torch
@@ -2346,20 +2500,37 @@ def _train_kernel_timing(state):
     per = {}
     for name, xx, dg in (("input", feats, d_in), ("output", top, d_out)):
         D, Gs = xx.shape[1], dg.shape[1]
-        ms = cuda_ms(lambda: gm.weight_grad(xx, dg))
+
+        def wmma():                                  # the tile the projections ran before
+            with mock.patch.object(gm, "product_path", lambda *a: "wmma"):
+                return gm.weight_grad(xx, dg)
+
+        # The library yardstick: one product with a float32 result and db,
+        # in turns with the kernel, the WMMA tile in the same turns.
+        turns = in_turns(lambda: (torch.mm(xx.to(bf).t(), dg.to(bf), out_dtype=f32),
+                                  dg.sum(0, dtype=f32)),
+                         lambda: gm.weight_grad(xx, dg), wmma=wmma)
+        ms = turns["ms"]
+        dev = device_ms(lambda: gm.weight_grad(xx, dg))
         plain = cuda_ms(lambda: gm.weight_grad_plain(xx, dg), iters=1)
-        lib = cuda_ms(lambda: (torch.mm(xx.to(bf).t(), dg.to(bf), out_dtype=f32),
-                               dg.sum(0, dtype=f32)))
         nbytes = N * (D * xx.element_size() + Gs * dg.element_size()) + (D + 1) * Gs * 4
         bound, by = _bounds(2 * N * D * Gs, nbytes)
+        pl = gm.plan([D], N, Gs, dg.dtype, sms, xx.dtype)
         per[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=lib, D=D, G=Gs, dg=str(dg.dtype)[6:],
-                         path=gm.product_path([D], Gs, dg.dtype),
-                         tflops=2 * N * D * Gs / ms / 1e9, flops=2 * N * D * Gs,
-                         bytes=nbytes)
+                         library_ms=turns["library_ms"], wmma_ms=turns["wmma_ms"],
+                         device_ms=dev, D=D, G=Gs,
+                         x=str(xx.dtype)[6:], dg=str(dg.dtype)[6:], path=pl.path,
+                         plan=dict(wide=pl.wide, chunks=pl.chunks, splits=pl.splits,
+                                   rows_per_split=pl.rows_per_split, stages=pl.stages,
+                                   smem=pl.smem),
+                         bound_share=bound / ms, tflops=2 * N * D * Gs / ms / 1e9,
+                         gbps=nbytes / ms / 1e6, flops=2 * N * D * Gs, bytes=nbytes,
+                         turns=turns["turns"])
     out["weight_grad"] = {k: sum(per[n][k] for n in per)
-                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "flops")}
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "wmma_ms",
+                                    "device_ms", "flops")}
     out["weight_grad"]["tflops"] = out["weight_grad"]["flops"] / out["weight_grad"]["ms"] / 1e9
+    out["weight_grad"]["bound_share"] = out["weight_grad"]["bound_ms"] / out["weight_grad"]["ms"]
     out["weight_grad"].update(bound_by="bytes" if all(
         v["bound_by"] == "bytes" for v in per.values()) else "operations", calls=per)
     return out
@@ -2459,6 +2630,8 @@ def _ctc_dropout_timing():
     ):
         out[name] = _ctc_row(run, plain, ops, nbytes, lib, half)
         out[name]["K"] = K
+        out[name]["us_per_step"] = 1e3 * out[name]["ms"] / (T - 1)
+    out["ctc_alpha_ckpt"]["geometry"] = tck.alpha_ckpt_geometry(ext.shape[1], V)._asdict()
     del log_probs, ckpts, lib
 
     gd = torch.Generator(device=DEVICE).manual_seed(96)
@@ -2597,6 +2770,9 @@ def phase_train():
     default, state = _run_steps(scfg, state, batch, reps=3, record_stages=True)
     if not default["wgmma_launches"]["dgates_weight_grads"]:
         fail(f"train: dgates_weight_grads never ran the Hopper tile: {default['wgmma_launches']}")
+    if default["wgmma_launches"]["weight_grad_skinny"] != default["launches"]["weight_grad"]:
+        fail(f"train: the projections' weight gradients did not all run the skinny tile: "
+             f"{default['wgmma_launches']}, {default['launches']}")
     if not default["wgmma_launches"]["wavefront_persistent"]:
         fail("train: the forward never ran the persistent wavefront kernel")
     if not default["wgmma_launches"]["wavefront_bwd_persistent"]:
@@ -4417,6 +4593,9 @@ def phase_train_loop():
         for name in LOOP_TRAIN_KERNELS + LOOP_EVAL_KERNELS:
             if not run["launches"].get(name):
                 problems.append(f"{name} did not launch: {run['launches']}")
+        if run["path_launches"].get("weight_grad_skinny") != run["launches"]["weight_grad"]:
+            problems.append(f"the projections' weight gradients left the skinny tile: "
+                            f"{run['path_launches']}")
         if run["eval_batches"] < 1:
             problems.append("no evaluation pass ran")
         if not run["native_batches"] or run["native_batches"] != run["pipeline_batches"]:
@@ -4432,7 +4611,7 @@ def phase_train_loop():
             "loop_ms_per_step_median", "device_ms_per_step_median", "eval_batches",
             "eval_device_ms", "device_span_ms", "device_busy_ms", "device_idle_share",
             "pipeline_wait_s", "pipeline_batches", "native_batches", "loader_clips", "launches",
-            "restored", "final_step", "final_lr", "restore_equal")
+            "path_launches", "restored", "final_step", "final_lr", "restore_equal")
     emit("train_loop",
          corpus={"train_clips": LOOP_CLIPS[0], "test_clips": LOOP_CLIPS[1],
                  "train_audio_s": train_s, "test_audio_s": test_s, "sample_rate": LOOP_SR,
@@ -4594,7 +4773,9 @@ def kernels_line():
     with weight gradients beside the one without, ``library_ms``; the
     wavefront training forward: its persistent launches and µs a
     diagonal; the reverse diagonal: cuDNN's backward with weight gradients
-    beside the one without); for
+    beside the one without; the projections' weight gradients: their
+    launches on the skinny tile, the WMMA tile's ms in the same turns and
+    each call apart; the checkpoint forward: its µs a step); for
     the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
     launches of the widest gates-residual step's 5 steps (train_wide).  The
     weight-gradient rows add their TFLOP/s, the fused row its window
@@ -4667,6 +4848,15 @@ def kernels_line():
             rows[-1].update(persistent_launches=tr.get("wgmma_launches", {}).get(
                 "wavefront_persistent" if name == "wavefront_train" else
                 "wavefront_bwd_persistent"), us_per_diagonal=t.get("us_per_diagonal"))
+        if name == "weight_grad":                    # the projections on the skinny tile
+            rows[-1].update(
+                skinny_launches=tr.get("wgmma_launches", {}).get("weight_grad_skinny"),
+                wmma_ms=t.get("wmma_ms"), device_ms=t.get("device_ms"),
+                calls={k: {f: c.get(f) for f in ("D", "G", "x", "dg", "ms", "library_ms",
+                                                  "wmma_ms", "device_ms", "bound_ms")}
+                       for k, c in t.get("calls", {}).items()})
+        if name == "ctc_alpha_ckpt":
+            rows[-1]["us_per_step"] = t.get("us_per_step")
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_lean.cu",

@@ -3,9 +3,10 @@
 // Replaces three TPU kernels of rnn_speech_tpu/ops/ctc_pallas.py:
 //   `_alpha_kernel_ckpt`     the training forward: alpha over time, one
 //                            (B, S) f32 checkpoint per K steps and the last
-//                            row (rst_ctc_alpha with ckpt != null);
+//                            row (rst_ctc_alpha_ckpt: `ctc_alpha_ckpt`,
+//                            its own design, below);
 //   `_alpha_kernel_lossonly` the same recursion, last row only (eval loss;
-//                            rst_ctc_alpha with ckpt == null);
+//                            rst_ctc_alpha);
 //   `_beta_post_ckpt_kernel` the backward: each K-step block's alpha rows
 //                            rebuilt from its checkpoint, beta in the
 //                            bstar = beta + lp form, the state posteriors
@@ -38,9 +39,27 @@
 // What bounds it on the H100: each pass is a serial chain of T dependent
 // steps per row; the work (~10 flops and 4 transcendentals per live state
 // and step) and bytes (the gathered log-probs) are far below a millisecond.
-// The forward kernels: one block of 256 threads per batch row (64 blocks
-// at B = 64), the alpha row, ext and the skip flags in shared memory, one
-// barrier per time step (rows double-buffered by parity).
+// The loss-only and stream forwards (`ctc_alpha`): one block of 256
+// threads per batch row (64 blocks at B = 64), the alpha row, ext and the
+// skip flags in shared memory, one barrier per time step (rows
+// double-buffered by parity), each step's log-prob gathered from device
+// memory on the chain.
+//
+// The checkpoint forward (`ctc_alpha_ckpt`, the default step's) takes the
+// device memory off the chain: a producer warp copies each coming step's
+// log-prob row (V contiguous floats) into a shared ring of slots of four
+// rows by cp.async, completing on an mbarrier per slot, so the gather
+// ext[s] reads shared memory and the chain waits on a barrier once every
+// four steps; each thread owns kP consecutive states and keeps their
+// alpha in registers, the s-1 and s-2 neighbours come by warp shuffle and
+// only each warp's last two states pass through shared memory, behind one
+// named barrier a step among the warps that hold live states (the
+// producer stays out of it); checkpoints are stored from registers; and
+// the recursion stops at the row's last live step, then writes that row
+// into the remaining checkpoints and `last`, which is what the freeze
+// (`live ? ... : prev`) gives.  Each entry is the same `alpha_step`
+// arithmetic on the same operands, so its rows equal `ctc_alpha`'s bit
+// for bit.
 //
 // The backward (`_beta_post_ckpt_kernel`, and the stream form) was 1.6x
 // F.ctc_loss's whole forward + backward on the H100 with that design plus a
@@ -67,7 +86,11 @@
 
 #include <cstdint>
 
+#include "grad_matmul.cuh"   // the mbarrier helpers (rst_grad::tma)
+
 namespace {
+
+namespace tma = rst_grad::tma;
 
 constexpr float kNegInf = -1.0e30f;
 constexpr int kThreads = 256;
@@ -88,7 +111,8 @@ __device__ __forceinline__ float alpha_step(const float* prev, int s, bool skip,
 }
 
 // What the alpha pass keeps: the last row only, a checkpoint every K
-// steps, or every row (the stream).
+// steps, or every row (the stream).  Only kLastOnly and kStream are
+// launched; the checkpoints come from `ctc_alpha_ckpt` below.
 enum AlphaOut { kLastOnly = 0, kCkpt = 1, kStream = 2 };
 
 template <int kOut>
@@ -139,6 +163,180 @@ __global__ void __launch_bounds__(kThreads)
     store_ckpt(nxt, t);
   }
   for (int s = threadIdx.x; s < S; s += kThreads) last[(size_t)b * S + s] = buf[cur * S + s];
+}
+
+// ------------------------------------------------ the checkpoint forward
+
+constexpr int kSlotRows = 4;   // log-prob rows a ring slot holds: one wait per 4 steps
+
+// Block: `nc` compute threads (warps 0 .. nc/32 - 1, kP states each:
+// thread i owns states kP·i .. kP·i + kP - 1) and one producer warp after
+// them.  Shared memory: a full and an empty mbarrier per ring slot, the
+// warps' last two states by step parity, the ring of `ring` slots of
+// kSlotRows log-prob rows (steps 4j .. 4j + 3 in slot j % ring).  Every
+// index that advances with t is a counter, so no step divides.
+// fault_step > 0 is a planted fault for checks: that step's log-prob row
+// is taken from step fault_step - 1.
+template <int kP>
+__global__ void __launch_bounds__(1024, 1)
+    ctc_alpha_ckpt(const float* __restrict__ lp, const int* __restrict__ ext,
+                   const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
+                   const int* __restrict__ label_len, float* __restrict__ ckpt,
+                   float* __restrict__ last, int T, int B, int S, int V, int K, int ring,
+                   int fault_step) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = blockDim.x - 32;
+  const int nw = nc / 32;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);   // [ring]: slot landed
+  uint64_t* empty = full + ring;                            // [ring]: slot consumed
+  float* edge = reinterpret_cast<float*>(empty + ring);     // [2][nw][2]
+  float* rows = edge + 4 * nw;                              // [ring][kSlotRows][V]
+  const int b = blockIdx.x;
+  const int Sb = min(S, 2 * label_len[b] + 1);
+  // Rows 0 .. t_end - 1 are computed; every later row equals row t_end - 1.
+  const int t_end = min(T, max(logit_len[b], 1));
+  const int NI = (T + K - 1) / K;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ring; ++i) {
+      // One cp.async arrive per producer lane; compute thread 0 after a
+      // slot's last step.
+      tma::bar_init(tma::smem_addr(&full[i]), 32);
+      tma::bar_init(tma::smem_addr(&empty[i]), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= nc) {   // the producer warp: rows 0 .. t_end - 1 into the ring
+    const int lane = tid - nc;
+    uint32_t par = 1;   // the empty barriers' first round passes
+    for (int t0 = 0, slot = 0; t0 < t_end; t0 += kSlotRows) {
+      tma::bar_wait(tma::smem_addr(&empty[slot]), par);
+      float* dst = rows + (size_t)slot * kSlotRows * V;
+      for (int r = 0; r < kSlotRows && t0 + r < t_end; ++r) {
+        const int t = t0 + r;
+        const int src = fault_step > 0 && t == fault_step ? t - 1 : t;
+        const float* row = lp + ((size_t)src * B + b) * V;
+        for (int v = lane; v < V; v += 32) {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                           tma::smem_addr(dst + r * V + v)),
+                       "l"(row + v)
+                       : "memory");
+        }
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                       tma::smem_addr(&full[slot]))
+                   : "memory");
+      if (++slot == ring) {
+        slot = 0;
+        par ^= 1;
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int s0 = tid * kP;
+  float* ck = ckpt + (size_t)b * S;   // checkpoint i's row: ck + i·B·S
+  auto store = [&](float* dst, const float (&a)[kP]) {
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      if (s0 + j < S) dst[s0 + j] = a[j];
+    }
+  };
+  float a[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) a[j] = kNegInf;
+  // Warps without live states: their states stay -1e30 in every row.
+  const int nwa = ((Sb + kP - 1) / kP + 31) / 32;
+  if (warp >= nwa) {
+    for (int i = 0; i < NI; ++i) store(ck + (size_t)i * B * S, a);
+    store(last + (size_t)b * S, a);
+    return;
+  }
+  const int nbar = 32 * nwa;
+  int e[kP];
+  bool sk[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const int s = s0 + j;
+    e[j] = s < Sb ? ext[(size_t)b * S + s] : 0;
+    sk[j] = s < Sb && s >= 2 && skip[(size_t)b * S + s];
+  }
+  int slot = 0, r = 0;     // step t's row: row r of ring slot `slot`
+  uint32_t par = 0;        // the slot's full phase
+  int ck_t = K - 1;        // the step of the next checkpoint row
+  float* ck_row = ck;
+  // t = 0: seed states 0 and 1.
+  tma::bar_wait(tma::smem_addr(&full[0]), 0);
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    if (s0 + j < Sb && s0 + j < 2) a[j] = rows[e[j]];
+  }
+  if (lane == 31) {
+    edge[2 * warp] = a[kP - 2];
+    edge[2 * warp + 1] = a[kP - 1];
+  }
+  if (ck_t == 0) {
+    store(ck_row, a);
+    ck_row += (size_t)B * S;
+    ck_t += K;
+  }
+  asm volatile("bar.sync 1, %0;" ::"r"(nbar) : "memory");
+  for (int t = 1; t < t_end; ++t) {
+    if (++r == kSlotRows) {
+      r = 0;
+      if (++slot == ring) {
+        slot = 0;
+        par ^= 1;
+      }
+      tma::bar_wait(tma::smem_addr(&full[slot]), par);
+    }
+    const float* row = rows + ((size_t)slot * kSlotRows + r) * V;
+    float lpv[kP];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) lpv[j] = row[e[j]];
+    // States s0 - 1 and s0 - 2 of the previous row: the thread before this
+    // one, by shuffle, or the previous warp's last thread, from shared memory.
+    float l1 = __shfl_up_sync(0xffffffffu, a[kP - 1], 1);
+    float l2 = __shfl_up_sync(0xffffffffu, a[kP - 2], 1);
+    if (lane == 0) {
+      const float* pe = edge + ((t - 1) & 1) * 2 * nw + 2 * max(warp - 1, 0);
+      l1 = warp > 0 ? pe[1] : kNegInf;
+      l2 = warp > 0 ? pe[0] : kNegInf;
+    }
+    float n[kP];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      const int s = s0 + j;
+      const float p1 = j >= 1 ? a[j - 1] : l1;
+      const float p2 = j >= 2 ? a[j - 2] : (j == 1 ? l1 : l2);
+      const float a1 = s >= 1 ? p1 : kNegInf;
+      const float a2 = sk[j] ? p2 : kNegInf;
+      n[j] = s < Sb ? log_add3(a[j], a1, a2) + lpv[j] : a[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kP; ++j) a[j] = n[j];
+    if (lane == 31) {
+      float* pe = edge + (t & 1) * 2 * nw + 2 * warp;
+      pe[0] = a[kP - 2];
+      pe[1] = a[kP - 1];
+    }
+    if (t == ck_t) {
+      store(ck_row, a);
+      ck_row += (size_t)B * S;
+      ck_t += K;
+    }
+    asm volatile("bar.sync 1, %0;" ::"r"(nbar) : "memory");
+    if (tid == 0 && r == kSlotRows - 1) {
+      tma::bar_arrive(tma::smem_addr(&empty[slot]));
+    }
+  }
+  // The frozen row: every checkpoint after the last live step, and last.
+  for (int i = t_end / K; i < NI; ++i) store(ck + (size_t)i * B * S, a);
+  store(last + (size_t)b * S, a);
 }
 
 // The backward's thread groups: kBeta threads run beta, the posteriors and
@@ -382,6 +580,27 @@ int launch_alpha(const float* lp, const int* ext, const uint8_t* skip, const int
   return (int)cudaGetLastError();
 }
 
+// Shared memory of ctc_alpha_ckpt: the ring's mbarriers, the warps' edge
+// values, the ring of slots of kSlotRows log-prob rows.
+size_t alpha_ckpt_smem_bytes(int threads, int ring, int V) {
+  return 2 * sizeof(uint64_t) * (size_t)ring + sizeof(float) * 4 * (size_t)(threads / 32) +
+         sizeof(float) * (size_t)ring * kSlotRows * V;
+}
+
+template <int kP>
+int launch_alpha_ckpt(const float* lp, const int* ext, const uint8_t* skip,
+                      const int* logit_len, const int* label_len, float* ckpt, float* last,
+                      int T, int B, int S, int V, int K, int threads, int ring, int fault_step,
+                      void* stream) {
+  const size_t smem = alpha_ckpt_smem_bytes(threads, ring, V);
+  cudaError_t err = cudaFuncSetAttribute(
+      ctc_alpha_ckpt<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ctc_alpha_ckpt<kP><<<B, threads + 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V, K, ring, fault_step);
+  return (int)cudaGetLastError();
+}
+
 template <bool kStream>
 int launch_beta_post(const float* lp, const int* ext, const uint8_t* skip,
                      const int* logit_len, const int* label_len, const float* logp,
@@ -402,18 +621,49 @@ int launch_beta_post(const float* lp, const int* ext, const uint8_t* skip,
 
 // lp (T, B, V) f32 log-probs; ext (B, S) int32 extended labels; skip (B, S)
 // uint8 (the s-2 -> s transition is allowed); logit_len, label_len (B)
-// int32.  ckpt (ceil(T/K), B, S) f32 or null (loss only); last (B, S) f32.
+// int32.  last (B, S) f32 receives the last alpha row (the loss only).
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int rst_ctc_alpha(const float* lp, const int* ext, const uint8_t* skip,
-                             const int* logit_len, const int* label_len, float* ckpt,
-                             float* last, int T, int B, int S, int V, int K,
-                             void* stream) {
-  if (ckpt != nullptr) {
-    return launch_alpha<kCkpt>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V,
-                               K, stream);
-  }
+                             const int* logit_len, const int* label_len, float* last, int T,
+                             int B, int S, int V, void* stream) {
   return launch_alpha<kLastOnly>(lp, ext, skip, logit_len, label_len, nullptr, last, T, B,
-                                 S, V, K, stream);
+                                 S, V, 1, stream);
+}
+
+// The same inputs; ckpt (ceil(T/K), B, S) f32 receives the row after each
+// step t = iK + K - 1 (or T - 1), last (B, S) the last row.  The launch's
+// geometry comes from the wrapper (ops/ctc_kernel.py `alpha_ckpt_geometry`):
+// `states` (kP: 2, 4 or 8) a thread, `threads` compute threads (a multiple
+// of 32 covering S, at most 992), a ring of `ring` slots of 4 log-prob
+// rows.
+// fault_step > 0 plants a fault for checks (that step reads the previous
+// step's log-probs).
+extern "C" int rst_ctc_alpha_ckpt(const float* lp, const int* ext, const uint8_t* skip,
+                                  const int* logit_len, const int* label_len, float* ckpt,
+                                  float* last, int T, int B, int S, int V, int K, int states,
+                                  int threads, int ring, int fault_step, void* stream) {
+  if (T < 1 || K < 1 || ring < 1 || threads % 32 != 0 || threads + 32 > 1024 ||
+      (long long)threads * states < S) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (states) {
+    case 2:
+      return launch_alpha_ckpt<2>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
+                                  V, K, threads, ring, fault_step, stream);
+    case 4:
+      return launch_alpha_ckpt<4>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
+                                  V, K, threads, ring, fault_step, stream);
+    case 8:
+      return launch_alpha_ckpt<8>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
+                                  V, K, threads, ring, fault_step, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of rst_ctc_alpha_ckpt, in bytes.
+extern "C" long long rst_ctc_alpha_ckpt_smem(int threads, int ring, int V) {
+  return (long long)alpha_ckpt_smem_bytes(threads, ring, V);
 }
 
 // The same inputs; alphas (T, B, S) f32 receives every alpha row (the

@@ -24,11 +24,413 @@
 // G of 256) run the Hopper tile of grad_matmul.cuh: TMA loads through a
 // four-stage mbarrier ring feeding wgmma m64n256k16 in two consumer
 // warpgroups, 128x256 output tiles, then db in a fixed-order column-sum
-// pass over dg.  The projections run the WMMA tile.  Either splits K
-// across blocks into f32 partials summed in a fixed order when there are
-// too few output tiles to fill the card.
+// pass over dg.  The projections run the skinny tile below (`skinny`), and
+// every shape neither takes the WMMA tile.  Each splits K across blocks
+// into f32 partials summed in a fixed order when there are too few output
+// tiles to fill the card.
+//
+// The skinny tile (entry rst_weight_grad_skinny), for one A operand where
+// one side of dW is narrow (min(D, G) <= 256; D and G multiples of 8): the
+// projections, D = 120 x G = 1024 with f32 x and dg, and D = 1024 bf16 x
+// G = 80 f32 dg, 1.56 GB at N = 224,640, about 92 GFLOP: a streaming
+// problem.  Of x and dg, the wider is the "wide" operand, the other the
+// "narrow" one.  Each block owns 128 columns of the wide operand and the
+// narrow side whole (an output tile of 128 x n), over one K slice, so the
+// wide operand is read from device memory exactly once across the grid and
+// the narrow one is re-read by the blocks of a slice through L2.  Thread 0
+// keeps a ring of 64-row stages (32 past a narrow side of 128) in flight
+// by TMA: a bf16 operand lands in 64-column strips in the 128-byte swizzle
+// wgmma reads; an f32 operand lands as one dense box of its rows, which
+// all 256 threads then copy into such strips, rounding to nearest even as
+// the plain version's `_product` does.  db is summed from the unrounded dg
+// in shared memory in the same pass, each thread its columns over its rows
+// in row order.  Then each of the two warpgroups runs wgmma m64nNk16 (N =
+// 64, 128 or 256 covers the narrow side; both operands MN-major) on its 64
+// wide columns, into f32 accumulators held across the slice.  A K slice
+// has at most 16,384 rows (one accumulation chain) and the plan takes
+// enough slices to fill the card; the slices' partials are summed in a
+// fixed order, so dW and db repeat bit for bit.  (A first design built
+// mma.sync fragments straight from f32 in shared memory, each element
+// converted by every warp that used it: at the projections that cost more
+// than the loads.  Copying bf16 operands into the strips as well slowed
+// the output projection.)
 
 #include "grad_matmul.cuh"
+
+namespace rst_grad {
+namespace skinny {
+
+constexpr int kBM = 128;                    // wide columns a block: 2 warpgroups x 64
+constexpr int kThreads = 256;               // thread 0 also issues the loads
+constexpr int kMaxNarrow = 256;
+constexpr int kMaxStages = 8;
+constexpr int kSmemLimit = 232448;          // the H100's 227 KB a block may use
+
+// Strips of the narrow side: the wgmma N (64, 128 or 256) over 64.
+__host__ __device__ constexpr int narrow_strips(int n) { return n <= 64 ? 1 : n <= 128 ? 2 : 4; }
+
+// K rows a stage: 64, or 32 for a narrow side past 128 columns, whose
+// stages would not fit twice in shared memory otherwise.
+__host__ __device__ constexpr int stage_rows(int n) { return n <= 128 ? 64 : 32; }
+
+// d (64 x kN f32) = a·b + (keep ? d : 0) over 16 K rows, a (64 x 16) and
+// b (16 x kN) both MN-major bf16 in 128-byte swizzle.
+template <int kN>
+__device__ __forceinline__ void mma(float (&d)[kN / 2], uint64_t a, uint64_t b, uint32_t keep);
+
+#define RST_ACC8(i)                                                              \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+template <>
+__device__ __forceinline__ void mma<64>(float (&d)[32], uint64_t a, uint64_t b, uint32_t keep) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24)
+      : "l"(a), "l"(b), "r"(keep));
+}
+
+template <>
+__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b, uint32_t keep) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : RST_ACC8(0), RST_ACC8(8), RST_ACC8(16), RST_ACC8(24), RST_ACC8(32), RST_ACC8(40),
+        RST_ACC8(48), RST_ACC8(56)
+      : "l"(a), "l"(b), "r"(keep));
+}
+
+#undef RST_ACC8
+
+template <>
+__device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a, uint64_t b, uint32_t keep) {
+  tma::mma_64x256x16<1>(d, a, b, keep);
+}
+
+struct Args {
+  int w, n;             // widths of the wide and the narrow operand
+  int wide_dg;          // 1: dg is the wide operand (dW stored transposed); 0: x is
+  int steps;            // K stages in all: ceil(N / kBK)
+  int steps_per_split;  // K stages of one slice (grid.y)
+  int stages;           // ring depth
+  int skip_split;       // planted fault: this slice's blocks store zeros (-1: none)
+  float* out;           // (D, G) dW, or (splits, D, G) partials
+  float* out_db;        // (G,) db, or (splits, G) partials
+};
+
+// Copies a (kBK, cols) f32 box (rows `cols` floats apart) into bf16
+// strips (64 columns each, 128·kBK bytes apart) at dst, in the 128-byte
+// swizzle wgmma reads, rounding to nearest even: 16 bytes of a row a
+// thread, thread (rg, cg) taking columns [4cg, 4cg + 4) of rows rg,
+// rg + RG, ...  With `sum`, adds each value, unrounded, to acc in that row
+// order.
+template <bool kSum, int kBK>
+__device__ __forceinline__ void to_strips(const uint8_t* src, int cols, uint8_t* dst,
+                                          float (&acc)[8]) {
+  constexpr int kStrip = 128 * kBK;
+  const int cg_n = cols / 4, rg_n = kThreads / cg_n;
+  const int cg = threadIdx.x % cg_n, rg = threadIdx.x / cg_n;
+  if (rg >= rg_n) return;
+  const int c = cg * 4;
+  uint8_t* strip = dst + (c / 64) * kStrip;
+  const int byte = 2 * (c % 64);
+  for (int r = rg; r < kBK; r += rg_n) {
+    const float4 f = *reinterpret_cast<const float4*>(src + ((size_t)r * cols + c) * 4);
+    if (kSum) {
+      acc[0] += f.x;
+      acc[1] += f.y;
+      acc[2] += f.z;
+      acc[3] += f.w;
+    }
+    __nv_bfloat162 lo = __floats2bfloat162_rn(f.x, f.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(f.z, f.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(strip + r * 128 + (byte ^ ((r & 7) << 4))) = packed;
+  }
+}
+
+// Adds the columns of bf16 strips (as TMA writes them, 128-byte swizzle)
+// to acc: thread (rg, cg) its columns [8cg, 8cg + 8) over rows rg,
+// rg + RG, ..., in row order (the mapping to_strips would use for bf16).
+template <int kBK>
+__device__ __forceinline__ void sum_strips(const uint8_t* src, int cols, float (&acc)[8]) {
+  constexpr int kStrip = 128 * kBK;
+  const int cg_n = cols / 8, rg_n = kThreads / cg_n;
+  const int cg = threadIdx.x % cg_n, rg = threadIdx.x / cg_n;
+  if (rg >= rg_n) return;
+  const int c = cg * 8;
+  const uint8_t* strip = src + (c / 64) * kStrip;
+  const int byte = 2 * (c % 64);
+  for (int r = rg; r < kBK; r += rg_n) {
+    const uint4 v = *reinterpret_cast<const uint4*>(strip + r * 128 + (byte ^ ((r & 7) << 4)));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * e] += __low2float(h[e]);
+      acc[2 * e + 1] += __high2float(h[e]);
+    }
+  }
+}
+
+// Block (x: 128-column chunk of the wide operand, y: K slice).  Shared
+// memory: the bf16 strips converted from f32 operands (at the end, the db
+// partials), the ring of stages, the full barriers.  A stage holds each
+// operand as TMA wrote it: a bf16 operand as swizzled 64-column strips
+// that wgmma reads where they landed, an f32 one as a dense box of its
+// rows that the block converts into the strips.
+template <typename TW, typename TN, int kN>
+__global__ void __launch_bounds__(kThreads, 1)
+    skinny_kernel(const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ CUtensorMap map_n, Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int kBK = stage_rows(kN);                    // K rows a stage
+  constexpr int kStrip = 128 * kBK;                      // bytes of a 64-column bf16 strip
+  constexpr int kNS = kN / 64;                           // narrow strips
+  constexpr bool kWideF32 = sizeof(TW) == 4, kNarrowF32 = sizeof(TN) == 4;
+  uint8_t* cw = smem;                                    // [2] wide strips from f32
+  uint8_t* cn = cw + 2 * kStrip;                         // [kNS] narrow strips from f32
+  uint8_t* ring = cn + kNS * kStrip;
+  const int w_bytes = kStrip * (int)sizeof(TW);          // a stage's 128 wide columns
+  const int n_bytes = kNarrowF32 ? kBK * p.n * 4 : kNS * kStrip;
+  const int stage_bytes = w_bytes + n_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * stage_bytes);
+  const int chunk = blockIdx.x, split = blockIdx.y;
+  const int m0 = chunk * kBM;
+  const int k0 = split * p.steps_per_split;
+  const int k1 = min(p.steps, k0 + p.steps_per_split);
+  const int n_st = k1 - k0;
+  // bf16 strips past the operand's columns would load only zeros (and feed
+  // only outputs that are not stored): they are not loaded.
+  const int w_boxes = kWideF32 ? 1 : min(2, (p.w - m0 + 63) / 64);
+  const int n_boxes = kNarrowF32 ? 1 : (p.n + 63) / 64;
+  const int tx = (kWideF32 ? w_bytes : w_boxes * kStrip) +
+                 (kNarrowF32 ? n_bytes : n_boxes * kStrip);
+  // Thread 0: stage k's boxes into its ring slot, on its full barrier.
+  auto issue = [&](int k) {
+    const int s = (k - k0) % p.stages;
+    const uint32_t bar = tma::smem_addr(&full[s]);
+    tma::bar_expect_tx(bar, tx);
+    const uint32_t st = tma::smem_addr(ring + s * stage_bytes);
+    for (int q = 0; q < w_boxes; ++q) {
+      tma::load_box(st + q * kStrip, &map_w, bar, m0 + 64 * q, k * kBK);
+    }
+    for (int q = 0; q < n_boxes; ++q) {
+      tma::load_box(st + w_bytes + q * kStrip, &map_n, bar, 64 * q, k * kBK);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) tma::bar_init(tma::smem_addr(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < min(n_st, p.stages); ++i) issue(k0 + i);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;           // this warpgroup's 64 wide columns
+  float d[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) d[i] = 0.0f;
+  float dsum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const bool db_wide = p.out_db != nullptr && p.wide_dg;
+  const bool db_narrow = p.out_db != nullptr && !p.wide_dg && chunk == 0;
+  for (int i = 0; i < n_st; ++i) {
+    const int s = i % p.stages;
+    tma::bar_wait(tma::smem_addr(&full[s]), (i / p.stages) & 1);
+    uint8_t* raw = ring + s * stage_bytes;
+    if constexpr (kWideF32) {
+      if (db_wide) {
+        to_strips<true, kBK>(raw, kBM, cw, dsum);
+      } else {
+        to_strips<false, kBK>(raw, kBM, cw, dsum);
+      }
+    } else if (db_wide) {
+      sum_strips<kBK>(raw, kBM, dsum);
+    }
+    if constexpr (kNarrowF32) {
+      if (db_narrow) {
+        to_strips<true, kBK>(raw + w_bytes, p.n, cn, dsum);
+      } else {
+        to_strips<false, kBK>(raw + w_bytes, p.n, cn, dsum);
+      }
+    } else if (db_narrow) {
+      sum_strips<kBK>(raw + w_bytes, p.n, dsum);
+    }
+    // The converted strips, written by this proxy, are read by wgmma's.
+    if (kWideF32 || kNarrowF32) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    // With both operands converted, slot s is free now; else wgmma reads it.
+    if (kWideF32 && kNarrowF32 && threadIdx.x == 0 && i + p.stages < n_st) {
+      issue(k0 + i + p.stages);
+    }
+    const uint32_t a = tma::smem_addr((kWideF32 ? cw : raw) + wg * kStrip);
+    const uint32_t b = tma::smem_addr(kNarrowF32 ? cn : raw + w_bytes);
+    tma::fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // 16 K rows: two 1024-byte row groups of each strip.
+      mma<kN>(d, tma::mn_desc(a + kk * 2048, kStrip), tma::mn_desc(b + kk * 2048, kStrip),
+              (i > 0) | kk);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    tma::fence_acc(d);
+    __syncthreads();                           // slot s and the strips are free
+    if (!(kWideF32 && kNarrowF32) && threadIdx.x == 0 && i + p.stages < n_st) {
+      issue(k0 + i + p.stages);
+    }
+  }
+
+  // dW: x wide, dW[m][col] (D = w, G = n); dg wide, dW[col][m] (D = n, G = w).
+  // Register 4j + r holds row 16·warp + lane/4 + 8·(r/2), column
+  // 8j + 2·(lane%4) + r%2 of the warpgroup's 64 x kN tile.
+  const bool zero = split == p.skip_split;
+  const int D = p.wide_dg ? p.n : p.w, G = p.wide_dg ? p.w : p.n;
+  float* out = p.out + (size_t)split * D * G;   // the slice's partial, or dW itself
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) {
+    const int m = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    if (m < p.w && col < p.n) {
+      out[p.wide_dg ? (size_t)col * G + m : (size_t)m * G + col] = zero ? 0.0f : d[e];
+    }
+  }
+  // db: dg's columns, each summed over its row groups in order.
+  if (!db_wide && !db_narrow) return;
+  const int v = 16 / (p.wide_dg ? sizeof(TW) : sizeof(TN)), cols = p.wide_dg ? kBM : p.n;
+  const int cg_n = cols / v, rg_n = kThreads / cg_n;
+  const int cg = threadIdx.x % cg_n, rg = threadIdx.x / cg_n;
+  float* red = reinterpret_cast<float*>(cw);   // [row group][column]; the strips are free
+  if (rg < rg_n) {
+    for (int e = 0; e < v; ++e) red[rg * cols + cg * v + e] = dsum[e];
+  }
+  __syncthreads();
+  const int valid = p.wide_dg ? min(kBM, p.w - m0) : p.n;
+  for (int c = threadIdx.x; c < valid; c += kThreads) {
+    float sum = 0.0f;
+    for (int r = 0; r < rg_n; ++r) sum += red[r * cols + c];
+    p.out_db[(size_t)split * G + (p.wide_dg ? m0 + c : c)] = zero ? 0.0f : sum;
+  }
+}
+
+// Tensor map of a row-major (rows, cols) array in boxes of box_rows rows:
+// f32 in boxes of box_cols columns, unswizzled (the rows as they lie in
+// memory); bf16 in 64-column strips in 128-byte swizzle, as wgmma reads
+// them.  Reads past either edge fill zeros.
+inline bool make_map(CUtensorMap* map, const void* base, bool f32, int rows, int cols,
+                     int box_cols, int box_rows) {
+  const tma::EncodeTiled encode = tma::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t esz = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)(f32 ? box_cols : 64), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory of a launch: the 1024-byte alignment slack, the
+// bf16 strips, the ring of raw stages and its mbarriers.
+inline size_t smem_bytes(int w_f32, int n_f32, int n, int stages) {
+  const size_t rows = stage_rows(n), strip = 128 * rows;
+  const size_t stage = rows * kBM * (w_f32 ? 4 : 2) +
+                       (n_f32 ? rows * n * 4 : narrow_strips(n) * strip);
+  return 1024 + (2 + narrow_strips(n)) * strip + stages * (stage + 8);
+}
+
+template <typename TW, typename TN, int kN>
+int run(const CUtensorMap& mw, const CUtensorMap& mn, const Args& p, int chunks, int splits,
+        size_t smem, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      skinny_kernel<TW, TN, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  skinny_kernel<TW, TN, kN><<<dim3(chunks, splits), kThreads, smem, st>>>(mw, mn, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TW, typename TN>
+int run_n(const CUtensorMap& mw, const CUtensorMap& mn, const Args& p, int chunks, int splits,
+          size_t smem, cudaStream_t st) {
+  switch (narrow_strips(p.n)) {
+    case 1:
+      return run<TW, TN, 64>(mw, mn, p, chunks, splits, smem, st);
+    case 2:
+      return run<TW, TN, 128>(mw, mn, p, chunks, splits, smem, st);
+    default:
+      return run<TW, TN, 256>(mw, mn, p, chunks, splits, smem, st);
+  }
+}
+
+// x (N, D) f32 or bf16, dg (N, G) f32 or bf16, both 16-byte aligned with
+// D and G multiples of 8 and min(D, G) <= 256; wide_dg as the plan says
+// (dg is the wide operand); K slices of rows_per_split rows, a multiple of
+// 64.  out: dW or the (splits, D, G) partials; out_db: db, the (splits, G)
+// partials, or null.
+inline int launch(const void* x, int x_f32, int D, const void* dg, int dg_f32, int N, int G,
+                  int wide_dg, int splits, int rows_per_split, int stages, int skip_split,
+                  float* out, float* out_db, cudaStream_t st) {
+  const int w = wide_dg ? G : D, n = wide_dg ? D : G;
+  const int w_f32 = wide_dg ? dg_f32 : x_f32, n_f32 = wide_dg ? x_f32 : dg_f32;
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  if (D <= 0 || G <= 0 || D % 8 || G % 8 || n > kMaxNarrow || N <= 0 || splits < 1 ||
+      rows_per_split % 64 || stages < 2 || stages > kMaxStages || !aligned(x) ||
+      !aligned(dg) || (long long)splits * rows_per_split < N ||
+      (long long)(splits - 1) * rows_per_split >= N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(w_f32, n_f32, n, stages);
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  CUtensorMap mw, mn;
+  const int rows = stage_rows(n);
+  if (!make_map(&mw, wide_dg ? dg : x, w_f32, N, w, kBM, rows) ||
+      !make_map(&mn, wide_dg ? x : dg, n_f32, N, n, n, rows)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args p;
+  p.w = w;
+  p.n = n;
+  p.wide_dg = wide_dg;
+  p.steps = (N + rows - 1) / rows;
+  p.steps_per_split = rows_per_split / rows;
+  p.stages = stages;
+  p.skip_split = skip_split;
+  p.out = out;
+  p.out_db = out_db;
+  const int chunks = (w + kBM - 1) / kBM;
+  if (w_f32) {
+    return n_f32 ? run_n<float, float>(mw, mn, p, chunks, splits, smem, st)
+                 : run_n<float, bf16>(mw, mn, p, chunks, splits, smem, st);
+  }
+  return n_f32 ? run_n<bf16, float>(mw, mn, p, chunks, splits, smem, st)
+               : run_n<bf16, bf16>(mw, mn, p, chunks, splits, smem, st);
+}
+
+}  // namespace skinny
+}  // namespace rst_grad
 
 // h (N, dh) and x (N, dx) bf16, dgates (N, G) bf16 (dg_f32 = 0) or f32;
 // dw (dh + dx, G) f32 = [h_prevᵀ·dgates ; xᵀ·dgates], db (G,) f32.
@@ -52,4 +454,30 @@ extern "C" int rst_weight_grad(int path, const void* x, int D, const void* dg, i
                                float* partial_db, float* dw, float* db, void* stream) {
   return rst_grad::launch(path, x, D, nullptr, 0, dg, dg_f32, N, G, splits, rows_per_split,
                           partial, partial_db, dw, db, 0, stream);
+}
+
+// x (N, D) f32 (x_f32 = 1) or bf16, dg (N, G) f32 (dg_f32 = 1) or bf16 ->
+// dw (D, G) = xᵀ·dg (both rounded to bf16, f32 sums), db (G,) = Σ dg in
+// f32, on the skinny tile.  The plan (ops/grad_matmul.py) gives wide_dg,
+// the K partition (splits slices of rows_per_split rows, a multiple of 32)
+// and the ring's stages; with splits > 1, partial (splits, D, G) and
+// partial_db (splits, G) f32 hold the slices' sums before the fixed-order
+// second pass.  skip_split >= 0 is a planted fault for checks: that
+// slice's blocks store zeros.  Returns the CUDA error code (0 = success).
+extern "C" int rst_weight_grad_skinny(const void* x, int x_f32, int D, const void* dg,
+                                      int dg_f32, int N, int G, int wide_dg, int splits,
+                                      int rows_per_split, int stages, float* partial,
+                                      float* partial_db, float* dw, float* db, int skip_split,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = rst_grad::skinny::launch(
+      x, x_f32, D, dg, dg_f32, N, G, wide_dg, splits, rows_per_split, stages, skip_split,
+      splits > 1 ? partial : dw, splits > 1 ? partial_db : db, st);
+  if (err != 0 || splits == 1) return err;
+  const size_t count = (size_t)D * G;
+  rst_grad::sum_splits<<<(unsigned)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096),
+                         256, 0, st>>>(partial, splits, count, dw);
+  rst_grad::sum_splits<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(partial_db, splits,
+                                                                    (size_t)G, db);
+  return (int)cudaGetLastError();
 }

@@ -27,8 +27,10 @@
 // by extra m64n8 wgmmas against a block of ones, it cost the product more
 // than the pass does.
 //
-// `grad_kernel`, for every other shape (the projections: D = 120 or
-// G = 80, f32 dg; ragged test shapes), which are bound by their bytes:
+// `grad_kernel`, for every shape neither the Hopper tile nor the skinny
+// tile of csrc/grad_matmul.cu takes (f32 dgates, layer 0's D = 120 beside
+// H, ragged test shapes, wide products of other widths), mostly bound by
+// their bytes:
 // 128x128 output tiles, eight warps of bf16 WMMA 16x16x16 with f32
 // accumulators, K walked in 32-row steps staged through registers.  f32
 // dg rows are rounded to bf16 on their way to shared memory and the

@@ -5,7 +5,10 @@ train step runs with ``use_pallas_ctc``.  Five kernels (``csrc/ctc.cu``),
 three on the default route:
 
 * ``ctc_alpha_ckpt`` (``_alpha_kernel_ckpt``): the alpha recursion, one
-  (B, S) float32 checkpoint per K steps and the last row;
+  (B, S) float32 checkpoint per K steps and the last row, on its own
+  kernel (``alpha_ckpt_geometry``: states in registers, log-prob rows
+  ahead of the chain in a shared ring, the recursion stopped at each row's
+  last live step), bit-equal to the loss-only and stream kernels' rows;
 * ``ctc_alpha_lossonly`` (``_alpha_kernel_lossonly``): the last row only;
 * ``ctc_beta_post`` (``_beta_post_ckpt_kernel``): each K-step block's
   alpha rows rebuilt from its checkpoint (by a second thread group, beside
@@ -52,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +68,10 @@ Tensor = torch.Tensor
 f32 = torch.float32
 K_MAX = 32                   # time steps per checkpoint block
 SMEM_LIMIT = 220 * 1024      # of the H100's 227 KB a block may use
+ALPHA_STATES = (2, 4, 8)     # states a thread of the checkpoint forward may own
+ALPHA_THREADS = 1024 - 32    # its compute threads at most: a block less the producer warp
+ALPHA_RING = 8               # ring slots of its producer (kSlotRows rows each)
+ALPHA_SLOT_ROWS = 4          # log-prob rows a slot holds (kSlotRows in ctc.cu)
 
 
 def ctc_block(S: int, V: int) -> int:
@@ -78,6 +85,46 @@ def ctc_block(S: int, V: int) -> int:
     if beta_smem_bytes(S, V, K) > SMEM_LIMIT:
         raise ValueError(f"S = {S} extended states exceed the CTC kernels' shared memory")
     return K
+
+
+class AlphaGeometry(NamedTuple):
+    """The checkpoint forward's launch: ``states`` consecutive states a
+    compute thread, ``threads`` compute threads (whole warps; a producer
+    warp comes on top), a ring of ``ring`` slots of ALPHA_SLOT_ROWS
+    log-prob rows, ``smem`` bytes of shared memory."""
+    states: int
+    threads: int
+    ring: int
+    smem: int
+
+
+def alpha_ckpt_smem_bytes(threads: int, ring: int, V: int) -> int:
+    """Shared memory of the checkpoint forward (``ctc.cu``'s
+    ``alpha_ckpt_smem_bytes``): a full and an empty mbarrier per ring slot,
+    each warp's last two states at two step parities, the ring's slots of
+    ALPHA_SLOT_ROWS V-float log-prob rows."""
+    return 16 * ring + 16 * (threads // 32) + 4 * ring * ALPHA_SLOT_ROWS * V
+
+
+def alpha_ckpt_geometry(S: int, V: int) -> AlphaGeometry:
+    """The checkpoint forward's launch for S extended states and V classes:
+    the fewest states a thread (2, 4 or 8) whose warps cover S within a
+    block, and a ring of 8 slots (32 rows), halved until it fits the shared
+    memory (at least 2 slots)."""
+    for P in ALPHA_STATES:
+        threads = 32 * -(-(-(-S // P)) // 32)
+        if threads <= ALPHA_THREADS:
+            break
+    else:
+        raise ValueError(f"S = {S} extended states exceed the checkpoint forward's "
+                         f"{ALPHA_THREADS} threads of {ALPHA_STATES[-1]} states")
+    ring = ALPHA_RING
+    while ring > 2 and alpha_ckpt_smem_bytes(threads, ring, V) > SMEM_LIMIT:
+        ring //= 2
+    smem = alpha_ckpt_smem_bytes(threads, ring, V)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"V = {V} classes exceed the checkpoint forward's shared memory")
+    return AlphaGeometry(P, threads, ring, smem)
 
 
 def _live_states(label_lengths: Tensor, S: int) -> Tensor:
@@ -190,23 +237,30 @@ def _cuda_inputs(log_probs, ext, skip_ok, logit_lengths, label_lengths):
             label_lengths.to(torch.int32).contiguous())
 
 
-def _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, want_ckpt):
+def _alpha_ckpt_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K,
+                       fault_step=0):
+    """Launch the checkpoint forward (``rst_ctc_alpha_ckpt``) at
+    ``alpha_ckpt_geometry``; ``fault_step`` > 0 is a planted fault for
+    checks: that step reads the previous step's log-probs."""
     T, B, V = log_probs.shape
     S = ext.shape[1]
     dev = log_probs.device
+    if T == 0 or K < 1:
+        raise ValueError(f"the checkpoint forward needs T >= 1 and K >= 1, got T={T}, K={K}")
+    geo = alpha_ckpt_geometry(S, V)
     lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
                                      label_lengths)
-    ckpts = torch.empty((-(-T // K), B, S), dtype=f32, device=dev) if want_ckpt else None
+    ckpts = torch.empty((-(-T // K), B, S), dtype=f32, device=dev)
     last = torch.empty((B, S), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        fn = _lib().rst_ctc_alpha
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn = _lib().rst_ctc_alpha_ckpt
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
-                None if ckpts is None else ckpts.data_ptr(), last.data_ptr(),
-                T, B, S, V, K, torch.cuda.current_stream(dev).cuda_stream)
+                ckpts.data_ptr(), last.data_ptr(), T, B, S, V, K, geo.states, geo.threads,
+                geo.ring, fault_step, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ctc alpha kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ctc checkpoint forward launch failed: CUDA error {rc}")
     return ckpts, last
 
 
@@ -218,7 +272,7 @@ def ctc_alpha_ckpt(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     device, the plain version on the CPU."""
     if not log_probs.is_cuda:
         return alpha_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, True)
-    out = _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, True)
+    out = _alpha_ckpt_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K)
     ctc_alpha_ckpt.launches += 1
     return out
 
@@ -232,8 +286,20 @@ def ctc_alpha_lossonly(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     if not log_probs.is_cuda:
         return alpha_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths, 1,
                            False)[1]
-    _, last = _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, 1,
-                            False)
+    T, B, V = log_probs.shape
+    S = ext.shape[1]
+    dev = log_probs.device
+    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
+                                     label_lengths)
+    last = torch.empty((B, S), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        fn = _lib().rst_ctc_alpha
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
+                last.data_ptr(), T, B, S, V, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc loss-only kernel launch failed: CUDA error {rc}")
     ctc_alpha_lossonly.launches += 1
     return last
 

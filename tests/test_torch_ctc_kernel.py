@@ -180,3 +180,41 @@ def test_checkpoint_block_fits_shared_memory():
     assert tck.ctc_block(3001, 80) < 32
     with pytest.raises(ValueError):
         tck.ctc_block(20001, 80)
+
+
+def test_alpha_checkpoints_match_jax_on_ragged_rows(monkeypatch):
+    """The checkpoint forward's plain version against the JAX training
+    forward's own checkpoints (``_alpha_kernel_ckpt`` in TPU interpret
+    mode, the JAX tests' CPU route), block for block at K = 8: input
+    lengths from 1 to T (rows shorter than their 2U + 1 states among them),
+    label lengths from 0 to U.  Only the live states s < 2·label_length + 1
+    are compared (the port leaves the others at the -1e30 sentinel); the
+    same float32 recursion: 1e-5."""
+    monkeypatch.setenv("RST_CTC_KBLOCK", "8")
+    monkeypatch.setenv("RST_CTC_CHUNKED", "0")
+    rng = np.random.default_rng(12)
+    T, V, U = 23, 9, 6
+    ll = np.asarray([T, 1, 5, 11, T - 1, 2, 17, 9, 13, 8], np.int32)
+    ul = np.asarray([0, 1, 2, 3, 4, 5, 6, 6, 3, 1], np.int32)
+    B = len(ll)
+    logits = rng.normal(0, 2, (T, B, V)).astype(np.float32)
+    labels = rng.integers(0, V - 1, (B, U)).astype(np.int32)
+    labels[np.arange(U)[None, :] >= ul[:, None]] = -1
+    assert (ll < 2 * ul + 1).any() and (ll < T).any()
+    with pltpu.force_tpu_interpret_mode():
+        loss, res = jctc_pallas._ctc_fwd_impl(jnp.asarray(logits), jnp.asarray(ll),
+                                              jnp.asarray(labels), jnp.asarray(ul), -1,
+                                              True)
+    ref_ck = np.asarray(res[1])
+    log_probs, ext, skip_ok, tl, tu, valid = tck._setup(
+        torch.as_tensor(logits), torch.as_tensor(ll), torch.as_tensor(labels),
+        torch.as_tensor(ul), -1)
+    ck, last = tck.ctc_alpha_ckpt(log_probs, ext, skip_ok, tl, tu, 8)
+    assert ck.shape == ref_ck.shape == (3, B, 2 * U + 1)
+    live = np.arange(2 * U + 1)[None, :] < 2 * ul[:, None] + 1
+    for i in range(ck.shape[0]):
+        np.testing.assert_allclose(ck[i].numpy()[live], ref_ck[i][live], **SAME_ALGO)
+        assert (ck[i].numpy()[~live] == tck.NEG_INF).all()
+    assert torch.equal(ck[-1], last)
+    np.testing.assert_allclose(tck._loss(last, tu, valid)[0].numpy(), np.asarray(loss),
+                               **SAME_ALGO)

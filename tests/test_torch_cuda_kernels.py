@@ -23,7 +23,12 @@ bit for bit on repeat, without their waits (planted faults), and the
 per-step and per-diagonal kernels they replace there, launched past the
 plans; likewise the persistent wavefront inference forward (row 1: one
 and two row groups) and the persistent reverse diagonal (row 4, in drop
-modes 0, 1 and 2), and the per-diagonal kernels past their plans.
+modes 0, 1 and 2), and the per-diagonal kernels past their plans; the
+skinny weight-gradient tile (row 15) at ragged N in both orientations,
+bit for bit on repeat, beside a K slice left out; the checkpoint forward
+(row 9) bit for bit against the alpha stream's rows and the loss-only
+kernel's last row, beside a step that reads the previous step's
+log-probs.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -1445,3 +1450,94 @@ def test_persistent_wavefront_bwd_without_its_waits_fails_the_check(cuda):
     ref = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:])
     torch.cuda.synchronize()
     assert _rel_max(bad, ref) > 1.2e-2
+
+
+# ------------- the skinny weight-gradient tile (row 15), the checkpoint forward (row 9)
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,G", [(1, 120, 1024), (333, 120, 1024), (4999, 1024, 80),
+                                   (70001, 24, 200), (2085, 248, 256), (40, 8, 1032)])
+def test_skinny_weight_grad_tile_matches_plain(cuda, xd, gd, N, D, G):
+    """The skinny tile (one block per 128 wide columns, the narrow side
+    whole; f32 operands rounded to bf16 in the kernel) against the plain
+    version at ragged N, both orientations (x or dg the wide operand),
+    narrow sides of 8 to 256 and one K slice or many, bit for bit on
+    repeat; the wrapper counts it on the skinny path."""
+    g = torch.Generator().manual_seed(N + D + G)
+    x = torch.randn((N, D), generator=g).to(cuda, xd)
+    dg = (torch.randn((N, G), generator=g) * 0.1).to(cuda, gd)
+    assert tgm.product_path([D], G, gd) == "skinny"
+    tgm.weight_grad.launches = tgm.weight_grad.skinny_launches = 0
+    got, again = tgm.weight_grad(x, dg), tgm.weight_grad(x, dg)
+    ref = tgm.weight_grad_plain(x, dg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bit for bit
+    assert tgm.weight_grad.skinny_launches == tgm.weight_grad.launches == 2
+
+
+def test_skinny_tile_with_a_k_slice_left_out_fails_the_check(cuda):
+    """The planted fault: one K slice's blocks store zeros; dW and db must
+    leave the tolerance."""
+    N, D, G = 20000, 1024, 80
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((N, D), generator=g).to(cuda, torch.bfloat16)
+    dg = torch.randn((N, G), generator=g).to(cuda)
+    assert tgm.plan([D], N, G, torch.float32, 132, torch.bfloat16).splits > 1
+    bad = tgm._launch([x], dg, torch.bfloat16, skip_split=0)
+    ref = tgm.weight_grad_plain(x, dg)
+    torch.cuda.synchronize()
+    assert bad[2] == "skinny"
+    for a, b in zip(bad[:2], ref):
+        assert not torch.allclose(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("T,B,V,U", [(9, 3, 5, 2), (70, 17, 29, 12), (200, 5, 80, 60),
+                                     (300, 6, 80, 600), (40, 3, 80, 992), (33, 2, 7, 2000)])
+def test_ckpt_forward_equals_the_stream_and_loss_only_rows(cuda, T, B, V, U):
+    """The checkpoint forward (row 9) against the alpha stream (row 11) and
+    the loss-only kernel (row 10), both on the old recursion: its
+    checkpoints equal the stream's rows at t = iK + K - 1 (or T - 1), its
+    last row the loss-only kernel's, bit for bit, at ragged input lengths
+    (1 to T) and label lengths (0, 1, U), at S = 1201 and past two and four
+    states a thread (S = 1985, 4001); and within 1e-4 of its plain
+    version."""
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, T + B + 3))
+    ll = ll.clamp(min=1)
+    ul[0], ul[-1] = 0, U
+    if B > 2:
+        ul[1] = 1
+    labels = torch.where(torch.arange(U, device=cuda)[None] < ul[:, None],
+                         labels.clamp(min=0), -1)
+    log_probs, ext, skip_ok, ll, ul, _ = tck._setup(logits, ll, labels, ul, -1)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    K = tck.ctc_block(ext.shape[1], V)
+    ck, last = tck.ctc_alpha_ckpt(*args, K)
+    alphas, last_s = tck.ctc_alpha_stream(*args)
+    last_l = tck.ctc_alpha_lossonly(*args)
+    ck_p, last_p = tck.alpha_plain(*args, K, True)
+    torch.cuda.synchronize()
+    ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
+    assert torch.equal(ck, alphas[ends]) and torch.equal(last, last_l)
+    assert torch.equal(last, last_s)
+    torch.testing.assert_close(ck, ck_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(last, last_p, rtol=1e-4, atol=1e-4)
+
+
+def test_ckpt_forward_with_a_step_one_row_late_fails_the_check(cuda):
+    """The planted fault: step 5 reads step 4's log-prob row.  Every later
+    checkpoint leaves the stream's rows, and the launch ends (no hang)."""
+    T, B, V, U = 200, 5, 80, 60
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, 9))
+    log_probs, ext, skip_ok, ll, ul, _ = tck._setup(logits, ll.clamp(min=T), labels, ul, -1)
+    args = (log_probs, ext, skip_ok, ll, ul)
+    K = tck.ctc_block(ext.shape[1], V)
+    bad, _ = tck._alpha_ckpt_launch(*args, K, fault_step=5)
+    alphas, _ = tck.ctc_alpha_stream(*args)
+    torch.cuda.synchronize()
+    ends = [min(T, (i + 1) * K) - 1 for i in range(bad.shape[0])]
+    assert not torch.allclose(bad, alphas[ends], rtol=1e-4, atol=1e-4)

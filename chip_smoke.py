@@ -73,10 +73,15 @@ printing one JSON line:
            stream's rows at every block end equal to the checkpoint
            kernel's, bit for bit, and its last row; the stream backward's
            gradient within the CTC tolerance of the checkpoint backward's);
-           the reverse diagonal with its fused dW_x at T=16 and 512, B=16
-           and 96, drop modes 0 and 2 (dW_x per boundary, dgates, dh0 and
-           dc0 against the plain version, and dgates, dh0, dc0 bit for bit
-           against the unfused pass); the training forward on its
+           the reverse diagonal with its fused dW_x on the persistent
+           kernel (the plan's choice) at T=16 (B=16, 96 and 200: two row
+           groups in turn), 512 (B=16, 96) and 3510 (B=96), drop modes 0
+           and 2 (dW_x per boundary, dgates, dh0 and dc0 against the plain
+           version; dgates, dh0, dc0 bit for bit against the persistent
+           unfused pass; in mode 0 dW_x bit for bit against
+           ``dwx_windows`` of that pass's dgates; at T=512 beside the
+           launches that leave their carries behind at a window's end);
+           the training forward on its
            persistent kernel at B=64 (the plan's choice: bit for bit on
            repeat in drop modes 0 and 2, mode 2 equal to mode 1 fed
            ``random_bits.wavefront_masks``, beside the launch without its
@@ -88,9 +93,9 @@ printing one JSON line:
            modes 0 and 2, mode 2's dgates, dh0, dc0 and xdrop equal to mode
            1 fed ``wavefront_masks``, beside the launch without its layer
            counter waits), the per-diagonal reverse diagonal against the
-           same plain results in every drop mode and T, and at B=70
-           through the plan; the fused pass's dgates, dh0 and dc0 are held
-           against the per-diagonal kernel's unfused pass.
+           same plain results in every drop mode and T, and at B=70 (two
+           warpgroups a CTA on the persistent kernel through the plan, and
+           the per-diagonal kernel past it).
            Planted faults stand beside the checks and must fail them.
   train    ``train_step`` with the default StepConfig (keep probabilities
            0.8 / 0.5, the CTC kernels) at the flagship train shape (B=64
@@ -188,17 +193,21 @@ printing one JSON line:
            to gates residuals on this card (B=394 on the H100, T=3510), with
            the fused dW_x chosen by its switch alone (1 warm-up, 3 timed
            steps, one split by its marks, peak memory after a reset; the
-           fused pass must launch, and _hgrad_only's weight_grad and the
-           window products on the Hopper tile) and the fused kernel's time
-           at that batch; the B=64 step with RST_WAVEFRONT_FUSE_DWX=1 against =0 in
+           fused pass must launch on the persistent kernel and no reverse
+           pass on the per-diagonal one, and _hgrad_only's weight_grad and
+           the window products on the Hopper tile) and the fused pass's
+           time at that batch; the B=64 step with RST_WAVEFRONT_FUSE_DWX=1 against =0 in
            turns (off, on, on, off); one step's gradients at T=256 with the
            fused pass forced against the unfused route on the same seed
            words at 1e-3, beside a planted fault; the recompute step at the
            widest batch the plan sends to recompute residuals (B=473 on the
            H100; 1 warm-up, 2 timed, peak); the fused pass alone at B=96,
            T=3510 beside its bound, the unfused pass and its plain version;
-           at both batches its window products alone in turns with torch.mm
-           for the same dW_x on the same operands.
+           at both batches in turns with the per-diagonal fused pass and
+           cuDNN's 3-layer backward with weight gradients (where it fits
+           beside the pass's inputs; else alone after them), and its window
+           products alone in turns with torch.mm for the same dW_x on the
+           same operands.
   grad_study
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
@@ -272,9 +281,10 @@ printing one JSON line:
            of each goes (SM-clock stamps);
            with ``--parent DIR`` (a checkout of the previous tree) the
            recompute forward's outputs at T=512, B=400 and 473, the
-           inference recurrence's at B=128, T=1024 and the two training
-           forwards' at B=64, T=512 there and here, which must be equal
-           bit for bit.
+           inference recurrence's at B=128, T=1024, the two training
+           forwards' and the unfused reverse diagonal's at B=64, T=512
+           there and here, which must be equal bit for bit, and the
+           reverse diagonal at B=64, T=3510 timed there and here in turns.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -1474,7 +1484,10 @@ def _wavefront_past_plan_check(checks, worst):
     """The training forward at B=70 (past one 64-row tile) on the
     per-diagonal kernel, the plan's choice, against its plain version at
     T=16 in drop modes 0 and 2 (ragged lengths, a zero-length row): no
-    persistent launch."""
+    persistent launch.  The reverse diagonal at that batch on the
+    persistent kernel through its plan (two warpgroups a CTA, one launch)
+    and on the per-diagonal kernel past it, against the same plain
+    result."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -1487,8 +1500,10 @@ def _wavefront_past_plan_check(checks, worst):
     inp = _train_inputs(T, Bn, lens, seed=48)
     args = [inp[k] for k in FWD_ARGS]
     before, before_b = wf.wavefront_train.persistent_launches, wf.wavefront_bwd.persistent_launches
-    if wf.wavefront_bwd_plan(Bn, H, L)["kernel"] != "per_diagonal":
-        fail(f"wavefront_bwd B={Bn}: expected the per-diagonal kernel past the plan")
+    bplan = wf.wavefront_bwd_plan(Bn, H, L, False,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+    if (bplan["kernel"], bplan.get("warpgroups")) != ("persistent", 2):
+        fail(f"wavefront_bwd B={Bn}: expected the persistent kernel, two warpgroups: {bplan}")
     for mode, d in ((0, ()), (2, _drop(2, T, Bn, 49))):
         got = wf.wavefront_train(*args, bf, *d)
         ref = wf.wavefront_train_plain(*args, bf, *d)
@@ -1498,41 +1513,63 @@ def _wavefront_past_plan_check(checks, worst):
             "kernel)", got, ref, TRAIN_TOL_SHORT, checks))
         b_in = _bwd_inputs(inp, *ref[:3], seed=50)
         bargs = [b_in[k] for k in BWD_ARGS] + [ref[0], *d]
-        ref_b = wf.wavefront_bwd_plain(*[a.clone() if i == 4 else a for i, a in enumerate(bargs)])
+        fresh = lambda: [a.clone() if i == 4 else a for i, a in enumerate(bargs)]
+        ref_b = wf.wavefront_bwd_plain(*fresh())
+        _bwd_per_diagonal_check(f"wavefront_bwd mode {mode} L={L} B={Bn} T={T}", fresh()[:10],
+                                d, ref_b, TRAIN_TOL_SHORT, checks)
         got_b = wf.wavefront_bwd(*bargs)
         torch.cuda.synchronize()
-        _rel_check(f"wavefront_bwd mode {mode} L={L} B={Bn} T={T} past the plan (per-diagonal "
-                   "kernel)", got_b, ref_b, TRAIN_TOL_SHORT, checks)
+        worst["wavefront_bwd"] = max(worst["wavefront_bwd"], _rel_check(
+            f"wavefront_bwd mode {mode} L={L} B={Bn} T={T} (persistent kernel, two warpgroups)",
+            got_b, ref_b, TRAIN_TOL_SHORT, checks))
+        del got_b
     if wf.wavefront_train.persistent_launches != before:
         fail(f"wavefront_train B={Bn}: ran the persistent kernel past its plan")
-    if wf.wavefront_bwd.persistent_launches != before_b:
-        fail(f"wavefront_bwd B={Bn}: ran the persistent kernel past its plan")
+    if wf.wavefront_bwd.persistent_launches - before_b != 2:
+        fail(f"wavefront_bwd B={Bn}: {wf.wavefront_bwd.persistent_launches - before_b} "
+             "persistent launches in two calls")
 
 
 FUSED_CHECK_B = (16, 96)   # batches of the fused dW_x's checks (on from B=83 at T=3510)
+FUSED_GROUPS_B = 200       # and at T=16 two row-group launches (128 + 72 rows)
 
 
 def _fused_checks(checks, worst):
     """The reverse diagonal with its fused dW_x (drop modes 0 and 2, L=3)
-    against its plain version at T=16 and 512, B=16 and 96, and at the
-    main path's T=TRAIN_T (full windows and a ragged last one), B=96;
-    ragged lengths with a zero-length row: dW_x per boundary, dgates, dh0
-    and dc0, each over its own largest magnitude; and the fused pass's
-    dgates, dh0 and dc0 bit for bit against the unfused pass's.  Beside
-    mode 0 the plain dW_x with the steps of one window (the last W) left
-    out, beside mode 2 the plain dW_x with keep·scale left out, must fail
-    the check."""
+    on the persistent kernel through its plan against its plain version at
+    T=16 (B=16, 96, FUSED_GROUPS_B and the wide step's batch) and 512
+    (B=16, 96 and the wide step's batch), and at the main path's T=TRAIN_T
+    (full windows and a ragged last one), B=96; ragged lengths with a
+    zero-length row: dW_x per boundary, dgates, dh0 and dc0, each over its
+    own largest magnitude.  The wide step's batch is the one
+    ``phase_train_wide`` runs on this card (B=394 on the H100: three
+    launches of two warpgroups and one of a single warpgroup with rows past
+    B a window).  Its dgates, dh0 and dc0 bit for bit against the
+    persistent unfused pass's at the same batch, that unfused pass's
+    against the plain version too, and in drop mode 0 its dW_x bit for bit
+    against ``dwx_windows`` (the window products alone) of that pass's
+    dgates.  Beside mode 0 the plain dW_x
+    with the steps of one window (the last W) left out, beside mode 2 the
+    plain dW_x with keep·scale left out, and at T=512 the launches that
+    leave their f32 carries behind at a window's end (each window restarts
+    from dhn, dcn), must fail the check."""
     import torch
 
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     split = lambda r: (*r[:3], *r[3].unbind(0))      # dW_x per boundary
-    for T, tol, batches in ((16, TRAIN_TOL_SHORT, FUSED_CHECK_B),
-                            (512, TRAIN_TOL_LONG, FUSED_CHECK_B),
+    wide_B = _plan_edge(_wide_config(), TRAIN_B, "gates")
+    for T, tol, batches in ((16, TRAIN_TOL_SHORT, FUSED_CHECK_B + (FUSED_GROUPS_B, wide_B)),
+                            (512, TRAIN_TOL_LONG, FUSED_CHECK_B + (wide_B,)),
                             (TRAIN_T, TRAIN_TOL_LONG, FUSED_CHECK_B[-1:])):
         for Bn in batches:
+            plan = wf.wavefront_bwd_plan(Bn, H, L, True, sms)
+            if plan["kernel"] != "persistent":
+                fail(f"wavefront_bwd fused B={Bn}: the plan does not take the persistent "
+                     f"kernel: {plan}")
             lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(Bn)]
             lens[2] = 0
             inp = _train_inputs(T, Bn, lens, seed=140 + T + Bn)
@@ -1543,16 +1580,35 @@ def _fused_checks(checks, worst):
                 b_in = _bwd_inputs(inp, outs, gates, cseq, seed=150 + T + Bn + mode)
                 args = lambda: [b_in[k].clone() for k in BWD_ARGS] + [outs, *drop]
                 ref = wf.wavefront_bwd_plain(*args(), fuse_dwx=True)
+                before = (wf.wavefront_bwd.fused_persistent_launches,
+                          wf.wavefront_bwd.per_diagonal_launches)
                 got = wf.wavefront_bwd(*args(), fuse_dwx=True)
-                unfused = _bwd_per_diagonal(args()[:10], drop)   # the same kernel, unfused
+                unfused = wf.wavefront_bwd(*args())           # the same kernel, unfused
                 torch.cuda.synchronize()
-                tag = f"wavefront_bwd fused dW_x mode {mode} L={L} B={Bn} T={T}"
+                ran = (wf.wavefront_bwd.fused_persistent_launches - before[0],
+                       wf.wavefront_bwd.per_diagonal_launches - before[1])
+                tag = (f"wavefront_bwd fused dW_x mode {mode} L={L} B={Bn} T={T} (warpgroups a "
+                       f"launch {[g[2] for g in wf.wavefront_bwd_row_groups(Bn)]})")
+                if ran != (1, 0):
+                    fail(f"{tag}: (fused persistent, per-diagonal) passes {ran}, expected (1, 0)")
                 same = all(torch.equal(a, b) for a, b in zip(got[:3], unfused[:3]))
-                del unfused
-                checks.append({"check": f"{tag}: dgates, dh0, dc0 of the unfused pass",
-                               "bit_equal": same})
+                checks.append({"check": f"{tag}: dgates, dh0, dc0 of the persistent unfused "
+                                        "pass", "bit_equal": same})
                 if not same:
                     fail(f"{tag}: dgates, dh0 or dc0 differ from the unfused pass's")
+                if mode == 0:
+                    alone = wf.dwx_windows(outs, unfused[0])
+                    torch.cuda.synchronize()
+                    same = torch.equal(got[3], alone)
+                    checks.append({"check": f"{tag}: dW_x of dwx_windows(outs, the unfused "
+                                            "pass's dgates)", "bit_equal": same})
+                    if not same:
+                        fail(f"{tag}: dW_x differs from the window products of the unfused "
+                             "pass's dgates")
+                    del alone
+                _rel_check(f"{tag}: the unfused pass's dgates, dh0, dc0", unfused[:3], ref[:3], tol,
+                           checks)
+                del unfused
                 worst["wavefront_bwd_fused"] = max(worst["wavefront_bwd_fused"], _rel_check(
                     tag, split(got), split(ref), tol, checks))
                 if mode == 0:
@@ -1567,6 +1623,15 @@ def _fused_checks(checks, worst):
                                           for l in range(L - 1)])
                 _fault_check(f"{tag}: {name}", split((*ref[:3], faulty)), split(ref), tol,
                              checks)
+                if T == 512:
+                    launch = wf._drop_launch_args(mode, drop[1], drop[3], drop[2],
+                                                  (L - 1, T, Bn, H), DEVICE)
+                    bad = wf._bwd_persistent_launch(*args()[:10], (mode, *launch), plan,
+                                                    fuse_dwx=True, skip_carries=1)
+                    torch.cuda.synchronize()
+                    _fault_check(f"{tag}: carries left behind at each window's end (the "
+                                 "kernel's skip_carries)", split(bad), split(ref), tol, checks)
+                    del bad
                 del outs, gates, cseq, b_in, ref, got, faulty
             del inp
 
@@ -2122,7 +2187,10 @@ def _path_counters():
     gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
     steps), the wavefront training forward
     (csrc/lstm_wavefront_persistent.cu; the default steps) and the reverse
-    diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps)."""
+    diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps: its
+    cooperative launches, one a window and row group), its fused passes
+    (the wide step) and the reverse passes the plan sent to the
+    per-diagonal kernel (none at the card's width)."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -2136,7 +2204,9 @@ def _path_counters():
             "bwd_persistent": tlt.recurrence_bwd.persistent_launches,
             "train_persistent": tlt.recurrence_train.persistent_launches,
             "wavefront_persistent": wf.wavefront_train.persistent_launches,
-            "wavefront_bwd_persistent": wf.wavefront_bwd.persistent_launches}
+            "wavefront_bwd_persistent": wf.wavefront_bwd.persistent_launches,
+            "wavefront_bwd_fused_persistent": wf.wavefront_bwd.fused_persistent_launches,
+            "wavefront_bwd_per_diagonal": wf.wavefront_bwd.per_diagonal_launches}
 
 
 def _zero_path_counters():
@@ -2152,6 +2222,7 @@ def _zero_path_counters():
     tlt.recurrence_bwd.persistent_launches = 0
     tlt.recurrence_train.persistent_launches = 0
     wf.wavefront_train.persistent_launches = wf.wavefront_bwd.persistent_launches = 0
+    wf.wavefront_bwd.fused_persistent_launches = wf.wavefront_bwd.per_diagonal_launches = 0
 
 
 @contextlib.contextmanager
@@ -3189,10 +3260,12 @@ def phase_lean_study():
 
 
 # Row 7's outputs on seeded inputs at T=512 and the recompute batches, row
-# 2's at B=128, T=1024, and rows 5 and 3's at B=64, T=512 (row 3 in drop
-# mode 2), as a SHA-256 of their bytes, by whichever package lies in the
+# 2's at B=128, T=1024, and rows 5, 3 and 4's at B=64, T=512 (rows 3 and 4
+# in drop mode 2), as a SHA-256 of their bytes, by whichever package lies in the
 # working directory (run in this checkout and in ``--parent``'s by
-# ``persistent_study``), each with its persistent launches.
+# ``persistent_study``), each with its persistent launches; then row 4's
+# unfused pass at the default step's shape (B=64, T=3510, drop mode 2,
+# full-length rows), device ms by CUDA events (one warm-up, three timed).
 _PERSISTENT_DIGEST = r"""
 import hashlib, json, sys
 import torch
@@ -3247,18 +3320,48 @@ for name, fn, args in (("row5", tlt.recurrence_train, (xp, w(H, 4 * H), mask, r(
         digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     print(json.dumps({"B": name, "sha256": digest.hexdigest(),
                       "persistent": getattr(fn, "persistent_launches", 0)}))
+# Row 4 (the unfused reverse diagonal, drop mode 2) on row 3's residuals.
+outs, gates, cseq, _, _ = wf.wavefront_train(*stack)
+dtop = (torch.randn((T, B, H), generator=g, device="cuda") * 0.1).to(bf)
+digest = hashlib.sha256()
+for t in wf.wavefront_bwd(dtop, stack[2], stack[3], mask, gates, cseq, stack[7], r(L, B, H),
+                          r(L, B, H), outs, 2, (11, 13), 1.25, 0.8):
+    digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+print(json.dumps({"B": "row4", "sha256": digest.hexdigest(),
+                  "persistent": wf.wavefront_bwd.persistent_launches}))
+# Row 4's unfused pass timed at the default step's shape.
+T = 3510
+g = torch.Generator(device="cuda").manual_seed(B)
+mask = torch.ones((T, 1, B), device="cuda")
+w_h, w_x = w(L, H, 4 * H), w(L - 1, H, 4 * H)
+outs, gates, cseq, _, _ = wf.wavefront_train(
+    torch.randn((T, B, H), generator=g, device="cuda").to(bf), w(H, 4 * H), w_h, w_x,
+    r(L, 4 * H), mask, r(L, B, H), r(L, B, H), bf, 2, (11, 13), 1.25, 0.8)
+args = ((torch.randn((T, B, H), generator=g, device="cuda") * 0.1).to(bf), w_h, w_x, mask,
+        gates, cseq, r(L, B, H), r(L, B, H), r(L, B, H), outs, 2, (11, 13), 1.25, 0.8)
+wf.wavefront_bwd(*args)
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(3):
+    wf.wavefront_bwd(*args)
+end.record()
+torch.cuda.synchronize()
+print(json.dumps({"B": "row4_ms", "ms": start.elapsed_time(end) / 3,
+                  "persistent": wf.wavefront_bwd.persistent_launches}))
 """
 
 
 def _persistent_digests(root):
-    """{B: (sha256, persistent launches)} of ``_PERSISTENT_DIGEST`` run in ``root``."""
+    """({B: (sha256, persistent launches)}, row 4's ms) of
+    ``_PERSISTENT_DIGEST`` run in ``root``, a subprocess."""
     res = subprocess.run([sys.executable, "-c", _PERSISTENT_DIGEST], cwd=root,
-                         capture_output=True,
-                         text=True, timeout=600)
+                         capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         fail(f"persistent_study: the digests in {root} failed:\n{res.stderr[-2000:]}")
     rows = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
-    return {r["B"]: (r["sha256"], r["persistent"]) for r in rows}
+    return ({r["B"]: (r["sha256"], r["persistent"]) for r in rows if "sha256" in r},
+            next(r["ms"] for r in rows if r["B"] == "row4_ms"))
 
 
 def _bwd_step_breakdown(args, plan):
@@ -3288,8 +3391,10 @@ def phase_persistent_study(parent=None):
     at four points of each pass); how many clusters of 1, 2, 4 and 8 CTAs
     of the backward's size the card co-schedules (the reason its K split
     meets through L2); and, given ``parent`` (a checkout of the previous tree),
-    rows 7, 2, 5 and 3's outputs there and here (``_PERSISTENT_DIGEST``),
-    which must be equal bit for bit."""
+    rows 7, 2, 5, 3 and 4's outputs there and here (``_PERSISTENT_DIGEST``),
+    which must be equal bit for bit, and row 4's unfused pass at the
+    default step's shape timed there and here by the same script, in
+    turns."""
     import ctypes
     from unittest import mock
 
@@ -3340,15 +3445,24 @@ def phase_persistent_study(parent=None):
     out.update(_forward_studies(sms))
     out.update(_wavefront_studies(sms))
     if parent is not None:
-        here, there = _persistent_digests(ROOT), _persistent_digests(os.path.abspath(parent))
+        # Both trees in turns (parent, here, here, parent), each in its own
+        # process: the digests, and row 4's unfused pass timed.
+        turns = [(name, *_persistent_digests(root)) for name, root in (
+            ("parent", os.path.abspath(parent)), ("here", ROOT), ("here", ROOT),
+            ("parent", os.path.abspath(parent)))]
+        here, there = turns[1][1], turns[0][1]
         out["digests_against_parent"] = {"parent": parent, "here": here,
                                          "parent_digests": there}
-        if set(here) != {400, 473, "row2", "row5", "row3"} or any(
-                here[b][0] != there.get(b, ("",))[0] for b in here):
-            fail(f"persistent_study: rows 7, 2, 5 and 3's outputs differ from the parent's: "
-                 f"{here} {there}")
-        if not all(v[1] for v in list(here.values()) + list(there.values())):
+        if set(here) != {400, 473, "row2", "row5", "row3", "row4"} or any(
+                d.get(b, ("",))[0] != here[b][0] for _, d, _ in turns for b in here):
+            fail(f"persistent_study: rows 7, 2, 5, 3 and 4's outputs differ from the parent's "
+                 f"or between runs: {turns}")
+        if not all(v[1] for _, d, _ in turns for v in d.values()):
             fail("persistent_study: the digests did not all run the persistent kernels")
+        mean = lambda who: sum(ms for n, _, ms in turns if n == who) / 2
+        out["row4_against_parent"] = {"turns": [(n, ms) for n, _, ms in turns],
+                                      "ms": mean("here"), "parent_ms": mean("parent"),
+                                      "smi": smi_clocks()}
     emit("persistent_study", **out)
 
 
@@ -3431,7 +3545,8 @@ def _forward_studies(sms):
 def _wavefront_studies(sms):
     """Rows 1 and 4 beside the designs they replace (persistent_study): the
     inference forward at B=128 and B=1, T=1024 (one call) and the reverse
-    diagonal at B=64, T=3510 in drop mode 2 (one pass; each call writes
+    diagonal at B=64 and 96 (two warpgroups a CTA), T=3510 in drop mode 2
+    (one pass; each call writes
     dgates over its gates, and the later calls run on them: the same work),
     each on its persistent kernel, on the per-diagonal kernel (forced
     through its plan) and without its waits (wrong results: their share),
@@ -3469,28 +3584,35 @@ def _wavefront_studies(sms):
         del x, args, stamps
     torch.cuda.empty_cache()
 
-    T, Bn = TRAIN_T, TRAIN_B
-    inp = _train_inputs(T, Bn, [T] * Bn, seed=177)
-    drop = _drop(2, T, Bn, 178)
-    outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
-    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=179)
-    bargs = [b_in[k] for k in BWD_ARGS] + [outs]
-    plan = wf.wavefront_bwd_plan(Bn, H, L, False, sms)
-    run = lambda: wf.wavefront_bwd(*bargs, *drop)
-    row = dict(plan=plan, ms_per_pass=cuda_ms(run, iters=2))
-    with mock.patch.object(wf, "wavefront_bwd_plan", lambda *a, **k: {"kernel": "per_diagonal"}):
-        row["per_diagonal_ms_per_pass"] = cuda_ms(run, iters=2)
-    launch = (2, *wf._drop_launch_args(2, drop[1], drop[3], drop[2], None, None))
-    row["no_waits_ms_per_pass"] = cuda_ms(
-        lambda: wf._bwd_persistent_launch(*bargs, launch, plan, skip_waits=1), iters=2)
-    row["us_per_diagonal"] = 1e3 * row["ms_per_pass"] / (T + L - 1)
-    stamps = torch.zeros((T + 1, 5), dtype=torch.int64, device=DEVICE)
-    wf._bwd_persistent_launch(*bargs, launch, plan, stamps=stamps)
-    torch.cuda.synchronize()
-    row["step_breakdown"] = _stamp_breakdown(
-        stamps, ("dout_product", "carry_product", "partial_exchange", "sum_cell_publish",
-                 "to_next_pass"), torch.arange(1, T - 1))
-    out[f"wavefront_bwd B={Bn} T={T} mode 2"] = row
+    # The reverse diagonal at the default step's batch (one warpgroup a CTA)
+    # and at the fused checks' B=96 (two warpgroups; its stamps are the first
+    # warpgroup's).
+    T = TRAIN_T
+    for Bn in (TRAIN_B, max(FUSED_CHECK_B)):
+        inp = _train_inputs(T, Bn, [T] * Bn, seed=177)
+        drop = _drop(2, T, Bn, 178)
+        outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
+        b_in = _bwd_inputs(inp, outs, gates, cseq, seed=179)
+        bargs = [b_in[k] for k in BWD_ARGS] + [outs]
+        plan = wf.wavefront_bwd_plan(Bn, H, L, False, sms)
+        run = lambda: wf.wavefront_bwd(*bargs, *drop)
+        row = dict(plan=plan, ms_per_pass=cuda_ms(run, iters=2))
+        with mock.patch.object(wf, "wavefront_bwd_plan",
+                               lambda *a, **k: {"kernel": "per_diagonal"}):
+            row["per_diagonal_ms_per_pass"] = cuda_ms(run, iters=2)
+        launch = (2, *wf._drop_launch_args(2, drop[1], drop[3], drop[2], None, None))
+        row["no_waits_ms_per_pass"] = cuda_ms(
+            lambda: wf._bwd_persistent_launch(*bargs, launch, plan, skip_waits=1), iters=2)
+        row["us_per_diagonal"] = 1e3 * row["ms_per_pass"] / (T + L - 1)
+        stamps = torch.zeros((T + 1, 5), dtype=torch.int64, device=DEVICE)
+        wf._bwd_persistent_launch(*bargs, launch, plan, stamps=stamps)
+        torch.cuda.synchronize()
+        row["step_breakdown"] = _stamp_breakdown(
+            stamps, ("dout_product", "carry_product", "partial_exchange", "sum_cell_publish",
+                     "to_next_pass"), torch.arange(1, T - 1))
+        out[f"wavefront_bwd B={Bn} T={T} mode 2"] = row
+        del inp, outs, gates, cseq, b_in, bargs, stamps
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3921,6 +4043,18 @@ def phase_alt_routes():
          timing=_alt_kernel_timing())
 
 
+def _wide_config():
+    """The acoustic model's configuration that ``phase_train_wide`` sizes its
+    batches for (the flagship width, bf16, the kernels, the wavefront)."""
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+
+    return acoustic.AcousticConfig(num_layers=L, hidden_size=H, input_dim=120, num_labels=V,
+                                   compute_dtype=torch.bfloat16, use_kernels=True,
+                                   wavefront=True)
+
+
 def _plan_edge(cfg, start, mode):
     """The largest batch from ``start`` up for which the memory plan on
     this card answers (0, ``mode``)."""
@@ -3934,29 +4068,47 @@ def _plan_edge(cfg, start, mode):
 
 def _fused_pass_timing(Bn, plain):
     """The reverse pass with its fused dW_x alone at T=TRAIN_T, batch Bn,
-    full-length rows, drop mode 2 (the default step's): ms beside the
-    unfused pass's (``ms_unfused``) and its bound; its window products
-    alone (``lstm_wavefront.dwx_windows``) in turns with the library
-    yardstick, one torch.mm (bf16 operands, f32 out) per boundary for the
-    same dW_x, on the same operands, beside the card's clocks; with
-    ``plain`` also its plain version's ms.  The bound counts
-    2·T·B·H·4H·(2L-1 + L-1) operations, or the bytes of the unfused pass's
-    inputs and outputs without the xdrop stream plus the (L-1, H, 4H) f32
-    dW_x.  Each call writes dgates over its gates residual: later calls
-    run on dgates (the same work), the plain version on a copy."""
+    full-length rows, drop mode 2 (the default step's), on the plan's
+    persistent kernel: in turns with the per-diagonal fused pass it
+    replaces (``per_diagonal_ms``) and cuDNN's 3-layer backward with weight
+    gradients on one forward graph (``library_ms``, the whole pass's
+    yardstick, ``_nn_lstm_backward``), beside the card's clocks; where
+    cuDNN's graph does not fit beside the pass's inputs, cuDNN is timed
+    alone once they are freed (``library_alone_ms``, not in turns).  Beside
+    them the unfused pass's ms (``ms_unfused``), the bound, the launches a
+    pass (windows x row groups) and the W_h bytes they load into shared
+    memory, and its window products alone (``lstm_wavefront.dwx_windows``)
+    in turns with one torch.mm (bf16 operands, f32 out) per boundary for the
+    same dW_x on the same operands (``window_products_ms``,
+    ``window_library_ms``); with ``plain`` also its plain version's ms.  The
+    bound counts 2·T·B·H·4H·(2L-1 + L-1) operations, or the bytes of the
+    unfused pass's inputs and outputs without the xdrop stream plus the
+    (L-1, H, 4H) f32 dW_x.  Each call writes dgates over its gates
+    residual: later calls run on dgates (the same work), the plain version
+    on a copy."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
 
     T, bf, f32, G = TRAIN_T, torch.bfloat16, torch.float32, 4 * H
     N = T * Bn
+    plan = wf.wavefront_bwd_plan(Bn, H, L, True,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"fused pass timing B={Bn}: the plan does not take the persistent kernel: {plan}")
+    windows = -(-(T + L - 1) // wf.FUSE_DWX_WINDOW)
+    groups = wf.wavefront_bwd_row_groups(Bn)
     inp = _train_inputs(T, Bn, [T] * Bn, seed=170)
     drop = _drop(2, T, Bn, 172)
     outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
     b_in = _bwd_inputs(inp, outs, gates, cseq, seed=171)
     del inp, gates
     bargs = [b_in[k] for k in BWD_ARGS]
-    out = {"batch": Bn, "frames": T, "drop_mode": 2}
+    out = {"batch": Bn, "frames": T, "drop_mode": 2, "plan": plan,
+           "launches_per_pass": windows * len(groups),
+           "w_h_load_bytes": windows * sum(
+               plan["grid"] * wf.wavefront_bwd_resident(H, wg) * wf._WB_BOX
+               for _, _, wg in groups)}
     if plain:
         pargs = [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS]
         out["plain_ms"] = cuda_ms(lambda: wf.wavefront_bwd_plain(*pargs, outs, *drop,
@@ -3964,20 +4116,38 @@ def _fused_pass_timing(Bn, plain):
                                   iters=1, warmup=0)
         del pargs
         torch.cuda.empty_cache()
-    out["ms"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop, fuse_dwx=True),
-                        iters=2)
+    kernel = lambda: wf.wavefront_bwd(*bargs, outs, *drop, fuse_dwx=True)
+    per_diagonal = lambda: _bwd_per_diagonal(bargs + [outs], drop, fuse_dwx=True)
+    try:
+        library = _nn_lstm_backward(T, Bn, L)[1]
+    except torch.cuda.OutOfMemoryError as err:
+        library = None
+        out["library_in_turns"] = {"fits": False, "error": str(err).splitlines()[0]}
+        torch.cuda.empty_cache()
+    if library is not None:
+        turns = in_turns(library, kernel, iters=1, per_diagonal=per_diagonal)
+        out.update(library_ms=turns["library_ms"], per_diagonal_ms=turns["per_diagonal_ms"])
+    else:
+        turns = in_turns(per_diagonal, kernel, iters=1)
+        out["per_diagonal_ms"] = turns["library_ms"]
+    out.update(ms=turns["ms"], turns=turns["turns"],
+               library="torch.nn.LSTM (cuDNN, bf16, 3 x 1024) backward with weight gradients")
+    del library
+    torch.cuda.empty_cache()
     out["ms_unfused"] = cuda_ms(lambda: wf.wavefront_bwd(*bargs, outs, *drop), iters=2)
     # The window products alone (as drop mode 0 runs them, on the Hopper
-    # tile) and the library yardstick, on the same operands in turns.
+    # tile) and their library yardstick, on the same operands in turns.
     dg = b_in["gates"]
-    turns = in_turns(lambda: [torch.mm(outs[l].reshape(N, H).t(), dg[l + 1].reshape(N, G),
-                                       out_dtype=f32) for l in range(L - 1)],
-                     lambda: wf.dwx_windows(outs, dg), iters=2)
+    wturns = in_turns(lambda: [torch.mm(outs[l].reshape(N, H).t(), dg[l + 1].reshape(N, G),
+                                        out_dtype=f32) for l in range(L - 1)],
+                      lambda: wf.dwx_windows(outs, dg), iters=2)
     wflops = 2 * T * Bn * H * G * (L - 1)
-    out.update(window_products_ms=turns["ms"], window_products_tflops=wflops / turns["ms"] / 1e9,
-               library_ms=turns["library_ms"], library_tflops=wflops / turns["library_ms"] / 1e9,
-               library="torch.mm (bf16, f32 out) per boundary for dW_x of layers 1..L-1",
-               turns=turns["turns"])
+    out.update(window_products_ms=wturns["ms"],
+               window_products_tflops=wflops / wturns["ms"] / 1e9,
+               window_library_ms=wturns["library_ms"],
+               window_library_tflops=wflops / wturns["library_ms"] / 1e9,
+               window_library="torch.mm (bf16, f32 out) per boundary for dW_x of layers 1..L-1",
+               window_turns=wturns["turns"])
     flops = 2 * T * Bn * H * G * (2 * L - 1 + L - 1)
     nbytes = (T * Bn * H * 2 + (2 * L - 1) * H * G * 2 + T * Bn * 4
               + L * T * Bn * (G + H) * 2 + 3 * L * Bn * H * 4         # inputs
@@ -3986,6 +4156,14 @@ def _fused_pass_timing(Bn, plain):
               + (L - 1) * H * G * 4)                                   # dW_x
     out["bound_ms"], out["bound_by"] = _bounds(flops, nbytes)
     out.update(flops=flops, bytes=nbytes)
+    if "library_ms" not in out:                      # cuDNN alone, once the inputs are freed
+        del bargs, b_in, outs, cseq, dg
+        torch.cuda.empty_cache()
+        try:
+            out["library_alone_ms"] = cuda_ms(_nn_lstm_backward(T, Bn, L)[1], iters=1)
+        except torch.cuda.OutOfMemoryError as err:
+            out["library_alone"] = {"fits": False, "error": str(err).splitlines()[0]}
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4018,6 +4196,8 @@ def _fused_grad_gate(seed=2):
 
     # The wrapper counts its launches on the module's name, here the fault.
     keep_left_out.launches = keep_left_out.fused_launches = keep_left_out.wgmma_products = 0
+    keep_left_out.persistent_launches = keep_left_out.fused_persistent_launches = 0
+    keep_left_out.per_diagonal_launches = 0
     grads, fused = {}, {}
     for name, flag, patch in (("unfused", "0", None), ("fused", "1", None),
                               ("planted_fault", "1", keep_left_out)):
@@ -4065,9 +4245,7 @@ def phase_train_wide():
     if os.environ.get("RST_WAVEFRONT_FUSE_DWX"):
         fail("train_wide: RST_WAVEFRONT_FUSE_DWX is set; the switch must decide alone")
     torch.cuda.empty_cache()
-    cfg = acoustic.AcousticConfig(num_layers=L, hidden_size=H, input_dim=120, num_labels=V,
-                                  compute_dtype=torch.bfloat16, use_kernels=True,
-                                  wavefront=True)
+    cfg = _wide_config()
     wide_B = _plan_edge(cfg, TRAIN_B, "gates")
     if not wf.fuse_dwx_enabled(L, TRAIN_T, wide_B, H, 2, 2):
         fail(f"train_wide: the switch does not fuse dW_x at B={wide_B}")
@@ -4075,6 +4253,11 @@ def phase_train_wide():
     wide, state = _run_steps(scfg, state, batch, reps=1, record_stages=True, warmup=1)
     if not wide["fused_launches"]:
         fail(f"train_wide: the B={wide_B} step did not run the fused pass: {wide}")
+    paths = wide["wgmma_launches"]
+    if (paths["wavefront_bwd_fused_persistent"] != wide["fused_launches"]
+            or paths["wavefront_bwd_per_diagonal"]):
+        fail(f"train_wide: the B={wide_B} step's fused passes did not all run the persistent "
+             f"kernel, or a reverse pass ran the per-diagonal kernel: {paths}")
     if not (wide["wgmma_launches"]["weight_grad"] and wide["wgmma_launches"]["fused_windows"]):
         fail(f"train_wide: _hgrad_only's weight_grad or the fused windows never ran the "
              f"Hopper tile at B={wide_B}: {wide['wgmma_launches']}")
@@ -4776,10 +4959,13 @@ def kernels_line():
     beside the one without; the projections' weight gradients: their
     launches on the skinny tile, the WMMA tile's ms in the same turns and
     each call apart; the checkpoint forward: its µs a step); for
-    the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 and the
-    launches of the widest gates-residual step's 5 steps (train_wide).  The
-    weight-gradient rows add their TFLOP/s, the fused row its window
-    products' ms and TFLOP/s (its library_ms times the same dW_x), the
+    the fused dW_x one reverse pass at B=96, T=3510 in drop mode 2 (its
+    library_ms cuDNN's 3-layer backward with weight gradients, in turns)
+    and the launches of the widest gates-residual step's 5 steps
+    (train_wide).  The weight-gradient rows add their TFLOP/s, the fused
+    row its persistent launches, the per-diagonal pass's ms in the same
+    turns, the B=394 pass beside it, and its window products' ms and
+    TFLOP/s (``window_library_ms`` times torch.mm for the same dW_x), the
     layered rows their own TFLOP/s, and the recompute backward's row the
     ms and TFLOP/s of its rebuild products (``csrc/rebuild_gates.cuh``) on
     the call's own operands, every chunk."""
@@ -4889,17 +5075,23 @@ def kernels_line():
             rows[-1].update(rebuild_ms=t["rebuild_ms"], rebuild_tflops=t["rebuild_tflops"])
     tw = RECORD.get("train_wide", {})
     t = tw.get("timing", {}).get("wavefront_bwd_fuse_dwx", {})
+    wide_paths = tw.get("wide", {}).get("wgmma_launches", {})
     rows.append({
         "name": "wavefront_bwd_fuse_dwx", "route": "cuda",
-        "source": csrc + "lstm_wavefront_bwd.cu",
+        "source": csrc + "lstm_wavefront_bwd_persistent.cu",
         "replaces": "rnn_speech_tpu/ops/lstm_wavefront.py:574",
         "launches": tw.get("wide", {}).get("fused_launches"),
         "max_abs_err": tk.get("max_abs_err", {}).get("wavefront_bwd_fused"),
         "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
         "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
         "library_ms": t.get("library_ms"),
+        "persistent_launches": wide_paths.get("wavefront_bwd_fused_persistent"),
+        "per_diagonal_ms": t.get("per_diagonal_ms"),
         "window_products_ms": t.get("window_products_ms"),
+        "window_library_ms": t.get("window_library_ms"),
         "tflops": t.get("window_products_tflops"),
+        "ms_b394": tw.get("fused_pass_wide", {}).get("ms"),
+        "per_diagonal_ms_b394": tw.get("fused_pass_wide", {}).get("per_diagonal_ms"),
     })
     alt = RECORD.get("alt_routes", {})
     routes = alt.get("routes", {})
@@ -4953,7 +5145,8 @@ def main(argv=None) -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--parent", default=None,
                         help="persistent_study: a checkout of the previous tree, whose "
-                             "row 7 outputs must equal this one's bit for bit")
+                             "rows 7, 2, 5, 3 and 4's outputs must equal this one's bit "
+                             "for bit")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel `_wavefront_bwd_kernel` of
 // rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, drop modes
-// 0, 1 and 2, and its fused dW_x): reverse diagonal s runs every layer l
+// 0, 1 and 2, and its fused dW_x) at the shapes the wrapper's plan
+// (`wavefront_bwd_plan`) does not send to the persistent kernel
+// (csrc/lstm_wavefront_bwd_persistent.cu): reverse diagonal s runs every layer l
 // with 0 <= s - (L-1-l) < T at t = T-1 - (s - (L-1-l)), so the top layer leads
 // and layer l's upstream cotangent dout_l(t) = dgates_{l+1}(t)·W_x,l+1ᵀ
 // comes from the diagonal before.  Per (layer, step) it computes, from the
@@ -47,23 +49,18 @@
 // without the (L-1, T, B, H) xdrop stream.  The TPU folds each step's
 // rank-B update into a VMEM-resident accumulator; here a rank-B update of
 // the 32 MiB (L = 3) accumulator per diagonal would move it through device
-// memory 3512 times.  Instead the pass works in windows of W diagonals.
+// memory 3512 times.  Instead the pass works in windows of W diagonals
+// (csrc/dwx_windows.cuh, shared with the persistent reverse diagonal).
 // In drop mode 2 the blocks write xdrop_l(t), whose keep bit they draw
-// anyway for the cotangent, into slot W-1-(s mod W) of a ring
-// (L-1, W, B, H): slot j of boundary l then holds step t = t_base + j,
-// ascending in t like the gates buffer, where layer l+1's dgates(t) was
-// written one diagonal earlier.  After the window's last diagonal (and
-// after the last diagonal of all) one launch per boundary adds ringᵀ ·
-// dgates over the window's steps, K = (steps)·B rows, into dW_x with a
-// tile product of grad_matmul.cuh in accumulate mode: the Hopper tile
-// (TMA + wgmma) at the LSTM widths, whose tensor maps span exactly the
-// window's steps·B rows, so TMA zero-fills the K tail instead of reading
-// the next steps' rows; the WMMA tile where the caller's plan says so
-// (dwx_path).  In drop mode 0 the A operand is the outs residual itself
-// and no ring exists.  The launches share the stream, so a ring slot is
-// read before the next window writes it, and each output element has one
-// owner block, so the sums repeat bit for bit.  dgates, dh0 and dc0 are
-// those of the unfused pass, bit for bit.
+// anyway for the cotangent, into the window's ring (L-1, W, B, H).  After
+// the window's last diagonal (and after the last diagonal of all) one
+// launch per boundary adds ringᵀ · dgates over the window's steps into
+// dW_x with a tile product of grad_matmul.cuh in accumulate mode: the
+// Hopper tile (TMA + wgmma) at the LSTM widths, whose tensor maps span
+// exactly the window's steps·B rows, so TMA zero-fills the K tail instead
+// of reading the next steps' rows; the WMMA tile where the caller's plan
+// says so (dwx_path).  dgates, dh0 and dc0 are those of the unfused pass,
+// bit for bit.
 //
 // What bounds it on the H100: 2·T·B·H·4H·(2L-1) operations, 9.4 TFLOP at
 // the flagship train shape, 9.5 ms at the bf16 tensor rate; the fused dW_x
@@ -79,7 +76,7 @@
 
 #include <algorithm>
 
-#include "grad_matmul.cuh"
+#include "dwx_windows.cuh"
 #include "lstm_cell.cuh"
 
 namespace {
@@ -286,29 +283,13 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
   }
 }
 
-// The fused dW_x of the window of diagonals [s0, s1] (W wide): per boundary
-// l, the steps t whose dropped input layer l produced in the window, from
-// the ring (drop mode 2) or the outs residual (mode 0), times layer l+1's
-// dgates, added into dwx[l] by the product on `path`.  Returns the CUDA
-// error code.
+// The fused dW_x of the window of diagonals [s0, s1] (W wide): the
+// products of csrc/dwx_windows.cuh on `path`, from the ring (drop mode 2)
+// or the outs residual (mode 0).  Returns the CUDA error code.
 int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, int path, float* dwx,
                    cudaStream_t st) {
-  const int T = p.T, B = p.B, H = p.H, L = p.L, G = 4 * H;
-  for (int l = 0; l + 1 < L; ++l) {
-    const int off = L - 1 - l;
-    const int t_lo = std::max(0, T - 1 - s1 + off), t_hi = std::min(T - 1, T - 1 - s0 + off);
-    if (t_lo > t_hi) continue;
-    const int n = (t_hi - t_lo + 1) * B;
-    const int slot = t_lo - (T - W + off - s0);  // ring slot of step t_lo
-    const bf16* a = p.xdrop != nullptr ? p.xdrop + ((size_t)l * W + slot) * B * H
-                                       : p.outs + ((size_t)l * T + t_lo) * B * H;
-    const bf16* dg = p.gates + ((size_t)(l + 1) * T + t_lo) * B * G;
-    const int err = rst_grad::launch(path, a, H, nullptr, 0, dg, 0, n, G, 1, n, nullptr,
-                                     nullptr, dwx + (size_t)l * H * G, nullptr, 1, st);
-    if (err != 0) return err;
-    g_wgmma_products += path == rst_grad::kWgmma;
-  }
-  return 0;
+  return rst_dwx::accumulate(p.outs, p.xdrop, p.gates, p.T, p.B, p.H, p.L, s0, s1, W, path, dwx,
+                             g_wgmma_products, st);
 }
 
 }  // namespace

@@ -4,12 +4,12 @@
 // instead of one launch a diagonal, both products on wgmma fed by TMA.
 //
 // Replaces the TPU kernel `_wavefront_bwd_kernel` of
-// rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, unfused,
-// drop modes 0, 1 and 2) at the shapes the wrapper's plan
-// (`wavefront_bwd_plan`, ops/lstm_wavefront.py) sends here;
-// csrc/lstm_wavefront_bwd.cu keeps the per-diagonal form (and the fused
-// dW_x) for the others.  Layer l at step t = T-1 .. 0 (the top layer leads)
-// takes, from the forward's bf16 residuals (activated gates, carried c),
+// rnn_speech_tpu/ops/lstm_wavefront.py (entry `_wavefront_bwd`, drop modes
+// 0, 1 and 2, and its `fuse_dwx` mode) at the shapes the wrapper's plan
+// (`wavefront_bwd_plan`, ops/lstm_wavefront.py) sends here, any batch;
+// csrc/lstm_wavefront_bwd.cu keeps the per-diagonal form for the others.
+// Layer l at step t = T-1 .. 0 (the top layer leads) takes, from the
+// forward's bf16 residuals (activated gates, carried c),
 //
 //   dout = dout_top(t)                          (the top layer)
 //   dout = (dgates_{l+1}(t)·W_x,l+1ᵀ)·keep·scale  (below it; keep·scale = 1
@@ -80,11 +80,14 @@
 //   and dc carries in f32 registers for all T steps, and loads the cell's
 //   inputs (the four gates, c, c_prev, the mask, dout_top or the keep
 //   bits' inputs) after the products and before the partials' exchange,
-//   so the loads overlap the exchange.  It writes dgates over gates,
+//   so the loads overlap the exchange (with two warpgroups, after it, four
+//   units at a time, within 168 registers).  It writes dgates over gates,
 //   fences them to the async proxy, and one thread adds 1 to the layer's
 //   counter (release).
 
-#include "grad_matmul.cuh"
+#include <algorithm>
+
+#include "dwx_windows.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -96,16 +99,24 @@ constexpr int kSplit = 4;                    // CTAs of a slice: one gate's K bl
 constexpr int kUnits = 96;                   // hidden units of a slice: the products' N
 constexpr int kCellUnits = kUnits / kSplit;  // units whose cells a CTA runs (24)
 constexpr int kThreadUnits = kCellUnits / 2; // units of a consumer thread (12)
-constexpr int kRows = 64;                    // batch rows: one wgmma M tile
-constexpr int kThreads = 128 + 32;           // a consumer warpgroup and a producer warp
+constexpr int kRows = 64;                    // batch rows of a group: one wgmma M tile
 constexpr int kBox = kUnits * 64 * 2;        // a 96-unit x 64-K bf16 box of W (12 KiB)
 constexpr int kABox = kRows * 64 * 2;        // a 64-row x 64-K bf16 box of dgates (8 KiB)
-constexpr int kPart = kRows * kUnits;        // floats of one partial product
 constexpr int kSmemLimit = 232448;           // the H100's per-block opt-in
 constexpr int kWStages = 2;                  // ring stages of streamed W boxes
 constexpr int kAStages = 4;                  // ring stages of A boxes
+constexpr int kMaxGroups = 2;                // consumer warpgroups (64-row groups) a CTA
+
+// Threads of a CTA: the consumer warpgroups and a producer warp, or with two
+// consumer warpgroups a whole producer warpgroup that hands registers to
+// them by setmaxnreg.  ptxas compiles a block of 288 or 384 threads within
+// 168 registers a thread, whatever setmaxnreg asks; at 384 threads the two
+// warpgroups' code fits them without a spill (at 288, 44 bytes spill).
+template <int kGroups>
+constexpr int kThreads = kGroups == 2 ? 3 * 128 : 128 + 32;
 
 long long g_launches = 0;
+long long g_wgmma_products = 0;              // window products launched on the Hopper tile
 
 struct Args {
   const bf16* dout_top;     // (T, B, H) cotangent of the top layer's output
@@ -115,18 +126,23 @@ struct Args {
   const float* mask;        // (T, 1, B) f32 {0, 1}
   float* dhc;               // (L, B, H) dhn on entry, dh0 on return
   float* dcc;               // (L, B, H) dcn on entry, dc0 on return
-  float* part;              // (L, slices, 2, kSplit, 2, 64, 96) partials by step parity
-  unsigned* counter;        // L layer counters (CTA-steps published), then L x slices
-                            // slice counters (arrivals), zero on entry
+  float* part;              // (L, slices, 2, kSplit, 2, 64·groups, 96) partials by step parity
+  unsigned* counter;        // the row group's L layer counters (CTA-steps published), then
+                            // L x slices slice counters (arrivals), zero at the pass's start
   const bf16* masks;        // (L - 1, T, B, H) {0, 1} (drop mode 1), or null
   const bf16* outs;         // (L, T, B, H) masked outputs (drop modes 1, 2), or null
-  bf16* xdrop;              // (L - 1, T, B, H) dropped boundary inputs, out (modes 1, 2)
+  bf16* xdrop;              // (L - 1, T, B, H) dropped boundary inputs, out (modes 1, 2), or
+                            // the fused dW_x's (L - 1, ring, B, H) ring (mode 2)
+  int ring;                 // the window W when xdrop is the ring, else 0
   unsigned seed0, seed1, thr;
   float scale;
   int drop_mode;
   int T, B, H, L, slices;
+  int row0;                 // the launch's first batch row
+  int d0, d1;               // the launch's window of diagonals
   int resident;             // W_h's K chunks 0 .. resident - 1 of the gate kept in shared memory
   int skip_waits;           // a planted fault (chip_smoke.py): no layer counter waits
+  int skip_carries;         // a planted fault (chip_smoke.py): carries not kept past a window
   // (T + 1, 5) SM clocks of CTA 0 (layer 0, chip_smoke.py's
   // persistent_study), or null, taken by its first consumer thread: pass
   // s begun, dout product stored, carry product stored, the slice's
@@ -134,17 +150,17 @@ struct Args {
   long long* stamps;
 };
 
-__host__ __device__ constexpr size_t smem_bytes(int resident) {
-  return (size_t)(resident + kWStages) * kBox + (size_t)kAStages * kABox +
+__host__ __device__ constexpr size_t smem_bytes(int resident, int groups) {
+  return (size_t)(resident + kWStages) * kBox + (size_t)kAStages * groups * kABox +
          8 * (1 + 2 * (kWStages + kAStages)) + 1024;
 }
 
-// W_h's K chunks (of one gate's H columns) kept resident: all H/64, or as
-// many as fit beside the rings.
-constexpr int resident_chunks(int H) {
-  return H / 64 < (int)((kSmemLimit - smem_bytes(0)) / kBox)
+// W_h's K chunks (of one gate's H columns) kept resident at width H: all
+// H/64, or as many as fit beside the rings.
+constexpr int resident_chunks(int H, int groups) {
+  return H / 64 < (int)((kSmemLimit - smem_bytes(0, groups)) / kBox)
              ? H / 64
-             : (int)((kSmemLimit - smem_bytes(0)) / kBox);
+             : (int)((kSmemLimit - smem_bytes(0, groups)) / kBox);
 }
 
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
@@ -177,11 +193,15 @@ __device__ __forceinline__ void stamp(long long* stamps, int s, int k) {
   if (stamps != nullptr) stamps[5 * s + k] = clock64();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kGroups>
+__global__ void __launch_bounds__(kThreads<kGroups>, 1)
     wavefront_bwd_persistent(const __grid_constant__ CUtensorMap map_wh,
                              const __grid_constant__ CUtensorMap map_wx,
                              const __grid_constant__ CUtensorMap map_g, Args p) {
   using namespace tma;
+  constexpr int kConsumers = 128 * kGroups;
+  constexpr int kAStage = kGroups * kABox;             // one A stage: a 64-row box a group
+  constexpr int kPart = kGroups * kRows * kUnits;      // floats of one partial product
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -189,8 +209,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int SW = kWStages, SA = kAStages;
   uint8_t* w_s = smem;                                   // RC boxes: the resident W_h chunks
   uint8_t* wring = smem + (size_t)RC * kBox;             // SW streamed W boxes
-  uint8_t* aring = wring + (size_t)SW * kBox;            // SA A boxes
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(aring + (size_t)SA * kABox);
+  uint8_t* aring = wring + (size_t)SW * kBox;            // SA A stages
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(aring + (size_t)SA * kAStage);
   uint64_t* wbars = wbar + 1;                            // W ring: SW full, SW empty
   uint64_t* abars = wbars + 2 * SW;                      // A ring: SA full, SA empty
   const int q = blockIdx.x % kSplit;                     // the CTA's gate: its K block
@@ -201,25 +221,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wrow = u * kUnits, kcol = q * H;             // the CTA's W rows, its K columns
   const bool has_x = l + 1 < L;                          // dout comes from the layer above
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // The layer's passes in this launch's window: pass s runs on diagonal
+  // s + L-1-l.  The range is uniform over the CTA and over its slice.
+  const int off = L - 1 - l;
+  const int s_lo = max(0, p.d0 - off), s_hi = min(T, p.d1 - off);
+  if (s_lo > s_hi) return;
 
   if (threadIdx.x == 0) {
     bar_init(smem_addr(wbar), 1);
     for (int s = 0; s < SW; ++s) {
       bar_init(smem_addr(&wbars[s]), 1);
-      bar_init(smem_addr(&wbars[SW + s]), 4);            // each consumer warp releases
+      bar_init(smem_addr(&wbars[SW + s]), 4 * kGroups);  // each consumer warp releases
     }
     for (int s = 0; s < SA; ++s) {
       bar_init(smem_addr(&abars[s]), 1);
-      bar_init(smem_addr(&abars[SA + s]), 4);
+      bar_init(smem_addr(&abars[SA + s]), 4 * kGroups);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   Ring<SW, kBox> wr{smem_addr(wring), smem_addr(wbars), smem_addr(wbars + SW), 0};
-  Ring<SA, kABox> ar{smem_addr(aring), smem_addr(abars), smem_addr(abars + SA), 0};
+  Ring<SA, kAStage> ar{smem_addr(aring), smem_addr(abars), smem_addr(abars + SA), 0};
 
-  if (warp == 4) {                                       // the producer warp
-    if (lane == 0) {
+  if (warp >= 4 * kGroups) {                             // the producer warp(group)
+    if constexpr (kGroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (warp == 4 * kGroups && lane == 0) {
       const uint32_t wb = smem_addr(wbar);
       bar_expect_tx(wb, RC * kBox);
       for (int k = 0; k < RC; ++k) {
@@ -229,20 +255,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t s = wr.put();
         load_box3(wr.base + s * kBox, map, wr.full + 8 * s, kcol + 64 * k, wrow, layer);
       };
-      auto load_a = [&](int row, int k) {
+      auto load_a = [&](int row, int k) {                // a 64-row box for each group
         const uint32_t s = ar.put();
-        load_box(ar.base + s * kABox, &map_g, ar.full + 8 * s, kcol + 64 * k, row);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          load_box(ar.base + s * kAStage + g * kABox, &map_g, ar.full + 8 * s, kcol + 64 * k,
+                   row + kRows * g);
+        }
       };
       auto acquire = [&](const unsigned* count, unsigned target) {
         if (!p.skip_waits) grid_wait(count, target);
         asm volatile("fence.proxy.async.global;" ::: "memory");   // dgates are read by TMA
       };
       // Pass s (0 .. T) runs step t = T-1-s; pass T only forms dh0's product.
-      for (int s = 0; s <= T; ++s) {
+      for (int s = s_lo; s <= s_hi; ++s) {
         const int t = T - 1 - s;
         if (has_x && s < T) {                            // dout: dgates_{l+1}(t), W_x,l+1
           acquire(p.counter + l + 1, (unsigned)(s + 1) * n_layer);
-          const int row = ((l + 1) * T + t) * B;
+          const int row = ((l + 1) * T + t) * B + p.row0;
           for (int k = 0; k < KQ; ++k) {
             load_a(row, k);
             load_w(&map_wx, l, k);
@@ -250,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (s > 0) {                                     // the carry: dgates_l(t+1), W_h,l
           acquire(p.counter + l, (unsigned)s * n_layer);
-          const int row = (l * T + t + 1) * B;
+          const int row = (l * T + t + 1) * B + p.row0;
           for (int k = 0; k < KQ; ++k) {
             load_a(row, k);
             if (k >= RC) load_w(&map_wh, l, k);
@@ -261,11 +291,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // The consumer warpgroup.  Cells: thread i runs row i/2, units j .. j+11.
+  if constexpr (kGroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  // The consumer warpgroups: warpgroup wg runs rows row0 + 64·wg ..; in it
+  // thread i runs row i/2, units j .. j+11.
   const int tid = threadIdx.x;
-  const int b = tid / 2;
+  const int wg = tid / 128, wt = tid % 128, wwarp = wt / 32;
+  const int r = kRows * wg + wt / 2;                     // the thread's row of the launch
+  const int b = p.row0 + r;
   const bool row_ok = b < B;
-  const int jc = kCellUnits * q + kThreadUnits * (tid % 2);   // unit offset in the slice
+  const int jc = kCellUnits * q + kThreadUnits * (wt % 2);   // unit offset in the slice
   const int j = wrow + jc;
   const size_t G = 4 * (size_t)H;
   const bool dropped = p.drop_mode != 0 && has_x;
@@ -286,6 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   bar_wait(smem_addr(wbar), 0);                          // the W_h chunks resident
   const uint32_t w_base = smem_addr(w_s);
+  const uint32_t a_off = wg * kABox;                     // this warpgroup's half of an A stage
   unsigned* slice_count = p.counter + L + l * p.slices + u;
   float* slice_part = p.part + (size_t)(l * p.slices + u) * 2 * kSplit * 2 * kPart;
   auto part_at = [&](int par, int qq, int kind) {
@@ -294,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float d[48];
   // One 64-wide K chunk: A from the A ring, W resident or from the W ring.
   auto chunk = [&](int c, bool streamed_w, uint32_t w_addr) {
-    const uint32_t a = ar.get();
+    const uint32_t a = ar.get() + a_off;
     const uint32_t wb = streamed_w ? wr.get() : w_addr;
     fence_acc(d);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -315,13 +350,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int jg = 0; jg < kUnits / 8; ++jg)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int row = 16 * warp + lane / 4 + 8 * hh, col = 8 * jg + 2 * (lane % 4);
+        const int row = kRows * wg + 16 * wwarp + lane / 4 + 8 * hh, col = 8 * jg + 2 * (lane % 4);
         __stcg(reinterpret_cast<float2*>(dst + row * kUnits + col),
                make_float2(d[4 * jg + 2 * hh], d[4 * jg + 2 * hh + 1]));
       }
   };
 
-  for (int s = 0; s <= T; ++s) {
+  bool finished = false;                                 // pass T ran: dh0, dc0 stored
+  for (int s = s_lo; s <= s_hi; ++s) {
     const int t = T - 1 - s, par = s & 1;
     const bool hx = has_x && s < T, hc = s > 0;
     if (stamps) stamp(stamps, s, 0);
@@ -336,63 +372,73 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (stamps) stamp(stamps, s, 2);
 
-    // The cell's inputs of step t: in flight during the partials' exchange.
-    uint2 gw[4][3] = {}, cw[3] = {}, pw[3] = {}, tw[3] = {}, kw[3] = {}, ow[3] = {};
-    float4 c0w[3] = {};
-    float m = 0.0f;
-    if (s < T && row_ok) {
-      const size_t th = ((size_t)l * T + t) * B * H;     // (l, t) plane of a (., T, B, H) stream
-      m = p.mask[(size_t)t * B + b];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        if (!group_ok(k)) continue;
+    // The cell's inputs of step t (c0, read once a pass, is read in the
+    // cell).  xw is the top layer's dout_top, or below it the outs that
+    // dropout scales into xdrop.  One warpgroup (up to 255 registers)
+    // loads them before the partials' exchange, so they are in flight
+    // during it, and sums all its partials after it.  Two warpgroups (168
+    // registers: 384 threads) hold neither across the exchange: after it,
+    // each group of four units sums its partials and loads its inputs one
+    // group ahead of its cell (all at once, they spill).
+    constexpr bool kByGroup = kGroups == 2;
+    uint2 gw[4][3] = {}, cw[3] = {}, pw[3] = {}, xw[3] = {}, kw[3] = {};
+    const float m = s < T && row_ok ? p.mask[(size_t)t * B + b] : 0.0f;
+    auto load_inputs = [&](int k) {
+      if (s < T && group_ok(k)) {
+        const size_t th = ((size_t)l * T + t) * B * H;   // (l, t) plane of a (., T, B, H) stream
         const size_t e = (size_t)b * H + j + 4 * k;
         const bf16* grow = p.gates + (((size_t)l * T + t) * B + b) * G + j + 4 * k;
 #pragma unroll
         for (int g = 0; g < 4; ++g) gw[g][k] = *reinterpret_cast<const uint2*>(grow + g * H);
         cw[k] = *reinterpret_cast<const uint2*>(p.cseq + th + e);
-        if (t > 0) {
-          pw[k] = *reinterpret_cast<const uint2*>(p.cseq + th - (size_t)B * H + e);
-        } else {
-          c0w[k] = *reinterpret_cast<const float4*>(p.c0 + (size_t)l * B * H + e);
-        }
-        if (!has_x) tw[k] = *reinterpret_cast<const uint2*>(p.dout_top + (size_t)t * B * H + e);
+        if (t > 0) pw[k] = *reinterpret_cast<const uint2*>(p.cseq + th - (size_t)B * H + e);
+        if (!has_x) xw[k] = *reinterpret_cast<const uint2*>(p.dout_top + (size_t)t * B * H + e);
         if (dropped) {
-          ow[k] = *reinterpret_cast<const uint2*>(p.outs + th + e);
+          xw[k] = *reinterpret_cast<const uint2*>(p.outs + th + e);
           if (p.drop_mode == 1) kw[k] = *reinterpret_cast<const uint2*>(p.masks + th + e);
         }
       }
+    };
+    float px[kThreadUnits] = {}, ph[kThreadUnits] = {};
+    auto sum_partials = [&](int k) {                     // in the order of q
+      const size_t o = (size_t)r * kUnits + jc + 4 * k;
+#pragma unroll
+      for (int qq = 0; qq < kSplit; ++qq) {
+        if (hx) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_at(par, qq, 0) + o));
+          px[4 * k] += v.x, px[4 * k + 1] += v.y, px[4 * k + 2] += v.z, px[4 * k + 3] += v.w;
+        }
+        if (hc) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_at(par, qq, 1) + o));
+          ph[4 * k] += v.x, ph[4 * k + 1] += v.y, ph[4 * k + 2] += v.z, ph[4 * k + 3] += v.w;
+        }
+      }
+    };
+    if constexpr (!kByGroup) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) load_inputs(k);
     }
 
     // The slice's partials: arrive, wait for the four, sum in the order of q.
-    asm volatile("bar.sync 1, 128;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (tid == 0) {
       __threadfence();
       atomicAdd(slice_count, 1u);
       grid_wait(slice_count, (unsigned)(s + 1) * kSplit);
     }
-    asm volatile("bar.sync 1, 128;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (stamps) stamp(stamps, s, 3);
-    float px[kThreadUnits] = {}, ph[kThreadUnits] = {};
+    if constexpr (kByGroup) {
+      load_inputs(0);
+    } else {
 #pragma unroll
-    for (int qq = 0; qq < kSplit; ++qq) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t off = (size_t)b * kUnits + jc + 4 * k;
-        if (hx) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_at(par, qq, 0) + off));
-          px[4 * k] += v.x, px[4 * k + 1] += v.y, px[4 * k + 2] += v.z, px[4 * k + 3] += v.w;
-        }
-        if (hc) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(part_at(par, qq, 1) + off));
-          ph[4 * k] += v.x, ph[4 * k + 1] += v.y, ph[4 * k + 2] += v.z, ph[4 * k + 3] += v.w;
-        }
-      }
+      for (int k = 0; k < 3; ++k) sum_partials(k);
     }
 
     if (s == T) {                                        // the last pass: dh0, dc0
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
+        if constexpr (kByGroup) sum_partials(k);
         if (!group_ok(k)) continue;
         const size_t e = ((size_t)l * B + b) * H + j + 4 * k;
         *reinterpret_cast<float4*>(p.dhc + e) =
@@ -401,13 +447,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<float4*>(p.dcc + e) =
             make_float4(dc[4 * k], dc[4 * k + 1], dc[4 * k + 2], dc[4 * k + 3]);
       }
+      finished = true;
       break;
     }
 
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
+      if constexpr (kByGroup) {
+        sum_partials(k);
+        if (k + 1 < 3) load_inputs(k + 1);               // in flight during this group's cell
+      }
       if (!group_ok(k)) continue;
-      float i_a[4], g_a[4], f_a[4], o_a[4], c_t[4], c_p[4], dtop[4], di[4], dg[4], df[4], dq[4];
+      float i_a[4], g_a[4], f_a[4], o_a[4], c_t[4], c_p[4], x_in[4], di[4], dg[4], df[4], dq[4];
       unpack4(gw[0][k], i_a);
       unpack4(gw[1][k], g_a);
       unpack4(gw[2][k], f_a);
@@ -416,9 +467,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t > 0) {
         unpack4(pw[k], c_p);
       } else {
-        c_p[0] = c0w[k].x, c_p[1] = c0w[k].y, c_p[2] = c0w[k].z, c_p[3] = c0w[k].w;
+        const float4 v = *reinterpret_cast<const float4*>(p.c0 + ((size_t)l * B + b) * H + j +
+                                                          4 * k);
+        c_p[0] = v.x, c_p[1] = v.y, c_p[2] = v.z, c_p[3] = v.w;
       }
-      unpack4(tw[k], dtop);
+      unpack4(xw[k], x_in);             // dout_top (top layer) or outs
       float ks[4] = {1.0f, 1.0f, 1.0f, 1.0f};
       if (dropped) {                                     // boundary l's keep·scale
         if (p.drop_mode == 1) {
@@ -429,20 +482,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) ks[e] = w.w[e] < p.thr ? 1.0f : 0.0f;
         }
-        float o_in[4], xd[4];
-        unpack4(ow[k], o_in);
+        float xd[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           ks[e] *= p.scale;
-          xd[e] = o_in[e] * ks[e];
+          xd[e] = x_in[e] * ks[e];
         }
-        *reinterpret_cast<uint2*>(p.xdrop + (((size_t)l * T + t) * B + b) * H + j + 4 * k) =
-            pack4(xd);
+        // The stream's (l, t) plane, or the ring's slot of this diagonal.
+        const size_t plane = p.ring > 0 ? (size_t)l * p.ring + p.ring - 1 - (s + off) % p.ring
+                                        : (size_t)l * T + t;
+        *reinterpret_cast<uint2*>(p.xdrop + (plane * B + b) * H + j + 4 * k) = pack4(xd);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * k + e;
-        const float dout = has_x ? px[i] * ks[e] : dtop[e];
+        const float dout = has_x ? px[i] * ks[e] : x_in[e];
         const float dh_carry = dh[i] + ph[i];
         const float tanh_c = tanhf(c_t[e]);
         const float dh_new = m * (dout + dh_carry);
@@ -464,12 +518,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     // dgates(t) are read by TMA (the async proxy) in other CTAs: fence them,
     // meet, and release once for the CTA.
     asm volatile("fence.proxy.async.global;" ::: "memory");
-    asm volatile("bar.sync 1, 128;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (tid == 0) {
       __threadfence();
       atomicAdd(p.counter + l, 1u);
     }
     if (stamps) stamp(stamps, s, 4);
+  }
+  // The window ends before pass T: the f32 carries wait in dhc/dcc for the
+  // next window's launch.
+  if (!finished && !p.skip_carries) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (!group_ok(k)) continue;
+      const size_t e = ((size_t)l * B + b) * H + j + 4 * k;
+      *reinterpret_cast<float4*>(p.dhc + e) = make_float4(dh[4 * k], dh[4 * k + 1], dh[4 * k + 2],
+                                                          dh[4 * k + 3]);
+      *reinterpret_cast<float4*>(p.dcc + e) = make_float4(dc[4 * k], dc[4 * k + 1], dc[4 * k + 2],
+                                                          dc[4 * k + 3]);
+    }
   }
 }
 
@@ -489,6 +556,35 @@ bool make_w_map(CUtensorMap* map, const void* w, int layers, int H) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// One cooperative launch of the kernel with kGroups consumer warpgroups on
+// p's rows and window.
+template <int kGroups>
+int launch(const CUtensorMap& map_wh, const CUtensorMap& map_wx, const CUtensorMap& map_g,
+           Args& p, cudaStream_t st) {
+  p.resident = resident_chunks(p.H, kGroups);
+  const size_t smem = smem_bytes(p.resident, kGroups);
+  const int threads = kThreads<kGroups>;
+  auto kernel = wavefront_bwd_persistent<kGroups>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = p.L * p.slices * kSplit;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  CUtensorMap mh = map_wh, mx = map_wx, mg = map_g;
+  void* args[] = {&mh, &mx, &mg, &p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, threads, args,
+                                    smem, st);
+  if (err == cudaSuccess) ++g_launches;
+  return (int)err;
+}
+
 }  // namespace
 
 // dout_top (T, B, H) bf16; w_h (L, H, 4H), w_x (L-1, H, 4H) bf16 (layers
@@ -496,54 +592,50 @@ bool make_w_map(CUtensorMap* map, const void* w, int layers, int H) {
 // f32 {0, 1}; gates (L, T, B, 4H) bf16: activated gates, overwritten with
 // dgates; cseq (L, T, B, H) bf16; c0 (L, B, H) f32; dhc, dcc (L, B, H) f32
 // holding dhn, dcn on entry and dh0, dc0 on return; part (L, slices, 2, 4,
-// 2, 64, 96) f32 scratch; counter L·(1 + slices) uint32 of device memory.
-// Dropout: drop_mode 0, 1 (masks (L-1, T, B, H) bf16 {0, 1}) or 2 (Philox
-// bits of (seed0, seed1) under thr); scale = 1/keep; in modes 1 and 2 outs
-// (L, T, B, H) bf16, the forward's masked outputs, and xdrop (L-1, T, B, H)
-// bf16, which receives bf16(outs·keep·scale) of boundaries 0..L-2.  The
-// plan (`wavefront_bwd_plan`): slices = ceil(H / 96) slices x 4 CTAs a
-// layer, W_h's first resident_chunks(H) K chunks of each gate resident;
-// 1 <= B <= 64, H a multiple of 64.  skip_waits != 0 plants a fault (no
-// layer counter waits).  stamps, (T + 1, 5) int64 or null, takes CTA 0's SM
-// clock at five points of each pass (Args::stamps).  Returns the CUDA error
-// code (0 = success); cudaErrorCooperativeLaunchTooLarge when the grid
-// cannot be co-resident.
+// 2, 64·min(2, ceil(B/64)), 96) f32 scratch; counter ceil(B/128)·L·(1 +
+// slices) uint32 of device memory.  Dropout: drop_mode 0, 1 (masks (L-1,
+// T, B, H) bf16 {0, 1}) or 2 (Philox bits of (seed0, seed1) under thr);
+// scale = 1/keep; in modes 1 and 2 outs (L, T, B, H) bf16, the forward's
+// masked outputs, and xdrop (L-1, T, B, H) bf16, which receives
+// bf16(outs·keep·scale) of boundaries 0..L-2.  Fused dW_x (window W > 0,
+// drop modes 0 and 2): dwx (L-1, H, 4H) f32, zero on entry, receives dW_x
+// of layers 1..L-1; outs is read in both modes, and xdrop is the (L-1, W,
+// B, H) bf16 ring in mode 2 (null in mode 0); dwx_path picks the window
+// products' tile (rst_grad::Path).  The plan (`wavefront_bwd_plan`):
+// slices = ceil(H / 96) slices x 4 CTAs a layer, row groups of at most 128
+// rows in turn (two warpgroups a CTA past 64 rows), W_h's first
+// resident_chunks(H, warpgroups) K chunks of each gate resident; H a
+// multiple of 64.  skip_waits != 0 plants a fault (no layer counter
+// waits); skip_carries != 0 another (the carries are not kept past a
+// window's end: the next window starts from dhn, dcn).  stamps, (T + 1, 5)
+// int64 or null, takes CTA 0's SM clock at five points of each pass
+// (Args::stamps).  Returns the CUDA error code (0 = success);
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident.
 extern "C" int rst_lstm_wavefront_bwd_persistent(
     const void* dout_top, const void* w_h, const void* w_x, const float* mask, void* gates,
     const void* cseq, const float* c0, float* dhc, float* dcc, float* part, void* counter,
     int T, int B, int H, int L, int slices, int drop_mode, const void* masks, const void* outs,
-    void* xdrop, unsigned seed0, unsigned seed1, unsigned thr, float scale, int skip_waits,
-    long long* stamps, void* stream) {
-  if (H % 64 != 0 || B < 1 || B > kRows || L < 2 || T < 1 ||
+    void* xdrop, unsigned seed0, unsigned seed1, unsigned thr, float scale, int window,
+    float* dwx, int dwx_path, int skip_waits, int skip_carries, long long* stamps,
+    void* stream) {
+  if (H % 64 != 0 || B < 1 || L < 2 || T < 1 || window < 0 ||
       slices != (H + kUnits - 1) / kUnits || drop_mode < 0 || drop_mode > 2 ||
       (drop_mode != 0 && (outs == nullptr || xdrop == nullptr)) ||
-      (drop_mode == 1 && masks == nullptr) || (long long)L * T * B > 0x7FFFFFFF) {
+      (drop_mode == 1 && masks == nullptr) ||
+      (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr)) ||
+      (long long)L * T * B > 0x7FFFFFFF) {
     return (int)cudaErrorInvalidValue;
   }
-  const int resident = resident_chunks(H);
-  const size_t smem = smem_bytes(resident);
   CUtensorMap map_wh, map_wx, map_g;
   if (!make_w_map(&map_wh, w_h, L, H) || !make_w_map(&map_wx, w_x, L - 1, H) ||
       !tma::make_map(&map_g, gates, L * T * B, 4 * H)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(wavefront_bwd_persistent,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = L * slices * kSplit;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront_bwd_persistent,
-                                                           kThreads, smem)) != cudaSuccess) {
-    return (int)err;
-  }
-  if (per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (B + kMaxGroups * kRows - 1) / (kMaxGroups * kRows);
+  const size_t group_counters = (size_t)L * (1 + slices);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((err = cudaMemsetAsync(counter, 0, (size_t)L * (1 + slices) * sizeof(unsigned), st)) !=
-      cudaSuccess) {
-    return (int)err;
-  }
+  cudaError_t err = cudaMemsetAsync(counter, 0, groups * group_counters * sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
   Args p;
   p.dout_top = static_cast<const bf16*>(dout_top);
   p.gates = static_cast<bf16*>(gates);
@@ -553,10 +645,10 @@ extern "C" int rst_lstm_wavefront_bwd_persistent(
   p.dhc = dhc;
   p.dcc = dcc;
   p.part = part;
-  p.counter = static_cast<unsigned*>(counter);
   p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
   p.outs = static_cast<const bf16*>(outs);
-  p.xdrop = static_cast<bf16*>(xdrop);
+  p.xdrop = drop_mode != 0 ? static_cast<bf16*>(xdrop) : nullptr;
+  p.ring = window;
   p.seed0 = seed0;
   p.seed1 = seed1;
   p.thr = thr;
@@ -567,15 +659,35 @@ extern "C" int rst_lstm_wavefront_bwd_persistent(
   p.H = H;
   p.L = L;
   p.slices = slices;
-  p.resident = resident;
   p.skip_waits = skip_waits;
+  p.skip_carries = skip_carries;
   p.stamps = stamps;
-  void* args[] = {&map_wh, &map_wx, &map_g, &p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wavefront_bwd_persistent), grid,
-                                    kThreads, args, smem, st);
-  if (err == cudaSuccess) ++g_launches;
-  return (int)err;
+  // Window-major, row-group-minor; the unfused pass is one window of every
+  // diagonal and pass T.  The last window also takes the passes T (dh0's
+  // products) of the layers whose diagonal T + L-1-l lies past the last.
+  const int n_diag = T + L - 1, step = window > 0 ? window : n_diag;
+  for (int s0 = 0; s0 < n_diag; s0 += step) {
+    const int s1 = std::min(s0 + step, n_diag) - 1;
+    p.d0 = s0;
+    p.d1 = s1 == n_diag - 1 ? n_diag : s1;
+    for (int g = 0; g < groups; ++g) {
+      p.row0 = g * kMaxGroups * kRows;
+      p.counter = static_cast<unsigned*>(counter) + g * group_counters;
+      const int rc = B - p.row0 > kRows ? launch<2>(map_wh, map_wx, map_g, p, st)
+                                        : launch<1>(map_wh, map_wx, map_g, p, st);
+      if (rc != 0) return rc;
+    }
+    if (window > 0) {
+      const int rc = rst_dwx::accumulate(p.outs, p.xdrop, p.gates, T, B, H, L, s0, s1, window,
+                                         dwx_path, dwx, g_wgmma_products, st);
+      if (rc != 0) return rc;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 // Launches of the persistent kernel so far (counted at the launch site).
 extern "C" long long rst_wavefront_bwd_persistent_launches() { return g_launches; }
+
+// Window products of the fused passes launched on the Hopper tile so far.
+extern "C" long long rst_bwd_persistent_wgmma_products() { return g_wgmma_products; }

@@ -26,12 +26,15 @@ only the schedule differs.
 * ``wavefront_bwd`` (``_wavefront_bwd_kernel``): the reverse diagonal,
   dgates of every layer written over the gates residual, and dh0, dc0;
   with ``fuse_dwx`` also dW_x of layers 1..L-1 (the TPU kernel's
-  ``fuse_dwx`` mode).  ``wavefront_bwd_plan`` sends the unfused pass by
-  shape to a persistent kernel (``csrc/lstm_wavefront_bwd_persistent.cu``:
-  one cooperative launch, W_hᵀ resident, a slice's K split in four gates
-  whose partials meet through L2, the layers paced by per-layer counters;
-  B <= 64, as at the default step) and everything else, the fused pass
-  among it, to the per-diagonal kernel (``csrc/lstm_wavefront_bwd.cu``).
+  ``fuse_dwx`` mode).  ``wavefront_bwd_plan`` sends both passes by shape
+  to a persistent kernel (``csrc/lstm_wavefront_bwd_persistent.cu``: W_hᵀ
+  resident, a slice's K split in four gates whose partials meet through
+  L2, the layers paced by per-layer counters; up to two 64-row groups a
+  CTA, row groups of at most 128 rows in turn past that; the fused pass
+  one launch per window of ``FUSE_DWX_WINDOW`` diagonals and row group,
+  each window's dW_x products after its launches), any batch at the
+  default width, and the shapes its layout cannot take to the
+  per-diagonal kernel (``csrc/lstm_wavefront_bwd.cu``).
 * ``lstm_stack_wavefront_train``: the differentiable stack
   (``_wavefront_stack_core`` and its VJP) over those two kernels and the
   weight-gradient kernel of ``ops/grad_matmul.py``.  With
@@ -725,65 +728,98 @@ def _bwd_buffers(L: int, T: int, B: int, H: int, drop_mode: int, fuse_dwx: bool,
 
 # The persistent reverse diagonal (csrc/lstm_wavefront_bwd_persistent.cu):
 # hidden units of a slice (the products' N) and its CTAs (a K split in four,
-# one gate's H columns each), and the bytes of one 96-unit box of W (64 K,
-# bf16).  The A boxes are the forwards' 64-row boxes.
-WAVEFRONT_BWD_UNITS, WAVEFRONT_BWD_SPLIT = 96, 4
+# one gate's H columns each), the consumer warpgroups a CTA can run (one
+# 64-row group each; the kernel's kMaxGroups), and the bytes of one 96-unit
+# box of W (64 K, bf16).  The A boxes are the forwards' 64-row boxes.
+WAVEFRONT_BWD_UNITS, WAVEFRONT_BWD_SPLIT, WAVEFRONT_BWD_GROUPS = 96, 4, 2
 _WB_BOX = WAVEFRONT_BWD_UNITS * 64 * 2
 
 
-def wavefront_bwd_smem(resident: int) -> int:
+def wavefront_bwd_smem(resident: int, warpgroups: int = 1) -> int:
     """Dynamic shared memory of the persistent reverse diagonal:
     ``resident`` boxes of W_h (64-wide K chunks of the CTA's gate for its
-    slice's 96 units), the W ring's and the A ring's stages, the mbarriers
-    and the 1024-byte alignment slack (the kernel's ``smem_bytes``)."""
-    return ((resident + WAVEFRONT_W_STAGES) * _WB_BOX + WAVEFRONT_A_STAGES * _WF_ABOX
+    slice's 96 units), the W ring's stages, the A ring's stages of
+    64·``warpgroups`` rows, the mbarriers and the 1024-byte alignment slack
+    (the kernel's ``smem_bytes``)."""
+    return ((resident + WAVEFRONT_W_STAGES) * _WB_BOX
+            + WAVEFRONT_A_STAGES * warpgroups * _WF_ABOX
             + 8 * (1 + 2 * (WAVEFRONT_W_STAGES + WAVEFRONT_A_STAGES)) + 1024)
 
 
-def wavefront_bwd_layout(B: int, H: int, L: int, sms: int = H100_SMS):
+def wavefront_bwd_resident(H: int, warpgroups: int) -> int:
+    """W_h's K chunks (of a gate's H/64) the persistent reverse diagonal
+    keeps resident beside its rings at ``warpgroups`` consumer warpgroups a
+    CTA: 14 of 16 at H=1024 with one, 11 with two (the kernel's
+    ``resident_chunks``)."""
+    return min(H // 64, (SMEM_LIMIT - wavefront_bwd_smem(0, warpgroups)) // _WB_BOX)
+
+
+def wavefront_bwd_row_groups(B: int, rows: int = WAVEFRONT_ROWS) -> List[Tuple[int, int, int]]:
+    """The persistent reverse diagonal's row-group launches at batch B, in
+    the order the kernel's host loop runs them within a window: (first row,
+    rows, consumer warpgroups), at most WAVEFRONT_BWD_GROUPS warpgroups of
+    ``rows`` rows (one wgmma tile on the card) a launch, two past ``rows``."""
+    span = rows * WAVEFRONT_BWD_GROUPS
+    return [(r0, min(span, B - r0), 2 if B - r0 > rows else 1) for r0 in range(0, B, span)]
+
+
+def wavefront_bwd_layout(B: int, H: int, L: int, sms: int = H100_SMS, window: int = 0):
     """The persistent reverse diagonal's grid at (B, H, L) on a card of
     ``sms`` SMs, or None where the kernel cannot take the shape: ``slices``
     = ceil(H/96) slices of 96 units a layer, each four CTAs (CTA (l, u, q)
-    takes gate q's H columns of K), one CTA an SM for all L layers, B <= 64
-    (one tile), H a multiple of 64.  ``resident`` is as many of the gate's
-    H/64 K chunks of W_h as fit beside the rings (14 of 16 at H=1024; the
-    kernel's ``resident_chunks``).  Returns {"slices", "grid", "resident",
-    "smem"}."""
-    if not 1 <= B <= WAVEFRONT_ROWS or L < 2 or H < 64 or H % 64:
+    takes gate q's H columns of K), one CTA an SM for all L layers, H a
+    multiple of 64, any B >= 1.  ``groups`` is the number of row-group
+    launches (``wavefront_bwd_row_groups``: ceil(B/128)), ``warpgroups``
+    the consumer warpgroups of the widest (one up to 64 rows, else two),
+    ``resident`` and ``smem`` its W_h chunks kept resident
+    (``wavefront_bwd_resident``) and shared memory, ``window`` the
+    diagonals of each fused dW_x window (0: the unfused pass, one window).
+    Returns {"slices", "grid", "groups", "warpgroups", "resident", "smem",
+    "window"}."""
+    if B < 1 or L < 2 or H < 64 or H % 64:
         return None
     slices = -(-H // WAVEFRONT_BWD_UNITS)
     grid = L * slices * WAVEFRONT_BWD_SPLIT
     if grid > sms:
         return None
-    resident = min(H // 64, (SMEM_LIMIT - wavefront_bwd_smem(0)) // _WB_BOX)
-    return {"slices": slices, "grid": grid, "resident": resident,
-            "smem": wavefront_bwd_smem(resident)}
+    launches = wavefront_bwd_row_groups(B)
+    wgs = max(wg for _, _, wg in launches)
+    resident = wavefront_bwd_resident(H, wgs)
+    return {"slices": slices, "grid": grid, "groups": len(launches), "warpgroups": wgs,
+            "resident": resident, "smem": wavefront_bwd_smem(resident, wgs), "window": window}
 
 
 def wavefront_bwd_plan(B: int, H: int, L: int, fuse_dwx: bool = False,
                        sms: int = H100_SMS) -> dict:
     """Which kernel runs the reverse diagonal at (B, H, L) on a card of
-    ``sms`` SMs, decided by shape alone: the persistent one for the unfused
-    pass where ``wavefront_bwd_layout`` takes the shape (the default step's
-    B=64 at 3x1024: 3 x 11 x 4 = 132 CTAs), else the per-diagonal kernel
-    (the fused dW_x, B past one tile, more CTAs than SMs).  Returns
-    {"kernel": "persistent", **layout} or {"kernel": "per_diagonal"}."""
-    layout = None if fuse_dwx else wavefront_bwd_layout(B, H, L, sms)
+    ``sms`` SMs, decided by shape alone: the persistent one, unfused or
+    with the fused dW_x (``window`` = FUSE_DWX_WINDOW), where
+    ``wavefront_bwd_layout`` takes the shape (every batch at 3x1024: 3 x 11
+    x 4 = 132 CTAs; the default step's B=64 in one launch, the wide step's
+    B=394 in four row groups a window), else the per-diagonal kernel (more
+    CTAs than SMs, H % 64, one layer).  Returns {"kernel": "persistent",
+    **layout} or {"kernel": "per_diagonal"}."""
+    layout = wavefront_bwd_layout(B, H, L, sms, FUSE_DWX_WINDOW if fuse_dwx else 0)
     if layout is None:
         return {"kernel": "per_diagonal"}
     return {"kernel": "persistent", **layout}
 
 
 def _bwd_persistent_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs,
-                           drop, plan, skip_waits=0, stamps=None):
-    """The persistent reverse diagonal on the plan's grid (unfused).
-    ``drop`` is ``_drop_launch_args``' (masks, seed0, seed1, threshold,
-    scale) with the drop mode first; ``skip_waits`` plants a fault (no layer
-    counter waits: each layer reads dgates before their writers publish
-    them), for checks; ``stamps``, a (T + 1, 5) int64 tensor on the device,
-    takes CTA 0's SM clock at five points of each pass (the kernel's
-    ``Args::stamps``), for studies.  Overwrites ``gates`` with dgates;
-    returns (dgates, dh0, dc0) and in drop modes 1 and 2 xdrop."""
+                           drop, plan, fuse_dwx=False, skip_waits=0, skip_carries=0,
+                           stamps=None):
+    """The persistent reverse diagonal on the plan's grid, unfused or with
+    the fused dW_x (``_bwd_buffers``' ring, dwx and window).  ``drop`` is
+    ``_drop_launch_args``' (masks, seed0, seed1, threshold, scale) with the
+    drop mode first; ``skip_waits`` plants a fault (no layer counter waits:
+    each layer reads dgates before their writers publish them) and
+    ``skip_carries`` another (the f32 carries are not kept past a window's
+    end: each window starts from dhn, dcn), for checks; ``stamps``, a
+    (T + 1, 5) int64 tensor on the device, takes CTA 0's SM clock at five
+    points of each pass (the kernel's ``Args::stamps``), for studies.
+    Overwrites ``gates`` with dgates; returns ``wavefront_bwd``'s results,
+    and adds its window products on the Hopper tile to
+    ``wavefront_bwd.wgmma_products``."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
     drop_mode, masks, seed0, seed1, thr, scale = drop
@@ -791,33 +827,45 @@ def _bwd_persistent_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, 
     S = plan["slices"]
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        xdrop = torch.empty((L - 1, T, B, H), dtype=bf16, device=dev) if drop_mode else None
-        res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
+        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev)
+        if fuse_dwx:
+            res = (gates, dh, dc, dwx)
+        else:
+            res = (gates, dh, dc) if xdrop is None else (gates, dh, dc, xdrop)
         if T == 0:
             return res
-        part = torch.empty((L, S, 2, WAVEFRONT_BWD_SPLIT, 2, WAVEFRONT_ROWS,
-                            WAVEFRONT_BWD_UNITS), dtype=f32, device=dev)
-        counter = torch.zeros((L * (1 + S),), dtype=torch.int32, device=dev)
-        fn = _build.load("lstm_wavefront_bwd_persistent").rst_lstm_wavefront_bwd_persistent
+        part = torch.empty((L, S, 2, WAVEFRONT_BWD_SPLIT, 2,
+                            WAVEFRONT_ROWS * plan["warpgroups"], WAVEFRONT_BWD_UNITS),
+                           dtype=f32, device=dev)
+        counter = torch.zeros((plan["groups"] * L * (1 + S),), dtype=torch.int32, device=dev)
+        lib = _build.load("lstm_wavefront_bwd_persistent")
+        fn = lib.rst_lstm_wavefront_bwd_persistent
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_uint] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
+        products = lib.rst_bwd_persistent_wgmma_products
+        products.argtypes, products.restype = [], ctypes.c_longlong
+        before = products()
         rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(), mask.data_ptr(),
                 gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(), dh.data_ptr(), dc.data_ptr(),
                 part.data_ptr(), counter.data_ptr(), T, B, H, L, S, drop_mode, _ptr(masks),
-                _ptr(outs if drop_mode else None), _ptr(xdrop), seed0, seed1, thr, scale,
-                skip_waits, _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+                _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop), seed0, seed1, thr,
+                scale, window, _ptr(dwx),
+                grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
+                skip_waits, skip_carries, _ptr(stamps),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"persistent lstm_wavefront_bwd kernel launch failed: CUDA error "
                            f"{rc} (plan {plan})")
+    wavefront_bwd.wgmma_products += products() - before
     return res
 
 
 def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs,
                              drop, fuse_dwx=False):
     """The per-diagonal reverse diagonal (csrc/lstm_wavefront_bwd.cu): one
-    launch a diagonal, any B, and the fused dW_x.  ``drop`` as
+    launch a diagonal, any shape, and the fused dW_x.  ``drop`` as
     ``_bwd_persistent_launch`` takes it.  Returns ``wavefront_bwd``'s
     results; adds its window products on the Hopper tile to
     ``wavefront_bwd.wgmma_products``."""
@@ -875,8 +923,10 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     (``_bwd_buffers``); the window products take the tile that
     ``grad_matmul.product_path`` picks for (H, 4H, bf16) dgates, the Hopper
     tile at H a multiple of 64.  ``wavefront_bwd.fused_launches`` counts the
-    fused calls that launched the kernel, ``wavefront_bwd.wgmma_products``
-    the window products they launched on the Hopper tile.
+    fused calls that launched a kernel, ``.fused_persistent_launches`` those
+    of them on the persistent kernel, ``.per_diagonal_launches`` the calls
+    the plan sent to the per-diagonal kernel, ``.wgmma_products`` the window
+    products launched on the Hopper tile.
 
     dout_top (T, B, H): cotangent of the top layer's output; w_h, w_x_rest
     in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
@@ -884,8 +934,9 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     ``gates`` is overwritten with dgates.  Returns (dgates (the ``gates``
     tensor), dh0, dc0); on a CUDA device (bf16 operands and residuals) the
     kernel ``wavefront_bwd_plan`` picks by shape, the persistent one
-    (``persistent_launches`` adds the library's count of its launches) or
-    the per-diagonal one; the plain version on the CPU."""
+    (``persistent_launches`` adds the library's count of its launches, one
+    a window and row group) or the per-diagonal one; the plain version on
+    the CPU."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
     if w_h.shape[0] != L or w_x_rest.shape[0] != L - 1:
@@ -914,22 +965,27 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     plan = wavefront_bwd_plan(B, H, L, fuse_dwx,
                               torch.cuda.get_device_properties(dev).multi_processor_count)
     args = (dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, drop)
-    if plan["kernel"] == "persistent":
+    persistent = plan["kernel"] == "persistent"
+    if persistent:
         count = ("lstm_wavefront_bwd_persistent", "rst_wavefront_bwd_persistent_launches")
         before = _library_launches(*count)
-        res = _bwd_persistent_launch(*args, plan)
+        res = _bwd_persistent_launch(*args, plan, fuse_dwx)
         wavefront_bwd.persistent_launches += _library_launches(*count) - before
     else:
         res = _bwd_per_diagonal_launch(*args, fuse_dwx)
     if T:                                            # T = 0 launches nothing
         wavefront_bwd.launches += 1
         wavefront_bwd.fused_launches += int(fuse_dwx)
+        wavefront_bwd.fused_persistent_launches += int(fuse_dwx and persistent)
+        wavefront_bwd.per_diagonal_launches += int(not persistent)
     return res
 
 
 wavefront_bwd.launches = 0
 wavefront_bwd.persistent_launches = 0
 wavefront_bwd.fused_launches = 0
+wavefront_bwd.fused_persistent_launches = 0
+wavefront_bwd.per_diagonal_launches = 0
 wavefront_bwd.wgmma_products = 0
 
 

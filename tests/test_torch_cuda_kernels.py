@@ -23,7 +23,10 @@ bit for bit on repeat, without their waits (planted faults), and the
 per-step and per-diagonal kernels they replace there, launched past the
 plans; likewise the persistent wavefront inference forward (row 1: one
 and two row groups) and the persistent reverse diagonal (row 4, in drop
-modes 0, 1 and 2), and the per-diagonal kernels past their plans; the
+modes 0, 1 and 2; past one 64-row tile in two warpgroups a CTA and row
+groups in turn, and with the fused dW_x in windows, row 4f, beside its
+carries left behind at a window's end), and the per-diagonal kernels past
+their plans; the
 skinny weight-gradient tile (row 15) at ragged N in both orientations,
 bit for bit on repeat, beside a K slice left out; the checkpoint forward
 (row 9) bit for bit against the alpha stream's rows and the loss-only
@@ -427,8 +430,7 @@ def test_wavefront_train_and_bwd_drop_modes_match_plain(cuda, mode, L, B, H, D, 
 
 
 def _per_diagonal_bwd(*args):
-    """The per-diagonal reverse diagonal (the fused pass's kernel), unfused,
-    whatever the plan says: ``wavefront_bwd``'s positional arguments up to
+    """The per-diagonal reverse diagonal, unfused, whatever the plan says: ``wavefront_bwd``'s positional arguments up to
     outs, then the drop mode's four (none: drop mode 0)."""
     mode, arr, scale, keep = args[10:] or (0, None, 1.0, 1.0)
     T, B, H = args[0].shape
@@ -442,7 +444,9 @@ def _per_diagonal_bwd(*args):
 def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypatch):
     """The fused pass in windows of 4 diagonals (several windows, a
     ragged last one) against its plain version; its dgates, dh0 and dc0
-    bit for bit against the unfused pass's; the fused calls counted."""
+    bit for bit against the unfused pass's (both on the persistent kernel,
+    the plan's choice: B=70 in two row groups a CTA); the fused calls
+    counted, on the persistent kernel."""
     monkeypatch.setattr(twave, "FUSE_DWX_WINDOW", 4)
     x = _train_inputs(L, T, B, H, H, seed=L + B + T + 11 * mode, dev=cuda)
     drop = _drop(2, L, T, B, H, seed=B + T) if mode == 2 else (0, None, 1.0, 1.0)
@@ -454,11 +458,11 @@ def test_wavefront_bwd_fused_dwx_matches_plain(cuda, mode, L, B, H, T, monkeypat
     bwd = lambda fn, **kw: fn(dtop, x["w_h"], x["w_x_rest"], x["mask"], gates.clone(), cseq,
                               x["c0"], dhn, dcn, outs, *drop, **kw)
     ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
-    twave.wavefront_bwd.fused_launches = 0
+    twave.wavefront_bwd.fused_launches = twave.wavefront_bwd.fused_persistent_launches = 0
     got = bwd(twave.wavefront_bwd, fuse_dwx=True)
-    unfused = bwd(_per_diagonal_bwd)                 # the same kernel, unfused
+    unfused = bwd(twave.wavefront_bwd)               # the same kernel, unfused
     torch.cuda.synchronize()
-    assert twave.wavefront_bwd.fused_launches == 1
+    assert twave.wavefront_bwd.fused_launches == twave.wavefront_bwd.fused_persistent_launches == 1
     assert got[3].shape == (L - 1, H, 4 * H) and got[3].dtype == torch.float32
     _close_to(got[:3], ref[:3], TRAIN_TOL)
     w = min(4, T)
@@ -481,7 +485,8 @@ def test_fused_dwx_windows_on_the_hopper_tile(cuda, mode, monkeypatch):
     """The fused pass at H=128 (the window products take the Hopper tile)
     in windows of 8 diagonals over T + L - 1 = 23 (a ragged last window of
     7), against its plain version; dgates, dh0 and dc0 bit for bit against
-    the unfused pass; the window products counted on the Hopper tile; and
+    the unfused pass (both persistent); the window products counted on the
+    Hopper tile; and
     the window products alone (``dwx_windows``, drop mode 0's operands)
     against their plain version."""
     monkeypatch.setattr(twave, "FUSE_DWX_WINDOW", 8)
@@ -499,7 +504,7 @@ def test_fused_dwx_windows_on_the_hopper_tile(cuda, mode, monkeypatch):
     ref = bwd(twave.wavefront_bwd_plain, fuse_dwx=True)
     twave.wavefront_bwd.wgmma_products = 0
     got = bwd(twave.wavefront_bwd, fuse_dwx=True)
-    unfused = bwd(_per_diagonal_bwd)                 # the same kernel, unfused
+    unfused = bwd(twave.wavefront_bwd)               # the same kernel, unfused
     torch.cuda.synchronize()
     assert twave.wavefront_bwd.wgmma_products == 3 * (L - 1)   # 3 windows per boundary
     for l in range(L - 1):
@@ -1412,9 +1417,8 @@ def test_persistent_wavefront_bwd_matches_plain(cuda, mode, L, T, B, H):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("L,T,B,H", [(2, 7, 3, 64), (3, 1, 5, 64), (3, 10, 33, 128)])
 def test_per_diagonal_wavefront_bwd_past_the_plan_matches_plain(cuda, mode, L, T, B, H):
-    """The per-diagonal reverse diagonal (the fused pass's and the wide
-    step's kernel) launched at shapes the plan sends to the persistent
-    kernel, against its plain version in drop modes 0, 1 and 2, within
+    """The per-diagonal reverse diagonal launched at shapes the plan sends
+    to the persistent kernel, against its plain version in drop modes 0, 1 and 2, within
     8e-3 of each output's largest magnitude."""
     bwd, drop = _wavefront_bwd_case(L, T, B, H, mode, seed=L + T + B + H + mode + 1, dev=cuda)
     assert twave.wavefront_bwd_plan(B, H, L)["kernel"] == "persistent"
@@ -1425,9 +1429,10 @@ def test_per_diagonal_wavefront_bwd_past_the_plan_matches_plain(cuda, mode, L, T
 
 
 def test_wavefront_bwd_past_the_plans_grid_runs_the_per_diagonal_kernel(cuda):
-    """B=70 (past one tile) and the fused pass take the per-diagonal kernel
-    through the plan: no persistent launch."""
-    L, T, H = 3, 5, 128
+    """Four layers at H=1024 (4 x 44 CTAs, past the card's 132 SMs), unfused
+    at B=70 and fused at B=5, take the per-diagonal kernel through the
+    plan: no persistent launch."""
+    L, T, H = 4, 5, 1024
     for B, fuse in ((70, False), (5, True)):
         bwd, drop = _wavefront_bwd_case(L, T, B, H, 2, seed=40 + B, dev=cuda)
         assert twave.wavefront_bwd_plan(B, H, L, fuse)["kernel"] == "per_diagonal"
@@ -1437,6 +1442,53 @@ def test_wavefront_bwd_past_the_plans_grid_runs_the_per_diagonal_kernel(cuda):
         torch.cuda.synchronize()
         assert twave.wavefront_bwd.persistent_launches == before
         assert _rel_max(got[:3], ref[:3]) <= 8e-3
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+@pytest.mark.parametrize("L,T,B,H", [(3, 9, 70, 128), (2, 7, 200, 64), (3, 5, 394, 64)])
+def test_persistent_wavefront_bwd_past_one_tile_matches_plain(cuda, mode, L, T, B, H):
+    """Past one 64-row tile the plan keeps the persistent kernel: two
+    warpgroups a CTA (B=70), row groups of 128 rows in turn (B=200: 128 +
+    72; B=394: three of 128 and one warpgroup of 10), unfused and fused
+    (windows of 4 diagonals), against the plain versions; the fused pass's
+    dgates, dh0 and dc0 bit for bit against the unfused pass's, one launch
+    a window and row group."""
+    bwd, drop = _wavefront_bwd_case(L, T, B, H, mode, seed=L + T + B + mode, dev=cuda)
+    with_gates = lambda: bwd[:4] + [bwd[4].clone()] + bwd[5:]
+    plan = twave.wavefront_bwd_plan(B, H, L)
+    assert plan["kernel"] == "persistent" and plan["groups"] == -(-B // 128)
+    before = twave.wavefront_bwd.persistent_launches
+    got = twave.wavefront_bwd(*with_gates(), *drop)
+    assert twave.wavefront_bwd.persistent_launches - before == plan["groups"]
+    ref = twave.wavefront_bwd_plain(*with_gates(), *drop)
+    torch.cuda.synchronize()
+    assert _rel_max(got, ref) <= 8e-3
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(twave, "FUSE_DWX_WINDOW", 4)
+        before = twave.wavefront_bwd.persistent_launches
+        fused = twave.wavefront_bwd(*with_gates(), *drop, fuse_dwx=True)
+        windows = -(-(T + L - 1) // 4)
+        assert twave.wavefront_bwd.persistent_launches - before == windows * plan["groups"]
+        ref_f = twave.wavefront_bwd_plain(*with_gates(), *drop, fuse_dwx=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fused[:3], got[:3]))
+    assert _rel_max(fused, ref_f) <= 8e-3
+
+
+def test_fused_persistent_bwd_without_its_carries_fails_the_check(cuda, monkeypatch):
+    """Launches that leave their f32 carries behind at a window's end (each
+    window restarts from dhn, dcn): dgates leave the tolerance (and nothing
+    hangs)."""
+    monkeypatch.setattr(twave, "FUSE_DWX_WINDOW", 8)
+    L, T, B, H = 3, 40, 70, 128
+    bwd, _ = _wavefront_bwd_case(L, T, B, H, 0, seed=35, dev=cuda)
+    plan = twave.wavefront_bwd_plan(B, H, L, True)
+    bad = twave._bwd_persistent_launch(*bwd[:4], bwd[4].clone(), *bwd[5:],
+                                       (0, None, 0, 0, 0, 1.0), plan, fuse_dwx=True,
+                                       skip_carries=1)
+    ref = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:], fuse_dwx=True)
+    torch.cuda.synchronize()
+    assert _rel_max(bad[:3], ref[:3]) > 8e-3
 
 
 def test_persistent_wavefront_bwd_without_its_waits_fails_the_check(cuda):

@@ -17,7 +17,8 @@ step, its carry once its own layer has published the step before).
 Against ``_wavefront_bwd`` with its Pallas kernel in TPU interpret mode
 in drop modes 0 and 1 (dgates, dh0, dc0 and xdrop), at T=9, H=256, L = 2
 and 3, xavier-uniform weights, B=5 (ragged lengths, a zero-length row)
-and B=64 (the plan's widest batch; B=70 goes to the per-diagonal kernel);
+and B=64 (one launch of one 64-row group; wider batches run two groups a
+CTA or row groups in turn, ``tests/test_torch_fused_persistent_plan.py``);
 in drop mode 2 equal to itself in mode 1 fed ``random_bits.wavefront_masks``,
 bit for bit.  Both sides round dgates to bf16 and sum their products in
 float32 in another order: where two sums straddle a bf16 rounding the
@@ -72,6 +73,20 @@ def test_plan_takes_every_unfused_batch_of_one_tile(B):
     (394, 1024, 3, False, 132),   # the wide step's batch, unfused
     (70, 1024, 3, False, 132),    # two tiles
     (65, 256, 3, False, 132),
+])
+def test_plan_sends_the_fused_pass_and_wider_batches_to_the_persistent_kernel(B, H, L, fuse,
+                                                                              sms):
+    """The fused dW_x and batches past one 64-row tile: the persistent
+    kernel, in row groups of at most 128 rows (two warpgroups a CTA past 64
+    rows), the fused pass in windows of FUSE_DWX_WINDOW diagonals."""
+    plan = twave.wavefront_bwd_plan(B, H, L, fuse, sms)
+    assert plan == {"kernel": "persistent",
+                    **twave.wavefront_bwd_layout(B, H, L, sms,
+                                                 twave.FUSE_DWX_WINDOW if fuse else 0)}
+    assert plan["groups"] == -(-B // 128) and plan["warpgroups"] == (2 if B > 64 else 1)
+
+
+@pytest.mark.parametrize("B,H,L,fuse,sms", [
     (64, 1024, 4, False, 132),    # 4 x 44 CTAs, past the card
     (64, 1024, 3, False, 131),    # a card of fewer SMs
     (64, 1280, 3, False, 132),    # 3 x 56 CTAs

@@ -61,11 +61,13 @@ printing one JSON line:
            a zero-length input and a label longer than its input (loss,
            checkpoints, last row, gradient; the backward bit for bit on
            repeat, beside its label sums filed one step late); the
-           checkpoint forward bit for bit against the alpha stream's rows
-           at every block end and the loss-only kernel's last row on the
-           timing batch, a ragged batch (input lengths 1 to T, label
-           lengths 0 to 600) and a batch of 1201 live states, beside step
-           100 reading step 99's log-probs; the dropout kernel at
+           alpha forward's three modes (one kernel): its checkpoints bit
+           for bit against its stream's rows at every block end, its last
+           row against the loss-only mode's and the stream's, each within
+           the CTC tolerance of its plain version, on the timing batch, a
+           ragged batch (input lengths 1 to T, label lengths 0 to 600) and
+           a batch of 1201 live states, each mode beside step 100 reading
+           step 99's log-probs; the dropout kernel at
            (3510, 64, 1024) in float32 and bf16 (bit for bit, and the kept
            fraction within 4 sigma of the keep); the Bernoulli mask kernel
            at (2, 3510, 64, 1024) bf16 (bit for bit, the kept fraction
@@ -282,9 +284,12 @@ printing one JSON line:
            with ``--parent DIR`` (a checkout of the previous tree) the
            recompute forward's outputs at T=512, B=400 and 473, the
            inference recurrence's at B=128, T=1024, the two training
-           forwards' and the unfused reverse diagonal's at B=64, T=512
-           there and here, which must be equal bit for bit, and the
-           reverse diagonal at B=64, T=3510 timed there and here in turns.
+           forwards' and the unfused reverse diagonal's at B=64, T=512,
+           and the CTC alpha forward's checkpoints, last row and stream
+           at B=64, T=3510 (a full-length and a ragged batch) there and
+           here, which must be equal bit for bit, and the reverse diagonal
+           and the three CTC forwards at B=64, T=3510 (the CTC forwards
+           also at the wide step's batch) timed there and here in turns.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -1850,12 +1855,15 @@ def _ctc_ckpt_batches():
 
 
 def _ctc_ckpt_checks(checks):
-    """The checkpoint forward (row 9) bit for bit against the alpha
-    stream's rows at every block end (row 11) and the loss-only kernel's
-    last row (row 10), both on the old recursion, on ``_ctc_ckpt_batches``;
-    beside the same launch with step 100's log-prob row taken from step
-    99, which must fail it and end (the kernel's barrier waits trap rather
-    than hang)."""
+    """The alpha forward's three output modes, one kernel (the checkpoints,
+    row 9; the last row, row 10; the stream, row 11), on
+    ``_ctc_ckpt_batches``: the checkpoints bit for bit against the stream's
+    rows at every block end and the last row against the loss-only mode's
+    and the stream's; each mode within CTC_LOSS_TOL of its plain version
+    (``alpha_plain``, ``alpha_stream_plain``); and on the timing batch each
+    mode beside its planted fault (step 100 reads step 99's log-prob row),
+    which must fail the check and end (the kernel's barrier waits trap
+    rather than hang)."""
     import torch
 
     from rnn_speech_tpu_torch.ops import ctc_kernel as tck
@@ -1868,31 +1876,38 @@ def _ctc_ckpt_checks(checks):
         last_l = tck.ctc_alpha_lossonly(*args)
         alphas, last_s = tck.ctc_alpha_stream(*args)
         ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
-        rows = alphas[ends]
-        del alphas
+        ck_p, last_p = tck.alpha_plain(*args, K, True)
         torch.cuda.synchronize()
-        entry = {"check": f"ctc checkpoint forward, {name} batch: B={TRAIN_B} T={T} S={S} K={K}",
-                 "geometry": tck.alpha_ckpt_geometry(S, V)._asdict(),
-                 "ckpts_equal_stream_rows": torch.equal(ck, rows),
+        entry = {"check": f"ctc alpha forward, {name} batch: B={TRAIN_B} T={T} S={S} K={K}",
+                 "geometry": tck.alpha_geometry(S, V)._asdict(),
+                 "ckpts_equal_stream_rows": torch.equal(ck, alphas[ends]),
                  "last_equal_lossonly": torch.equal(last, last_l),
                  "last_equal_stream": torch.equal(last, last_s),
-                 "rel_err_vs_stream": _ctc_rel(ck, rows)}
+                 "rel_err": {"ckpts": _ctc_rel(ck, ck_p), "last": _ctc_rel(last, last_p)},
+                 "tol": CTC_LOSS_TOL}
+        del ck_p
+        alphas_p, _ = tck.alpha_stream_plain(*args)
+        entry["rel_err"]["stream"] = _ctc_rel(alphas, alphas_p)
+        del alphas_p
         checks.append(entry)
         if not (entry["ckpts_equal_stream_rows"] and entry["last_equal_lossonly"]
-                and entry["last_equal_stream"]):
-            fail(f"ctc checkpoint forward differs from rows 10 and 11: {entry}")
+                and entry["last_equal_stream"]) or max(entry["rel_err"].values()) > CTC_LOSS_TOL:
+            fail(f"ctc alpha forward: the three modes differ from each other or from their "
+                 f"plain versions: {entry}")
         if name == "timing":
-            bad, _ = tck._alpha_ckpt_launch(*args, K, fault_step=100)
-            torch.cuda.synchronize()
-            fault = {"planted_fault": "ctc checkpoint forward: step 100 reads step 99's "
-                                      "log-probs",
-                     "bit_equal": torch.equal(bad, rows), "rel_err": _ctc_rel(bad, rows),
-                     "tol": CTC_LOSS_TOL}
-            checks.append(fault)
-            if fault["bit_equal"] or fault["rel_err"] <= CTC_LOSS_TOL:
-                fail(f"ctc checkpoint forward: the check does not see the fault: {fault}")
-            del bad
-        del ck, rows, log_probs
+            for mode, k, good in (("checkpoints", K, ck), ("last row", 0, last),
+                                  ("stream", 1, alphas)):
+                bad = tck._alpha_launch(*args, k, fault_step=100)[0 if k else 1]
+                torch.cuda.synchronize()
+                fault = {"planted_fault": f"ctc alpha forward, {mode}: step 100 reads step "
+                                          "99's log-probs",
+                         "bit_equal": torch.equal(bad, good), "rel_err": _ctc_rel(bad, good),
+                         "tol": CTC_LOSS_TOL}
+                checks.append(fault)
+                if fault["bit_equal"] or fault["rel_err"] <= CTC_LOSS_TOL:
+                    fail(f"ctc alpha forward: the check does not see the fault: {fault}")
+                del bad
+        del ck, alphas, log_probs
 
 
 def phase_train_kernels():
@@ -2702,7 +2717,8 @@ def _ctc_dropout_timing():
         out[name] = _ctc_row(run, plain, ops, nbytes, lib, half)
         out[name]["K"] = K
         out[name]["us_per_step"] = 1e3 * out[name]["ms"] / (T - 1)
-    out["ctc_alpha_ckpt"]["geometry"] = tck.alpha_ckpt_geometry(ext.shape[1], V)._asdict()
+    for name in ("ctc_alpha_ckpt", "ctc_alpha_lossonly"):       # one kernel, two modes
+        out[name]["geometry"] = tck.alpha_geometry(ext.shape[1], V)._asdict()
     del log_probs, ckpts, lib
 
     gd = torch.Generator(device=DEVICE).manual_seed(96)
@@ -3265,7 +3281,12 @@ def phase_lean_study():
 # working directory (run in this checkout and in ``--parent``'s by
 # ``persistent_study``), each with its persistent launches; then row 4's
 # unfused pass at the default step's shape (B=64, T=3510, drop mode 2,
-# full-length rows), device ms by CUDA events (one warm-up, three timed).
+# full-length rows), device ms by CUDA events (one warm-up, three timed);
+# then the CTC alpha forward's three outputs (rows 9, 10, 11) at B=64,
+# T=3510 on a full-length and a ragged batch, hashed, each with its
+# wrapper's launches, and each timed on the full-length batch and on a
+# full-length batch of the wide step's B (argv[1]; one warm-up, five
+# timed).
 _PERSISTENT_DIGEST = r"""
 import hashlib, json, sys
 import torch
@@ -3349,19 +3370,57 @@ end.record()
 torch.cuda.synchronize()
 print(json.dumps({"B": "row4_ms", "ms": start.elapsed_time(end) / 3,
                   "persistent": wf.wavefront_bwd.persistent_launches}))
+# Rows 9, 10 and 11 (the CTC alpha forward's checkpoints, last row and
+# stream) at the default step's shape: the timing batch (full-length rows,
+# labels of 250 in a 600-wide buffer) and a ragged one; then each timed.
+from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+T, B, V, U = 3510, 64, 80, 600
+def ctc_batch(seed, ll, ul, B=B):
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn((T, B, V), generator=g) * 2.0).cuda()
+    labels = torch.randint(0, V - 1, (B, U), generator=g)
+    labels[torch.arange(U)[None, :] >= ul[:, None]] = -1
+    return tck._setup(logits, ll.cuda(), labels.cuda(), ul.cuda(), -1)[:5]
+batches = {"full": ctc_batch(95, torch.full((B,), T), torch.full((B,), 250)),
+           "ragged": ctc_batch(97, torch.as_tensor([1 + (53 * b * b + 7 * b) % T
+                                                    for b in range(B)]),
+                               torch.as_tensor([(97 * b) % (U + 1) for b in range(B)]))}
+K = tck.ctc_block(2 * U + 1, V)
+rows = {"row9": (tck.ctc_alpha_ckpt, lambda a: tck.ctc_alpha_ckpt(*a, K)),
+        "row10": (tck.ctc_alpha_lossonly, lambda a: (tck.ctc_alpha_lossonly(*a),)),
+        "row11": (tck.ctc_alpha_stream, lambda a: tck.ctc_alpha_stream(*a))}
+for name, (fn, run) in rows.items():
+    digest = hashlib.sha256()
+    for args in batches.values():
+        for t in run(args):
+            digest.update(memoryview(t.contiguous().cpu().numpy()).cast("B"))
+    print(json.dumps({"B": name, "sha256": digest.hexdigest(), "persistent": fn.launches}))
+Bw = int(sys.argv[1])
+batches["wide"] = ctc_batch(99, torch.full((Bw,), T), torch.full((Bw,), 250), Bw)
+for batch, tag in (("full", ""), ("wide", "_wide")):
+    for name, (fn, run) in rows.items():
+        run(batches[batch])
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            run(batches[batch])
+        end.record()
+        torch.cuda.synchronize()
+        print(json.dumps({"B": f"{name}{tag}_ms", "ms": start.elapsed_time(end) / 5}))
 """
 
 
-def _persistent_digests(root):
-    """({B: (sha256, persistent launches)}, row 4's ms) of
-    ``_PERSISTENT_DIGEST`` run in ``root``, a subprocess."""
-    res = subprocess.run([sys.executable, "-c", _PERSISTENT_DIGEST], cwd=root,
+def _persistent_digests(root, wide_b):
+    """({B: (sha256, launches)}, {row: ms}) of ``_PERSISTENT_DIGEST`` run
+    in ``root``, a subprocess: the digests, and rows 4, 9, 10 and 11 timed
+    (the last three also at batch ``wide_b``)."""
+    res = subprocess.run([sys.executable, "-c", _PERSISTENT_DIGEST, str(wide_b)], cwd=root,
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         fail(f"persistent_study: the digests in {root} failed:\n{res.stderr[-2000:]}")
     rows = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
     return ({r["B"]: (r["sha256"], r["persistent"]) for r in rows if "sha256" in r},
-            next(r["ms"] for r in rows if r["B"] == "row4_ms"))
+            {r["B"][:-3]: r["ms"] for r in rows if "ms" in r})
 
 
 def _bwd_step_breakdown(args, plan):
@@ -3391,10 +3450,11 @@ def phase_persistent_study(parent=None):
     at four points of each pass); how many clusters of 1, 2, 4 and 8 CTAs
     of the backward's size the card co-schedules (the reason its K split
     meets through L2); and, given ``parent`` (a checkout of the previous tree),
-    rows 7, 2, 5, 3 and 4's outputs there and here (``_PERSISTENT_DIGEST``),
-    which must be equal bit for bit, and row 4's unfused pass at the
-    default step's shape timed there and here by the same script, in
-    turns."""
+    rows 7, 2, 5, 3, 4, 9, 10 and 11's outputs there and here
+    (``_PERSISTENT_DIGEST``), which must be equal bit for bit, and row 4's
+    unfused pass and rows 9, 10 and 11 at the default step's shape, and
+    rows 9, 10 and 11 at the wide step's batch (``phase_train_wide``'s
+    B), timed there and here by the same script, in turns."""
     import ctypes
     from unittest import mock
 
@@ -3446,23 +3506,28 @@ def phase_persistent_study(parent=None):
     out.update(_wavefront_studies(sms))
     if parent is not None:
         # Both trees in turns (parent, here, here, parent), each in its own
-        # process: the digests, and row 4's unfused pass timed.
-        turns = [(name, *_persistent_digests(root)) for name, root in (
+        # process: the digests, row 4's unfused pass and the CTC forwards
+        # timed, the latter also at the wide step's batch.
+        wide_b = _plan_edge(_wide_config(), TRAIN_B, "gates")
+        turns = [(name, *_persistent_digests(root, wide_b)) for name, root in (
             ("parent", os.path.abspath(parent)), ("here", ROOT), ("here", ROOT),
             ("parent", os.path.abspath(parent)))]
         here, there = turns[1][1], turns[0][1]
         out["digests_against_parent"] = {"parent": parent, "here": here,
                                          "parent_digests": there}
-        if set(here) != {400, 473, "row2", "row5", "row3", "row4"} or any(
-                d.get(b, ("",))[0] != here[b][0] for _, d, _ in turns for b in here):
-            fail(f"persistent_study: rows 7, 2, 5, 3 and 4's outputs differ from the parent's "
-                 f"or between runs: {turns}")
+        rows = {400, 473, "row2", "row5", "row3", "row4", "row9", "row10", "row11"}
+        if set(here) != rows or any(d.get(b, ("",))[0] != here[b][0]
+                                    for _, d, _ in turns for b in here):
+            fail(f"persistent_study: rows 7, 2, 5, 3, 4, 9, 10 and 11's outputs differ from "
+                 f"the parent's or between runs: {turns}")
         if not all(v[1] for _, d, _ in turns for v in d.values()):
-            fail("persistent_study: the digests did not all run the persistent kernels")
-        mean = lambda who: sum(ms for n, _, ms in turns if n == who) / 2
-        out["row4_against_parent"] = {"turns": [(n, ms) for n, _, ms in turns],
-                                      "ms": mean("here"), "parent_ms": mean("parent"),
-                                      "smi": smi_clocks()}
+            fail("persistent_study: the digests did not all run the kernels")
+        out["wide_b"] = wide_b
+        for row in ("row4", "row9", "row10", "row11", "row9_wide", "row10_wide", "row11_wide"):
+            mean = lambda who: sum(ms[row] for n, _, ms in turns if n == who) / 2
+            out[f"{row}_against_parent"] = {
+                "turns": [(n, ms[row]) for n, _, ms in turns], "ms": mean("here"),
+                "parent_ms": mean("parent"), "smi": smi_clocks()}
     emit("persistent_study", **out)
 
 
@@ -3985,6 +4050,8 @@ def _alt_kernel_timing():
     ):
         out[name] = _ctc_row(run, plain, ops, nbytes, lib, half)
         out[name]["live_entries"] = live
+        out[name]["us_per_step"] = 1e3 * out[name]["ms"] / (T - 1)
+    out["ctc_alpha_stream"]["geometry"] = tck.alpha_geometry(S, V)._asdict()
     del log_probs, alphas, lib
 
     fe, pre, n_frames = _fbank_case(SR, [int(SR * SECONDS)] * B, SECONDS, seed=5)
@@ -5041,8 +5108,8 @@ def kernels_line():
                 calls={k: {f: c.get(f) for f in ("D", "G", "x", "dg", "ms", "library_ms",
                                                   "wmma_ms", "device_ms", "bound_ms")}
                        for k, c in t.get("calls", {}).items()})
-        if name == "ctc_alpha_ckpt":
-            rows[-1]["us_per_step"] = t.get("us_per_step")
+        if name in ("ctc_alpha_ckpt", "ctc_alpha_lossonly"):   # the alpha forward's modes
+            rows[-1].update(us_per_step=t.get("us_per_step"), geometry=t.get("geometry"))
     tl = RECORD.get("train_layered", {})
     for name, src, replaces, run in (
         ("recurrence_train", csrc + "lstm_layer_lean.cu",
@@ -5120,6 +5187,8 @@ def kernels_line():
         })
         if "library_pair_ms" in t:
             rows[-1]["library_pair_ms"] = t["library_pair_ms"]
+        if name == "ctc_alpha_stream":                # the alpha forward's stream mode
+            rows[-1].update(us_per_step=t.get("us_per_step"), geometry=t.get("geometry"))
     # The CLI's own paths, each counted from zero in its run: the first
     # --train_acoustic run (train steps and evaluation passes) and the
     # greedy --evaluate run.
@@ -5145,8 +5214,8 @@ def main(argv=None) -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--parent", default=None,
                         help="persistent_study: a checkout of the previous tree, whose "
-                             "rows 7, 2, 5, 3 and 4's outputs must equal this one's bit "
-                             "for bit")
+                             "rows 7, 2, 5, 3, 4, 9, 10 and 11's outputs must equal this "
+                             "one's bit for bit")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 

@@ -1,21 +1,20 @@
 // CTC alpha and beta recursions, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of rnn_speech_tpu/ops/ctc_pallas.py:
+// Replaces five TPU kernels of rnn_speech_tpu/ops/ctc_pallas.py, three
+// forwards on one kernel (`ctc_alpha_fwd`, entry rst_ctc_alpha_fwd) in three
+// output modes:
 //   `_alpha_kernel_ckpt`     the training forward: alpha over time, one
 //                            (B, S) f32 checkpoint per K steps and the last
-//                            row (rst_ctc_alpha_ckpt: `ctc_alpha_ckpt`,
-//                            its own design, below);
-//   `_alpha_kernel_lossonly` the same recursion, last row only (eval loss;
-//                            rst_ctc_alpha);
-//   `_beta_post_ckpt_kernel` the backward: each K-step block's alpha rows
-//                            rebuilt from its checkpoint, beta in the
-//                            bstar = beta + lp form, the state posteriors
-//                            exp(min(alpha + beta - logP, 0)) (rst_ctc_beta_post).
-// and the two of its alpha-stream backward (RST_CTC_ALPHA_STREAM=1):
+//                            row;
+//   `_alpha_kernel_lossonly` the same recursion, last row only (eval loss);
 //   `_alpha_kernel`          every alpha row into a (T, B, S) f32 stream and
-//                            the last row (rst_ctc_alpha_stream: the same
-//                            recursion as the checkpoint kernel, a store per
-//                            step instead of per K steps);
+//                            the last row (the alpha-stream backward,
+//                            RST_CTC_ALPHA_STREAM=1: checkpoints of K = 1);
+// and the two backwards:
+//   `_beta_post_ckpt_kernel` each K-step block's alpha rows rebuilt from its
+//                            checkpoint, beta in the bstar = beta + lp form,
+//                            the state posteriors exp(min(alpha + beta -
+//                            logP, 0)) (rst_ctc_beta_post);
 //   `_beta_post_kernel`      beta, the posteriors and their per-label sums as
 //                            rst_ctc_beta_post, each alpha row read from the
 //                            stream instead of rebuilt (rst_ctc_beta_post_stream).
@@ -26,9 +25,9 @@
 // What differs from the TPU design, and why.  The TPU builds the (B, T, S)
 // f32 lattice lp_ext with a one-hot matmul to avoid gathers, and chunks
 // over time to fit its HBM; here each block gathers log_probs[t, b, ext[s]]
-// straight from the (T, B, V) log-probs (72 MB at the flagship shape), so
-// no lattice exists.  The posteriors are not streamed out as (B, T, S):
-// the backward sums them over the states of each vocabulary entry into
+// from the (T, B, V) log-probs (72 MB at the flagship shape), so no
+// lattice exists.  The posteriors are not streamed out as (B, T, S): the
+// backward sums them over the states of each vocabulary entry into
 // label_post (T, B, V), each entry v walking its own sorted list of states
 // (offs/idx, built by the wrapper) in a fixed order, so the gradient
 // repeats bit for bit.  States past 2·label_length cannot reach the
@@ -37,29 +36,30 @@
 // s < 2·label_length + 1 of each row and leave the others at -1e30.
 //
 // What bounds it on the H100: each pass is a serial chain of T dependent
-// steps per row; the work (~10 flops and 4 transcendentals per live state
-// and step) and bytes (the gathered log-probs) are far below a millisecond.
-// The loss-only and stream forwards (`ctc_alpha`): one block of 256
-// threads per batch row (64 blocks at B = 64), the alpha row, ext and the
-// skip flags in shared memory, one barrier per time step (rows
-// double-buffered by parity), each step's log-prob gathered from device
-// memory on the chain.
+// steps per row, one block per row (64 of the 132 SMs at B = 64); the work
+// (~10 flops and 4 transcendentals per live state and step) and bytes (the
+// log-probs, the outputs) are far below a millisecond, except the stream's
+// 1.08 GB of f32 rows at the flagship shape (B = 64, T = 3510, S = 1201):
+// 0.32 ms at 3.35 TB/s, which the chain's time covers.
 //
-// The checkpoint forward (`ctc_alpha_ckpt`, the default step's) takes the
-// device memory off the chain: a producer warp copies each coming step's
-// log-prob row (V contiguous floats) into a shared ring of slots of four
-// rows by cp.async, completing on an mbarrier per slot, so the gather
-// ext[s] reads shared memory and the chain waits on a barrier once every
-// four steps; each thread owns kP consecutive states and keeps their
-// alpha in registers, the s-1 and s-2 neighbours come by warp shuffle and
-// only each warp's last two states pass through shared memory, behind one
-// named barrier a step among the warps that hold live states (the
-// producer stays out of it); checkpoints are stored from registers; and
-// the recursion stops at the row's last live step, then writes that row
-// into the remaining checkpoints and `last`, which is what the freeze
-// (`live ? ... : prev`) gives.  Each entry is the same `alpha_step`
-// arithmetic on the same operands, so its rows equal `ctc_alpha`'s bit
-// for bit.
+// The forward keeps device memory off the chain: a producer warp copies
+// each coming step's log-prob row (V contiguous floats) into a shared ring
+// of slots of four rows by cp.async, completing on an mbarrier per slot,
+// so the gather ext[s] reads shared memory and the chain waits on a
+// barrier once every four steps; each thread owns kP consecutive states
+// and keeps their alpha in registers, computes all kP of them and then
+// selects the live ones (a branch around each would run them one after
+// another), the s-1 and s-2 neighbours come by warp shuffle and only each
+// warp's last two states pass through shared memory, behind one named
+// barrier a step among the warps that hold live states (the producer stays
+// out of it); output rows are stored from registers (kP consecutive floats
+// a thread), and the warps without a live state write the rows' dead
+// states, -1e30, 16 bytes a store, beside the chain; the recursion stops
+// at the row's last live step, then writes that row into the remaining
+// output rows and `last`, which is what the freeze (`live ? ... : prev`)
+// gives.  Each step is `alpha_step`'s arithmetic on the same operands, so
+// the three modes' rows equal each other, and the backward's rebuilt rows,
+// bit for bit.
 //
 // The backward (`_beta_post_ckpt_kernel`, and the stream form) was 1.6x
 // F.ctc_loss's whole forward + backward on the H100 with that design plus a
@@ -93,7 +93,6 @@ namespace {
 namespace tma = rst_grad::tma;
 
 constexpr float kNegInf = -1.0e30f;
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float log_add3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -110,80 +109,40 @@ __device__ __forceinline__ float alpha_step(const float* prev, int s, bool skip,
   return log_add3(prev[s], a1, a2) + lp;
 }
 
-// What the alpha pass keeps: the last row only, a checkpoint every K
-// steps, or every row (the stream).  Only kLastOnly and kStream are
-// launched; the checkpoints come from `ctc_alpha_ckpt` below.
-enum AlphaOut { kLastOnly = 0, kCkpt = 1, kStream = 2 };
-
-template <int kOut>
-__global__ void __launch_bounds__(kThreads)
-    ctc_alpha(const float* __restrict__ lp, const int* __restrict__ ext,
-              const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
-              const int* __restrict__ label_len, float* __restrict__ ckpt,
-              float* __restrict__ last, int T, int B, int S, int V, int K) {
-  extern __shared__ float smem[];
-  float* buf = smem;                                    // [2][S]
-  int* ext_s = reinterpret_cast<int*>(buf + 2 * S);     // [S]
-  uint8_t* skip_s = reinterpret_cast<uint8_t*>(ext_s + S);
-  const int b = blockIdx.x;
-  const int Tb = logit_len[b];
-  const int Sb = min(S, 2 * label_len[b] + 1);
-  for (int s = threadIdx.x; s < S; s += kThreads) {
-    ext_s[s] = ext[(size_t)b * S + s];
-    skip_s[s] = skip[(size_t)b * S + s];
-    buf[s] = kNegInf;
-    buf[S + s] = kNegInf;
-  }
-  __syncthreads();
-  // Checkpoint i is the row after step t = iK + K - 1 (or T - 1); the
-  // stream keeps row t at index t.
-  auto store_ckpt = [&](const float* row, int t) {
-    if (kOut == kStream || (kOut == kCkpt && ((t + 1) % K == 0 || t == T - 1))) {
-      float* dst = ckpt + ((size_t)(kOut == kStream ? t : t / K) * B + b) * S;
-      for (int s = threadIdx.x; s < S; s += kThreads) dst[s] = row[s];
-    }
-  };
-  {
-    const float* row = lp + (size_t)b * V;  // t = 0: seed states 0 and 1
-    for (int s = threadIdx.x; s < Sb && s < 2; s += kThreads) buf[s] = row[ext_s[s]];
-  }
-  __syncthreads();
-  store_ckpt(buf, 0);
-  int cur = 0;
-  for (int t = 1; t < T; ++t) {
-    const float* row = lp + ((size_t)t * B + b) * V;
-    const float* prev = buf + cur * S;
-    float* nxt = buf + (cur ^ 1) * S;
-    const bool live = t < Tb;
-    for (int s = threadIdx.x; s < Sb; s += kThreads) {
-      nxt[s] = live ? alpha_step(prev, s, skip_s[s], row[ext_s[s]]) : prev[s];
-    }
-    __syncthreads();
-    cur ^= 1;
-    store_ckpt(nxt, t);
-  }
-  for (int s = threadIdx.x; s < S; s += kThreads) last[(size_t)b * S + s] = buf[cur * S + s];
-}
-
-// ------------------------------------------------ the checkpoint forward
+// ------------------------------------------------ the alpha forward
 
 constexpr int kSlotRows = 4;   // log-prob rows a ring slot holds: one wait per 4 steps
 
+// Shared memory of ctc_alpha_fwd: the ring's mbarriers, the warps' last two
+// states by step parity, the ring of slots of kSlotRows log-prob rows.
+size_t alpha_fwd_smem_bytes(int threads, int ring, int V) {
+  return 2 * sizeof(uint64_t) * (size_t)ring + sizeof(float) * 4 * (size_t)(threads / 32) +
+         sizeof(float) * (size_t)ring * kSlotRows * V;
+}
+
+// The alpha recursion over t for one batch row a block, in one of three
+// output modes: `rows` null, the last row only (row 10); K > 1, the row
+// after each step t = iK + K - 1 (or T - 1) into checkpoint i (row 9);
+// K = 1, every row (the stream, row 11).  `last` gets the last row.
+//
 // Block: `nc` compute threads (warps 0 .. nc/32 - 1, kP states each:
 // thread i owns states kP·i .. kP·i + kP - 1) and one producer warp after
 // them.  Shared memory: a full and an empty mbarrier per ring slot, the
 // warps' last two states by step parity, the ring of `ring` slots of
-// kSlotRows log-prob rows (steps 4j .. 4j + 3 in slot j % ring).  Every
-// index that advances with t is a counter, so no step divides.
+// kSlotRows log-prob rows (steps 4j .. 4j + 3 in slot j % ring).  Warps
+// whose states all lie past the row's 2U + 1 write -1e30 into every
+// output row, 16 bytes a store, and leave; the row's `nwa` live warps
+// meet at one named barrier a step.  Every index that advances with t is
+// a counter, so no step divides.
 // fault_step > 0 is a planted fault for checks: that step's log-prob row
 // is taken from step fault_step - 1.
 template <int kP>
 __global__ void __launch_bounds__(1024, 1)
-    ctc_alpha_ckpt(const float* __restrict__ lp, const int* __restrict__ ext,
-                   const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
-                   const int* __restrict__ label_len, float* __restrict__ ckpt,
-                   float* __restrict__ last, int T, int B, int S, int V, int K, int ring,
-                   int fault_step) {
+    ctc_alpha_fwd(const float* __restrict__ lp, const int* __restrict__ ext,
+                  const uint8_t* __restrict__ skip, const int* __restrict__ logit_len,
+                  const int* __restrict__ label_len, float* __restrict__ rows_out,
+                  float* __restrict__ last, int T, int B, int S, int V, int K, int ring,
+                  int fault_step) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = blockDim.x - 32;
   const int nw = nc / 32;
@@ -195,7 +154,7 @@ __global__ void __launch_bounds__(1024, 1)
   const int Sb = min(S, 2 * label_len[b] + 1);
   // Rows 0 .. t_end - 1 are computed; every later row equals row t_end - 1.
   const int t_end = min(T, max(logit_len[b], 1));
-  const int NI = (T + K - 1) / K;
+  const int NI = rows_out != nullptr ? (T + K - 1) / K : 0;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int i = 0; i < ring; ++i) {
@@ -239,7 +198,7 @@ __global__ void __launch_bounds__(1024, 1)
 
   const int warp = tid / 32, lane = tid % 32;
   const int s0 = tid * kP;
-  float* ck = ckpt + (size_t)b * S;   // checkpoint i's row: ck + i·B·S
+  float* out = rows_out + (size_t)b * S;   // output row i: out + i·B·S
   auto store = [&](float* dst, const float (&a)[kP]) {
 #pragma unroll
     for (int j = 0; j < kP; ++j) {
@@ -249,11 +208,23 @@ __global__ void __launch_bounds__(1024, 1)
   float a[kP];
 #pragma unroll
   for (int j = 0; j < kP; ++j) a[j] = kNegInf;
-  // Warps without live states: their states stay -1e30 in every row.
   const int nwa = ((Sb + kP - 1) / kP + 31) / 32;
   if (warp >= nwa) {
-    for (int i = 0; i < NI; ++i) store(ck + (size_t)i * B * S, a);
-    store(last + (size_t)b * S, a);
+    // States 32·nwa·kP .. S - 1 hold no live state: -1e30 in every output
+    // row and in last, written by these warps together, 16 bytes a store.
+    const int d0 = 32 * nwa * kP, nd = S - d0;
+    const int lid = tid - 32 * nwa, nt = nc - 32 * nwa;
+    auto fill = [&](float* p) {
+      const int head = min(nd, (int)((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 4);
+      const int n4 = (nd - head) / 4;
+      float4* q = reinterpret_cast<float4*>(p + head);
+      if (lid < head) p[lid] = kNegInf;
+      for (int k = lid; k < n4; k += nt) q[k] = make_float4(kNegInf, kNegInf, kNegInf, kNegInf);
+      const int k = head + 4 * n4 + lid;
+      if (k < nd) p[k] = kNegInf;
+    };
+    for (int i = 0; i < NI; ++i) fill(out + (size_t)i * B * S + d0);
+    fill(last + (size_t)b * S + d0);
     return;
   }
   const int nbar = 32 * nwa;
@@ -267,8 +238,15 @@ __global__ void __launch_bounds__(1024, 1)
   }
   int slot = 0, r = 0;     // step t's row: row r of ring slot `slot`
   uint32_t par = 0;        // the slot's full phase
-  int ck_t = K - 1;        // the step of the next checkpoint row
-  float* ck_row = ck;
+  int out_t = NI > 0 ? K - 1 : T;   // the step of the next output row
+  float* out_row = out;
+  auto store_row = [&](int t) {
+    if (t == out_t) {
+      store(out_row, a);
+      out_row += (size_t)B * S;
+      out_t += K;
+    }
+  };
   // t = 0: seed states 0 and 1.
   tma::bar_wait(tma::smem_addr(&full[0]), 0);
 #pragma unroll
@@ -279,11 +257,7 @@ __global__ void __launch_bounds__(1024, 1)
     edge[2 * warp] = a[kP - 2];
     edge[2 * warp + 1] = a[kP - 1];
   }
-  if (ck_t == 0) {
-    store(ck_row, a);
-    ck_row += (size_t)B * S;
-    ck_t += K;
-  }
+  store_row(0);
   asm volatile("bar.sync 1, %0;" ::"r"(nbar) : "memory");
   for (int t = 1; t < t_end; ++t) {
     if (++r == kSlotRows) {
@@ -315,7 +289,10 @@ __global__ void __launch_bounds__(1024, 1)
       const float p2 = j >= 2 ? a[j - 2] : (j == 1 ? l1 : l2);
       const float a1 = s >= 1 ? p1 : kNegInf;
       const float a2 = sk[j] ? p2 : kNegInf;
-      n[j] = s < Sb ? log_add3(a[j], a1, a2) + lpv[j] : a[j];
+      // Computed for every state, then selected: a branch around it
+      // would run a thread's states one after another.
+      const float v = log_add3(a[j], a1, a2) + lpv[j];
+      n[j] = s < Sb ? v : a[j];
     }
 #pragma unroll
     for (int j = 0; j < kP; ++j) a[j] = n[j];
@@ -324,18 +301,14 @@ __global__ void __launch_bounds__(1024, 1)
       pe[0] = a[kP - 2];
       pe[1] = a[kP - 1];
     }
-    if (t == ck_t) {
-      store(ck_row, a);
-      ck_row += (size_t)B * S;
-      ck_t += K;
-    }
+    store_row(t);
     asm volatile("bar.sync 1, %0;" ::"r"(nbar) : "memory");
     if (tid == 0 && r == kSlotRows - 1) {
       tma::bar_arrive(tma::smem_addr(&empty[slot]));
     }
   }
-  // The frozen row: every checkpoint after the last live step, and last.
-  for (int i = t_end / K; i < NI; ++i) store(ck + (size_t)i * B * S, a);
+  // The frozen row: every output row after the last live step, and last.
+  for (int i = t_end / K; i < NI; ++i) store(out + (size_t)i * B * S, a);
   store(last + (size_t)b * S, a);
 }
 
@@ -567,37 +540,17 @@ size_t beta_smem_bytes(int S, int V, int K) {
          sizeof(int) * (2 * (size_t)S + V + 1) + S;
 }
 
-template <int kOut>
-int launch_alpha(const float* lp, const int* ext, const uint8_t* skip, const int* logit_len,
-                 const int* label_len, float* ckpt, float* last, int T, int B, int S, int V,
-                 int K, void* stream) {
-  const size_t smem = sizeof(float) * 2 * (size_t)S + sizeof(int) * (size_t)S + S;
-  cudaError_t err = cudaFuncSetAttribute(
-      ctc_alpha<kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ctc_alpha<kOut><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V, K);
-  return (int)cudaGetLastError();
-}
-
-// Shared memory of ctc_alpha_ckpt: the ring's mbarriers, the warps' edge
-// values, the ring of slots of kSlotRows log-prob rows.
-size_t alpha_ckpt_smem_bytes(int threads, int ring, int V) {
-  return 2 * sizeof(uint64_t) * (size_t)ring + sizeof(float) * 4 * (size_t)(threads / 32) +
-         sizeof(float) * (size_t)ring * kSlotRows * V;
-}
-
 template <int kP>
-int launch_alpha_ckpt(const float* lp, const int* ext, const uint8_t* skip,
-                      const int* logit_len, const int* label_len, float* ckpt, float* last,
-                      int T, int B, int S, int V, int K, int threads, int ring, int fault_step,
-                      void* stream) {
-  const size_t smem = alpha_ckpt_smem_bytes(threads, ring, V);
+int launch_alpha_fwd(const float* lp, const int* ext, const uint8_t* skip,
+                     const int* logit_len, const int* label_len, float* rows, float* last,
+                     int T, int B, int S, int V, int K, int threads, int ring, int fault_step,
+                     void* stream) {
+  const size_t smem = alpha_fwd_smem_bytes(threads, ring, V);
   cudaError_t err = cudaFuncSetAttribute(
-      ctc_alpha_ckpt<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ctc_alpha_fwd<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ctc_alpha_ckpt<kP><<<B, threads + 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S, V, K, ring, fault_step);
+  ctc_alpha_fwd<kP><<<B, threads + 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      lp, ext, skip, logit_len, label_len, rows, last, T, B, S, V, K, ring, fault_step);
   return (int)cudaGetLastError();
 }
 
@@ -621,62 +574,44 @@ int launch_beta_post(const float* lp, const int* ext, const uint8_t* skip,
 
 // lp (T, B, V) f32 log-probs; ext (B, S) int32 extended labels; skip (B, S)
 // uint8 (the s-2 -> s transition is allowed); logit_len, label_len (B)
-// int32.  last (B, S) f32 receives the last alpha row (the loss only).
+// int32.  last (B, S) f32 receives the last alpha row.  rows: null (the
+// loss only), or (ceil(T/K), B, S) f32 receiving the row after each step
+// t = iK + K - 1 (or T - 1): the checkpoints, or with K = 1 every row (the
+// stream of `_alpha_kernel`).  The launch's geometry comes from the
+// wrapper (ops/ctc_kernel.py `alpha_geometry`): `states` (kP: 2, 4 or 8) a
+// thread, `threads` compute threads (a multiple of 32 covering S, at most
+// 992), a ring of `ring` slots of 4 log-prob rows.  fault_step > 0 plants
+// a fault for checks (that step reads the previous step's log-probs).
 // Returns the CUDA error code of the launch (0 = success).
-extern "C" int rst_ctc_alpha(const float* lp, const int* ext, const uint8_t* skip,
-                             const int* logit_len, const int* label_len, float* last, int T,
-                             int B, int S, int V, void* stream) {
-  return launch_alpha<kLastOnly>(lp, ext, skip, logit_len, label_len, nullptr, last, T, B,
-                                 S, V, 1, stream);
-}
-
-// The same inputs; ckpt (ceil(T/K), B, S) f32 receives the row after each
-// step t = iK + K - 1 (or T - 1), last (B, S) the last row.  The launch's
-// geometry comes from the wrapper (ops/ctc_kernel.py `alpha_ckpt_geometry`):
-// `states` (kP: 2, 4 or 8) a thread, `threads` compute threads (a multiple
-// of 32 covering S, at most 992), a ring of `ring` slots of 4 log-prob
-// rows.
-// fault_step > 0 plants a fault for checks (that step reads the previous
-// step's log-probs).
-extern "C" int rst_ctc_alpha_ckpt(const float* lp, const int* ext, const uint8_t* skip,
-                                  const int* logit_len, const int* label_len, float* ckpt,
-                                  float* last, int T, int B, int S, int V, int K, int states,
-                                  int threads, int ring, int fault_step, void* stream) {
+extern "C" int rst_ctc_alpha_fwd(const float* lp, const int* ext, const uint8_t* skip,
+                                 const int* logit_len, const int* label_len, float* rows,
+                                 float* last, int T, int B, int S, int V, int K, int states,
+                                 int threads, int ring, int fault_step, void* stream) {
   if (T < 1 || K < 1 || ring < 1 || threads % 32 != 0 || threads + 32 > 1024 ||
       (long long)threads * states < S) {
     return (int)cudaErrorInvalidValue;
   }
   switch (states) {
     case 2:
-      return launch_alpha_ckpt<2>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
-                                  V, K, threads, ring, fault_step, stream);
+      return launch_alpha_fwd<2>(lp, ext, skip, logit_len, label_len, rows, last, T, B, S, V, K,
+                                 threads, ring, fault_step, stream);
     case 4:
-      return launch_alpha_ckpt<4>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
-                                  V, K, threads, ring, fault_step, stream);
+      return launch_alpha_fwd<4>(lp, ext, skip, logit_len, label_len, rows, last, T, B, S, V, K,
+                                 threads, ring, fault_step, stream);
     case 8:
-      return launch_alpha_ckpt<8>(lp, ext, skip, logit_len, label_len, ckpt, last, T, B, S,
-                                  V, K, threads, ring, fault_step, stream);
+      return launch_alpha_fwd<8>(lp, ext, skip, logit_len, label_len, rows, last, T, B, S, V, K,
+                                 threads, ring, fault_step, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory of rst_ctc_alpha_ckpt, in bytes.
-extern "C" long long rst_ctc_alpha_ckpt_smem(int threads, int ring, int V) {
-  return (long long)alpha_ckpt_smem_bytes(threads, ring, V);
+// Dynamic shared memory of rst_ctc_alpha_fwd, in bytes.
+extern "C" long long rst_ctc_alpha_fwd_smem(int threads, int ring, int V) {
+  return (long long)alpha_fwd_smem_bytes(threads, ring, V);
 }
 
-// The same inputs; alphas (T, B, S) f32 receives every alpha row (the
-// stream of `_alpha_kernel`), last (B, S) the last one.
-extern "C" int rst_ctc_alpha_stream(const float* lp, const int* ext, const uint8_t* skip,
-                                    const int* logit_len, const int* label_len,
-                                    float* alphas, float* last, int T, int B, int S, int V,
-                                    void* stream) {
-  return launch_alpha<kStream>(lp, ext, skip, logit_len, label_len, alphas, last, T, B, S,
-                               V, 1, stream);
-}
-
-// Also logp (B) f32, the rows' log-likelihoods; ckpt from rst_ctc_alpha;
+// Also logp (B) f32, the rows' log-likelihoods; ckpt from rst_ctc_alpha_fwd;
 // offs (B, V+1) and idx (B, S) int32: row b's live states sorted by label,
 // entry v's states being idx[b, offs[b, v] .. offs[b, v+1]).  label_post
 // (T, B, V) f32 receives Σ_{s : ext[s] = v} posterior(t, s).
@@ -689,7 +624,7 @@ extern "C" int rst_ctc_beta_post(const float* lp, const int* ext, const uint8_t*
                                  label_post, T, B, S, V, K, stream);
 }
 
-// The same with alphas (T, B, S) f32 from rst_ctc_alpha_stream in place of
+// The same with alphas (T, B, S) f32 from rst_ctc_alpha_fwd at K = 1 in place of
 // the checkpoints (`_beta_post_kernel`): no rebuild, the alpha row of each
 // step read from the stream.
 extern "C" int rst_ctc_beta_post_stream(const float* lp, const int* ext, const uint8_t* skip,

@@ -1,14 +1,14 @@
 """CTC loss on the CTC kernels: CUDA kernels, wrappers, plain versions.
 
 Counterpart of ``rnn_speech_tpu/ops/ctc_pallas.py``, the CTC that the JAX
-train step runs with ``use_pallas_ctc``.  Five kernels (``csrc/ctc.cu``),
-three on the default route:
+train step runs with ``use_pallas_ctc``.  Two kernels in ``csrc/ctc.cu``
+replace its five: one alpha forward (``alpha_geometry``: states in
+registers, log-prob rows ahead of the chain in a shared ring, the
+recursion stopped at each row's last live step) in three output modes,
+and the beta/posterior backward in two.  On the default route:
 
 * ``ctc_alpha_ckpt`` (``_alpha_kernel_ckpt``): the alpha recursion, one
-  (B, S) float32 checkpoint per K steps and the last row, on its own
-  kernel (``alpha_ckpt_geometry``: states in registers, log-prob rows
-  ahead of the chain in a shared ring, the recursion stopped at each row's
-  last live step), bit-equal to the loss-only and stream kernels' rows;
+  (B, S) float32 checkpoint per K steps and the last row;
 * ``ctc_alpha_lossonly`` (``_alpha_kernel_lossonly``): the last row only;
 * ``ctc_beta_post`` (``_beta_post_ckpt_kernel``): each K-step block's
   alpha rows rebuilt from its checkpoint (by a second thread group, beside
@@ -18,19 +18,22 @@ three on the default route:
   their lists of odd states (``label_lists``, built once in the loss's
   forward and saved for its backward);
 
-and the two of the alpha-stream backward (``RST_CTC_ALPHA_STREAM=1``):
+and on the alpha-stream backward (``RST_CTC_ALPHA_STREAM=1``):
 
 * ``ctc_alpha_stream`` (``_alpha_kernel``, ``emit_alphas=True``): every
-  alpha row into a (T, B, S) float32 stream, and the last row;
+  alpha row into a (T, B, S) float32 stream (checkpoints of one step), and
+  the last row;
 * ``ctc_beta_post_stream`` (``_beta_post_kernel``): beta and the
   per-label posterior sums as ``ctc_beta_post``, each alpha row read from
   the stream.
 
+The three forwards' rows equal each other bit for bit.
+
 ``ctc_loss`` is an ``autograd.Function``: without a gradient its forward
-runs the loss-only kernel, with one the checkpoint kernel, and its
-backward the fused rebuild/beta/posterior kernel (or, with
-``RST_CTC_ALPHA_STREAM=1``, the forward re-run as a stream and the stream
-kernel, as the JAX ``_ctc_bwd`` does); then the gradient is
+runs the alpha forward for the last row only, with one for the
+checkpoints, and its backward the fused rebuild/beta/posterior kernel (or,
+with ``RST_CTC_ALPHA_STREAM=1``, the forward re-run as a stream and the
+stream backward, as the JAX ``_ctc_bwd`` does); then the gradient is
 exp(log_probs) - label_post, zero past each row's length and on invalid
 rows, times the cotangent (``ctc_grad``).  The plain versions take their
 recursion steps from ``ops/ctc.py`` (``_prepare``'s extended labels and
@@ -68,7 +71,7 @@ Tensor = torch.Tensor
 f32 = torch.float32
 K_MAX = 32                   # time steps per checkpoint block
 SMEM_LIMIT = 220 * 1024      # of the H100's 227 KB a block may use
-ALPHA_STATES = (2, 4, 8)     # states a thread of the checkpoint forward may own
+ALPHA_STATES = (2, 4, 8)     # states a thread of the alpha forward may own
 ALPHA_THREADS = 1024 - 32    # its compute threads at most: a block less the producer warp
 ALPHA_RING = 8               # ring slots of its producer (kSlotRows rows each)
 ALPHA_SLOT_ROWS = 4          # log-prob rows a slot holds (kSlotRows in ctc.cu)
@@ -88,42 +91,42 @@ def ctc_block(S: int, V: int) -> int:
 
 
 class AlphaGeometry(NamedTuple):
-    """The checkpoint forward's launch: ``states`` consecutive states a
-    compute thread, ``threads`` compute threads (whole warps; a producer
-    warp comes on top), a ring of ``ring`` slots of ALPHA_SLOT_ROWS
-    log-prob rows, ``smem`` bytes of shared memory."""
+    """The alpha forward's launch: ``states`` consecutive states a compute
+    thread, ``threads`` compute threads (whole warps; a producer warp comes
+    on top), a ring of ``ring`` slots of ALPHA_SLOT_ROWS log-prob rows,
+    ``smem`` bytes of shared memory."""
     states: int
     threads: int
     ring: int
     smem: int
 
 
-def alpha_ckpt_smem_bytes(threads: int, ring: int, V: int) -> int:
-    """Shared memory of the checkpoint forward (``ctc.cu``'s
-    ``alpha_ckpt_smem_bytes``): a full and an empty mbarrier per ring slot,
-    each warp's last two states at two step parities, the ring's slots of
-    ALPHA_SLOT_ROWS V-float log-prob rows."""
+def alpha_smem_bytes(threads: int, ring: int, V: int) -> int:
+    """Shared memory of the alpha forward (``ctc.cu``'s ``alpha_fwd_smem_bytes``):
+    a full and an empty mbarrier per ring slot, each warp's last two states
+    at two step parities, the ring's slots of ALPHA_SLOT_ROWS V-float
+    log-prob rows."""
     return 16 * ring + 16 * (threads // 32) + 4 * ring * ALPHA_SLOT_ROWS * V
 
 
-def alpha_ckpt_geometry(S: int, V: int) -> AlphaGeometry:
-    """The checkpoint forward's launch for S extended states and V classes:
-    the fewest states a thread (2, 4 or 8) whose warps cover S within a
-    block, and a ring of 8 slots (32 rows), halved until it fits the shared
-    memory (at least 2 slots)."""
+def alpha_geometry(S: int, V: int) -> AlphaGeometry:
+    """The alpha forward's launch for S extended states and V classes, the
+    same in its three output modes: the fewest states a thread (2, 4 or 8)
+    whose warps cover S within a block, and a ring of 8 slots (32 rows),
+    halved until it fits the shared memory (at least 2 slots)."""
     for P in ALPHA_STATES:
         threads = 32 * -(-(-(-S // P)) // 32)
         if threads <= ALPHA_THREADS:
             break
     else:
-        raise ValueError(f"S = {S} extended states exceed the checkpoint forward's "
-                         f"{ALPHA_THREADS} threads of {ALPHA_STATES[-1]} states")
+        raise ValueError(f"S = {S} extended states exceed the alpha forward's "
+                         f"{ALPHA_THREADS} threads of {P} states")
     ring = ALPHA_RING
-    while ring > 2 and alpha_ckpt_smem_bytes(threads, ring, V) > SMEM_LIMIT:
+    while ring > 2 and alpha_smem_bytes(threads, ring, V) > SMEM_LIMIT:
         ring //= 2
-    smem = alpha_ckpt_smem_bytes(threads, ring, V)
+    smem = alpha_smem_bytes(threads, ring, V)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"V = {V} classes exceed the checkpoint forward's shared memory")
+        raise ValueError(f"V = {V} classes exceed the alpha forward's shared memory")
     return AlphaGeometry(P, threads, ring, smem)
 
 
@@ -237,31 +240,34 @@ def _cuda_inputs(log_probs, ext, skip_ok, logit_lengths, label_lengths):
             label_lengths.to(torch.int32).contiguous())
 
 
-def _alpha_ckpt_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K,
-                       fault_step=0):
-    """Launch the checkpoint forward (``rst_ctc_alpha_ckpt``) at
-    ``alpha_ckpt_geometry``; ``fault_step`` > 0 is a planted fault for
-    checks: that step reads the previous step's log-probs."""
+def _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, fault_step=0):
+    """Launch the alpha forward (``rst_ctc_alpha_fwd``) at ``alpha_geometry``:
+    K >= 1 returns (the row after each step t = iK + K - 1 or T - 1, as
+    (ceil(T/K), B, S): the checkpoints, or at K = 1 every row, the
+    stream; last row), K = 0 (None, last row).  ``fault_step`` > 0 is a
+    planted fault for checks: that step reads the previous step's
+    log-probs."""
     T, B, V = log_probs.shape
     S = ext.shape[1]
     dev = log_probs.device
-    if T == 0 or K < 1:
-        raise ValueError(f"the checkpoint forward needs T >= 1 and K >= 1, got T={T}, K={K}")
-    geo = alpha_ckpt_geometry(S, V)
+    if T == 0 or K < 0:
+        raise ValueError(f"the alpha forward needs T >= 1 and K >= 0, got T={T}, K={K}")
+    geo = alpha_geometry(S, V)
     lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
                                      label_lengths)
-    ckpts = torch.empty((-(-T // K), B, S), dtype=f32, device=dev)
+    rows = torch.empty((-(-T // K), B, S), dtype=f32, device=dev) if K else None
     last = torch.empty((B, S), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        fn = _lib().rst_ctc_alpha_ckpt
+        fn = _lib().rst_ctc_alpha_fwd
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
-                ckpts.data_ptr(), last.data_ptr(), T, B, S, V, K, geo.states, geo.threads,
-                geo.ring, fault_step, torch.cuda.current_stream(dev).cuda_stream)
+                rows.data_ptr() if K else None, last.data_ptr(), T, B, S, V, max(K, 1),
+                geo.states, geo.threads, geo.ring, fault_step,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ctc checkpoint forward launch failed: CUDA error {rc}")
-    return ckpts, last
+        raise RuntimeError(f"ctc alpha forward launch failed: CUDA error {rc}")
+    return rows, last
 
 
 def ctc_alpha_ckpt(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
@@ -272,7 +278,9 @@ def ctc_alpha_ckpt(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     device, the plain version on the CPU."""
     if not log_probs.is_cuda:
         return alpha_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, True)
-    out = _alpha_ckpt_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K)
+    if K < 1:
+        raise ValueError(f"checkpoints need K >= 1, got {K}")
+    out = _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K)
     ctc_alpha_ckpt.launches += 1
     return out
 
@@ -286,20 +294,7 @@ def ctc_alpha_lossonly(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     if not log_probs.is_cuda:
         return alpha_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths, 1,
                            False)[1]
-    T, B, V = log_probs.shape
-    S = ext.shape[1]
-    dev = log_probs.device
-    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
-                                     label_lengths)
-    last = torch.empty((B, S), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        fn = _lib().rst_ctc_alpha
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
-                last.data_ptr(), T, B, S, V, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ctc loss-only kernel launch failed: CUDA error {rc}")
+    _, last = _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, 0)
     ctc_alpha_lossonly.launches += 1
     return last
 
@@ -396,24 +391,9 @@ def ctc_alpha_stream(log_probs: Tensor, ext: Tensor, skip_ok: Tensor,
     a CUDA device, the plain version on the CPU."""
     if not log_probs.is_cuda:
         return alpha_stream_plain(log_probs, ext, skip_ok, logit_lengths, label_lengths)
-    T, B, V = log_probs.shape
-    S = ext.shape[1]
-    dev = log_probs.device
-    lp, e, sk, ll, ul = _cuda_inputs(log_probs, ext, skip_ok, logit_lengths,
-                                     label_lengths)
-    alphas = torch.empty((T, B, S), dtype=f32, device=dev)
-    last = torch.empty((B, S), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        fn = _lib().rst_ctc_alpha_stream
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
-                alphas.data_ptr(), last.data_ptr(), T, B, S, V,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ctc alpha-stream kernel launch failed: CUDA error {rc}")
+    out = _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, 1)
     ctc_alpha_stream.launches += 1
-    return alphas, last
+    return out
 
 
 ctc_alpha_stream.launches = 0

@@ -28,10 +28,11 @@ groups in turn, and with the fused dW_x in windows, row 4f, beside its
 carries left behind at a window's end), and the per-diagonal kernels past
 their plans; the
 skinny weight-gradient tile (row 15) at ragged N in both orientations,
-bit for bit on repeat, beside a K slice left out; the checkpoint forward
-(row 9) bit for bit against the alpha stream's rows and the loss-only
-kernel's last row, beside a step that reads the previous step's
-log-probs.
+bit for bit on repeat, beside a K slice left out; the CTC alpha forward
+(rows 9, 10 and 11: one kernel) in its three output modes bit for bit
+against each other, at 2, 4 and 8 states a thread and where a row's
+warps past the first hold no live state, each mode beside a step that
+reads the previous step's log-probs.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
 which skips it, with the reason, where no NVIDIA GPU is present.  On a
@@ -1552,9 +1553,9 @@ def test_skinny_tile_with_a_k_slice_left_out_fails_the_check(cuda):
                                      (300, 6, 80, 600), (40, 3, 80, 992), (33, 2, 7, 2000)])
 def test_ckpt_forward_equals_the_stream_and_loss_only_rows(cuda, T, B, V, U):
     """The checkpoint forward (row 9) against the alpha stream (row 11) and
-    the loss-only kernel (row 10), both on the old recursion: its
-    checkpoints equal the stream's rows at t = iK + K - 1 (or T - 1), its
-    last row the loss-only kernel's, bit for bit, at ragged input lengths
+    the loss-only forward (row 10), the same kernel in its other output
+    modes: its checkpoints equal the stream's rows at t = iK + K - 1 (or
+    T - 1), its last row the loss-only forward's, bit for bit, at ragged input lengths
     (1 to T) and label lengths (0, 1, U), at S = 1201 and past two and four
     states a thread (S = 1985, 4001); and within 1e-4 of its plain
     version."""
@@ -1588,8 +1589,64 @@ def test_ckpt_forward_with_a_step_one_row_late_fails_the_check(cuda):
     log_probs, ext, skip_ok, ll, ul, _ = tck._setup(logits, ll.clamp(min=T), labels, ul, -1)
     args = (log_probs, ext, skip_ok, ll, ul)
     K = tck.ctc_block(ext.shape[1], V)
-    bad, _ = tck._alpha_ckpt_launch(*args, K, fault_step=5)
+    bad, _ = tck._alpha_launch(*args, K, fault_step=5)
     alphas, _ = tck.ctc_alpha_stream(*args)
     torch.cuda.synchronize()
     ends = [min(T, (i + 1) * K) - 1 for i in range(bad.shape[0])]
     assert not torch.allclose(bad, alphas[ends], rtol=1e-4, atol=1e-4)
+
+
+def _ragged_alpha_inputs(T, B, V, U, seed, cuda):
+    """Alpha-forward inputs with input lengths 0 to T and label lengths 0,
+    1 and U (rows whose only live state is the blank, rows with more
+    states than frames)."""
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, seed))
+    ul[0], ul[-1] = 0, U
+    if B > 2:
+        ul[1], ll[2] = 1, 0
+    labels = torch.where(torch.arange(U, device=cuda)[None] < ul[:, None],
+                         labels.clamp(min=0), -1)
+    return tck._setup(logits, ll, labels, ul, -1)[:5]
+
+
+ALPHA_SHAPES = [(9, 3, 5, 2), (70, 17, 29, 12), (200, 5, 80, 60), (300, 6, 80, 600),
+                (40, 3, 80, 992), (33, 2, 7, 2000)]
+
+
+@pytest.mark.parametrize("T,B,V,U", ALPHA_SHAPES)
+def test_alpha_output_modes_are_bit_equal_to_each_other(cuda, T, B, V, U):
+    """The alpha forward's three output modes (the last row, checkpoints
+    every K steps, every row) agree bit for bit where the stream's rows
+    meet the checkpoints and the last row, and the whole stream, dead
+    states included, is within the CTC kernels' 1e-4 of its plain version, at S spanning one warp to
+    nineteen and past two and four states a thread (the geometry's 2, 4
+    and 8 states a thread at S = 1201, 1985 and 4001), with rows of zero
+    frames and rows whose warps past the first hold no live state."""
+    args = _ragged_alpha_inputs(T, B, V, U, T + B + 5, cuda)
+    S = args[1].shape[1]
+    K = tck.ctc_block(S, V)
+    _, last = tck._alpha_launch(*args, 0)
+    ck, last_c = tck._alpha_launch(*args, K)
+    alphas, last_s = tck._alpha_launch(*args, 1)
+    alphas_p, _ = tck.alpha_stream_plain(*args)
+    torch.cuda.synchronize()
+    ends = [min(T, (i + 1) * K) - 1 for i in range(ck.shape[0])]
+    assert alphas.shape == (T, B, S)
+    torch.testing.assert_close(alphas, alphas_p, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ck, alphas[ends]) and torch.equal(last, last_c)
+    assert torch.equal(last, last_s) and torch.equal(last, alphas[-1])
+
+
+@pytest.mark.parametrize("mode", ["last", "ckpt", "stream"])
+def test_alpha_modes_with_a_step_one_row_late_fail_the_check(cuda, mode):
+    """Each output mode's planted fault (step 5 reads step 4's log-prob
+    row) leaves the good launch's rows, and the launch ends (no hang)."""
+    T, B, V, U = 200, 5, 80, 60
+    logits, ll, labels, ul = (t.to(cuda) for t in _ctc_inputs(T, B, V, U, 11))
+    args = tck._setup(logits, ll.clamp(min=T), labels, ul, -1)[:5]
+    K = {"last": 0, "ckpt": tck.ctc_block(args[1].shape[1], V), "stream": 1}[mode]
+    good = tck._alpha_launch(*args, K)
+    bad = tck._alpha_launch(*args, K, fault_step=5)
+    torch.cuda.synchronize()
+    i = 1 if mode == "last" else 0
+    assert not torch.allclose(bad[i], good[i], rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli,lm,stream]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
 
@@ -263,6 +263,30 @@ printing one JSON line:
            the eval batch (B=128, T=1024).
   cli      ``python -m rnn_speech_tpu_torch.cli --file`` on one rendered
            clip prints its text (the default beam width, 16).
+  lm       the char LM (the bundle's ``language/``, 1x256) by shallow
+           fusion at weight 0.4 in the beam-16 search over the bundle's
+           logits of the 32 held-out clips on the card: CER <= 2%, best
+           beams equal to the same function's on the CPU on the same
+           logits, row 1 launched by the forward; the search's ms a clip
+           and a frame with and without the LM at B=32 and B=1, and one LM
+           step at N = 512 and 2048 rows (B·K for B=32 and 128).  Then one
+           CLI child: ``--evaluate --lm_weight 0.4`` on the clips as FLAC
+           (CER <= 2%, row 1 launched at B=32), ``--file --lm_weight 0.4``
+           on a clip the search got exactly (prints it; row 1 launched at
+           B=1), ``--train_language --max_steps 20`` at config.ini's LM
+           width (2x512, B=8, T <= 128) on a text corpus of the synth's
+           sentences (finite losses, the last 5 below the first 5, the
+           step-20 checkpoint written; ms a step), ``--generate_text``
+           on that checkpoint and on the bundle, the latter equal to the
+           CPU's.
+  stream   ``cli.StreamingTranscriber`` (the ``--record`` engine) over 4
+           held-out clips on the card, fed in chunks of 1.0 s and 0.3 s,
+           greedy and beam-16 with the LM: the text identical across chunk
+           sizes and equal to the CPU transcriber's, within max(2, 20%)
+           characters of the whole-clip text (``cli.transcribe``, the
+           ``--file`` math), and row 1 launched at B=1 with the state
+           carried block to block; ms a chunk and audio seconds per wall
+           second.
   lean_study (opt-in: only where ``--phases`` names it)
            where the persistent lean forward's step goes: at B=400 and
            B=64, T=3510, its time a call, and at B=400 the per-step design
@@ -4467,6 +4491,371 @@ def phase_beam():
     emit("beam", **entry, timing=timing)
 
 
+# ------------------------------------------ the char LM and streaming phases
+
+LM_WEIGHT = 0.4            # benchmarks/beam_quality.json's LM weight
+LM_TRAIN_STEPS = 20
+STREAM_CLIPS = 4
+STREAM_CHUNKS = (1.0, 0.3)  # seconds of audio a chunk
+
+# The committed bundle with its LM's widths (its hyperparams.json's ``lm``
+# section, 1x256); ``{test}`` adds a test_dataset_dirs line.
+BUNDLE_INI = """[acoustic_network_params]
+num_layers : 3
+hidden_size : 1024
+dropout_input_keep_prob : 0.9
+dropout_output_keep_prob : 0.6
+batch_size : 32
+mini_batch_size : 1
+learning_rate : 0.001
+lr_decay_factor : 0.33
+grad_clip : 5
+rnn_state_reset_ratio : 1.0
+signal_processing : fbank
+language : english
+
+[lm_network_params]
+num_layers : 1
+hidden_size : 256
+
+[general]
+use_config_file_if_checkpoint_exists : True
+steps_per_checkpoint : 100
+steps_per_evaluation : 100
+checkpoint_dir : {bundle}
+
+[training]
+{test}max_input_seq_length : 600
+max_target_seq_length : 80
+
+[logging]
+log_level : WARNING
+
+[tpu]
+compute_dtype : bfloat16
+use_pallas_lstm : True
+wavefront : True
+bucket_count : 8
+prefetch_depth : 2
+"""
+
+# config.ini's LM (2x512, batch 8, lr 1e-4, keep 0.9, clip 5; rows of at
+# most 128 characters) on a fresh checkpoint_dir, over a text corpus of the
+# synth's sentences (the transcripts the renderer speaks).
+LM_TRAIN_INI = """[acoustic_network_params]
+num_layers : 3
+hidden_size : 1024
+dropout_input_keep_prob : 0.8
+dropout_output_keep_prob : 0.5
+batch_size : 10
+mini_batch_size : 3
+learning_rate : 0.0003
+lr_decay_factor : 0.33
+grad_clip : 1
+batch_normalization : False
+rnn_state_reset_ratio : 0.25
+signal_processing : fbank
+language : english
+
+[lm_network_params]
+num_layers : 2
+hidden_size : 512
+dropout : 0.9
+batch_size : 8
+learning_rate : 1e-4
+lr_decay_factor : 0.97
+grad_clip : 5
+text_corpus : {corpus}
+
+[general]
+use_config_file_if_checkpoint_exists : True
+steps_per_checkpoint : 10
+steps_per_evaluation : 0
+checkpoint_dir : {ckpt}
+
+[training]
+training_dataset_dirs :
+max_input_seq_length : 3510
+max_target_seq_length : 600
+
+[logging]
+log_level : WARNING
+"""
+
+
+def _bundle_logits(params, cfg, sigs):
+    """Logits (T, N, V) and valid lengths of ``sigs`` through the fbank
+    frontend and the bundle's forward on ``DEVICE`` (one padded batch)."""
+    import numpy as np
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    width = max(len(s) for s in sigs)
+    audio = np.zeros((len(sigs), width), np.float32)
+    for i, sig in enumerate(sigs):
+        audio[i, : len(sig)] = sig
+    lengths = np.asarray([len(sig) for sig in sigs], np.int32)
+    fe = DeviceFrontend("fbank", sr=SR, max_samples=width, device=DEVICE)
+    with torch.no_grad():
+        feats, nf = fe(torch.as_tensor(audio, device=DEVICE),
+                       torch.as_tensor(lengths, device=DEVICE))
+        logits, _ = acoustic.forward(params, cfg, feats.transpose(0, 1), nf,
+                                     acoustic.zero_state(cfg, len(sigs), device=DEVICE))
+    return logits, acoustic.output_lengths(cfg, nf)
+
+
+def _write_held_out_flac(tmp, texts, sigs):
+    """The held-out clips as a LibriSpeech-layout FLAC corpus (int16) under
+    ``tmp/held_out``; returns its root."""
+    import numpy as np
+
+    from rnn_speech_tpu_torch.runtime import flac_enc
+
+    chapter = os.path.join(tmp, "held_out", "spk", "chap")
+    os.makedirs(chapter)
+    with open(os.path.join(chapter, "1-2.trans.txt"), "w") as fh:
+        for i, (text, sig) in enumerate(zip(texts, sigs)):
+            pcm = np.clip(np.round(sig * 32768.0), -32768, 32767).astype(np.int16)
+            flac_enc.encode_flac(os.path.join(chapter, f"1-2-{i:04d}.flac"), pcm, SR)
+            fh.write(f"1-2-{i:04d} {text}\n")
+    return os.path.join(tmp, "held_out")
+
+
+def _cer_pct(truth, hyps):
+    import numpy as np
+
+    return 100.0 * float(np.mean([_edit_distance(t, h.strip()) / max(len(t), 1)
+                                  for t, h in zip(truth, hyps)]))
+
+
+def _last_line(text):
+    return text.strip().splitlines()[-1] if text.strip() else ""
+
+
+def phase_lm():
+    """The beam search with the bundle's char LM (shallow fusion at
+    ``LM_WEIGHT``) on the held-out clips, card against CPU on the same
+    logits, its time beside the AM-only search's and the LM step's; then
+    the CLI's LM modes in one child: ``--evaluate`` and ``--file`` with
+    the LM, ``--train_language`` at config.ini's LM width, and
+    ``--generate_text`` on the trained LM and on the bundle's."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from rnn_speech_tpu_torch import audio_io, cli, params as params_mod, synth
+    from rnn_speech_tpu_torch.charmap import get_char_map
+    from rnn_speech_tpu_torch.models import acoustic, language
+    from rnn_speech_tpu_torch.ops import decode
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    K = cli.DEFAULT_BEAM_WIDTH
+    char_map = get_char_map("english")
+    params = params_mod.load_bundle(BUNDLE, device=DEVICE)
+    cfg = acoustic.config_for_params(params, compute_dtype=torch.bfloat16, use_kernels=True,
+                                     wavefront=True)
+    lm_params = {dev: params_mod.load_bundle(BUNDLE, device=dev, part="language")
+                 for dev in (DEVICE, "cpu")}
+    lm_cfg = language.LanguageConfig(len(lm_params["cpu"]["lstm"]),
+                                     lm_params["cpu"]["lstm"][0]["w_h"].shape[0], len(char_map))
+    lm = {dev: language.stepper(p, lm_cfg) for dev, p in lm_params.items()}
+    texts, sigs = _held_out()
+    truth = [t.lower() for t in texts]
+    wf.lstm_stack_wavefront.launches = 0
+    logits, out_len = _bundle_logits(params, cfg, sigs)
+    fwd_launches = wf.lstm_stack_wavefront.launches
+    with torch.no_grad():
+        labels, lab_len, scores = decode.beam_search_decode(logits, out_len, K, lm=lm[DEVICE],
+                                                            lm_weight=LM_WEIGHT)
+        cpu = decode.beam_search_decode(logits.cpu(), out_len.cpu(), K, lm=lm["cpu"],
+                                        lm_weight=LM_WEIGHT)
+    best, best_len = labels[:, 0].cpu(), lab_len[:, 0].cpu()
+    hyps = [char_map.decode(best[b, : int(best_len[b])].tolist()) for b in range(len(sigs))]
+    entry = {"clips": len(sigs), "beam_width": K, "lm_weight": LM_WEIGHT,
+             "frames": int(logits.shape[0]),
+             "lm": {"layers": lm_cfg.num_layers, "hidden": lm_cfg.hidden_size},
+             "cer_pct": _cer_pct(truth, hyps), "cer_limit_pct": CER_LIMIT,
+             "best_equal_cpu": bool(torch.equal(best, cpu[0][:, 0])
+                                    and torch.equal(best_len, cpu[1][:, 0])),
+             "all_beams_equal_cpu": bool(torch.equal(labels.cpu(), cpu[0])),
+             "scores_max_abs_diff_cpu": float((scores.cpu() - cpu[2]).abs().max()),
+             "forward_launches": fwd_launches,
+             "exact_clips": sum(int(t == h) for t, h in zip(truth, hyps)), "hyps": hyps}
+    if entry["cer_pct"] > CER_LIMIT or not entry["best_equal_cpu"] or not fwd_launches:
+        fail(f"lm: {entry}")
+
+    # Times on the card: the search with and without the LM at the
+    # held-out batch (B=32, the bundle's --evaluate batch) and at B=1 (a
+    # --file clip), and one LM step at B·K rows for B=32 and B=128.
+    timing = {}
+    with torch.no_grad():
+        n1 = int(out_len[0])
+        for tag, lg, ln in (("b32", logits, out_len), ("b1", logits[:n1, :1], out_len[:1])):
+            lm_ms = cuda_ms(lambda: decode.beam_search_decode(lg, ln, K, lm=lm[DEVICE],
+                                                              lm_weight=LM_WEIGHT), iters=1)
+            am_ms = cuda_ms(lambda: decode.beam_search_decode(lg, ln, K), iters=1)
+            rows, frames = lg.shape[1], lg.shape[0]
+            timing[tag] = {"batch": rows, "frames": frames, "lm_ms": lm_ms, "am_only_ms": am_ms,
+                           "lm_ms_per_clip": lm_ms / rows, "am_only_ms_per_clip": am_ms / rows,
+                           "lm_ms_per_frame": lm_ms / frames,
+                           "am_only_ms_per_frame": am_ms / frames}
+        init, advance = lm[DEVICE]
+        for n in (32 * K, B * K):
+            state, _ = init(n)
+            chars = torch.arange(n, device=DEVICE) % len(char_map)
+            timing[f"lm_step_n{n}_ms"] = cuda_ms(lambda: advance(state, chars), iters=20)
+
+    # The CLI's LM modes in one child process.
+    exact = [i for i, (t, h) in enumerate(zip(truth, hyps)) if t == h]
+    if not exact:
+        fail("lm: no clip was transcribed exactly with the LM")
+    clip = exact[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        test_root = _write_held_out_flac(tmp, texts, sigs)
+        ini = os.path.join(tmp, "bundle.ini")
+        with open(ini, "w") as fh:
+            fh.write(BUNDLE_INI.format(bundle=BUNDLE,
+                                       test=f"test_dataset_dirs : {test_root}\n"))
+        wav = os.path.join(tmp, "clip.wav")
+        audio_io.write_wav(wav, sigs[clip], SR)
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "w") as fh:
+            fh.write("\n".join(synth.sample_sentences(400, np.random.default_rng(3))))
+        train_ini = os.path.join(tmp, "lm_train.ini")
+        with open(train_ini, "w") as fh:
+            fh.write(LM_TRAIN_INI.format(corpus=corpus, ckpt=os.path.join(tmp, "lm_ckpt")))
+        lw = ["--lm_weight", str(LM_WEIGHT)]
+        runs = _run_cli_child([
+            ["--evaluate", "--config", ini, *lw],
+            ["--file", wav, "--config", ini, *lw],
+            ["--train_language", "--config", train_ini, "--max_steps", str(LM_TRAIN_STEPS)],
+            ["--generate_text", "--config", train_ini],
+            ["--generate_text", "--config", ini],
+        ], tmp, "lm")
+        trained = os.path.exists(os.path.join(
+            tmp, "lm_ckpt", "language", f"acousticmodel-{LM_TRAIN_STEPS}.npz"))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cpu_rc = cli.main(["--generate_text", "--config", ini, "--device", "cpu"])
+    ev, file_run, train, gen_trained, gen_bundle = runs
+    wer, cer = _printed_rates(ev["stdout"])
+    losses = train.get("lm_losses", [])
+    cli_entry = {
+        "evaluate": {"wer_pct": wer, "cer_pct": cer, "wall_s": ev["wall_s"],
+                     "row1_launches": ev["launches"].get("lstm_wavefront"),
+                     "loader_clips": ev["loader_clips"]},
+        "file": {"printed": _last_line(file_run["stdout"]), "expected": truth[clip],
+                 "row1_launches": file_run["launches"].get("lstm_wavefront"),
+                 "wall_s": file_run["wall_s"]},
+        "train_language": {"printed": _last_line(train["stdout"]), "steps": len(losses),
+                           "losses": losses, "checkpoint": trained,
+                           "ms_per_step_median": train.get("lm_ms_per_step_median"),
+                           "shape": {"layers": 2, "hidden": 512, "batch": 8, "T": 128},
+                           "wall_s": train["wall_s"]},
+        "generate_text": {"trained": _last_line(gen_trained["stdout"]),
+                          "bundle": _last_line(gen_bundle["stdout"]),
+                          "bundle_cpu": _last_line(printed.getvalue())},
+        "process_s": ev["process_s"],
+    }
+    problems = [f"{' '.join(r['argv'][:1])} rc={r['rc']}" for r in runs if r["rc"] != 0]
+    if cer is None or float(cer) > CER_LIMIT:
+        problems.append(f"--evaluate with the LM: CER {cer}")
+    if not ev["launches"].get("lstm_wavefront") or not file_run["launches"].get("lstm_wavefront"):
+        problems.append("row 1 did not launch under --evaluate or --file with the LM")
+    if cli_entry["file"]["printed"] != truth[clip]:
+        problems.append(f"--file printed {cli_entry['file']['printed']!r}")
+    if (len(losses) != LM_TRAIN_STEPS or not all(math.isfinite(x) for x in losses)
+            or not np.mean(losses[-5:]) < np.mean(losses[:5]) or not trained):
+        problems.append(f"--train_language: losses {losses}, checkpoint {trained}")
+    gen = cli_entry["generate_text"]
+    if cpu_rc != 0 or gen["bundle"] != gen["bundle_cpu"] or len(gen["trained"]) < 2:
+        problems.append(f"--generate_text: {gen}")
+    if problems:
+        fail("lm: " + "; ".join(problems) + f" {cli_entry}")
+    emit("lm", **entry, timing=timing, cli=cli_entry)
+
+
+def _stream_text(tr, sig, chunk):
+    """(text, ms a chunk, audio seconds per wall second) of ``sig`` fed to
+    the transcriber ``tr`` in pieces of ``chunk`` samples, then reset."""
+    pieces, t0 = [], time.perf_counter()
+    for i in range(0, len(sig), chunk):
+        pieces.append(tr.feed(sig[i:i + chunk]))
+    pieces.append(tr.finish())
+    seconds = time.perf_counter() - t0
+    tr.reset()
+    return "".join(pieces), 1e3 * seconds / -(-len(sig) // chunk), len(sig) / SR / seconds
+
+
+def phase_stream():
+    """``StreamingTranscriber`` (the ``--record`` engine) on the card over
+    held-out clips at two chunk sizes, greedy and beam-16 with the LM,
+    against the CPU transcriber and the whole-clip text."""
+    import torch
+
+    from rnn_speech_tpu_torch import cli, params as params_mod
+    from rnn_speech_tpu_torch.charmap import get_char_map
+    from rnn_speech_tpu_torch.config import HyperParamStore, load_config
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    texts, sigs = _held_out()
+    texts, sigs = texts[:STREAM_CLIPS], sigs[:STREAM_CLIPS]
+    char_map = get_char_map("english")
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "bundle.ini")
+        with open(ini, "w") as fh:
+            fh.write(BUNDLE_INI.format(bundle=BUNDLE, test=""))
+        config = HyperParamStore(load_config(ini)).config
+    lms = {dev: cli.load_lm_stepper(config, char_map, LM_WEIGHT, dev)
+           for dev in (DEVICE, "cpu")}
+    params = params_mod.load_bundle(BUNDLE, device=DEVICE)
+    cfg = acoustic.config_for_params(params, compute_dtype=torch.bfloat16, use_kernels=True,
+                                     wavefront=True)
+    out, problems = {}, []
+    for name, width, weight in (("greedy", 1, 0.0),
+                                ("beam_lm", cli.DEFAULT_BEAM_WIDTH, LM_WEIGHT)):
+        lm = lms[DEVICE] if weight else None
+        whole = [cli.transcribe(params, cfg, sig[None], [len(sig)], device=DEVICE,
+                                beam_width=width, lm=lm, lm_weight=weight)[0] for sig in sigs]
+        runs = {}
+        wf.lstm_stack_wavefront.launches = wf.lstm_stack_wavefront.persistent_launches = 0
+        for seconds in STREAM_CHUNKS:
+            tr = cli.StreamingTranscriber(config, char_map, chunk_seconds=seconds,
+                                          beam_width=width, lm=lm, lm_weight=weight,
+                                          device=DEVICE)
+            got = [_stream_text(tr, sig, tr.chunk_samples) for sig in sigs]
+            runs[str(seconds)] = {"texts": [g[0] for g in got], "step_frames": tr.step_frames,
+                                  "ms_per_chunk": [g[1] for g in got],
+                                  "audio_s_per_wall_s": [g[2] for g in got]}
+        launches = {"row1": wf.lstm_stack_wavefront.launches,
+                    "row1_persistent": wf.lstm_stack_wavefront.persistent_launches}
+        tr_cpu = cli.StreamingTranscriber(config, char_map, chunk_seconds=STREAM_CHUNKS[0],
+                                          beam_width=width, lm=lms["cpu"] if weight else None,
+                                          lm_weight=weight, device="cpu")
+        cpu_texts = [_stream_text(tr_cpu, sig, tr_cpu.chunk_samples)[0] for sig in sigs]
+        first = runs[str(STREAM_CHUNKS[0])]["texts"]
+        dist = [_edit_distance(w, s) for w, s in zip(whole, first)]
+        out[name] = {"beam_width": width, "lm_weight": weight, "whole_clip": whole,
+                     "cpu_texts": cpu_texts, "distance_to_whole": dist,
+                     "launches": launches, "runs": runs}
+        if any(run["texts"] != first for run in runs.values()):
+            problems.append(f"{name}: the chunk sizes give different text")
+        if cpu_texts != first:
+            problems.append(f"{name}: the CPU transcriber's text differs")
+        if any(d > max(2, 0.2 * len(w)) for d, w in zip(dist, whole)):
+            problems.append(f"{name}: distance to the whole clip {dist}")
+        if not launches["row1"]:
+            problems.append(f"{name}: row 1 did not launch at B=1 ({launches})")
+    if problems:
+        fail("stream: " + "; ".join(problems) + f" {out}")
+    emit("stream", clips=len(sigs), truth=[t.lower() for t in texts],
+         chunk_seconds=list(STREAM_CHUNKS), decoders=out)
+
+
 # ----------------------------------------------- the CLI's training modes
 
 LOOP_SR = 16000           # LibriSpeech's rate: the pipeline resamples to 22050
@@ -4608,8 +4997,9 @@ def _cli_child(out_path, runs):
     entry time and CUDA events around it, its loss, every eval batch's
     events, the time the loop waited on the input pipeline, the batches
     the pipeline yielded and those the native loader fed, the clips the
-    loader delivered, the checkpoint it restored, and whether ``checkpoint.restore`` of the last bundle
-    equals the parameters the run ended with, bit for bit."""
+    loader delivered, the checkpoint it restored, whether ``checkpoint.restore`` of the last bundle
+    equals the parameters the run ended with, bit for bit, and each LM
+    training step's loss and host time (``--train_language``)."""
     import io
     import runpy
     import statistics
@@ -4621,11 +5011,11 @@ def _cli_child(out_path, runs):
     from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
     from rnn_speech_tpu_torch.runtime import loader
-    from rnn_speech_tpu_torch.train import checkpoint, loop, pipeline, step
+    from rnn_speech_tpu_torch.train import checkpoint, lm_loop, loop, pipeline, step
 
     counters = {**_all_counters(), "lstm_wavefront": wf.lstm_stack_wavefront,
                 "lstm_recurrence": rec.lstm_recurrence}
-    steps, evals, waits, restored, ended = [], [], [], [], []
+    steps, evals, waits, restored, ended, lm_steps = [], [], [], [], [], []
     in_eval = [False]
 
     def around(fn, into):
@@ -4646,6 +5036,7 @@ def _cli_child(out_path, runs):
     base_pipeline, base_eval, base_train = (pipeline.InputPipeline, loop.evaluate_dataset,
                                             loop.train_acoustic)
     base_restore = checkpoint.restore
+    base_lm_train = lm_loop.train_language
 
     class TimedPipeline(base_pipeline):
         def __iter__(self):
@@ -4675,8 +5066,14 @@ def _cli_child(out_path, runs):
         ended.append(state)
         return state
 
+    def train_language(*args, **kw):
+        def hook(step, metrics):          # its loss is read on the host: a sync
+            lm_steps.append((time.perf_counter(), metrics["mean_loss"]))
+        return base_lm_train(*args, step_hook=hook, **kw)
+
     pipeline.InputPipeline, loop.evaluate_dataset = TimedPipeline, evaluate_dataset
     loop.train_acoustic, checkpoint.restore = train_acoustic, restore
+    lm_loop.train_language = train_language
     records = []
     for argv in runs:
         for fn in counters.values():
@@ -4684,7 +5081,7 @@ def _cli_child(out_path, runs):
         wf.lstm_stack_wavefront.persistent_launches = 0
         _zero_path_counters()
         pipeline.native_batches = loader.delivered = 0
-        for seen in (steps, evals, waits, restored, ended):
+        for seen in (steps, evals, waits, restored, ended, lm_steps):
             seen.clear()
         sys.argv = ["rnn_speech_tpu_torch.cli", *argv]
         printed = io.StringIO()
@@ -4724,6 +5121,10 @@ def _cli_child(out_path, runs):
                 pipeline_wait_s={"train": sum(w for e, w in waits if not e),
                                  "eval": sum(w for e, w in waits if e),
                                  "train_batches": sum(1 for e, _ in waits if not e)})
+        if lm_steps:
+            lm_ms = [1e3 * (b[0] - a[0]) for a, b in zip(lm_steps, lm_steps[1:])]
+            out.update(lm_losses=[loss for _, loss in lm_steps],
+                       lm_ms_per_step_median=statistics.median(lm_ms) if lm_ms else None)
         if ended:
             state = ended[0]
             config = load_config(argv[argv.index("--config") + 1])
@@ -4931,21 +5332,15 @@ def phase_evaluate():
     from rnn_speech_tpu_torch import cli, corpus
     from rnn_speech_tpu_torch.charmap import get_char_map
     from rnn_speech_tpu_torch.config import HyperParamStore, load_config
-    from rnn_speech_tpu_torch.runtime import flac_enc, loader
+    from rnn_speech_tpu_torch.runtime import loader
     from rnn_speech_tpu_torch.train import metrics, pipeline
 
     texts, sigs = _held_out()
     with tempfile.TemporaryDirectory() as tmp:
-        chapter = os.path.join(tmp, "held_out", "spk", "chap")
-        os.makedirs(chapter)
-        with open(os.path.join(chapter, "1-2.trans.txt"), "w") as fh:
-            for i, (text, sig) in enumerate(zip(texts, sigs)):
-                pcm = np.clip(np.round(sig * 32768.0), -32768, 32767).astype(np.int16)
-                flac_enc.encode_flac(os.path.join(chapter, f"1-2-{i:04d}.flac"), pcm, SR)
-                fh.write(f"1-2-{i:04d} {text}\n")
+        test_root = _write_held_out_flac(tmp, texts, sigs)
         ini = os.path.join(tmp, "eval.ini")
         with open(ini, "w") as fh:
-            fh.write(EVAL_INI.format(bundle=BUNDLE, test=os.path.join(tmp, "held_out")))
+            fh.write(EVAL_INI.format(bundle=BUNDLE, test=test_root))
         widths = (1, cli.DEFAULT_BEAM_WIDTH)
         records = _run_cli_child([["--evaluate", "--config", ini, "--beam_width", str(w)]
                                   for w in widths], tmp, "evaluate")
@@ -5059,6 +5454,10 @@ def kernels_line():
             "library_ms": t.get("library_ms"),
         })
         if kind == "wf":
+            stream = RECORD.get("stream", {}).get("decoders", {})
+            if stream:                               # B=1 blocks with carried state
+                rows[-1]["stream_launches"] = sum(d["launches"]["row1"]
+                                                  for d in stream.values())
             rows[-1].update(persistent_launches=ev.get("launches", {}).get(
                 "lstm_wavefront_persistent"), persistent_launches_b1=ev.get("launches", {}).get(
                 "lstm_wavefront_persistent_b1"), us_per_diagonal=t.get("us_per_diagonal"),
@@ -5204,7 +5603,7 @@ def kernels_line():
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
           "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle", "beam",
-          "cli")
+          "cli", "lm", "stream")
 OPT_IN_PHASES = ("lean_study", "persistent_study")
 
 
@@ -5262,6 +5661,9 @@ def main(argv=None) -> int:
         timed("beam", phase_beam)
     if "cli" in phases:
         timed("cli", phase_cli, *held)
+    for name, fn in (("lm", phase_lm), ("stream", phase_stream)):
+        if name in phases:
+            timed(name, fn)
     kl = kernels_line()
     RECORD["total_seconds"] = time.perf_counter() - t_start
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -110,16 +110,20 @@ def train_state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     return _tree_to_numpy(state)
 
 
-def load_bundle(path: str, device=None) -> Dict[str, Any]:
-    """Load the latest acoustic bundle under ``path`` (a bundle root such as
-    ``trained_models/english-syllables`` or its ``acoustic`` directory)
-    -> parameter dict on ``device`` (default cuda)."""
+def load_bundle(path: str, device=None, part: str = "acoustic") -> Dict[str, Any]:
+    """Load the latest bundle of a model under ``path`` (a bundle root such
+    as ``trained_models/english-syllables``, or its ``acoustic`` or
+    ``language`` directory) -> parameter dict on ``device`` (default
+    cuda).  ``part`` names the model: "acoustic" or "language" (the char
+    LM, the same tree: ``input/``, ``lstm/<l>/``, ``output/``)."""
     from rnn_speech_tpu_torch.train import checkpoint
 
+    if part not in ("acoustic", "language"):
+        raise ValueError(f"part must be 'acoustic' or 'language', got {part!r}")
     dev = resolve_device(device)
-    if os.path.isdir(os.path.join(path, "acoustic")):
-        path = os.path.join(path, "acoustic")
+    if os.path.isdir(os.path.join(path, part)):
+        path = os.path.join(path, part)
     got = checkpoint.restore_flat(path)
     if got is None:
-        raise FileNotFoundError(f"No acoustic bundle under {path!r}")
+        raise FileNotFoundError(f"No {part} bundle under {path!r}")
     return from_flat(got[0], device=dev)

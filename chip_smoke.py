@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli,lm,stream]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli,lm,stream,multi]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
 
@@ -279,6 +279,34 @@ printing one JSON line:
            step-20 checkpoint written; ms a step), ``--generate_text``
            on that checkpoint and on the bundle, the latter equal to the
            CPU's.
+  multi (~100 s)
+           the multi-GPU path (``parallel/``) on the one card, three checks.
+           One NCCL rank (world 1, ``spawn_ranks``) through
+           ``make_sharded_step`` on a 1x1 mesh at the default step's width
+           (B=64, T=3510, 3x1024, bf16, CTC kernels): at keep 1 one step's
+           parameters and metrics bit-equal to the unsharded
+           ``train_step``'s; at keeps 0.8/0.5 three steps with a finite,
+           falling loss; the kernels of rows 3, 4, 9, 12, 14, 15 and 16
+           launched by these sharded steps (the counts set to 0 after
+           the reference step); each step's ms and the all-reduce's ms of
+           a tree shaped as the gradients (25.4 M float32, ~101.5 MB) by
+           CUDA events.  Two gloo ranks sharing the card over CUDA
+           tensors, each 32 rows of the same 64-row batch at keep 1: the
+           all-reduced gradients within GRAD_REL_TOL (relative Frobenius,
+           per tensor) of the one-rank B=64 step's and the losses within
+           1e-5; the all-reduce's ms on those gradients; one step's ms
+           and launches (rows 3 and 4 must launch on each rank); each
+           rank's peak memory.  Then ``python -m
+           torch.distributed.run --standalone --nproc_per_node 1 -m
+           rnn_speech_tpu_torch.cli``: ``--train_acoustic --mesh_data 0
+           --timeline`` for 5 steps on a rendered FLAC corpus (24 + 8
+           clips, train_loop's ini), which must write one checkpoint
+           directory and one trace naming rows 3 and 4's kernels and the
+           spans ``train``, ``host/put_batch`` and ``host/metrics_drain``;
+           the trace's top 10 device ops, the device's idle share over the
+           window and its longest idle gaps with the host span covering
+           each; and ``--evaluate --mesh_data 0`` on the 32 held-out clips
+           (greedy), whose CER must equal the plain ``--evaluate``'s.
   stream   ``cli.StreamingTranscriber`` (the ``--record`` engine) over 4
            held-out clips on the card, fed in chunks of 1.0 s and 0.3 s,
            greedy and beam-16 with the LM: the text identical across chunk
@@ -5400,6 +5428,354 @@ def phase_evaluate():
             for w, r in runs.items()})
 
 
+# ----------------------------------------------------------- the multi phase
+
+MULTI_KEEP_STEPS = 3      # default-keep steps through the one-rank sharded step
+MULTI_CLIPS = (24, 8)     # train and test clips of the multi phase's CLI corpus
+MULTI_STEPS = 5           # --train_acoustic steps under torch.distributed.run
+MULTI_SPANS = ("train", "host/put_batch", "host/metrics_drain", "host/next_batch",
+               "host/checkpoint", "evaluate")
+# Rows 3 and 4's kernels, as their CUDA symbols name them in a trace.
+MULTI_TRACE_KERNELS = {"row3": "wavefront_persistent", "row4": "wavefront_bwd_persistent"}
+
+
+def _event_pair():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+
+
+def _grad_all_reduce_ms(grads, group, reps=3):
+    """ms of the data axis's gradient all-reduce of ``grads`` (one buffer
+    a dtype, ``sharding.all_reduce_flat``), CUDA events around each of
+    ``reps`` runs after one warm-up; the bytes it reduces."""
+    import torch
+
+    from rnn_speech_tpu_torch.parallel import sharding
+    from rnn_speech_tpu_torch.train import optim
+
+    leaves = optim.tree_leaves(grads)
+    sharding.all_reduce_flat(leaves, group)
+    out = []
+    for _ in range(reps):
+        e0, e1 = _event_pair()
+        torch.cuda.synchronize()
+        e0.record()
+        sharding.all_reduce_flat(leaves, group)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out, sum(g.numel() * g.element_size() for g in leaves)
+
+
+def _timed_step(fn):
+    """(result, device ms) of ``fn()`` between two CUDA events."""
+    import torch
+
+    e0, e1 = _event_pair()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _launch_counts(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _reset_launches(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _multi_one_rank(rank, world, device):
+    """One NCCL rank (world 1) on a 1x1 mesh at the default step's width:
+    the sharded step against the unsharded ``train_step`` at keep 1 (bit
+    for bit), then MULTI_KEEP_STEPS steps at the default keeps.  The launch
+    counts are the sharded steps' alone (set to 0 after the reference
+    step); the all-reduce is timed on the parameter tree, whose leaves and
+    dtypes are the gradients'."""
+    import dataclasses
+
+    import torch
+
+    from rnn_speech_tpu_torch.parallel import mesh as mesh_mod
+    from rnn_speech_tpu_torch.parallel import sharding
+    from rnn_speech_tpu_torch.train import optim, step
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(1, 1)
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=3,
+                                      keeps=(1.0, 1.0))
+    counters = _train_counters()
+    ref, ref_m = step.train_step(scfg, state, batch, torch.Generator().manual_seed(5), False)
+    sstate, _, train_fn, _ = sharding.make_sharded_step(mesh, scfg, state)
+    _reset_launches(counters)
+    got, got_m = train_fn(scfg, sstate, batch, torch.Generator().manual_seed(5), False)
+    torch.cuda.synchronize()
+    unequal = [i for i, (a, b) in enumerate(zip(optim.tree_leaves(ref["params"]),
+                                                optim.tree_leaves(got["params"])))
+               if not torch.equal(a, b)]
+    metrics_equal = all(torch.equal(ref_m[k], got_m[k]) for k in ref_m)
+    del ref, got
+    dcfg = dataclasses.replace(scfg, input_keep_prob=INPUT_KEEP, output_keep_prob=OUTPUT_KEEP)
+    rng = torch.Generator().manual_seed(1234)
+    losses, step_ms = [], []
+    st = sstate
+    for _ in range(MULTI_KEEP_STEPS):
+        (st, m), ms = _timed_step(lambda: train_fn(dcfg, st, batch, rng, False))
+        losses.append(float(m["mean_loss"]))
+        step_ms.append(ms)
+    launches = _launch_counts(counters)
+    reduce_ms, nbytes = _grad_all_reduce_ms(st["params"], mesh.data_group)
+    return {"bit_equal_params": not unequal, "unequal_leaves": unequal,
+            "metrics_equal": metrics_equal, "losses": losses, "step_ms": step_ms,
+            "all_reduce_ms": reduce_ms, "all_reduce_bytes": nbytes,
+            "backend": torch.distributed.get_backend(), "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _multi_two_ranks(rank, world, device):
+    """Two gloo ranks sharing the card: each takes its 32 rows of the same
+    64-row batch at keep 1; the all-reduced gradients and the loss against
+    the one-rank B=64 step's (rank 0 computes it), the gradient
+    all-reduce's ms on those gradients, then one step's ms with its own
+    launch counts, and the rank's peak memory."""
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.params import flatten
+    from rnn_speech_tpu_torch.parallel import mesh as mesh_mod
+    from rnn_speech_tpu_torch.parallel import sharding
+    from rnn_speech_tpu_torch.train import step
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(2, 1)
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=3,
+                                      keeps=(1.0, 1.0))
+    rows, s = sharding.shard_width(TRAIN_B, mesh), mesh.shard_index
+    full_states = state["states"]
+    state["states"] = acoustic.zero_state(scfg.model, rows, device=device)
+    specs = sharding.param_specs(state["params"], 1)
+    sstate, _, train_fn, _ = sharding.make_sharded_step(mesh, scfg, state)
+    mine = {k: v[:, s * rows:(s + 1) * rows] for k, v in batch.items()}
+    rng = torch.Generator().manual_seed(5)
+    _, grads, loss, _, _ = sharding.sharded_grads(scfg, sstate["params"], specs, mesh,
+                                                  sstate["states"], mine, rng)
+    reduce_ms, nbytes = _grad_all_reduce_ms(grads, mesh.data_group)
+    out = {"rows": int(mine["labels"].shape[1]), "loss": float(loss)}
+    if rank == 0:
+        # The one-rank B=64 step's gradients; per tensor, relative Frobenius.
+        _, ref, ref_loss, _, cnt = step.accumulate_grads(scfg, state["params"], full_states,
+                                                         batch, rng)
+        errs = {k: float((g - r).float().norm() / r.float().norm().clamp(min=1e-30))
+                for (k, g), r in zip(flatten(grads).items(), flatten(ref).values())}
+        out.update(ref_loss=float(ref_loss / torch.clamp(cnt, min=1.0)),
+                   grad_rel_err_max=max(errs.values()), grad_rel_errs=errs)
+        del ref
+    del grads
+    torch.cuda.empty_cache()
+    counters = _train_counters()
+    _reset_launches(counters)
+    torch.distributed.barrier()         # rank 1 would time its wait for the reference
+    _, ms = _timed_step(lambda: train_fn(scfg, sstate, mine, rng, False))
+    out.update(step_ms=ms, launches=_launch_counts(counters), all_reduce_ms=reduce_ms,
+               all_reduce_bytes=nbytes, backend=torch.distributed.get_backend(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _run_group(cmd, timeout, env=None):
+    """Run ``cmd`` in a session of its own from the repo root; on timeout
+    kill the whole session (torchrun and its workers).  Returns
+    (returncode, stdout, stderr, seconds)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True, env=env)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"multi: {' '.join(cmd[3:8])} did not end within {timeout} s: "
+             f"{err[-2000:]}")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _trace_split(path, top=10, gaps=8):
+    """The trace window of ``path`` (a torch.profiler Chrome trace): the
+    ``top`` device ops by total time, the device's busy and idle time over
+    the window, the ``gaps`` longest idle gaps with the innermost host span
+    (annotation and operator) covering each, and the idle time split by the
+    annotation that covers it."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda x: x[0])
+    marks = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"]
+    ops = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+           if e.get("cat") == "cpu_op"]
+    totals = {}
+    for a, b, name in device:
+        t = totals.setdefault(name, [0.0, 0])
+        t[0] += (b - a) / 1e3
+        t[1] += 1
+    busy, merged = 0.0, []
+    for a, b, _ in device:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    holes = [(merged[i][1], merged[i + 1][0]) for i in range(len(merged) - 1)]
+
+    def inner(spans, t):
+        covering = [s for s in spans if s[0] <= t <= s[1]]
+        return min(covering, key=lambda s: s[1] - s[0])[2] if covering else None
+
+    by_mark = {}
+    for a, b in holes:
+        key = inner(marks, (a + b) / 2) or "(no span)"
+        by_mark[key] = by_mark.get(key, 0.0) + (b - a) / 1e3
+    span = (merged[-1][1] - merged[0][0]) if merged else 0.0
+    return {
+        "device_events": len(device), "window_ms": span / 1e3, "busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / span if span else None,
+        "top_ops": [{"name": name[:120], "ms": ms, "count": n} for name, (ms, n) in
+                    sorted(totals.items(), key=lambda kv: -kv[1][0])[:top]],
+        "longest_gaps": [{"ms": (b - a) / 1e3, "span": inner(marks, (a + b) / 2),
+                          "op": inner(ops, (a + b) / 2)}
+                         for a, b in sorted(holes, key=lambda h: h[0] - h[1])[:gaps]],
+        "idle_ms_by_span": by_mark,
+        "spans": {name: sum(1 for m in marks if m[2] == name) for name in MULTI_SPANS},
+        "span_ms": {name: [(b - a) / 1e3 for a, b, n in marks if n == name]
+                    for name in ("train", "host/next_batch", "host/checkpoint", "evaluate")},
+        "profiler_step_ms": [(b - a) / 1e3 for a, b, n in sorted(marks)
+                             if n.startswith("ProfilerStep#")],
+        "kernels": {row: sum(1 for _, _, n in device if sym in n and
+                             (row != "row3" or "bwd" not in n))
+                    for row, sym in MULTI_TRACE_KERNELS.items()},
+    }
+
+
+def _torchrun_cli(argv, timeout=300):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    rnn_speech_tpu_torch.cli <argv>``: (rc, stdout, stderr, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "rnn_speech_tpu_torch.cli", *argv]
+    return _run_group(cmd, timeout)
+
+
+def phase_multi():
+    """The multi-GPU path on the one card: the sharded step at one NCCL
+    rank, two gloo ranks sharing the card against one rank, and the CLI
+    under ``torch.distributed.run`` (training with ``--timeline``, then
+    ``--evaluate``)."""
+    from rnn_speech_tpu_torch.parallel import launch
+
+    problems = []
+    t0 = time.perf_counter()
+    one, = launch.spawn_ranks(_multi_one_rank, 1, "nccl", "cuda", timeout=300)
+    one["process_s"] = time.perf_counter() - t0
+    if not one["bit_equal_params"] or not one["metrics_equal"]:
+        problems.append(f"one rank: the 1x1 sharded step differs from train_step "
+                        f"(leaves {one['unequal_leaves']}, metrics equal "
+                        f"{one['metrics_equal']})")
+    if not all(math.isfinite(v) for v in one["losses"]) or \
+            not one["losses"][-1] < one["losses"][0]:
+        problems.append(f"one rank: losses {one['losses']} not finite and falling")
+    for name in ("wavefront_train", "wavefront_bwd", "ctc_alpha_ckpt", "ctc_beta_post",
+                 "dgates_weight_grads", "weight_grad", "dropout"):
+        if not one["launches"].get(name):
+            problems.append(f"one rank: {name} did not launch in the sharded steps: "
+                            f"{one['launches']}")
+    t0 = time.perf_counter()
+    two = launch.spawn_ranks(_multi_two_ranks, 2, "gloo", "cuda", timeout=300)
+    two_s = time.perf_counter() - t0
+    for r, rec in enumerate(two):
+        for name in ("wavefront_train", "wavefront_bwd"):      # rows 3 and 4
+            if not rec["launches"].get(name):
+                problems.append(f"two ranks: {name} did not launch in rank {r}'s step: "
+                                f"{rec['launches']}")
+    head = two[0]
+    if not head["grad_rel_err_max"] <= GRAD_REL_TOL:
+        problems.append(f"two ranks: all-reduced gradients {head['grad_rel_err_max']:.3e} "
+                        f"from the one-rank B=64 step's (limit {GRAD_REL_TOL})")
+    if [r["rows"] for r in two] != [TRAIN_B // 2] * 2 or two[0]["loss"] != two[1]["loss"] \
+            or abs(head["loss"] - head["ref_loss"]) > 1e-5 * abs(head["ref_loss"]):
+        problems.append(f"two ranks: rows {[r['rows'] for r in two]}, losses "
+                        f"{[r['loss'] for r in two]} against {head['ref_loss']}")
+    cli = _multi_cli(problems)
+    if problems:
+        fail("multi: " + "; ".join(problems))
+    emit("multi", one_rank={**one, "shape": {"batch": TRAIN_B, "frames": TRAIN_T,
+                                             "layers": L, "hidden": H}},
+         two_ranks={"ranks": two, "process_s": two_s}, cli=cli)
+
+
+def _multi_cli(problems):
+    """--train_acoustic with --timeline and --evaluate through
+    ``torch.distributed.run`` on one rank; gates appended to ``problems``."""
+    import glob
+
+    texts, sigs = _held_out()
+    with tempfile.TemporaryDirectory() as tmp:
+        made = _flac_corpora(tmp, {"train": _loop_clips(MULTI_CLIPS[0], 21),
+                                   "test": _loop_clips(MULTI_CLIPS[1], 22)}, LOOP_SR)
+        tb = os.path.join(tmp, "tb")
+        os.makedirs(tb)
+        ini = os.path.join(tmp, "loop.ini")
+        with open(ini, "w") as fh:
+            fh.write(LOOP_INI.format(L=L, H=H, ki=INPUT_KEEP, ko=OUTPUT_KEEP, every=LOOP_EVERY,
+                                     ckpt=os.path.join(tmp, "ckpt"), train=made["train"][0],
+                                     test=made["test"][0], tb=tb))
+        rc, out, err, train_s = _torchrun_cli(
+            ["--train_acoustic", "--config", ini, "--mesh_data", "0", "--timeline",
+             "--max_steps", str(MULTI_STEPS), "--tb_name", "multi"])
+        if rc != 0:
+            fail(f"multi: torchrun --train_acoustic rc={rc}: {err[-3000:]}")
+        ckpt_dirs = sorted(d for d in os.listdir(os.path.join(tmp, "ckpt"))
+                           if os.path.isdir(os.path.join(tmp, "ckpt", d)))
+        bundles = sorted(os.listdir(os.path.join(tmp, "ckpt", "acoustic")))
+        traces = glob.glob(os.path.join(tb, "rank0.*.pt.trace.json"))
+        split = _trace_split(traces[0]) if len(traces) == 1 else None
+        test_root = _write_held_out_flac(tmp, texts, sigs)
+        eval_ini = os.path.join(tmp, "eval.ini")
+        with open(eval_ini, "w") as fh:
+            fh.write(EVAL_INI.format(bundle=BUNDLE, test=test_root))
+        rc_e, out_e, err_e, eval_s = _torchrun_cli(
+            ["--evaluate", "--config", eval_ini, "--mesh_data", "0", "--beam_width", "1"])
+        if rc_e != 0:
+            fail(f"multi: torchrun --evaluate rc={rc_e}: {err_e[-3000:]}")
+        plain = RECORD.get("evaluate", {}).get("beam1")
+        if plain is None:
+            plain_run, = _run_cli_child([["--evaluate", "--config", eval_ini,
+                                          "--beam_width", "1"]], tmp, "multi_plain_eval")
+            plain = dict(zip(("wer_pct", "cer_pct"), _printed_rates(plain_run["stdout"])))
+    wer, cer = _printed_rates(out_e)
+    if ckpt_dirs != ["acoustic"] or bundles != [f"acousticmodel-{s}.npz" for s in
+                                                (LOOP_EVERY, MULTI_STEPS)] + ["checkpoint"]:
+        problems.append(f"cli: checkpoints {ckpt_dirs}, {bundles}")
+    if split is None:
+        problems.append(f"cli: trace files {traces}")
+    else:
+        missing = [r for r, n in split["kernels"].items() if not n] + \
+            [s for s, n in split["spans"].items() if not n and s in MULTI_SPANS[:3]]
+        if missing:
+            problems.append(f"cli: the trace lacks {missing}")
+    if cer is None or cer != plain["cer_pct"]:
+        problems.append(f"cli: --evaluate --mesh_data 0 printed CER {cer}, the plain "
+                        f"--evaluate {plain['cer_pct']}")
+    return {"train_s": train_s, "evaluate_s": eval_s, "checkpoints": bundles,
+            "trace_files": len(traces), "trace": split, "wer_pct": wer, "cer_pct": cer,
+            "plain_cer_pct": plain["cer_pct"], "train_stderr_tail": err[-600:]}
+
+
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
@@ -5603,7 +5979,7 @@ def kernels_line():
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
           "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle", "beam",
-          "cli", "lm", "stream")
+          "cli", "lm", "stream", "multi")
 OPT_IN_PHASES = ("lean_study", "persistent_study")
 
 
@@ -5661,7 +6037,7 @@ def main(argv=None) -> int:
         timed("beam", phase_beam)
     if "cli" in phases:
         timed("cli", phase_cli, *held)
-    for name, fn in (("lm", phase_lm), ("stream", phase_stream)):
+    for name, fn in (("lm", phase_lm), ("stream", phase_stream), ("multi", phase_multi)):
         if name in phases:
             timed(name, fn)
     kl = kernels_line()

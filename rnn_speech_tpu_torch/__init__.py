@@ -15,7 +15,7 @@ decode workers) start without it.
 
 from __future__ import annotations
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device=None):
@@ -34,3 +34,15 @@ def resolve_device(device=None):
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+def to_device(array, dev):
+    """A host array on ``dev``: on CUDA through pinned memory without
+    blocking the host, so the work already queued keeps running."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -4,7 +4,10 @@
         --file F | --record | --evaluate | --generate_text
         [--config INI] [--device cuda|cpu] [--beam_width K] [--lm_weight W]
         [--tb_name N] [--max_epoch E] [--learn_rate LR] [--max_steps S]
-        [--mesh_data 1] [--mesh_model 1]
+        [--timeline] [--mesh_data D] [--mesh_model M]
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m rnn_speech_tpu_torch.cli --train_acoustic --mesh_data 0 ...
 
 Counterpart of ``rnn_speech_tpu/cli.py`` with the same ini: ``--file``
 transcribes one clip (``checkpoint_dir`` names the bundle whose
@@ -32,9 +35,19 @@ audio rows (B, S) in, one string per row out.  The module imports
 ``torch`` only inside its functions: the input pipeline's spawned decode
 workers import the main module, which is this one under ``python -m``.
 
-Not ported yet, each raising ``NotImplementedError`` naming its slice: a
-device mesh other than 1x1 or ``RST_MULTIHOST`` (ROADMAP Queue A 8) and
-``--timeline`` (Queue A 9).
+Multi-GPU: one process a GPU, started by ``torch.distributed.run`` or
+with ``RST_MULTIHOST=1`` and ``RST_COORD_ADDR``, ``RST_NUM_PROCESSES``,
+``RST_PROCESS_ID`` (``parallel/launch.py``; bad values exit with the JAX
+CLI's message).  ``--mesh_data`` / ``--mesh_model`` (else ``[tpu]
+mesh_data`` / ``mesh_model``; data 0 = every remaining rank) lay the ranks
+out as ("data", "model"): ``--train_acoustic`` then runs the sharded step
+(``parallel/sharding.py``), and ``--evaluate`` decodes each rank's
+``shard_for_host`` slice of the test set and all-reduces the WER/CER sums
+once at the end; only rank 0 prints.  A mesh larger than the ranks there
+are raises ``ValueError`` naming ``torch.distributed.run``: it never
+quietly runs on one card.  ``--timeline`` traces training steps 2 and 3
+with ``torch.profiler`` into ``tensorboard_dir`` (``train/loop.py``); it
+changes nothing in ``--evaluate``, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -213,6 +226,23 @@ def _mesh_shape(config, prog):
     return data, model
 
 
+def _make_mesh(data: int, model: int):
+    """The mesh the shape asks for, or None for the single-device path:
+    without a process group only 1x1 runs (anything larger raises
+    ``ValueError`` naming ``torch.distributed.run``), and under one an
+    explicit 1x1 stays unsharded, as the JAX CLI's does."""
+    import torch.distributed as dist
+
+    from rnn_speech_tpu_torch.parallel import launch
+    from rnn_speech_tpu_torch.parallel import mesh as mesh_mod
+
+    world, _ = launch.world_and_rank()
+    mesh_mod.mesh_shape(data, model, world)          # raises for a wrong size
+    if (data, model) == (1, 1) or not dist.is_initialized():
+        return None
+    return mesh_mod.make_mesh(data, model)
+
+
 def train_acoustic(config, prog, char_map, device) -> int:
     """Train the acoustic model on the ``[training]`` corpora."""
     from rnn_speech_tpu_torch.models.recognizer import SpeechRecognizer
@@ -226,7 +256,8 @@ def train_acoustic(config, prog, char_map, device) -> int:
         config, train_set, test_set, char_map,
         max_epoch=prog["max_epoch"], learn_rate_override=prog["learn_rate"],
         tb_name=prog["tb_name"], timeline=prog["timeline"],
-        max_steps=prog["max_steps"], mesh_shape=_mesh_shape(config, prog), device=device)
+        max_steps=prog["max_steps"], mesh=_make_mesh(*_mesh_shape(config, prog)),
+        device=device)
     return 0
 
 
@@ -235,10 +266,20 @@ def evaluate(config, prog, char_map, device) -> int:
     duration order, batches of ``batch_size`` padded to the smallest
     audio-width bucket that covers them (at most 2 buckets for the beam
     search), up to ``PENDING_WINDOW`` batches queued on the device before
-    the oldest is scored on the host."""
+    the oldest is scored on the host.
+
+    Under a process group of more than one rank the ranks must form a mesh
+    (``--mesh_data 0``): each decodes its ``shard_for_host`` slice in
+    batches of ``batch_size // world`` rows, with no per-batch collective
+    (greedy and beam decoding are row-independent), the WER/CER sums and
+    counts are all-reduced once at the end, and only rank 0 prints: the
+    single-process numbers.  Batch normalisation would normalise over each
+    rank's rows instead of the whole batch, so it raises there."""
     import torch
 
     from rnn_speech_tpu_torch import corpus
+    from rnn_speech_tpu_torch.parallel import launch, lockstep
+    from rnn_speech_tpu_torch.parallel import mesh as mesh_mod
     from rnn_speech_tpu_torch.runtime import loader as native_loader
     from rnn_speech_tpu_torch.train import loop
     from rnn_speech_tpu_torch.train import metrics as metrics_mod
@@ -257,8 +298,22 @@ def evaluate(config, prog, char_map, device) -> int:
     # padding below cuts real compute.
     test_set = sorted(test_set, key=lambda item: item[2])
 
+    n_proc, rank = launch.world_and_rank()
+    mesh_mod.mesh_shape(*_mesh_shape(config, prog), n_proc)   # the mesh spans the ranks
+    if n_proc > 1:
+        if config.batch_size % n_proc:
+            logger.fatal("batch_size %d not divisible by %d processes",
+                         config.batch_size, n_proc)
+            return 1
+        if config.batch_normalization:
+            raise ValueError(
+                "batch_normalization normalises over the rows a rank sees, so a "
+                "sharded --evaluate would print other numbers than one process; "
+                "evaluate such a model on one rank")
+        test_set = pipe_mod.shard_for_host(test_set)
+
     dev = resolve_device(device)
-    host_B = config.batch_size
+    host_B = config.batch_size // n_proc
     model_cfg, fe, params = build_forward(config, char_map, dev)
     max_samples = max_samples_for(config)
     beam_width = prog["beam_width"]
@@ -337,13 +392,15 @@ def evaluate(config, prog, char_map, device) -> int:
     while pending_batches:
         score_oldest()
 
-    if not wer_list:
+    wer_sum, cer_sum, count = float(sum(wer_list)), float(sum(cer_list)), len(wer_list)
+    if n_proc > 1:
+        wer_sum, cer_sum, count = lockstep.all_reduce_values([wer_sum, cer_sum, count])
+    if not count:
         logger.fatal("No evaluable files")
         return 1
-    wer = float(sum(wer_list)) * 100 / len(wer_list)
-    cer = float(sum(cer_list)) * 100 / len(cer_list)
-    print("Resulting WER : {0:.3g} %".format(wer))
-    print("Resulting CER : {0:.3g} %".format(cer))
+    if rank == 0:
+        print("Resulting WER : {0:.3g} %".format(wer_sum * 100 / count))
+        print("Resulting CER : {0:.3g} %".format(cer_sum * 100 / count))
     return 0
 
 
@@ -613,7 +670,8 @@ def parse_args(argv=None) -> dict:
                         help="Force learning rate to start from this value "
                              "(overriding checkpoint value)")
     parser.add_argument("--timeline", action="store_true", default=False,
-                        help="Trace a window of training steps (not ported yet)")
+                        help="Trace training steps 2-3 with torch.profiler into "
+                             "tensorboard_dir")
     parser.add_argument("--beam_width", type=int, default=DEFAULT_BEAM_WIDTH,
                         help="CTC beam width for decoding (1 = greedy)")
     parser.add_argument("--lm_weight", type=float, default=0.0,
@@ -621,11 +679,11 @@ def parse_args(argv=None) -> dict:
                              "decoding (0 = AM only; needs a trained language "
                              "checkpoint)")
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="Data-parallel mesh axis size (default: [tpu] "
-                             "mesh_data; only 1 is ported)")
+                        help="Data-parallel mesh axis size in ranks (default: [tpu] "
+                             "mesh_data; 0 = all ranks of torch.distributed.run)")
     parser.add_argument("--mesh_model", type=int, default=None,
-                        help="Model-parallel mesh axis size (default: [tpu] "
-                             "mesh_model; only 1 is ported)")
+                        help="Model-parallel mesh axis size in ranks (default: [tpu] "
+                             "mesh_model)")
     parser.add_argument("--max_steps", type=int, default=None,
                         help="Stop training after this many steps")
     group = parser.add_mutually_exclusive_group(required=True)
@@ -647,24 +705,36 @@ def parse_args(argv=None) -> dict:
 
 def main(argv: Optional[List[str]] = None) -> int:
     prog = parse_args(argv)
-    device = resolve_device(prog["device"])
+    from rnn_speech_tpu_torch.parallel import launch
 
+    # Multi-process bring-up before anything touches the card: the rank's
+    # device is cuda:LOCAL_RANK (torch.distributed.run or RST_MULTIHOST).
+    device, owned = launch.init_from_env(prog["device"])
+    try:
+        return _run(prog, device)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(prog, device) -> int:
     from rnn_speech_tpu_torch.charmap import get_char_map
     from rnn_speech_tpu_torch.config import (
         HyperParamStore, load_config, setup_logging,
     )
-    from rnn_speech_tpu_torch.train import loop
+    from rnn_speech_tpu_torch.parallel import launch
+    from rnn_speech_tpu_torch.parallel import mesh as mesh_mod
 
-    training = prog["train_acoustic"] or prog["evaluate"]
-    if training:
-        # The flags alone can ask for what is not ported; refuse before
-        # reading any file.
-        flags = tuple(1 if prog[k] is None else prog[k] for k in ("mesh_data", "mesh_model"))
-        loop.check_single_process(flags, prog["timeline"])
+    if prog["train_acoustic"] or prog["evaluate"]:
+        # The flags alone can ask for more ranks than there are; refuse
+        # before reading any file.
+        flags = [1 if prog[k] is None else prog[k] for k in ("mesh_data", "mesh_model")]
+        if flags != [1, 1]:
+            mesh_mod.mesh_shape(*flags, launch.world_and_rank()[0])
     config = load_config(prog["config"])
     setup_logging(config)
-    if training:
-        loop.check_single_process(_mesh_shape(config, prog), prog["timeline"])
     config = HyperParamStore(config).config
     char_map = get_char_map(config.language)
     if prog["train_acoustic"]:

@@ -10,6 +10,12 @@ builds, and ``build_all`` builds every kernel at once, one ``nvcc`` per
 source, all started together.
 
 There is no fallback: a failed build raises with the compiler's output.
+
+A library's kernels launch on the CURRENT device, whatever device holds
+the tensors, so each wrapper takes its stream from ``launch_stream``,
+which raises ``ValueError`` when a CUDA input is not on the current
+device (a rank makes its ``cuda:LOCAL_RANK`` current at start,
+``parallel/launch.py``).
 """
 
 from __future__ import annotations
@@ -95,6 +101,22 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def launch_stream(device) -> int:
+    """The handle of the current stream for a launch on ``device``'s
+    tensors; ``ValueError`` when ``device`` is not the current CUDA device,
+    where the library would launch."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is not None:
+        current = torch.cuda.current_device()
+        if device.index != current:
+            raise ValueError(f"a CUDA kernel's inputs are on {device} but the current "
+                             f"device is cuda:{current}; make it current "
+                             f"(torch.cuda.set_device) before the call")
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -264,7 +264,7 @@ def _alpha_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, K, faul
         rc = fn(lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
                 rows.data_ptr() if K else None, last.data_ptr(), T, B, S, V, max(K, 1),
                 geo.states, geo.threads, geo.ring, fault_step,
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"ctc alpha forward launch failed: CUDA error {rc}")
     return rows, last
@@ -350,7 +350,7 @@ def _beta_launch(log_probs, ext, skip_ok, logit_lengths, label_lengths, logp, al
         head = [lp.data_ptr(), e.data_ptr(), sk.data_ptr(), ll.data_ptr(), ul.data_ptr(),
                 logp.data_ptr(), alphas.data_ptr(), offs.data_ptr(), idx.data_ptr(),
                 out.data_ptr(), T, B, S, V]
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.launch_stream(dev)
         if K:
             fn = _lib().rst_ctc_beta_post
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -91,7 +91,7 @@ def dropout_kernel(x: Tensor, seed: Seed, keeps: Sequence[float]) -> Tensor:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), int(x.dtype == torch.float32),
                 scale, len(keeps), seed[0], seed[1], thr[0], thr[1], sms,
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"dropout kernel launch failed: CUDA error {rc}")
     dropout_kernel.launches += 1
@@ -130,7 +130,7 @@ def bernoulli_mask(seed: Seed, shape, keep: float, dtype=torch.bfloat16,
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         rc = fn(out.data_ptr(), out.numel(), int(dtype == torch.float32),
                 int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF, thr, sms,
-                torch.cuda.current_stream(device).cuda_stream)
+                _build.launch_stream(device))
     if rc != 0:
         raise RuntimeError(f"mask kernel launch failed: CUDA error {rc}")
     bernoulli_mask.launches += 1

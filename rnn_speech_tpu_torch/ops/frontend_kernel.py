@@ -152,7 +152,7 @@ def fbank_banks(pre: Tensor, basis: Tensor, mel: Tensor, step: int, n_frames: in
         fn.restype = ctypes.c_int
         rc = fn(pre.data_ptr(), window.data_ptr(), tw.data_ptr(), split.data_ptr(),
                 mel.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), B, pre.shape[1],
-                step, n_mels, n_frames, torch.cuda.current_stream(dev).cuda_stream)
+                step, n_mels, n_frames, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"fbank kernel launch failed: CUDA error {rc}")
     fbank_banks.launches += 1

@@ -250,7 +250,7 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
         if N == 0:
             return dw, db, pl.path
         ptr = lambda t: None if t is None else t.data_ptr()
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.launch_stream(dev)
         tail = [int(dg.dtype == f32), N, G, pl.splits, pl.rows_per_split, ptr(partial),
                 ptr(partial_db), dw.data_ptr(), db.data_ptr(), stream]
         P, I = ctypes.c_void_p, ctypes.c_int

@@ -165,7 +165,7 @@ def _forward_launch(lib_name, x_proj, w_h, mask, h0, c0, res_dtype, keep_gates):
         cseq = torch.empty((T, B, H), dtype=bf16, device=dev)
         if T == 0:
             return out, h, c, gates, cseq
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.launch_stream(dev)
         head = [x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(), hb.data_ptr(),
                 h.data_ptr(), c.data_ptr(), out.data_ptr()]
         if keep_gates:
@@ -206,7 +206,7 @@ def _train_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0, st
                 h.data_ptr(), c.data_ptr(), out.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
                 counter.data_ptr(), T, B, H, plan["groups"], plan["tiles"], plan["stages"],
                 skip_barrier, None if stamps is None else stamps.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_layer_train kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -280,7 +280,7 @@ def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
         rc = fn(x_proj.data_ptr(), w_perm.data_ptr(), mask.data_ptr(), hb.data_ptr(),
                 h.data_ptr(), c.data_ptr(), out.data_ptr(), cseq.data_ptr(),
                 counter.data_ptr(), T, B, H, plan["groups"], plan["tiles"], plan["stages"],
-                skip_barrier, torch.cuda.current_stream(dev).cuda_stream)
+                skip_barrier, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_layer_train_lean kernel launch failed: "
                            f"CUDA error {rc} (plan {plan})")
@@ -429,7 +429,7 @@ def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor
             return act
         fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates", [P] * 6 + [I] * 3 + [P])
         rc = fn(x.data_ptr(), h_prev.data_ptr(), w_x.data_ptr(), w_h.data_ptr(), b.data_ptr(),
-                act.data_ptr(), rows, D, H, torch.cuda.current_stream(dev).cuda_stream)
+                act.data_ptr(), rows, D, H, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"rebuild_gates kernel launch failed: CUDA error {rc}")
     rebuild_gates.launches += 1
@@ -517,7 +517,7 @@ def _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan, ski
                 mask.data_ptr(), w_h.data_ptr(), dh.data_ptr(), dc.data_ptr(), part.data_ptr(),
                 counter.data_ptr(), T, B, H, groups, skip_barrier,
                 None if stamps is None else stamps.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_layer_bwd kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -564,7 +564,7 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
         fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd", [P] * 9 + [I] * 3 + [P])
         rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 mask.data_ptr(), w_h.data_ptr(), par.data_ptr(), dh.data_ptr(),
-                dc.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+                dc.data_ptr(), T, B, H, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_layer_bwd kernel launch failed: CUDA error {rc}")
     recurrence_bwd.launches += 1
@@ -608,7 +608,7 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
                 mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
                 w_x.data_ptr(), b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(),
                 act.data_ptr(), (ctypes.c_int * len(starts))(*starts), len(starts), chunk,
-                T, B, H, D, torch.cuda.current_stream(dev).cuda_stream)
+                T, B, H, D, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_layer_bwd_recompute kernel launch failed: CUDA error {rc}")
     recurrence_bwd_recompute.launches += 1

@@ -185,7 +185,7 @@ def _persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
         rc = fn(x_proj.data_ptr(), w_perm.data_ptr(), mask.data_ptr(), hb.data_ptr(),
                 h.data_ptr(), c.data_ptr(), out.data_ptr(), counter.data_ptr(), T, B, H,
                 plan["groups"], plan["tiles"], plan["stages"], skip_barrier,
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_recurrence kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -237,7 +237,7 @@ def lstm_recurrence(x_proj: Tensor, w_h: Tensor, mask: Tensor,
         out = torch.empty((T, B, H), dtype=f32, device=dev)
         if T == 0:
             return out, h, c
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.launch_stream(dev)
         rc = _lib_fn()(x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
                        hb.data_ptr(), h.data_ptr(), c.data_ptr(),
                        out.data_ptr(), T, B, H, stream)

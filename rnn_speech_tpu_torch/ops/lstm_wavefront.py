@@ -227,7 +227,7 @@ def _eval_persistent_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0, plan, skip
         rc = fn(xp0.data_ptr(), wx.data_ptr(), wh.data_ptr(), b_rest.data_ptr(),
                 mask.data_ptr(), h.data_ptr(), c.data_ptr(), out.data_ptr(), ring_h.data_ptr(),
                 counter.data_ptr(), T, B, H, L, plan["slices"], groups, R, skip_waits,
-                _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+                _ptr(stamps), _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_wavefront kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -254,7 +254,7 @@ def _eval_per_diagonal_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0):
         fn.restype = ctypes.c_int
         rc = fn(xp0.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(), b_rest.data_ptr(),
                 mask.data_ptr(), hb.data_ptr(), h.data_ptr(), c.data_ptr(), out.data_ptr(),
-                T, B, H, L, torch.cuda.current_stream(dev).cuda_stream)
+                T, B, H, L, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront kernel launch failed: CUDA error {rc}")
     return out, h, c
@@ -527,7 +527,7 @@ def _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan,
                 h.data_ptr(), c.data_ptr(), outs.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
                 ring_h.data_ptr(), _ptr(ring_x), _ptr(masks), counter.data_ptr(), T, B, H, L,
                 plan["slices"], R, drop_mode, seed0, seed1, thr, scale,
-                skip_waits, _ptr(stamps), torch.cuda.current_stream(dev).cuda_stream)
+                skip_waits, _ptr(stamps), _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_wavefront_train kernel launch failed: CUDA error "
                            f"{rc} (plan {plan})")
@@ -632,7 +632,7 @@ def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
                 b_all.data_ptr(), mask.data_ptr(), hb.data_ptr(), h.data_ptr(),
                 c.data_ptr(), outs.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
                 T, B, H, D, L, drop_mode, _ptr(masks), _ptr(xb), seed0, seed1, thr,
-                scale, torch.cuda.current_stream(dev).cuda_stream)
+                scale, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_train kernel launch failed: CUDA error {rc}")
     return outs, gates, cseq, h, c
@@ -854,7 +854,7 @@ def _bwd_persistent_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, 
                 scale, window, _ptr(dwx),
                 grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
                 skip_waits, skip_carries, _ptr(stamps),
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"persistent lstm_wavefront_bwd kernel launch failed: CUDA error "
                            f"{rc} (plan {plan})")
@@ -900,7 +900,7 @@ def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn
                 _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
                 seed0, seed1, thr, scale, window, _ptr(dwx),
                 grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
-                torch.cuda.current_stream(dev).cuda_stream)
+                _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
     wavefront_bwd.wgmma_products += products() - before
@@ -1019,7 +1019,7 @@ def dwx_windows(outs: Tensor, dgates: Tensor, window: int = None) -> Tensor:
         fn.restype = ctypes.c_int
         rc = fn(outs.data_ptr(), dgates.data_ptr(), T, B, H, L, W, dwx.data_ptr(),
                 grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
-                torch.cuda.current_stream(dgates.device).cuda_stream)
+                _build.launch_stream(dgates.device))
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd window products failed: CUDA error {rc}")
     return dwx

@@ -1,10 +1,10 @@
 """Outer training loop: checkpoint cadence, plateau LR decay, epochs.
 
-The port's counterpart of ``rnn_speech_tpu/train/loop.py``, one process on
-one device: run ``steps_per_checkpoint`` train steps -> save a checkpoint
--> every ``steps_per_evaluation`` steps run an eval pass -> plateau decay
-(track the mean error rate per checkpoint window; clear the history on a
-new best; after 7 non-improving windows multiply the LR by
+The port's counterpart of ``rnn_speech_tpu/train/loop.py``: run
+``steps_per_checkpoint`` train steps -> save a checkpoint -> every
+``steps_per_evaluation`` steps run an eval pass -> plateau decay (track
+the mean error rate per checkpoint window; clear the history on a new
+best; after 7 non-improving windows multiply the LR by
 ``lr_decay_factor``; stop when the LR drops below 1e-7) -> epoch
 bookkeeping on dataset exhaustion with reshuffle-or-reuse controlled by
 ``dataset_size_ordering`` (True / False / First_run_only).
@@ -20,25 +20,39 @@ JAX loop runs its scan path there.  Dropout seed words come from a CPU
 ``torch.Generator`` seeded 1234 (the bits are made on the device from
 them, ``ops/random_bits.py``).
 
-Not ported yet: device meshes and multi-process training (ROADMAP Queue
-A 8) and ``--timeline`` tracing (Queue A 9); they raise
-``NotImplementedError``.
+Multi-GPU (``mesh``, ``parallel/``): one process a GPU.  ``batch_size``
+stays the global device batch; each rank's pipeline builds only its
+``batch_size // world`` rows of its ``shard_for_host`` slice, width
+bucketing off (every rank must run the same collectives step for step),
+and the step is ``parallel/sharding.make_sharded_step``'s.  Every rank
+draws the same reset coin, so the row-sharded recurrent state resets
+coherently; rank 0 alone writes checkpoints (from parameters every rank
+gathers) and metrics; the epoch exit is agreed at window boundaries; the
+eval pass runs in lockstep (``evaluate_dataset``).
+
+``--timeline`` traces steps 2 and 3 of the session once with
+``torch.profiler`` (CPU and, on the card, CUDA activity) into
+``tensorboard_dir`` as a Chrome trace, one ``*.pt.trace.json`` a rank,
+after one warm-up step: spans ``train`` a step (a profiler step each),
+``host/put_batch``, ``host/metrics_drain``, and ``host/next_batch`` (the
+input pipeline), ``host/checkpoint`` and ``evaluate`` where the window
+holds them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 import time
 from collections import deque
 from random import Random, randint, shuffle
 from typing import Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
-from rnn_speech_tpu_torch import resolve_device
+from rnn_speech_tpu_torch import resolve_device, to_device
+from rnn_speech_tpu_torch.parallel import launch, lockstep
+from rnn_speech_tpu_torch.parallel import sharding as shard_mod
 from rnn_speech_tpu_torch.train import checkpoint as ckpt
 from rnn_speech_tpu_torch.train import metrics as metrics_mod
 from rnn_speech_tpu_torch.train import pipeline as pipe_mod
@@ -51,6 +65,7 @@ PLATEAU_STRIKES = 7
 DROPOUT_SEED = 1234
 COIN_SEED = 0xC01
 EVAL_WINDOW = 4         # eval batches in flight before the oldest is read
+TRACE_STEPS = (2, 4)    # --timeline traces the session's steps [2, 4), after one warm-up
 
 
 def reset_coin(ratio: float, rng=None) -> bool:
@@ -93,37 +108,32 @@ def effective_batch_shape(config) -> Tuple[int, int]:
     return b, mb
 
 
-def check_single_process(mesh_shape=(1, 1), timeline: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what the port's loop does not run
-    yet: a device mesh other than 1x1, multi-process training
-    (``RST_MULTIHOST`` or a ``torch.distributed`` group of more than one
-    rank) and ``--timeline``."""
-    if tuple(mesh_shape) != (1, 1) or os.environ.get("RST_MULTIHOST"):
-        raise NotImplementedError(
-            "device meshes and multi-process training come with the multi-GPU "
-            "slice (ROADMAP Queue A 8); use --mesh_data 1 --mesh_model 1")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process training comes with the multi-GPU slice (ROADMAP Queue A 8)")
-    if timeline:
-        raise NotImplementedError(
-            "--timeline tracing comes with the port's profiling tools (ROADMAP Queue A 9)")
+def start_trace(trace_dir: str, dev, rank: int = 0):
+    """A started ``torch.profiler`` session that warms up over the next
+    ``prof.step()`` and then records the TRACE_STEPS window (CPU activity,
+    and CUDA activity on the card), written after its last step into
+    ``trace_dir`` as ``rank<r>.<timestamp>.pt.trace.json`` (a Chrome
+    trace)."""
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   schedule=schedule(wait=0, warmup=1,
+                                     active=TRACE_STEPS[1] - TRACE_STEPS[0], repeat=1),
+                   on_trace_ready=tensorboard_trace_handler(trace_dir, worker_name=f"rank{rank}"))
+    prof.start()
+    return prof
 
 
-def to_device(array: np.ndarray, dev) -> torch.Tensor:
-    """A host array on ``dev``: on CUDA through pinned memory without
-    blocking the host, so the work already queued keeps running."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if dev.type != "cuda":
-        return t.to(dev)
-    return t.pin_memory().to(dev, non_blocking=True)
-
-
-def build_training(config, char_map, batch_size: int, device=None):
+def build_training(config, char_map, batch_size: int, device=None,
+                   bucket_count: Optional[int] = None):
     """(step config, pipeline config) of a training session on ``device``
     (default cuda): the frontend, the model config after the memory plan,
-    the keep probabilities and the CTC route."""
+    the keep probabilities and the CTC route.  ``batch_size`` is the rows
+    of one device (one rank's share under a mesh); ``bucket_count``
+    overrides the config's."""
     from rnn_speech_tpu_torch.models import acoustic
     from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
 
@@ -139,7 +149,7 @@ def build_training(config, char_map, batch_size: int, device=None):
         signal_processing=config.signal_processing,
         num_workers=pipe_mod.default_decode_threads() if tpu.prefetch_depth > 0 else 0,
         prefetch_batches=max(tpu.prefetch_depth, 1),
-        bucket_count=max(tpu.bucket_count, 1),
+        bucket_count=max(tpu.bucket_count if bucket_count is None else bucket_count, 1),
     )
     fe = DeviceFrontend(config.signal_processing, sr=pcfg.sample_rate,
                         max_samples=pcfg.max_samples, device=dev)
@@ -195,19 +205,36 @@ def train_acoustic(
     tb_name: Optional[str] = None,
     timeline: bool = False,
     max_steps: Optional[int] = None,
-    mesh_shape=(1, 1),
+    mesh=None,
     step_hook: Optional[Callable[[int, Dict], None]] = None,
     device=None,
 ) -> step_mod.TrainState:
-    """Full acoustic training session on ``device`` (default cuda).
-    Returns the final train state."""
-    check_single_process(mesh_shape, timeline)
+    """Full acoustic training session on ``device`` (default cuda; under a
+    process group, the rank's device).  ``mesh`` (``parallel/mesh.make_mesh``)
+    runs the sharded step; a group of more than one rank needs one.
+    Returns the final train state (under a mesh, this rank's shards)."""
     dev = resolve_device(device)
     batch_size, _ = effective_batch_shape(config)
     if batch_size != config.batch_size:
         logger.info("Fusing %d microbatches of %d into one %d-wide device batch",
                     config.mini_batch_size, config.batch_size, batch_size)
-    scfg, pcfg = build_training(config, char_map, batch_size, dev)
+    # Multi-rank: batch_size stays the GLOBAL device batch; each rank's
+    # pipeline assembles only its 1/world slice of the rows, with width
+    # bucketing off, so every rank runs the same collectives step for step.
+    n_proc, rank = launch.world_and_rank()
+    is_primary = rank == 0
+    host_batch_size, bucket_count = batch_size, None
+    if n_proc > 1:
+        if mesh is None:
+            raise ValueError("Multi-process training requires a device mesh "
+                             "(--mesh_data 0 spans the ranks)")
+        host_batch_size = shard_mod.shard_width(batch_size, mesh)
+        if config.tpu.bucket_count > 1:
+            logger.info("Multi-process run: disabling width bucketing")
+            bucket_count = 1
+    # The memory plan and the recurrent state take one rank's rows: the
+    # mesh spans every rank, so that is batch_size // (data x model).
+    scfg, pcfg = build_training(config, char_map, host_batch_size, dev, bucket_count)
     # Metric cadence ([training] train_metric_every): the greedy decode +
     # edit distance run only on every Nth step; the loss accumulates every
     # step.  N = 1 never runs the second configuration.
@@ -215,7 +242,7 @@ def train_acoustic(
     scfg_nometric = dataclasses.replace(scfg, train_metric=False)
 
     state = step_mod.init_train_state(torch.Generator().manual_seed(0), scfg.model,
-                                      batch_size, config.learning_rate, dev)
+                                      host_batch_size, config.learning_rate, dev)
     ckpt_dir = config.checkpoint_dir + "/acoustic/"
     restored = ckpt.restore(ckpt_dir, state["params"])
     if restored is not None:
@@ -226,13 +253,31 @@ def train_acoustic(
     if learn_rate_override is not None:
         state["lr"] = torch.tensor(learn_rate_override, dtype=torch.float32, device=dev)
 
-    put_batch = lambda b: {k: to_device(v, dev) for k, v in b.items()}
+    # Every rank restored the full checkpoint; the sharded step takes its
+    # shard of it.
+    specs = None
+    if mesh is not None:
+        specs = shard_mod.param_specs(state["params"], mesh.model_size)
+        state, put_batch, train_fn, eval_fn = shard_mod.make_sharded_step(mesh, scfg, state)
+    else:
+        put_batch = lambda b: {k: to_device(v, dev) for k, v in b.items()}
+        train_fn, eval_fn = step_mod.train_step, step_mod.eval_step
     # The coin's two outcomes live on the device, so applying it copies
     # nothing from the host.
     coin_values = {flag: torch.tensor(flag, device=dev) for flag in (False, True)}
 
+    def params_for_save():
+        """Full-shape parameters; under the model axis a gather that every
+        rank runs, though only rank 0 writes."""
+        if mesh is None or mesh.model_size <= 1:
+            return state["params"]
+        return shard_mod.gather_params(state["params"], specs, mesh)
+
+    # Checkpoints and metrics are written by rank 0 only: every rank holds
+    # the same parameters and metrics, and a second writer would race on a
+    # shared checkpoint_dir.
     writer = None
-    if config.tensorboard_dir:
+    if config.tensorboard_dir and is_primary:
         writer = metrics_mod.MetricsWriter(config.tensorboard_dir, tb_name)
 
     policy = PlateauPolicy(config.lr_decay_factor)
@@ -241,6 +286,9 @@ def train_acoustic(
 
     epoch = 0
     ordering = config.dataset_size_ordering
+    # Each rank feeds only its slice of the corpus.  The eval gate uses the
+    # emptiness BEFORE the shard, the same on every rank: the eval pass is a
+    # collective, and a rank whose shard is empty must still join it.
     have_test_set = bool(test_set)
     train_set = pipe_mod.shard_for_host(train_set)
     if test_set:
@@ -305,28 +353,59 @@ def train_acoustic(
             err if with_metric else float("nan"), time.time() - t_disp,
         )
 
+    def global_epoch() -> int:
+        """The epoch every rank agrees on (the least: a rank is through an
+        epoch only when every rank is).  A collective, called at window
+        boundaries only, so a multi-rank max_epoch exits at window
+        granularity."""
+        if n_proc <= 1:
+            return epoch
+        return int(lockstep.all_reduce_values([epoch], "min", integer=True)[0])
+
+    # --timeline: trace a bounded window of steps, once a session, after
+    # the first steps (which build kernels and warm the allocator).
+    trace_first, trace_last = TRACE_STEPS
+    prof = None
+    if timeline and not config.tensorboard_dir:
+        logger.warning("--timeline needs tensorboard_dir; tracing disabled")
+        timeline = False
+
     try:
         while True:
             window_err, window_steps, window_ran = 0.0, 0, 0
             for _ in range(config.steps_per_checkpoint):
-                batch, _rolled = next_batch()
-                if max_epoch is not None and epoch > max_epoch:
+                with torch.profiler.record_function("host/next_batch"):
+                    batch, _rolled = next_batch()
+                if max_epoch is not None and n_proc == 1 and epoch > max_epoch:
                     break
+                if timeline and prof is None and total_steps == trace_first - 1:
+                    prof = start_trace(config.tensorboard_dir, dev, rank)
                 t_disp = time.time()
                 with_metric = metric_every <= 1 or total_steps % metric_every == 0
                 step_cfg = scfg if with_metric else scfg_nometric
                 coin = reset_coin(config.rnn_state_reset_ratio, coin_rng)
-                state, metrics = step_mod.train_step(
-                    step_cfg, state, put_batch(batch), rng, coin_values[coin])
+                with torch.profiler.record_function("train"):
+                    with torch.profiler.record_function("host/put_batch"):
+                        device_batch = put_batch(batch)
+                    state, metrics = train_fn(step_cfg, state, device_batch, rng,
+                                              coin_values[coin])
                 total_steps += 1
-                drain_pending()   # the previous step, while this one runs
+                with torch.profiler.record_function("host/metrics_drain"):
+                    drain_pending()   # the previous step, while this one runs
                 pending = (total_steps, metrics, t_disp, with_metric)
+                if prof is not None:
+                    if total_steps >= trace_last:
+                        float(metrics["mean_loss"])     # the window's last step ends
+                    prof.step()                         # the last one writes the trace
+                    if total_steps >= trace_last:
+                        prof.stop()
+                        prof, timeline = None, False    # one window a session
                 if max_steps is not None and total_steps >= max_steps:
                     break
             drain_pending()       # the window's tail, before its stats are used
             if window_ran == 0:
                 # A window that ran no steps has no mean to log or decay on.
-                if max_epoch is not None and epoch > max_epoch:
+                if max_epoch is not None and global_epoch() > max_epoch:
                     logger.info("Max number of epochs reached, exiting training session")
                     break
                 if max_steps is not None and total_steps >= max_steps:
@@ -339,21 +418,26 @@ def train_acoustic(
                 window_err /= window_steps
 
             current_step = int(state["step"])
-            ckpt.save(ckpt_dir, state["params"], current_step, float(state["lr"]))
-            if writer:
-                writer.add_scalar("learning_rate", float(state["lr"]), current_step)
-                if have_window_err:
-                    writer.add_scalar("train/mean_error_rate", window_err, current_step)
-                for li, (c, h) in enumerate(state["states"]):
-                    writer.add_histogram(f"rnn/layer{li}_cell",
-                                         c.detach().float().cpu().numpy(), current_step)
-                    writer.add_histogram(f"rnn/layer{li}_hidden",
-                                         h.detach().float().cpu().numpy(), current_step)
+            with torch.profiler.record_function("host/checkpoint"):
+                full_params = params_for_save()
+                if is_primary:
+                    ckpt.save(ckpt_dir, full_params, current_step, float(state["lr"]))
+                if writer:
+                    writer.add_scalar("learning_rate", float(state["lr"]), current_step)
+                    if have_window_err:
+                        writer.add_scalar("train/mean_error_rate", window_err, current_step)
+                    # Row-sharded states: rank 0's rows (i.i.d. utterance streams).
+                    for li, (c, h) in enumerate(state["states"]):
+                        writer.add_histogram(f"rnn/layer{li}_cell",
+                                             c.detach().float().cpu().numpy(), current_step)
+                        writer.add_histogram(f"rnn/layer{li}_hidden",
+                                             h.detach().float().cpu().numpy(), current_step)
 
             if (have_test_set and config.steps_per_evaluation
                     and current_step % config.steps_per_evaluation == 0):
-                eval_metrics = evaluate_dataset(step_mod.eval_step, scfg, state, test_set,
-                                                char_map, pcfg, put_batch)
+                with torch.profiler.record_function("evaluate"):
+                    eval_metrics = evaluate_dataset(eval_fn, scfg, state, test_set,
+                                                    char_map, pcfg, put_batch)
                 logger.info("Evaluation at step %d : loss %.5f - error_rate %.5f",
                             current_step, eval_metrics["mean_loss"],
                             eval_metrics["mean_error_rate"])
@@ -369,14 +453,18 @@ def train_acoustic(
                 if float(state["lr"]) < MIN_LEARNING_RATE:
                     logger.info("Learning rate is too low, exiting")
                     break
-                ckpt.save(ckpt_dir, state["params"], current_step, float(state["lr"]))
+                full_params = params_for_save()
+                if is_primary:
+                    ckpt.save(ckpt_dir, full_params, current_step, float(state["lr"]))
 
-            if max_epoch is not None and epoch > max_epoch:
+            if max_epoch is not None and global_epoch() > max_epoch:
                 logger.info("Max number of epochs reached, exiting training session")
                 break
             if max_steps is not None and total_steps >= max_steps:
                 break
     finally:
+        if prof is not None:
+            prof.stop()
         if writer:
             writer.close()
     return state
@@ -386,7 +474,13 @@ def evaluate_dataset(eval_fn, scfg, state, test_set, char_map, pcfg,
                      put_batch) -> Dict[str, float]:
     """Mean loss/error over one pass of the test pipeline.  Metric reads
     trail dispatch by ``EVAL_WINDOW`` batches, so the device runs batches
-    back to back while in-flight memory stays bounded."""
+    back to back while in-flight memory stays bounded.
+
+    Multi-rank: the eval step all-reduces its sums, so dispatch follows the
+    lockstep contract of ``parallel/lockstep.py``: one agreed bound, an
+    exhausted rank feeding the all-padding batch, and a closing
+    all-reduce of the real counts that drops the trailing steps that were
+    padding on every rank, so they do not bias the mean low."""
     in_flight = deque()
     drained: List[Tuple[float, float]] = []
 
@@ -394,15 +488,38 @@ def evaluate_dataset(eval_fn, scfg, state, test_set, char_map, pcfg,
         m = in_flight.popleft()
         drained.append((float(m["mean_loss"]), float(m["mean_error_rate"])))
 
-    for batch in pipe_mod.InputPipeline(test_set, char_map, pcfg):
+    def dispatch(batch):
         in_flight.append(eval_fn(scfg, state, put_batch(batch)))
         if len(in_flight) > EVAL_WINDOW:
             drain_one()
+
+    batches = iter(pipe_mod.InputPipeline(test_set, char_map, pcfg))
+    real_steps = None
+    if launch.world_and_rank()[0] > 1:
+        macro = pcfg.batch_size * pcfg.mini_batch_size
+        total = lockstep.pod_dispatch_bound(-(-len(test_set) // macro))
+        empty, local_real = None, 0
+        for _ in range(total):
+            batch = next(batches, None)
+            if batch is None:
+                if empty is None:
+                    empty = pipe_mod.InputPipeline([], char_map, pcfg).empty_batch()
+                batch = empty
+            else:
+                local_real += 1
+            dispatch(batch)
+        # Ranks feed their real batches first, so step i carried real data
+        # somewhere iff i < max(local_real).
+        real_steps = int(lockstep.all_reduce_values([local_real], "max", integer=True)[0])
+    else:
+        for batch in batches:
+            dispatch(batch)
     while in_flight:
         drain_one()
-    if not drained:
+    kept = drained if real_steps is None else drained[:real_steps]
+    if not kept:
         return {"mean_loss": 0.0, "mean_error_rate": 0.0}
     return {
-        "mean_loss": sum(m[0] for m in drained) / len(drained),
-        "mean_error_rate": sum(m[1] for m in drained) / len(drained),
+        "mean_loss": sum(m[0] for m in kept) / len(kept),
+        "mean_error_rate": sum(m[1] for m in kept) / len(kept),
     }

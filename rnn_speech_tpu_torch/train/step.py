@@ -16,7 +16,9 @@ output projection), seeded by draws from ``rng``, a CPU
 tensors every kernel wrapper takes its plain version.  ``spec_augment``
 masks each microbatch's features (``ops/augment.py``) with draws from
 ``rng`` before the forward, where the JAX step does.  The multi-device
-``axis_name`` form comes with the multi-GPU slice.
+``axis_name`` form: ``accumulate_grads`` returns its metric sums and
+counts undivided, and ``eval_step(..., group=...)`` all-reduces them over
+a ``torch.distributed`` group before dividing (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -182,12 +184,15 @@ def train_step(cfg: StepConfig, state: TrainState, batch: Dict[str, Tensor],
 
 
 @torch.no_grad()
-def eval_step(cfg: StepConfig, state: TrainState,
-              batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+def eval_step(cfg: StepConfig, state: TrainState, batch: Dict[str, Tensor],
+              group=None) -> Dict[str, Tensor]:
     """Loss + greedy error rate over a batch, no dropout, fresh zero state
     per microbatch (the reference always reset state in evaluation).  The
     decode runs at the labels' width, whatever ``greedy_metric_max_out``
-    (which caps only the train step's metric), as the JAX package's does."""
+    (which caps only the train step's metric), as the JAX package's does.
+    With ``group`` (a ``torch.distributed`` group, each rank holding its
+    shard of the rows) the sums and counts are all-reduced over it before
+    dividing: exact even when the padding rows fall unevenly."""
     params = state["params"]
     B = batch["labels"].shape[1]
     dev = batch["labels"].device
@@ -208,6 +213,10 @@ def eval_step(cfg: StepConfig, state: TrainState,
         err_sum = err_sum + _error_rate(cfg, logits, frame_lengths, micro["labels"],
                                         micro["label_lengths"], micro["labels"].shape[1])
         cnt = cnt + (real.sum() > 0).to(torch.float32)
+    if group is not None:
+        sums = torch.stack([loss_sum, err_sum, cnt])
+        torch.distributed.all_reduce(sums, group=group)
+        loss_sum, err_sum, cnt = sums.unbind()
     denom = torch.clamp(cnt, min=1.0)
     return {"mean_loss": loss_sum / denom, "mean_error_rate": err_sum / denom}
 

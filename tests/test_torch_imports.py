@@ -89,16 +89,36 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert len(texts) == 1 and isinstance(texts[0], str)
     with pytest.raises(RuntimeError):
         cli.main(["--file", str(tmp_path / "x.wav"), "--config", "none.ini"])
+    from rnn_speech_tpu_torch.parallel import dryrun
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.dryrun_multichip(2)
 
 
-def test_cli_modes_of_later_slices_raise_not_implemented():
+def test_cli_modes_of_later_slices_raise_not_implemented(monkeypatch):
+    """No mode raises ``NotImplementedError`` any more.  A mesh larger than
+    the ranks there are raises ``ValueError`` naming
+    ``torch.distributed.run`` before reading any file (it never trains on
+    one card), and ``RST_MULTIHOST=1`` with a bad ``RST_PROCESS_ID`` exits
+    with the JAX CLI's message."""
+    from rnn_speech_tpu import cli as jcli
     from rnn_speech_tpu_torch import cli
 
-    for argv in (["--train_acoustic", "--timeline"], ["--evaluate", "--timeline"],
-                 ["--train_acoustic", "--mesh_data", "2"],
-                 ["--evaluate", "--mesh_model", "2"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(argv + ["--device", "cpu"])
+    for argv in (["--train_acoustic", "--mesh_data", "2"],
+                 ["--evaluate", "--mesh_model", "2"],
+                 ["--train_acoustic", "--timeline", "--mesh_data", "4", "--mesh_model", "2"]):
+        with pytest.raises(ValueError, match="python -m torch.distributed.run"):
+            cli.main(argv + ["--device", "cpu", "--config", "none.ini"])
+    monkeypatch.setenv("RST_MULTIHOST", "1")
+    monkeypatch.setenv("RST_COORD_ADDR", "localhost:1")
+    monkeypatch.setenv("RST_NUM_PROCESSES", "2")
+    monkeypatch.setenv("RST_PROCESS_ID", "one")
+    with pytest.raises(SystemExit) as port:
+        cli.main(["--train_acoustic", "--device", "cpu", "--config", "none.ini"])
+    with pytest.raises(SystemExit) as ref:
+        jcli.main(["--train_acoustic", "--config", "none.ini"])
+    assert str(port.value) == str(ref.value)
+    assert "RST_PROCESS_ID must be a non-negative integer (got 'one')" in str(port.value)
 
 
 def test_flac_raises_a_clear_error(tmp_path):
@@ -152,12 +172,18 @@ PORT_MODULES = [
     # slice 19: the char LM, its training and chunk-carried streaming
     "rnn_speech_tpu_torch.models.language", "rnn_speech_tpu_torch.train.lm_loop",
     "rnn_speech_tpu_torch.streaming",
+    # slice 20: multi-GPU training and evaluation
+    "rnn_speech_tpu_torch.parallel", "rnn_speech_tpu_torch.parallel.launch",
+    "rnn_speech_tpu_torch.parallel.mesh", "rnn_speech_tpu_torch.parallel.lockstep",
+    "rnn_speech_tpu_torch.parallel.sharding", "rnn_speech_tpu_torch.parallel.dryrun",
 ]
 
 
 @pytest.mark.parametrize("module", PORT_MODULES)
 def test_port_module_is_scanned(module):
     path = os.path.join(ROOT, *module.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *module.split("."), "__init__.py")
     assert path in _port_sources()
 
 

@@ -63,14 +63,40 @@ def test_effective_batch_shape_equal_to_jax(fuse, mb):
     assert got == ((10 * mb, 1) if fuse else (10, mb))
 
 
-def test_unported_modes_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        tloop.check_single_process((2, 1))
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        tloop.check_single_process((1, 1), timeline=True)
+def test_unported_modes_raise(monkeypatch, tmp_path, corpus, caplog):
+    """What the loop once refused now runs or raises as the JAX loop does:
+    ``--timeline`` without ``tensorboard_dir`` warns and trains untraced; a
+    group of more than one rank without a mesh raises ``ValueError``; a
+    mesh larger than the ranks there are raises ``ValueError`` naming
+    ``torch.distributed.run``; ``RST_MULTIHOST=1`` with a bad
+    ``RST_PROCESS_ID`` exits with the JAX CLI's message."""
+    import logging
+
+    from rnn_speech_tpu_torch.parallel import launch, mesh
+
+    ini = tmp_path / "c.ini"
+    ini.write_text(CONFIG.format(root=tmp_path, corpus=corpus).replace(
+        f"tensorboard_dir : {tmp_path}/tb\n", ""))
+    config = tconfig.load_config(str(ini))
+    assert config.tensorboard_dir is None
+    data = sorted(tcorpus.DataProcessor(corpus).get_dataset(), key=lambda d: d[2])
+    with caplog.at_level(logging.WARNING, logger=tloop.__name__):
+        state = tloop.train_acoustic(config, data, [], tchar_map("english"), max_steps=3,
+                                     timeline=True, device="cpu")
+    assert "--timeline needs tensorboard_dir; tracing disabled" in caplog.text
+    assert int(state["step"]) == 3
+    monkeypatch.setattr(launch, "world_and_rank", lambda: (2, 0))
+    with pytest.raises(ValueError, match="requires a device mesh"):
+        tloop.train_acoustic(config, data, [], tchar_map("english"), max_steps=1,
+                             device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node 2"):
+        mesh.mesh_shape(2, 1, world=1)
     monkeypatch.setenv("RST_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        tloop.check_single_process((1, 1))
+    monkeypatch.setenv("RST_COORD_ADDR", "localhost:1")
+    monkeypatch.setenv("RST_NUM_PROCESSES", "2")
+    monkeypatch.setenv("RST_PROCESS_ID", "-1")
+    with pytest.raises(SystemExit, match="RST_PROCESS_ID must be a non-negative integer"):
+        launch.init_from_env("cpu")
 
 
 CONFIG = """

@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli,lm,stream,multi]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
+    python3 chip_smoke.py --phases device,build,fault_hunt [--hunt_iters N]   # opt-in
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -141,13 +142,17 @@ printing one JSON line:
            and 3510, each beside a planted fault that must fail its check
            (the gates-mode backward on its persistent kernel, the plan's
            choice at B=64: bit for bit on repeat, beside the launch without
-           its step barrier; and at B=70, past its plan, on the per-step
-           kernel; the gates-mode forward likewise on its persistent kernel
+           its step barrier; and at B=70, two row groups in turn, with the
+           per-step kernel called directly beside it; the gates-mode forward likewise on its persistent kernel
            at B=64 and at B=260 on the per-step kernel, the per-step kernel
            also at B=64 and every T, on the persistent kernel's inputs);
            the recompute backward also at its route's batch (B=400 on the
            H100, T=512) and at a chunk edge of its rebuild (T one step
-           past a chunk, B=70), and its rebuild product alone at one chunk
+           past a chunk, B=70), on its persistent kernel (the plan's choice:
+           one launch a rebuild chunk, no per-step launch, bit for bit on
+           repeat, beside the launch without its step and slice barriers) with the
+           per-step kernel called directly beside it, and its rebuild
+           product alone at one chunk
            of that batch (relative Frobenius, bit for bit on repeat,
            beside the last K stage left out); the recompute forward on its
            persistent kernel at T=3510 and the route's two batches (B=400
@@ -161,14 +166,18 @@ printing one JSON line:
            (0, "recompute") on this card, 1 warm-up and 3 timed steps and
            one split by its marks, the plan's estimate beside the
            measured peak memory (the backward must launch its rebuild
-           products, the forward its persistent kernel; the layered step's
+           products and its persistent kernel and no per-step launch, the
+           forward its persistent kernel; the layered step's
            forward and backward their persistent kernels); each layered
            kernel's time at its route's shapes
            beside its bound, its plain version and torch.nn.LSTM (one
            layer; the forwards in turns with its forward, the
            backwards in turns with its backward without weight gradients,
-           its backward with them beside), the recompute
-           backward's rebuild products on the
+           its backward with them beside, the backwards also in turns with
+           their per-step kernels, the design they replaced; the gates-mode
+           backward also at B=128 and the recompute backward at the widest
+           recompute batch, B=473, in turns with the per-step kernel), the
+           recompute backward's rebuild products on the
            call's own operands (every chunk, TFLOP/s; one whole chunk
            also in turns with torch.mm of the same product); and one
            step's gradients at T=256 through the kernels against the
@@ -216,7 +225,10 @@ printing one JSON line:
            per parameter tensor and for the cotangent that reaches the
            input projection: the readings that set its limit; and the
            recompute route's check and each alt route's (its switch set
-           around it) at the same three seeds.
+           around it) at the same three seeds.  Seed 2 at the default
+           keeps is also the gate of train, train_layered (recompute) and
+           alt_routes: where that phase ran in the same run, its entry is
+           read (the same computation), not taken again.
   train_loop (~60-80 s)
            ``python -m rnn_speech_tpu_torch.cli --train_acoustic`` at the
            flagship width of config.ini (3x1024, fbank, bf16; batch_size 10
@@ -341,9 +353,32 @@ printing one JSON line:
            at B=64, T=3510 (a full-length and a ragged batch) there and
            here, which must be equal bit for bit, and the reverse diagonal
            and the three CTC forwards at B=64, T=3510 (the CTC forwards
-           also at the wide step's batch) timed there and here in turns.
+           also at the wide step's batch) timed there and here in turns;
+           the gates-mode layer backward at B=64 (one row group: equal to
+           the parent's bit for bit) and the recompute backward at B=400,
+           T=512 (hashed in both trees; its carry product sums in another
+           order than the parent's per-step kernel, so it is held to equal
+           itself across runs, not the parent).
+  fault_hunt (opt-in)
+           the persistent kernels rebuilt with their bounds checks
+           (RST_BOUNDS_CHECK=1: every global index and TMA box coordinate
+           traps with its kernel, value and bound) and run under
+           CUDA_LAUNCH_BLOCKING=1, in child processes: first a positive
+           control (the recompute backward told its rebuild buffer is a
+           step short, ``skip_barrier`` bit 4: it must trap with an
+           RST_CHECK line in the checked build and run in the default
+           one), then ``--hunt_iters`` times (5 by default): the
+           reverse-diagonal and fused card tests
+           (``tests/test_torch_cuda_kernels.py -k "bwd or fuse"``), phase
+           ``train``, and the layer backwards' checks at B=70, 128 and the
+           recompute batch (``_hunt_layer_checks``); each iteration's
+           outcome, the first trap or device assert it printed, and the
+           tree's hash are recorded; fails if any run failed.
 
-Then it prints the ``kernels`` JSON line, the card's name and power limit,
+Before the phases it prints the tree's hash, ``{"tree_sha256": ...}``
+(every file of the package and this script: ``_build.tree_digest``), also
+kept in the record.  Then it prints the ``kernels`` JSON line, the card's
+name and power limit,
 and last ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.  It needs one card and ``nvcc``; it
 imports nothing of JAX.
@@ -353,6 +388,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import inspect
 import json
 import math
 import os
@@ -1242,19 +1279,20 @@ bucket_count : 8
 
 # ------------------------------------------------------------ train phases
 
-def _rel_errs(got, ref):
+def _rel_errs(got, ref, name=""):
     """(max abs errors, relative errors) of each output pair: the error
     over the plain result's own largest magnitude, gate by gate for
     outputs whose last axis holds the four gate blocks (i, g, f, o), so a
     small gate's term is held to its own scale.  Outputs of three or more
     axes are read one leading index at a time, so a float32 copy of a
-    full-length dgates (15 GiB at B=96) is never formed."""
+    full-length dgates (15 GiB at B=96) is never formed.  Fails (naming
+    ``name``) on a shape that differs or a value that is not finite."""
     import torch
 
     errs, rels = [], []
     for g, r in zip(got, ref):
         if g.shape != r.shape:
-            fail("bad shape or non-finite output")
+            fail(f"{name}: bad shape or non-finite output")
         if not g.numel():
             errs.append(0.0)
             rels.append(0.0)
@@ -1265,7 +1303,7 @@ def _rel_errs(got, ref):
             for i, (gb, rb) in enumerate(zip(gp.chunk(n_blocks, -1), rp.chunk(n_blocks, -1))):
                 gf, rf = gb.float(), rb.float()
                 if not bool(torch.isfinite(gf).all()):
-                    fail("bad shape or non-finite output")
+                    fail(f"{name}: bad shape or non-finite output")
                 err[i] = max(err[i], float((gf - rf).abs().max()))
                 scale[i] = max(scale[i], float(rf.abs().max()))
         errs.append(max(err))
@@ -1277,7 +1315,7 @@ def _rel_errs(got, ref):
 def _rel_check(name, got, ref, tol, checks):
     """Fails when any relative error exceeds ``tol``; returns the largest
     absolute error."""
-    errs, rels = _rel_errs(got, ref)
+    errs, rels = _rel_errs(got, ref, name)
     entry = {"check": name, "max_abs_err": errs, "rel_err": rels, "tol": tol}
     checks.append(entry)
     if max(rels) > tol:
@@ -1285,12 +1323,27 @@ def _rel_check(name, got, ref, tol, checks):
     return max(errs)
 
 
+def _fault_errs(faulty, ref, name=""):
+    """The relative errors (``_rel_errs``) of a planted fault's outputs, or
+    "non-finite" where one holds a value that is not finite (a stale read
+    of a stream nothing has written yet): a result ``_rel_check`` fails."""
+    import torch
+
+    for f in faulty:
+        parts = f.unbind(0) if f.dim() > 2 else (f,)
+        if f.numel() and not all(bool(torch.isfinite(p).all()) for p in parts):
+            return "non-finite"
+    return _rel_errs(faulty, ref, name)[1]
+
+
 def _fault_check(name, faulty, ref, tol, checks):
-    """A fault planted in the plain version must fail the check at ``tol``."""
-    _, rels = _rel_errs(faulty, ref)
+    """A fault planted in the plain version or a launch must fail the
+    check at ``tol``: a relative error past it, or an output that is not
+    finite."""
+    rels = _fault_errs(faulty, ref, name)
     entry = {"planted_fault": name, "rel_err": rels, "tol": tol}
     checks.append(entry)
-    if max(rels) <= tol:
+    if rels != "non-finite" and max(rels) <= tol:
         fail(f"{name}: the check does not see this planted fault: {entry}")
 
 
@@ -2251,8 +2304,10 @@ def _path_counters():
     projections; every train step); and the persistent kernels' launches (wgmma on a resident W_h):
     the lean forward (csrc/lstm_layer_lean.cu; the recompute steps), the
     gates-mode forward (its gates instance; the layered steps), the
-    gates-mode backward (csrc/lstm_layer_bwd_persistent.cu; the layered
-    steps), the wavefront training forward
+    layer backward (csrc/lstm_layer_bwd_persistent.cu) in gates mode (the
+    layered steps) and in recompute mode (the recompute steps: a launch a
+    rebuild chunk), the recompute calls that ran the per-step kernel (none
+    at the card's width), the wavefront training forward
     (csrc/lstm_wavefront_persistent.cu; the default steps) and the reverse
     diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps: its
     cooperative launches, one a window and row group), its fused passes
@@ -2267,6 +2322,8 @@ def _path_counters():
             "weight_grad_skinny": gm.weight_grad.skinny_launches,
             "fused_windows": wf.wavefront_bwd.wgmma_products,
             "recompute_rebuild": tlt.recurrence_bwd_recompute.rebuild_launches,
+            "recompute_persistent": tlt.recurrence_bwd_recompute.persistent_launches,
+            "recompute_per_step": tlt.recurrence_bwd_recompute.per_step_launches,
             "lean_persistent": tlt.recurrence_train_lean.persistent_launches,
             "bwd_persistent": tlt.recurrence_bwd.persistent_launches,
             "train_persistent": tlt.recurrence_train.persistent_launches,
@@ -2285,6 +2342,8 @@ def _zero_path_counters():
     gm.weight_grad.skinny_launches = 0
     wf.wavefront_bwd.wgmma_products = 0
     tlt.recurrence_bwd_recompute.rebuild_launches = 0
+    tlt.recurrence_bwd_recompute.persistent_launches = 0
+    tlt.recurrence_bwd_recompute.per_step_launches = 0
     tlt.recurrence_train_lean.persistent_launches = 0
     tlt.recurrence_bwd.persistent_launches = 0
     tlt.recurrence_train.persistent_launches = 0
@@ -2468,17 +2527,46 @@ def phase_grad_study():
     boundary drops: the readings behind GRAD_REL_TOL; the recompute
     route's at the default keeps, the readings behind RECOMPUTE_GRAD_TOL;
     and each alt route's (``_alt_route_specs``, its switch set around it)
-    at the default keeps under GRAD_REL_TOL."""
+    at the default keeps under GRAD_REL_TOL.  The gates that train,
+    train_layered and alt_routes took at seed 2 in this run are read from
+    their records (``_gates_taken``), not taken again."""
     readings, recompute, alt = [], [], {}
+    taken = _gates_taken()
     for seed in (2, 5, 8):
         for keeps in ((1.0, 1.0), (INPUT_KEEP, 1.0), (1.0, OUTPUT_KEEP),
                       (INPUT_KEEP, OUTPUT_KEEP)):
-            readings.append(_grad_check(keeps, True, seed))
-        recompute.append(_grad_check(seed=seed, **RECOMPUTE_GATE))
+            readings.append(taken.get(("default", seed, keeps))
+                            or _grad_check(keeps, True, seed))
+        recompute.append(taken.get(("recompute", seed)) or _grad_check(seed=seed,
+                                                                       **RECOMPUTE_GATE))
         for name, env, _, _, fault, _ in _alt_route_specs():
             with _environ(**env):
-                alt.setdefault(name, []).append(_grad_check(seed=seed, fault=fault))
-    emit("grad_study", readings=readings, recompute=recompute, alt_routes=alt)
+                alt.setdefault(name, []).append(taken.get((name, seed))
+                                                or _grad_check(seed=seed, fault=fault))
+    emit("grad_study", readings=readings, recompute=recompute, alt_routes=alt,
+         read_from_phases=sorted(e["read_from"] for e in taken.values()))
+
+
+def _gates_taken():
+    """The gradient gates that earlier phases of this run took with
+    ``_grad_check``'s default keeps and CTC kernels at seed 2 (train: the
+    default route; train_layered: the recompute route; alt_routes: each
+    route with its switch set), keyed as ``phase_grad_study`` asks for
+    them, each marked with the phase it was read from."""
+    found = {}
+
+    def add(key, phase, entry):
+        if entry and entry.get("seed") == 2 and entry.get("use_pallas_ctc") and (
+                entry.get("keep_probs") == [INPUT_KEEP, OUTPUT_KEEP]):
+            found[key] = {**entry, "read_from": phase}
+
+    add(("default", 2, (INPUT_KEEP, OUTPUT_KEEP)), "train",
+        RECORD.get("train", {}).get("grad_check"))
+    add(("recompute", 2), "train_layered",
+        RECORD.get("train_layered", {}).get("grad_check", {}).get("recompute"))
+    for name, rec in RECORD.get("alt_routes", {}).get("routes", {}).items():
+        add((name, 2), "alt_routes", rec.get("grad_check"))
+    return found
 
 
 def _nn_lstm_backward(T, Bn, n_layers=1):
@@ -3043,33 +3131,65 @@ def _layer_kernel_checks(checks, worst, rec_B):
             del ref, ref_b, got_b
         del inp
 
-    _bwd_past_plan_check(checks)
+    _bwd_row_groups_check(checks)
     _train_past_plan_check(checks)
-    name = "recurrence_bwd_recompute"
-    edge_T = tlt.rebuild_chunk(TRAIN_T, 70, H) + 1
-    for i, (T, Bn) in enumerate(((512, rec_B), (edge_T, 70))):
-        lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(Bn)]
-        lens[2] = 0                                  # a zero-length row
-        inp = _layer_inputs(T, Bn, lens, seed=150 + i, proj_dtype=bf)
-        tag = f"H={H} B={Bn} T={T} (rebuild chunks of {tlt.rebuild_chunk(T, Bn, H)} steps)"
-        out, _, _, cseq = tlt.recurrence_train_lean_plain(
-            inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
-        h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
-        del out
-        args = [inp["dout"], inp["x"], h_prev, cseq, inp["c0"].to(bf).float(), inp["mask"],
-                inp["w_x"], inp["b"], inp["w_h"], inp["dhn"], inp["dcn"]]
-        ref_b = tlt.recurrence_bwd_recompute_plain(*args)
-        no_bias = args[:7] + [torch.zeros_like(inp["b"])] + args[8:]
-        _fault_check(f"{name} {tag}: bias left out of the rebuild",
-                     tlt.recurrence_bwd_recompute_plain(*no_bias), ref_b, TRAIN_TOL_LONG, checks)
-        _fault_check(f"{name} {tag}: df scaled by 0.9", df_scaled(ref_b), ref_b, TRAIN_TOL_LONG,
-                     checks)
-        got_b = tlt.recurrence_bwd_recompute(*args)
-        torch.cuda.synchronize()
-        worst[name] = max(worst[name], _rel_check(f"{name} {tag}", got_b, ref_b,
-                                                  TRAIN_TOL_LONG, checks))
-        del inp, args, no_bias, ref_b, got_b, h_prev, cseq
+    for i, (T, Bn) in enumerate(_recompute_check_shapes(rec_B)):
+        worst["recurrence_bwd_recompute"] = max(
+            worst["recurrence_bwd_recompute"],
+            _recompute_check_at(T, Bn, 150 + i, checks, plain_faults=True))
     worst["rebuild_gates"] = _rebuild_product_check(checks, rec_B)
+
+
+def _recompute_check_shapes(rec_B):
+    """The recompute backward's full-width check shapes (T, B): its route's
+    batch ``rec_B`` at T=512 (several row groups, several rebuild chunks)
+    and a chunk edge, T one step past a chunk of its rebuild at B=70 (two
+    row groups; not a multiple of 16)."""
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    return ((512, rec_B), (tlt.rebuild_chunk(TRAIN_T, 70, H) + 1, 70))
+
+
+def _recompute_check_at(T, Bn, seed, checks, plain_faults):
+    """The recompute backward at H=1024, T steps, Bn rows (ragged lengths
+    with a zero-length row; h_prev and c from the plain lean forward) on its
+    persistent kernel (``_recompute_persistent_checks``: at two row groups
+    the launch without its step barrier alone is gated too) against its
+    plain version at TRAIN_TOL_LONG; with ``plain_faults``, beside the plain
+    rebuild without its bias and df scaled by 0.9.  Returns the relative
+    error."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, name = torch.bfloat16, "recurrence_bwd_recompute"
+    lens = [max(0, T - (31 * b) % (T // 2 + 1)) if b % 9 else T for b in range(Bn)]
+    lens[2] = 0                                      # a zero-length row
+    inp = _layer_inputs(T, Bn, lens, seed=seed, proj_dtype=bf)
+    tag = f"{name} H={H} B={Bn} T={T} (rebuild chunks of {tlt.rebuild_chunk(T, Bn, H)} steps)"
+    out, _, _, cseq = tlt.recurrence_train_lean_plain(
+        inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+    h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
+    del out
+    args = [inp["dout"], inp["x"], h_prev, cseq, inp["c0"].to(bf).float(), inp["mask"],
+            inp["w_x"], inp["b"], inp["w_h"], inp["dhn"], inp["dcn"]]
+    ref = tlt.recurrence_bwd_recompute_plain(*args)
+    if plain_faults:
+        no_bias = args[:7] + [torch.zeros_like(inp["b"])] + args[8:]
+        _fault_check(f"{tag}: bias left out of the rebuild",
+                     tlt.recurrence_bwd_recompute_plain(*no_bias), ref, TRAIN_TOL_LONG, checks)
+        del no_bias
+        scaled = ref[0].clone()
+        scaled[..., 2 * H:3 * H] *= 0.9               # the forget gate's block
+        _fault_check(f"{tag}: df scaled by 0.9", (scaled, *ref[1:]), ref, TRAIN_TOL_LONG,
+                     checks)
+        del scaled
+    got = _recompute_persistent_checks(tag, args, ref, TRAIN_TOL_LONG, checks,
+                                       gate_step_fault=-(-Bn // 64) == 2)
+    err = _rel_check(tag, got, ref, TRAIN_TOL_LONG, checks)
+    del inp, args, ref, got, h_prev, cseq
+    torch.cuda.empty_cache()
+    return err
 
 
 def _train_persistent_checks(tag, xp, tail, ref, tol, checks):
@@ -3172,32 +3292,116 @@ def _bwd_persistent_checks(tag, dout, gates, cseq, c0r, btail, ref, tol, checks)
     return got
 
 
-def _bwd_past_plan_check(checks):
-    """The gates-mode backward at B=70 (two row groups: 256 CTAs, past the
-    card) on the per-step kernel against its plain version at T=16, ragged
-    lengths with a zero-length row: the plan's choice, no persistent launch."""
+def _bwd_row_groups_check(checks, Bn=70, T=16, seed=149):
+    """The gates-mode backward past one 64-row group (B=70: two row groups
+    in turn, two warpgroups a CTA) on its persistent kernel, the plan's
+    choice, against its plain version at T=16, ragged lengths with a
+    zero-length row, bit for bit on repeat; and the per-step kernel (the
+    design it replaced, still the one for shapes the plan does not take)
+    called directly on the same inputs, with no persistent launch."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
 
-    bf, T, Bn = torch.bfloat16, 16, 70
+    bf = torch.bfloat16
     plan = tlt.bwd_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count)
-    if plan["kernel"] != "per_step":
-        fail(f"recurrence_bwd B={Bn}: expected the per-step kernel past the plan, got {plan}")
+    if plan["kernel"] != "persistent" or plan["groups"] != -(-Bn // 64):
+        fail(f"recurrence_bwd B={Bn}: expected the persistent kernel, row groups in turn, "
+             f"got {plan}")
     lens = [0 if b == 2 else (T - (31 * b) % (T // 2 + 1) if b % 9 else T) for b in range(Bn)]
-    inp = _layer_inputs(T, Bn, lens, seed=149)
+    inp = _layer_inputs(T, Bn, lens, seed=seed)
     _, _, _, gates, cseq = tlt.recurrence_train_plain(inp["x_proj"], inp["w_h"], inp["mask"],
                                                       inp["h0"], inp["c0"], bf)
     c0r = inp["c0"].to(bf).float()
     btail = (inp["mask"], inp["w_h"], inp["dhn"], inp["dcn"])
     ref = tlt.recurrence_bwd_plain(inp["dout"], gates.clone(), cseq, c0r, *btail)
-    before = tlt.recurrence_bwd.persistent_launches
-    got = tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail)
-    torch.cuda.synchronize()
-    _rel_check(f"recurrence_bwd H={H} B={Bn} T={T} past the plan (per-step kernel)", got, ref,
+    tag = f"recurrence_bwd H={H} B={Bn} T={T}"
+    got = _bwd_persistent_checks(tag, inp["dout"], gates.clone(), cseq, c0r, btail, ref,
+                                 TRAIN_TOL_SHORT, checks)
+    _rel_check(f"{tag} persistent, {plan['groups']} row groups in turn", got, ref,
                TRAIN_TOL_SHORT, checks)
-    if tlt.recurrence_bwd.persistent_launches != before:
-        fail(f"recurrence_bwd B={Bn}: ran the persistent kernel past its plan")
+    before = tlt.bwd_persistent_launches()
+    old = tlt._bwd_per_step_launch(inp["dout"], gates, cseq, c0r, *btail)
+    torch.cuda.synchronize()
+    _rel_check(f"{tag} per-step kernel (the parent design, called directly)", old, ref,
+               TRAIN_TOL_SHORT, checks)
+    if tlt.bwd_persistent_launches() != before:
+        fail(f"recurrence_bwd B={Bn}: the per-step launch ran the persistent kernel")
+
+
+def _recompute_persistent_checks(tag, args, ref, tol, checks, gate_step_fault):
+    """The recompute backward on its persistent kernel (row 8), the plan's
+    choice at these shapes: one launch and one rebuild product a rebuild
+    chunk and no per-step launch (counted at the launch sites), bit for bit
+    on repeat, beside the launch without its step and slice barriers
+    (stale dgates and partials), which must fail ``tol`` against the plain
+    result ``ref``, and the launch without its step barrier alone on a
+    dgates stream filled with NaN: gated the same way where
+    ``gate_step_fault`` (two row groups, as the gates-mode check at B=70),
+    else a reading; and the per-step kernel (the
+    design it replaced) called directly on the same inputs, against
+    ``ref``.  Returns the first call's (dgates, dh0, dc0)."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    T, B_, H_ = args[3].shape
+    plan = tlt.bwd_plan(B_, H_, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["kernel"] != "persistent":
+        fail(f"{tag}: the plan does not send the recompute backward to the persistent "
+             f"kernel: {plan}")
+    fn = tlt.recurrence_bwd_recompute
+    counts = lambda: (fn.persistent_launches, fn.rebuild_launches, fn.per_step_launches)
+    before = counts()
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    chunks = len(tlt.rebuild_chunks(T, tlt.rebuild_chunk(T, B_, H_)))
+    launched = [a - b for a, b in zip(counts(), before)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    checks.append({"check": f"{tag} persistent (grid {plan['grid']}, {plan['groups']} row "
+                            f"groups, {chunks} chunks): bit for bit on repeat",
+                   "equal": same, "launches": dict(zip(
+                       ("persistent", "rebuild", "per_step"), launched))})
+    if launched != [2 * chunks, 2 * chunks, 0]:
+        fail(f"{tag}: two calls launched {launched} (persistent, rebuild, per-step), "
+             f"expected {[2 * chunks, 2 * chunks, 0]}")
+    if not same:
+        fail(f"{tag}: two calls on the same inputs differ")
+    # Without the step barrier alone a stale read returns whatever the
+    # stream held: a fresh allocation may hold the previous identical
+    # call's dgates (then the fault hides), so the stream is handed in
+    # filled with NaN.  At two row groups it is gated; with several groups
+    # in turn between a group's write and its next read it is a reading
+    # beside the gated fault that also leaves out the slice barrier.
+    nan_stream = torch.full((T, B_, 4 * H_), float("nan"), dtype=torch.bfloat16,
+                            device=args[3].device)
+    no_step = tlt._recompute_persistent_launch(*args, plan, skip_barrier=1,
+                                               dgates=nan_stream)[:3]
+    del nan_stream
+    if gate_step_fault:
+        _fault_check(f"{tag}: step barrier left out (stale dgates)", no_step, ref, tol, checks)
+    else:
+        checks.append({"reading": f"{tag}: step barrier left out",
+                       "rel_err": _fault_errs(no_step, ref, tag)})
+    del no_step
+    _fault_check(f"{tag}: step and slice barriers left out (stale dgates and partials)",
+                 tlt._recompute_persistent_launch(*args, plan, skip_barrier=3)[:3], ref, tol,
+                 checks)
+    old = tlt._recompute_per_step_launch(*args)[:3]
+    torch.cuda.synchronize()
+    _rel_check(f"{tag} per-step kernel (the parent design, called directly)", old, ref, tol,
+               checks)
+    return got
+
+
+def _recompute_route_gate(phase, record):
+    """A recompute step's backward ran the persistent kernel and never the
+    per-step one (``_run_steps``' path counters)."""
+    paths = record["wgmma_launches"]
+    if not paths["recompute_persistent"] or paths["recompute_per_step"]:
+        fail(f"{phase} (recompute): the backward must run the persistent kernel and no "
+             f"per-step launch: {paths}")
 
 
 def _lean_persistent_checks(checks, worst, batches):
@@ -3358,6 +3562,33 @@ for B in (400, 473):
         digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     print(json.dumps({"B": B, "sha256": digest.hexdigest(),
                       "persistent": tlt.recurrence_train_lean.persistent_launches}))
+# Row 6 (the gates-mode layer backward, one row group) at B=64 and row 8
+# (the recompute backward) at B=400, T=512, on seeded residuals.
+for name, B in (("row6", 64), ("row8", 400)):
+    g = torch.Generator(device="cuda").manual_seed(B + 1)
+    w = lambda *s: ((torch.rand(s, generator=g, device="cuda") * 2 - 1) * 0.035).to(bf)
+    r = lambda *s, scale: torch.randn(s, generator=g, device="cuda") * scale
+    lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()[:, None, :]
+    w_h, h0, c0 = w(H, 4 * H), r(B, H, scale=0.2), r(B, H, scale=0.2)
+    xp = (r(T, B, 4 * H, scale=0.5)).to(bf)
+    tail = (r(T, B, H, scale=0.1), r(B, H, scale=0.1), r(B, H, scale=0.1))
+    c0r = c0.to(bf).float()
+    if name == "row6":
+        _, _, _, gates, cseq = tlt.recurrence_train_plain(xp.float(), w_h, mask, h0, c0, bf)
+        fn, res = tlt.recurrence_bwd, tlt.recurrence_bwd(tail[0], gates, cseq, c0r, mask, w_h,
+                                                         tail[1], tail[2])
+    else:
+        out, _, _, cseq = tlt.recurrence_train_lean_plain(xp, w_h, mask, h0, c0, bf)
+        h_prev = torch.cat([h0.to(bf)[None], out.to(bf)[:-1]])
+        x = r(T, B, H, scale=1.0).to(bf)
+        fn, res = tlt.recurrence_bwd_recompute, tlt.recurrence_bwd_recompute(
+            tail[0], x, h_prev, cseq, c0r, mask, w(H, 4 * H), r(4 * H, scale=0.1), w_h,
+            tail[1], tail[2])
+    digest = hashlib.sha256()
+    for t in res:
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(json.dumps({"B": name, "sha256": digest.hexdigest(), "persistent": fn.launches}))
 # Row 2 (the inference recurrence on f32 x_proj) at the serving shape.
 from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
 B, T = 128, 1024
@@ -3567,11 +3798,19 @@ def phase_persistent_study(parent=None):
         here, there = turns[1][1], turns[0][1]
         out["digests_against_parent"] = {"parent": parent, "here": here,
                                          "parent_digests": there}
-        rows = {400, 473, "row2", "row5", "row3", "row4", "row9", "row10", "row11"}
-        if set(here) != rows or any(d.get(b, ("",))[0] != here[b][0]
-                                    for _, d, _ in turns for b in here):
-            fail(f"persistent_study: rows 7, 2, 5, 3, 4, 9, 10 and 11's outputs differ from "
-                 f"the parent's or between runs: {turns}")
+        rows = {400, 473, "row2", "row5", "row3", "row4", "row9", "row10", "row11", "row6",
+                "row8"}
+        # Row 8's carry product sums in another order than the parent's
+        # per-step kernel: it must repeat here, not equal the parent's.
+        same_as = lambda who, b: [d.get(b, ("",))[0] for n, d, _ in turns if n == who]
+        if (set(here) != rows
+                or any(d.get(b, ("",))[0] != here[b][0]
+                       for _, d, _ in turns for b in here if b != "row8")
+                or len(set(same_as("here", "row8"))) != 1
+                or len(set(same_as("parent", "row8"))) != 1):
+            fail(f"persistent_study: rows 7, 2, 5, 3, 4, 9, 10, 11 and 6's outputs differ from "
+                 f"the parent's, or any row's between runs of one tree: {turns}")
+        out["row8_equals_parent"] = same_as("here", "row8")[0] == same_as("parent", "row8")[0]
         if not all(v[1] for _, d, _ in turns for v in d.values()):
             fail("persistent_study: the digests did not all run the kernels")
         out["wide_b"] = wide_b
@@ -3581,6 +3820,125 @@ def phase_persistent_study(parent=None):
                 "turns": [(n, ms[row]) for n, _, ms in turns], "ms": mean("here"),
                 "parent_ms": mean("parent"), "smi": smi_clocks()}
     emit("persistent_study", **out)
+
+
+HUNT_ITERS = 5
+# What each iteration of the fault hunt runs, each in a child process: the
+# reverse-diagonal and fused card tests, phase train, and the layer
+# backwards' checks.
+HUNT_RUNS = {
+    "card_tests": ["-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+                   "tests/test_torch_cuda_kernels.py", "-k", "bwd or fuse"],
+    "train": ["chip_smoke.py", "--phases", "train"],
+    "layer_bwd": ["-c", "import chip_smoke; chip_smoke._hunt_layer_checks()"],
+}
+# The checks' positive control, a child run before the loop: a launch that
+# states a bound one step short must trap in the checked build (non-zero
+# exit, an RST_CHECK line) and run to its end in the default one.
+HUNT_CONTROL = ["-c", "import chip_smoke; chip_smoke._hunt_planted_overrun()"]
+# Lines of a child's output that name a fault.
+HUNT_SIGNS = ("RST_CHECK", "illegal memory access", "device-side assert", "index out of bounds",
+              "unspecified launch failure", "CUDA error")
+
+
+def _hunt_layer_checks():
+    """The layer backwards' card checks alone (a fault hunt child): the
+    gates-mode backward at B=70 and 128, row groups in turn, beside the
+    per-step kernel; the recompute backward at the route's batch (B=400 on
+    the H100), T=512, and at a chunk edge (T one step past a chunk, B=70),
+    beside its planted fault and the per-step kernel."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    checks = []
+    _bwd_row_groups_check(checks)
+    _bwd_row_groups_check(checks, Bn=128, T=64, seed=151)
+    for i, (T, Bn) in enumerate(_recompute_check_shapes(400)):
+        _recompute_check_at(T, Bn, 150 + i, checks, plain_faults=False)
+    print(json.dumps({"layer_bwd_checks": len(checks)}), flush=True)
+
+
+def _hunt_planted_overrun():
+    """The fault hunt's positive control (a child process): the recompute
+    backward at H=1024, B=70, T=16 (one rebuild chunk, two row groups)
+    launched with ``skip_barrier`` bit 4, which states the rebuild buffer's
+    rows one step short, so its first step's reads lie past the stated
+    bound.  The checked build must trap there; the default build reads the
+    buffer's real rows and runs to its end."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    bf, T, Bn = torch.bfloat16, 16, 70
+    inp = _layer_inputs(T, Bn, [T] * Bn, seed=157, proj_dtype=bf)
+    out, _, _, cseq = tlt.recurrence_train_lean_plain(
+        inp["x_proj"], inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+    h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
+    args = [inp["dout"], inp["x"], h_prev, cseq, inp["c0"].to(bf).float(), inp["mask"],
+            inp["w_x"], inp["b"], inp["w_h"], inp["dhn"], inp["dcn"]]
+    plan = tlt.bwd_plan(Bn, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    tlt._recompute_persistent_launch(*args, plan, skip_barrier=4)
+    torch.cuda.synchronize()
+    print(json.dumps({"planted_overrun": "ran to its end"}), flush=True)
+
+
+def _hunt_child(argv, env):
+    """One fault-hunt child: its exit code, seconds, the lines that name a
+    fault (``HUNT_SIGNS``) and, if it failed, the end of its output."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=1200)
+    text = res.stdout + res.stderr
+    signs = [ln.strip()[:300] for ln in text.splitlines() if any(k in ln for k in HUNT_SIGNS)]
+    return {"rc": res.returncode, "seconds": time.perf_counter() - t0,
+            "fault_lines": signs[:8], "tail": text[-1500:] if res.returncode else ""}
+
+
+def phase_fault_hunt(iters=HUNT_ITERS):
+    """The bounds-checked build under CUDA_LAUNCH_BLOCKING=1 (opt-in): first
+    its positive control (``HUNT_CONTROL``: must exit non-zero with an
+    RST_CHECK line in the checked build and 0 in the default one), then
+    each of ``HUNT_RUNS`` in a child process with RST_BOUNDS_CHECK=1 (the
+    checked libraries, ``<kernel>-checked-<hash>.so``, built by the first
+    child), ``iters`` times; records each run's exit code, seconds and the
+    lines that name a fault (``HUNT_SIGNS``), with the tree's hash.  Fails
+    after the loop if any run failed or the control did not trap."""
+    from rnn_speech_tpu_torch.ops import _build
+
+    env = dict(os.environ, RST_BOUNDS_CHECK="1", CUDA_LAUNCH_BLOCKING="1")
+    default_env = {k: v for k, v in env.items() if k != "RST_BOUNDS_CHECK"}
+    with _environ(RST_BOUNDS_CHECK="1"):
+        checked = sorted(_build.library_path(k).name for k in _build.KERNELS)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", "from rnn_speech_tpu_torch.ops import _build; "
+                          "_build.build_all()"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"fault_hunt: the checked build failed:\n{res.stderr[-3000:]}")
+    build_s = time.perf_counter() - t0
+    control = {"checked": _hunt_child(HUNT_CONTROL, env),
+               "default": _hunt_child(HUNT_CONTROL, default_env)}
+    print(json.dumps({"control": {k: {n: v[n] for n in ("rc", "seconds", "fault_lines")}
+                                  for k, v in control.items()}}), flush=True)
+    trapped = control["checked"]["rc"] != 0 and any(
+        "RST_CHECK" in ln for ln in control["checked"]["fault_lines"])
+    runs = []
+    for i in range(iters):
+        for name, argv in HUNT_RUNS.items():
+            runs.append({"iteration": i, "run": name, **_hunt_child(argv, env)})
+            print(json.dumps({k: runs[-1][k] for k in ("iteration", "run", "rc", "seconds",
+                                                       "fault_lines")}), flush=True)
+    failed = [r for r in runs if r["rc"] != 0]
+    emit("fault_hunt", tree_sha256=RECORD.get("tree_sha256"), iterations=iters,
+         checked_libraries=checked, build_seconds=build_s, control=control,
+         control_trapped=trapped, runs=runs, failed=len(failed))
+    if not trapped or control["default"]["rc"] != 0:
+        fail(f"fault_hunt: the positive control must trap in the checked build and run in "
+             f"the default one: {control}")
+    if failed:
+        fail(f"fault_hunt: {len(failed)} of {len(runs)} runs failed: "
+             f"{[(r['iteration'], r['run'], r['rc'], r['fault_lines']) for r in failed]}")
 
 
 def _stamp_breakdown(stamps, names, mid):
@@ -3733,7 +4091,7 @@ def _wavefront_studies(sms):
     return out
 
 
-def _layer_kernel_timing(rec_B):
+def _layer_kernel_timing(rec_B, wide_rec_B):
     """Each layered kernel alone at its route's shapes (full-length rows,
     T=3510): the gates-mode pair at B=64 (the layered default step), the
     recompute pair at ``rec_B`` (the recompute step).  Times are per train
@@ -3743,7 +4101,11 @@ def _layer_kernel_timing(rec_B):
     product), in turns with each, for the backwards
     its backward without weight gradients (``library_ms``; it still
     computes dx) and with them (``library_wgrad_ms``), both on one forward
-    graph in turns with the kernel."""
+    graph in turns with the kernel, beside the per-step kernel each
+    backward replaced (``per_step_ms``, the parent design, in the same
+    turns).  The gates-mode backward also at B=128 (two row groups) and the
+    recompute backward at ``wide_rec_B``, each in turns with its per-step
+    kernel alone (``b128``, ``wide``)."""
     import torch
 
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
@@ -3788,7 +4150,8 @@ def _layer_kernel_timing(rec_B):
                     inp["b"], inp["w_h"], inp["dhn"], inp["dcn"])
             no_dw, with_dw = _nn_lstm_backward(T, Bn)
             turns = in_turns(no_dw, lambda: tlt.recurrence_bwd_recompute(*args), iters=2,
-                             library_wgrad=with_dw)
+                             library_wgrad=with_dw,
+                             per_step=lambda: tlt._recompute_per_step_launch(*args))
             del no_dw, with_dw
             ms = turns["ms"]
             torch.cuda.empty_cache()
@@ -3809,7 +4172,9 @@ def _layer_kernel_timing(rec_B):
             no_dw, with_dw = _nn_lstm_backward(T, Bn)
             turns = in_turns(no_dw,
                              lambda: tlt.recurrence_bwd(inp["dout"], gates, cseq, c0r, *btail),
-                             iters=2, library_wgrad=with_dw)
+                             iters=2, library_wgrad=with_dw,
+                             per_step=lambda: tlt._bwd_per_step_launch(inp["dout"], gates, cseq,
+                                                                       c0r, *btail))
             del no_dw, with_dw
             ms = turns["ms"]
             torch.cuda.empty_cache()
@@ -3823,7 +4188,8 @@ def _layer_kernel_timing(rec_B):
         out[bwd_name] = dict(ms=L * ms, plain_ms=L * plain, bound_ms=L * bound, bound_by=by,
                              library_ms=L * turns["library_ms"], library="torch.nn.LSTM "
                              "backward (1 layer, without weight gradients, in turns)",
-                             library_wgrad_ms=L * turns["library_wgrad_ms"], calls=L,
+                             library_wgrad_ms=L * turns["library_wgrad_ms"],
+                             per_step_ms=L * turns["per_step_ms"], calls=L,
                              ms_per_call=ms, us_per_step=1e3 * ms / T, batch=Bn, flops=L * flops,
                              bytes=L * nbytes, turns=turns["turns"])
         out[bwd_name]["tflops"] = flops / ms / 1e9
@@ -3835,7 +4201,55 @@ def _layer_kernel_timing(rec_B):
                                  chain_ms_derived=L * ms - rb, rebuild=rebuild)
         del inp, cseq
         torch.cuda.empty_cache()
+    out["recurrence_bwd"]["b128"] = _bwd_vs_per_step(False, 128)
+    out["recurrence_bwd_recompute"]["wide"] = _bwd_vs_per_step(True, wide_rec_B)
     return out
+
+
+def _bwd_vs_per_step(recompute, Bn):
+    """One layer backward at H=1024, T=3510, batch ``Bn`` (full-length rows)
+    on the plan's kernel in turns with the per-step kernel it replaced:
+    ms a call of each, µs a step, the plan."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    from rnn_speech_tpu_torch.ops.lstm_layer_train import input_projection
+
+    bf, T = torch.bfloat16, TRAIN_T
+    # Made on the card: at B=473 the host's generator would spend tens of
+    # seconds on the (T, B, H) streams.
+    g = torch.Generator(device=DEVICE).manual_seed(173)
+    lim = (6.0 / (H + 4 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g, device=DEVICE) * 2 - 1) * lim).to(bf)
+    r = lambda *s, scale: torch.randn(s, generator=g, device=DEVICE) * scale
+    x, w_x, b = r(T, Bn, H, scale=1.0).to(bf), w(H, 4 * H), r(4 * H, scale=0.1)
+    inp = dict(x=x, w_x=w_x, w_h=w(H, 4 * H), b=b, mask=torch.ones((T, 1, Bn), device=DEVICE),
+               x_proj=input_projection(x, w_x, b, bf, bf if recompute else torch.float32),
+               h0=r(Bn, H, scale=0.2), c0=r(Bn, H, scale=0.2), dout=r(T, Bn, H, scale=0.1),
+               dhn=r(Bn, H, scale=0.1), dcn=r(Bn, H, scale=0.1))
+    tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
+    c0r = inp["c0"].to(bf).float()
+    if recompute:
+        out, _, _, cseq = tlt.recurrence_train_lean(inp.pop("x_proj"), *tail)
+        h_prev = torch.cat([inp["h0"].to(bf)[None], out.to(bf)[:-1]])
+        del out
+        args = (inp["dout"], inp["x"], h_prev, cseq, c0r, inp["mask"], inp["w_x"], inp["b"],
+                inp["w_h"], inp["dhn"], inp["dcn"])
+        kernel = lambda: tlt.recurrence_bwd_recompute(*args)
+        per_step = lambda: tlt._recompute_per_step_launch(*args)
+    else:
+        _, _, _, gates, cseq = tlt.recurrence_train(inp.pop("x_proj"), *tail)
+        args = (inp["dout"], gates, cseq, c0r, inp["mask"], inp["w_h"], inp["dhn"], inp["dcn"])
+        kernel = lambda: tlt.recurrence_bwd(*args)
+        per_step = lambda: tlt._bwd_per_step_launch(*args)
+    torch.cuda.empty_cache()
+    turns = in_turns(per_step, kernel, iters=1)
+    del inp, args
+    torch.cuda.empty_cache()
+    return dict(batch=Bn, ms_per_call=turns["ms"], per_step_ms_per_call=turns["library_ms"],
+                us_per_step=1e3 * turns["ms"] / T, plan=tlt.bwd_plan(Bn, H),
+                turns=turns["turns"])
 
 
 def _rebuild_timing(x, h_prev, w_x, w_h, b):
@@ -3914,6 +4328,7 @@ def phase_train_layered():
         fail(f"train_layered (recompute): the loss did not fall: {recompute['losses']}")
     if not recompute["wgmma_launches"]["recompute_rebuild"]:
         fail("train_layered (recompute): the backward launched no rebuild product")
+    _recompute_route_gate("train_layered", recompute)
     if not recompute["wgmma_launches"]["lean_persistent"]:
         fail("train_layered (recompute): the forward never ran the persistent kernel")
     recompute.update(
@@ -3922,7 +4337,7 @@ def phase_train_layered():
         gates_estimate_gib=acoustic.training_residual_bytes(cfg, TRAIN_T, rec_B) / 2**30)
     del state, batch
     torch.cuda.empty_cache()
-    timing = _layer_kernel_timing(rec_B)
+    timing = _layer_kernel_timing(rec_B, wide_rec_B)
 
     grads = {"recompute": _grad_check(**RECOMPUTE_GATE)}
     for name, model_kw, fault in (
@@ -4431,6 +4846,7 @@ def phase_train_wide():
                                   route="recompute", warmup=1, per_rep=2)
     if not recompute["wgmma_launches"]["recompute_rebuild"]:
         fail("train_wide (recompute): the backward launched no rebuild product")
+    _recompute_route_gate("train_wide", recompute)
     if not recompute["wgmma_launches"]["lean_persistent"]:
         fail("train_wide (recompute): the forward never ran the persistent kernel")
     recompute.update(
@@ -5893,7 +6309,7 @@ def kernels_line():
          "rnn_speech_tpu/ops/lstm_pallas.py:232", "layered"),
         ("recurrence_train_lean", csrc + "lstm_layer_lean.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:342", "recompute"),
-        ("recurrence_bwd_recompute", csrc + "lstm_layer_bwd.cu",
+        ("recurrence_bwd_recompute", csrc + "lstm_layer_bwd_persistent.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:429", "recompute"),
     ):
         t = tl.get("timing", {}).get(name, {})
@@ -5915,6 +6331,13 @@ def kernels_line():
                 us_per_step=t.get("us_per_step"))
         if "rebuild_ms" in t:                        # the recompute backward's rebuild
             rows[-1].update(rebuild_ms=t["rebuild_ms"], rebuild_tflops=t["rebuild_tflops"])
+        if name in ("recurrence_bwd", "recurrence_bwd_recompute"):   # the parent design
+            rows[-1]["per_step_ms"] = t.get("per_step_ms")
+        if name == "recurrence_bwd_recompute":
+            paths = tl.get(run, {}).get("wgmma_launches", {})
+            rows[-1].update(persistent_launches=paths.get("recompute_persistent"),
+                            per_step_launches=paths.get("recompute_per_step"),
+                            us_per_step=t.get("us_per_step"))
     tw = RECORD.get("train_wide", {})
     t = tw.get("timing", {}).get("wavefront_bwd_fuse_dwx", {})
     wide_paths = tw.get("wide", {}).get("wgmma_launches", {})
@@ -5980,7 +6403,34 @@ def kernels_line():
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
           "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle", "beam",
           "cli", "lm", "stream", "multi")
-OPT_IN_PHASES = ("lean_study", "persistent_study")
+OPT_IN_PHASES = ("lean_study", "persistent_study", "fault_hunt")
+
+
+PART_SUFFIXES = ("_check", "_checks", "_timing", "_inputs", "_setup", "_steps", "_study",
+                 "_studies", "_child", "_eval")
+
+
+def _time_parts(parts):
+    """Wraps this module's helpers whose names end in ``PART_SUFFIXES``
+    (the phases' checks, timings, set-ups and children) so that ``parts``
+    gathers, for each, [seconds, calls], its callees' time included: where
+    a phase's time goes, in the record's ``part_seconds``."""
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                entry = parts.setdefault(name, [0.0, 0])
+                entry[0] += time.perf_counter() - t0
+                entry[1] += 1
+        return timed
+
+    module = globals()
+    for name, fn in list(module.items()):
+        if inspect.isfunction(fn) and name.startswith("_") and name.endswith(PART_SUFFIXES):
+            module[name] = wrap(name, fn)
 
 
 def main(argv=None) -> int:
@@ -5989,8 +6439,10 @@ def main(argv=None) -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--parent", default=None,
                         help="persistent_study: a checkout of the previous tree, whose "
-                             "rows 7, 2, 5, 3, 4, 9, 10 and 11's outputs must equal this "
-                             "one's bit for bit")
+                             "rows 7, 2, 5, 3, 4, 9, 10, 11 and 6's outputs must equal this "
+                             "one's bit for bit (row 8's are recorded beside)")
+    parser.add_argument("--hunt_iters", type=int, default=HUNT_ITERS,
+                        help="fault_hunt: iterations of its loop")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -6012,7 +6464,12 @@ def main(argv=None) -> int:
     for phase in phases:
         if phase not in PHASES + OPT_IN_PHASES:
             fail(f"unknown phase {phase!r}")
+    from rnn_speech_tpu_torch.ops import _build
+
+    RECORD["tree_sha256"] = _build.tree_digest([os.path.abspath(__file__)])
+    print(json.dumps({"tree_sha256": RECORD["tree_sha256"]}), flush=True)
     seconds = RECORD.setdefault("phase_seconds", {})
+    _time_parts(RECORD.setdefault("part_seconds", {}))
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -6027,7 +6484,8 @@ def main(argv=None) -> int:
                      ("train_wide", phase_train_wide), ("grad_study", phase_grad_study),
                      ("train_loop", phase_train_loop), ("evaluate", phase_evaluate),
                      ("lean_study", phase_lean_study),
-                     ("persistent_study", lambda: phase_persistent_study(args.parent))):
+                     ("persistent_study", lambda: phase_persistent_study(args.parent)),
+                     ("fault_hunt", lambda: phase_fault_hunt(args.hunt_iters))):
         if name in phases:
             timed(name, fn)
     held = None
@@ -6042,6 +6500,8 @@ def main(argv=None) -> int:
             timed(name, fn)
     kl = kernels_line()
     RECORD["total_seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_seconds": seconds, "total_seconds": RECORD["total_seconds"]}),
+          flush=True)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -20,6 +20,7 @@
 
 #include <algorithm>
 
+#include "bounds_check.cuh"
 #include "grad_matmul.cuh"
 
 namespace rst_dwx {
@@ -42,6 +43,11 @@ inline int accumulate(const bf16* outs, const bf16* ring, const bf16* dgates, in
     if (t_lo > t_hi) continue;
     const int n = (t_hi - t_lo + 1) * B;
     const int slot = t_lo - (T - W + off - s0);  // ring slot of step t_lo
+    if (ring != nullptr) {
+      RST_CHECK(slot, W);
+      RST_CHECK(slot + t_hi - t_lo, W);
+    }
+    RST_CHECK((l + 1) * (long long)T + t_hi, (long long)L * T);
     const bf16* a = ring != nullptr ? ring + ((size_t)l * W + slot) * B * H
                                     : outs + ((size_t)l * T + t_lo) * B * H;
     const bf16* dg = dgates + ((size_t)(l + 1) * T + t_lo) * B * G;

@@ -121,6 +121,7 @@
 
 #include <type_traits>
 
+#include "bounds_check.cuh"
 #include "grad_matmul.cuh"
 #include "lstm_cell.cuh"
 
@@ -237,6 +238,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t wb = smem_addr(wbar);
       bar_expect_tx(wb, KS * kBox);
       for (int k = 0; k < KS; ++k) {
+        RST_CHECK(k * 64, 4 * p.H);
+        RST_CHECK(slice * 64, p.H);
         load_box(smem_addr(w_s + (size_t)k * kBox), &map_w, wb, k * 64, slice * 64);
       }
       // f32 x_proj of step t into step buffer t % 2: the four gates' boxes
@@ -249,6 +252,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t dst = smem_addr(xs + (size_t)i * p.tiles * kXTile);
         for (int m = 0; m < p.tiles; ++m) {
           for (int g = 0; g < 4; ++g) {
+            RST_CHECK(g * p.H + j0, 4 * p.H);
+            RST_CHECK((long long)t * p.B + row0 + 64 * m, (long long)p.T * p.B);
             load_box(dst + m * kXTile + g * kXBox, &map_x, xb, g * p.H + j0,
                      t * p.B + row0 + 64 * m);
           }
@@ -257,6 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (kXF32) load_x(0);
       int it = 0;
       for (int t = 0; t < p.T; ++t) {
+        RST_CHECK(group, p.Bpa / (p.tiles * 64));
         if (t > 0 && !p.skip_barrier) grid_wait(p.counter + group, (unsigned)t * slices);
         if constexpr (kStoreGates) stamp(p.stamps, t, 0);
         asm volatile("fence.proxy.async.global;" ::: "memory");
@@ -268,6 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           bar_expect_tx(fb, stage_bytes);
           const uint32_t dst = smem_addr(ring + (size_t)s * stage_bytes);
           for (int m = 0; m < p.tiles; ++m) {
+            RST_CHECK(hrow + 64 * m, 2 * p.Bpa);
             load_box(dst + m * kBox, &map_h, fb, k * 64, hrow + 64 * m);
           }
         }
@@ -302,6 +309,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const size_t i = (size_t)b * H + j0 + 8 * jj + ucol + e;
+          if (ok) RST_CHECK(i, (long long)B * H);
           c_r[m][hh][jj][e] = ok ? p.c[i] : 0.0f;
           h_r[m][hh][jj][e] = ok ? p.h[i] : 0.0f;
         }
@@ -322,9 +330,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int hh = 0; hh < 2; ++hh) {
         const int b = row_of(m, hh);
         const bool ok = m < nt && b < B;
+        if (ok) RST_CHECK((size_t)t * B + b, (long long)p.T * B);
         mk[m][hh] = ok ? p.mask[(size_t)t * B + b] : 0.0f;
         if constexpr (!kXF32) {
           const bf16* xrow = p.x_proj + ((size_t)t * B + b) * G + j0 + ucol;
+          if (ok) RST_CHECK(((size_t)t * B + b) * G + j0 + ucol + 3 * H + 9, (long long)p.T * B * G);
 #pragma unroll
           for (int g = 0; g < 4; ++g)
 #pragma unroll
@@ -419,6 +429,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (b < B) {
             const size_t i = (size_t)b * H + j0 + 8 * jj + ucol;
             const size_t ti = (size_t)t * B * H + i;
+            RST_CHECK(ti + 1, (long long)p.T * B * H);
+            RST_CHECK(i + 1, (long long)p.Bpa * H);
             *reinterpret_cast<float2*>(p.out + ti) = make_float2(o_v[0], o_v[1]);
             if constexpr (kStoreC) {
               *reinterpret_cast<uint32_t*>(p.cseq + ti) = pack_bf2(c_v[0], c_v[1]);
@@ -448,6 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.proxy.async.global;" ::: "memory");
     asm volatile("bar.sync 1, %0;" ::"n"(128 * kConsumers) : "memory");
     if (threadIdx.x == 0) {
+      RST_CHECK(group, p.Bpa / (p.tiles * 64));
       __threadfence();
       atomicAdd(p.counter + group, 1u);
       if constexpr (kStoreGates) stamp(p.stamps, t, 3);
@@ -465,6 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const size_t i = (size_t)b * H + j0 + 8 * jj + ucol + e;
+          RST_CHECK(i, (long long)B * H);
           p.c[i] = c_r[m][hh][jj][e];
           p.h[i] = h_r[m][hh][jj][e];
         }

@@ -87,6 +87,7 @@
 
 #include <algorithm>
 
+#include "bounds_check.cuh"
 #include "dwx_windows.cuh"
 #include "philox.cuh"
 
@@ -259,11 +260,14 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
         const uint32_t s = ar.put();
 #pragma unroll
         for (int g = 0; g < kGroups; ++g) {
+          RST_CHECK(row + kRows * g, (long long)L * T * B);
+          RST_CHECK(kcol + 64 * k, 4 * (long long)H);
           load_box(ar.base + s * kAStage + g * kABox, &map_g, ar.full + 8 * s, kcol + 64 * k,
                    row + kRows * g);
         }
       };
       auto acquire = [&](const unsigned* count, unsigned target) {
+        RST_CHECK(count - p.counter, L);
         if (!p.skip_waits) grid_wait(count, target);
         asm volatile("fence.proxy.async.global;" ::: "memory");   // dgates are read by TMA
       };
@@ -310,6 +314,7 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t e = ((size_t)l * B + b) * H + j + 4 * k;
+    if (group_ok(k)) RST_CHECK(e + 3, (long long)L * B * H);
     const float4 vh = group_ok(k) ? *reinterpret_cast<const float4*>(p.dhc + e)
                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float4 vc = group_ok(k) ? *reinterpret_cast<const float4*>(p.dcc + e)
@@ -324,7 +329,10 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
   unsigned* slice_count = p.counter + L + l * p.slices + u;
   float* slice_part = p.part + (size_t)(l * p.slices + u) * 2 * kSplit * 2 * kPart;
   auto part_at = [&](int par, int qq, int kind) {
-    return slice_part + ((size_t)(par * kSplit + qq) * 2 + kind) * kPart;
+    const size_t o = ((size_t)(par * kSplit + qq) * 2 + kind) * kPart;
+    RST_CHECK((size_t)(l * p.slices + u) * 2 * kSplit * 2 * kPart + o + kPart - 1,
+              (long long)L * p.slices * 2 * kSplit * 2 * kPart);
+    return slice_part + o;
   };
   float d[48];
   // One 64-wide K chunk: A from the A ring, W resident or from the W ring.
@@ -382,12 +390,16 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
     // group ahead of its cell (all at once, they spill).
     constexpr bool kByGroup = kGroups == 2;
     uint2 gw[4][3] = {}, cw[3] = {}, pw[3] = {}, xw[3] = {}, kw[3] = {};
+    if (s < T && row_ok) RST_CHECK((size_t)t * B + b, (long long)T * B);
     const float m = s < T && row_ok ? p.mask[(size_t)t * B + b] : 0.0f;
     auto load_inputs = [&](int k) {
       if (s < T && group_ok(k)) {
         const size_t th = ((size_t)l * T + t) * B * H;   // (l, t) plane of a (., T, B, H) stream
         const size_t e = (size_t)b * H + j + 4 * k;
         const bf16* grow = p.gates + (((size_t)l * T + t) * B + b) * G + j + 4 * k;
+        RST_CHECK((((size_t)l * T + t) * B + b) * G + j + 4 * k + 3 * H + 3,
+                  (long long)L * T * B * G);
+        RST_CHECK(th + e + 3, (long long)L * T * B * H);
 #pragma unroll
         for (int g = 0; g < 4; ++g) gw[g][k] = *reinterpret_cast<const uint2*>(grow + g * H);
         cw[k] = *reinterpret_cast<const uint2*>(p.cseq + th + e);
@@ -422,6 +434,7 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
     // The slice's partials: arrive, wait for the four, sum in the order of q.
     asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (tid == 0) {
+      RST_CHECK(L + l * p.slices + u, (long long)L * (1 + p.slices));
       __threadfence();
       atomicAdd(slice_count, 1u);
       grid_wait(slice_count, (unsigned)(s + 1) * kSplit);
@@ -491,6 +504,8 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
         // The stream's (l, t) plane, or the ring's slot of this diagonal.
         const size_t plane = p.ring > 0 ? (size_t)l * p.ring + p.ring - 1 - (s + off) % p.ring
                                         : (size_t)l * T + t;
+        RST_CHECK((plane * B + b) * H + j + 4 * k + 3,
+                  (long long)(p.ring > 0 ? (L - 1) * p.ring : (L - 1) * T) * B * H);
         *reinterpret_cast<uint2*>(p.xdrop + (plane * B + b) * H + j + 4 * k) = pack4(xd);
       }
 #pragma unroll
@@ -510,6 +525,8 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
         dc[i] = (1.0f - m) * dc[i] + dc_new * f_a[e];
       }
       bf16* grow = p.gates + (((size_t)l * T + t) * B + b) * G + j + 4 * k;
+      RST_CHECK((((size_t)l * T + t) * B + b) * G + j + 4 * k + 3 * H + 3,
+                (long long)L * T * B * G);
       *reinterpret_cast<uint2*>(grow) = pack4(di);
       *reinterpret_cast<uint2*>(grow + H) = pack4(dg);
       *reinterpret_cast<uint2*>(grow + 2 * (size_t)H) = pack4(df);
@@ -520,6 +537,7 @@ __global__ void __launch_bounds__(kThreads<kGroups>, 1)
     asm volatile("fence.proxy.async.global;" ::: "memory");
     asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (tid == 0) {
+      RST_CHECK(l, L);
       __threadfence();
       atomicAdd(p.counter + l, 1u);
     }

@@ -65,6 +65,7 @@
 //   thread holds all four gates of 2 rows x 6 units and their f32 carries
 //   for all T steps.  Rows past B are never stored.
 
+#include "bounds_check.cuh"
 #include "grad_matmul.cuh"
 
 namespace {
@@ -186,6 +187,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
         load_box(ar.base + s * kAStage, &map_rh, ar.full + 8 * s, 64 * k, row);
       };
       auto acquire = [&](const unsigned* count, unsigned target) {
+        RST_CHECK(count - p.counter, L);
         if (!p.skip_waits) grid_wait(count, target);
         asm volatile("fence.proxy.async.global;" ::: "memory");   // the rings are read by TMA
       };
@@ -194,6 +196,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
         if (l > 0) {
           acquire(p.counter + l - 1, (unsigned)(t + 1) * n_ctas);
           const int xrow = ((l - 1) * R + t % R) * arows;
+          RST_CHECK(xrow, (long long)L * R * arows);
           for (int k = 0; k < KS; ++k) {
             load_a(xrow, k);
             load_w(&map_wx, xrow_w, k);
@@ -202,6 +205,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
         // The h product: h_l(t-1) once every CTA of layer l has published it.
         if (t > 0) acquire(p.counter + l, (unsigned)t * n_ctas);
         const int hrow = (l * R + (t - 1 + R) % R) * arows;
+        RST_CHECK(hrow, (long long)L * R * arows);
         for (int k = 0; k < KS; ++k) {
           load_a(hrow, k);
           if (k >= RC) load_w(&map_wh, wrow, k);
@@ -235,6 +239,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
       for (int e = 0; e < 2; ++e) {
         const bool ok = b < B && unit_ok(jj);
         const size_t i = ((size_t)l * B + b) * H + j0 + 8 * jj + 2 * q + e;
+        if (ok) RST_CHECK(i, (long long)L * B * H);
         c_r[hh][jj][e] = ok ? p.c[i] : 0.0f;
         h_r[hh][jj][e] = ok ? p.h[i] : 0.0f;
       }
@@ -271,6 +276,10 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int b = r0 + 8 * hh;
+      if (b < B) RST_CHECK((size_t)t * B + b, (long long)T * B);
+      if (l == 0 && b < B) {
+        RST_CHECK(((size_t)t * B + b) * G + 3 * H + j0 + 2 * q + 1, (long long)T * B * G);
+      }
       mk[hh] = b < B ? p.mask[(size_t)t * B + b] : 0.0f;
 #pragma unroll
       for (int jj = 0; jj < 3; ++jj)
@@ -296,6 +305,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
     // Slot t % R last held step t - R: the layer above must be done with it.
     if (feeds && t >= R) {
       if (!p.skip_waits && threadIdx.x == 0) {
+        RST_CHECK(l + 1, L);
         grid_wait(p.counter + l + 1, (unsigned)(t - R + 1) * n_ctas);
       }
       asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
@@ -332,6 +342,8 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
           h_v[e] = h_sel;
         }
         if (ok) {
+          RST_CHECK((size_t)(hslot - p.ring_h) + (size_t)b * H + j + 1, (long long)L * R * plane);
+          if (top) RST_CHECK(((size_t)t * B + b) * H + j + 1, (long long)T * B * H);
           *reinterpret_cast<uint32_t*>(hslot + (size_t)b * H + j) = pack_bf2(h_v[0], h_v[1]);
           if (top) {
             *reinterpret_cast<float2*>(p.out + ((size_t)t * B + b) * H + j) =
@@ -345,6 +357,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
     asm volatile("fence.proxy.async.global;" ::: "memory");
     asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
     if (threadIdx.x == 0) {
+      RST_CHECK(l, L);
       __threadfence();
       atomicAdd(p.counter + l, 1u);
     }
@@ -360,6 +373,7 @@ __global__ void __launch_bounds__(128 * kGroups + 32, 1)
       for (int e = 0; e < 2; ++e) {
         if (b >= B || !unit_ok(jj)) continue;
         const size_t i = ((size_t)l * B + b) * H + j0 + 8 * jj + 2 * q + e;
+        RST_CHECK(i, (long long)L * B * H);
         p.c[i] = c_r[hh][jj][e];
         p.h[i] = h_r[hh][jj][e];
       }

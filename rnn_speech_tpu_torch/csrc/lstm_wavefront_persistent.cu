@@ -66,6 +66,7 @@
 //   thread holds all four gates of 2 rows x 6 units and their f32 carries
 //   for all T steps.  Rows past B are never stored.
 
+#include "bounds_check.cuh"
 #include "grad_matmul.cuh"
 #include "philox.cuh"
 
@@ -192,6 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         load_box(ar.base + s * kABox, map, ar.full + 8 * s, 64 * k, row);
       };
       auto acquire = [&](const unsigned* count, unsigned target) {
+        RST_CHECK(count - p.counter, L);
         if (!p.skip_waits) grid_wait(count, target);
         asm volatile("fence.proxy.async.global;" ::: "memory");   // the rings are read by TMA
       };
@@ -203,6 +205,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           acquire(p.counter + l - 1, (unsigned)(t + 1) * n_ctas);
           xrow = ((l - 1) * R + t % R) * kRows;
         }
+        RST_CHECK(xrow, l == 0 ? (long long)T * B : (long long)(dropped ? L - 1 : L) * R * kRows);
         for (int k = 0; k < KS; ++k) {
           load_a(l == 0 ? &map_x : lower, xrow, k);
           load_w(&map_wx, k);
@@ -210,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // The h product: h_l(t-1) once every CTA of layer l has published it.
         if (t > 0) acquire(p.counter + l, (unsigned)t * n_ctas);
         const int hrow = (l * R + (t - 1 + R) % R) * kRows;
+        RST_CHECK(hrow, (long long)L * R * kRows);
         for (int k = 0; k < KS; ++k) {
           load_a(&map_rh, hrow, k);
           if (k >= RC) load_w(&map_wh, k);
@@ -241,6 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 2; ++e) {
         const bool ok = b < B && unit_ok(jj);
         const size_t i = ((size_t)l * B + b) * H + j0 + 8 * jj + 2 * q + e;
+        if (ok) RST_CHECK(i, (long long)L * B * H);
         c_r[hh][jj][e] = ok ? p.c[i] : 0.0f;
         h_r[hh][jj][e] = ok ? p.h[i] : 0.0f;
       }
@@ -275,6 +280,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int b = r0 + 8 * hh;
+      if (b < B) RST_CHECK((size_t)t * B + b, (long long)T * B);
       mk[hh] = b < B ? p.mask[(size_t)t * B + b] : 0.0f;
     }
     if (stamps) stamp(stamps, t, 0);
@@ -289,6 +295,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Slot t % R last held step t - R: the layer above must be done with it.
     if (feeds && t >= R) {
       if (!p.skip_waits && threadIdx.x == 0) {
+        RST_CHECK(l + 1, L);
         grid_wait(p.counter + l + 1, (unsigned)(t - R + 1) * n_ctas);
       }
       asm volatile("bar.sync 1, 128;" ::: "memory");
@@ -307,6 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float keep[2] = {1.0f, 1.0f};
         if (xslot != nullptr && ok) {
           if (p.drop_mode == 1) {
+            RST_CHECK((((size_t)l * T + t) * B + b) * H + j + 1, (long long)(L - 1) * T * B * H);
             const __nv_bfloat162 km = *reinterpret_cast<const __nv_bfloat162*>(
                 p.drop_masks + (((size_t)l * T + t) * B + b) * H + j);
             keep[0] = __low2float(km);
@@ -347,6 +355,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (ok) {
           const size_t e0 = step_row * H + j;
+          RST_CHECK(e0 + 1, (long long)L * T * B * H);
+          RST_CHECK(step_row * G + j + 3 * H + 1, (long long)L * T * B * G);
+          RST_CHECK((size_t)(hslot - p.ring_h) + (size_t)b * H + j + 1, (long long)L * R * plane);
+          if (xslot != nullptr) {
+            RST_CHECK((size_t)(xslot - p.ring_x) + (size_t)b * H + j + 1,
+                      (long long)(L - 1) * R * plane);
+          }
           *reinterpret_cast<uint32_t*>(p.outs + e0) = pack_bf2(o_v[0], o_v[1]);
           *reinterpret_cast<uint32_t*>(p.cseq + e0) = pack_bf2(c_v[0], c_v[1]);
           bf16* gr = p.gates + step_row * G + j;
@@ -367,6 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.proxy.async.global;" ::: "memory");
     asm volatile("bar.sync 1, 128;" ::: "memory");
     if (threadIdx.x == 0) {
+      RST_CHECK(l, L);
       __threadfence();
       atomicAdd(p.counter + l, 1u);
     }
@@ -382,6 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 2; ++e) {
         if (b >= B || !unit_ok(jj)) continue;
         const size_t i = ((size_t)l * B + b) * H + j0 + 8 * jj + 2 * q + e;
+        RST_CHECK(i, (long long)L * B * H);
         p.c[i] = c_r[hh][jj][e];
         p.h[i] = h_r[hh][jj][e];
       }

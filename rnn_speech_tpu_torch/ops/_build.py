@@ -11,6 +11,14 @@ source, all started together.
 
 There is no fallback: a failed build raises with the compiler's output.
 
+``RST_BOUNDS_CHECK=1`` in the environment selects the checked build: the
+kernels are compiled with ``-DRST_BOUNDS_CHECK``, which makes every
+``RST_CHECK(index, bound)`` of ``csrc/bounds_check.cuh`` trap with the
+kernel, the index and its bound.  The flag is hashed into the library's
+name (``<kernel>-checked-<hash>.so``), so a checked library and a default
+one never stand in for each other; off by default, the default names and
+code are unchanged.
+
 A library's kernels launch on the CURRENT device, whatever device holds
 the tensors, so each wrapper takes its stream from ``launch_stream``,
 which raises ``ValueError`` when a CUDA input is not on the current
@@ -27,7 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,8 +51,22 @@ _NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+CHECK_ENV = "RST_BOUNDS_CHECK"
+_CHECK_FLAG = "-DRST_BOUNDS_CHECK"
+
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+
+
+def checked() -> bool:
+    """Whether the environment selects the bounds-checked build."""
+    return os.environ.get(CHECK_ENV, "0") not in ("", "0")
+
+
+def nvcc_flags() -> List[str]:
+    """The kernels' nvcc flags: the default ones, and the check flag where
+    ``checked()``."""
+    return _NVCC_FLAGS + ([_CHECK_FLAG] if checked() else [])
 
 
 def nvcc() -> str:
@@ -66,12 +88,28 @@ def _sources(name: str) -> List[Path]:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name`` for the current sources and flags."""
     digest = hashlib.sha1()
     for src in _sources(name):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    digest.update(" ".join(nvcc_flags()).encode())
+    tag = "-checked" if checked() else ""
+    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:12]}.so"
+
+
+def tree_digest(extra: Iterable[Path] = ()) -> str:
+    """sha256 of every file of the package (its relative path and bytes, in
+    sorted order; the build directory and bytecode left out) and of the
+    ``extra`` files: ties a run's record to one tree."""
+    digest = hashlib.sha256()
+    files = [f for f in PKG_DIR.rglob("*") if f.is_file()
+             and BUILD_DIR not in f.parents and "__pycache__" not in f.parts]
+    for f in sorted(files) + [Path(e) for e in extra]:
+        digest.update(str(f.relative_to(PKG_DIR.parent) if f.is_relative_to(PKG_DIR.parent)
+                          else f.name).encode())
+        digest.update(f.read_bytes())
+    return digest.hexdigest()
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
@@ -85,7 +123,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc(), *nvcc_flags(), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -121,11 +159,13 @@ def launch_stream(device) -> int:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
+    key = (name, checked())
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            if not library_path(name).exists():
+            path = library_path(name)
+            if not path.exists():
                 build_all([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(path))
+            _libs[key] = lib
         return lib

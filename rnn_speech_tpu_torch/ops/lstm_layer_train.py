@@ -19,8 +19,9 @@ modes:
   dgates over the gates residual.  ``bwd_plan`` sends it by shape to a
   persistent kernel (``csrc/lstm_layer_bwd_persistent.cu``: W_h resident
   in shared memory, the carry's product's K split in eighths over the
-  eight CTAs of a 64-unit slice, wgmma, one barrier a step; the layered
-  step's B=64) or to the per-step kernel;
+  eight CTAs of a 64-unit slice, wgmma, each CTA walking the batch's
+  64-row groups in turn, one barrier a step and row group; every batch at
+  H=1024) or to the per-step kernel;
 * recompute mode: ``recurrence_train_lean`` (``_recurrence_train_lean_kernel``)
   reads ``x_proj`` in the residual dtype and stores only c.  ``lean_plan``
   (with the persistent forward's layout, in ``ops/lstm_recurrence.py``,
@@ -34,22 +35,29 @@ modes:
   rebuilds them inside each step; here the rebuild is one tensor-core
   product per chunk of ``rebuild_chunk`` steps (``rebuild_gates``: float32
   activated gates, at most ``REBUILD_BYTES`` of them), launched ahead of
-  the chunk's serial steps, which keep only the carry's product.
+  the chunk's serial steps, which keep only the carry's product: on the
+  persistent backward, one launch a chunk, where ``bwd_plan`` sends the
+  shape (both recompute batches, B=400 and 473 at H=1024), else a launch a
+  step.
 
 The forward kernels are ``csrc/lstm_layer_train.cu`` and
 ``csrc/lstm_layer_lean.cu``, the backward ones
-``csrc/lstm_layer_bwd.cu`` (the rebuild product ``csrc/rebuild_gates.cuh``)
-and ``csrc/lstm_layer_bwd_persistent.cu``.
+``csrc/lstm_layer_bwd_persistent.cu`` and ``csrc/lstm_layer_bwd.cu`` (the
+per-step kernels, for the shapes ``bwd_plan`` does not take), both with
+the rebuild product ``csrc/rebuild_gates.cuh``.
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device (bf16 weights and residuals,
 float32 carries), or raises; there is no fallback.  ``<wrapper>.launches``
 counts the calls that launched a kernel (the per-step kernels issue one
 CUDA launch per step from one host call); ``recurrence_bwd_recompute.
-rebuild_launches`` counts the rebuild products its kernel launched,
+rebuild_launches`` counts the rebuild products its kernels launched,
 ``recurrence_train.persistent_launches`` and
 ``recurrence_train_lean.persistent_launches`` the persistent forward's
-launches and ``recurrence_bwd.persistent_launches`` the persistent
-backward's (each read from its library's own count at the launch site).
+launches, ``recurrence_bwd.persistent_launches`` and
+``recurrence_bwd_recompute.persistent_launches`` the persistent
+backward's (each read from its library's own count at the launch site),
+and ``recurrence_bwd_recompute.per_step_launches`` the calls that ran the
+per-step recompute kernel.
 
 ``lstm_layer_train`` (``lstm_layer_pallas``) is the differentiable layer:
 ``_LayerTrain`` (``_lstm_core``) and ``_LayerTrainRecompute``
@@ -91,6 +99,13 @@ def _lib_fn(lib: str, name: str, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_count(lib: str, name: str) -> int:
+    """A launch count a kernel library keeps at its launch site."""
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
 
 
 def _activations(pre: Tensor, H: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -216,9 +231,7 @@ def _train_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0, st
 def train_persistent_launches() -> int:
     """Launches of the persistent gates-mode forward so far, as its
     library counts them at the launch site."""
-    fn = _build.load("lstm_layer_lean").rst_train_persistent_launches
-    fn.argtypes, fn.restype = [], ctypes.c_longlong
-    return int(fn())
+    return _lib_count("lstm_layer_lean", "rst_train_persistent_launches")
 
 
 def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: Tensor,
@@ -290,9 +303,7 @@ def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
 def persistent_launches() -> int:
     """Launches of the persistent lean forward so far, as its library
     counts them at the launch site."""
-    fn = _build.load("lstm_layer_lean").rst_lean_persistent_launches
-    fn.argtypes, fn.restype = [], ctypes.c_longlong
-    return int(fn())
+    return _lib_count("lstm_layer_lean", "rst_lean_persistent_launches")
 
 
 def recurrence_train_lean(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
@@ -452,45 +463,64 @@ def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra):
     ] + extra, cseq.device, H)
 
 
-# The persistent gates-mode backward (csrc/lstm_layer_bwd_persistent.cu):
-# CTAs of a slice (the carry product's K split), hidden units of a slice,
-# rows of a row group (one wgmma tile), and the bytes of its W_h box (64
-# units x 64 K) and dgates box (64 rows x 64 K), both bf16.
-BWD_SPLIT, BWD_UNITS, BWD_ROWS = 8, 64, 64
+# The persistent backward (csrc/lstm_layer_bwd_persistent.cu, both residual
+# modes): CTAs of a slice (the carry product's K split), hidden units of a
+# slice, rows of a row group (one wgmma tile), consumer warpgroups a CTA
+# past one row group, and the bytes of its W_h box (64 units x 64 K) and
+# dgates box (64 rows x 64 K), both bf16.
+BWD_SPLIT, BWD_UNITS, BWD_ROWS, BWD_WARPGROUPS = 8, 64, 64, 2
 _BWD_WBOX, _BWD_ABOX = BWD_UNITS * 64 * 2, BWD_ROWS * 64 * 2
 
 
-def bwd_smem(H: int) -> int:
+def bwd_smem(H: int, warpgroups: int = 1) -> int:
     """Dynamic shared memory of the persistent backward: the resident W_h
-    slice (64 units' rows, an eighth of the 4H columns) and the same eighth
-    of a step's dgates (64 rows), 4H/512 boxes each, the mbarriers and the
-    1024-byte alignment slack (the kernel's ``smem_bytes``)."""
+    slice (64 units' rows, an eighth of the 4H columns), one buffer a
+    consumer warpgroup for the same eighth of a row group's dgates (64
+    rows), 4H/512 boxes each, the mbarriers (W_h, and a release and a
+    landing a box for each buffer) and the 1024-byte alignment slack (the
+    kernel's ``smem_bytes``)."""
     boxes = 4 * H // (64 * BWD_SPLIT)
-    return boxes * (_BWD_WBOX + _BWD_ABOX) + 8 * (2 + boxes) + 1024
+    return (boxes * (_BWD_WBOX + warpgroups * _BWD_ABOX)
+            + 8 * (1 + warpgroups + warpgroups * boxes) + 1024)
 
 
 def bwd_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
-    """Which kernel runs the gates-mode backward at (B, H) on a card of
-    ``sms`` SMs, decided by shape alone.
+    """Which kernel runs the layer backward at (B, H) on a card of ``sms``
+    SMs, in either residual mode (``recurrence_bwd`` and
+    ``recurrence_bwd_recompute`` both ask), decided by shape alone.
 
     The persistent kernel needs its whole grid co-resident, one CTA an SM:
-    ``groups`` row groups of 64 rows (one wgmma tile) times ``slices`` =
-    H/64 unit slices times 8 CTAs, each an eighth of K = 4H.  Each CTA holds
-    its eighth of the slice's W_h columns and streams the same eighth of a
-    step's dgates (``bwd_smem``).  Shapes it cannot take (H not a multiple
-    of 128, a grid larger than the card, a W_h slice and dgates eighth that
-    do not fit the shared memory) go to the per-step kernel.
-    Returns {"kernel": "persistent", "groups", "slices", "grid", "rows"
-    (the row groups' rows), "smem"} or {"kernel": "per_step"}."""
+    ``slices`` = H/64 unit slices times 8 CTAs, each an eighth of K = 4H,
+    whatever the batch.  Each CTA holds its eighth of the slice's W_h
+    columns and walks the ``groups`` = ceil(B/64) row groups of every step
+    in turn, streaming the same eighth of the group's dgates: one consumer
+    warpgroup for one group, two (each with its own A buffer) past it
+    (``bwd_smem``).  Shapes it cannot take (H not a multiple of 128, a grid
+    larger than the card, a W_h slice and A buffers that do not fit the
+    shared memory) go to the per-step kernel.  Returns {"kernel":
+    "persistent", "groups", "warpgroups", "slices", "grid", "rows" (the row
+    groups' rows), "smem"} or {"kernel": "per_step"}."""
     per_step = {"kernel": "per_step"}
     if B < 1 or H < 128 or H % 128:
         return per_step
     groups, slices = -(-B // BWD_ROWS), H // BWD_UNITS
-    grid = groups * slices * BWD_SPLIT
-    if grid > sms or bwd_smem(H) > SMEM_LIMIT:
+    warpgroups = 1 if groups == 1 else BWD_WARPGROUPS
+    grid = slices * BWD_SPLIT
+    if grid > sms or bwd_smem(H, warpgroups) > SMEM_LIMIT:
         return per_step
-    return {"kernel": "persistent", "groups": groups, "slices": slices, "grid": grid,
-            "rows": groups * BWD_ROWS, "smem": bwd_smem(H)}
+    return {"kernel": "persistent", "groups": groups, "warpgroups": warpgroups,
+            "slices": slices, "grid": grid, "rows": groups * BWD_ROWS,
+            "smem": bwd_smem(H, warpgroups)}
+
+
+def _bwd_scratch(plan, dev):
+    """The persistent backward's partial products (groups, slices, 8, 64,
+    64) float32 and its counters (a step counter a row group, then a slice
+    counter a row group and slice; the kernel zeroes them a launch)."""
+    groups, slices = plan["groups"], plan["slices"]
+    part = torch.empty((groups, slices, BWD_SPLIT, BWD_ROWS, BWD_UNITS), dtype=f32, device=dev)
+    counter = torch.empty((groups * (1 + slices),), dtype=torch.int32, device=dev)
+    return part, counter
 
 
 def _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan, skip_barrier=0,
@@ -499,23 +529,20 @@ def _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan, ski
     with dgates; ``skip_barrier`` plants a fault (each CTA reads dgates
     without waiting for the others), for checks; ``stamps``, a (T + 1, 4)
     int64 tensor on the device, takes CTA 0's SM clock at four points of
-    each pass (the kernel's ``Args::stamps``), for studies.  Returns
-    (gates, dh0, dc0)."""
+    each pass (row group 0; the kernel's ``Args::stamps``), for studies.
+    Returns (gates, dh0, dc0)."""
     T, B, H = cseq.shape
     dev = gates.device
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
         if T == 0:
             return gates, dh, dc
-        groups, slices = plan["groups"], plan["slices"]
-        part = torch.empty((groups, slices, BWD_SPLIT, BWD_ROWS, BWD_UNITS), dtype=f32,
-                           device=dev)
-        counter = torch.zeros((groups * (1 + slices),), dtype=torch.int32, device=dev)
+        part, counter = _bwd_scratch(plan, dev)
         fn = _lib_fn("lstm_layer_bwd_persistent", "rst_lstm_layer_bwd_persistent",
                      [P] * 10 + [I] * 5 + [P, P])
         rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 mask.data_ptr(), w_h.data_ptr(), dh.data_ptr(), dc.data_ptr(), part.data_ptr(),
-                counter.data_ptr(), T, B, H, groups, skip_barrier,
+                counter.data_ptr(), T, B, H, plan["groups"], skip_barrier,
                 None if stamps is None else stamps.data_ptr(),
                 _build.launch_stream(dev))
     if rc != 0:
@@ -525,11 +552,38 @@ def _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan, ski
 
 
 def bwd_persistent_launches() -> int:
-    """Launches of the persistent backward so far, as its library counts
-    them at the launch site."""
-    fn = _build.load("lstm_layer_bwd_persistent").rst_layer_bwd_persistent_launches
-    fn.argtypes, fn.restype = [], ctypes.c_longlong
-    return int(fn())
+    """Launches of the persistent backward in gates mode so far, as its
+    library counts them at the launch site."""
+    return _lib_count("lstm_layer_bwd_persistent", "rst_layer_bwd_persistent_launches")
+
+
+def recompute_persistent_launches() -> int:
+    """Launches of the persistent backward in recompute mode so far (one a
+    rebuild chunk), as its library counts them at the launch site."""
+    return _lib_count("lstm_layer_bwd_persistent", "rst_recompute_persistent_launches")
+
+
+def _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn):
+    """The per-step gates-mode kernel (csrc/lstm_layer_bwd.cu), whatever
+    the plan says: the wrapper's choice for the shapes ``bwd_plan`` does not
+    take, and the design the persistent kernel replaced, for checks and
+    timings beside it.  Overwrites ``gates`` with dgates; returns (gates,
+    dh0, dc0)."""
+    T, B, H = cseq.shape
+    dev = gates.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        if T == 0:
+            return gates, dh, dc
+        Bp = -(-B // 16) * 16
+        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
+        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd", [P] * 9 + [I] * 3 + [P])
+        rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), par.data_ptr(), dh.data_ptr(),
+                dc.data_ptr(), T, B, H, _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"lstm_layer_bwd kernel launch failed: CUDA error {rc}")
+    return gates, dh, dc
 
 
 def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: Tensor,
@@ -553,26 +607,93 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
         before = bwd_persistent_launches()
         res = _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan)
         recurrence_bwd.persistent_launches += bwd_persistent_launches() - before
-        recurrence_bwd.launches += 1
-        return res
-    with torch.cuda.device(dev):
-        dh, dc = dhn.clone(), dcn.clone()
-        if T == 0:
-            return gates, dh, dc
-        Bp = -(-B // 16) * 16
-        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd", [P] * 9 + [I] * 3 + [P])
-        rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
-                mask.data_ptr(), w_h.data_ptr(), par.data_ptr(), dh.data_ptr(),
-                dc.data_ptr(), T, B, H, _build.launch_stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"lstm_layer_bwd kernel launch failed: CUDA error {rc}")
+    else:
+        res = _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
     recurrence_bwd.launches += 1
-    return gates, dh, dc
+    return res
 
 
 recurrence_bwd.launches = 0
 recurrence_bwd.persistent_launches = 0
+
+
+def _recompute_chunks(T: int, B: int, H: int):
+    """(chunk, starts): the rebuild chunk's steps and the chunks' starts in
+    the order the kernels run them (last first), as a ctypes array."""
+    chunk = rebuild_chunk(T, B, H)
+    starts = [t0 for t0, _ in rebuild_chunks(T, chunk)]
+    return chunk, (ctypes.c_int * len(starts))(*starts)
+
+
+def _recompute_per_step_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn):
+    """The per-step recompute kernel (csrc/lstm_layer_bwd.cu: a rebuild
+    product a chunk, then a launch a step), whatever the plan says: the
+    wrapper's choice for the shapes ``bwd_plan`` does not take, and the
+    design the persistent kernel replaced, for checks and timings beside
+    it.  Returns (dgates, dh0, dc0, rebuild products launched)."""
+    T, B, H = cseq.shape
+    D = x.shape[-1]
+    dev = cseq.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        dgates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
+        if T == 0 or B == 0:
+            return dgates, dh, dc, 0
+        chunk, starts = _recompute_chunks(T, B, H)
+        Bp = -(-B // 16) * 16
+        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
+        act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
+        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute",
+                     [P] * 15 + [I] * 6 + [P])
+        before = _lib_count("lstm_layer_bwd", "rst_rebuild_launches")
+        rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
+                w_x.data_ptr(), b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+                act.data_ptr(), starts, len(starts), chunk, T, B, H, D,
+                _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"lstm_layer_bwd_recompute kernel launch failed: CUDA error {rc}")
+    return dgates, dh, dc, _lib_count("lstm_layer_bwd", "rst_rebuild_launches") - before
+
+
+def _recompute_persistent_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn,
+                                 plan, skip_barrier=0, dgates=None):
+    """The recompute backward on the persistent kernel on the plan's grid:
+    for each rebuild chunk (``rebuild_chunks``, last first) its rebuild
+    product, then one persistent launch of its steps.  ``skip_barrier``
+    plants faults, for checks: bit 1, each CTA reads dgates without
+    waiting for the others; bit 2, it sums the slice's partials without
+    waiting for them; bit 4, the bounds checks' positive control: ``act``'s
+    rows stated one step short (the checked build traps, the default one
+    runs as without it).  ``dgates``, (T, B, 4H) bf16, is the stream to
+    write (a fresh one by default; a check hands one filled with NaN so a
+    read of a step not written yet shows).  Returns (dgates, dh0, dc0,
+    rebuild products launched)."""
+    T, B, H = cseq.shape
+    D = x.shape[-1]
+    dev = cseq.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        if dgates is None:
+            dgates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
+        if T == 0 or B == 0:
+            return dgates, dh, dc, 0
+        chunk, starts = _recompute_chunks(T, B, H)
+        act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
+        part, counter = _bwd_scratch(plan, dev)
+        fn = _lib_fn("lstm_layer_bwd_persistent", "rst_lstm_layer_bwd_recompute_persistent",
+                     [P] * 16 + [I] * 8 + [P])
+        before = _lib_count("lstm_layer_bwd_persistent", "rst_recompute_rebuild_launches")
+        rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
+                w_x.data_ptr(), b.data_ptr(), dh.data_ptr(), dc.data_ptr(), act.data_ptr(),
+                part.data_ptr(), counter.data_ptr(), starts, len(starts), chunk, T, B, H, D,
+                plan["groups"], skip_barrier, _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"persistent lstm_layer_bwd_recompute kernel launch failed: "
+                           f"CUDA error {rc} (plan {plan})")
+    rebuilds = _lib_count("lstm_layer_bwd_persistent", "rst_recompute_rebuild_launches")
+    return dgates, dh, dc, rebuilds - before
 
 
 def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tensor,
@@ -581,43 +702,36 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
     """Recompute-mode backward of one layer: as ``recurrence_bwd`` with the
     gates rebuilt from x (T, B, D) and h_prev (T, B, H) in the residual
     dtype, w_x (D, 4H) and the bias b (4H,) float32.  Returns (dgates
-    (T, B, 4H) in the residual dtype, dh0, dc0)."""
+    (T, B, 4H) in the residual dtype, dh0, dc0).  On a CUDA device the
+    kernel ``bwd_plan`` picks by shape: the persistent one, a launch a
+    rebuild chunk (``persistent_launches`` adds the library's count), or the
+    per-step one (``per_step_launches`` counts its calls);
+    ``rebuild_launches`` adds the rebuild products either launched.  The
+    plain version on the CPU."""
     if not cseq.is_cuda:
         return recurrence_bwd_recompute_plain(dout, x, h_prev, cseq, c0, mask, w_x, b,
                                               w_h, dhn, dcn)
     T, B, H = cseq.shape
-    D = x.shape[-1]
     dev = cseq.device
     _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, _rebuild_checks(x, h_prev, w_x, b))
-    with torch.cuda.device(dev):
-        dh, dc = dhn.clone(), dcn.clone()
-        dgates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
-        if T == 0 or B == 0:
-            return dgates, dh, dc
-        chunk = rebuild_chunk(T, B, H)
-        starts = [t0 for t0, _ in rebuild_chunks(T, chunk)]
-        Bp = -(-B // 16) * 16
-        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
-        act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute",
-                     [P] * 15 + [I] * 6 + [P])
-        rebuilds = _build.load("lstm_layer_bwd").rst_rebuild_launches
-        rebuilds.argtypes, rebuilds.restype = [], ctypes.c_longlong
-        before = rebuilds()
-        rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
-                mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
-                w_x.data_ptr(), b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-                act.data_ptr(), (ctypes.c_int * len(starts))(*starts), len(starts), chunk,
-                T, B, H, D, _build.launch_stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"lstm_layer_bwd_recompute kernel launch failed: CUDA error {rc}")
+    args = (dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn)
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan["kernel"] == "persistent":
+        before = recompute_persistent_launches()
+        *res, rebuilds = _recompute_persistent_launch(*args, plan)
+        recurrence_bwd_recompute.persistent_launches += recompute_persistent_launches() - before
+    else:
+        *res, rebuilds = _recompute_per_step_launch(*args)
+        recurrence_bwd_recompute.per_step_launches += T > 0 and B > 0
     recurrence_bwd_recompute.launches += 1
-    recurrence_bwd_recompute.rebuild_launches += rebuilds() - before
-    return dgates, dh, dc
+    recurrence_bwd_recompute.rebuild_launches += rebuilds
+    return tuple(res)
 
 
 recurrence_bwd_recompute.launches = 0
 recurrence_bwd_recompute.rebuild_launches = 0
+recurrence_bwd_recompute.persistent_launches = 0
+recurrence_bwd_recompute.per_step_launches = 0
 
 
 # ------------------------------------------------------- differentiable layer

@@ -1054,17 +1054,19 @@ def test_persistent_bwd_matches_plain(cuda, T, B, H):
 
 
 def test_bwd_past_the_plans_grid_runs_the_per_step_kernel(cuda):
-    """B=70 at H=1024 needs two row groups, 256 CTAs, more than the card's
-    SMs: the plan sends it to the per-step kernel, which must still match
-    the plain version (8e-3 at T=16)."""
+    """B=70 at H=1024 (two row groups): the plan now sends it to the
+    persistent kernel, row groups in turn; the per-step kernel, the design
+    it replaced and still the one for shapes the plan does not take, is
+    called directly and must still match the plain version (8e-3 at T=16),
+    with no persistent launch."""
     T, B, H = 16, 70, 1024
-    assert tlt.bwd_plan(B, H)["kernel"] == "per_step"
+    assert tlt.bwd_plan(B, H)["kernel"] == "persistent"
     dout, gates, *rest = _bwd_case(T, B, H, seed=6, dev=cuda)
     ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
-    before = tlt.recurrence_bwd.persistent_launches
-    got = tlt.recurrence_bwd(dout, gates, *rest)
+    before = tlt.bwd_persistent_launches()
+    got = tlt._bwd_per_step_launch(dout, gates, *rest)
     torch.cuda.synchronize()
-    assert tlt.recurrence_bwd.persistent_launches == before
+    assert tlt.bwd_persistent_launches() == before
     assert _rel_max(got, ref) <= 8e-3
 
 
@@ -1076,6 +1078,106 @@ def test_persistent_bwd_without_its_barrier_fails_the_check(cuda):
     dout, gates, *rest = _bwd_case(T, B, H, seed=7, dev=cuda)
     ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
     bad = tlt._bwd_persistent_launch(dout, gates, *rest, tlt.bwd_plan(B, H), skip_barrier=1)
+    torch.cuda.synchronize()
+    assert _rel_max(bad, ref) > 1.2e-2
+
+
+@pytest.mark.parametrize("T,B,H", [(16, 70, 1024), (16, 128, 1024), (9, 130, 128),
+                                   (512, 400, 1024), (64, 473, 1024)])
+def test_persistent_bwd_row_groups_in_turn_match_plain(cuda, T, B, H):
+    """The gates-mode backward past one 64-row group (two warpgroups, the
+    row groups in turn; the plan's choice, counted at its launch site)
+    against its plain version: 8e-3 of each output's largest magnitude at
+    T <= 16, 1.2e-2 longer; bit for bit on repeat; the zero-length row's dh
+    and dc pass through."""
+    plan = tlt.bwd_plan(B, H)
+    assert plan["kernel"] == "persistent" and plan["groups"] == -(-B // 64) > 1
+    assert plan["warpgroups"] == 2
+    dout, gates, *rest = _bwd_case(T, B, H, seed=T + B + 1, dev=cuda)
+    ref = tlt.recurrence_bwd_plain(dout, gates.clone(), *rest)
+    before = tlt.recurrence_bwd.persistent_launches
+    got = tlt.recurrence_bwd(dout, gates.clone(), *rest)
+    again = tlt.recurrence_bwd(dout, gates.clone(), *rest)
+    torch.cuda.synchronize()
+    assert tlt.recurrence_bwd.persistent_launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_max(got, ref) <= (8e-3 if T <= 16 else 1.2e-2)
+    assert not bool(got[0][:, 2].float().any())
+    assert torch.equal(got[2][2], rest[-1][2])
+
+
+def _recompute_case(T, B, H, seed, dev):
+    """The recompute backward's arguments on the plain lean forward's bf16
+    residuals, W_h and W_x xavier-uniform (see ``_bwd_case``), D = H."""
+    bf = torch.bfloat16
+    x = _layer_inputs(T, B, H, H, seed=seed, dev=dev)
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w_h, w_x = (((torch.rand((H, 4 * H), generator=g) * 2 - 1) * lim).to(dev, bf)
+                for _ in range(2))
+    out, _, _, cseq = tlt.recurrence_train_lean_plain(
+        x["x_proj"].to(bf), w_h, x["mask"], x["h0"], x["c0"], bf)
+    h_prev = torch.cat([x["h0"].to(bf)[None], out.to(bf)[:-1]])
+    return (x["dout"], x["x"], h_prev, cseq, x["c0"].to(bf).float(), x["mask"], w_x, x["b"],
+            w_h, x["dhn"], x["dcn"])
+
+
+@pytest.mark.parametrize("B", [70, 130])
+@pytest.mark.parametrize("T", [3, 4, 5, 9])
+def test_persistent_recompute_bwd_at_chunk_edges_matches_plain(cuda, T, B, monkeypatch):
+    """The recompute backward on the persistent kernel (two and three row
+    groups at H=128), the rebuild in chunks of 4 steps (the byte cap
+    patched down): T shorter than a chunk, one chunk, one step past it, two
+    chunks and a step.  One persistent launch and one rebuild product a
+    chunk, no per-step call; within the per-step kernel's tolerance of the
+    plain version, bit for bit on repeat."""
+    H, chunk = 128, 4
+    monkeypatch.setattr(tlt, "REBUILD_BYTES", chunk * B * 4 * H * 4)
+    assert tlt.rebuild_chunk(T, B, H) == min(T, chunk)
+    assert tlt.bwd_plan(B, H)["kernel"] == "persistent"
+    args = _recompute_case(T, B, H, seed=T + B + 50, dev=cuda)
+    fn = tlt.recurrence_bwd_recompute
+    before = (fn.persistent_launches, fn.rebuild_launches, fn.per_step_launches)
+    got = fn(*args)
+    again = fn(*args)
+    ref = tlt.recurrence_bwd_recompute_plain(*args)
+    torch.cuda.synchronize()
+    n = -(-T // chunk)
+    assert (fn.persistent_launches - before[0], fn.rebuild_launches - before[1],
+            fn.per_step_launches - before[2]) == (2 * n, 2 * n, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close_to(got, ref, TRAIN_TOL)
+    assert not bool(got[0][:, 2].float().any())          # the zero-length row
+
+
+@pytest.mark.parametrize("T,B", [(512, 400), (235, 70)])
+def test_persistent_recompute_bwd_matches_plain_at_full_width(cuda, T, B):
+    """Row 8 at H=1024 on the persistent kernel: the recompute step's batch
+    and a chunk edge at B=70 (T one step past a rebuild chunk when the
+    chunk is 234 steps), against the plain version (1.2e-2 of each output's
+    largest magnitude), and the per-step kernel called directly on the same
+    inputs against it too."""
+    H = 1024
+    args = _recompute_case(T, B, H, seed=T + B, dev=cuda)
+    ref = tlt.recurrence_bwd_recompute_plain(*args)
+    per_step = tlt.recurrence_bwd_recompute.per_step_launches
+    got = tlt.recurrence_bwd_recompute(*args)
+    old = tlt._recompute_per_step_launch(*args)[:3]
+    torch.cuda.synchronize()
+    assert tlt.recurrence_bwd_recompute.per_step_launches == per_step
+    assert _rel_max(got, ref) <= 1.2e-2
+    assert _rel_max(old, ref) <= 1.2e-2
+
+
+def test_persistent_recompute_bwd_without_its_barrier_fails_the_check(cuda):
+    """The planted fault: each CTA reads the step's dgates and sums the
+    slice's partials without waiting for the others; the result must leave
+    the tolerance (and not hang).  (The step barrier alone left out is
+    rarely seen at seven row groups: a CTA must run a group ahead.)"""
+    T, B, H = 512, 400, 1024
+    args = _recompute_case(T, B, H, seed=17, dev=cuda)
+    ref = tlt.recurrence_bwd_recompute_plain(*args)
+    bad = tlt._recompute_persistent_launch(*args, tlt.bwd_plan(B, H), skip_barrier=3)[:3]
     torch.cuda.synchronize()
     assert _rel_max(bad, ref) > 1.2e-2
 

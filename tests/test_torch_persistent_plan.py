@@ -71,14 +71,15 @@ def test_layered_step_shape_gets_one_row_group_of_128_ctas():
     assert 64 * 512 * 2 == 64 << 10
 
 
-@pytest.mark.parametrize("B,H,sms", [(65, 1024, 132), (64, 1024, 114), (64, 96, 132),
+@pytest.mark.parametrize("B,H,sms", [(65, 1024, 114), (64, 1024, 114), (64, 96, 132),
                                      (64, 64, 132), (64, 1152, 132), (64, 3968, 1000),
-                                     (0, 1024, 132), (129, 512, 132)])
+                                     (0, 1024, 132), (129, 512, 60)])
 def test_bwd_plan_sends_what_the_persistent_kernel_cannot_take_to_the_per_step_kernel(
         B, H, sms):
-    """A grid larger than the card (a second row group at H=1024, 18 slices
-    at H=1152, three row groups at H=512), H not a multiple of 128, shared
-    memory past the card's (H=3968 on a card of 1000 SMs), or no batch."""
+    """A grid larger than the card (128 CTAs at H=1024 on 114 SMs, 18 slices
+    at H=1152, 64 CTAs at H=512 on 60 SMs; the row groups, walked in turn,
+    no longer grow the grid), H not a multiple of 128, shared memory past
+    the card's (H=3968 on a card of 1000 SMs), or no batch."""
     assert tlt.bwd_plan(B, H, sms) == {"kernel": "per_step"}
 
 

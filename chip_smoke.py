@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,beam,cli,lm,stream,multi]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,accuracy,beam,cli,lm,stream,multi]
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
     python3 chip_smoke.py --phases device,build,fault_hunt [--hunt_iters N]   # opt-in
+    python3 chip_smoke.py --phases device,build,flagship_accuracy   # opt-in
+    python3 chip_smoke.py --phases device,build,beam_quality   # opt-in
+    python3 chip_smoke.py --phases device,build,accuracy_benchmark   # opt-in
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -268,6 +271,27 @@ printing one JSON line:
            sentences (sigma=900 noise) on the wavefront and layered kernel
            paths and through the fbank kernel at CER <= 2%, and all equal
            the plain path's transcripts.
+  accuracy (~40-60 s)
+           the port's accuracy tools at full width, cut in size only:
+           ``tools/flagship_accuracy_run.run`` (3x1024, fbank-120, B=32,
+           T <= 600, lr 1e-3, keeps 0.9/0.6) on 48 rendered training clips
+           and 16 held-out ones, 20 steps with a checkpoint and an
+           evaluation every 10, the LM at 1x256 for 10 steps, the exported
+           bf16 bundle decoded at sigma 2400 and 4800 (greedy, beam 16,
+           beam 16 with the LM at 0.4), streaming on 2 clips at 1.2 s
+           chunks; then the committed bundle on 64 fresh clips
+           (``beam_quality_run.fresh_held_out``) at both levels in the
+           three modes.  Gates, each beside a planted fault that must fail
+           it: every checkpoint window of the curves is there (a window
+           dropped); the exported bundle restores and holds the final
+           checkpoints rounded to bf16 bit for bit (one tensor moved by a
+           bf16 step); each mode scores every clip (one clip unscored);
+           rows 3, 4, 9, 12, 14, 15, 16 (the training steps), 10 (the
+           evaluation cadence) and 1 (the decodes) launch, 3, 4 and 1 on
+           their persistent kernels (row 10 silent); the committed bundle's
+           greedy texts at sigma=2400 equal the plain path's
+           (``use_pallas_lstm`` off; the top layer's outputs past frame 100
+           left unstored).  Prints each stage's seconds.
   beam     the AM-only beam search at width 16 on the committed bundle's
            logits of the 32 held-out clips on the card: CER <= 2%, best
            beams equal to the same function's on the CPU on the same
@@ -374,6 +398,27 @@ printing one JSON line:
            recompute batch (``_hunt_layer_checks``); each iteration's
            outcome, the first trap or device assert it printed, and the
            tree's hash are recorded; fails if any run failed.
+  flagship_accuracy (opt-in)
+           ``flagship_accuracy_run``'s full protocol, 3000 steps: 1100 +
+           160 rendered clips, 3x1024, B=32, the
+           JAX artifact's levels 900-9600 (headline 2400), beam 16, the LM
+           1x256 for 400 steps, streaming on 24 clips at 0.4 and 1.2 s;
+           the artifact to chiprun_out/flagship_accuracy.json, each WER
+           beside the JAX artifact's CI; fails above 2% greedy WER at
+           sigma=2400.
+  beam_quality (opt-in)
+           ``beam_quality_run``'s defaults (the committed bundle, 600 fresh
+           clips, sigma 2400-6000, beam 16, LM 0.4) into
+           chiprun_out/beam_quality.json, each WER beside the JAX
+           artifact's CI, then each level's greedy texts on the kernels
+           against the plain path's (the clips that differ listed).
+  accuracy_benchmark (opt-in)
+           ``accuracy_benchmark`` with the committed artifact's arguments
+           (300 letters clips, 2x256, B=16, 12 rounds of 200 steps) into
+           chiprun_out/accuracy_curve.json, the kernels the plans pick at
+           its shapes; fails unless it reaches its 15% target.
+  Each opt-in protocol prints its stages' seconds (render, train, LM,
+  export, decode, streaming) and its launches by row.
 
 Before the phases it prints the tree's hash, ``{"tree_sha256": ...}``
 (every file of the package and this script: ``_build.tree_digest``), also
@@ -5300,6 +5345,384 @@ def phase_stream():
          chunk_seconds=list(STREAM_CHUNKS), decoders=out)
 
 
+# ------------------------------------------------------ the accuracy tools
+
+# The accuracy phase: ``tools/flagship_accuracy_run.run`` at full width
+# (3x1024, fbank-120, B=32, T <= 600), cut in size only.
+ACC_CUTS = {"clips": 48, "test_clips": 16, "max_steps": 20, "steps_per_checkpoint": 10,
+            "lm_layers": 1, "lm_hidden": 256, "lm_steps": 10,
+            "eval_noise_levels": (2400.0, 4800.0), "headline_noise": 2400.0,
+            "streaming_max_clips": 2, "streaming_chunk_seconds": (1.2,)}
+ACC_BUNDLE_CLIPS = 64      # fresh clips of the committed bundle's decode
+ACC_DECODE_BATCH = 64      # rows a decode batch: one beam search a level and mode
+ACC_BEAM = 16
+# The kernels the accuracy phase must launch: the training steps' (rows 3,
+# 4, 9, 12, 14, 15, 16), the evaluation cadence's (10) and the decodes' (1),
+# with rows 3, 4 and 1 on their persistent kernels.
+ACC_ROWS = {"row3": "wavefront_train", "row4": "wavefront_bwd", "row9": "ctc_alpha_ckpt",
+            "row12": "ctc_beta_post", "row14": "dgates_weight_grads", "row15": "weight_grad",
+            "row16": "dropout", "row10": "ctc_alpha_lossonly", "row1": "lstm_stack_wavefront"}
+ACC_PERSISTENT = ("row3", "row4", "row1")
+# The full protocols (opt-in phases) and where their artifacts go.
+FLAGSHIP_STEPS = 3000
+FLAGSHIP_LEVELS = (900.0, 2400.0, 4800.0, 7200.0, 9600.0)   # the JAX artifact's sweep
+FLAGSHIP_WER_LIMIT = 2.0   # percent, greedy at sigma=2400 (the JAX artifact: 0.12)
+# Rows a decode batch in the full protocols (the tools' defaults: 10 and
+# 20).  Rows decode independently, so the batch changes no text; it cuts
+# the beam searches, each a host-bound loop over 600 frames, to a fifth.
+FULL_DECODE_BATCH = 100
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+
+def _acc_counters():
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    return {**_train_counters(), "ctc_alpha_lossonly": tck.ctc_alpha_lossonly,
+            "lstm_stack_wavefront": wf.lstm_stack_wavefront}
+
+
+def _acc_persistent():
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    return {"row3": wf.wavefront_train, "row4": wf.wavefront_bwd, "row1": wf.lstm_stack_wavefront}
+
+
+def _acc_launches(fn):
+    """Runs ``fn()`` with every accuracy-path counter set to 0 first;
+    returns (its result, {row: launches}, {row: persistent launches})."""
+    counters, persistent = _acc_counters(), _acc_persistent()
+    _reset_launches(counters)
+    for f in persistent.values():
+        f.persistent_launches = 0
+    out = fn()
+    counts = _launch_counts(counters)
+    return (out, {row: counts[name] for row, name in ACC_ROWS.items()},
+            {row: f.persistent_launches for row, f in persistent.items()})
+
+
+def _acc_curve_check(result, steps, every):
+    """Every checkpoint window of the session logged its train error, eval
+    error and learning rate, at steps every, 2·every, ..., steps."""
+    want = list(range(every, steps + 1, every))
+    return [f"curve {name}: steps {[s for s, _ in curve]} != {want}"
+            for name, curve in result["curves"].items() if [s for s, _ in curve] != want]
+
+
+def _acc_scored_check(sweep, clips, modes):
+    """Each decode mode scored every clip at every level."""
+    return [f"{level}/{mode}: {table.get(mode, {}).get('clips')} of {clips} clips"
+            for level, table in sweep.items() for mode in modes
+            if table.get(mode, {}).get("clips") != clips]
+
+
+def _acc_launch_check(counts, persistent):
+    return ([f"{row} ({ACC_ROWS[row]}) did not launch" for row, n in counts.items() if not n]
+            + [f"{row} never ran its persistent kernel" for row in ACC_PERSISTENT
+               if not persistent.get(row)])
+
+
+def _acc_bundle_check(bundle, ckpt_dir):
+    """The exported bundle restores (``params.load_bundle``; the acoustic
+    part into the model's template by ``checkpoint.restore``) and holds the
+    session's final checkpoints rounded to bf16, bit for bit."""
+    import torch
+
+    from rnn_speech_tpu_torch import params as params_mod
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.train import checkpoint as ckpt
+
+    problems = []
+    for part in ("acoustic", "language"):
+        try:
+            loaded = params_mod.flatten(params_mod.load_bundle(bundle, device=DEVICE, part=part))
+        except (FileNotFoundError, KeyError, ValueError) as exc:
+            problems.append(f"{part}: {exc}")
+            continue
+        final, step, lr = ckpt.restore_flat(os.path.join(ckpt_dir, part))
+        got, bstep, blr = ckpt.restore_flat(os.path.join(bundle, part))
+        if (bstep, blr) != (step, lr) or sorted(got) != sorted(final):
+            problems.append(f"{part}: step/lr {bstep}/{blr} against {step}/{lr}, "
+                            f"{len(got)} against {len(final)} tensors")
+            continue
+        rounded = {k: ckpt.bf16_bits_to_f32(ckpt.f32_to_bf16_bits(v)) for k, v in final.items()}
+        bad = sorted(k for k in final if got[k].tobytes() != rounded[k].tobytes()
+                     or loaded[k].cpu().numpy().tobytes() != rounded[k].tobytes())
+        if bad:
+            problems.append(f"{part}: {bad[:4]} differ from the bf16 of the final checkpoint")
+    template = acoustic.init_params(torch.Generator().manual_seed(0), acoustic.AcousticConfig(
+        num_layers=L, hidden_size=H, input_dim=120, num_labels=V), DEVICE)
+    try:
+        ckpt.restore(os.path.join(bundle, "acoustic"), template)
+    except (KeyError, ValueError) as exc:
+        problems.append(f"restore into the 3x1024 model: {exc}")
+    return problems
+
+
+def _acc_planted_bundle(bundle, out_dir):
+    """A copy of ``bundle`` whose acoustic checkpoint has one tensor's
+    first element moved by one bf16 step: a planted fault."""
+    import shutil
+
+    import numpy as np
+
+    from rnn_speech_tpu_torch.train import checkpoint as ckpt
+
+    shutil.copytree(bundle, out_dir)
+    path = ckpt.latest_path(os.path.join(out_dir, "acoustic"))
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    key = next(k for k in sorted(flat) if not k.startswith("__"))
+    flat[key] = flat[key].copy()
+    flat[key].flat[0] += 1
+    np.savez(path, **flat)
+    return out_dir
+
+
+def _early_stop_fault(frames=100):
+    """The inference forward whose top-layer outputs past the first
+    ``frames`` steps are never stored (zero), as if the kernel left its
+    diagonal loop early: a planted fault.  (Zeroing a quarter of the
+    units instead changed no text: the model trained with the output
+    keep 0.6 shrugs it off.)"""
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    real = wf.lstm_stack_wavefront
+
+    def faulty(*args):
+        out, hn, cn = real(*args)
+        out = out.clone()
+        out[frames:] = 0
+        return out, hn, cn
+    faulty.launches = faulty.persistent_launches = 0   # the wrapper counts by its name
+    return mock.patch.object(wf, "lstm_stack_wavefront", faulty)
+
+
+def _bundle_greedy_texts(items, use_kernels=True):
+    """Greedy transcripts of ``items`` by the committed bundle on the card,
+    through ``flagship_accuracy_run.decode_texts`` at the bundle's
+    decode batch, on the kernels or (``use_kernels=False``) on the plain
+    path."""
+    import dataclasses
+
+    from rnn_speech_tpu_torch import cli
+    from rnn_speech_tpu_torch.tools import beam_quality_run as bq
+    from rnn_speech_tpu_torch.tools import flagship_accuracy_run as fr
+
+    config = bq.load_bundle_config(BUNDLE)
+    config = config.replace(tpu=dataclasses.replace(config.tpu, use_pallas_lstm=use_kernels))
+    forward, modes = fr.decode_modes(config, _char_map(), ACC_BEAM, 0.0, DEVICE)
+    return fr.decode_texts(forward, items, modes["greedy"], _char_map(), ACC_DECODE_BATCH,
+                           cli.max_samples_for(config), DEVICE)
+
+
+def _char_map():
+    from rnn_speech_tpu_torch.charmap import get_char_map
+
+    return get_char_map("english")
+
+
+def _bundle_points(n_clips, levels):
+    """Fresh held-out points of the committed bundle (``beam_quality_run.
+    fresh_held_out``: sentences it never trained on) at ``levels``."""
+    from rnn_speech_tpu_torch.tools import beam_quality_run as bq
+    from rnn_speech_tpu_torch.tools import flagship_accuracy_run as fr
+
+    held = bq.fresh_held_out(BUNDLE, n_clips, 0, 1100, 160, SR)
+    return fr.noisy_points(held, levels, 0)
+
+
+def phase_accuracy():
+    """``flagship_accuracy_run.run`` at full width, cut in size
+    (``ACC_CUTS``), then the committed bundle's decode on fresh clips;
+    each gate beside a planted fault that must fail it."""
+    from rnn_speech_tpu_torch.tools import beam_quality_run as bq
+    from rnn_speech_tpu_torch.tools import flagship_accuracy_run as fr
+
+    modes = ("greedy", f"beam{ACC_BEAM}", f"beam{ACC_BEAM}_lm")
+    problems, planted = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "bundle")
+        t0 = time.perf_counter()
+        result, counts, persistent = _acc_launches(lambda: fr.run(
+            tmp, None, layers=L, hidden=H, batch=32, lr=1e-3, beam_width=ACC_BEAM,
+            lm_weight=LM_WEIGHT, decode_batch=ACC_CUTS["test_clips"], artifact_dir=bundle,
+            device=DEVICE, **ACC_CUTS))
+        run_s = time.perf_counter() - t0
+        problems += _acc_curve_check(result, ACC_CUTS["max_steps"], ACC_CUTS["steps_per_checkpoint"])
+        problems += _acc_scored_check(result["noise_sweep"], ACC_CUTS["test_clips"], modes)
+        problems += [f"streaming {mode}: {rec['chunks']}" for mode, rec in result["streaming"].items()
+                     if any(c["clips"] != ACC_CUTS["streaming_max_clips"]
+                            for c in rec["chunks"].values())]
+        if set(result["streaming"]) != {"greedy", f"beam{ACC_BEAM}_lm"}:
+            problems.append(f"streaming modes {sorted(result['streaming'])}")
+        problems += _acc_launch_check(counts, persistent)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        problems += _acc_bundle_check(bundle, ckpt_dir)
+        # Planted faults: each must fail its gate.
+        curves = {k: v[:-1] for k, v in result["curves"].items()}
+        planted["curve_window_dropped"] = _acc_curve_check(
+            {"curves": curves}, ACC_CUTS["max_steps"], ACC_CUTS["steps_per_checkpoint"])
+        short = json.loads(json.dumps(result["noise_sweep"]))
+        short["2400.0"][modes[2]]["clips"] -= 1
+        planted["clip_unscored"] = _acc_scored_check(short, ACC_CUTS["test_clips"], modes)
+        planted["row10_silent"] = _acc_launch_check({**counts, "row10": 0}, persistent)
+        planted["bundle_tensor_moved"] = _acc_bundle_check(
+            _acc_planted_bundle(bundle, os.path.join(tmp, "planted")), ckpt_dir)
+
+    # The committed bundle on fresh clips: every mode scores every clip,
+    # and the greedy texts at sigma=2400 equal the plain path's.
+    t0 = time.perf_counter()
+    points = _bundle_points(ACC_BUNDLE_CLIPS, ACC_CUTS["eval_noise_levels"])
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (sweep, paired), bundle_counts, bundle_persistent = _acc_launches(lambda: fr.decode_table(
+        bq.load_bundle_config(BUNDLE), _char_map(), points, ACC_BEAM, LM_WEIGHT,
+        ACC_DECODE_BATCH, DEVICE))
+    decode_s = time.perf_counter() - t0
+    problems += _acc_scored_check(sweep, ACC_BUNDLE_CLIPS, modes)
+    if not bundle_counts["row1"] or not bundle_persistent["row1"]:
+        problems.append(f"the bundle decode did not launch row 1: {bundle_counts}")
+    t0 = time.perf_counter()
+    items = points[2400.0]
+    kernel_texts = _bundle_greedy_texts(items)
+    plain_texts = _bundle_greedy_texts(items, use_kernels=False)
+    with _early_stop_fault():
+        faulty_texts = _bundle_greedy_texts(items)
+    texts_s = time.perf_counter() - t0
+    differ = [i for i, (a, b) in enumerate(zip(kernel_texts, plain_texts)) if a != b]
+    if differ or len(kernel_texts) != ACC_BUNDLE_CLIPS:
+        problems.append(f"greedy texts at sigma=2400 differ from the plain path's on clips "
+                        f"{differ}: {[(kernel_texts[i], plain_texts[i]) for i in differ[:4]]}")
+    planted["stops_after_100_frames"] = [i for i, (a, b) in enumerate(zip(faulty_texts, plain_texts))
+                                      if a != b]
+    unfailed = [name for name, found in planted.items() if not found]
+    if unfailed:
+        problems.append(f"planted faults that passed their gates: {unfailed}")
+    if problems:
+        fail("accuracy: " + "; ".join(problems))
+    greedy_wer = {level: table["greedy"]["wer"] for level, table in sweep.items()}
+    emit("accuracy", shape={"layers": L, "hidden": H, "batch": 32, "max_frames": 600,
+                            "features": "fbank-120"},
+         cuts=dict(ACC_CUTS, eval_noise_levels=list(ACC_CUTS["eval_noise_levels"]),
+                   streaming_chunk_seconds=list(ACC_CUTS["streaming_chunk_seconds"])),
+         run_seconds=run_s, stage_seconds=result["stage_seconds"],
+         curves=result["curves"], noise_sweep=result["noise_sweep"],
+         streaming=result["streaming"], launches=counts, persistent_launches=persistent,
+         bundle={"clips": ACC_BUNDLE_CLIPS, "render_s": render_s, "decode_s": decode_s,
+                 "texts_s": texts_s, "noise_sweep": sweep, "paired": paired,
+                 "greedy_wer": greedy_wer, "launches": bundle_counts,
+                 "persistent_launches": bundle_persistent,
+                 "greedy_equal_plain_at_2400": not differ},
+         planted={name: len(found) for name, found in planted.items()})
+
+
+def _vs_jax(sweep, artifact):
+    """Each level and mode's WER beside the JAX artifact's WER and 95% CI
+    (``benchmarks/<artifact>``), and whether it falls inside that CI."""
+    with open(os.path.join(ROOT, "benchmarks", artifact)) as fh:
+        ref = json.load(fh)["noise_sweep"]
+    out = {}
+    for level, table in sweep.items():
+        for mode, entry in table.items():
+            if level in ref and mode in ref[level]:
+                lo, hi = ref[level][mode]["wer_ci95"]
+                out[f"{level}/{mode}"] = {"wer": entry["wer"], "jax_wer": ref[level][mode]["wer"],
+                                          "jax_ci95": [lo, hi], "inside": lo <= entry["wer"] <= hi}
+    return out
+
+
+def phase_flagship_accuracy():
+    """The full flagship protocol (``flagship_accuracy_run``'s defaults:
+    1100 + 160 clips, 3x1024, B=32, the JAX artifact's five levels, beam
+    16, LM 1x256 for 400 steps, streaming 24 clips; decode batches of
+    FULL_DECODE_BATCH), 3000 steps; its
+    artifact to chiprun_out/flagship_accuracy.json.  Fails above
+    FLAGSHIP_WER_LIMIT greedy WER at sigma=2400."""
+    from rnn_speech_tpu_torch.tools import flagship_accuracy_run as fr
+
+    out = os.path.join(OUT_DIR, "flagship_accuracy.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        result, counts, persistent = _acc_launches(lambda: fr.run(
+            tmp, out, clips=1100, test_clips=160, layers=L, hidden=H, batch=32,
+            max_steps=FLAGSHIP_STEPS, steps_per_checkpoint=100, lr=1e-3, beam_width=ACC_BEAM,
+            lm_weight=LM_WEIGHT, lm_steps=400, eval_noise_levels=FLAGSHIP_LEVELS,
+            headline_noise=2400.0, decode_batch=FULL_DECODE_BATCH,
+            artifact_dir=os.path.join(tmp, "bundle"),
+            device=DEVICE))
+    headline = result["noise_sweep"]["2400.0"]["greedy"]["wer"]
+    emit("flagship_accuracy", max_steps=FLAGSHIP_STEPS, stage_seconds=result["stage_seconds"],
+         eval_error_rate=result["curves"]["eval_error_rate"],
+         lr_decays_engaged=result["lr_decays_engaged"],
+         wer={level: {m: e["wer"] for m, e in t.items()} for level, t in
+              result["noise_sweep"].items()},
+         vs_jax=_vs_jax(result["noise_sweep"], "flagship_accuracy.json"),
+         streaming=result["streaming"], launches=counts, persistent_launches=persistent,
+         artifact=os.path.relpath(out, ROOT))
+    if headline > FLAGSHIP_WER_LIMIT:
+        fail(f"flagship_accuracy: greedy WER {headline}% at sigma=2400 > {FLAGSHIP_WER_LIMIT}%")
+
+
+def phase_beam_quality():
+    """``beam_quality_run`` with its defaults (the committed bundle, 600
+    fresh clips, five levels, beam 16, LM 0.4; decode batches of
+    FULL_DECODE_BATCH) into
+    chiprun_out/beam_quality.json, each WER beside the JAX artifact's CI;
+    then every level's greedy texts on the kernels against the plain
+    path's (clips that differ are listed)."""
+    from rnn_speech_tpu_torch.tools import beam_quality_run as bq
+
+    out = os.path.join(OUT_DIR, "beam_quality.json")
+    t0 = time.perf_counter()
+    rc, counts, persistent = _acc_launches(lambda: bq.main(
+        ["--bundle", BUNDLE, "--out", out, "--device", DEVICE,
+         "--decode_batch", str(FULL_DECODE_BATCH)]))
+    tool_s = time.perf_counter() - t0
+    with open(out) as fh:
+        result = json.load(fh)
+    t0 = time.perf_counter()
+    points = _bundle_points(result["clips"], result["levels"])
+    differ = {}
+    for level, items in points.items():
+        kernel, plain = _bundle_greedy_texts(items), _bundle_greedy_texts(items, False)
+        differ[str(level)] = [{"clip": i, "truth": items[i][1].lower(), "kernel": a, "plain": b}
+                              for i, (a, b) in enumerate(zip(kernel, plain)) if a != b]
+    plain_s = time.perf_counter() - t0
+    emit("beam_quality", rc=rc, tool_s=tool_s, stage_seconds=result["stage_seconds"],
+         clips=result["clips"], n_words=result["n_words"],
+         vs_jax=_vs_jax(result["noise_sweep"], "beam_quality.json"),
+         significant_levels=result["significant_levels"],
+         significant_levels_lm=result["significant_levels_lm"],
+         greedy_plain_differ=differ, plain_compare_s=plain_s, launches=counts,
+         persistent_launches=persistent, artifact=os.path.relpath(out, ROOT))
+
+
+def phase_accuracy_benchmark():
+    """``accuracy_benchmark`` with the committed artifact's arguments
+    (300 clips, 2x256, B=16, 12 rounds of 200 steps, the 15% target) into
+    chiprun_out/accuracy_curve.json; the plans' kernels at its shapes and
+    its launches.  Fails unless it reaches its target."""
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+    from rnn_speech_tpu_torch.tools import accuracy_benchmark as ab
+
+    out = os.path.join(OUT_DIR, "accuracy_curve.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        result, counts, persistent = _acc_launches(lambda: ab.run(
+            tmp, out, clips=300, layers=2, hidden=256, batch=16, rounds=12, steps=200,
+            wer_target=15.0, device=DEVICE))
+        seconds = time.perf_counter() - t0
+    emit("accuracy_benchmark", seconds=seconds, stage_seconds=result["stage_seconds"],
+         kernel_plans=result["kernel_plans"], curve=result["curve"], best=result["best"],
+         reached_target=result["reached_target"], launches=counts,
+         persistent_launches=persistent, eval_plan_b1=wf.wavefront_eval_plan(1, 256, 2),
+         artifact=os.path.relpath(out, ROOT))
+    if not result["reached_target"]:
+        fail(f"accuracy_benchmark: held-out WER never reached 15%: {result['curve']}")
+
+
 # ----------------------------------------------- the CLI's training modes
 
 LOOP_SR = 16000           # LibriSpeech's rate: the pipeline resamples to 22050
@@ -6401,9 +6824,10 @@ def kernels_line():
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle", "beam",
-          "cli", "lm", "stream", "multi")
-OPT_IN_PHASES = ("lean_study", "persistent_study", "fault_hunt")
+          "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle",
+          "accuracy", "beam", "cli", "lm", "stream", "multi")
+OPT_IN_PHASES = ("lean_study", "persistent_study", "fault_hunt", "flagship_accuracy",
+                 "beam_quality", "accuracy_benchmark")
 
 
 PART_SUFFIXES = ("_check", "_checks", "_timing", "_inputs", "_setup", "_steps", "_study",
@@ -6491,11 +6915,16 @@ def main(argv=None) -> int:
     held = None
     if "bundle" in phases or "cli" in phases:
         held = timed("bundle", phase_bundle)
+    if "accuracy" in phases:
+        timed("accuracy", phase_accuracy)
     if "beam" in phases:
         timed("beam", phase_beam)
     if "cli" in phases:
         timed("cli", phase_cli, *held)
-    for name, fn in (("lm", phase_lm), ("stream", phase_stream), ("multi", phase_multi)):
+    for name, fn in (("lm", phase_lm), ("stream", phase_stream), ("multi", phase_multi),
+                     ("flagship_accuracy", phase_flagship_accuracy),
+                     ("beam_quality", phase_beam_quality),
+                     ("accuracy_benchmark", phase_accuracy_benchmark)):
         if name in phases:
             timed(name, fn)
     kl = kernels_line()

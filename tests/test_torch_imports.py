@@ -1,6 +1,7 @@
-"""Guards of the port's boundaries: it imports no JAX and nothing of the
-JAX package, its renderer copy is the original byte for byte, and its
-entry points refuse to run quietly on the CPU when no GPU is there."""
+"""Guards of the port's boundaries: it imports no JAX, nothing of the JAX
+package and nothing of the top-level ``tools/`` (by name or through a
+``sys.path`` entry), its renderer copy is the original byte for byte, and
+its entry points refuse to run quietly on the CPU when no GPU is there."""
 
 import ast
 import os
@@ -12,6 +13,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rnn_speech_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "rnn_speech_tpu")
+# The top-level tools/ directory and the modules in it, which import JAX.
+TOOLS = ("tools",) + tuple(sorted(
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "tools")) if f.endswith(".py")))
 
 
 def _port_sources():
@@ -21,8 +25,7 @@ def _port_sources():
     return sorted(out)
 
 
-def _imported_roots(path):
-    tree = ast.parse(open(path).read(), filename=path)
+def _imported_roots_of(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -31,12 +34,55 @@ def _imported_roots(path):
             yield node.module
 
 
+def _imported_roots(path):
+    with open(path) as fh:
+        yield from _imported_roots_of(ast.parse(fh.read(), filename=path))
+
+
+def _tools_path_entries(tree):
+    """The ``sys.path`` insertions and appends whose arguments name a
+    ``tools`` directory (a string constant "tools" or ending in it)."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("insert", "append", "extend")
+                and ast.unparse(node.func.value) == "sys.path"):
+            for arg in node.args:
+                for sub in ast.walk(arg):
+                    if (isinstance(sub, ast.Constant) and isinstance(sub.value, str)
+                            and sub.value.rstrip("/").split("/")[-1] == "tools"):
+                        yield ast.unparse(node)
+
+
+def _tools_refs(source, path="<src>"):
+    tree = ast.parse(source, filename=path)
+    roots = [n.split(".")[0] for n in _imported_roots_of(tree)]
+    return [r for r in roots if r in TOOLS] + list(_tools_path_entries(tree))
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path} imports {name}"
+    with open(path) as fh:
+        assert not _tools_refs(fh.read(), path), f"{path} reaches the top-level tools/"
+
+
+@pytest.mark.parametrize("source", [
+    "import make_demo_corpus",
+    "from flagship_accuracy_run import decode_table",
+    "import tools.sweep",
+    "import sys, os\nsys.path.insert(0, os.path.join(ROOT, 'tools'))",
+    "import sys\nsys.path.append('/repo/tools/')",
+])
+def test_tools_guard_catches_each_form(source):
+    """The guard above flags an import of a top-level tool by name and a
+    ``sys.path`` entry into ``tools/``; the port's own ``tools`` package
+    and other path entries pass."""
+    assert _tools_refs(source)
+    assert not _tools_refs("from rnn_speech_tpu_torch.tools import sweep\n"
+                           "import sys\nsys.path.insert(0, ROOT)")
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -93,6 +139,14 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dryrun.dryrun_multichip(2)
+    # The accuracy tools, before they render a clip.
+    from rnn_speech_tpu_torch.tools import accuracy_benchmark, flagship_accuracy_run
+
+    for tool in (flagship_accuracy_run, accuracy_benchmark):
+        workdir = tmp_path / tool.__name__.rsplit(".", 1)[1]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main(["--workdir", str(workdir), "--out", ""])
+        assert not workdir.exists()
 
 
 def test_cli_modes_of_later_slices_raise_not_implemented(monkeypatch):
@@ -176,6 +230,11 @@ PORT_MODULES = [
     "rnn_speech_tpu_torch.parallel", "rnn_speech_tpu_torch.parallel.launch",
     "rnn_speech_tpu_torch.parallel.mesh", "rnn_speech_tpu_torch.parallel.lockstep",
     "rnn_speech_tpu_torch.parallel.sharding", "rnn_speech_tpu_torch.parallel.dryrun",
+    # slice 22: the accuracy tools
+    "rnn_speech_tpu_torch.tools", "rnn_speech_tpu_torch.tools.make_demo_corpus",
+    "rnn_speech_tpu_torch.tools.flagship_accuracy_run",
+    "rnn_speech_tpu_torch.tools.beam_quality_run",
+    "rnn_speech_tpu_torch.tools.accuracy_benchmark", "rnn_speech_tpu_torch.tools.sweep",
 ]
 
 

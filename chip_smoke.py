@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,grad_study,train_loop,evaluate,bundle,accuracy,beam,cli,lm,stream,multi]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,f32_route,hw_parity,train_loop,evaluate,bundle,accuracy,beam,cli,lm,stream,multi]
+    python3 chip_smoke.py --phases device,build,grad_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
     python3 chip_smoke.py --phases device,build,fault_hunt [--hunt_iters N]   # opt-in
@@ -222,7 +223,29 @@ printing one JSON line:
            beside the pass's inputs; else alone after them), and its window
            products alone in turns with torch.mm for the same dW_x on the
            same operands.
-  grad_study
+  f32_route
+           the float32 compute mode (the JAX kernels' compute_dtype=float32,
+           float32 residuals) at the flagship width through models/acoustic
+           and train/step: the eval path at B=128 on 10.24 s clips with the
+           committed bundle's weights (the 32 held-out clips four times;
+           the wavefront and the layered recurrence: utt/s, stages, greedy
+           texts equal to the plain path's); the default step (B=64,
+           T=3510, keeps 0.8/0.5, the CTC kernels; 2 warm-up, 3 timed, one
+           split; a falling finite loss, peak memory); one step's gradients
+           at T=256 against the plain versions' route within 1e-4 beside
+           the planted fault, and the layered and recompute routes' at
+           T=512 beside theirs; rows 1-8, 14 and 15 must run their float32
+           modes and no persistent kernel, tensor-core tile or plain
+           version may run on the card.  Then each of those rows alone at
+           the float32 path's shapes against its plain version (1e-4 of
+           each output's largest magnitude), timed in turns with cuDNN or
+           torch.mm in float32 (TF32 off), beside its bound at 67 TFLOP/s.
+  hw_parity
+           ``rnn_speech_tpu_torch.tools.hw_parity`` in-process on the card:
+           its seven checks with each error beside its tolerance, the
+           kernels they launch (rows 1-8 in float32, 9, 10, 12, 14, 16,
+           18), then each check under its planted fault, which must fail.
+  grad_study (opt-in)
            that gradient check, gated the same way, at three seeds and at
            keep probabilities (1, 1), (0.8, 1), (1, 0.5) and (0.8, 0.5),
            per parameter tensor and for the cotangent that reaches the
@@ -616,25 +639,39 @@ def device_ms(fn, reps: int = 10) -> float:
 
 # ----------------------------------------------------------------- inputs
 
-def stack_inputs(T, Bn, n_layers, lengths, seed):
-    """Random stack inputs on the card: bf16 weights (xavier-uniform),
-    xp0 ~ N(0, 0.5), biases, non-zero h0/c0, the (T, 1, B) length mask."""
+def _rng(seed, on_device):
+    """(rand, randn) from a generator seeded with ``seed``: on the host (the
+    checks' inputs: the same bits on every card) or, for timing-only parts,
+    on the card (the same distributions, other bits, no host time spent
+    drawing billions of values)."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    dev = DEVICE if on_device else "cpu"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (lambda *s: torch.rand(s, generator=g, device=dev),
+            lambda *s: torch.randn(s, generator=g, device=dev))
+
+
+def stack_inputs(T, Bn, n_layers, lengths, seed, on_device=False):
+    """Random stack inputs on the card: bf16 weights (xavier-uniform),
+    xp0 ~ N(0, 0.5), biases, non-zero h0/c0, the (T, 1, B) length mask;
+    drawn on the card with ``on_device`` (``_rng``)."""
+    import torch
+
+    rand, randn = _rng(seed, on_device)
     lim = (6.0 / (H + 4 * H)) ** 0.5
-    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim)
-    dev = "cuda"
+    w = lambda *s: ((rand(*s) * 2 - 1) * lim)
+    dev = DEVICE
     lens = torch.as_tensor(lengths)
     mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :]
     return dict(
-        xp0=(torch.randn((T, Bn, 4 * H), generator=g) * 0.5).to(dev),
+        xp0=(randn(T, Bn, 4 * H) * 0.5).to(dev),
         w_h=w(n_layers, H, 4 * H).to(dev, torch.bfloat16),
         w_x_rest=w(max(n_layers - 1, 0), H, 4 * H).to(dev, torch.bfloat16),
-        b_rest=(torch.randn((max(n_layers - 1, 0), 1, 4 * H), generator=g) * 0.1).to(dev),
+        b_rest=(randn(max(n_layers - 1, 0), 1, 4 * H) * 0.1).to(dev),
         mask=mask.to(dev),
-        h0=(torch.randn((n_layers, Bn, H), generator=g) * 0.2).to(dev),
-        c0=(torch.randn((n_layers, Bn, H), generator=g) * 0.2).to(dev),
+        h0=(randn(n_layers, Bn, H) * 0.2).to(dev),
+        c0=(randn(n_layers, Bn, H) * 0.2).to(dev),
         w_out=w(H, V).to(dev),
         lengths=lens.to(dev),
     )
@@ -1046,15 +1083,16 @@ def _stage_ms(params, cfg, fe, audio, lengths, iters=3):
     return {n: s / iters for n, s in zip(names, sums)}
 
 
-def _nn_lstm(inp, n_layers, T, Bn=B):
-    """One call of torch.nn.LSTM (cuDNN, bf16) with the kernels' weights on
-    Bn full-length rows, a yardstick only.  Its gate order is (i, f, g, o),
-    so the (i, g, f, o) columns are permuted and the +1 goes into the
-    forget bias.  It also computes layer 0's input product (random W_x0),
-    which the kernels take precomputed in xp0."""
+def _nn_lstm(inp, n_layers, T, Bn=B, dtype=None):
+    """One call of torch.nn.LSTM (cuDNN, bf16 or ``dtype``) with the
+    kernels' weights on Bn full-length rows, a yardstick only.  Its gate
+    order is (i, f, g, o), so the (i, g, f, o) columns are permuted and the
+    +1 goes into the forget bias.  It also computes layer 0's input product
+    (random W_x0), which the kernels take precomputed in xp0."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=n_layers).to("cuda", torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to("cuda", dtype)
     perm = torch.cat([torch.arange(H) + k * H for k in (0, 2, 1, 3)]).cuda()
     with torch.no_grad():
         for l in range(n_layers):
@@ -1066,7 +1104,7 @@ def _nn_lstm(inp, n_layers, T, Bn=B):
             getattr(m, f"weight_hh_l{l}").copy_(inp["w_h"][l].t()[perm])
             getattr(m, f"bias_ih_l{l}").copy_(bias[perm])
             getattr(m, f"bias_hh_l{l}").zero_()
-        x = torch.randn((T, Bn, H), device="cuda", dtype=torch.bfloat16)
+        x = torch.randn((T, Bn, H), device="cuda", dtype=dtype)
 
     def call():
         with torch.no_grad():
@@ -1075,8 +1113,8 @@ def _nn_lstm(inp, n_layers, T, Bn=B):
     return call
 
 
-def _bounds(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bounds(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1139,11 +1177,11 @@ def phase_eval():
     per_diagonal = lambda x: lambda: wf._eval_per_diagonal_launch(*[x[k] for k in (
         "xp0", "w_h", "w_x_rest", "b_rest", "mask", "h0", "c0")])   # the design row 1 replaces
     with torch.no_grad():
-        one = stack_inputs(T, 1, L, [T], seed=98)
+        one = stack_inputs(T, 1, L, [T], seed=98, on_device=True)
         wf_b1 = in_turns(per_diagonal(one), lambda: run_wavefront(one, wf.lstm_stack_wavefront))
         b1_turns = in_turns(_nn_lstm(one, 1, T, 1),
                             lambda: run_recurrence(one, rec.lstm_recurrence))
-        inp = stack_inputs(T, B, L, [T] * B, seed=99)
+        inp = stack_inputs(T, B, L, [T] * B, seed=99, on_device=True)
         wf_turns = in_turns(_nn_lstm(inp, L, T),
                             lambda: run_wavefront(inp, wf.lstm_stack_wavefront),
                             per_diagonal=per_diagonal(inp))
@@ -1392,15 +1430,16 @@ def _fault_check(name, faulty, ref, tol, checks):
         fail(f"{name}: the check does not see this planted fault: {entry}")
 
 
-def _train_inputs(T, Bn, lengths, seed):
+def _train_inputs(T, Bn, lengths, seed, on_device=False):
     """Full-width inputs of the training kernels on the card: bf16 x and
-    xavier-uniform weights, f32 biases, non-zero h0/c0, the length mask."""
+    xavier-uniform weights, f32 biases, non-zero h0/c0, the length mask;
+    drawn on the card with ``on_device`` (``_rng``)."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    rand, randn = _rng(seed, on_device)
     lim = (6.0 / (H + 4 * H)) ** 0.5
-    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(DEVICE, torch.bfloat16)
-    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(DEVICE)
+    w = lambda *s: ((rand(*s) * 2 - 1) * lim).to(DEVICE, torch.bfloat16)
+    r = lambda *s, scale: (randn(*s) * scale).to(DEVICE)
     lens = torch.as_tensor(lengths)
     mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(DEVICE)
     return dict(x=r(T, Bn, H, scale=1.0).to(torch.bfloat16), w_x0=w(H, 4 * H),
@@ -1413,11 +1452,11 @@ FWD_ARGS = ("x", "w_x0", "w_h", "w_x_rest", "b_all", "mask", "h0", "c0")
 BWD_ARGS = ("dout_top", "w_h", "w_x_rest", "mask", "gates", "cseq", "c0", "dhn", "dcn")
 
 
-def _bwd_inputs(inp, outs, gates, cseq, seed):
+def _bwd_inputs(inp, outs, gates, cseq, seed, on_device=False):
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    r = lambda *s: (torch.randn(s, generator=g) * 0.1).to(DEVICE)
+    randn = _rng(seed, on_device)[1]
+    r = lambda *s: (randn(*s) * 0.1).to(DEVICE)
     T, Bn = inp["x"].shape[:2]
     return dict(dout_top=r(T, Bn, H).to(torch.bfloat16), w_h=inp["w_h"],
                 w_x_rest=inp["w_x_rest"], mask=inp["mask"], gates=gates, cseq=cseq,
@@ -2280,7 +2319,7 @@ def _train_setup(T_frames, label_width, label_len, seed,
     fe = DeviceFrontend("fbank", sr=SR, max_samples=n, device=DEVICE)
     cfg = acoustic.AcousticConfig(
         num_layers=L, hidden_size=H, input_dim=fe.feature_size, num_labels=V,
-        compute_dtype=torch.bfloat16, use_kernels=True, **{"wavefront": True, **model_kw})
+        use_kernels=True, **{"compute_dtype": torch.bfloat16, "wavefront": True, **model_kw})
     scfg = step.StepConfig(model=cfg, frontend=fe, input_keep_prob=keeps[0],
                            output_keep_prob=keeps[1], use_pallas_ctc=pallas_ctc)
     state = step.init_train_state(torch.Generator().manual_seed(seed), cfg, Bn,
@@ -2486,8 +2525,8 @@ def _capture_weight_grad(fn, seen):
 
 
 def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2, model_kw=None,
-                fault=_wavefront_fault, tol=GRAD_REL_TOL):
-    """One step's gradients through the kernels at T=GRAD_T, full width,
+                fault=_wavefront_fault, tol=GRAD_REL_TOL, T=GRAD_T):
+    """One step's gradients through the kernels at T frames (GRAD_T), full width,
     against the same route on the kernels' plain versions (bf16 residuals
     too; the same seed words, so the same dropout masks) and, at keep 1
     with the scan CTC, against the plain route (the time loop under
@@ -2507,7 +2546,7 @@ def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2, model_
     from rnn_speech_tpu_torch.params import flatten
     from rnn_speech_tpu_torch.train import step
 
-    scfg, state, batch = _train_setup(GRAD_T, 100, 50, seed=seed, keeps=keeps,
+    scfg, state, batch = _train_setup(T, 100, 50, seed=seed, keeps=keeps,
                                       pallas_ctc=pallas_ctc, **(model_kw or {}))
     counters = _all_counters()
     out = {}
@@ -2537,8 +2576,9 @@ def _grad_check(keeps=(INPUT_KEEP, OUTPUT_KEEP), pallas_ctc=True, seed=2, model_
             fail(f"train: the {name} yardstick launched a kernel")
         out[name] = (flatten(grads), float(loss_sum), seen.get("input_projection_cotangent"))
     rel = lambda a, b: float((a - b).float().norm() / b.float().norm().clamp(min=1e-30))
-    entry = {"T": GRAD_T, "keep_probs": list(keeps), "use_pallas_ctc": pallas_ctc,
-             "seed": seed, "model": model_kw or {},
+    entry = {"T": T, "keep_probs": list(keeps), "use_pallas_ctc": pallas_ctc,
+             "seed": seed, "model": {k: v if isinstance(v, (bool, int, str)) else str(v)
+                                     for k, v in (model_kw or {}).items()},
              "mean_loss": {k: v[1] for k, v in out.items()}}
     for name, limit in (("plain_versions", tol), ("time_loop", TIME_LOOP_TOL),
                         ("planted_fault", tol)):
@@ -2614,8 +2654,8 @@ def _gates_taken():
     return found
 
 
-def _nn_lstm_backward(T, Bn, n_layers=1):
-    """Two calls of torch.nn.LSTM's (cuDNN, bf16, n_layers of 1024)
+def _nn_lstm_backward(T, Bn, n_layers=1, dtype=None):
+    """Two calls of torch.nn.LSTM's (cuDNN, bf16 or ``dtype``, n_layers of 1024)
     backward on one forward graph at T steps and Bn rows, yardsticks only:
     (without weight gradients, with them).  The first asks
     torch.autograd.grad for the input's gradient alone, so autograd masks
@@ -2624,9 +2664,10 @@ def _nn_lstm_backward(T, Bn, n_layers=1):
     between layers the reverse diagonal forms it too)."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, dtype)
     m.flatten_parameters()
-    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    x = torch.randn((T, Bn, H), device=DEVICE, dtype=dtype, requires_grad=True)
     y, _ = m(x)
     dy = torch.randn_like(y)
     inputs = [x, *m.parameters()]
@@ -2634,15 +2675,17 @@ def _nn_lstm_backward(T, Bn, n_layers=1):
             lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
 
 
-def _nn_lstm_forward(T, Bn, n_layers=1):
-    """One call of torch.nn.LSTM's (cuDNN, bf16, n_layers of 1024) forward
-    on an input that needs its gradient (cuDNN's training forward, which
-    keeps its own residuals), at T steps and Bn rows: a yardstick only."""
+def _nn_lstm_forward(T, Bn, n_layers=1, dtype=None):
+    """One call of torch.nn.LSTM's (cuDNN, bf16 or ``dtype``, n_layers of
+    1024) forward on an input that needs its gradient (cuDNN's training
+    forward, which keeps its own residuals), at T steps and Bn rows: a
+    yardstick only."""
     import torch
 
-    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    m = torch.nn.LSTM(H, H, num_layers=n_layers).to(DEVICE, dtype)
     m.flatten_parameters()
-    x = torch.randn((T, Bn, H), device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    x = torch.randn((T, Bn, H), device=DEVICE, dtype=dtype, requires_grad=True)
     return lambda: m(x)
 
 
@@ -2676,7 +2719,7 @@ def _train_kernel_timing(state):
 
     T, Bn, bf, f32 = TRAIN_T, TRAIN_B, torch.bfloat16, torch.float32
     N, G = T * Bn, 4 * H
-    inp = _train_inputs(T, Bn, [T] * Bn, seed=70)
+    inp = _train_inputs(T, Bn, [T] * Bn, seed=70, on_device=True)
     args = [inp[k] for k in FWD_ARGS]
     out = {}
     drop = _drop(2, T, Bn, 72)
@@ -2708,7 +2751,7 @@ def _train_kernel_timing(state):
                                   bytes=nbytes)
 
     outs, gates, cseq, _, _ = wf.wavefront_train(*args, bf, *drop)
-    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=71)
+    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=71, on_device=True)
     # Each call writes dgates over its gates: the plain version gets a copy
     # of the residual, the kernel's later calls run on dgates (same work).
     pargs = [b_in[k].clone() if k == "gates" else b_in[k] for k in BWD_ARGS]
@@ -2763,10 +2806,10 @@ def _train_kernel_timing(state):
         bytes=L * nbytes)
     del gates, cseq, b_in, bargs, pargs, dg2
 
-    g = torch.Generator().manual_seed(72)
-    feats = torch.randn((N, 120), generator=g).to(DEVICE)
-    d_in = (torch.randn((N, H), generator=g) * 0.01).to(DEVICE)
-    d_out = (torch.randn((N, V), generator=g) * 0.01).to(DEVICE)
+    randn = _rng(72, on_device=True)[1]
+    feats = randn(N, 120)
+    d_in = randn(N, H) * 0.01
+    d_out = randn(N, V) * 0.01
     top = outs[-1].reshape(N, H)
     per = {}
     for name, xx, dg in (("input", feats, d_in), ("output", top, d_out)):
@@ -3077,20 +3120,21 @@ LAYER_KERNELS = ("recurrence_train", "recurrence_bwd", "recurrence_train_lean",
                  "recurrence_bwd_recompute")
 
 
-def _layer_inputs(T, Bn, lengths, seed, proj_dtype=None):
+def _layer_inputs(T, Bn, lengths, seed, proj_dtype=None, on_device=False):
     """One layer's kernel inputs at full width on the card: a bf16 input x,
     xavier-uniform bf16 W_x and W_h, an f32 bias, x_proj = x·W_x + b
     (f32 sums, in ``proj_dtype``, float32 by default), non-zero h0, c0,
-    f32 cotangents dout, dhn, dcn and the (T, 1, B) length mask."""
+    f32 cotangents dout, dhn, dcn and the (T, 1, B) length mask; drawn on
+    the card with ``on_device`` (``_rng``)."""
     import torch
 
     from rnn_speech_tpu_torch.ops.lstm_layer_train import input_projection
 
     bf = torch.bfloat16
-    g = torch.Generator().manual_seed(seed)
+    rand, randn = _rng(seed, on_device)
     lim = (6.0 / (H + 4 * H)) ** 0.5
-    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(DEVICE, bf)
-    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(DEVICE)
+    w = lambda *s: ((rand(*s) * 2 - 1) * lim).to(DEVICE, bf)
+    r = lambda *s, scale: (randn(*s) * scale).to(DEVICE)
     lens = torch.as_tensor(lengths)
     mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(DEVICE)
     x, w_x, w_h, b = r(T, Bn, H, scale=1.0).to(bf), w(H, 4 * H), w(H, 4 * H), r(4 * H, scale=0.1)
@@ -3678,6 +3722,52 @@ for t in wf.wavefront_bwd(dtop, stack[2], stack[3], mask, gates, cseq, stack[7],
     digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
 print(json.dumps({"B": "row4", "sha256": digest.hexdigest(),
                   "persistent": wf.wavefront_bwd.persistent_launches}))
+# The bf16 per-step and per-diagonal kernels (lstm_cell.cuh's cell and the
+# per-step backwards) and the weight-gradient tiles, launched directly at
+# small ragged shapes ("persistent": 1 once a launch returned).
+def put(name, tensors):
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(json.dumps({"B": name, "sha256": digest.hexdigest(), "persistent": 1}))
+B, T = 70, 40
+g = torch.Generator(device="cuda").manual_seed(B + T)
+lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+mask = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()[:, None, :]
+x = torch.randn((T, B, H), generator=g, device="cuda").to(bf)
+wx0, wh, wx, ball = w(H, 4 * H), w(L, H, 4 * H), w(L - 1, H, 4 * H), r(L, 4 * H)
+h0s, c0s = r(L, B, H), r(L, B, H)
+put("row1_pd", wf._eval_per_diagonal_launch(torch.randn((T, B, 4 * H), generator=g,
+                                                        device="cuda") * 0.5, wh, wx,
+                                            ball[1:, None], mask, h0s, c0s))
+drop = (2, None, 11, 13, 3435973837, 1.25)
+outs, gates, cseq, hn, cn = wf._per_diagonal_launch(x, wx0, wh, wx, ball, mask, h0s, c0s, drop)
+put("row3_pd", (outs, gates, cseq, hn, cn))
+put("row4_pd", wf._bwd_per_diagonal_launch(
+    (torch.randn((T, B, H), generator=g, device="cuda") * 0.1).to(bf), wh, wx, mask, gates,
+    cseq, c0s, r(L, B, H), r(L, B, H), outs, drop))
+xp = torch.randn((T, B, 4 * H), generator=g, device="cuda") * 0.5
+rec.lean_plan = lambda *a, **k: {"kernel": "per_step"}
+put("row2_ps", rec.lstm_recurrence(xp, wh[0], mask, h0s[0], c0s[0]))
+lout, _, _, lgates, lcseq = tlt._forward_launch("row5", xp, wh[0], mask, h0s[0], c0s[0], bf,
+                                                True)
+put("row5_ps", (lout, lgates, lcseq))
+lean = tlt._forward_launch("row7", xp.to(bf), wh[0], mask, h0s[0], c0s[0], bf, False)
+put("row7_ps", (lean[0], lean[4]))
+dout, dhn, dcn = r(T, B, H), r(B, H), r(B, H)
+c0r = c0s[0].to(bf).float()
+put("row6_ps", tlt._bwd_per_step_launch(dout, lgates, lcseq, c0r, mask, wh[0], dhn, dcn))
+h_prev = torch.cat([h0s[0].to(bf)[None], lout.to(bf)[:-1]])
+put("row8_ps", tlt._recompute_per_step_launch(dout, x, h_prev, lcseq, c0r, mask, wx0,
+                                              ball[0], wh[0], dhn, dcn)[:3])
+from rnn_speech_tpu_torch.ops import grad_matmul as gm
+N = 5000
+hg, xg = torch.randn((N, H), generator=g, device="cuda"), torch.randn((N, 120), generator=g,
+                                                                      device="cuda")
+dgf = torch.randn((N, 4 * H), generator=g, device="cuda")
+put("row14_wmma", gm.dgates_weight_grads(hg, xg, dgf))
+put("row14_wgmma", gm.dgates_weight_grads(hg.to(bf), hg.to(bf), dgf.to(bf)))
+put("row15_skinny", gm.weight_grad(xg, dgf[:, :H]))
 # Row 4's unfused pass timed at the default step's shape.
 T = 3510
 g = torch.Generator(device="cuda").manual_seed(B)
@@ -3844,7 +3934,8 @@ def phase_persistent_study(parent=None):
         out["digests_against_parent"] = {"parent": parent, "here": here,
                                          "parent_digests": there}
         rows = {400, 473, "row2", "row5", "row3", "row4", "row9", "row10", "row11", "row6",
-                "row8"}
+                "row8", "row1_pd", "row3_pd", "row4_pd", "row2_ps", "row5_ps", "row7_ps",
+                "row6_ps", "row8_ps", "row14_wmma", "row14_wgmma", "row15_skinny"}
         # Row 8's carry product sums in another order than the parent's
         # per-step kernel: it must repeat here, not equal the parent's.
         same_as = lambda who, b: [d.get(b, ("",))[0] for n, d, _ in turns if n == who]
@@ -3853,8 +3944,9 @@ def phase_persistent_study(parent=None):
                        for _, d, _ in turns for b in here if b != "row8")
                 or len(set(same_as("here", "row8"))) != 1
                 or len(set(same_as("parent", "row8"))) != 1):
-            fail(f"persistent_study: rows 7, 2, 5, 3, 4, 9, 10, 11 and 6's outputs differ from "
-                 f"the parent's, or any row's between runs of one tree: {turns}")
+            fail(f"persistent_study: rows 7, 2, 5, 3, 4, 9, 10, 11 and 6's outputs (and the "
+                 f"per-step, per-diagonal and weight-gradient kernels') differ from the "
+                 f"parent's, or any row's between runs of one tree: {turns}")
         out["row8_equals_parent"] = same_as("here", "row8")[0] == same_as("parent", "row8")[0]
         if not all(v[1] for _, d, _ in turns for v in d.values()):
             fail("persistent_study: the digests did not all run the kernels")
@@ -4161,7 +4253,8 @@ def _layer_kernel_timing(rec_B, wide_rec_B):
                                      (("recurrence_train_lean", "recurrence_bwd_recompute"),
                                       rec_B)):
         lean = fwd_name.endswith("lean")
-        inp = _layer_inputs(T, Bn, [T] * Bn, seed=170, proj_dtype=bf if lean else None)
+        inp = _layer_inputs(T, Bn, [T] * Bn, seed=170, proj_dtype=bf if lean else None,
+                            on_device=True)
         tail = (inp["w_h"], inp["mask"], inp["h0"], inp["c0"], bf)
         xp = inp["x_proj"]
         fwd, fwd_plain = getattr(tlt, fwd_name), getattr(tlt, fwd_name + "_plain")
@@ -4677,10 +4770,10 @@ def _fused_pass_timing(Bn, plain):
         fail(f"fused pass timing B={Bn}: the plan does not take the persistent kernel: {plan}")
     windows = -(-(T + L - 1) // wf.FUSE_DWX_WINDOW)
     groups = wf.wavefront_bwd_row_groups(Bn)
-    inp = _train_inputs(T, Bn, [T] * Bn, seed=170)
+    inp = _train_inputs(T, Bn, [T] * Bn, seed=170, on_device=True)
     drop = _drop(2, T, Bn, 172)
     outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], bf, *drop)
-    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=171)
+    b_in = _bwd_inputs(inp, outs, gates, cseq, seed=171, on_device=True)
     del inp, gates
     bargs = [b_in[k] for k in BWD_ARGS]
     out = {"batch": Bn, "frames": T, "drop_mode": 2, "plan": plan,
@@ -6615,6 +6708,556 @@ def _multi_cli(problems):
             "plain_cer_pct": plain["cer_pct"], "train_stderr_tail": err[-600:]}
 
 
+# ----------------------------------------------------------- float32 compute
+
+# Float32 compute (the JAX kernels' compute_dtype=float32, float32
+# residuals) on the card: the per-step and per-diagonal kernels' float32
+# instances and the float32 weight-gradient tile, no tensor cores.  Each
+# kernel and its plain version run the same float32 arithmetic (TF32 off)
+# in another summation order: F32_KERNEL_TOL bounds each output's largest
+# error over its largest magnitude at the path's shapes (up to 3510
+# steps); F32_GRAD_TOL one step's gradients (relative Frobenius per
+# tensor) against the plain versions' route, ten times under bf16's
+# GRAD_REL_TOL, since no bf16 rounding remains.  The planted fault (the
+# backward's inter-layer keep scale 1% too large) read about 2e-2 in bf16.
+F32_KERNEL_TOL = 1e-4
+F32_GRAD_TOL = 1e-4
+F32_LAYER_T = 512          # frames of the layered and recompute routes' gates and timings
+# ``_path_counters`` entries the float32 route runs: the per-step recompute
+# backward with its (float32, SIMT) rebuild products and the per-diagonal
+# reverse diagonal (the others count persistent kernels and tensor-core
+# tiles, which it must not run).
+F32_PATHS = ("recompute_per_step", "recompute_rebuild", "wavefront_bwd_per_diagonal")
+F32_ROWS = ("lstm_wavefront", "lstm_recurrence", "wavefront_train", "wavefront_bwd",
+            "recurrence_train", "recurrence_bwd", "recurrence_train_lean",
+            "recurrence_bwd_recompute", "dgates_weight_grads", "weight_grad")
+
+
+def _f32_counters():
+    """The wrappers of rows 1-8, 14 and 15, whose ``f32_launches`` count the
+    calls that ran their float32 mode."""
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    fns = (wf.lstm_stack_wavefront, rec.lstm_recurrence, wf.wavefront_train, wf.wavefront_bwd,
+           tlt.recurrence_train, tlt.recurrence_bwd, tlt.recurrence_train_lean,
+           tlt.recurrence_bwd_recompute, gm.dgates_weight_grads, gm.weight_grad)
+    return dict(zip(F32_ROWS, fns))
+
+
+def _f32_launches(zero=False):
+    """{row: float32 launches so far}; with ``zero``, sets them to 0 after
+    reading them."""
+    counters = _f32_counters()
+    counts = {name: fn.f32_launches for name, fn in counters.items()}
+    if zero:
+        for fn in counters.values():
+            fn.f32_launches = 0
+    return counts
+
+
+@contextlib.contextmanager
+def _plain_guard(calls):
+    """Counts in ``calls`` every call of a kernel's plain version, each at
+    the name its wrapper calls it by: a kernel route on the card must run
+    none."""
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    names = ((wf, "lstm_stack_wavefront_plain"), (wf, "wavefront_train_plain"),
+             (wf, "wavefront_bwd_plain"), (rec, "lstm_recurrence_plain"),
+             (tlt, "recurrence_train_plain"), (tlt, "recurrence_train_lean_plain"),
+             (tlt, "recurrence_bwd_plain"), (tlt, "recurrence_bwd_recompute_plain"),
+             (tlt, "rebuild_gates_plain"), (gm, "weight_grad_plain"),
+             (gm, "dgates_weight_grads_plain"), (tdrop, "dropout_plain"),
+             (tck, "alpha_plain"), (tck, "beta_post_plain"))
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for module, name in names:
+            stack.enter_context(mock.patch.object(module, name,
+                                                  counting(name, getattr(module, name))))
+        yield
+
+
+def _f32_eval():
+    """The eval path in float32 at B=128 on 10.24 s clips: the committed
+    bundle's weights (3x1024) on the 32 held-out sentences, four times
+    over, through the wavefront (row 1) and the layered recurrence (row 2):
+    utt/s, spread and the stages, and each route's greedy texts, which must
+    equal the plain path's (the time loop, no kernel), at CER <= CER_LIMIT."""
+    import numpy as np
+    import torch
+
+    from rnn_speech_tpu_torch import cli, params as params_mod
+    from rnn_speech_tpu_torch.models import acoustic
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    params = params_mod.load_bundle(BUNDLE, device=DEVICE)
+    texts, sigs = _held_out()
+    n = int(SR * SECONDS)
+    reps = -(-B // len(sigs))
+    truth = [t.lower() for t in texts * reps][:B]
+    audio_np = np.zeros((B, n), np.float32)
+    for i, sig in enumerate((sigs * reps)[:B]):
+        audio_np[i, : min(len(sig), n)] = sig[:n]
+    lengths_np = np.asarray([min(len(sig), n) for sig in (sigs * reps)[:B]], np.int32)
+    audio = torch.as_tensor(audio_np, device=DEVICE)
+    lengths = torch.as_tensor(lengths_np, device=DEVICE)
+    fe = DeviceFrontend("fbank", sr=SR, max_samples=n, device=DEVICE)
+    out, plain_calls = {}, {}
+    for name, kw in (("wavefront", dict(use_kernels=True, wavefront=True)),
+                     ("layered", dict(use_kernels=True, wavefront=False)),
+                     ("plain", dict(use_kernels=False))):
+        cfg = acoustic.config_for_params(params, compute_dtype=torch.float32, **kw)
+        entry = {}
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if name != "plain":
+                stack.enter_context(_plain_guard(plain_calls))
+                run = lambda: cli.infer(params, cfg, fe, audio, lengths)
+                run()
+                torch.cuda.synchronize()
+                med, spread, vals = _throughput(run, iters=2, reps=3)
+                entry.update(utt_per_s=med, spread_pct=spread, values=vals,
+                             stage_ms=_stage_ms(params, cfg, fe, audio, lengths, iters=2))
+            hyps = cli.transcribe(params, cfg, audio_np, lengths_np, device=DEVICE,
+                                  beam_width=1)
+        cers = [_edit_distance(t, h.strip()) / max(len(t), 1) for t, h in zip(truth, hyps)]
+        entry.update(hyps=hyps, cer_pct=100.0 * float(np.mean(cers)))
+        out[name] = entry
+    for name in ("wavefront", "layered"):
+        if out[name]["hyps"] != out["plain"]["hyps"]:
+            fail(f"f32_route eval: the {name} route's greedy texts differ from the plain path's")
+        if out[name]["cer_pct"] > CER_LIMIT:
+            fail(f"f32_route eval: {name} CER {out[name]['cer_pct']:.3f}% > {CER_LIMIT}%")
+    if plain_calls:
+        fail(f"f32_route eval: plain versions ran on the card: {plain_calls}")
+    return {"clips": B, "distinct_clips": len(sigs), "frames": fe.max_frames,
+            "routes": {k: {f: v for f, v in e.items() if f != "hyps"} for k, e in out.items()},
+            "hyps_equal_plain": True}
+
+
+def _widen(inputs):
+    """A dict of inputs with its bf16 tensors in float32 (the float32 mode's
+    operands); the rest as they are."""
+    import torch
+
+    return {k: v.float() if torch.is_tensor(v) and v.dtype == torch.bfloat16 else v
+            for k, v in inputs.items()}
+
+
+def _f32_fused_gap_check():
+    """The float32 route's dW_x of layers 1..L-1 (the unfused reverse
+    diagonal in drop mode 2, then the weight-gradient kernel's float32 tile
+    on its xdrop stream: how the route takes them where the JAX switch
+    fuses) against the plain version's fused dW_x (the JAX route past 10
+    GiB of residuals) on the same residuals, at T=GRAD_T, B=64: relative
+    Frobenius error per layer within F32_GRAD_TOL."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    f32, T, Bn = torch.float32, GRAD_T, TRAIN_B
+    inp = _widen(_train_inputs(T, Bn, [T] * Bn, seed=280))
+    drop = _drop(2, T, Bn, 282)
+    outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], f32, *drop)
+    b_in = _widen(_bwd_inputs(inp, outs, gates, cseq, seed=281))
+    gi = BWD_ARGS.index("gates")
+    bargs = [b_in[k] for k in BWD_ARGS]
+    dwx_ref = wf.wavefront_bwd_plain(*bargs[:gi], gates.clone(), *bargs[gi + 1:], outs, *drop,
+                                     fuse_dwx=True)[3]
+    dgates, _, _, xdrop = wf.wavefront_bwd(*bargs, outs, *drop)
+    rel = []
+    for l in range(L - 1):
+        dw = gm.weight_grad(xdrop[l], dgates[l + 1], compute_dtype=f32)[0]
+        rel.append(float((dw - dwx_ref[l]).norm() / dwx_ref[l].norm()))
+    entry = {"rel_frobenius": rel, "tol": F32_GRAD_TOL, "frames": T, "batch": Bn,
+             "drop_mode": 2}
+    if not max(rel) <= F32_GRAD_TOL:
+        fail(f"f32_route: the unfused route's dW_x parts from the fused one's: {entry}")
+    return entry
+
+
+def _timed_once(fn):
+    """(device ms, result) of one call of ``fn``, by CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), res
+
+
+@contextlib.contextmanager
+def _cudnn_f32():
+    """cuDNN without TF32 (its float32 default takes TF32), for the float32
+    rows' yardsticks."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _f32_row(name, check, kernel, plain, library, library_name, flops, nbytes, checks,
+             calls=1, **more):
+    """One float32 row: the kernel's result (``check()``, on fresh inputs)
+    against its plain version's (``plain()``, timed once) within
+    F32_KERNEL_TOL, then ``kernel`` in turns with ``library`` (cuDNN or
+    torch.mm in float32, TF32 off) and the bound at the float32 rate.
+    ``calls`` per pass of the path multiplies the times and the bound."""
+    import torch
+
+    plain_ms, ref = _timed_once(plain)
+    err = _rel_check(f"f32 {name}", check(), ref, F32_KERNEL_TOL, checks)
+    del ref
+    torch.cuda.empty_cache()
+    with _cudnn_f32():
+        turns = in_turns(library, kernel, iters=1)
+    bound, by = _bounds(flops, nbytes, PEAK_F32_FLOPS)
+    return dict(ms=calls * turns["ms"], plain_ms=calls * plain_ms, bound_ms=calls * bound,
+                bound_by=by, library_ms=calls * turns["library_ms"], library=library_name,
+                max_abs_err=err, tol=F32_KERNEL_TOL, calls=calls, ms_per_call=turns["ms"],
+                tflops=flops / turns["ms"] / 1e9, flops=calls * flops, bytes=calls * nbytes,
+                turns=turns["turns"], **more)
+
+
+def _f32_kernel_timing(checks, eval_frames):
+    """Rows 1-8, 14 and 15 in float32 at the float32 path's shapes, each
+    held against its plain version on the same inputs (``_f32_row``):
+    row 1 at the eval batch (B=128, T=1024, the 3-layer wavefront) in
+    turns with cuDNN's 3-layer forward, row 2 one call of the three a
+    layered batch makes in turns with its one-layer forward; rows 3 and 4
+    at the default step (B=64, T=3510, drop mode 2, the reverse diagonal
+    unfused with its xdrop stream) with cuDNN's 3-layer training forward
+    and backward without weight gradients; rows 5-8 one layer's call at
+    B=64, T=F32_LAYER_T with cuDNN's one-layer forward and backward; row
+    14 the step's three LSTM products (N = 224,640, 2 x 1024 by 4096)
+    against two torch.mm and a sum each, row 15 the two projections (D=120
+    by G=1024, D=1024 by G=80) against one torch.mm and a sum each."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    f32, G = torch.float32, 4 * H
+    out = {}
+    T = eval_frames                                  # the eval batch's 10.24 s clips
+    with torch.no_grad():
+        inp = _widen(stack_inputs(T, B, L, [T] * B, seed=199, on_device=True))
+        wargs = lambda: run_wavefront(inp, wf.lstm_stack_wavefront)
+        out["lstm_wavefront"] = _f32_row(
+            "lstm_wavefront", wargs, wargs,
+            lambda: run_wavefront(inp, wf.lstm_stack_wavefront_plain),
+            _nn_lstm(inp, L, T, dtype=f32), f"torch.nn.LSTM forward ({L} layers, f32)",
+            2 * T * B * H * G * (2 * L - 1),
+            T * B * G * 4 + (2 * L - 1) * H * G * 4 + (L - 1) * G * 4 + T * B * 4
+            + 4 * L * B * H * 4 + T * B * H * 4, checks, frames=T, batch=B)
+        rargs = lambda: run_recurrence(inp, rec.lstm_recurrence)
+        out["lstm_recurrence"] = _f32_row(
+            "lstm_recurrence", rargs, rargs,
+            lambda: run_recurrence(inp, rec.lstm_recurrence_plain),
+            _nn_lstm(inp, 1, T, dtype=f32), "torch.nn.LSTM forward (1 layer, f32)",
+            2 * T * B * H * G, T * B * G * 4 + H * G * 4 + T * B * 4 + 4 * B * H * 4
+            + T * B * H * 4, checks, frames=T, batch=B, calls_per_batch=L)
+        del inp
+        torch.cuda.empty_cache()
+
+    T, Bn = TRAIN_T, TRAIN_B
+    inp = _widen(_train_inputs(T, Bn, [T] * Bn, seed=270, on_device=True))
+    args = [inp[k] for k in FWD_ARGS]
+    drop = _drop(2, T, Bn, 272)
+    fwd = lambda: wf.wavefront_train(*args, f32, *drop)
+    out["wavefront_train"] = _f32_row(
+        "wavefront_train", fwd, fwd, lambda: wf.wavefront_train_plain(*args, f32, *drop),
+        _nn_lstm_forward(T, Bn, L, f32), f"torch.nn.LSTM training forward ({L} layers, f32)",
+        2 * T * Bn * H * G * 2 * L,
+        T * Bn * H * 4 + 2 * L * H * G * 4 + L * G * 4 + T * Bn * 4 + 2 * L * Bn * H * 4
+        + L * T * Bn * (H + G + H) * 4 + 2 * L * Bn * H * 4, checks, frames=T, batch=Bn,
+        drop_mode=2)
+    torch.cuda.empty_cache()
+    outs, gates, cseq, _, _ = fwd()
+    b_in = _widen(_bwd_inputs(inp, outs, gates, cseq, seed=271, on_device=True))
+    bargs = [b_in[k] for k in BWD_ARGS]
+    gi = BWD_ARGS.index("gates")
+    fresh = lambda: bargs[:gi] + [gates.clone()] + bargs[gi + 1:]
+    no_dw, _ = _nn_lstm_backward(T, Bn, L, f32)
+    out["wavefront_bwd"] = _f32_row(
+        "wavefront_bwd", lambda: wf.wavefront_bwd(*fresh(), outs, *drop),
+        lambda: wf.wavefront_bwd(*bargs, outs, *drop),
+        lambda: wf.wavefront_bwd_plain(*fresh(), outs, *drop), no_dw,
+        f"torch.nn.LSTM backward ({L} layers, f32, without weight gradients)",
+        2 * T * Bn * H * G * (2 * L - 1),
+        T * Bn * H * 4 + (2 * L - 1) * H * G * 4 + T * Bn * 4 + L * T * Bn * (G + H) * 4
+        + 3 * L * Bn * H * 4 + (L - 1) * T * Bn * H * 4 + L * T * Bn * G * 4
+        + 2 * L * Bn * H * 4 + (L - 1) * T * Bn * H * 4, checks, frames=T, batch=Bn,
+        drop_mode=2, fused=False)
+    del no_dw
+    torch.cuda.empty_cache()
+
+    N = T * Bn
+    dgates = bargs[gi]                               # dgates, after the timed calls
+    h_prev = torch.cat([inp["h0"][0][None], outs[0, :-1]]).reshape(N, H)
+    x2, dg2 = outs[1].reshape(N, H), dgates[0].reshape(N, G)
+    grads = lambda: gm.dgates_weight_grads(h_prev, x2, dg2, compute_dtype=f32)
+    out["dgates_weight_grads"] = _f32_row(
+        "dgates_weight_grads", grads, grads,
+        lambda: gm.dgates_weight_grads_plain(h_prev, x2, dg2, compute_dtype=f32),
+        lambda: (torch.mm(h_prev.t(), dg2), torch.mm(x2.t(), dg2), dg2.sum(0)),
+        "torch.mm x 2 + sum (f32)", 2 * N * 2 * H * G, N * (2 * H + G) * 4 + (2 * H + 1) * G * 4,
+        checks, calls=L, path=gm.product_path([H, H], G, f32, f32))
+    del outs, gates, cseq, b_in, bargs, dgates, dg2, x2, inp, args
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(272)
+    per = {}
+    for name, D, Gs in (("input", 120, H), ("output", H, V)):
+        xx = torch.randn((N, D), generator=g).to(DEVICE)
+        dg = (torch.randn((N, Gs), generator=g) * 0.01).to(DEVICE)
+        call = lambda: gm.weight_grad(xx, dg, compute_dtype=f32)
+        per[name] = _f32_row(
+            f"weight_grad {name}", call, call,
+            lambda: gm.weight_grad_plain(xx, dg, compute_dtype=f32),
+            lambda: (torch.mm(xx.t(), dg), dg.sum(0)), "torch.mm + sum (f32)",
+            2 * N * D * Gs, N * (D + Gs) * 4 + (D + 1) * Gs * 4, checks, D=D, G=Gs)
+    out["weight_grad"] = {k: sum(per[n][k] for n in per)
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "flops")}
+    out["weight_grad"].update(
+        bound_by="bytes" if all(v["bound_by"] == "bytes" for v in per.values())
+        else "operations", max_abs_err=max(v["max_abs_err"] for v in per.values()),
+        library="torch.mm + sum (f32), per projection", calls=per)
+    torch.cuda.empty_cache()
+
+    T, Bn = F32_LAYER_T, TRAIN_B
+    lay = _widen(_layer_inputs(T, Bn, [T] * Bn, seed=273, on_device=True))
+    tail = (lay["w_h"], lay["mask"], lay["h0"], lay["c0"], f32)
+    fwd_bytes = T * Bn * G * 4 + H * G * 4 + T * Bn * 4 + 4 * Bn * H * 4
+    for name, fwd, fwd_plain, res in (
+            ("recurrence_train", tlt.recurrence_train, tlt.recurrence_train_plain,
+             T * Bn * (H + G + H) * 4),
+            ("recurrence_train_lean", tlt.recurrence_train_lean, tlt.recurrence_train_lean_plain,
+             T * Bn * 2 * H * 4)):
+        call = lambda fn=fwd: fn(lay["x_proj"], *tail)
+        out[name] = _f32_row(
+            name, call, call, lambda fn=fwd_plain: fn(lay["x_proj"], *tail),
+            _nn_lstm_forward(T, Bn, 1, f32), "torch.nn.LSTM training forward (1 layer, f32)",
+            2 * T * Bn * H * G, fwd_bytes + res, checks, frames=T, batch=Bn)
+    lout, _, _, lgates, lcseq = tlt.recurrence_train(lay["x_proj"], *tail)
+    btail = (lay["mask"], lay["w_h"], lay["dhn"], lay["dcn"])
+    no_dw, _ = _nn_lstm_backward(T, Bn, 1, f32)
+    out["recurrence_bwd"] = _f32_row(
+        "recurrence_bwd", lambda: tlt.recurrence_bwd(lay["dout"], lgates.clone(), lcseq,
+                                                     lay["c0"], *btail),
+        lambda: tlt.recurrence_bwd(lay["dout"], lgates, lcseq, lay["c0"], *btail),
+        lambda: tlt.recurrence_bwd_plain(lay["dout"], lgates.clone(), lcseq, lay["c0"], *btail),
+        no_dw, "torch.nn.LSTM backward (1 layer, f32, without weight gradients)",
+        2 * T * Bn * H * G, T * Bn * (2 * H + 2 * G) * 4 + H * G * 4 + 5 * Bn * H * 4
+        + T * Bn * 4, checks, frames=T, batch=Bn)
+    h_prev = torch.cat([lay["h0"][None], lout[:-1]])
+    rargs = (lay["dout"], lay["x"], h_prev, lcseq, lay["c0"], lay["mask"], lay["w_x"], lay["b"],
+             lay["w_h"], lay["dhn"], lay["dcn"])
+    rec_call = lambda: tlt.recurrence_bwd_recompute(*rargs)
+    out["recurrence_bwd_recompute"] = _f32_row(
+        "recurrence_bwd_recompute", rec_call, rec_call,
+        lambda: tlt.recurrence_bwd_recompute_plain(*rargs), no_dw,
+        "torch.nn.LSTM backward (1 layer, f32, without weight gradients)",
+        3 * 2 * T * Bn * H * G, T * Bn * (H + H + H + H + G) * 4 + 2 * H * G * 4
+        + 5 * Bn * H * 4 + T * Bn * 4, checks, frames=T, batch=Bn)
+    del no_dw, lay, lgates, lcseq, lout
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_f32_route():
+    """The float32 compute mode on the card at the flagship width, through
+    ``models/acoustic`` and ``train/step``: the eval path (``_f32_eval``);
+    the default step (B=64, T=3510, keeps 0.8/0.5, the CTC kernels) in
+    float32, whose memory plan must answer gates residuals, 2 warm-up and
+    3 timed steps and one split by its marks, a falling finite loss, the
+    peak memory; one step's gradients at T=GRAD_T against the plain
+    versions' route within F32_GRAD_TOL beside the planted fault (the
+    backward's inter-layer scale 1% too large); the layered gates route
+    and the recompute route likewise at B=64, T=F32_LAYER_T (each beside
+    its layer backward's dgates 1% too large); the float32 launches of
+    rows 1-8, 14 and 15, and no persistent kernel, no tensor-core tile and
+    no plain version on the card; then each row's float32 time
+    (``_f32_kernel_timing``)."""
+    import torch
+
+    from rnn_speech_tpu_torch.models import acoustic
+
+    f32 = torch.float32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _f32_launches(zero=True)
+    launches = {}
+    eval_entry = _f32_eval()
+    launches["eval"] = _f32_launches(zero=True)
+    if not (launches["eval"]["lstm_wavefront"] and launches["eval"]["lstm_recurrence"]):
+        fail(f"f32_route eval: rows 1 and 2 did not run in float32: {launches['eval']}")
+
+    scfg, state, batch = _train_setup(TRAIN_T, MAX_LABEL, LABEL_LEN, seed=0, compute_dtype=f32)
+    plan = acoustic.training_memory_plan(scfg.model, TRAIN_T, TRAIN_B)
+    if plan != (0, "gates"):
+        fail(f"f32_route: memory plan {plan} at B=64, T=3510; expected (0, 'gates')")
+    plain_calls = {}
+    with _plain_guard(plain_calls):
+        step, state = _run_steps(scfg, state, batch, reps=3, record_stages=True, per_rep=1)
+    launches["train"] = _f32_launches(zero=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    losses = step["losses"]
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        fail(f"f32_route: the mean of the last 3 losses is not below the first: {losses}")
+    for row in ("wavefront_train", "wavefront_bwd", "dgates_weight_grads", "weight_grad"):
+        if not launches["train"][row]:
+            fail(f"f32_route: the float32 step did not run row {row} in float32: "
+                 f"{launches['train']}")
+    tensor_core = {k: v for k, v in step["wgmma_launches"].items() if v and k not in F32_PATHS}
+    if tensor_core:
+        fail(f"f32_route: the float32 step ran persistent kernels or tensor-core tiles: "
+             f"{tensor_core}")
+    if plain_calls:
+        fail(f"f32_route: plain versions ran on the card: {plain_calls}")
+
+    gates = {"default": _grad_check(model_kw=dict(compute_dtype=f32), tol=F32_GRAD_TOL)}
+    launches["grad_check"] = _f32_launches(zero=True)
+    for name, kw, fault in (("layered", dict(wavefront=False), "recurrence_bwd"),
+                            ("recompute", dict(residual_mode="recompute"),
+                             "recurrence_bwd_recompute")):
+        gates[name] = _grad_check(model_kw=dict(compute_dtype=f32, **kw), tol=F32_GRAD_TOL,
+                                  fault=_layer_fault(fault), T=F32_LAYER_T)
+        launches[name] = _f32_launches(zero=True)
+    gates["fused_dwx_gap"] = _f32_fused_gap_check()
+    _f32_launches(zero=True)
+    for row, route in (("recurrence_train", "layered"), ("recurrence_bwd", "layered"),
+                       ("recurrence_train_lean", "recompute"),
+                       ("recurrence_bwd_recompute", "recompute")):
+        if not launches[route][row]:
+            fail(f"f32_route: the {route} route did not run row {row} in float32: "
+                 f"{launches[route]}")
+    paths = {k: v for k, v in _path_counters().items() if k not in F32_PATHS}
+    if any(paths.values()):
+        fail(f"f32_route: a persistent kernel or tensor-core tile ran: {paths}")
+    torch.cuda.empty_cache()
+    checks = []
+    timing = _f32_kernel_timing(checks, eval_entry["frames"])
+    emit("f32_route", eval=eval_entry, train=step, memory_plan=list(plan), grad_check=gates,
+         launches=launches, timing=timing, checks=checks,
+         max_abs_err={k: v["max_abs_err"] for k, v in timing.items()})
+
+
+def _hw_parity_faults():
+    """{check: planted-fault context} for the parity tool's seven checks,
+    each past its check's tolerance: a kernel route's output times 1.1 (the
+    LSTM, wavefront, CTC, fbank and weight-gradient checks), the best beam's
+    score 0.05 high, the dropout keep 0.01 low."""
+    from unittest import mock
+
+    from rnn_speech_tpu_torch.ops import ctc_kernel as tck
+    from rnn_speech_tpu_torch.ops import decode as tdec
+    from rnn_speech_tpu_torch.ops import dropout as tdrop
+    from rnn_speech_tpu_torch.ops import frontend_kernel as tfk
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    def scaled(fn, index=None):
+        @functools.wraps(fn)                         # its launch counters too
+        def faulty(*args, **kw):
+            res = fn(*args, **kw)
+            if index is None:
+                return res * 1.1
+            return tuple(r * 1.1 if i == index else r for i, r in enumerate(res))
+        return faulty
+
+    def beam_off(fn):
+        @functools.wraps(fn)
+        def faulty(*args, **kw):
+            labels, lengths, scores = fn(*args, **kw)
+            return labels, lengths, scores + 0.05
+        return faulty
+
+    def keep_low(fn):
+        @functools.wraps(fn)
+        def faulty(x, seed, keeps):
+            return fn(x, seed, [k - 0.01 for k in keeps])
+        return faulty
+    specs = {"check_lstm": (tlt, "recurrence_train", lambda f: scaled(f, 0)),
+             "check_wavefront": (wf, "wavefront_train", lambda f: scaled(f, 0)),
+             "check_ctc": (tck, "ctc_alpha_lossonly", scaled),
+             "check_frontend": (tfk, "fbank_banks", scaled),
+             "check_beam": (tdec, "beam_search_decode", beam_off),
+             "check_dropout": (tdrop, "dropout_kernel", keep_low),
+             "check_grad_matmul": (gm, "dgates_weight_grads", lambda f: scaled(f, 0))}
+    return {name: (lambda m=m, a=a, f=f: mock.patch.object(m, a, f(getattr(m, a))))
+            for name, (m, a, f) in specs.items()}
+
+
+HW_PARITY_ROWS = ("lstm_wavefront", "lstm_recurrence", "wavefront_train", "wavefront_bwd",
+                  "recurrence_train", "recurrence_bwd", "recurrence_train_lean",
+                  "recurrence_bwd_recompute", "dgates_weight_grads", "dropout",
+                  "ctc_alpha_ckpt", "ctc_alpha_lossonly", "ctc_beta_post", "fbank_banks")
+
+
+def phase_hw_parity():
+    """``rnn_speech_tpu_torch.tools.hw_parity`` in-process on the card: its
+    seven checks (each error beside its tolerance), the kernels they launch
+    (rows 1-8 in float32, 9, 10, 12, 14, 16 and 18 must), then each check
+    under its planted fault (``_hw_parity_faults``), which must fail it."""
+    import torch
+
+    from rnn_speech_tpu_torch.tools import hw_parity
+
+    dev = torch.device(DEVICE)
+    counters = {**_all_counters(), **_f32_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    _f32_launches(zero=True)
+    t0 = time.perf_counter()
+    records = hw_parity.run(dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: counters[name].launches for name in HW_PARITY_ROWS}
+    f32 = _f32_launches(zero=True)
+    if not all(launches.values()):
+        fail(f"hw_parity: the tool did not launch every kernel it drives: {launches}")
+    if not all(f32[row] for row in F32_ROWS[:8]):
+        fail(f"hw_parity: rows 1-8 did not run in float32: {f32}")
+    faults = {}
+    for check in hw_parity.CHECKS:
+        with _hw_parity_faults()[check.__name__]():
+            try:
+                check(dev)
+            except AssertionError as err:
+                faults[check.__name__] = str(err)[:300]
+                continue
+        fail(f"hw_parity: {check.__name__} passes under its planted fault")
+    emit("hw_parity", checks=records, seconds=seconds, launches=launches, f32_launches=f32,
+         planted_faults=faults)
+
+
 def kernels_line():
     """One row per kernel.  ms, plain_ms, bound_ms and library_ms cover the
     kernel's work in one pass of its path: one eval batch (the two
@@ -6810,6 +7453,40 @@ def kernels_line():
             rows[-1]["library_pair_ms"] = t["library_pair_ms"]
         if name == "ctc_alpha_stream":                # the alpha forward's stream mode
             rows[-1].update(us_per_step=t.get("us_per_step"), geometry=t.get("geometry"))
+    # The float32 modes of rows 1-8, 14 and 15 (phase f32_route): launches
+    # of the float32 eval (rows 1, 2), default steps (3, 4, 14, 15) and the
+    # layered and recompute routes' gradient gates (5-8); times at the
+    # float32 path's shapes (rows 5-8 one layer at B=64, T=F32_LAYER_T).
+    fr = RECORD.get("f32_route", {})
+    fl = fr.get("launches", {})
+    for name, src, replaces, run in (
+        ("lstm_wavefront", "lstm_wavefront.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:90", "eval"),
+        ("lstm_recurrence", "lstm_recurrence.cu", "rnn_speech_tpu/ops/lstm_pallas.py:62", "eval"),
+        ("wavefront_train", "lstm_wavefront_train.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:230",
+         "train"),
+        ("wavefront_bwd", "lstm_wavefront_bwd.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:433",
+         "train"),
+        ("recurrence_train", "lstm_layer_train.cu", "rnn_speech_tpu/ops/lstm_pallas.py:144",
+         "layered"),
+        ("recurrence_bwd", "lstm_layer_bwd.cu", "rnn_speech_tpu/ops/lstm_pallas.py:232",
+         "layered"),
+        ("recurrence_train_lean", "lstm_layer_train.cu", "rnn_speech_tpu/ops/lstm_pallas.py:342",
+         "recompute"),
+        ("recurrence_bwd_recompute", "lstm_layer_bwd.cu",
+         "rnn_speech_tpu/ops/lstm_pallas.py:429", "recompute"),
+        ("dgates_weight_grads", "grad_matmul.cu", "rnn_speech_tpu/ops/grad_matmul_pallas.py:52",
+         "train"),
+        ("weight_grad", "grad_matmul.cu", "rnn_speech_tpu/ops/grad_matmul_pallas.py:96", "train"),
+    ):
+        t = fr.get("timing", {}).get(name, {})
+        rows.append({
+            "name": name + "_f32", "route": "cuda", "source": csrc + src, "replaces": replaces,
+            "launches": fl.get(run, {}).get(name), "max_abs_err": t.get("max_abs_err"),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"), "compute_dtype": "float32",
+            "tflops": t.get("tflops"),
+        })
     # The CLI's own paths, each counted from zero in its run: the first
     # --train_acoustic run (train steps and evaluation passes) and the
     # greedy --evaluate run.
@@ -6824,10 +7501,10 @@ def kernels_line():
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "alt_routes", "train_wide", "grad_study", "train_loop", "evaluate", "bundle",
-          "accuracy", "beam", "cli", "lm", "stream", "multi")
-OPT_IN_PHASES = ("lean_study", "persistent_study", "fault_hunt", "flagship_accuracy",
-                 "beam_quality", "accuracy_benchmark")
+          "alt_routes", "train_wide", "f32_route", "hw_parity", "train_loop", "evaluate",
+          "bundle", "accuracy", "beam", "cli", "lm", "stream", "multi")
+OPT_IN_PHASES = ("grad_study", "lean_study", "persistent_study", "fault_hunt",
+                 "flagship_accuracy", "beam_quality", "accuracy_benchmark")
 
 
 PART_SUFFIXES = ("_check", "_checks", "_timing", "_inputs", "_setup", "_steps", "_study",
@@ -6905,7 +7582,8 @@ def main(argv=None) -> int:
                      ("kernels", phase_kernels), ("train_kernels", phase_train_kernels),
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
-                     ("train_wide", phase_train_wide), ("grad_study", phase_grad_study),
+                     ("train_wide", phase_train_wide), ("f32_route", phase_f32_route),
+                     ("hw_parity", phase_hw_parity), ("grad_study", phase_grad_study),
                      ("train_loop", phase_train_loop), ("evaluate", phase_evaluate),
                      ("lean_study", phase_lean_study),
                      ("persistent_study", lambda: phase_persistent_study(args.parent)),

@@ -54,6 +54,17 @@
 // converted by every warp that used it: at the projections that cost more
 // than the loads.  Copying bf16 operands into the strips as well slowed
 // the output projection.)
+//
+// Float32 compute (entry rst_weight_grads_f32; the JAX kernels'
+// compute_dtype=float32): the float32 tile below (`f32`), for one or two
+// float32 A operands and float32 dg, every shape (the LSTM products, the
+// projections, the float32 route's dW_x of layers 1..L-1): no operand is
+// rounded.  128x128 output tiles of 256 threads, each thread 8x8 sums by
+// FMA (no tensor cores), K walked in 8-row steps staged through registers
+// into double-buffered shared memory; db summed from dg by the blocks of
+// the first row tile; K split into fixed-order partials as the other
+// tiles.  What bounds it on the H100 is the float32 rate (67 TFLOP/s):
+// the LSTM shape's 3.8 TFLOP a call take at least 56 ms at that rate.
 
 #include "grad_matmul.cuh"
 
@@ -430,6 +441,136 @@ inline int launch(const void* x, int x_f32, int D, const void* dg, int dg_f32, i
 }
 
 }  // namespace skinny
+
+// ------------------------------------------------------ the float32 tile
+
+namespace f32 {
+
+constexpr int kBM = 128;        // output rows (A columns) per block
+constexpr int kBN = 128;        // output columns (dg columns) per block
+constexpr int kBK = 8;          // K rows per step
+constexpr int kThreads = 256;   // thread (tx, ty) = (tid % 16, tid / 16): 8x8 sums
+
+struct Args {
+  const float* a0;    // (N, d0) first A operand
+  const float* a1;    // (N, d1) second A operand, or null (d1 = 0)
+  const float* dg;    // (N, G)
+  int d0, d1, N, G;
+  int mt0;            // row tiles of a0; grid.x = mt0 + row tiles of a1
+  int rows_per_split;
+  float* out;         // (d0 + d1, G) dW, or (splits, d0 + d1, G) partials
+  float* out_db;      // (G,) db, or (splits, G) partials; null: no db
+};
+
+// Row n (< n_end) of a row-major (rows, cols) array at columns [col,
+// col + 4) (those < cols); zeros elsewhere.
+__device__ __forceinline__ float4 load4(const float* p, int cols, bool vec, int n, int n_end,
+                                        int col) {
+  if (n < n_end && vec && col + 4 <= cols) {
+    return __ldg(reinterpret_cast<const float4*>(p + (size_t)n * cols + col));
+  }
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = (n < n_end && col + e < cols) ? p[(size_t)n * cols + col + e] : 0.0f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__global__ void __launch_bounds__(kThreads) grad_kernel(Args p) {
+  __shared__ __align__(16) float As[2][kBK][kBM + 4];   // As[k][m]
+  __shared__ __align__(16) float Bs[2][kBK][kBN + 4];   // Bs[k][g]
+
+  const bool second = blockIdx.x >= p.mt0;
+  const float* a = second ? p.a1 : p.a0;
+  const int D = second ? p.d1 : p.d0;
+  const int m0 = (second ? blockIdx.x - p.mt0 : blockIdx.x) * kBM;
+  const int row_off = second ? p.d0 : 0;   // first output row of this operand
+  const int g0 = blockIdx.y * kBN;
+  const int split = blockIdx.z;
+  const int n_begin = split * p.rows_per_split;
+  const int n_end = min(p.N, n_begin + p.rows_per_split);
+  const int n_steps = n_end > n_begin ? (n_end - n_begin + kBK - 1) / kBK : 0;
+  const bool do_db = blockIdx.x == 0 && p.out_db != nullptr;  // one row tile sums db
+  const bool a_vec = D % 4 == 0, g_vec = p.G % 4 == 0;
+  const int lr = threadIdx.x / 32, lc = (threadIdx.x % 32) * 4;   // this thread's loads
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float db[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  float4 ra, rb;
+  auto fetch = [&](int n0) {
+    ra = load4(a, D, a_vec, n0 + lr, n_end, m0 + lc);
+    rb = load4(p.dg, p.G, g_vec, n0 + lr, n_end, g0 + lc);
+    if (do_db) {
+      db[0] += rb.x;
+      db[1] += rb.y;
+      db[2] += rb.z;
+      db[3] += rb.w;
+    }
+  };
+  auto put = [&](int buf) {
+    *reinterpret_cast<float4*>(&As[buf][lr][lc]) = ra;
+    *reinterpret_cast<float4*>(&Bs[buf][lr][lc]) = rb;
+  };
+  if (n_steps > 0) {
+    fetch(n_begin);
+    put(0);
+  }
+  __syncthreads();
+  for (int ks = 0; ks < n_steps; ++ks) {
+    const bool more = ks + 1 < n_steps;
+    if (more) fetch(n_begin + (ks + 1) * kBK);   // in flight during the sums
+    const int cur = ks & 1;
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(&As[cur][k][4 * ty]);
+      const float4 a_hi = *reinterpret_cast<const float4*>(&As[cur][k][64 + 4 * ty]);
+      const float4 b_lo = *reinterpret_cast<const float4*>(&Bs[cur][k][4 * tx]);
+      const float4 b_hi = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + 4 * tx]);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) put(cur ^ 1);   // read by every thread two steps ago, synced since
+    __syncthreads();
+  }
+
+  const int Mtot = p.d0 + p.d1;
+  float* out = p.out + (size_t)split * Mtot * p.G;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (m >= D) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int g = g0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (g < p.G) out[(size_t)(row_off + m) * p.G + g] = acc[i][j];
+    }
+  }
+
+  if (do_db) {  // uniform over the block: the load rows' sums, in row order
+    float* red = &As[0][0][0];   // [kBK][kBM]; the stages are free
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[lr * kBN + lc + e] = db[e];
+    __syncthreads();
+    if (threadIdx.x < kBN && g0 + threadIdx.x < p.G) {
+      float sum = 0.0f;
+      for (int r = 0; r < kBK; ++r) sum += red[r * kBN + threadIdx.x];
+      p.out_db[(size_t)split * p.G + g0 + threadIdx.x] = sum;
+    }
+  }
+}
+
+}  // namespace f32
 }  // namespace rst_grad
 
 // h (N, dh) and x (N, dx) bf16, dgates (N, G) bf16 (dg_f32 = 0) or f32;
@@ -454,6 +595,49 @@ extern "C" int rst_weight_grad(int path, const void* x, int D, const void* dg, i
                                float* partial_db, float* dw, float* db, void* stream) {
   return rst_grad::launch(path, x, D, nullptr, 0, dg, dg_f32, N, G, splits, rows_per_split,
                           partial, partial_db, dw, db, 0, stream);
+}
+
+// Float32 compute: a0 (N, d0) and a1 (N, d1) (a1 null, d1 = 0: one
+// operand), dg (N, G), all float32, 16-byte aligned -> dw (d0 + d1, G) =
+// [a0ᵀ·dg ; a1ᵀ·dg], db (G,) = Σ dg (db null: none), on the float32 tile,
+// no operand rounded.  K is split into `splits` slices of rows_per_split
+// rows (a multiple of 8); with splits > 1, partial (splits, d0 + d1, G) and
+// partial_db (splits, G) hold the slices' sums before the fixed-order
+// second pass.  Returns the CUDA error code (0 = success).
+extern "C" int rst_weight_grads_f32(const float* a0, int d0, const float* a1, int d1,
+                                    const float* dg, int N, int G, int splits,
+                                    int rows_per_split, float* partial, float* partial_db,
+                                    float* dw, float* db, void* stream) {
+  namespace f = rst_grad::f32;
+  if (d0 <= 0 || d1 < 0 || (d1 > 0) != (a1 != nullptr) || G <= 0 || N <= 0 || splits < 1 ||
+      rows_per_split % f::kBK || (long long)splits * rows_per_split < N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  f::Args p;
+  p.a0 = a0;
+  p.a1 = a1;
+  p.dg = dg;
+  p.d0 = d0;
+  p.d1 = d1;
+  p.N = N;
+  p.G = G;
+  p.mt0 = (d0 + f::kBM - 1) / f::kBM;
+  p.rows_per_split = rows_per_split;
+  p.out = splits > 1 ? partial : dw;
+  p.out_db = db == nullptr ? nullptr : splits > 1 ? partial_db : db;
+  const dim3 grid(p.mt0 + (d1 + f::kBM - 1) / f::kBM, (G + f::kBN - 1) / f::kBN, splits);
+  f::grad_kernel<<<grid, f::kThreads, 0, st>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t count = (size_t)(d0 + d1) * G;
+  rst_grad::sum_splits<<<(unsigned)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096),
+                         256, 0, st>>>(partial, splits, count, dw);
+  if (db != nullptr) {
+    rst_grad::sum_splits<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(partial_db, splits,
+                                                                      (size_t)G, db);
+  }
+  return (int)cudaGetLastError();
 }
 
 // x (N, D) f32 (x_f32 = 1) or bf16, dg (N, G) f32 (dg_f32 = 1) or bf16 ->

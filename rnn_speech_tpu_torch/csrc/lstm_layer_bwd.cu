@@ -51,6 +51,14 @@
 // 4H) in float32 at the tensor-core rate, then the chunk's steps read them.
 // The chunks are the caller's (ops/lstm_layer_train.py `rebuild_chunks`:
 // a byte cap on the chunk buffer), checked here to cover [0, T) once.
+//
+// Float32 compute (entries with the _f32 suffix; the JAX kernels'
+// compute_dtype=float32 with float32 residuals): the residuals, W_h, the
+// dgates and their parity buffer are float32, the carry's product a SIMT
+// product over 64-wide float32 K chunks (``carry_product_f32``), and the
+// recompute rebuild the float32 product of rebuild_gates.cuh, which takes
+// any D.  The persistent backward is bf16 only, so every float32 shape
+// runs here.
 
 #include "lstm_cell.cuh"
 #include "rebuild_gates.cuh"
@@ -65,18 +73,24 @@ constexpr int kATile = rst::kRows * kBLd;  // 64 rows of A
 constexpr int kWTile = rst::kJT * kBLd;    // 16 rows of W
 constexpr int kStage = kATile + kWTile;
 constexpr int kSmem = 2 * kStage;
+// The float32 product's chunk: 64 floats of K, rows padded by four (the
+// same bytes of shared memory as the bf16 stages).
+constexpr int kFKC = 64;
+constexpr int kFLd = kFKC + 4;
+constexpr int kFStage = (rst::kRows + rst::kJT) * kFLd;   // floats of one stage
+static_assert(2 * kFStage * 4 <= kSmem * 2, "float32 stages fit the bf16 ones");
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
 
+template <typename E>
 struct LayerBwd {
   const float* dout;   // (T, B, H) cotangent of the layer's output
-  bf16* gates;         // (T, B, 4H): activated gates in (gates mode), dgates out
-  const bf16* cseq;    // (T, B, H) carried c
+  E* gates;            // (T, B, 4H): activated gates in (gates mode), dgates out
+  const E* cseq;       // (T, B, H) carried c
   const float* c0;     // (B, H) initial c as the residual stores it
   const float* mask;   // (T, B)
-  const bf16* w_h;     // (H, 4H)
-  bf16* par;           // (2, Bp, 4H) dgates by step parity
+  const E* w_h;        // (H, 4H)
+  E* par;              // (2, Bp, 4H) dgates by step parity
   float* dhc;          // (B, H) (1-m)·dh_carry; dh0 at the end
   float* dcc;          // (B, H) dc_carry; dc0 at the end
   // Recompute mode (act == nullptr in gates mode): the activated gates of
@@ -144,16 +158,75 @@ __device__ __forceinline__ void carry_product(bf16* smem, float* ph, const bf16*
   __syncthreads();
 }
 
+// Stage K columns [k0, k0 + kFKC) of `rows` float32 rows of A and of W's
+// rows j0..j0+15, both row-major with ld 4H.
+__device__ __forceinline__ void stage_f32(float* As, float* Ws, const float* a, const float* w,
+                                          int k0, int rows, int ld, int j0) {
+  constexpr int V = kFKC / 4;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < rows * V; i += rst::kThreads) {
+    const int r = i / V, p = i % V;
+    rst::cp_async16(As + r * kFLd + p * 4, a + (size_t)r * ld + k0 + p * 4);
+  }
+  for (int i = threadIdx.x; i < rst::kJT * V; i += rst::kThreads) {
+    const int r = i / V, p = i % V;
+    rst::cp_async16(Ws + r * kFLd + p * 4, w + (size_t)(j0 + r) * ld + k0 + p * 4);
+  }
+}
+
+// The carry's product in float32, as ``carry_product``: thread (j = tid %
+// 16, rg = tid / 16) sums rows rg + 8i (i < 8) of its unit j over K in
+// ascending order with FMAs.  Ends with a __syncthreads.
+__device__ __forceinline__ void carry_product_f32(float* smem, float* ph, const float* a,
+                                                  const float* w, int G, int n_mt, int j0) {
+  const int rows = n_mt * 16;
+  const int j = threadIdx.x % rst::kJT, rg = threadIdx.x / rst::kJT;
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const int n_k = a != nullptr ? G / kFKC : 0;
+  if (n_k > 0) stage_f32(smem, smem + rst::kRows * kFLd, a, w, 0, rows, G, j0);
+  rst::cp_async_commit();
+  for (int c = 0; c < n_k; ++c) {
+    if (c + 1 < n_k) {
+      float* As = smem + ((c + 1) & 1) * kFStage;
+      stage_f32(As, As + rst::kRows * kFLd, a, w, (c + 1) * kFKC, rows, G, j0);
+    }
+    rst::cp_async_commit();
+    rst::cp_async_wait<1>();  // chunk c has landed
+    __syncthreads();
+    const float* As = smem + (c & 1) * kFStage;
+    const float* Ws = As + rst::kRows * kFLd;
+#pragma unroll 4
+    for (int k = 0; k < kFKC; k += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(Ws + j * kFLd + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(As + (rg + 8 * i) * kFLd + k);
+        acc[i] = fmaf(av.x, wv.x, acc[i]);
+        acc[i] = fmaf(av.y, wv.y, acc[i]);
+        acc[i] = fmaf(av.z, wv.z, acc[i]);
+        acc[i] = fmaf(av.w, wv.w, acc[i]);
+      }
+    }
+    __syncthreads();  // before the next iteration overwrites this stage
+  }
+  rst::cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (rg + 8 * i < rows) ph[(rg + 8 * i) * rst::kJT + j] = acc[i];
+  }
+  __syncthreads();
+}
+
 // s < T: step t = T-1-s.  s == T: the final pass that turns the dh carry
 // into dh0.
-__global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd p) {
+template <typename T>
+__global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd<T> p) {
   __shared__ __align__(128) bf16 smem[kSmem];
   __shared__ float ph[rst::kRows * rst::kJT];
 
-  const int T = p.T, B = p.B, Bp = p.Bp, H = p.H;
+  const int T_ = p.T, B = p.B, Bp = p.Bp, H = p.H;
   const int G = 4 * H;
-  const bool final_pass = s == T;
-  const int t = T - 1 - s;
+  const bool final_pass = s == T_;
+  const int t = T_ - 1 - s;
   const int j0 = blockIdx.x * rst::kJT;
   const int row0 = blockIdx.y * rst::kRows;
   const int n_mt = min(rst::kMaxMT, (Bp - row0) / 16);
@@ -161,8 +234,12 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
   const size_t pplane = (size_t)Bp * G;
 
   // dgates of the step before (t+1), or of t = 0 in the final pass.
-  const bf16* a = s > 0 ? p.par + ((s + 1) & 1) * pplane + (size_t)row0 * G : nullptr;
-  carry_product(smem, ph, a, p.w_h, G, n_mt, j0);
+  const T* a = s > 0 ? p.par + ((s + 1) & 1) * pplane + (size_t)row0 * G : nullptr;
+  if constexpr (std::is_same<T, float>::value) {
+    carry_product_f32(reinterpret_cast<float*>(smem), ph, a, p.w_h, G, n_mt, j0);
+  } else {
+    carry_product(smem, ph, a, p.w_h, G, n_mt, j0);
+  }
   if (final_pass) {
     for (int idx = threadIdx.x; idx < rows * rst::kJT; idx += rst::kThreads) {
       const int b = row0 + idx / rst::kJT;
@@ -175,7 +252,7 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
   const float* act = p.act != nullptr ? p.act + (size_t)(t - p.t0) * B * G : nullptr;
 
   const size_t th = (size_t)t * B * H;
-  bf16* wpar = p.par + (s & 1) * pplane;
+  T* wpar = p.par + (s & 1) * pplane;
   for (int idx = threadIdx.x; idx < rows * rst::kJT; idx += rst::kThreads) {
     const int r = idx / rst::kJT;
     const int b = row0 + r;
@@ -184,7 +261,7 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
     const int j = j0 + jj;
     const size_t e = (size_t)b * H + j;
     const float m = p.mask[(size_t)t * B + b];
-    bf16* g = p.gates + ((size_t)t * B + b) * G;
+    T* g = p.gates + ((size_t)t * B + b) * G;
     float i_a, g_a, f_a, o_a;
     if (act != nullptr) {
       const float* a = act + (size_t)b * G;
@@ -193,27 +270,27 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
       f_a = a[2 * H + j];
       o_a = a[3 * H + j];
     } else {
-      i_a = bf(g[j]);
-      g_a = bf(g[H + j]);
-      f_a = bf(g[2 * H + j]);
-      o_a = bf(g[3 * H + j]);
+      i_a = rst::to_f(g[j]);
+      g_a = rst::to_f(g[H + j]);
+      f_a = rst::to_f(g[2 * H + j]);
+      o_a = rst::to_f(g[3 * H + j]);
     }
     const float dh_carry = p.dhc[e] + ph[idx];  // ph is zero at t = T-1
     const float dc_carry = p.dcc[e];
-    const float tanh_c = tanhf(bf(p.cseq[th + e]));
-    const float c_prev = t > 0 ? bf(p.cseq[th - (size_t)B * H + e]) : p.c0[e];
+    const float tanh_c = tanhf(rst::to_f(p.cseq[th + e]));
+    const float c_prev = t > 0 ? rst::to_f(p.cseq[th - (size_t)B * H + e]) : p.c0[e];
     const float dh_new = m * (p.dout[th + e] + dh_carry);
     const float do_pre = dh_new * tanh_c * sig_grad(o_a);
     const float dc_new = dh_new * o_a * (1.0f - tanh_c * tanh_c) + m * dc_carry;
-    const bf16 di = __float2bfloat16(dc_new * g_a * sig_grad(i_a));
-    const bf16 dg = __float2bfloat16(dc_new * i_a * (1.0f - g_a * g_a));
-    const bf16 df = __float2bfloat16(dc_new * c_prev * sig_grad(f_a));
-    const bf16 dq = __float2bfloat16(do_pre);
+    const T di = rst::from_f<T>(dc_new * g_a * sig_grad(i_a));
+    const T dg = rst::from_f<T>(dc_new * i_a * (1.0f - g_a * g_a));
+    const T df = rst::from_f<T>(dc_new * c_prev * sig_grad(f_a));
+    const T dq = rst::from_f<T>(do_pre);
     g[j] = di;
     g[H + j] = dg;
     g[2 * H + j] = df;
     g[3 * H + j] = dq;
-    bf16* w = wpar + (size_t)b * G;
+    T* w = wpar + (size_t)b * G;
     w[j] = di;
     w[H + j] = dg;
     w[2 * H + j] = df;
@@ -223,14 +300,16 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd 
   }
 }
 
-dim3 step_grid(const LayerBwd& p) {
+template <typename T>
+dim3 step_grid(const LayerBwd<T>& p) {
   return dim3(p.H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows);
 }
 
-int launch(LayerBwd p, void* stream) {
+template <typename T>
+int launch(LayerBwd<T> p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int s = 0; s <= p.T; ++s) {
-    layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(s, p);
+    layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(s, p);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -244,9 +323,11 @@ long long g_rebuild_launches = 0;   // rebuild products launched by launch_recom
 // Recompute mode: for the caller's chunks, in its order (starts t0[0] >
 // t0[1] > ... > t0[n - 1] = 0; chunk k spans [t0[k], t0[k - 1]), chunk 0
 // ends at T; each at most `chunk` steps), the rebuild product of the chunk
-// into act, then its steps t1-1 .. t0; then the final pass.
-int launch_recompute(LayerBwd p, const rst_rebuild::Maps& maps, int D, const float* bias,
-                     float* act, const int* starts, int n_chunks, int chunk, void* stream) {
+// into act (``rebuild(t0, t1)``), then its steps t1-1 .. t0; then the
+// final pass.
+template <typename T, class Rebuild>
+int launch_recompute(LayerBwd<T> p, Rebuild rebuild, float* act, const int* starts,
+                     int n_chunks, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.act = act;
   for (int k = 0, t1 = p.T; k < n_chunks; t1 = starts[k++]) {
@@ -254,36 +335,37 @@ int launch_recompute(LayerBwd p, const rst_rebuild::Maps& maps, int D, const flo
     if (t0 < 0 || t0 >= t1 || t1 - t0 > chunk || (k == n_chunks - 1) != (t0 == 0)) {
       return (int)cudaErrorInvalidValue;
     }
-    const int err = rst_rebuild::launch(maps, t0 * p.B, (t1 - t0) * p.B, D, p.H, bias, act, st);
+    const int err = rebuild(t0, t1, st);
     if (err != 0) return err;
     ++g_rebuild_launches;
     p.t0 = t0;
     for (int t = t1 - 1; t >= t0; --t) {
-      layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(p.T - 1 - t, p);
+      layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(p.T - 1 - t, p);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  layer_bwd_step<<<step_grid(p), rst::kThreads, 0, st>>>(p.T, p);
+  layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(p.T, p);
   return (int)cudaGetLastError();
 }
 
-LayerBwd common(const float* dout, void* dgates, const void* cseq, const float* c0,
-                const float* mask, const void* w_h, void* par, float* dhc, float* dcc,
-                int T, int B, int H) {
-  LayerBwd p;
+template <typename T>
+LayerBwd<T> common(const float* dout, void* dgates, const void* cseq, const float* c0,
+                   const float* mask, const void* w_h, void* par, float* dhc, float* dcc,
+                   int T_, int B, int H) {
+  LayerBwd<T> p;
   p.dout = dout;
-  p.gates = static_cast<bf16*>(dgates);
-  p.cseq = static_cast<const bf16*>(cseq);
+  p.gates = static_cast<T*>(dgates);
+  p.cseq = static_cast<const T*>(cseq);
   p.c0 = c0;
   p.mask = mask;
-  p.w_h = static_cast<const bf16*>(w_h);
-  p.par = static_cast<bf16*>(par);
+  p.w_h = static_cast<const T*>(w_h);
+  p.par = static_cast<T*>(par);
   p.dhc = dhc;
   p.dcc = dcc;
   p.act = nullptr;
   p.t0 = 0;
-  p.T = T;
+  p.T = T_;
   p.B = B;
   p.Bp = (B + 15) / 16 * 16;
   p.H = H;
@@ -302,7 +384,18 @@ extern "C" int rst_lstm_layer_bwd(const float* dout, void* gates, const void* cs
                                   const float* c0, const float* mask, const void* w_h,
                                   void* par, float* dhc, float* dcc, int T, int B, int H,
                                   void* stream) {
-  return launch(common(dout, gates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H), stream);
+  return launch(common<bf16>(dout, gates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H),
+                stream);
+}
+
+// Float32 compute, gates mode: as above with gates, cseq, w_h and par
+// float32.
+extern "C" int rst_lstm_layer_bwd_f32(const float* dout, void* gates, const void* cseq,
+                                      const float* c0, const float* mask, const void* w_h,
+                                      void* par, float* dhc, float* dcc, int T, int B, int H,
+                                      void* stream) {
+  return launch(common<float>(dout, gates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H),
+                stream);
 }
 
 // Recompute mode: as above, with dgates (T, B, 4H) bf16 written fresh and
@@ -323,11 +416,35 @@ extern "C" int rst_lstm_layer_bwd_recompute(const float* dout, void* dgates,
   if (!rst_rebuild::make_maps(&maps, x, h_prev, w_x, w_h, T * B, D, H)) {
     return (int)cudaErrorInvalidValue;
   }
-  LayerBwd p = common(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H);
-  return launch_recompute(p, maps, D, bias, act, starts, n_chunks, chunk, stream);
+  LayerBwd<bf16> p = common<bf16>(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H);
+  auto rebuild = [&](int t0, int t1, cudaStream_t st) {
+    return rst_rebuild::launch(maps, t0 * B, (t1 - t0) * B, D, H, bias, act, st);
+  };
+  return launch_recompute(p, rebuild, act, starts, n_chunks, chunk, stream);
 }
 
-// Rebuild products that rst_lstm_layer_bwd_recompute has launched.
+// Float32 compute, recompute mode: as above with dgates, cseq, w_h, x,
+// h_prev, w_x and par float32, any D (the rebuild's K tail).
+extern "C" int rst_lstm_layer_bwd_recompute_f32(const float* dout, void* dgates,
+                                                const void* cseq, const float* c0,
+                                                const float* mask, const void* w_h,
+                                                const void* x, const void* h_prev,
+                                                const void* w_x, const float* bias, void* par,
+                                                float* dhc, float* dcc, float* act,
+                                                const int* starts, int n_chunks, int chunk,
+                                                int T, int B, int H, int D, void* stream) {
+  if (T <= 0 || B <= 0 || n_chunks <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  LayerBwd<float> p = common<float>(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H);
+  const float *xf = static_cast<const float*>(x), *hf = static_cast<const float*>(h_prev);
+  const float *wxf = static_cast<const float*>(w_x), *whf = static_cast<const float*>(w_h);
+  auto rebuild = [&](int t0, int t1, cudaStream_t st) {
+    return rst_rebuild::launch_f32(xf, hf, wxf, whf, t0 * B, (t1 - t0) * B, D, H, bias, act,
+                                   st);
+  };
+  return launch_recompute(p, rebuild, act, starts, n_chunks, chunk, stream);
+}
+
+// Rebuild products that rst_lstm_layer_bwd_recompute{,_f32} have launched.
 extern "C" long long rst_rebuild_launches() { return g_rebuild_launches; }
 
 // The rebuild product alone: act (rows, 4H) f32 = the activated gates of
@@ -341,4 +458,12 @@ extern "C" int rst_rebuild_gates(const void* x, const void* h_prev, const void* 
     return (int)cudaErrorInvalidValue;
   }
   return rst_rebuild::launch(maps, 0, rows, D, H, bias, act, static_cast<cudaStream_t>(stream));
+}
+
+// The float32 rebuild product alone: as above with float32 operands, any D.
+extern "C" int rst_rebuild_gates_f32(const float* x, const float* h_prev, const float* w_x,
+                                     const float* w_h, const float* bias, float* act, int rows,
+                                     int D, int H, void* stream) {
+  return rst_rebuild::launch_f32(x, h_prev, w_x, w_h, 0, rows, D, H, bias, act,
+                                 static_cast<cudaStream_t>(stream));
 }

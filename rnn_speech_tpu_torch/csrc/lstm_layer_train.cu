@@ -39,14 +39,14 @@ namespace {
 
 using rst::bf16;
 
+template <typename T>
 __global__ void __launch_bounds__(rst::kThreads)
-    layer_train_step(const float* xp_t, const bf16* xpb_t, const bf16* w_h,
-                     const float* mask_t, const bf16* h_in, bf16* h_out, float* h,
-                     float* c, float* out_t, bf16* gates_t, bf16* c_t, int B, int Bp,
-                     int H) {
-  rst::CellStep s;
+    layer_train_step(const float* xp_t, const T* xpr_t, const T* w_h, const float* mask_t,
+                     const T* h_in, T* h_out, float* h, float* c, float* out_t, T* gates_t,
+                     T* c_t, int B, int Bp, int H) {
+  rst::CellStepT<T> s;
   s.xp = xp_t;
-  s.xp_bf = xpb_t;
+  s.xp_res = xpr_t;
   s.bias = nullptr;
   s.x_in = nullptr;
   s.w_x = nullptr;
@@ -65,22 +65,24 @@ __global__ void __launch_bounds__(rst::kThreads)
   rst::lstm_cell_tile(s);
 }
 
-// x_proj f32 (gates mode) or bf16 (lean): (T, B, 4H); the other null.
-int launch(const float* xp, const bf16* xpb, const void* w_h, const float* mask,
-           void* hb, float* h, float* c, float* out, void* gates, void* cseq, int T,
-           int B, int H, void* stream) {
+// x_proj f32 (gates mode) or in the residual type T (lean): (T, B, 4H);
+// the other null.
+template <typename T>
+int launch(const float* xp, const T* xpr, const void* w_h, const float* mask, void* hb,
+           float* h, float* c, float* out, void* gates, void* cseq, int T_, int B, int H,
+           void* stream) {
   const int Bp = (B + 15) / 16 * 16;
   const dim3 grid(H / rst::kJT, (Bp + rst::kRows - 1) / rst::kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* buf = static_cast<bf16*>(hb);
-  bf16* g = static_cast<bf16*>(gates);
-  bf16* cs = static_cast<bf16*>(cseq);
+  T* buf = static_cast<T*>(hb);
+  T* g = static_cast<T*>(gates);
+  T* cs = static_cast<T*>(cseq);
   const size_t plane = (size_t)Bp * H;
   const size_t x_step = (size_t)B * 4 * H, h_step = (size_t)B * H;
-  for (int t = 0; t < T; ++t) {
-    layer_train_step<<<grid, rst::kThreads, 0, st>>>(
+  for (int t = 0; t < T_; ++t) {
+    layer_train_step<T><<<grid, rst::kThreads, 0, st>>>(
         xp != nullptr ? xp + t * x_step : nullptr,
-        xpb != nullptr ? xpb + t * x_step : nullptr, static_cast<const bf16*>(w_h),
+        xpr != nullptr ? xpr + t * x_step : nullptr, static_cast<const T*>(w_h),
         mask + (size_t)t * B, buf + (size_t)(t & 1) * plane,
         buf + (size_t)((t + 1) & 1) * plane, h, c, out + t * h_step,
         g != nullptr ? g + t * x_step : nullptr, cs + t * h_step, B, Bp, H);
@@ -104,8 +106,8 @@ extern "C" int rst_lstm_layer_train(const float* x_proj, const void* w_h,
                                     const float* mask, void* hb, float* h, float* c,
                                     float* out, void* gates, void* cseq, int T, int B,
                                     int H, void* stream) {
-  return launch(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
-                stream);
+  return launch<bf16>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+                      stream);
 }
 
 // Recompute mode: as above with x_proj (T, B, 4H) bf16 and no gates.
@@ -113,6 +115,26 @@ extern "C" int rst_lstm_layer_train_lean(const void* x_proj, const void* w_h,
                                          const float* mask, void* hb, float* h,
                                          float* c, float* out, void* cseq, int T, int B,
                                          int H, void* stream) {
-  return launch(nullptr, static_cast<const bf16*>(x_proj), w_h, mask, hb, h, c, out,
-                nullptr, cseq, T, B, H, stream);
+  return launch<bf16>(nullptr, static_cast<const bf16*>(x_proj), w_h, mask, hb, h, c, out,
+                      nullptr, cseq, T, B, H, stream);
+}
+
+// Float32 compute, gates mode: as rst_lstm_layer_train with w_h, hb, gates
+// and cseq float32.
+extern "C" int rst_lstm_layer_train_f32(const float* x_proj, const void* w_h,
+                                        const float* mask, void* hb, float* h, float* c,
+                                        float* out, void* gates, void* cseq, int T, int B,
+                                        int H, void* stream) {
+  return launch<float>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+                       stream);
+}
+
+// Float32 compute, recompute mode: x_proj (T, B, 4H), w_h, hb and cseq
+// float32.
+extern "C" int rst_lstm_layer_train_lean_f32(const void* x_proj, const void* w_h,
+                                             const float* mask, void* hb, float* h,
+                                             float* c, float* out, void* cseq, int T, int B,
+                                             int H, void* stream) {
+  return launch<float>(nullptr, static_cast<const float*>(x_proj), w_h, mask, hb, h, c, out,
+                       nullptr, cseq, T, B, H, stream);
 }

@@ -26,16 +26,21 @@
 // (csrc/lstm_layer_lean.cu, rst_lstm_recurrence_persistent) runs the
 // shapes the wrapper's plan sends it (`lean_plan(..., x_f32=True)`,
 // ops/lstm_recurrence.py: the serving batches); this kernel the others.
+//
+// Float32 compute (entry rst_lstm_recurrence_f32; the JAX kernel's
+// compute_dtype=float32): the same launches on float32 W_h and h buffers,
+// through the cell's float32 SIMT product (lstm_cell.cuh).  The persistent
+// kernel is bf16 only, so every float32 shape runs here.
 
 #include "lstm_cell.cuh"
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(rst::kThreads)
-    recurrence_step(const float* xp_t, const rst::bf16* w_h, const float* mask_t,
-                    const rst::bf16* h_in, rst::bf16* h_out, float* h, float* c,
-                    float* out_t, int B, int Bp, int H) {
-  rst::CellStep s;
+    recurrence_step(const float* xp_t, const T* w_h, const float* mask_t, const T* h_in,
+                    T* h_out, float* h, float* c, float* out_t, int B, int Bp, int H) {
+  rst::CellStepT<T> s;
   s.xp = xp_t;
   s.bias = nullptr;
   s.x_in = nullptr;
@@ -53,6 +58,29 @@ __global__ void __launch_bounds__(rst::kThreads)
   rst::lstm_cell_tile(s);
 }
 
+template <typename T>
+int launch(const float* x_proj, const void* w_h, const float* mask, void* hb, float* h,
+           float* c, float* out, int T_, int B, int H, void* stream) {
+  const int Bp = (B + 15) / 16 * 16;
+  const int rows_per_block = rst::kMaxMT * 16;
+  const dim3 grid(H / rst::kJT, (Bp + rows_per_block - 1) / rows_per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* w = static_cast<const T*>(w_h);
+  T* buf = static_cast<T*>(hb);
+  const size_t plane = (size_t)Bp * H;
+  for (int t = 0; t < T_; ++t) {
+    recurrence_step<T><<<grid, rst::kThreads, 0, st>>>(
+        x_proj + (size_t)t * B * 4 * H, w, mask + (size_t)t * B,
+        buf + (size_t)(t & 1) * plane, buf + (size_t)((t + 1) & 1) * plane, h, c,
+        out + (size_t)t * B * H, B, Bp, H);
+    if (t == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x_proj (T, B, 4H) f32; w_h (H, 4H) bf16; mask (T, B) f32 {0, 1};
@@ -63,22 +91,12 @@ __global__ void __launch_bounds__(rst::kThreads)
 extern "C" int rst_lstm_recurrence(const float* x_proj, const void* w_h,
                                    const float* mask, void* hb, float* h, float* c,
                                    float* out, int T, int B, int H, void* stream) {
-  const int Bp = (B + 15) / 16 * 16;
-  const int rows_per_block = rst::kMaxMT * 16;
-  const dim3 grid(H / rst::kJT, (Bp + rows_per_block - 1) / rows_per_block);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const rst::bf16* w = static_cast<const rst::bf16*>(w_h);
-  rst::bf16* buf = static_cast<rst::bf16*>(hb);
-  const size_t plane = (size_t)Bp * H;
-  for (int t = 0; t < T; ++t) {
-    recurrence_step<<<grid, rst::kThreads, 0, st>>>(
-        x_proj + (size_t)t * B * 4 * H, w, mask + (size_t)t * B,
-        buf + (size_t)(t & 1) * plane, buf + (size_t)((t + 1) & 1) * plane, h, c,
-        out + (size_t)t * B * H, B, Bp, H);
-    if (t == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<rst::bf16>(x_proj, w_h, mask, hb, h, c, out, T, B, H, stream);
+}
+
+// Float32 compute: as above with w_h (H, 4H) and hb (2, Bp, H) float32.
+extern "C" int rst_lstm_recurrence_f32(const float* x_proj, const void* w_h,
+                                       const float* mask, void* hb, float* h, float* c,
+                                       float* out, int T, int B, int H, void* stream) {
+  return launch<float>(x_proj, w_h, mask, hb, h, c, out, T, B, H, stream);
 }

@@ -31,24 +31,31 @@
 // layer's blocks in it (grid z = layer), all launched by one host call on
 // the caller's stream, and the four-gate tiles of lstm_cell.cuh, which
 // stage 64-wide K chunks of h and W through shared memory with
-// double-buffered cp.async copies.  A persistent, cooperatively launched
-// kernel with W_h in shared memory, wgmma and TMA is later work.
+// double-buffered cp.async copies.  The persistent kernel of
+// csrc/lstm_wavefront_eval.cu runs the bf16 shapes `wavefront_eval_plan`
+// sends it (ops/lstm_wavefront.py); this one the others.
+//
+// Float32 compute (entry rst_lstm_wavefront_f32; the JAX kernel's
+// compute_dtype=float32): the same launches on float32 weights and h
+// buffers, through the cell's float32 SIMT product (lstm_cell.cuh); every
+// float32 shape runs here.
 
 #include "lstm_cell.cuh"
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(rst::kThreads)
-    wavefront_step(int s, const float* xp0, const rst::bf16* w_h, const rst::bf16* w_x,
-                   const float* bias, const float* mask, rst::bf16* hb, float* h,
-                   float* c, float* out, int T, int B, int Bp, int H, int L) {
+    wavefront_step(int s, const float* xp0, const T* w_h, const T* w_x, const float* bias,
+                   const float* mask, T* hb, float* h, float* c, float* out, int T_, int B,
+                   int Bp, int H, int L) {
   const int l = blockIdx.z;
   const int t = s - l;
-  if (t < 0 || t >= T) return;  // uniform over the block
+  if (t < 0 || t >= T_) return;  // uniform over the block
   const size_t plane = (size_t)Bp * H;
   const size_t wsize = (size_t)H * 4 * H;
   const int par = s & 1;
-  rst::CellStep st;
+  rst::CellStepT<T> st;
   st.xp = l == 0 ? xp0 + (size_t)t * B * 4 * H : nullptr;
   st.bias = l > 0 ? bias + (size_t)(l - 1) * 4 * H : nullptr;
   st.x_in = l > 0 ? hb + (size_t)(par * L + l - 1) * plane : nullptr;
@@ -66,6 +73,26 @@ __global__ void __launch_bounds__(rst::kThreads)
   rst::lstm_cell_tile(st);
 }
 
+template <typename T>
+int launch(const float* xp0, const void* w_h, const void* w_x, const float* bias,
+           const float* mask, void* hb, float* h, float* c, float* out, int T_, int B, int H,
+           int L, void* stream) {
+  const int Bp = (B + 15) / 16 * 16;
+  const int rows_per_block = rst::kMaxMT * 16;
+  const dim3 grid(H / rst::kJT, (Bp + rows_per_block - 1) / rows_per_block, L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int s = 0; s < T_ + L - 1; ++s) {
+    wavefront_step<T><<<grid, rst::kThreads, 0, st>>>(
+        s, xp0, static_cast<const T*>(w_h), static_cast<const T*>(w_x), bias, mask,
+        static_cast<T*>(hb), h, c, out, T_, B, Bp, H, L);
+    if (s == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xp0 (T, B, 4H) f32; w_h (L, H, 4H) bf16; w_x (L-1, H, 4H) bf16;
@@ -79,18 +106,13 @@ extern "C" int rst_lstm_wavefront(const float* xp0, const void* w_h, const void*
                                   const float* bias, const float* mask, void* hb,
                                   float* h, float* c, float* out, int T, int B, int H,
                                   int L, void* stream) {
-  const int Bp = (B + 15) / 16 * 16;
-  const int rows_per_block = rst::kMaxMT * 16;
-  const dim3 grid(H / rst::kJT, (Bp + rows_per_block - 1) / rows_per_block, L);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int s = 0; s < T + L - 1; ++s) {
-    wavefront_step<<<grid, rst::kThreads, 0, st>>>(
-        s, xp0, static_cast<const rst::bf16*>(w_h), static_cast<const rst::bf16*>(w_x),
-        bias, mask, static_cast<rst::bf16*>(hb), h, c, out, T, B, Bp, H, L);
-    if (s == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<rst::bf16>(xp0, w_h, w_x, bias, mask, hb, h, c, out, T, B, H, L, stream);
+}
+
+// Float32 compute: as above with w_h, w_x and hb float32.
+extern "C" int rst_lstm_wavefront_f32(const float* xp0, const void* w_h, const void* w_x,
+                                      const float* bias, const float* mask, void* hb,
+                                      float* h, float* c, float* out, int T, int B, int H,
+                                      int L, void* stream) {
+  return launch<float>(xp0, w_h, w_x, bias, mask, hb, h, c, out, T, B, H, L, stream);
 }

@@ -73,6 +73,15 @@
 // cp.async copies (half the chunk count of 64-wide ones), each of the four
 // warps owning one 16-row batch tile.  Keeping W resident on chip and
 // splitting K across warps is later work.
+//
+// Float32 compute (entry rst_lstm_wavefront_bwd_f32; the JAX kernel's
+// compute_dtype=float32 with float32 residuals, unfused): the residuals,
+// the weights, dout_top, dgates, their parity buffer and xdrop are
+// float32, the two carry products SIMT products over 64-wide float32 K
+// chunks (the drop masks of mode 1 stay bf16 {0, 1}).  The persistent
+// kernel and the fused dW_x are bf16 only: in float32 every shape runs
+// here unfused, and the caller takes dW_x from the weight-gradient kernel's
+// float32 tile (ops/lstm_wavefront.py).
 
 #include <algorithm>
 
@@ -88,28 +97,34 @@ constexpr int kBLd = kBKC + 8;             // padded shared row (bf16)
 constexpr int kATile = rst::kRows * kBLd;  // 64 rows of A
 constexpr int kWTile = rst::kJT * kBLd;    // 16 rows of W
 constexpr int kStage = kATile + kWTile;
+// The float32 products' chunk: 64 floats of K, rows padded by four (the
+// same bytes of shared memory as the bf16 stages).
+constexpr int kFKC = 64;
+constexpr int kFLd = kFKC + 4;
+constexpr int kFStage = (rst::kRows + rst::kJT) * kFLd;   // floats of one stage
+static_assert(2 * kFStage * 4 <= 2 * kStage * 2, "float32 stages fit the bf16 ones");
 
 long long g_wgmma_products = 0;   // window products launched on the Hopper tile
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
 
+template <typename E>
 struct BwdArgs {
-  const bf16* dout_top;  // (T, B, H)
-  const bf16* w_h;       // (L, H, 4H)
-  const bf16* w_x;       // (L-1, H, 4H): layers 1..L-1
+  const E* dout_top;     // (T, B, H)
+  const E* w_h;          // (L, H, 4H)
+  const E* w_x;          // (L-1, H, 4H): layers 1..L-1
   const float* mask;     // (T, B)
-  bf16* gates;           // (L, T, B, 4H): activated gates in, dgates out
-  const bf16* cseq;      // (L, T, B, H)
+  E* gates;              // (L, T, B, 4H): activated gates in, dgates out
+  const E* cseq;         // (L, T, B, H)
   const float* c0;       // (L, B, H)
-  bf16* par;             // (2, L, Bp, 4H) dgates by diagonal parity
+  E* par;                // (2, L, Bp, 4H) dgates by diagonal parity
   float* dhc;            // (L, B, H) (1-m)·dh_carry; dh0 at the end
   float* dcc;            // (L, B, H) dc_carry; dc0 at the end
   int T, B, Bp, H, L;
   // Inter-layer dropout (modes 1, 2; xdrop == nullptr in mode 0).
   const bf16* masks;     // (L-1, T, B, H) {0, 1} in mode 1, else null
-  const bf16* outs;      // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
-  bf16* xdrop;           // (L-1, T, B, H) dropped boundary inputs, out, or the
+  const E* outs;         // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
+  E* xdrop;              // (L-1, T, B, H) dropped boundary inputs, out, or the
                          // (L-1, W, B, H) ring of the fused dW_x (W = ring)
   int ring;              // W when xdrop is the ring, else 0
   unsigned seed0, seed1, thr;
@@ -131,37 +146,16 @@ __device__ __forceinline__ void stage(bf16* As, bf16* Ws, const bf16* a, const b
   }
 }
 
-// s < T + L - 1: one reverse diagonal.  s == T + L - 1: the final pass
-// that turns each layer's dh carry into dh0.
-__global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdArgs p) {
+// The two carry products of a (layer, step), bf16: ph = a_h·W_h[J, :]ᵀ and
+// px = a_x·W_x[J, :]ᵀ (zero where the operand is null) into [kRows][kJT]
+// f32 each at the start of smem; warp w owns the 16-row tile w.  Ends with
+// a __syncthreads.
+__device__ __forceinline__ void carry_products(bf16* smem, const bf16* a_h, const bf16* a_x,
+                                               const bf16* w_h, const bf16* w_x, int G,
+                                               int n_mt, int j0) {
   using namespace nvcuda;
-  __shared__ __align__(128) bf16 smem[2 * kStage];
-
-  const int T = p.T, B = p.B, Bp = p.Bp, H = p.H, L = p.L;
-  const int l = blockIdx.z;
-  const bool final_pass = s == T + L - 1;
-  const int off = L - 1 - l;
-  const int t = T - 1 - (s - off);
-  if (!final_pass && (s < off || t < 0)) return;  // uniform over the block
-  const int G = 4 * H;
-  const size_t pplane = (size_t)Bp * G;
-  const int j0 = blockIdx.x * rst::kJT;
-  const int row0 = blockIdx.y * rst::kRows;
-  const int n_mt = min(rst::kMaxMT, (Bp - row0) / 16);
   const int rows = n_mt * 16;
   const int warp = threadIdx.x / 32;
-
-  // The previous diagonal's dgates: layer l's at t+1 and layer l+1's at t.
-  // The final pass reads layer l's dgates at t = 0, from its last diagonal.
-  const int rpar = final_pass ? ((T - 1 + off) & 1) : ((s + 1) & 1);
-  const bf16* a_h = (final_pass || t < T - 1)
-                        ? p.par + (size_t)(rpar * L + l) * pplane + (size_t)row0 * G
-                        : nullptr;
-  const bf16* a_x = (!final_pass && l < L - 1)
-                        ? p.par + (size_t)(rpar * L + l + 1) * pplane + (size_t)row0 * G
-                        : nullptr;
-  const bf16* w_h = p.w_h + (size_t)l * H * G;
-  const bf16* w_x = l < L - 1 ? p.w_x + (size_t)l * H * G : nullptr;  // W_x of layer l+1
   const int n_k = G / kBKC;
   const int n_ah = a_h != nullptr ? n_k : 0;
   const int n_chunks = n_ah + (a_x != nullptr ? n_k : 0);
@@ -212,6 +206,128 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
                             wmma::mem_row_major);
   }
   __syncthreads();
+}
+
+// Stage K columns [k0, k0 + kFKC) of `rows` float32 rows of A and of W's
+// rows j0..j0+15, both row-major with ld 4H.
+__device__ __forceinline__ void stage_f32(float* As, float* Ws, const float* a, const float* w,
+                                          int k0, int rows, int ld, int j0) {
+  constexpr int V = kFKC / 4;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < rows * V; i += rst::kThreads) {
+    const int r = i / V, p = i % V;
+    rst::cp_async16(As + r * kFLd + p * 4, a + (size_t)r * ld + k0 + p * 4);
+  }
+  for (int i = threadIdx.x; i < rst::kJT * V; i += rst::kThreads) {
+    const int r = i / V, p = i % V;
+    rst::cp_async16(Ws + r * kFLd + p * 4, w + (size_t)(j0 + r) * ld + k0 + p * 4);
+  }
+}
+
+// The two carry products in float32, as ``carry_products``: thread (j =
+// tid % 16, rg = tid / 16) sums rows rg + 8i (i < 8) of its unit j over K
+// in ascending order with FMAs.  Ends with a __syncthreads.
+__device__ __forceinline__ void carry_products(float* smem, const float* a_h, const float* a_x,
+                                               const float* w_h, const float* w_x, int G,
+                                               int n_mt, int j0) {
+  const int rows = n_mt * 16;
+  const int j = threadIdx.x % rst::kJT, rg = threadIdx.x / rst::kJT;
+  const int n_k = G / kFKC;
+  const int n_ah = a_h != nullptr ? n_k : 0;
+  const int n_chunks = n_ah + (a_x != nullptr ? n_k : 0);
+  float acc_h[8], acc_x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc_h[i] = acc_x[i] = 0.0f;
+
+  auto load = [&](int c) {
+    float* As = smem + (c & 1) * kFStage;
+    const bool hpart = c < n_ah;
+    stage_f32(As, As + rst::kRows * kFLd, hpart ? a_h : a_x, hpart ? w_h : w_x,
+              (hpart ? c : c - n_ah) * kFKC, rows, G, j0);
+  };
+  if (n_chunks > 0) load(0);
+  rst::cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) load(c + 1);
+    rst::cp_async_commit();
+    rst::cp_async_wait<1>();  // chunk c has landed
+    __syncthreads();
+    const float* As = smem + (c & 1) * kFStage;
+    const float* Ws = As + rst::kRows * kFLd;
+    const bool hpart = c < n_ah;
+    float sum[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum[i] = hpart ? acc_h[i] : acc_x[i];
+#pragma unroll 4
+    for (int k = 0; k < kFKC; k += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(Ws + j * kFLd + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(As + (rg + 8 * i) * kFLd + k);
+        sum[i] = fmaf(av.x, wv.x, sum[i]);
+        sum[i] = fmaf(av.y, wv.y, sum[i]);
+        sum[i] = fmaf(av.z, wv.z, sum[i]);
+        sum[i] = fmaf(av.w, wv.w, sum[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (hpart) {
+        acc_h[i] = sum[i];
+      } else {
+        acc_x[i] = sum[i];
+      }
+    }
+    __syncthreads();  // before the next iteration overwrites this stage
+  }
+  rst::cp_async_wait<0>();
+
+  float* ph = smem;                     // [kRows][kJT]
+  float* px = ph + rst::kRows * rst::kJT;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ph[(rg + 8 * i) * rst::kJT + j] = acc_h[i];
+    px[(rg + 8 * i) * rst::kJT + j] = acc_x[i];
+  }
+  __syncthreads();
+}
+
+// s < T + L - 1: one reverse diagonal.  s == T + L - 1: the final pass
+// that turns each layer's dh carry into dh0.
+template <typename T>
+__global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdArgs<T> p) {
+  __shared__ __align__(128) bf16 smem[2 * kStage];
+
+  const int T_ = p.T, B = p.B, Bp = p.Bp, H = p.H, L = p.L;
+  const int l = blockIdx.z;
+  const bool final_pass = s == T_ + L - 1;
+  const int off = L - 1 - l;
+  const int t = T_ - 1 - (s - off);
+  if (!final_pass && (s < off || t < 0)) return;  // uniform over the block
+  const int G = 4 * H;
+  const size_t pplane = (size_t)Bp * G;
+  const int j0 = blockIdx.x * rst::kJT;
+  const int row0 = blockIdx.y * rst::kRows;
+  const int n_mt = min(rst::kMaxMT, (Bp - row0) / 16);
+  const int rows = n_mt * 16;
+
+  // The previous diagonal's dgates: layer l's at t+1 and layer l+1's at t.
+  // The final pass reads layer l's dgates at t = 0, from its last diagonal.
+  const int rpar = final_pass ? ((T_ - 1 + off) & 1) : ((s + 1) & 1);
+  const T* a_h = (final_pass || t < T_ - 1)
+                     ? p.par + (size_t)(rpar * L + l) * pplane + (size_t)row0 * G
+                     : nullptr;
+  const T* a_x = (!final_pass && l < L - 1)
+                     ? p.par + (size_t)(rpar * L + l + 1) * pplane + (size_t)row0 * G
+                     : nullptr;
+  const T* w_h = p.w_h + (size_t)l * H * G;
+  const T* w_x = l < L - 1 ? p.w_x + (size_t)l * H * G : nullptr;  // W_x of layer l+1
+  if constexpr (std::is_same<T, float>::value) {
+    carry_products(reinterpret_cast<float*>(smem), a_h, a_x, w_h, w_x, G, n_mt, j0);
+  } else {
+    carry_products(smem, a_h, a_x, w_h, w_x, G, n_mt, j0);
+  }
+  const float* ph = reinterpret_cast<const float*>(smem);  // [kRows][kJT]
+  const float* px = ph + rst::kRows * rst::kJT;            // [kRows][kJT]
 
   float* dhc = p.dhc + (size_t)l * B * H;
   float* dcc = p.dcc + (size_t)l * B * H;
@@ -223,14 +339,14 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
     return;
   }
 
-  const size_t step = (size_t)l * T + t;
-  bf16* gates = p.gates + step * B * G;
-  const bf16* c_t = p.cseq + step * B * H;
-  const bf16* c_p = t > 0 ? p.cseq + (step - 1) * B * H : nullptr;
+  const size_t step = (size_t)l * T_ + t;
+  T* gates = p.gates + step * B * G;
+  const T* c_t = p.cseq + step * B * H;
+  const T* c_p = t > 0 ? p.cseq + (step - 1) * B * H : nullptr;
   const float* c0 = p.c0 + (size_t)l * B * H;
-  const bf16* dtop = l == L - 1 ? p.dout_top + (size_t)t * B * H : nullptr;
+  const T* dtop = l == L - 1 ? p.dout_top + (size_t)t * B * H : nullptr;
   const float* mask = p.mask + (size_t)t * B;
-  bf16* wpar = p.par + (size_t)((s & 1) * L + l) * pplane;
+  T* wpar = p.par + (size_t)((s & 1) * L + l) * pplane;
   const size_t step_b = step * B * H;  // (l, t) plane of a (·, T, B, H) stream
   for (int idx = threadIdx.x; idx < rows * rst::kJT; idx += rst::kThreads) {
     const int r = idx / rst::kJT;
@@ -239,7 +355,7 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
     const int j = j0 + idx % rst::kJT;
     const size_t e = (size_t)b * H + j;
     const float m = mask[b];
-    float dout = dtop != nullptr ? bf(dtop[e]) : px[idx];
+    float dout = dtop != nullptr ? rst::to_f(dtop[e]) : px[idx];
     if (p.xdrop != nullptr && l < L - 1) {
       // Boundary l's keep·scale at its producer's diagonal: it scales the
       // cotangent from the layer above and gives the dropped input that
@@ -247,33 +363,33 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
       const size_t de = step_b + e;
       const float keep =
           p.masks != nullptr
-              ? bf(p.masks[de])
+              ? rst::to_f(p.masks[de])
               : (rst::wavefront_keep(p.seed0, p.seed1, p.thr, l, t, b, j) ? 1.0f : 0.0f);
       const float ks = keep * p.scale;
       dout *= ks;
       const size_t xe =
           p.ring > 0 ? ((size_t)l * p.ring + (p.ring - 1 - s % p.ring)) * B * H + e : de;
-      p.xdrop[xe] = __float2bfloat16(bf(p.outs[de]) * ks);
+      p.xdrop[xe] = rst::from_f<T>(rst::to_f(p.outs[de]) * ks);
     }
     const float dh_carry = dhc[e] + ph[idx];  // ph is zero at t = T-1
     const float dc_carry = dcc[e];
-    bf16* g = gates + (size_t)b * G;
-    const float i_a = bf(g[j]), g_a = bf(g[H + j]);
-    const float f_a = bf(g[2 * H + j]), o_a = bf(g[3 * H + j]);
-    const float tanh_c = tanhf(bf(c_t[e]));
-    const float c_prev = c_p != nullptr ? bf(c_p[e]) : c0[e];
+    T* g = gates + (size_t)b * G;
+    const float i_a = rst::to_f(g[j]), g_a = rst::to_f(g[H + j]);
+    const float f_a = rst::to_f(g[2 * H + j]), o_a = rst::to_f(g[3 * H + j]);
+    const float tanh_c = tanhf(rst::to_f(c_t[e]));
+    const float c_prev = c_p != nullptr ? rst::to_f(c_p[e]) : c0[e];
     const float dh_new = m * (dout + dh_carry);
     const float do_pre = dh_new * tanh_c * sig_grad(o_a);
     const float dc_new = dh_new * o_a * (1.0f - tanh_c * tanh_c) + m * dc_carry;
-    const bf16 di = __float2bfloat16(dc_new * g_a * sig_grad(i_a));
-    const bf16 dg = __float2bfloat16(dc_new * i_a * (1.0f - g_a * g_a));
-    const bf16 df = __float2bfloat16(dc_new * c_prev * sig_grad(f_a));
-    const bf16 dq = __float2bfloat16(do_pre);
+    const T di = rst::from_f<T>(dc_new * g_a * sig_grad(i_a));
+    const T dg = rst::from_f<T>(dc_new * i_a * (1.0f - g_a * g_a));
+    const T df = rst::from_f<T>(dc_new * c_prev * sig_grad(f_a));
+    const T dq = rst::from_f<T>(do_pre);
     g[j] = di;
     g[H + j] = dg;
     g[2 * H + j] = df;
     g[3 * H + j] = dq;
-    bf16* w = wpar + (size_t)b * G;
+    T* w = wpar + (size_t)b * G;
     w[j] = di;
     w[H + j] = dg;
     w[2 * H + j] = df;
@@ -286,10 +402,63 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
 // The fused dW_x of the window of diagonals [s0, s1] (W wide): the
 // products of csrc/dwx_windows.cuh on `path`, from the ring (drop mode 2)
 // or the outs residual (mode 0).  Returns the CUDA error code.
-int accumulate_dwx(const BwdArgs& p, int s0, int s1, int W, int path, float* dwx,
+int accumulate_dwx(const BwdArgs<bf16>& p, int s0, int s1, int W, int path, float* dwx,
                    cudaStream_t st) {
   return rst_dwx::accumulate(p.outs, p.xdrop, p.gates, p.T, p.B, p.H, p.L, s0, s1, W, path, dwx,
                              g_wgmma_products, st);
+}
+
+template <typename T>
+int launch(const void* dout_top, const void* w_h, const void* w_x, const float* mask,
+           void* gates, const void* cseq, const float* c0, void* par, float* dhc, float* dcc,
+           int T_, int B, int H, int L, int drop_mode, const void* masks, const void* outs,
+           void* xdrop, unsigned seed0, unsigned seed1, unsigned thr, float scale, int window,
+           float* dwx, int dwx_path, void* stream) {
+  if (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr ||
+                     !std::is_same<T, bf16>::value)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BwdArgs<T> p;
+  p.dout_top = static_cast<const T*>(dout_top);
+  p.w_h = static_cast<const T*>(w_h);
+  p.w_x = static_cast<const T*>(w_x);
+  p.mask = mask;
+  p.gates = static_cast<T*>(gates);
+  p.cseq = static_cast<const T*>(cseq);
+  p.c0 = c0;
+  p.par = static_cast<T*>(par);
+  p.dhc = dhc;
+  p.dcc = dcc;
+  p.T = T_;
+  p.B = B;
+  p.Bp = (B + 15) / 16 * 16;
+  p.H = H;
+  p.L = L;
+  p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
+  p.outs = static_cast<const T*>(outs);
+  p.xdrop = drop_mode != 0 ? static_cast<T*>(xdrop) : nullptr;
+  p.ring = window > 0 ? window : 0;
+  p.seed0 = seed0;
+  p.seed1 = seed1;
+  p.thr = thr;
+  p.scale = scale;
+  const dim3 grid(H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows, L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_diag = T_ + L - 1;
+  for (int s = 0; s < T_ + L; ++s) {
+    wavefront_bwd_step<T><<<grid, rst::kThreads, 0, st>>>(s, p);
+    if (s == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (window > 0 && s < n_diag && ((s + 1) % window == 0 || s == n_diag - 1)) {
+        const int err = accumulate_dwx(p, s - s % window, s, window, dwx_path, dwx, st);
+        if (err != 0) return err;
+      }
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -318,48 +487,23 @@ extern "C" int rst_lstm_wavefront_bwd(const void* dout_top, const void* w_h,
                                       void* xdrop, unsigned seed0, unsigned seed1,
                                       unsigned thr, float scale, int window, float* dwx,
                                       int dwx_path, void* stream) {
-  if (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  BwdArgs p;
-  p.dout_top = static_cast<const bf16*>(dout_top);
-  p.w_h = static_cast<const bf16*>(w_h);
-  p.w_x = static_cast<const bf16*>(w_x);
-  p.mask = mask;
-  p.gates = static_cast<bf16*>(gates);
-  p.cseq = static_cast<const bf16*>(cseq);
-  p.c0 = c0;
-  p.par = static_cast<bf16*>(par);
-  p.dhc = dhc;
-  p.dcc = dcc;
-  p.T = T;
-  p.B = B;
-  p.Bp = (B + 15) / 16 * 16;
-  p.H = H;
-  p.L = L;
-  p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
-  p.outs = static_cast<const bf16*>(outs);
-  p.xdrop = drop_mode != 0 ? static_cast<bf16*>(xdrop) : nullptr;
-  p.ring = window > 0 ? window : 0;
-  p.seed0 = seed0;
-  p.seed1 = seed1;
-  p.thr = thr;
-  p.scale = scale;
-  const dim3 grid(H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows, L);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_diag = T + L - 1;
-  for (int s = 0; s < T + L; ++s) {
-    wavefront_bwd_step<<<grid, rst::kThreads, 0, st>>>(s, p);
-    if (s == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    if (window > 0 && s < n_diag && ((s + 1) % window == 0 || s == n_diag - 1)) {
-      const int err = accumulate_dwx(p, s - s % window, s, window, dwx_path, dwx, st);
-      if (err != 0) return err;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<bf16>(dout_top, w_h, w_x, mask, gates, cseq, c0, par, dhc, dcc, T, B, H, L,
+                      drop_mode, masks, outs, xdrop, seed0, seed1, thr, scale, window, dwx,
+                      dwx_path, stream);
+}
+
+// Float32 compute, unfused: as above with dout_top, the weights, gates,
+// cseq, par, outs and xdrop float32 (masks stay bf16); no window.
+extern "C" int rst_lstm_wavefront_bwd_f32(const void* dout_top, const void* w_h,
+                                          const void* w_x, const float* mask, void* gates,
+                                          const void* cseq, const float* c0, void* par,
+                                          float* dhc, float* dcc, int T, int B, int H, int L,
+                                          int drop_mode, const void* masks, const void* outs,
+                                          void* xdrop, unsigned seed0, unsigned seed1,
+                                          unsigned thr, float scale, void* stream) {
+  return launch<float>(dout_top, w_h, w_x, mask, gates, cseq, c0, par, dhc, dcc, T, B, H, L,
+                       drop_mode, masks, outs, xdrop, seed0, seed1, thr, scale, 0, nullptr, 0,
+                       stream);
 }
 
 // Window products launched on the Hopper tile so far.
@@ -370,7 +514,7 @@ extern "C" long long rst_wgmma_products() { return g_wgmma_products; }
 // by window, dW_x of layers 1..L-1 from outs (for timing and tests).
 extern "C" int rst_dwx_windows(const void* outs, const void* dgates, int T, int B, int H,
                                int L, int window, float* dwx, int dwx_path, void* stream) {
-  BwdArgs p = {};
+  BwdArgs<bf16> p = {};
   p.outs = static_cast<const bf16*>(outs);
   p.gates = static_cast<bf16*>(const_cast<void*>(dgates));
   p.T = T;

@@ -38,33 +38,41 @@
 // default step's B <= 64 at H = D = 1024) the persistent kernel of
 // csrc/lstm_wavefront_persistent.cu runs instead (W_h resident, the layers
 // paced by counters); this one serves the others (the wide step).
+//
+// Float32 compute (entry rst_lstm_wavefront_train_f32; the JAX kernel's
+// compute_dtype=float32 with float32 residuals): x, the weights, the h
+// buffers, the dropped copies and every residual stream are float32, the
+// products the cell's float32 SIMT product (lstm_cell.cuh); the persistent
+// kernel is bf16 only, so every float32 shape runs here.  The drop masks of
+// mode 1 stay bf16 {0, 1}.
 
 #include "lstm_cell.cuh"
 
 namespace {
 
 // Inter-layer dropout (drop modes 1, 2; mode 0 has xb == nullptr).
+template <typename T>
 struct Drop {
   const rst::bf16* masks;  // (L-1, T, B, H) {0, 1} (mode 1), or null (mode 2)
-  rst::bf16* xb;           // (2, L-1, Bp, H) dropped copies by diagonal parity
+  T* xb;                   // (2, L-1, Bp, H) dropped copies by diagonal parity
   unsigned seed0, seed1, thr;
   float scale;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(rst::kThreads)
-    wavefront_train_step(int s, const rst::bf16* x, const rst::bf16* w_x0,
-                         const rst::bf16* w_h, const rst::bf16* w_x, const float* bias,
-                         const float* mask, rst::bf16* hb, float* h, float* c,
-                         rst::bf16* outs, rst::bf16* gates, rst::bf16* cseq, int T,
-                         int B, int Bp, int H, int D, int L, Drop drop) {
+    wavefront_train_step(int s, const T* x, const T* w_x0, const T* w_h, const T* w_x,
+                         const float* bias, const float* mask, T* hb, float* h, float* c,
+                         T* outs, T* gates, T* cseq, int T_, int B, int Bp, int H, int D, int L,
+                         Drop<T> drop) {
   const int l = blockIdx.z;
   const int t = s - l;
-  if (t < 0 || t >= T) return;  // uniform over the block
+  if (t < 0 || t >= T_) return;  // uniform over the block
   const size_t plane = (size_t)Bp * H;
   const size_t wsize = (size_t)H * 4 * H;
-  const size_t step = ((size_t)l * T + t) * B;  // first row of (l, t) in a stream
+  const size_t step = ((size_t)l * T_ + t) * B;  // first row of (l, t) in a stream
   const int par = s & 1;
-  rst::CellStep st;
+  rst::CellStepT<T> st;
   st.xp = nullptr;
   st.bias = bias + (size_t)l * 4 * H;
   if (l == 0) {
@@ -89,7 +97,7 @@ __global__ void __launch_bounds__(rst::kThreads)
   if (drop.xb != nullptr && l < L - 1) {  // this layer feeds boundary l
     st.x_drop = drop.xb + (size_t)((par ^ 1) * (L - 1) + l) * plane;
     st.drop_mask = drop.masks != nullptr
-                       ? drop.masks + ((size_t)l * T + t) * B * H
+                       ? drop.masks + ((size_t)l * T_ + t) * B * H
                        : nullptr;
     st.seed0 = drop.seed0;
     st.seed1 = drop.seed1;
@@ -102,6 +110,36 @@ __global__ void __launch_bounds__(rst::kThreads)
   st.Bp = Bp;
   st.H = H;
   rst::lstm_cell_tile(st);
+}
+
+template <typename T>
+int launch(const void* x, const void* w_x0, const void* w_h, const void* w_x,
+           const float* bias, const float* mask, void* hb, float* h, float* c, void* outs,
+           void* gates, void* cseq, int T_, int B, int H, int D, int L, int drop_mode,
+           const void* masks, void* xb, unsigned seed0, unsigned seed1, unsigned thr,
+           float scale, void* stream) {
+  const int Bp = (B + 15) / 16 * 16;
+  const dim3 grid(H / rst::kJT, (Bp + rst::kRows - 1) / rst::kRows, L);
+  Drop<T> drop;
+  drop.masks = drop_mode == 1 ? static_cast<const rst::bf16*>(masks) : nullptr;
+  drop.xb = drop_mode != 0 ? static_cast<T*>(xb) : nullptr;
+  drop.seed0 = seed0;
+  drop.seed1 = seed1;
+  drop.thr = thr;
+  drop.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int s = 0; s < T_ + L - 1; ++s) {
+    wavefront_train_step<T><<<grid, rst::kThreads, 0, st>>>(
+        s, static_cast<const T*>(x), static_cast<const T*>(w_x0), static_cast<const T*>(w_h),
+        static_cast<const T*>(w_x), bias, mask, static_cast<T*>(hb), h, c,
+        static_cast<T*>(outs), static_cast<T*>(gates), static_cast<T*>(cseq), T_, B, Bp, H, D,
+        L, drop);
+    if (s == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -124,27 +162,20 @@ extern "C" int rst_lstm_wavefront_train(const void* x, const void* w_x0, const v
                                         const void* masks, void* xb, unsigned seed0,
                                         unsigned seed1, unsigned thr, float scale,
                                         void* stream) {
-  using rst::bf16;
-  const int Bp = (B + 15) / 16 * 16;
-  const dim3 grid(H / rst::kJT, (Bp + rst::kRows - 1) / rst::kRows, L);
-  Drop drop;
-  drop.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
-  drop.xb = drop_mode != 0 ? static_cast<bf16*>(xb) : nullptr;
-  drop.seed0 = seed0;
-  drop.seed1 = seed1;
-  drop.thr = thr;
-  drop.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int s = 0; s < T + L - 1; ++s) {
-    wavefront_train_step<<<grid, rst::kThreads, 0, st>>>(
-        s, static_cast<const bf16*>(x), static_cast<const bf16*>(w_x0),
-        static_cast<const bf16*>(w_h), static_cast<const bf16*>(w_x), bias, mask,
-        static_cast<bf16*>(hb), h, c, static_cast<bf16*>(outs),
-        static_cast<bf16*>(gates), static_cast<bf16*>(cseq), T, B, Bp, H, D, L, drop);
-    if (s == 0) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch<rst::bf16>(x, w_x0, w_h, w_x, bias, mask, hb, h, c, outs, gates, cseq, T, B,
+                           H, D, L, drop_mode, masks, xb, seed0, seed1, thr, scale, stream);
+}
+
+// Float32 compute: as above with x, the weights, hb, xb and the residual
+// streams float32 (masks stay bf16).
+extern "C" int rst_lstm_wavefront_train_f32(const void* x, const void* w_x0, const void* w_h,
+                                            const void* w_x, const float* bias,
+                                            const float* mask, void* hb, float* h, float* c,
+                                            void* outs, void* gates, void* cseq, int T,
+                                            int B, int H, int D, int L, int drop_mode,
+                                            const void* masks, void* xb, unsigned seed0,
+                                            unsigned seed1, unsigned thr, float scale,
+                                            void* stream) {
+  return launch<float>(x, w_x0, w_h, w_x, bias, mask, hb, h, c, outs, gates, cseq, T, B, H,
+                       D, L, drop_mode, masks, xb, seed0, seed1, thr, scale, stream);
 }

@@ -24,10 +24,14 @@ the skinny tile (``"skinny"``: one block per 128 columns of the wider of
 x and dg and the narrow side whole, TMA-fed ``wgmma``, f32 operands
 rounded to bf16 in the kernel, db in the same pass) for one A operand
 where min(D, G) <= 256 and D, G are multiples of 8 (the input and output
-projections); the WMMA tile (``"wmma"``) for every other shape.
+projections); the WMMA tile (``"wmma"``) for every other shape.  Those
+three compute in bf16.  With ``compute_dtype=float32`` (the JAX kernels'
+float32 mode) every shape runs the float32 tile (``"f32"``: SIMT FMA
+sums of float32 operands, 128x128 output tiles, nothing rounded).
 ``<wrapper>.launches`` counts the calls that launched the kernel,
-``<wrapper>.wgmma_launches`` those on the Hopper tile and
-``weight_grad.skinny_launches`` those on the skinny tile.
+``<wrapper>.wgmma_launches`` those on the Hopper tile,
+``weight_grad.skinny_launches`` those on the skinny tile and
+``<wrapper>.f32_launches`` those on the float32 tile.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ f32, bf16 = torch.float32, torch.bfloat16
 #: columns, K rows per step) per block; the skinny tile's rows are columns
 #: of its wide operand, its columns the narrow side.
 PATH_IDS = {"wmma": 0, "wgmma": 1}
-TILES = {"wmma": (128, 128, 32), "wgmma": (128, 256, 64), "skinny": (128, 256, 64)}
+TILES = {"wmma": (128, 128, 32), "wgmma": (128, 256, 64), "skinny": (128, 256, 64),
+         "f32": (128, 128, 8)}
 COLUMN_ROWS = 4096          # dg rows per db partial of the Hopper tile (kColRows in C)
 _MIN_ROWS_PER_SPLIT = 1024  # K slices shorter than this cost more than they add
 _MAX_SPLITS = 8             # of the Hopper tile, whose blocks fill an SM each
@@ -75,12 +80,15 @@ class Plan:
     smem: int = 0
 
 
-def product_path(dims: Sequence[int], G: int, dg_dtype) -> str:
+def product_path(dims: Sequence[int], G: int, dg_dtype, compute_dtype=bf16) -> str:
     """The tile product for A operands of widths ``dims`` and a dg of G
-    columns in ``dg_dtype``: ``"wgmma"`` (the Hopper tile) for bf16 dg,
-    every width a positive multiple of 64 and G of 256; ``"skinny"`` for
-    one operand of D columns where D and G are positive multiples of 8 and
-    min(D, G) <= 256; else ``"wmma"``."""
+    columns in ``dg_dtype``: ``"f32"`` (the float32 tile) for float32
+    compute, whatever the shape; in bf16 compute ``"wgmma"`` (the Hopper
+    tile) for bf16 dg, every width a positive multiple of 64 and G of 256;
+    ``"skinny"`` for one operand of D columns where D and G are positive
+    multiples of 8 and min(D, G) <= 256; else ``"wmma"``."""
+    if compute_dtype == f32:
+        return "f32"
     if (dg_dtype == bf16 and G > 0 and G % 256 == 0
             and all(d > 0 and d % 64 == 0 for d in dims)):
         return "wgmma"
@@ -139,23 +147,25 @@ def _skinny_plan(D: int, N: int, G: int, dg_dtype, a_dtype, sms: int) -> Plan:
                 skinny_smem(w_bytes, n_bytes, n, stages))
 
 
-def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int, a_dtype=bf16) -> Plan:
+def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int, a_dtype=bf16,
+         compute_dtype=bf16) -> Plan:
     """The product's path and K partition on a card of ``sms`` SMs, from
-    the shapes alone (and, for the skinny tile, the operands' dtypes:
-    ``a_dtype`` float32 or bf16), so every call at one shape runs the same
-    sums.  The WMMA tile splits K until there are four blocks per SM; the
-    Hopper tile, one block per SM, takes the fewest splits (at most 8) that
-    keep 90% of its last wave busy, or the busiest; the skinny tile as
-    ``_skinny_plan`` says.  A slice keeps at least 1024 rows."""
-    path = product_path(dims, G, dg_dtype)
+    the shapes and the compute dtype alone (and, for the skinny tile, the
+    operands' dtypes: ``a_dtype`` float32 or bf16), so every call at one
+    shape runs the same sums.  The WMMA tile splits K until there are four
+    blocks per SM, the float32 tile until there are two; the Hopper tile,
+    one block per SM, takes the fewest splits (at most 8) that keep 90% of
+    its last wave busy, or the busiest; the skinny tile as ``_skinny_plan``
+    says.  A slice keeps at least 1024 rows."""
+    path = product_path(dims, G, dg_dtype, compute_dtype)
     if path == "skinny":
         return _skinny_plan(dims[0], N, G, dg_dtype, a_dtype, sms)
     bm, bn, bk = TILES[path]
     tiles = sum(-(-d // bm) for d in dims) * -(-G // bn)
     steps = -(-N // bk)
     most = max(1, N // _MIN_ROWS_PER_SPLIT)
-    if path == "wmma":
-        splits = min(-(-4 * sms // tiles), most)
+    if path in ("wmma", "f32"):
+        splits = min(-(-(4 if path == "wmma" else 2) * sms // tiles), most)
     else:
         def fill(s):
             return tiles * s / (-(-tiles * s // sms) * sms)
@@ -168,8 +178,8 @@ def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int, a_dtype=bf16) 
 def _buffers(pl: Plan, rows: int, N: int, G: int,
              device) -> Tuple[Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
     """(dw (rows, G), db (G,), partial, partial_db) float32.  partial
-    (splits, rows, G) only when K is split.  partial_db: on the WMMA and
-    skinny tiles (splits, G) when K is split; on the Hopper tile, whose db
+    (splits, rows, G) only when K is split.  partial_db: on the WMMA,
+    skinny and float32 tiles (splits, G) when K is split; on the Hopper tile, whose db
     is a separate fixed-order column-sum pass, (ceil(N / COLUMN_ROWS), G)
     whatever the split."""
     dw = torch.zeros((rows, G), dtype=f32, device=device)
@@ -219,19 +229,25 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
             skip_split: int = -1) -> Tuple[Tensor, Tensor, str]:
     """Run the kernel on the (N, d) operands and the (N, G) dg; returns
     (dw (Σd, G) with the operands' rows stacked, db (G,), the path that
-    ran).  The skinny tile takes a float32 or bf16 operand as it is and
-    rounds it in the kernel; the other tiles take it rounded to bf16 here.
-    ``skip_split`` >= 0 plants a fault on the skinny tile for checks: that
-    K slice is left out."""
-    if compute_dtype != bf16:
-        raise TypeError(f"the weight-gradient kernel computes in bf16, got {compute_dtype}")
+    ran).  In bf16 compute the skinny tile takes a float32 or bf16 operand
+    as it is and rounds it in the kernel, the other tiles take it rounded to
+    bf16 here; in float32 compute the float32 tile takes every operand and
+    dg in float32 (a bf16 one widened exactly).  ``skip_split`` >= 0 plants
+    a fault on the skinny tile for checks: that K slice is left out."""
+    if compute_dtype not in (bf16, f32):
+        raise TypeError(f"the weight-gradient kernel computes in bf16 or float32, got "
+                        f"{compute_dtype}")
     dev = dg.device
     if dg.dtype not in (f32, bf16):
         raise TypeError(f"dg must be float32 or bfloat16, got {dg.dtype}")
     N, G = dg.shape
-    skinny = product_path([a.shape[1] for a in operands], G, dg.dtype) == "skinny"
-    ops = [(a if skinny and a.dtype in (f32, bf16) else a.to(bf16)).contiguous()
-           for a in operands]
+    path = product_path([a.shape[1] for a in operands], G, dg.dtype, compute_dtype)
+    if path == "f32":
+        ops = [a.to(f32).contiguous() for a in operands]
+        dg = dg.to(f32)
+    else:
+        ops = [(a if path == "skinny" and a.dtype in (f32, bf16) else a.to(bf16)).contiguous()
+               for a in operands]
     dg = dg.contiguous()
     for name, t in [("dg", dg)] + [(f"operand {i}", a) for i, a in enumerate(ops)]:
         if t.device != dev:
@@ -245,7 +261,8 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
     dims = [a.shape[1] for a in ops]
     with torch.cuda.device(dev):
         pl = plan(dims, N, G, dg.dtype,
-                  torch.cuda.get_device_properties(dev).multi_processor_count, ops[0].dtype)
+                  torch.cuda.get_device_properties(dev).multi_processor_count, ops[0].dtype,
+                  compute_dtype)
         dw, db, partial, partial_db = _buffers(pl, sum(dims), N, G, dev)
         if N == 0:
             return dw, db, pl.path
@@ -254,7 +271,13 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
         tail = [int(dg.dtype == f32), N, G, pl.splits, pl.rows_per_split, ptr(partial),
                 ptr(partial_db), dw.data_ptr(), db.data_ptr(), stream]
         P, I = ctypes.c_void_p, ctypes.c_int
-        if pl.path == "skinny":
+        if pl.path == "f32":
+            fn = _lib_fn("rst_weight_grads_f32", [P, I, P, I, P, I, I, I, I, P, P, P, P, P])
+            second = ops[1] if len(ops) == 2 else None
+            rc = fn(ops[0].data_ptr(), dims[0], ptr(second), dims[1] if second is not None else 0,
+                    dg.data_ptr(), N, G, pl.splits, pl.rows_per_split, ptr(partial),
+                    ptr(partial_db), dw.data_ptr(), db.data_ptr(), stream)
+        elif pl.path == "skinny":
             fn = _lib_fn("rst_weight_grad_skinny", [P, I, I, P, I, I, I, I, I, I, I, P, P, P, P,
                                                     I, P])
             rc = fn(ops[0].data_ptr(), int(ops[0].dtype == f32), dims[0], dg.data_ptr(),
@@ -277,20 +300,23 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
 def weight_grad(x: Tensor, dg: Tensor, *,
                 compute_dtype=bf16) -> Tuple[Tensor, Tensor]:
     """(dw (D, G) f32, db (G,) f32) = xᵀ·dg, Σ dg over all leading axes;
-    the kernel on a CUDA device (bf16 compute), the plain version on the
-    CPU."""
+    the kernel on a CUDA device (bf16 or float32 compute), the plain
+    version on the CPU."""
     if not x.is_cuda:
         return weight_grad_plain(x, dg, compute_dtype)
     dw, db, path = _launch([_rows(x)], _rows(dg), compute_dtype)
     weight_grad.launches += 1
     weight_grad.wgmma_launches += path == "wgmma"
     weight_grad.skinny_launches += path == "skinny"
+    if path == "f32":
+        weight_grad.f32_launches += 1
     return dw, db
 
 
 weight_grad.launches = 0
 weight_grad.wgmma_launches = 0
 weight_grad.skinny_launches = 0
+weight_grad.f32_launches = 0
 
 
 def dgates_weight_grads(h_prev: Tensor, x: Tensor, dgates: Tensor, *,
@@ -304,8 +330,11 @@ def dgates_weight_grads(h_prev: Tensor, x: Tensor, dgates: Tensor, *,
     dw, db, path = _launch([_rows(h_prev), _rows(x)], _rows(dgates), compute_dtype)
     dgates_weight_grads.launches += 1
     dgates_weight_grads.wgmma_launches += path == "wgmma"
+    if path == "f32":
+        dgates_weight_grads.f32_launches += 1
     return dw[:H], dw[H:], db
 
 
 dgates_weight_grads.launches = 0
 dgates_weight_grads.wgmma_launches = 0
+dgates_weight_grads.f32_launches = 0

@@ -64,6 +64,16 @@ per-step recompute kernel.
 (``_lstm_core_recompute``), whose weight gradients go through the
 weight-gradient kernel (``ops/grad_matmul.py``) and dx = dgates·W_xᵀ
 through a matmul.
+
+Both compute modes of the JAX kernels run on the card, chosen by W_h's
+dtype, with residuals of the same dtype (``kernel_dtype``; mixed modes
+raise): bf16, and float32 (the JAX kernels' default compute dtype:
+float32 operands, h buffers, residuals and dgates, nothing rounded).  The
+persistent kernels and the tensor-core rebuild are bf16 only (``lean_plan``
+and ``bwd_plan`` answer the per-step kernels for float32), so float32 runs
+the per-step kernels' float32 instances and the float32 rebuild product,
+which takes any input width D; ``<wrapper>.f32_launches`` counts those
+calls.
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 # The persistent forward's plan and weight layout live beside the inference
 # recurrence, which shares the kernel.
 from rnn_speech_tpu_torch.ops.lstm_recurrence import (
-    H100_SMS, SMEM_LIMIT, check_kernel_inputs, lean_plan, lean_weights)
+    H100_SMS, SMEM_LIMIT, check_kernel_inputs, kernel_dtype, lean_plan, lean_weights)
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -157,37 +167,44 @@ def recurrence_train_lean_plain(x_proj, w_h, mask, h0, c0, res_dtype):
     return out, h, c, cseq
 
 
+def _suffix(mode) -> str:
+    """The C entry's suffix of a compute mode: none for bf16, ``_f32``."""
+    return "_f32" if mode == f32 else ""
+
+
 def _forward_launch(lib_name, x_proj, w_h, mask, h0, c0, res_dtype, keep_gates):
+    """The per-step forward (csrc/lstm_layer_train.cu) in the compute mode
+    of W_h's dtype: (out, hn, cn, gates or None, cseq)."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
-    if res_dtype != bf16:
-        raise TypeError(f"the layer training kernels store bf16 residuals, got {res_dtype}")
+    mode = kernel_dtype(w_h.dtype, res_dtype)
     dev = x_proj.device
     check_kernel_inputs([
-        ("x_proj", x_proj, f32 if keep_gates else bf16, (T, B, 4 * H)),
-        ("w_h", w_h, bf16, (H, 4 * H)),
+        ("x_proj", x_proj, f32 if keep_gates else mode, (T, B, 4 * H)),
+        ("w_h", w_h, mode, (H, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
         ("h0", h0, f32, (B, H)),
         ("c0", c0, f32, (B, H)),
     ], dev, H)
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
-        hb = torch.zeros((2, Bp, H), dtype=bf16, device=dev)
-        hb[0, :B] = h0.to(bf16)
+        hb = torch.zeros((2, Bp, H), dtype=mode, device=dev)
+        hb[0, :B] = h0.to(mode)
         h, c = h0.clone(), c0.clone()
         out = torch.empty((T, B, H), dtype=f32, device=dev)
-        gates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev) if keep_gates else None
-        cseq = torch.empty((T, B, H), dtype=bf16, device=dev)
+        gates = torch.empty((T, B, 4 * H), dtype=mode, device=dev) if keep_gates else None
+        cseq = torch.empty((T, B, H), dtype=mode, device=dev)
         if T == 0:
             return out, h, c, gates, cseq
         stream = _build.launch_stream(dev)
         head = [x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(), hb.data_ptr(),
                 h.data_ptr(), c.data_ptr(), out.data_ptr()]
         if keep_gates:
-            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train", [P] * 9 + [I] * 3 + [P])
+            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train" + _suffix(mode),
+                         [P] * 9 + [I] * 3 + [P])
             rc = fn(*head, gates.data_ptr(), cseq.data_ptr(), T, B, H, stream)
         else:
-            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train_lean",
+            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train_lean" + _suffix(mode),
                          [P] * 8 + [I] * 3 + [P])
             rc = fn(*head, cseq.data_ptr(), T, B, H, stream)
     if rc != 0:
@@ -239,21 +256,23 @@ def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: 
     """Gates-mode training forward of one layer: x_proj (T, B, 4H) float32,
     w_h (H, 4H) in the compute dtype, mask (T, 1, B), h0, c0 (B, H) float32.
     Returns (out, hn, cn, gates, cseq) as ``recurrence_train_plain``; on a
-    CUDA device the kernel ``lean_plan(B, H, sms, x_f32=True)`` picks by
-    shape, the persistent one (``persistent_launches`` adds the library's
-    count of its launches) or the per-step one; the plain version on the
-    CPU."""
+    CUDA device the kernel ``lean_plan(B, H, sms, x_f32=True, dtype)``
+    picks by shape and compute dtype, the persistent one
+    (``persistent_launches`` adds the library's count of its launches) or
+    the per-step one (``f32_launches`` counts its float32 calls); the plain
+    version on the CPU."""
     if not x_proj.is_cuda:
         return recurrence_train_plain(x_proj, w_h, mask, h0, c0, res_dtype)
     T, B, four_h = x_proj.shape
     H = four_h // 4
+    mode = kernel_dtype(w_h.dtype, res_dtype)
     sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
-    plan = lean_plan(B, H, sms, x_f32=True)
+    plan = lean_plan(B, H, sms, x_f32=True, dtype=mode)
     if plan["kernel"] == "per_step":
         res = _forward_launch("lstm_layer_train", x_proj, w_h, mask, h0, c0, res_dtype, True)
+        if mode == f32:
+            recurrence_train.f32_launches += 1
     else:
-        if res_dtype != bf16:
-            raise TypeError(f"the layer training kernels store bf16 residuals, got {res_dtype}")
         check_kernel_inputs([
             ("x_proj", x_proj, f32, (T, B, 4 * H)),
             ("w_h", w_h, bf16, (H, 4 * H)),
@@ -270,6 +289,7 @@ def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: 
 
 recurrence_train.launches = 0
 recurrence_train.persistent_launches = 0
+recurrence_train.f32_launches = 0
 
 
 def _lean_persistent_launch(x_proj, w_h, mask, h0, c0, plan, skip_barrier=0):
@@ -310,21 +330,23 @@ def recurrence_train_lean(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
                           c0: Tensor, res_dtype) -> Tuple[Tensor, ...]:
     """Recompute-mode training forward: as ``recurrence_train`` with x_proj
     in the residual dtype; returns (out, hn, cn, cseq).  On a CUDA device
-    ``lean_plan`` picks the kernel by shape: the persistent one
-    (``persistent_launches`` adds the library's count of its launches), or
-    the per-step one; a failed launch raises."""
+    ``lean_plan`` picks the kernel by shape and compute dtype: the
+    persistent one (``persistent_launches`` adds the library's count of its
+    launches), or the per-step one (``f32_launches`` counts its float32
+    calls); a failed launch raises."""
     if not x_proj.is_cuda:
         return recurrence_train_lean_plain(x_proj, w_h, mask, h0, c0, res_dtype)
     T, B, four_h = x_proj.shape
     H = four_h // 4
+    mode = kernel_dtype(w_h.dtype, res_dtype)
     sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
-    plan = lean_plan(B, H, sms)
+    plan = lean_plan(B, H, sms, dtype=mode)
     if plan["kernel"] == "per_step":
         out, h, c, _, cseq = _forward_launch("lstm_layer_train_lean", x_proj, w_h, mask, h0,
                                              c0, res_dtype, False)
+        if mode == f32:
+            recurrence_train_lean.f32_launches += 1
     else:
-        if res_dtype != bf16:
-            raise TypeError(f"the layer training kernels store bf16 residuals, got {res_dtype}")
         check_kernel_inputs([
             ("x_proj", x_proj, bf16, (T, B, 4 * H)),
             ("w_h", w_h, bf16, (H, 4 * H)),
@@ -341,6 +363,7 @@ def recurrence_train_lean(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
 
 recurrence_train_lean.launches = 0
 recurrence_train_lean.persistent_launches = 0
+recurrence_train_lean.f32_launches = 0
 
 
 def _backward_plain(dout, activations, cseq, c0, mask, w_h, dhn, dcn, dgates):
@@ -412,33 +435,37 @@ def rebuild_chunks(T: int, chunk: int):
     return [(t0, min(T, t0 + chunk)) for t0 in reversed(range(0, T, chunk))]
 
 
-def _rebuild_checks(x, h_prev, w_x, b):
-    """The rebuild product's operands for ``check_kernel_inputs``; raises
-    unless D is a multiple of 64 (the product's K stage)."""
+def _rebuild_checks(x, h_prev, w_x, b, mode=bf16):
+    """The rebuild product's operands in compute mode ``mode`` for
+    ``check_kernel_inputs``; in bf16 raises unless D is a multiple of 64
+    (the tensor-core product's K stage; the float32 product takes any D)."""
     D, H = x.shape[-1], h_prev.shape[-1]
-    if D % 64:
-        raise ValueError(f"the recompute backward kernel needs D % 64 == 0, got D={D}")
-    return [("x", x, bf16, (*x.shape[:-1], D)), ("h_prev", h_prev, bf16, (*x.shape[:-1], H)),
-            ("w_x", w_x, bf16, (D, 4 * H)), ("b", b, f32, (4 * H,))]
+    if mode == bf16 and D % 64:
+        raise ValueError(f"the recompute backward kernel needs D % 64 == 0 in bf16, got D={D}")
+    return [("x", x, mode, (*x.shape[:-1], D)), ("h_prev", h_prev, mode, (*x.shape[:-1], H)),
+            ("w_x", w_x, mode, (D, 4 * H)), ("b", b, f32, (4 * H,))]
 
 
 def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor) -> Tensor:
     """The recompute backward's rebuild product alone: (rows, 4H) float32
     activated gates as ``rebuild_gates_plain`` for x (rows, D) and h_prev
-    (rows, H) bf16, w_x (D, 4H), w_h (H, 4H) bf16 and b (4H,) float32; the
-    kernel on a CUDA device, the plain version on the CPU."""
+    (rows, H), w_x (D, 4H), w_h (H, 4H), all bf16 or all float32 (the
+    compute mode), and b (4H,) float32; the kernel on a CUDA device, the
+    plain version on the CPU."""
     if not x.is_cuda:
         return rebuild_gates_plain(x, h_prev, w_x, w_h, b)
     rows, H = h_prev.shape[0], w_h.shape[0]
     D = x.shape[-1]
     dev = x.device
-    check_kernel_inputs(_rebuild_checks(x, h_prev, w_x, b) + [("w_h", w_h, bf16, (H, 4 * H))],
-                        dev, H)
+    mode = kernel_dtype(w_h.dtype)
+    check_kernel_inputs(_rebuild_checks(x, h_prev, w_x, b, mode)
+                        + [("w_h", w_h, mode, (H, 4 * H))], dev, H)
     with torch.cuda.device(dev):
         act = torch.empty((rows, 4 * H), dtype=f32, device=dev)
         if rows == 0:
             return act
-        fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates", [P] * 6 + [I] * 3 + [P])
+        fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates" + _suffix(mode),
+                     [P] * 6 + [I] * 3 + [P])
         rc = fn(x.data_ptr(), h_prev.data_ptr(), w_x.data_ptr(), w_h.data_ptr(), b.data_ptr(),
                 act.data_ptr(), rows, D, H, _build.launch_stream(dev))
     if rc != 0:
@@ -450,14 +477,14 @@ def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor
 rebuild_gates.launches = 0
 
 
-def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra):
+def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra, mode=bf16):
     T, B, H = cseq.shape
     check_kernel_inputs([
         ("dout", dout, f32, (T, B, H)),
-        ("cseq", cseq, bf16, (T, B, H)),
+        ("cseq", cseq, mode, (T, B, H)),
         ("c0", c0, f32, (B, H)),
         ("mask", mask, f32, (T, 1, B)),
-        ("w_h", w_h, bf16, (H, 4 * H)),
+        ("w_h", w_h, mode, (H, 4 * H)),
         ("dhn", dhn, f32, (B, H)),
         ("dcn", dcn, f32, (B, H)),
     ] + extra, cseq.device, H)
@@ -484,10 +511,12 @@ def bwd_smem(H: int, warpgroups: int = 1) -> int:
             + 8 * (1 + warpgroups + warpgroups * boxes) + 1024)
 
 
-def bwd_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
+def bwd_plan(B: int, H: int, sms: int = H100_SMS, dtype=bf16) -> dict:
     """Which kernel runs the layer backward at (B, H) on a card of ``sms``
     SMs, in either residual mode (``recurrence_bwd`` and
-    ``recurrence_bwd_recompute`` both ask), decided by shape alone.
+    ``recurrence_bwd_recompute`` both ask), decided by shape and compute
+    dtype alone.  The persistent kernel computes in bf16: a float32
+    ``dtype`` always answers the per-step kernel.
 
     The persistent kernel needs its whole grid co-resident, one CTA an SM:
     ``slices`` = H/64 unit slices times 8 CTAs, each an eighth of K = 4H,
@@ -501,7 +530,7 @@ def bwd_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
     "persistent", "groups", "warpgroups", "slices", "grid", "rows" (the row
     groups' rows), "smem"} or {"kernel": "per_step"}."""
     per_step = {"kernel": "per_step"}
-    if B < 1 or H < 128 or H % 128:
+    if dtype != bf16 or B < 1 or H < 128 or H % 128:
         return per_step
     groups, slices = -(-B // BWD_ROWS), H // BWD_UNITS
     warpgroups = 1 if groups == 1 else BWD_WARPGROUPS
@@ -576,8 +605,9 @@ def _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn):
         if T == 0:
             return gates, dh, dc
         Bp = -(-B // 16) * 16
-        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd", [P] * 9 + [I] * 3 + [P])
+        par = torch.zeros((2, Bp, 4 * H), dtype=gates.dtype, device=dev)
+        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd" + _suffix(gates.dtype),
+                     [P] * 9 + [I] * 3 + [P])
         rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 mask.data_ptr(), w_h.data_ptr(), par.data_ptr(), dh.data_ptr(),
                 dc.data_ptr(), T, B, H, _build.launch_stream(dev))
@@ -593,28 +623,33 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
     initial c as the residual stores it (rounded to the residual dtype),
     mask (T, 1, B), w_h (H, 4H), dhn, dcn (B, H) float32.  ``gates`` is
     overwritten with dgates.  Returns (dgates (the ``gates`` tensor), dh0,
-    dc0); on a CUDA device the kernel ``bwd_plan`` picks by shape, the
-    persistent one (``persistent_launches`` adds the library's count of its
-    launches) or the per-step one; the plain version on the CPU."""
+    dc0); on a CUDA device the kernel ``bwd_plan`` picks by shape and
+    compute dtype, the persistent one (``persistent_launches`` adds the
+    library's count of its launches) or the per-step one (``f32_launches``
+    counts its float32 calls); the plain version on the CPU."""
     if not gates.is_cuda:
         return recurrence_bwd_plain(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
     T, B, H = cseq.shape
+    mode = kernel_dtype(w_h.dtype, gates.dtype)
     _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn,
-                [("gates", gates, bf16, (T, B, 4 * H))])
+                [("gates", gates, mode, (T, B, 4 * H))], mode)
     dev = gates.device
-    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode)
     if plan["kernel"] == "persistent":
         before = bwd_persistent_launches()
         res = _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan)
         recurrence_bwd.persistent_launches += bwd_persistent_launches() - before
     else:
         res = _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
+        if mode == f32:
+            recurrence_bwd.f32_launches += 1
     recurrence_bwd.launches += 1
     return res
 
 
 recurrence_bwd.launches = 0
 recurrence_bwd.persistent_launches = 0
+recurrence_bwd.f32_launches = 0
 
 
 def _recompute_chunks(T: int, B: int, H: int):
@@ -634,16 +669,17 @@ def _recompute_per_step_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn
     T, B, H = cseq.shape
     D = x.shape[-1]
     dev = cseq.device
+    mode = cseq.dtype
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        dgates = torch.empty((T, B, 4 * H), dtype=bf16, device=dev)
+        dgates = torch.empty((T, B, 4 * H), dtype=mode, device=dev)
         if T == 0 or B == 0:
             return dgates, dh, dc, 0
         chunk, starts = _recompute_chunks(T, B, H)
         Bp = -(-B // 16) * 16
-        par = torch.zeros((2, Bp, 4 * H), dtype=bf16, device=dev)
+        par = torch.zeros((2, Bp, 4 * H), dtype=mode, device=dev)
         act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute",
+        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute" + _suffix(mode),
                      [P] * 15 + [I] * 6 + [P])
         before = _lib_count("lstm_layer_bwd", "rst_rebuild_launches")
         rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
@@ -703,9 +739,10 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
     gates rebuilt from x (T, B, D) and h_prev (T, B, H) in the residual
     dtype, w_x (D, 4H) and the bias b (4H,) float32.  Returns (dgates
     (T, B, 4H) in the residual dtype, dh0, dc0).  On a CUDA device the
-    kernel ``bwd_plan`` picks by shape: the persistent one, a launch a
-    rebuild chunk (``persistent_launches`` adds the library's count), or the
-    per-step one (``per_step_launches`` counts its calls);
+    kernel ``bwd_plan`` picks by shape and compute dtype: the persistent
+    one, a launch a rebuild chunk (``persistent_launches`` adds the
+    library's count), or the per-step one (``per_step_launches`` counts its
+    calls, ``f32_launches`` its float32 calls, whose rebuild takes any D);
     ``rebuild_launches`` adds the rebuild products either launched.  The
     plain version on the CPU."""
     if not cseq.is_cuda:
@@ -713,9 +750,11 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
                                               w_h, dhn, dcn)
     T, B, H = cseq.shape
     dev = cseq.device
-    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, _rebuild_checks(x, h_prev, w_x, b))
+    mode = kernel_dtype(w_h.dtype, cseq.dtype)
+    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, _rebuild_checks(x, h_prev, w_x, b, mode),
+                mode)
     args = (dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn)
-    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode)
     if plan["kernel"] == "persistent":
         before = recompute_persistent_launches()
         *res, rebuilds = _recompute_persistent_launch(*args, plan)
@@ -723,6 +762,8 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
     else:
         *res, rebuilds = _recompute_per_step_launch(*args)
         recurrence_bwd_recompute.per_step_launches += T > 0 and B > 0
+        if mode == f32:
+            recurrence_bwd_recompute.f32_launches += 1
     recurrence_bwd_recompute.launches += 1
     recurrence_bwd_recompute.rebuild_launches += rebuilds
     return tuple(res)
@@ -732,6 +773,7 @@ recurrence_bwd_recompute.launches = 0
 recurrence_bwd_recompute.rebuild_launches = 0
 recurrence_bwd_recompute.persistent_launches = 0
 recurrence_bwd_recompute.per_step_launches = 0
+recurrence_bwd_recompute.f32_launches = 0
 
 
 # ------------------------------------------------------- differentiable layer

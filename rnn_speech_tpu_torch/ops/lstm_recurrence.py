@@ -26,6 +26,14 @@ x_proj; its plan and weight layout live here, beside this module's
 that launched a kernel, ``lstm_recurrence.persistent_launches`` those of
 the persistent kernel (read from its library's own count at the launch
 site).
+
+Both compute modes of the JAX kernel run on the card, chosen by W_h's
+dtype (``kernel_dtype``): bf16 (h rounded to bf16 for the product) and
+float32 (float32 W_h and h, no rounding: the JAX kernel's default
+``compute_dtype=float32``).  The persistent kernel is bf16 only
+(``lean_plan``'s ``dtype``), so float32 runs the per-step kernel's
+float32 instance (``rst_lstm_recurrence_f32``); ``lstm_recurrence.
+f32_launches`` counts those calls.
 """
 
 from __future__ import annotations
@@ -38,6 +46,22 @@ import torch
 from rnn_speech_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
+f32, bf16 = torch.float32, torch.bfloat16
+
+
+def kernel_dtype(w_dtype, res_dtype=None):
+    """The LSTM kernels' compute mode for weights of ``w_dtype``: bf16 or
+    float32, the JAX kernels' two compute dtypes.  Where the kernel also
+    stores residuals, ``res_dtype`` must be the same dtype: mixed modes
+    (bf16 compute with float32 residuals, or the reverse) are not ported
+    and raise ``TypeError``, as does any other dtype."""
+    if w_dtype not in (bf16, f32):
+        raise TypeError(f"the LSTM kernels compute in bfloat16 or float32, got {w_dtype}")
+    if res_dtype is not None and res_dtype != w_dtype:
+        raise TypeError(f"mixed compute and residual dtypes are not ported: {w_dtype} "
+                        f"compute with {res_dtype} residuals (the kernels take bfloat16 "
+                        f"or float32 for both)")
+    return w_dtype
 
 
 def lstm_recurrence_plain(x_proj: Tensor, w_h: Tensor, mask: Tensor,
@@ -65,8 +89,9 @@ def lstm_recurrence_plain(x_proj: Tensor, w_h: Tensor, mask: Tensor,
     return out, h, c
 
 
-def _lib_fn():
-    fn = _build.load("lstm_recurrence").rst_lstm_recurrence
+def _lib_fn(dtype=bf16):
+    lib = _build.load("lstm_recurrence")
+    fn = lib.rst_lstm_recurrence if dtype == bf16 else lib.rst_lstm_recurrence_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -94,11 +119,14 @@ def lean_smem(H: int, tiles: int, stages: int, x_f32: bool = False) -> int:
     return (H // 64) * _BOX + stages * tiles * _BOX + x_bytes + 8 * bars + 1024
 
 
-def lean_plan(B: int, H: int, sms: int = H100_SMS, x_f32: bool = False) -> dict:
+def lean_plan(B: int, H: int, sms: int = H100_SMS, x_f32: bool = False,
+              dtype=bf16) -> dict:
     """Which kernel runs the persistent forward's recurrence at (B, H) on a
-    card of ``sms`` SMs, decided by shape alone: the recompute-mode training
-    forward (bf16 x_proj) or, with ``x_f32``, the inference recurrence
-    (f32 x_proj, staged through shared memory by TMA).
+    card of ``sms`` SMs, decided by shape and compute dtype alone: the
+    recompute-mode training forward (bf16 x_proj) or, with ``x_f32``, the
+    inference recurrence (f32 x_proj, staged through shared memory by TMA).
+    The persistent kernel computes in bf16: a float32 ``dtype`` always
+    answers the per-step kernel.
 
     The persistent kernel needs its whole grid co-resident, one CTA an SM:
     ``slices`` = H/16 unit slices times ``groups`` row groups of at most
@@ -112,7 +140,7 @@ def lean_plan(B: int, H: int, sms: int = H100_SMS, x_f32: bool = False) -> dict:
     Returns {"kernel": "persistent", "groups", "tiles", "slices", "grid",
     "stages", "rows" (the padded h rows), "smem"} or {"kernel": "per_step"}."""
     per_step = {"kernel": "per_step"}
-    if B < 1 or H < 64 or H % 64:
+    if dtype != bf16 or B < 1 or H < 64 or H % 64:
         return per_step
     slices = H // LEAN_UNITS
     m_tiles = -(-B // 64)
@@ -202,26 +230,27 @@ def persistent_launches() -> int:
 
 def lstm_recurrence(x_proj: Tensor, w_h: Tensor, mask: Tensor,
                     h0: Tensor, c0: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """(out (T, B, H), hn, cn) of one layer; on a CUDA device (bf16 W_h,
-    float32 everything else) the kernel ``lean_plan(..., x_f32=True)``
-    picks by shape, the persistent one (``persistent_launches`` adds the
-    library's count of its launches) or the per-step one; the plain
+    """(out (T, B, H), hn, cn) of one layer; on a CUDA device (bf16 or
+    float32 W_h, float32 everything else) the kernel ``lean_plan(...,
+    x_f32=True, dtype)`` picks by shape and dtype, the persistent one
+    (``persistent_launches`` adds the library's count of its launches) or
+    the per-step one (``f32_launches`` counts its float32 calls); the plain
     version on the CPU."""
     if not x_proj.is_cuda:
         return lstm_recurrence_plain(x_proj, w_h, mask, h0, c0)
     T, B, four_h = x_proj.shape
     H = four_h // 4
     dev = x_proj.device
-    f32 = torch.float32
+    mode = kernel_dtype(w_h.dtype)
     check_kernel_inputs([
         ("x_proj", x_proj, f32, (T, B, 4 * H)),
-        ("w_h", w_h, torch.bfloat16, (H, 4 * H)),
+        ("w_h", w_h, mode, (H, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
         ("h0", h0, f32, (B, H)),
         ("c0", c0, f32, (B, H)),
     ], dev, H)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = lean_plan(B, H, sms, x_f32=True)
+    plan = lean_plan(B, H, sms, x_f32=True, dtype=mode)
     if plan["kernel"] == "persistent":
         before = persistent_launches()
         res = _persistent_launch(x_proj, w_h, mask, h0, c0, plan)
@@ -230,22 +259,25 @@ def lstm_recurrence(x_proj: Tensor, w_h: Tensor, mask: Tensor,
         return res
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
-        hb = torch.zeros((2, Bp, H), dtype=torch.bfloat16, device=dev)
-        hb[0, :B] = h0.to(torch.bfloat16)
+        hb = torch.zeros((2, Bp, H), dtype=mode, device=dev)
+        hb[0, :B] = h0.to(mode)
         h = h0.clone()
         c = c0.clone()
         out = torch.empty((T, B, H), dtype=f32, device=dev)
         if T == 0:
             return out, h, c
         stream = _build.launch_stream(dev)
-        rc = _lib_fn()(x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
-                       hb.data_ptr(), h.data_ptr(), c.data_ptr(),
-                       out.data_ptr(), T, B, H, stream)
+        rc = _lib_fn(mode)(x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
+                           hb.data_ptr(), h.data_ptr(), c.data_ptr(),
+                           out.data_ptr(), T, B, H, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_recurrence kernel launch failed: CUDA error {rc}")
     lstm_recurrence.launches += 1
+    if mode == f32:
+        lstm_recurrence.f32_launches += 1
     return out, h, c
 
 
 lstm_recurrence.launches = 0
 lstm_recurrence.persistent_launches = 0
+lstm_recurrence.f32_launches = 0

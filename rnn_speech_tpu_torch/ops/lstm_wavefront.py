@@ -63,6 +63,17 @@ per-diagonal kernels issue one CUDA launch per diagonal from one host
 call); ``<wrapper>.persistent_launches`` of the three wrappers those of
 their persistent kernels, read from each library's own count at the
 launch site.
+
+Both compute modes of the JAX kernels run on the card, chosen by the
+weights' dtype, with residuals of the same dtype (``kernel_dtype``; mixed
+modes raise): bf16, and float32 (the JAX kernels' default compute dtype
+with float32 residuals: float32 operands, h buffers, residuals, dgates and
+xdrop, nothing rounded).  The persistent kernels are bf16 only (the plans'
+``dtype``), so float32 runs the per-diagonal kernels' float32 instances,
+whose calls ``<wrapper>.f32_launches`` counts.  The fused dW_x is bf16
+only: in float32 the stack's backward runs the reverse diagonal unfused
+and takes dW_x of layers 1..L-1 from the weight-gradient kernel's float32
+tile (the same sums in another order; ``_WavefrontStackTrain``).
 """
 
 from __future__ import annotations
@@ -78,7 +89,8 @@ from rnn_speech_tpu_torch.ops import _build, dropout, grad_matmul, lstm_layer_tr
 from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads, weight_grad
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
-from rnn_speech_tpu_torch.ops.lstm_recurrence import H100_SMS, SMEM_LIMIT, check_kernel_inputs
+from rnn_speech_tpu_torch.ops.lstm_recurrence import (
+    H100_SMS, SMEM_LIMIT, check_kernel_inputs, kernel_dtype)
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -178,14 +190,15 @@ def wavefront_eval_layout(B: int, H: int, L: int, sms: int = H100_SMS):
             "ring": WAVEFRONT_RING, "smem": wavefront_eval_smem(resident, groups)}
 
 
-def wavefront_eval_plan(B: int, H: int, L: int, sms: int = H100_SMS) -> dict:
+def wavefront_eval_plan(B: int, H: int, L: int, sms: int = H100_SMS, dtype=bf16) -> dict:
     """Which kernel runs the inference forward at (B, H, L) on a card of
-    ``sms`` SMs, decided by shape alone: the persistent one where
-    ``wavefront_eval_layout`` takes the shape (the eval batch's B=128 and
-    ``--file``'s B=1 at 3x1024: 129 CTAs), else the per-diagonal kernel (B
-    past two row groups, more CTAs than SMs).  Returns {"kernel":
-    "persistent", **layout} or {"kernel": "per_diagonal"}."""
-    layout = wavefront_eval_layout(B, H, L, sms)
+    ``sms`` SMs, decided by shape and compute dtype alone: the persistent
+    one where ``wavefront_eval_layout`` takes a bf16 shape (the eval batch's
+    B=128 and ``--file``'s B=1 at 3x1024: 129 CTAs), else the per-diagonal
+    kernel (B past two row groups, more CTAs than SMs, float32 compute).
+    Returns {"kernel": "persistent", **layout} or {"kernel":
+    "per_diagonal"}."""
+    layout = wavefront_eval_layout(B, H, L, sms) if dtype == bf16 else None
     if layout is None:
         return {"kernel": "per_diagonal"}
     return {"kernel": "persistent", **layout}
@@ -240,16 +253,18 @@ def _eval_per_diagonal_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0):
     T, B, four_h = xp0.shape
     H, L = four_h // 4, w_h.shape[0]
     dev = xp0.device
+    mode = w_h.dtype
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
-        hb = torch.zeros((2, L, Bp, H), dtype=bf16, device=dev)
-        hb[:, :, :B] = h0.to(bf16)[None]
+        hb = torch.zeros((2, L, Bp, H), dtype=mode, device=dev)
+        hb[:, :, :B] = h0.to(mode)[None]
         h = h0.clone()
         c = c0.clone()
         out = torch.empty((T, B, H), dtype=f32, device=dev)
         if T == 0:
             return out, h, c
-        fn = _build.load("lstm_wavefront").rst_lstm_wavefront
+        lib = _build.load("lstm_wavefront")
+        fn = lib.rst_lstm_wavefront if mode == bf16 else lib.rst_lstm_wavefront_f32
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         rc = fn(xp0.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(), b_rest.data_ptr(),
@@ -270,9 +285,11 @@ def lstm_stack_wavefront(
     c0: Tensor,         # (L, B, H) f32
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """(out (T, B, H), hn (L, B, H), cn (L, B, H)); on a CUDA device (bf16
-    weights) the kernel ``wavefront_eval_plan`` picks by shape, the
-    persistent one (``persistent_launches`` adds the library's count of its
-    launches) or the per-diagonal one; the plain version on the CPU."""
+    or float32 weights) the kernel ``wavefront_eval_plan`` picks by shape
+    and compute dtype, the persistent one (``persistent_launches`` adds the
+    library's count of its launches) or the per-diagonal one
+    (``f32_launches`` counts its float32 calls); the plain version on the
+    CPU."""
     T, B, four_h = xp0.shape
     H = four_h // 4
     L = w_h.shape[0]
@@ -283,16 +300,18 @@ def lstm_stack_wavefront(
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
     dev = xp0.device
+    mode = kernel_dtype(w_h.dtype)
     check_kernel_inputs([
         ("xp0", xp0, f32, (T, B, 4 * H)),
-        ("w_h", w_h, bf16, (L, H, 4 * H)),
-        ("w_x_rest", w_x_rest, bf16, (L - 1, H, 4 * H)),
+        ("w_h", w_h, mode, (L, H, 4 * H)),
+        ("w_x_rest", w_x_rest, mode, (L - 1, H, 4 * H)),
         ("b_rest", b_rest, f32, (L - 1, 1, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
         ("h0", h0, f32, (L, B, H)),
         ("c0", c0, f32, (L, B, H)),
     ], dev, H)
-    plan = wavefront_eval_plan(B, H, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = wavefront_eval_plan(B, H, L, torch.cuda.get_device_properties(dev).multi_processor_count,
+                               mode)
     if plan["kernel"] == "persistent":
         before = _library_launches("lstm_wavefront_eval", "rst_wavefront_eval_launches")
         res = _eval_persistent_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0, plan)
@@ -302,11 +321,14 @@ def lstm_stack_wavefront(
         res = _eval_per_diagonal_launch(xp0, w_h, w_x_rest, b_rest, mask, h0, c0)
     if T:                                            # T = 0 launches nothing
         lstm_stack_wavefront.launches += 1
+        if mode == f32:
+            lstm_stack_wavefront.f32_launches += 1
     return res
 
 
 lstm_stack_wavefront.launches = 0
 lstm_stack_wavefront.persistent_launches = 0
+lstm_stack_wavefront.f32_launches = 0
 
 
 def lstm_stack_wavefront_apply(
@@ -457,14 +479,16 @@ def wavefront_layout(B: int, H: int, L: int, D: int, sms: int = H100_SMS):
             "ring": WAVEFRONT_RING, "smem": wavefront_smem(resident)}
 
 
-def wavefront_plan(B: int, H: int, L: int, D: int, sms: int = H100_SMS) -> dict:
+def wavefront_plan(B: int, H: int, L: int, D: int, sms: int = H100_SMS,
+                   dtype=bf16) -> dict:
     """Which kernel runs the training forward at (B, H, L, D) on a card of
-    ``sms`` SMs, decided by shape alone: the persistent one where
-    ``wavefront_layout`` takes the shape (the default step's B=64 at H = D =
-    1024, L = 3: 3 x 43 = 129 CTAs), else the per-diagonal kernel (the wide
-    step's B=394, D != H, more CTAs than SMs).  Returns {"kernel":
-    "persistent", **layout} or {"kernel": "per_diagonal"}."""
-    layout = wavefront_layout(B, H, L, D, sms)
+    ``sms`` SMs, decided by shape and compute dtype alone: the persistent
+    one where ``wavefront_layout`` takes a bf16 shape (the default step's
+    B=64 at H = D = 1024, L = 3: 3 x 43 = 129 CTAs), else the per-diagonal
+    kernel (the wide step's B=394, D != H, more CTAs than SMs, float32
+    compute).  Returns {"kernel": "persistent", **layout} or {"kernel":
+    "per_diagonal"}."""
+    layout = wavefront_layout(B, H, L, D, sms) if dtype == bf16 else None
     if layout is None:
         return {"kernel": "per_diagonal"}
     return {"kernel": "persistent", **layout}
@@ -556,10 +580,11 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     w_x_rest (L-1, H, 4H) in the compute dtype; b_all (L, 4H), mask
     (T, 1, B), h0, c0 (L, B, H) float32.  Returns the residual streams
     (outs, gates, cseq) and (hn, cn) as ``wavefront_train_plain`` does;
-    on a CUDA device (bf16 operands and residuals) the kernel
-    ``wavefront_plan`` picks by shape, the persistent one
-    (``persistent_launches`` adds the library's count of its launches) or
-    the per-diagonal one; the plain version on the CPU."""
+    on a CUDA device (bf16 or float32 operands and residuals, one dtype)
+    the kernel ``wavefront_plan`` picks by shape and compute dtype, the
+    persistent one (``persistent_launches`` adds the library's count of its
+    launches) or the per-diagonal one (``f32_launches`` counts its float32
+    calls); the plain version on the CPU."""
     T, B, D = x.shape
     L, H = w_h.shape[0], w_h.shape[1]
     if w_x_rest.shape[0] != L - 1 or b_all.shape[0] != L:
@@ -570,16 +595,15 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                                      keep_prob)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
-    if res_dtype != bf16:
-        raise TypeError(f"the training kernel stores bf16 residuals, got {res_dtype}")
+    mode = kernel_dtype(w_h.dtype, res_dtype)
     if D % 64:
         raise ValueError(f"the training kernel needs D % 64 == 0, got D={D}")
     dev = x.device
     check_kernel_inputs([
-        ("x", x, bf16, (T, B, D)),
-        ("w_x0", w_x0, bf16, (D, 4 * H)),
-        ("w_h", w_h, bf16, (L, H, 4 * H)),
-        ("w_x_rest", w_x_rest, bf16, (L - 1, H, 4 * H)),
+        ("x", x, mode, (T, B, D)),
+        ("w_x0", w_x0, mode, (D, 4 * H)),
+        ("w_h", w_h, mode, (L, H, 4 * H)),
+        ("w_x_rest", w_x_rest, mode, (L - 1, H, 4 * H)),
         ("b_all", b_all, f32, (L, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
         ("h0", h0, f32, (L, B, H)),
@@ -587,7 +611,8 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     ], dev, H)
     masks, seed0, seed1, thr, scale = _drop_launch_args(
         drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
-    plan = wavefront_plan(B, H, L, D, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = wavefront_plan(B, H, L, D, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          mode)
     drop = (drop_mode, masks, seed0, seed1, thr, scale)
     if plan["kernel"] == "persistent":
         before = persistent_launches()
@@ -597,6 +622,8 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
         res = _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop)
     if T:                                            # T = 0 launches nothing
         wavefront_train.launches += 1
+        if mode == f32:
+            wavefront_train.f32_launches += 1
     return res
 
 
@@ -608,22 +635,24 @@ def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
     L, H = w_h.shape[0], w_h.shape[1]
     drop_mode, masks, seed0, seed1, thr, scale = drop
     dev = x.device
+    mode = w_h.dtype
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
         # The dropped copies the layers above read, by diagonal parity.
-        xb = (torch.zeros((2, L - 1, Bp, H), dtype=bf16, device=dev)
+        xb = (torch.zeros((2, L - 1, Bp, H), dtype=mode, device=dev)
               if drop_mode else None)
         if Bp != B:  # the cell reads whole 16-row tiles of x
             x = torch.nn.functional.pad(x, (0, 0, 0, Bp - B))
-        hb = torch.zeros((2, L, Bp, H), dtype=bf16, device=dev)
-        hb[:, :, :B] = h0.to(bf16)[None]
+        hb = torch.zeros((2, L, Bp, H), dtype=mode, device=dev)
+        hb[:, :, :B] = h0.to(mode)[None]
         h, c = h0.clone(), c0.clone()
-        outs = torch.empty((L, T, B, H), dtype=bf16, device=dev)
-        gates = torch.empty((L, T, B, 4 * H), dtype=bf16, device=dev)
-        cseq = torch.empty((L, T, B, H), dtype=bf16, device=dev)
+        outs = torch.empty((L, T, B, H), dtype=mode, device=dev)
+        gates = torch.empty((L, T, B, 4 * H), dtype=mode, device=dev)
+        cseq = torch.empty((L, T, B, H), dtype=mode, device=dev)
         if T == 0:
             return outs, gates, cseq, h, c
-        fn = _build.load("lstm_wavefront_train").rst_lstm_wavefront_train
+        lib = _build.load("lstm_wavefront_train")
+        fn = lib.rst_lstm_wavefront_train if mode == bf16 else lib.rst_lstm_wavefront_train_f32
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 2 + [ctypes.c_uint] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -640,6 +669,7 @@ def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
 
 wavefront_train.launches = 0
 wavefront_train.persistent_launches = 0
+wavefront_train.f32_launches = 0
 
 
 def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
@@ -709,15 +739,15 @@ def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,
 
 
 def _bwd_buffers(L: int, T: int, B: int, H: int, drop_mode: int, fuse_dwx: bool,
-                 device) -> Tuple[Tensor, Tensor, int]:
+                 device, dtype=bf16) -> Tuple[Tensor, Tensor, int]:
     """(xdrop, dwx, window): the kernel's outputs beside dgates, dh0 and dc0
-    and its accumulation window.  Unfused: the (L-1, T, B, H) bf16 xdrop
-    stream in drop modes 1 and 2 (None in mode 0), no dwx, window 0.
+    and its accumulation window.  Unfused: the (L-1, T, B, H) xdrop stream
+    in ``dtype`` in drop modes 1 and 2 (None in mode 0), no dwx, window 0.
     Fused: the (L-1, W, B, H) bf16 ring of W = min(FUSE_DWX_WINDOW,
     T + L - 1) diagonals in mode 2 (None in mode 0), the zeroed
     (L-1, H, 4H) float32 dwx and W."""
     if not fuse_dwx:
-        xdrop = (torch.empty((L - 1, T, B, H), dtype=bf16, device=device)
+        xdrop = (torch.empty((L - 1, T, B, H), dtype=dtype, device=device)
                  if drop_mode else None)
         return xdrop, None, 0
     W = min(FUSE_DWX_WINDOW, T + L - 1)
@@ -790,16 +820,18 @@ def wavefront_bwd_layout(B: int, H: int, L: int, sms: int = H100_SMS, window: in
 
 
 def wavefront_bwd_plan(B: int, H: int, L: int, fuse_dwx: bool = False,
-                       sms: int = H100_SMS) -> dict:
+                       sms: int = H100_SMS, dtype=bf16) -> dict:
     """Which kernel runs the reverse diagonal at (B, H, L) on a card of
-    ``sms`` SMs, decided by shape alone: the persistent one, unfused or
-    with the fused dW_x (``window`` = FUSE_DWX_WINDOW), where
-    ``wavefront_bwd_layout`` takes the shape (every batch at 3x1024: 3 x 11
-    x 4 = 132 CTAs; the default step's B=64 in one launch, the wide step's
-    B=394 in four row groups a window), else the per-diagonal kernel (more
-    CTAs than SMs, H % 64, one layer).  Returns {"kernel": "persistent",
+    ``sms`` SMs, decided by shape and compute dtype alone: the persistent
+    one, unfused or with the fused dW_x (``window`` = FUSE_DWX_WINDOW),
+    where ``wavefront_bwd_layout`` takes a bf16 shape (every batch at
+    3x1024: 3 x 11 x 4 = 132 CTAs; the default step's B=64 in one launch,
+    the wide step's B=394 in four row groups a window), else the
+    per-diagonal kernel (more CTAs than SMs, H % 64, one layer, float32
+    compute, which runs unfused).  Returns {"kernel": "persistent",
     **layout} or {"kernel": "per_diagonal"}."""
-    layout = wavefront_bwd_layout(B, H, L, sms, FUSE_DWX_WINDOW if fuse_dwx else 0)
+    layout = (wavefront_bwd_layout(B, H, L, sms, FUSE_DWX_WINDOW if fuse_dwx else 0)
+              if dtype == bf16 else None)
     if layout is None:
         return {"kernel": "per_diagonal"}
     return {"kernel": "persistent", **layout}
@@ -873,9 +905,10 @@ def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn
     H = four_h // 4
     drop_mode, masks, seed0, seed1, thr, scale = drop
     dev = gates.device
+    mode = gates.dtype
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev)
+        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev, mode)
         if fuse_dwx:
             res = (gates, dh, dc, dwx)
         else:
@@ -883,24 +916,28 @@ def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn
         if T == 0:
             return res
         Bp = -(-B // 16) * 16
-        par = torch.zeros((2, L, Bp, 4 * H), dtype=bf16, device=dev)
+        par = torch.zeros((2, L, Bp, 4 * H), dtype=mode, device=dev)
         lib = _build.load("lstm_wavefront_bwd")
-        fn = lib.rst_lstm_wavefront_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_void_p])
+        head = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                + [ctypes.c_uint] * 3 + [ctypes.c_float])
+        args = [dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
+                mask.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
+                _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
+                seed0, seed1, thr, scale]
+        if mode == bf16:
+            fn = lib.rst_lstm_wavefront_bwd
+            fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            args += [window, _ptr(dwx),
+                     grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)]]
+        else:
+            fn = lib.rst_lstm_wavefront_bwd_f32
+            fn.argtypes = head + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         products = lib.rst_wgmma_products
         products.argtypes, products.restype = [], ctypes.c_longlong
         before = products()
-        rc = fn(dout_top.data_ptr(), w_h.data_ptr(), w_x_rest.data_ptr(),
-                mask.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
-                par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
-                _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
-                seed0, seed1, thr, scale, window, _ptr(dwx),
-                grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)],
-                _build.launch_stream(dev))
+        rc = fn(*args, _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_wavefront_bwd kernel launch failed: CUDA error {rc}")
     wavefront_bwd.wgmma_products += products() - before
@@ -932,11 +969,12 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     in the compute dtype; mask (T, 1, B); gates (L, T, B, 4H) and cseq
     (L, T, B, H): the forward's residuals; c0, dhn, dcn (L, B, H) float32.
     ``gates`` is overwritten with dgates.  Returns (dgates (the ``gates``
-    tensor), dh0, dc0); on a CUDA device (bf16 operands and residuals) the
-    kernel ``wavefront_bwd_plan`` picks by shape, the persistent one
-    (``persistent_launches`` adds the library's count of its launches, one
-    a window and row group) or the per-diagonal one; the plain version on
-    the CPU."""
+    tensor), dh0, dc0); on a CUDA device (bf16 or float32 operands and
+    residuals, one dtype; the fused dW_x in bf16 only) the kernel
+    ``wavefront_bwd_plan`` picks by shape and compute dtype, the persistent
+    one (``persistent_launches`` adds the library's count of its launches,
+    one a window and row group) or the per-diagonal one (``f32_launches``
+    counts its float32 calls); the plain version on the CPU."""
     L, T, B, four_h = gates.shape
     H = four_h // 4
     if w_h.shape[0] != L or w_x_rest.shape[0] != L - 1:
@@ -948,22 +986,26 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
     _check_fuse(fuse_dwx, drop_mode, L, outs)
+    mode = kernel_dtype(w_h.dtype, gates.dtype)
+    if fuse_dwx and mode != bf16:
+        raise ValueError("the fused dW_x computes in bf16; the float32 reverse diagonal "
+                         "runs unfused")
     dev = gates.device
     check_kernel_inputs([
-        ("dout_top", dout_top, bf16, (T, B, H)),
-        ("w_h", w_h, bf16, (L, H, 4 * H)),
-        ("w_x_rest", w_x_rest, bf16, (L - 1, H, 4 * H)),
+        ("dout_top", dout_top, mode, (T, B, H)),
+        ("w_h", w_h, mode, (L, H, 4 * H)),
+        ("w_x_rest", w_x_rest, mode, (L - 1, H, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
-        ("gates", gates, bf16, (L, T, B, 4 * H)),
-        ("cseq", cseq, bf16, (L, T, B, H)),
+        ("gates", gates, mode, (L, T, B, 4 * H)),
+        ("cseq", cseq, mode, (L, T, B, H)),
         ("c0", c0, f32, (L, B, H)),
         ("dhn", dhn, f32, (L, B, H)),
         ("dcn", dcn, f32, (L, B, H)),
-    ] + ([("outs", outs, bf16, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
+    ] + ([("outs", outs, mode, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
     drop = (drop_mode, *_drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale,
                                           (L - 1, T, B, H), dev))
     plan = wavefront_bwd_plan(B, H, L, fuse_dwx,
-                              torch.cuda.get_device_properties(dev).multi_processor_count)
+                              torch.cuda.get_device_properties(dev).multi_processor_count, mode)
     args = (dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, drop)
     persistent = plan["kernel"] == "persistent"
     if persistent:
@@ -978,10 +1020,13 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
         wavefront_bwd.fused_launches += int(fuse_dwx)
         wavefront_bwd.fused_persistent_launches += int(fuse_dwx and persistent)
         wavefront_bwd.per_diagonal_launches += int(not persistent)
+        if mode == f32:
+            wavefront_bwd.f32_launches += 1
     return res
 
 
 wavefront_bwd.launches = 0
+wavefront_bwd.f32_launches = 0
 wavefront_bwd.persistent_launches = 0
 wavefront_bwd.fused_launches = 0
 wavefront_bwd.fused_persistent_launches = 0
@@ -1153,8 +1198,11 @@ class _WavefrontStackTrain(torch.autograd.Function):
         dwx = None
         if ctx.bwd_wavefront:
             L, T, B = gates.shape[:3]
+            # The fused dW_x is bf16 only on the card: the float32 reverse
+            # diagonal runs unfused and dW_x of layers 1..L-1 comes from the
+            # weight-gradient kernel's float32 tile (stack_weight_grads).
             fuse = fuse_dwx_enabled(L, T, B, w_h.shape[1], gates.element_size(),
-                                    ctx.drop[0])
+                                    ctx.drop[0]) and not (gates.is_cuda and gates.dtype == f32)
             res = wavefront_bwd(
                 dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
                 w_x_rest.to(cd).contiguous(), mask, gates, cseq,

@@ -207,7 +207,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     good = dict(x_proj=x["xp0"], w_h=x["w_h"][0], mask=x["mask"],
                 h0=x["h0"][0], c0=x["c0"][0])
     bad = [
-        (TypeError, dict(w_h=good["w_h"].float())),
+        (TypeError, dict(w_h=good["w_h"].half())),          # bf16 or float32 compute only
         (ValueError, dict(h0=good["h0"].t().contiguous().t())),
         (ValueError, dict(mask=good["mask"].cpu())),
     ]
@@ -686,14 +686,18 @@ def test_layer_launch_counters_count_kernel_calls(cuda):
 
 def test_layer_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor the layer kernels cannot take raises; they never fall
-    back to the plain version."""
+    back to the plain version.  Float32 compute with float32 residuals runs
+    (its own tests below); mixed compute and residual dtypes raise, and so
+    does the bf16 rebuild at D % 64 != 0."""
     x = _layer_inputs(4, 3, 64, 64, seed=9, dev=cuda)
     bf = torch.bfloat16
-    with pytest.raises(TypeError):          # the lean forward takes bf16 x_proj
+    with pytest.raises(TypeError):          # the bf16 lean forward takes bf16 x_proj
         tlt.recurrence_train_lean(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"], bf)
-    with pytest.raises(TypeError):          # bf16 residuals only
+    with pytest.raises(TypeError, match="mixed"):     # bf16 compute, float32 residuals
         tlt.recurrence_train(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"],
                              torch.float32)
+    with pytest.raises(TypeError, match="mixed"):     # float32 compute, bf16 residuals
+        tlt.recurrence_train(x["x_proj"], x["w_h"].float(), x["mask"], x["h0"], x["c0"], bf)
     y = _layer_inputs(4, 3, 64, 40, seed=10, dev=cuda)
     hc = torch.zeros((4, 3, 64), dtype=bf, device=cuda)
     with pytest.raises(ValueError, match="D % 64"):
@@ -1752,3 +1756,146 @@ def test_alpha_modes_with_a_step_one_row_late_fail_the_check(cuda, mode):
     torch.cuda.synchronize()
     i = 1 if mode == "last" else 0
     assert not torch.allclose(bad[i], good[i], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------ float32 compute (rows 1-8, 14, 15)
+#
+# The float32 mode of each LSTM and weight-gradient kernel against its
+# plain version on the same float32 operands (TF32 off): the same float32
+# arithmetic in another summation order, so 1e-5 of each output's largest
+# magnitude at T <= 16, at the flagship width (H = 1024, the default step's
+# B=64 and the eval batch's B=128) and at small ragged shapes, with
+# xavier-uniform weights as the model initialises them.  Every float32 call
+# runs the per-step or per-diagonal kernel (or the float32 weight-gradient
+# tile), never a persistent one, and counts itself in ``f32_launches``.
+
+F32_TOL = 1e-5
+
+
+def _xavier(g, *shape, dev):
+    lim = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+    return ((torch.rand(shape, generator=g) * 2 - 1) * lim).to(dev)
+
+
+@pytest.mark.parametrize("L,T,B,H", [(3, 16, 128, 1024), (3, 9, 1, 1024), (2, 7, 70, 128),
+                                     (3, 1, 5, 64)])
+def test_float32_inference_forwards_match_plain(cuda, L, T, B, H):
+    """Rows 2 and 1 in float32: the layer recurrence (per-step kernel) and
+    the wavefront (per-diagonal kernel)."""
+    x = _inputs(L, T, B, H, seed=L + T + B + H, dev=cuda)
+    g = torch.Generator().manual_seed(T + B)
+    w_h, w_x = _xavier(g, L, H, 4 * H, dev=cuda), _xavier(g, L - 1, H, 4 * H, dev=cuda)
+    trec.lstm_recurrence.f32_launches = twave.lstm_stack_wavefront.f32_launches = 0
+    trec.lstm_recurrence.persistent_launches = twave.lstm_stack_wavefront.persistent_launches = 0
+    args = (x["xp0"], w_h[0], x["mask"], x["h0"][0], x["c0"][0])
+    got, ref = trec.lstm_recurrence(*args), trec.lstm_recurrence_plain(*args)
+    wargs = (x["xp0"], w_h, w_x, x["b_rest"], x["mask"], x["h0"], x["c0"])
+    got_w, ref_w = twave.lstm_stack_wavefront(*wargs), twave.lstm_stack_wavefront_plain(*wargs)
+    torch.cuda.synchronize()
+    assert _rel_max(got, ref) <= F32_TOL and _rel_max(got_w, ref_w) <= F32_TOL
+    assert (trec.lstm_recurrence.f32_launches, twave.lstm_stack_wavefront.f32_launches) == (1, 1)
+    assert (trec.lstm_recurrence.persistent_launches,
+            twave.lstm_stack_wavefront.persistent_launches) == (0, 0)
+
+
+def _f32_wavefront_case(L, T, B, H, mode, seed, dev):
+    """``_wavefront_case`` in float32 (weights and input), its drop tuple."""
+    args = [a.float() for a in _wavefront_case(L, T, B, H, seed, dev)]
+    return args, (_drop(mode, L, T, B, H, seed=B + T) if mode else ())
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("L,T,B,H", [(3, 16, 64, 1024), (2, 7, 3, 64), (3, 10, 70, 128)])
+def test_float32_wavefront_train_and_bwd_match_plain(cuda, mode, L, T, B, H):
+    """Rows 3 and 4 in float32, drop modes 0, 1 and 2: the training forward
+    (its float32 residual streams) and the unfused reverse diagonal (dgates
+    in place, dh0, dc0 and, in modes 1 and 2, the float32 xdrop stream);
+    the fused dW_x raises in float32."""
+    args, drop = _f32_wavefront_case(L, T, B, H, mode, seed=L + T + B + H + mode, dev=cuda)
+    twave.wavefront_train.f32_launches = twave.wavefront_bwd.f32_launches = 0
+    got = twave.wavefront_train(*args, torch.float32, *drop)
+    ref = twave.wavefront_train_plain(*args, torch.float32, *drop)
+    torch.cuda.synchronize()
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert _rel_max(got, ref) <= F32_TOL
+    outs, gates, cseq = ref[:3]
+    gen = torch.Generator().manual_seed(T + B)
+    r = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    bwd = [r(T, B, H) * 0.1, args[2], args[3], args[5], gates, cseq, args[7],
+           r(L, B, H) * 0.1, r(L, B, H) * 0.1, outs]
+    ref_b = twave.wavefront_bwd_plain(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop)
+    res = bwd[4].clone()
+    got_b = twave.wavefront_bwd(*bwd[:4], res, *bwd[5:], *drop)
+    torch.cuda.synchronize()
+    assert got_b[0].data_ptr() == res.data_ptr()
+    assert _rel_max(got_b, ref_b) <= F32_TOL
+    assert (twave.wavefront_train.f32_launches, twave.wavefront_bwd.f32_launches) == (1, 1)
+    if mode != 1:
+        with pytest.raises(ValueError, match="fused"):
+            twave.wavefront_bwd(*bwd[:4], bwd[4].clone(), *bwd[5:], *drop, fuse_dwx=True)
+
+
+@pytest.mark.parametrize("B,H,D,T", [(64, 1024, 1024, 16), (3, 64, 16, 7), (70, 128, 120, 10),
+                                     (5, 64, 64, 1)])
+def test_float32_layer_kernels_match_plain(cuda, B, H, D, T):
+    """Rows 5-8 in float32: the gates-mode and lean forwards, the gates-mode
+    backward (dgates in place) and the recompute backward, whose float32
+    rebuild takes any D (16 and 120 here), and that rebuild alone."""
+    x = _layer_inputs(T, B, H, D, seed=B + H + D + T, dev=cuda)
+    g = torch.Generator().manual_seed(B + T)
+    w_h, w_x = _xavier(g, H, 4 * H, dev=cuda), _xavier(g, D, 4 * H, dev=cuda)
+    f = torch.float32
+    kernels = (tlt.recurrence_train, tlt.recurrence_train_lean, tlt.recurrence_bwd,
+               tlt.recurrence_bwd_recompute)
+    for fn in kernels:
+        fn.f32_launches = fn.persistent_launches = 0
+    tail = (w_h, x["mask"], x["h0"], x["c0"], f)
+    got, ref = tlt.recurrence_train(x["x_proj"], *tail), tlt.recurrence_train_plain(
+        x["x_proj"], *tail)
+    got_l = tlt.recurrence_train_lean(x["x_proj"], *tail)
+    ref_l = tlt.recurrence_train_lean_plain(x["x_proj"], *tail)
+    torch.cuda.synchronize()
+    assert _rel_max(got, ref) <= F32_TOL and _rel_max(got_l, ref_l) <= F32_TOL
+    out, _, _, gates, cseq = ref
+    btail = (x["mask"], w_h, x["dhn"], x["dcn"])
+    ref_b = tlt.recurrence_bwd_plain(x["dout"], gates.clone(), cseq, x["c0"], *btail)
+    res = gates.clone()
+    got_b = tlt.recurrence_bwd(x["dout"], res, cseq, x["c0"], *btail)
+    h_prev = torch.cat([x["h0"][None], out[:-1]])
+    rargs = (x["dout"], x["x"].float(), h_prev, cseq, x["c0"], x["mask"], w_x, x["b"], w_h,
+             x["dhn"], x["dcn"])
+    ref_r = tlt.recurrence_bwd_recompute_plain(*rargs)
+    got_r = tlt.recurrence_bwd_recompute(*rargs)
+    rows = (T * B, )
+    act = tlt.rebuild_gates(x["x"].float().reshape(*rows, D), h_prev.reshape(*rows, H), w_x,
+                            w_h, x["b"])
+    act_ref = tlt.rebuild_gates_plain(x["x"].float().reshape(*rows, D),
+                                      h_prev.reshape(*rows, H), w_x, w_h, x["b"])
+    torch.cuda.synchronize()
+    assert got_b[0].data_ptr() == res.data_ptr()
+    assert _rel_max(got_b, ref_b) <= F32_TOL and _rel_max(got_r, ref_r) <= F32_TOL
+    assert _rel_max([act], [act_ref]) <= F32_TOL
+    assert [fn.f32_launches for fn in kernels] == [1] * 4
+    assert [fn.persistent_launches for fn in kernels] == [0] * 4
+
+
+@pytest.mark.parametrize("N,dims,G", [(20000, [1024, 1024], 4096), (333, [200, 24], 1030),
+                                      (5000, [120], 1024), (5000, [1024], 80), (7, [5], 3)])
+def test_float32_weight_grads_match_plain(cuda, N, dims, G):
+    """Rows 14 and 15 in float32: both wrappers on the float32 tile, float32
+    x and dg not rounded, ragged edges, the K split of the plan."""
+    g = torch.Generator().manual_seed(N + G)
+    a = [torch.randn((N, d), generator=g).to(cuda) for d in dims]
+    dg = torch.randn((N, G), generator=g).to(cuda)
+    f = torch.float32
+    tgm.dgates_weight_grads.f32_launches = tgm.weight_grad.f32_launches = 0
+    if len(a) == 2:
+        got = tgm.dgates_weight_grads(a[0], a[1], dg, compute_dtype=f)
+        ref = tgm.dgates_weight_grads_plain(a[0], a[1], dg, compute_dtype=f)
+    else:
+        got = tgm.weight_grad(a[0], dg, compute_dtype=f)
+        ref = tgm.weight_grad_plain(a[0], dg, compute_dtype=f)
+    torch.cuda.synchronize()
+    assert _rel_max(got, ref) <= F32_TOL
+    assert tgm.dgates_weight_grads.f32_launches + tgm.weight_grad.f32_launches == 1
+

@@ -1,0 +1,218 @@
+"""The float32 compute mode of the LSTM and weight-gradient kernels (rows
+1-8, 14 and 15 of ``PERF.md``'s table): its routing and its arithmetic
+against the JAX package, on the CPU.
+
+* Routing: a float32 compute dtype never reaches a persistent or
+  tensor-core plan (the per-step and per-diagonal kernels and the float32
+  weight-gradient tile take it), the bf16 plans are unchanged at the
+  shapes the plan tests use, and mixed compute and residual dtypes raise.
+* Arithmetic: ``lstm_layer_train`` (gates and recompute residuals) at the
+  on-card parity tool's LSTM shape (T=96, B=8, D=16, H=256) and
+  ``lstm_stack_wavefront_train`` at its wavefront shape (L=3, D=H=128,
+  T=64, B=8), both with float32 compute and residuals, against JAX's
+  ``lstm_layer_pallas`` and ``lstm_stack_wavefront_train`` with their
+  Pallas kernels in TPU interpret mode, with weights carried over by
+  ``params.params_from_jax``.  The port's wrappers take their plain
+  versions on the CPU: the same float32 arithmetic as the kernels, in
+  another summation order than JAX's, so outputs, final states and
+  gradients agree within 1e-4 of each tensor's largest magnitude (the
+  readings are ~1e-6; T=96 steps of H=256 sums).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from rnn_speech_tpu.ops import lstm_pallas as jpal
+from rnn_speech_tpu.ops import lstm_wavefront as jwave
+from rnn_speech_tpu_torch import params as tparams
+from rnn_speech_tpu_torch.ops import grad_matmul as gm
+from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+from rnn_speech_tpu_torch.ops import lstm_recurrence as trec
+from rnn_speech_tpu_torch.ops import lstm_wavefront as twave
+
+f32, bf16 = torch.float32, torch.bfloat16
+TOL = 1e-4
+
+# Shapes of the existing plan tests (the layered, recompute, eval, default,
+# wide and card-test batches) at which the bf16 plans must not move.
+BATCHES = (1, 8, 16, 64, 70, 96, 128, 129, 200, 260, 394, 400, 473)
+WIDTHS = (64, 128, 256, 1024)
+
+
+@pytest.mark.parametrize("H", WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+def test_float32_never_reaches_a_persistent_plan(B, H):
+    for x_f32 in (False, True):
+        assert trec.lean_plan(B, H, x_f32=x_f32, dtype=f32) == {"kernel": "per_step"}
+    assert tlt.bwd_plan(B, H, dtype=f32) == {"kernel": "per_step"}
+    assert twave.wavefront_eval_plan(B, H, 3, dtype=f32) == {"kernel": "per_diagonal"}
+    assert twave.wavefront_plan(B, H, 3, H, dtype=f32) == {"kernel": "per_diagonal"}
+    for fuse in (False, True):
+        assert twave.wavefront_bwd_plan(B, H, 3, fuse, dtype=f32) == {"kernel": "per_diagonal"}
+
+
+@pytest.mark.parametrize("H", WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+def test_bf16_plans_are_unchanged(B, H):
+    """The dtype keyword defaults to bf16 and changes nothing there."""
+    for x_f32 in (False, True):
+        assert trec.lean_plan(B, H, x_f32=x_f32, dtype=bf16) == trec.lean_plan(B, H, x_f32=x_f32)
+    assert tlt.bwd_plan(B, H, dtype=bf16) == tlt.bwd_plan(B, H)
+    assert twave.wavefront_eval_plan(B, H, 3, dtype=bf16) == twave.wavefront_eval_plan(B, H, 3)
+    assert twave.wavefront_plan(B, H, 3, H, dtype=bf16) == twave.wavefront_plan(B, H, 3, H)
+    for fuse in (False, True):
+        assert (twave.wavefront_bwd_plan(B, H, 3, fuse, dtype=bf16)
+                == twave.wavefront_bwd_plan(B, H, 3, fuse))
+
+
+@pytest.mark.parametrize("dims,N,G", [([1024, 1024], 224640, 4096), ([120], 224640, 1024),
+                                      ([1024], 224640, 80), ([256, 120], 768, 1024),
+                                      ([1024], 3510 * 96, 4096), ([7], 100003, 13)])
+def test_weight_grads_in_float32_take_the_float32_tile(dims, N, G):
+    """Every float32-compute product runs the float32 tile (never the
+    Hopper, skinny or WMMA tiles, which round to bf16), its K split into
+    slices of a multiple of its 8-row step that cover N once; the bf16
+    plans stay as they were."""
+    for dg_dtype in (f32, bf16):
+        assert gm.product_path(dims, G, dg_dtype, f32) == "f32"
+        pl = gm.plan(dims, N, G, dg_dtype, 132, f32, compute_dtype=f32)
+        assert pl.path == "f32" and pl.rows_per_split % gm.TILES["f32"][2] == 0
+        assert pl.splits * pl.rows_per_split >= N > (pl.splits - 1) * pl.rows_per_split
+        assert gm.plan(dims, N, G, dg_dtype, 132) == gm.plan(dims, N, G, dg_dtype, 132,
+                                                             compute_dtype=bf16)
+        assert gm.product_path(dims, G, dg_dtype) == gm.product_path(dims, G, dg_dtype, bf16)
+
+
+def test_mixed_compute_and_residual_dtypes_raise():
+    assert trec.kernel_dtype(bf16) == bf16 and trec.kernel_dtype(f32, f32) == f32
+    for w, r in ((bf16, f32), (f32, bf16)):
+        with pytest.raises(TypeError, match="mixed compute and residual"):
+            trec.kernel_dtype(w, r)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        trec.kernel_dtype(torch.float16)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        gm._launch([torch.zeros((8, 8))], torch.zeros((8, 8)), torch.float16)
+
+
+def test_the_bf16_rebuild_alone_needs_d_a_multiple_of_64():
+    x, h = torch.zeros((4, 16)), torch.zeros((4, 64))
+    w_x, b = torch.zeros((16, 256)), torch.zeros((256,))
+    assert [c[2] for c in tlt._rebuild_checks(x, h, w_x, b, f32)][:3] == [f32] * 3
+    with pytest.raises(ValueError, match="D % 64"):
+        tlt._rebuild_checks(x.to(bf16), h.to(bf16), w_x.to(bf16), b)
+
+
+def _rel(got, ref):
+    ref = np.asarray(ref, np.float32)
+    got = got.detach().to(torch.float32).numpy()
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _check(ref_tree, got_tree):
+    ref = jax.tree.leaves(ref_tree)
+    got = got_tree
+    assert len(ref) == len(got)
+    worst = max(_rel(g, r) for g, r in zip(got, ref))
+    assert worst <= TOL, worst
+
+
+# check_lstm's problem (rnn_speech_tpu_torch/tools/hw_parity.py), from numpy.
+LT, LB, LD, LH = 96, 8, 16, 256
+LLENS = np.asarray([96, 50, 0, 96, 31, 96, 7, 96], np.int32)
+
+
+def _lstm_problem():
+    rng = np.random.default_rng(0)
+    lim = lambda fi, fo: np.sqrt(6.0 / (fi + fo))
+    params = {"w_x": rng.uniform(-1, 1, (LD, 4 * LH)) * lim(LD, 4 * LH),
+              "w_h": rng.uniform(-1, 1, (LH, 4 * LH)) * lim(LH, 4 * LH),
+              "b": rng.normal(0, 0.1, (4 * LH,))}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    x = rng.normal(size=(LT, LB, LD)).astype(np.float32)
+    state = (np.full((LB, LH), 0.2, np.float32), np.full((LB, LH), -0.1, np.float32))
+    wy = (rng.normal(size=(LT, LB, LH)) * 0.1).astype(np.float32)
+    return params, x, state, wy
+
+
+@pytest.mark.parametrize("mode", ["gates", "recompute"])
+def test_layer_in_float32_matches_lstm_layer_pallas(mode):
+    """``lstm_layer_train`` in float32 (the kernels' float32 route) against
+    ``lstm_layer_pallas`` in float32, TPU interpret mode: outputs, final
+    state and the gradients of the weights, input and initial state."""
+    params, x, state, wy = _lstm_problem()
+
+    def jloss(p, xx, st):
+        out, (c, h) = jpal.lstm_layer_pallas(p, xx, jnp.asarray(LLENS), st,
+                                             compute_dtype=jnp.float32,
+                                             residual_dtype=jnp.float32, residual_mode=mode)
+        return jnp.sum(out * wy) + jnp.sum(c ** 2) + jnp.sum(jnp.abs(h)), (out, c, h)
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, ref_vals), ref_g = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                                          has_aux=True))(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x), tuple(map(jnp.asarray, state)))
+
+    tp = {k: v.requires_grad_() for k, v in tparams.params_from_jax(params, "cpu").items()}
+    tx = torch.tensor(x, requires_grad=True)
+    ts = tuple(torch.tensor(s, requires_grad=True) for s in state)
+    out, (c, h) = tlt.lstm_layer_train(tp, tx, torch.as_tensor(LLENS), ts, compute_dtype=f32,
+                                       residual_dtype=f32, residual_mode=mode)
+    ((out * torch.as_tensor(wy)).sum() + (c ** 2).sum() + h.abs().sum()).backward()
+    _check(ref_vals, [out, c, h])
+    _check(ref_g, [tp["b"].grad, tp["w_h"].grad, tp["w_x"].grad, tx.grad, ts[0].grad,
+                   ts[1].grad])
+
+
+# check_wavefront's problem, from numpy.
+WT, WB, WD, WH, WL = 64, 8, 128, 128, 3
+WLENS = np.asarray([64, 50, 0, 64, 31, 64, 7, 13], np.int32)
+
+
+@pytest.mark.parametrize("bwd_wavefront", [True, False])
+def test_wavefront_stack_in_float32_matches_jax(bwd_wavefront):
+    """``lstm_stack_wavefront_train`` with float32 compute and residuals
+    (the reverse diagonal or the layered backward) against JAX's, TPU
+    interpret mode: the top output, every layer's final state and the
+    gradients of every weight, the input and every initial state."""
+    rng = np.random.default_rng(1)
+    lim = np.sqrt(6.0 / (WH + 4 * WH))
+    layers = [{"w_x": rng.uniform(-lim, lim, (WD if l == 0 else WH, 4 * WH)),
+               "w_h": rng.uniform(-lim, lim, (WH, 4 * WH)), "b": rng.normal(0, 0.1, (4 * WH,))}
+              for l in range(WL)]
+    layers = [{k: v.astype(np.float32) for k, v in p.items()} for p in layers]
+    x = rng.normal(size=(WT, WB, WD)).astype(np.float32)
+    states = [tuple((rng.normal(size=(WB, WH)) * 0.1).astype(np.float32) for _ in "ch")
+              for _ in range(WL)]
+    wy = (rng.normal(size=(WT, WB, WH)) * 0.1).astype(np.float32)
+
+    def jloss(p, xx, sts):
+        out, new = jwave.lstm_stack_wavefront_train(p, xx, jnp.asarray(WLENS), sts,
+                                                    residual_dtype=jnp.float32,
+                                                    bwd_wavefront=bwd_wavefront)
+        loss = jnp.sum(out * wy) + sum(jnp.sum(c) * 0.3 + jnp.sum(h) * 0.7 for c, h in new)
+        return loss, (out, new)
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, ref_vals), ref_g = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                                          has_aux=True))(
+            jax.tree.map(jnp.asarray, layers), jnp.asarray(x),
+            [tuple(map(jnp.asarray, s)) for s in states])
+
+    tl = tparams.params_from_jax({"lstm": layers}, "cpu")["lstm"]
+    tl = [{k: v.requires_grad_() for k, v in p.items()} for p in tl]
+    tx = torch.tensor(x, requires_grad=True)
+    ts = [tuple(torch.tensor(s, requires_grad=True) for s in st) for st in states]
+    out, new = twave.lstm_stack_wavefront_train(tl, tx, torch.as_tensor(WLENS), ts,
+                                                compute_dtype=f32, residual_dtype=f32,
+                                                bwd_wavefront=bwd_wavefront)
+    loss = (out * torch.as_tensor(wy)).sum() + sum(c.sum() * 0.3 + h.sum() * 0.7
+                                                   for c, h in new)
+    loss.backward()
+    _check(ref_vals, [out] + [t for st in new for t in st])
+    _check(ref_g, [p[k].grad for p in tl for k in ("b", "w_h", "w_x")] + [tx.grad]
+           + [t.grad for st in ts for t in st])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``rnn_speech_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,f32_route,hw_parity,train_loop,evaluate,bundle,accuracy,beam,cli,lm,stream,multi]
+    python3 chip_smoke.py [--phases device,build,kernels,train_kernels,eval,train,train_layered,alt_routes,train_wide,f32_route,odd_shapes,hw_parity,train_loop,evaluate,bundle,accuracy,beam,cli,lm,stream,multi]
     python3 chip_smoke.py --phases device,build,grad_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,lean_study   # opt-in, not in the default run
     python3 chip_smoke.py --phases device,build,persistent_study [--parent DIR]   # opt-in
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,flagship_accuracy   # opt-in
     python3 chip_smoke.py --phases device,build,beam_quality   # opt-in
     python3 chip_smoke.py --phases device,build,accuracy_benchmark   # opt-in
+    python3 chip_smoke.py --phases device,build,f32_designs   # opt-in
 
 Drives the port's serving path and its train step on a CUDA device and
 fails (non-zero exit, no result line) on any failed check.  Phases, each
@@ -235,11 +236,26 @@ printing one JSON line:
            at T=256 against the plain versions' route within 1e-4 beside
            the planted fault, and the layered and recompute routes' at
            T=512 beside theirs; rows 1-8, 14 and 15 must run their float32
-           modes and no persistent kernel, tensor-core tile or plain
+           modes, row 4 its layer sweep and row 8 its float32 persistent
+           kernel, and no bf16 persistent kernel, tensor-core tile,
+           per-step recompute or per-diagonal reverse pass, or plain
            version may run on the card.  Then each of those rows alone at
            the float32 path's shapes against its plain version (1e-4 of
            each output's largest magnitude), timed in turns with cuDNN or
-           torch.mm in float32 (TF32 off), beside its bound at 67 TFLOP/s.
+           torch.mm in float32 (TF32 off), beside its bound at 67 TFLOP/s;
+           row 8 at B=64 and B=400, T=512; rows 4 and 8 beside their
+           planted faults (a partial left out of the chain's sum, the GEMM
+           tile without its last K stage; the chain without its step wait
+           or its slice wait read, not gated).
+  f32_designs (opt-in)
+           f32_route's row timings and checks with rows 4 and 8 also in
+           the same turns with the per-diagonal and per-step designs they
+           replaced (row 8 at B=64 and B=400, T=512).
+  odd_shapes (a few s)
+           rows 1-8 at H=100, D=72 (L=3, T=40, B=24; the wrappers pad to
+           128 and slice back) in bf16 and float32, rows 3-8 in both mixed
+           compute and residual modes, each against its plain version
+           (relative Frobenius 1e-3, float32 1e-4), on its kernel.
   hw_parity
            ``rnn_speech_tpu_torch.tools.hw_parity`` in-process on the card:
            its seven checks with each error beside its tolerance, the
@@ -2303,9 +2319,11 @@ def _train_setup(T_frames, label_width, label_len, seed,
     width: fbank frontend, 3x1024 bf16 kernel route, by default the
     default StepConfig (keep probabilities 0.8 / 0.5, the CTC kernels)
     on the wavefront (``model_kw`` sets other AcousticConfig options);
-    random weights from a fixed torch.Generator, audio and labels from a
-    fixed numpy seed as bench.py builds them, ``Bn`` utterances (TRAIN_B
-    by default)."""
+    random weights from a fixed torch.Generator, labels from a fixed numpy
+    seed as bench.py builds them and the audio (bench.py's N(0, 0.1)) from
+    a fixed generator on the card (other bits than bench.py's numpy draws,
+    which took seconds a set-up at T=3510 and ~10 s at B=400), ``Bn``
+    utterances (TRAIN_B by default)."""
     import numpy as np
     import torch
 
@@ -2326,12 +2344,13 @@ def _train_setup(T_frames, label_width, label_len, seed,
                                   TRAIN_LR, DEVICE)
     rng = np.random.default_rng(1)
     batch = {
-        "audio": rng.normal(0, 0.1, (1, Bn, n)).astype(np.float32),
         "audio_lengths": np.full((1, Bn), n, np.int32),
         "labels": rng.integers(1, V - 1, (1, Bn, label_width)).astype(np.int32),
         "label_lengths": np.full((1, Bn), label_len, np.int32),
     }
     batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    batch["audio"] = torch.randn((1, Bn, n), generator=g, device=DEVICE) * 0.1
     return scfg, state, batch
 
 
@@ -2396,7 +2415,10 @@ def _path_counters():
     diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps: its
     cooperative launches, one a window and row group), its fused passes
     (the wide step) and the reverse passes the plan sent to the
-    per-diagonal kernel (none at the card's width)."""
+    per-diagonal kernel (none at the card's width); in float32, the
+    recompute backward's float32 persistent launches (one a rebuild chunk)
+    and the reverse diagonal's layer sweeps (a persistent launch a layer)
+    and their cotangent products on the float32 GEMM tile."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -2414,7 +2436,10 @@ def _path_counters():
             "wavefront_persistent": wf.wavefront_train.persistent_launches,
             "wavefront_bwd_persistent": wf.wavefront_bwd.persistent_launches,
             "wavefront_bwd_fused_persistent": wf.wavefront_bwd.fused_persistent_launches,
-            "wavefront_bwd_per_diagonal": wf.wavefront_bwd.per_diagonal_launches}
+            "wavefront_bwd_per_diagonal": wf.wavefront_bwd.per_diagonal_launches,
+            "recompute_f32_persistent": tlt.recurrence_bwd_recompute.f32_persistent_launches,
+            "wavefront_bwd_sweep": wf.wavefront_bwd.sweep_launches,
+            "sweep_dout": wf.sweep_dout.launches}
 
 
 def _zero_path_counters():
@@ -2433,6 +2458,8 @@ def _zero_path_counters():
     tlt.recurrence_train.persistent_launches = 0
     wf.wavefront_train.persistent_launches = wf.wavefront_bwd.persistent_launches = 0
     wf.wavefront_bwd.fused_persistent_launches = wf.wavefront_bwd.per_diagonal_launches = 0
+    tlt.recurrence_bwd_recompute.f32_persistent_launches = 0
+    wf.wavefront_bwd.sweep_launches = wf.sweep_dout.launches = 0
 
 
 @contextlib.contextmanager
@@ -3968,6 +3995,9 @@ HUNT_RUNS = {
                    "tests/test_torch_cuda_kernels.py", "-k", "bwd or fuse"],
     "train": ["chip_smoke.py", "--phases", "train"],
     "layer_bwd": ["-c", "import chip_smoke; chip_smoke._hunt_layer_checks()"],
+    "f32_card_tests": ["-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+                       "tests/test_torch_cuda_f32_persistent.py"],
+    "f32_bwd": ["-c", "import chip_smoke; chip_smoke._hunt_f32_checks()"],
 }
 # The checks' positive control, a child run before the loop: a launch that
 # states a bound one step short must trap in the checked build (non-zero
@@ -3994,6 +4024,36 @@ def _hunt_layer_checks():
     for i, (T, Bn) in enumerate(_recompute_check_shapes(400)):
         _recompute_check_at(T, Bn, 150 + i, checks, plain_faults=False)
     print(json.dumps({"layer_bwd_checks": len(checks)}), flush=True)
+
+
+def _hunt_f32_checks():
+    """The float32 persistent backward's card checks alone (a fault hunt
+    child): row 8 at B=400, T=512 (seven row groups, two rebuild chunks)
+    and row 4's layer sweep at B=64, T=512 in drop mode 2, each against its
+    plain version."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    f32, T, checks = torch.float32, F32_LAYER_T, []
+    lay = _widen(_layer_inputs(T, F32_WIDE_B, [T] * F32_WIDE_B, seed=160))
+    lout, _, _, lcseq = tlt.recurrence_train_lean(lay["x_proj"], lay["w_h"], lay["mask"],
+                                                  lay["h0"], lay["c0"], f32)
+    rargs = (lay["dout"], lay["x"], torch.cat([lay["h0"][None], lout[:-1]]), lcseq, lay["c0"],
+             lay["mask"], lay["w_x"], lay["b"], lay["w_h"], lay["dhn"], lay["dcn"])
+    _rel_check("hunt f32 recurrence_bwd_recompute", tlt.recurrence_bwd_recompute(*rargs),
+               tlt.recurrence_bwd_recompute_plain(*rargs), F32_KERNEL_TOL, checks)
+    del lay, lout, lcseq, rargs
+    inp = _widen(_train_inputs(T, TRAIN_B, [T] * TRAIN_B, seed=161))
+    drop = _drop(2, T, TRAIN_B, 162)
+    outs, gates, cseq, _, _ = wf.wavefront_train(*[inp[k] for k in FWD_ARGS], f32, *drop)
+    bargs = [_widen(_bwd_inputs(inp, outs, gates, cseq, seed=163))[k] for k in BWD_ARGS]
+    gi = BWD_ARGS.index("gates")
+    ref = wf.wavefront_bwd_plain(*bargs[:gi], gates.clone(), *bargs[gi + 1:], outs, *drop)
+    _rel_check("hunt f32 wavefront_bwd", wf.wavefront_bwd(*bargs, outs, *drop), ref,
+               F32_KERNEL_TOL, checks)
+    print(json.dumps({"f32_bwd_checks": len(checks)}), flush=True)
 
 
 def _hunt_planted_overrun():
@@ -4414,8 +4474,11 @@ def _rebuild_timing(x, h_prev, w_x, w_h, b):
     x2, h2 = parts[-1]
     rows = x2.shape[0]
     a_cat, w_cat = torch.cat([x2, h2], dim=1), torch.cat([w_x, w_h])
-    turns = in_turns(lambda: torch.mm(a_cat, w_cat, out_dtype=torch.float32),
-                     lambda: tlt.rebuild_gates(x2, h2, w_x, w_h, b))
+    if x.dtype == torch.float32:
+        mm = lambda: torch.mm(a_cat, w_cat)
+    else:
+        mm = lambda: torch.mm(a_cat, w_cat, out_dtype=torch.float32)
+    turns = in_turns(mm, lambda: tlt.rebuild_gates(x2, h2, w_x, w_h, b))
     flops = lambda r: 2 * r * (D + H) * 4 * H
     return dict(chunk_steps=chunk, chunks=len(chunks), call_ms=call_ms,
                 call_tflops=flops(T * Bn) / call_ms / 1e9,
@@ -6711,8 +6774,10 @@ def _multi_cli(problems):
 # ----------------------------------------------------------- float32 compute
 
 # Float32 compute (the JAX kernels' compute_dtype=float32, float32
-# residuals) on the card: the per-step and per-diagonal kernels' float32
-# instances and the float32 weight-gradient tile, no tensor cores.  Each
+# residuals) on the card: the float32 persistent layer backward (row 8's
+# recompute mode, row 4's layer sweep), the per-step and per-diagonal
+# kernels' float32 instances and the float32 weight-gradient tile, no
+# tensor cores.  Each
 # kernel and its plain version run the same float32 arithmetic (TF32 off)
 # in another summation order: F32_KERNEL_TOL bounds each output's largest
 # error over its largest magnitude at the path's shapes (up to 3510
@@ -6723,11 +6788,14 @@ def _multi_cli(problems):
 F32_KERNEL_TOL = 1e-4
 F32_GRAD_TOL = 1e-4
 F32_LAYER_T = 512          # frames of the layered and recompute routes' gates and timings
-# ``_path_counters`` entries the float32 route runs: the per-step recompute
-# backward with its (float32, SIMT) rebuild products and the per-diagonal
-# reverse diagonal (the others count persistent kernels and tensor-core
-# tiles, which it must not run).
-F32_PATHS = ("recompute_per_step", "recompute_rebuild", "wavefront_bwd_per_diagonal")
+F32_WIDE_B = 400           # row 8's second timed batch (the recompute step's, seven row groups)
+# ``_path_counters`` entries the float32 route runs: the float32 persistent
+# recompute backward with its rebuild products on the float32 GEMM tile, and
+# the reverse diagonal's float32 layer sweep with its cotangent products
+# (the others count bf16 persistent kernels, tensor-core tiles and the
+# per-step and per-diagonal designs these replace, which it must not run).
+F32_PATHS = ("recompute_rebuild", "recompute_f32_persistent", "wavefront_bwd_sweep",
+             "sweep_dout")
 F32_ROWS = ("lstm_wavefront", "lstm_recurrence", "wavefront_train", "wavefront_bwd",
             "recurrence_train", "recurrence_bwd", "recurrence_train_lean",
             "recurrence_bwd_recompute", "dgates_weight_grads", "weight_grad")
@@ -6920,29 +6988,40 @@ def _cudnn_f32():
 
 
 def _f32_row(name, check, kernel, plain, library, library_name, flops, nbytes, checks,
-             calls=1, **more):
+             calls=1, designs=None, faults=None, readings=None, **more):
     """One float32 row: the kernel's result (``check()``, on fresh inputs)
     against its plain version's (``plain()``, timed once) within
-    F32_KERNEL_TOL, then ``kernel`` in turns with ``library`` (cuDNN or
-    torch.mm in float32, TF32 off) and the bound at the float32 rate.
-    ``calls`` per pass of the path multiplies the times and the bound."""
+    F32_KERNEL_TOL, each of ``faults`` ({name: fn}, planted faults of the
+    kernel) failing that check and each of ``readings`` (faults that need
+    not show, races) recorded as ``fault_readings``, then ``kernel`` in
+    turns with ``library``
+    (cuDNN or torch.mm in float32, TF32 off) and ``designs`` ({name: fn},
+    the designs it replaced, as ``<name>_ms``) and the bound at the float32
+    rate.  ``calls`` per pass of the path multiplies the times and the
+    bound."""
     import torch
 
     plain_ms, ref = _timed_once(plain)
     err = _rel_check(f"f32 {name}", check(), ref, F32_KERNEL_TOL, checks)
+    for fault, fn in (faults or {}).items():
+        _fault_check(f"f32 {name} {fault}", fn(), ref, F32_KERNEL_TOL, checks)
+    read = {fault: _fault_errs(fn(), ref) for fault, fn in (readings or {}).items()}
+    if read:
+        more["fault_readings"] = read
     del ref
     torch.cuda.empty_cache()
     with _cudnn_f32():
-        turns = in_turns(library, kernel, iters=1)
+        turns = in_turns(library, kernel, iters=1, **(designs or {}))
     bound, by = _bounds(flops, nbytes, PEAK_F32_FLOPS)
+    replaced = {f"{n}_ms": calls * turns[f"{n}_ms"] for n in designs or {}}
     return dict(ms=calls * turns["ms"], plain_ms=calls * plain_ms, bound_ms=calls * bound,
                 bound_by=by, library_ms=calls * turns["library_ms"], library=library_name,
                 max_abs_err=err, tol=F32_KERNEL_TOL, calls=calls, ms_per_call=turns["ms"],
                 tflops=flops / turns["ms"] / 1e9, flops=calls * flops, bytes=calls * nbytes,
-                turns=turns["turns"], **more)
+                turns=turns["turns"], **replaced, **more)
 
 
-def _f32_kernel_timing(checks, eval_frames):
+def _f32_kernel_timing(checks, eval_frames, designs=False):
     """Rows 1-8, 14 and 15 in float32 at the float32 path's shapes, each
     held against its plain version on the same inputs (``_f32_row``):
     row 1 at the eval batch (B=128, T=1024, the 3-layer wavefront) in
@@ -6954,7 +7033,10 @@ def _f32_kernel_timing(checks, eval_frames):
     B=64, T=F32_LAYER_T with cuDNN's one-layer forward and backward; row
     14 the step's three LSTM products (N = 224,640, 2 x 1024 by 4096)
     against two torch.mm and a sum each, row 15 the two projections (D=120
-    by G=1024, D=1024 by G=80) against one torch.mm and a sum each."""
+    by G=1024, D=1024 by G=80) against one torch.mm and a sum each.  Row 8
+    also at B=F32_WIDE_B.  With ``designs`` (phase f32_designs), rows 4
+    and 8 also in the same turns with the per-diagonal and per-step
+    designs they replaced."""
     import torch
 
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
@@ -7004,6 +7086,10 @@ def _f32_kernel_timing(checks, eval_frames):
     gi = BWD_ARGS.index("gates")
     fresh = lambda: bargs[:gi] + [gates.clone()] + bargs[gi + 1:]
     no_dw, _ = _nn_lstm_backward(T, Bn, L, f32)
+    ldrop = (2, *wf._drop_launch_args(2, drop[1], drop[3], drop[2], (L - 1, T, Bn, H),
+                                      gates.device))
+    plan = wf.wavefront_bwd_plan(Bn, H, L, dtype=f32)
+    sweep = lambda **kw: wf._layer_sweep_launch(*fresh(), outs, ldrop, plan, **kw)
     out["wavefront_bwd"] = _f32_row(
         "wavefront_bwd", lambda: wf.wavefront_bwd(*fresh(), outs, *drop),
         lambda: wf.wavefront_bwd(*bargs, outs, *drop),
@@ -7013,7 +7099,12 @@ def _f32_kernel_timing(checks, eval_frames):
         T * Bn * H * 4 + (2 * L - 1) * H * G * 4 + T * Bn * 4 + L * T * Bn * (G + H) * 4
         + 3 * L * Bn * H * 4 + (L - 1) * T * Bn * H * 4 + L * T * Bn * G * 4
         + 2 * L * Bn * H * 4 + (L - 1) * T * Bn * H * 4, checks, frames=T, batch=Bn,
-        drop_mode=2, fused=False)
+        drop_mode=2, fused=False, plan=plan["kernel"],
+        designs={"per_diagonal": lambda: wf._bwd_per_diagonal_launch(*bargs, outs, ldrop)}
+        if designs else None,
+        faults={"chain with a partial left out": lambda: sweep(skip_barrier=4),
+                "cotangent product's last K stage left out": lambda: sweep(skip_k=1)},
+        readings={"chain without its slice wait": lambda: sweep(skip_barrier=2)})
     del no_dw
     torch.cuda.empty_cache()
 
@@ -7077,16 +7168,53 @@ def _f32_kernel_timing(checks, eval_frames):
     h_prev = torch.cat([lay["h0"][None], lout[:-1]])
     rargs = (lay["dout"], lay["x"], h_prev, lcseq, lay["c0"], lay["mask"], lay["w_x"], lay["b"],
              lay["w_h"], lay["dhn"], lay["dcn"])
-    rec_call = lambda: tlt.recurrence_bwd_recompute(*rargs)
-    out["recurrence_bwd_recompute"] = _f32_row(
-        "recurrence_bwd_recompute", rec_call, rec_call,
-        lambda: tlt.recurrence_bwd_recompute_plain(*rargs), no_dw,
-        "torch.nn.LSTM backward (1 layer, f32, without weight gradients)",
-        3 * 2 * T * Bn * H * G, T * Bn * (H + H + H + H + G) * 4 + 2 * H * G * 4
-        + 5 * Bn * H * 4 + T * Bn * 4, checks, frames=T, batch=Bn)
-    del no_dw, lay, lgates, lcseq, lout
+    out["recurrence_bwd_recompute"] = _f32_recompute_row(rargs, no_dw, checks, designs)
+    out["recurrence_bwd_recompute"]["rebuild"] = _rebuild_timing(
+        lay["x"], h_prev, lay["w_x"], lay["w_h"], lay["b"])
+    del no_dw, lay, lgates, lcseq, lout, rargs, h_prev
+    torch.cuda.empty_cache()
+    Bw = F32_WIDE_B
+    lay = _widen(_layer_inputs(T, Bw, [T] * Bw, seed=274, on_device=True))
+    lout, _, _, lcseq = tlt.recurrence_train_lean(lay["x_proj"], lay["w_h"], lay["mask"],
+                                                  lay["h0"], lay["c0"], f32)
+    rargs = (lay["dout"], lay["x"], torch.cat([lay["h0"][None], lout[:-1]]), lcseq, lay["c0"],
+             lay["mask"], lay["w_x"], lay["b"], lay["w_h"], lay["dhn"], lay["dcn"])
+    del lout
+    no_dw, _ = _nn_lstm_backward(T, Bw, 1, f32)
+    out["recurrence_bwd_recompute"]["wide"] = _f32_recompute_row(rargs, no_dw, checks, designs)
+    del no_dw, lay, lcseq, rargs
     torch.cuda.empty_cache()
     return out
+
+
+def _f32_recompute_row(rargs, no_dw, checks, designs=False):
+    """Row 8 in float32 (``_f32_row``) on one layer's recompute-backward
+    arguments ``rargs``: the float32 persistent kernel, in turns with cuDNN
+    (``no_dw``) and, with ``designs``, the per-step design it replaced (its
+    rebuild products on the same float32 tile), beside its planted fault (the slice's last
+    partial left out of the sum) and, as readings, its barriers left out
+    (no step wait on a dgates stream filled with NaN, no slice wait): races
+    that show only now and then."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    f32, G = torch.float32, 4 * H
+    T, Bn = rargs[3].shape[:2]
+    plan = tlt.bwd_plan(Bn, H, dtype=f32, recompute=True)
+    nan = lambda: torch.full((T, Bn, G), float("nan"), device=rargs[0].device)
+    fault = lambda skip: tlt._recompute_f32_persistent_launch(*rargs, plan, skip_barrier=skip,
+                                                              dgates=nan())[:3]
+    call = lambda: tlt.recurrence_bwd_recompute(*rargs)
+    return _f32_row(
+        "recurrence_bwd_recompute", call, call, lambda: tlt.recurrence_bwd_recompute_plain(*rargs),
+        no_dw, "torch.nn.LSTM backward (1 layer, f32, without weight gradients)",
+        3 * 2 * T * Bn * H * G, T * Bn * (H + H + H + H + G) * 4 + 2 * H * G * 4
+        + 5 * Bn * H * 4 + T * Bn * 4, checks, frames=T, batch=Bn, plan=plan["kernel"],
+        designs={"per_step": lambda: tlt._recompute_per_step_launch(*rargs)} if designs else None,
+        faults={"with a partial left out": lambda: fault(4)},
+        readings={"without its step wait": lambda: fault(1),
+                  "without its slice wait": lambda: fault(2)})
 
 
 def phase_f32_route():
@@ -7100,9 +7228,12 @@ def phase_f32_route():
     backward's inter-layer scale 1% too large); the layered gates route
     and the recompute route likewise at B=64, T=F32_LAYER_T (each beside
     its layer backward's dgates 1% too large); the float32 launches of
-    rows 1-8, 14 and 15, and no persistent kernel, no tensor-core tile and
-    no plain version on the card; then each row's float32 time
-    (``_f32_kernel_timing``)."""
+    rows 1-8, 14 and 15; rows 4 and 8 on their float32 kernels (the layer
+    sweep in the default step and its gate, the float32 persistent
+    recompute backward in the recompute gate), and no bf16 persistent
+    kernel, no tensor-core tile, no per-step recompute or per-diagonal
+    reverse pass and no plain version on the card; then each row's float32
+    time (``_f32_kernel_timing``) and the new kernels' planted faults."""
     import torch
 
     from rnn_speech_tpu_torch.models import acoustic
@@ -7136,19 +7267,32 @@ def phase_f32_route():
                  f"{launches['train']}")
     tensor_core = {k: v for k, v in step["wgmma_launches"].items() if v and k not in F32_PATHS}
     if tensor_core:
-        fail(f"f32_route: the float32 step ran persistent kernels or tensor-core tiles: "
-             f"{tensor_core}")
+        fail(f"f32_route: the float32 step ran bf16 persistent kernels, tensor-core tiles or "
+             f"the per-diagonal design: {tensor_core}")
+    if not (step["wgmma_launches"]["wavefront_bwd_sweep"] and step["wgmma_launches"]["sweep_dout"]):
+        fail(f"f32_route: the float32 step's reverse diagonal did not run the layer sweep "
+             f"(row 4): {step['wgmma_launches']}")
     if plain_calls:
         fail(f"f32_route: plain versions ran on the card: {plain_calls}")
 
+    runs = {}
+    before = _path_counters()
     gates = {"default": _grad_check(model_kw=dict(compute_dtype=f32), tol=F32_GRAD_TOL)}
     launches["grad_check"] = _f32_launches(zero=True)
+    runs["default"] = {k: v - before[k] for k, v in _path_counters().items()}
     for name, kw, fault in (("layered", dict(wavefront=False), "recurrence_bwd"),
                             ("recompute", dict(residual_mode="recompute"),
                              "recurrence_bwd_recompute")):
+        before = _path_counters()
         gates[name] = _grad_check(model_kw=dict(compute_dtype=f32, **kw), tol=F32_GRAD_TOL,
                                   fault=_layer_fault(fault), T=F32_LAYER_T)
         launches[name] = _f32_launches(zero=True)
+        runs[name] = {k: v - before[k] for k, v in _path_counters().items()}
+    if not runs["default"]["wavefront_bwd_sweep"]:
+        fail(f"f32_route: the default route's gate did not run row 4's layer sweep: {runs}")
+    if not runs["recompute"]["recompute_f32_persistent"]:
+        fail(f"f32_route: the recompute route's gate did not run row 8's float32 persistent "
+             f"kernel: {runs}")
     gates["fused_dwx_gap"] = _f32_fused_gap_check()
     _f32_launches(zero=True)
     for row, route in (("recurrence_train", "layered"), ("recurrence_bwd", "layered"),
@@ -7159,13 +7303,143 @@ def phase_f32_route():
                  f"{launches[route]}")
     paths = {k: v for k, v in _path_counters().items() if k not in F32_PATHS}
     if any(paths.values()):
-        fail(f"f32_route: a persistent kernel or tensor-core tile ran: {paths}")
+        fail(f"f32_route: a bf16 persistent kernel, a tensor-core tile or a per-step or "
+             f"per-diagonal design the float32 kernels replace ran: {paths}")
     torch.cuda.empty_cache()
     checks = []
     timing = _f32_kernel_timing(checks, eval_entry["frames"])
     emit("f32_route", eval=eval_entry, train=step, memory_plan=list(plan), grad_check=gates,
-         launches=launches, timing=timing, checks=checks,
+         launches=launches, timing=timing, checks=checks, paths=runs,
          max_abs_err={k: v["max_abs_err"] for k, v in timing.items()})
+
+
+def phase_f32_designs():
+    """Opt-in: ``_f32_kernel_timing`` with the designs rows 4 and 8
+    replaced in the same turns (the per-diagonal reverse pass at B=64,
+    T=3510; the per-step recompute backward at B=64 and B=F32_WIDE_B,
+    T=F32_LAYER_T), each row's checks and planted faults as in f32_route."""
+    from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
+
+    frames = DeviceFrontend("fbank", sr=SR, max_samples=int(SR * SECONDS),
+                            device=DEVICE).max_frames
+    checks = []
+    timing = _f32_kernel_timing(checks, frames, designs=True)
+    emit("f32_designs", timing={k: timing[k] for k in ("wavefront_bwd",
+                                                       "recurrence_bwd_recompute")},
+         checks=checks)
+
+
+# Phase odd_shapes: widths the kernels take only padded (H and D not
+# multiples of 64) in every compute and residual mode.
+ODD_SHAPE = dict(L=3, T=40, B=24, H=100, D=72)
+ODD_TOL = {"bf16": 1e-3, "f32": 1e-4, "bf16_f32": 1e-3, "f32_bf16": 1e-3}
+ODD_MODES = {"bf16": ("bfloat16", "bfloat16"), "f32": ("float32", "float32"),
+             "bf16_f32": ("bfloat16", "float32"), "f32_bf16": ("float32", "bfloat16")}
+
+
+def _odd_rows(cd, rd, seed):
+    """{row: (kernel call, plain call)} of rows 1-8 at ODD_SHAPE in compute
+    dtype ``cd`` and residual dtype ``rd`` (rows 1 and 2, which keep no
+    residuals, where the two agree), on inputs drawn on the host."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    L, T, Bn, Hh, D = (ODD_SHAPE[k] for k in ("L", "T", "B", "H", "D"))
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(DEVICE)
+    lim = (6.0 / (5 * Hh)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(DEVICE, cd)
+    lens = torch.as_tensor([T - (7 * b) % (T + 1) for b in range(Bn)])
+    mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(DEVICE)
+    x_proj, w_h, w_x = r(T, Bn, 4 * Hh), w(Hh, 4 * Hh), w(D, 4 * Hh)
+    h0, c0, b = r(Bn, Hh, scale=0.2), r(Bn, Hh, scale=0.2), r(4 * Hh, scale=0.1)
+    dout, dhn, dcn = r(T, Bn, Hh, scale=0.1), r(Bn, Hh, scale=0.1), r(Bn, Hh, scale=0.1)
+    x = r(T, Bn, D).to(cd)
+    rows = {}
+    if cd == rd:
+        args = (x_proj, w_h, mask, h0, c0)
+        rows["lstm_recurrence"] = (lambda: rec.lstm_recurrence(*args),
+                                   lambda: rec.lstm_recurrence_plain(*args))
+        wargs = (x_proj, w(L, Hh, 4 * Hh), w(L - 1, Hh, 4 * Hh), r(L - 1, 1, 4 * Hh, scale=0.1),
+                 mask, r(L, Bn, Hh, scale=0.2), r(L, Bn, Hh, scale=0.2))
+        rows["lstm_wavefront"] = (lambda: wf.lstm_stack_wavefront(*wargs),
+                                  lambda: wf.lstm_stack_wavefront_plain(*wargs))
+    fargs = (x_proj, w_h, mask, h0, c0, rd)
+    rows["recurrence_train"] = (lambda: tlt.recurrence_train(*fargs),
+                                lambda: tlt.recurrence_train_plain(*fargs))
+    largs = (x_proj.to(rd),) + fargs[1:]
+    rows["recurrence_train_lean"] = (lambda: tlt.recurrence_train_lean(*largs),
+                                     lambda: tlt.recurrence_train_lean_plain(*largs))
+    out, _, _, gates, cseq = tlt.recurrence_train_plain(*fargs)
+    c0r = c0.to(rd).float()
+    btail = (cseq, c0r, mask, w_h, dhn, dcn)
+    rows["recurrence_bwd"] = (lambda: tlt.recurrence_bwd(dout, gates.clone(), *btail),
+                              lambda: tlt.recurrence_bwd_plain(dout, gates.clone(), *btail))
+    xp_lean = (x.float() @ w_x.float() + b).to(rd)
+    lout, _, _, lcseq = tlt.recurrence_train_lean_plain(xp_lean, w_h, mask, h0, c0, rd)
+    rargs = (dout, x.to(rd), torch.cat([h0.to(rd)[None], lout.to(rd)[:-1]]), lcseq, c0r, mask,
+             w_x, b, w_h, dhn, dcn)
+    rows["recurrence_bwd_recompute"] = (lambda: tlt.recurrence_bwd_recompute(*rargs),
+                                        lambda: tlt.recurrence_bwd_recompute_plain(*rargs))
+    drop = (2, (7, 9), 1 / KEEP_PROB, KEEP_PROB)
+    stack = (x, w_x, w(L, Hh, 4 * Hh), w(L - 1, Hh, 4 * Hh), r(L, 4 * Hh, scale=0.1), mask,
+             r(L, Bn, Hh, scale=0.2), r(L, Bn, Hh, scale=0.2), rd, *drop)
+    rows["wavefront_train"] = (lambda: wf.wavefront_train(*stack),
+                               lambda: wf.wavefront_train_plain(*stack))
+    souts, sgates, scseq, _, _ = wf.wavefront_train_plain(*stack)
+    bargs = (dout.to(rd), stack[2], stack[3], mask)
+    bt = (scseq, r(L, Bn, Hh, scale=0.2).to(rd).float(), r(L, Bn, Hh, scale=0.1),
+          r(L, Bn, Hh, scale=0.1), souts, *drop)
+    rows["wavefront_bwd"] = (lambda: wf.wavefront_bwd(*bargs, sgates.clone(), *bt),
+                             lambda: wf.wavefront_bwd_plain(*bargs, sgates.clone(), *bt))
+    return rows
+
+
+def phase_odd_shapes():
+    """Rows 1-8 at H=100, D=72 (ODD_SHAPE: L=3, T=40, B=24), which the
+    wrappers pad to 128 and slice back, in bf16 and float32, and rows 3-8 in
+    both mixed compute and residual modes: each output within ODD_TOL
+    (relative Frobenius) of the plain version on the same inputs, every
+    call launching its wrapper's kernel and no plain version on the card."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+    from rnn_speech_tpu_torch.ops import lstm_recurrence as rec
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    wrappers = {"lstm_recurrence": rec.lstm_recurrence, "lstm_wavefront": wf.lstm_stack_wavefront,
+                "recurrence_train": tlt.recurrence_train,
+                "recurrence_train_lean": tlt.recurrence_train_lean,
+                "recurrence_bwd": tlt.recurrence_bwd,
+                "recurrence_bwd_recompute": tlt.recurrence_bwd_recompute,
+                "wavefront_train": wf.wavefront_train, "wavefront_bwd": wf.wavefront_bwd}
+    result = {}
+    for mode, (cd, rd) in ODD_MODES.items():
+        cd, rd = getattr(torch, cd), getattr(torch, rd)
+        entry = {}
+        for name, (kernel, plain) in _odd_rows(cd, rd, seed=len(result) + 300).items():
+            ref = plain()
+            calls, before = {}, wrappers[name].launches
+            with _plain_guard(calls):
+                got = kernel()
+            torch.cuda.synchronize()
+            launched = wrappers[name].launches - before
+            rel = []
+            for gt, rt in zip(got, ref):
+                if gt.shape != rt.shape or not bool(torch.isfinite(gt.float()).all()):
+                    fail(f"odd_shapes {mode} {name}: bad shape or non-finite output")
+                den = float(rt.float().norm())
+                rel.append(float((gt.float() - rt.float()).norm()) / den if den else 0.0)
+            entry[name] = {"rel_frobenius": rel, "launches": launched, "plain_calls": calls}
+            if calls or launched != 1:
+                fail(f"odd_shapes {mode} {name}: not on its kernel: {entry[name]}")
+            if max(rel) > ODD_TOL[mode]:
+                fail(f"odd_shapes {mode} {name}: {max(rel)} > {ODD_TOL[mode]}: {entry[name]}")
+        result[mode] = entry
+    emit("odd_shapes", shape=ODD_SHAPE, tol=ODD_TOL, modes=result)
 
 
 def _hw_parity_faults():
@@ -7464,7 +7738,7 @@ def kernels_line():
         ("lstm_recurrence", "lstm_recurrence.cu", "rnn_speech_tpu/ops/lstm_pallas.py:62", "eval"),
         ("wavefront_train", "lstm_wavefront_train.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:230",
          "train"),
-        ("wavefront_bwd", "lstm_wavefront_bwd.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:433",
+        ("wavefront_bwd", "lstm_layer_bwd_f32.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:433",
          "train"),
         ("recurrence_train", "lstm_layer_train.cu", "rnn_speech_tpu/ops/lstm_pallas.py:144",
          "layered"),
@@ -7472,7 +7746,7 @@ def kernels_line():
          "layered"),
         ("recurrence_train_lean", "lstm_layer_train.cu", "rnn_speech_tpu/ops/lstm_pallas.py:342",
          "recompute"),
-        ("recurrence_bwd_recompute", "lstm_layer_bwd.cu",
+        ("recurrence_bwd_recompute", "lstm_layer_bwd_f32.cu",
          "rnn_speech_tpu/ops/lstm_pallas.py:429", "recompute"),
         ("dgates_weight_grads", "grad_matmul.cu", "rnn_speech_tpu/ops/grad_matmul_pallas.py:52",
          "train"),
@@ -7487,6 +7761,15 @@ def kernels_line():
             "library_ms": t.get("library_ms"), "compute_dtype": "float32",
             "tflops": t.get("tflops"),
         })
+        for extra in ("per_diagonal_ms", "per_step_ms", "plan"):
+            if extra in t:                           # rows 4 and 8: the designs replaced
+                rows[-1][extra] = t[extra]
+        if "wide" in t:
+            rows[-1]["wide"] = {k: t["wide"].get(k) for k in (
+                "batch", "ms", "per_step_ms", "library_ms", "bound_ms", "max_abs_err")}
+        if "rebuild" in t:
+            rows[-1]["rebuild_ms"] = t["rebuild"]["call_ms"]
+            rows[-1]["rebuild_tflops"] = t["rebuild"]["call_tflops"]
     # The CLI's own paths, each counted from zero in its run: the first
     # --train_acoustic run (train steps and evaluation passes) and the
     # greedy --evaluate run.
@@ -7501,10 +7784,11 @@ def kernels_line():
 
 
 PHASES = ("device", "build", "kernels", "train_kernels", "eval", "train", "train_layered",
-          "alt_routes", "train_wide", "f32_route", "hw_parity", "train_loop", "evaluate",
+          "alt_routes", "train_wide", "f32_route", "odd_shapes", "hw_parity", "train_loop",
+          "evaluate",
           "bundle", "accuracy", "beam", "cli", "lm", "stream", "multi")
 OPT_IN_PHASES = ("grad_study", "lean_study", "persistent_study", "fault_hunt",
-                 "flagship_accuracy", "beam_quality", "accuracy_benchmark")
+                 "flagship_accuracy", "beam_quality", "accuracy_benchmark", "f32_designs")
 
 
 PART_SUFFIXES = ("_check", "_checks", "_timing", "_inputs", "_setup", "_steps", "_study",
@@ -7583,6 +7867,7 @@ def main(argv=None) -> int:
                      ("eval", phase_eval), ("train", phase_train),
                      ("train_layered", phase_train_layered), ("alt_routes", phase_alt_routes),
                      ("train_wide", phase_train_wide), ("f32_route", phase_f32_route),
+                     ("f32_designs", phase_f32_designs), ("odd_shapes", phase_odd_shapes),
                      ("hw_parity", phase_hw_parity), ("grad_study", phase_grad_study),
                      ("train_loop", phase_train_loop), ("evaluate", phase_evaluate),
                      ("lean_study", phase_lean_study),

@@ -13,8 +13,9 @@
 //   c' = sigmoid(f + 1)·c + sigmoid(i)·tanh(g);  h' = sigmoid(o)·tanh(c')
 //   c, h <- m·(c', h') + (1 - m)·(c, h);  out <- m·h'
 //
-// The cell is a template on its operand type T, which is also the
-// residual type: the two compute modes of the JAX kernels.
+// The cell is a template on its operand type T and its residual type R
+// (R = T by default): the two compute modes of the JAX kernels, and their
+// mixed modes (bf16 compute with float32 residuals, or the reverse).
 //
 // * bf16 (T = bf16): the products' operands h, x_in, W are bf16 and each
 //   of the four warps computes one gate's columns with bf16 WMMA 16x16x16
@@ -25,7 +26,7 @@
 //   staged chunks (``cell_products_f32``, K chunks of kKCf = 32), no tensor
 //   cores.  What bounds it on the H100 is the float32 rate (67 TFLOP/s).
 //
-// The training forwards also store the backward's residuals in T, each
+// The training forwards also store the backward's residuals in R, each
 // where its pointer is set: the activated gates (i, g, f, o) =
 // (sig(i), tanh(g), sig(f + 1), sig(o)), the carried c and the masked
 // output m·h'.  With inter-layer dropout it also writes T(h·keep·scale),
@@ -86,12 +87,12 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
-// One step's operands and outputs; T is the operand and residual type
-// (bf16 or float).
-template <typename T>
+// One step's operands and outputs; T is the operand type, R the residual
+// type (bf16 or float each).
+template <typename T, typename R = T>
 struct CellStepT {
   const float* xp;     // (B, 4H) input pre-activations of this step, or null
-  const T* xp_res = nullptr;    // (B, 4H) the same in the residual type, or null
+  const R* xp_res = nullptr;    // (B, 4H) the same in the residual type, or null
   const float* bias;   // (4H) input bias, or null
   const T* x_in;       // (Bp, Kx) input (lower layer's h, or x), or null
   const T* w_x;        // (Kx, 4H) input weights, or null
@@ -104,9 +105,9 @@ struct CellStepT {
   float* out;          // (B, H) masked output of this step, or null
   int B, Bp, H;
   int Kx = 0;                   // width of x_in; 0 means H
-  T* gates_res = nullptr;       // (B, 4H) activated gates, or null
-  T* c_res = nullptr;           // (B, H) carried c, or null
-  T* out_res = nullptr;         // (B, H) masked output, or null
+  R* gates_res = nullptr;       // (B, 4H) activated gates, or null
+  R* c_res = nullptr;           // (B, H) carried c, or null
+  R* out_res = nullptr;         // (B, H) masked output, or null
   // Inter-layer dropout of the training forward (drop modes 1, 2): the
   // dropped copy T(h·keep·drop_scale) of the carried h, which the layer
   // above reads as its input, or null.  keep comes from drop_mask (mode 1,
@@ -161,7 +162,9 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf
 // Grid: x = H / kJT unit tiles, y = batch tiles of kRows rows.
 constexpr int kCellSmem = 2 * 2 * kTile;
 
-__device__ __forceinline__ const float* cell_products(bf16* smem, const CellStep& s) {
+template <typename R>
+__device__ __forceinline__ const float* cell_products(bf16* smem,
+                                                     const CellStepT<bf16, R>& s) {
   using namespace nvcuda;
   const int warp = threadIdx.x / 32;  // the gate this warp computes
   const int j0 = blockIdx.x * kJT;
@@ -245,8 +248,9 @@ __device__ __forceinline__ void stage_chunk_f32(float* As, float* Bs, const floa
 // 4cg + 3 of the block's 64, over K in ascending order with FMAs.  Rows
 // past the block's last real tile are staged from nothing and never
 // stored.  Ends with a __syncthreads.
+template <typename R>
 __device__ __forceinline__ const float* cell_products_f32(float* smem,
-                                                         const CellStepT<float>& s) {
+                                                         const CellStepT<float, R>& s) {
   const int j0 = blockIdx.x * kJT;
   const int row0 = blockIdx.y * kRows;
   const int rows = min(kRows, s.Bp - row0);
@@ -316,8 +320,8 @@ __device__ __forceinline__ const float* cell_products_f32(float* smem,
   return gates;
 }
 
-template <typename T>
-__device__ __forceinline__ void lstm_cell_tile(const CellStepT<T>& s) {
+template <typename T, typename R>
+__device__ __forceinline__ void lstm_cell_tile(const CellStepT<T, R>& s) {
   // Two stages of {A, B} tiles; reused for the gate sums after the loop.
   __shared__ __align__(128) bf16 smem[kCellSmem];
   static_assert(2 * kStageF * sizeof(float) <= sizeof(smem), "float32 stages fit");
@@ -351,7 +355,7 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStepT<T>& s) {
       go += x[3 * H + j];
     }
     if (s.xp_res != nullptr) {
-      const T* x = s.xp_res + (size_t)b * ld;
+      const R* x = s.xp_res + (size_t)b * ld;
       gi += to_f(x[j]);
       gg += to_f(x[H + j]);
       gf += to_f(x[2 * H + j]);
@@ -387,14 +391,14 @@ __device__ __forceinline__ void lstm_cell_tile(const CellStepT<T>& s) {
     }
     if (s.out != nullptr) s.out[e] = m * h_new;
     if (s.gates_res != nullptr) {
-      T* gr = s.gates_res + (size_t)b * ld;
-      gr[j] = from_f<T>(i_a);
-      gr[H + j] = from_f<T>(g_a);
-      gr[2 * H + j] = from_f<T>(f_a);
-      gr[3 * H + j] = from_f<T>(o_a);
+      R* gr = s.gates_res + (size_t)b * ld;
+      gr[j] = from_f<R>(i_a);
+      gr[H + j] = from_f<R>(g_a);
+      gr[2 * H + j] = from_f<R>(f_a);
+      gr[3 * H + j] = from_f<R>(o_a);
     }
-    if (s.c_res != nullptr) s.c_res[e] = from_f<T>(c_sel);
-    if (s.out_res != nullptr) s.out_res[e] = from_f<T>(m * h_new);
+    if (s.c_res != nullptr) s.c_res[e] = from_f<R>(c_sel);
+    if (s.out_res != nullptr) s.out_res[e] = from_f<R>(m * h_new);
   }
 }
 

@@ -56,9 +56,12 @@
 // compute_dtype=float32 with float32 residuals): the residuals, W_h, the
 // dgates and their parity buffer are float32, the carry's product a SIMT
 // product over 64-wide float32 K chunks (``carry_product_f32``), and the
-// recompute rebuild the float32 product of rebuild_gates.cuh, which takes
-// any D.  The persistent backward is bf16 only, so every float32 shape
-// runs here.
+// recompute rebuild the float32 GEMM tile of rebuild_gates.cuh.  The
+// float32 recompute backward runs on csrc/lstm_layer_bwd_f32.cu where
+// `bwd_plan` says so; the float32 gates mode and the shapes that plan does
+// not take run here.  Mixed compute and residual types (entries
+// ``_bf16_f32`` and ``_f32_bf16``): W_h and the parity buffer in the
+// compute type, the residuals and the dgates stream in the residual type.
 
 #include "lstm_cell.cuh"
 #include "rebuild_gates.cuh"
@@ -82,11 +85,13 @@ static_assert(2 * kFStage * 4 <= kSmem * 2, "float32 stages fit the bf16 ones");
 
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
 
-template <typename E>
+// E is the operand type (W_h and the dgates the carry's product reads), R
+// the residual type (gates, cseq and the dgates stream).
+template <typename E, typename R = E>
 struct LayerBwd {
   const float* dout;   // (T, B, H) cotangent of the layer's output
-  E* gates;            // (T, B, 4H): activated gates in (gates mode), dgates out
-  const E* cseq;       // (T, B, H) carried c
+  R* gates;            // (T, B, 4H): activated gates in (gates mode), dgates out
+  const R* cseq;       // (T, B, H) carried c
   const float* c0;     // (B, H) initial c as the residual stores it
   const float* mask;   // (T, B)
   const E* w_h;        // (H, 4H)
@@ -218,8 +223,8 @@ __device__ __forceinline__ void carry_product_f32(float* smem, float* ph, const 
 
 // s < T: step t = T-1-s.  s == T: the final pass that turns the dh carry
 // into dh0.
-template <typename T>
-__global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd<T> p) {
+template <typename T, typename R>
+__global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd<T, R> p) {
   __shared__ __align__(128) bf16 smem[kSmem];
   __shared__ float ph[rst::kRows * rst::kJT];
 
@@ -261,7 +266,7 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd<
     const int j = j0 + jj;
     const size_t e = (size_t)b * H + j;
     const float m = p.mask[(size_t)t * B + b];
-    T* g = p.gates + ((size_t)t * B + b) * G;
+    R* g = p.gates + ((size_t)t * B + b) * G;
     float i_a, g_a, f_a, o_a;
     if (act != nullptr) {
       const float* a = act + (size_t)b * G;
@@ -282,34 +287,33 @@ __global__ void __launch_bounds__(rst::kThreads) layer_bwd_step(int s, LayerBwd<
     const float dh_new = m * (p.dout[th + e] + dh_carry);
     const float do_pre = dh_new * tanh_c * sig_grad(o_a);
     const float dc_new = dh_new * o_a * (1.0f - tanh_c * tanh_c) + m * dc_carry;
-    const T di = rst::from_f<T>(dc_new * g_a * sig_grad(i_a));
-    const T dg = rst::from_f<T>(dc_new * i_a * (1.0f - g_a * g_a));
-    const T df = rst::from_f<T>(dc_new * c_prev * sig_grad(f_a));
-    const T dq = rst::from_f<T>(do_pre);
-    g[j] = di;
-    g[H + j] = dg;
-    g[2 * H + j] = df;
-    g[3 * H + j] = dq;
+    const float di = dc_new * g_a * sig_grad(i_a);
+    const float dg = dc_new * i_a * (1.0f - g_a * g_a);
+    const float df = dc_new * c_prev * sig_grad(f_a);
+    g[j] = rst::from_f<R>(di);
+    g[H + j] = rst::from_f<R>(dg);
+    g[2 * H + j] = rst::from_f<R>(df);
+    g[3 * H + j] = rst::from_f<R>(do_pre);
     T* w = wpar + (size_t)b * G;
-    w[j] = di;
-    w[H + j] = dg;
-    w[2 * H + j] = df;
-    w[3 * H + j] = dq;
+    w[j] = rst::from_f<T>(di);
+    w[H + j] = rst::from_f<T>(dg);
+    w[2 * H + j] = rst::from_f<T>(df);
+    w[3 * H + j] = rst::from_f<T>(do_pre);
     p.dhc[e] = (1.0f - m) * dh_carry;
     p.dcc[e] = (1.0f - m) * dc_carry + dc_new * f_a;
   }
 }
 
-template <typename T>
-dim3 step_grid(const LayerBwd<T>& p) {
+template <typename T, typename R>
+dim3 step_grid(const LayerBwd<T, R>& p) {
   return dim3(p.H / rst::kJT, (p.Bp + rst::kRows - 1) / rst::kRows);
 }
 
-template <typename T>
-int launch(LayerBwd<T> p, void* stream) {
+template <typename T, typename R>
+int launch(LayerBwd<T, R> p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int s = 0; s <= p.T; ++s) {
-    layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(s, p);
+    layer_bwd_step<T, R><<<step_grid(p), rst::kThreads, 0, st>>>(s, p);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -325,8 +329,8 @@ long long g_rebuild_launches = 0;   // rebuild products launched by launch_recom
 // ends at T; each at most `chunk` steps), the rebuild product of the chunk
 // into act (``rebuild(t0, t1)``), then its steps t1-1 .. t0; then the
 // final pass.
-template <typename T, class Rebuild>
-int launch_recompute(LayerBwd<T> p, Rebuild rebuild, float* act, const int* starts,
+template <typename T, typename R, class Rebuild>
+int launch_recompute(LayerBwd<T, R> p, Rebuild rebuild, float* act, const int* starts,
                      int n_chunks, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   p.act = act;
@@ -340,23 +344,23 @@ int launch_recompute(LayerBwd<T> p, Rebuild rebuild, float* act, const int* star
     ++g_rebuild_launches;
     p.t0 = t0;
     for (int t = t1 - 1; t >= t0; --t) {
-      layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(p.T - 1 - t, p);
+      layer_bwd_step<T, R><<<step_grid(p), rst::kThreads, 0, st>>>(p.T - 1 - t, p);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  layer_bwd_step<T><<<step_grid(p), rst::kThreads, 0, st>>>(p.T, p);
+  layer_bwd_step<T, R><<<step_grid(p), rst::kThreads, 0, st>>>(p.T, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-LayerBwd<T> common(const float* dout, void* dgates, const void* cseq, const float* c0,
-                   const float* mask, const void* w_h, void* par, float* dhc, float* dcc,
-                   int T_, int B, int H) {
-  LayerBwd<T> p;
+template <typename T, typename R = T>
+LayerBwd<T, R> common(const float* dout, void* dgates, const void* cseq, const float* c0,
+                      const float* mask, const void* w_h, void* par, float* dhc, float* dcc,
+                      int T_, int B, int H) {
+  LayerBwd<T, R> p;
   p.dout = dout;
-  p.gates = static_cast<T*>(dgates);
-  p.cseq = static_cast<const T*>(cseq);
+  p.gates = static_cast<R*>(dgates);
+  p.cseq = static_cast<const R*>(cseq);
   p.c0 = c0;
   p.mask = mask;
   p.w_h = static_cast<const T*>(w_h);
@@ -424,7 +428,7 @@ extern "C" int rst_lstm_layer_bwd_recompute(const float* dout, void* dgates,
 }
 
 // Float32 compute, recompute mode: as above with dgates, cseq, w_h, x,
-// h_prev, w_x and par float32, any D (the rebuild's K tail).
+// h_prev, w_x and par float32, D a multiple of 16.
 extern "C" int rst_lstm_layer_bwd_recompute_f32(const float* dout, void* dgates,
                                                 const void* cseq, const float* c0,
                                                 const float* mask, const void* w_h,
@@ -444,6 +448,53 @@ extern "C" int rst_lstm_layer_bwd_recompute_f32(const float* dout, void* dgates,
   return launch_recompute(p, rebuild, act, starts, n_chunks, chunk, stream);
 }
 
+// Mixed compute and residual types, gates mode: as rst_lstm_layer_bwd with
+// w_h and par in the compute type and gates and cseq in the residual type
+// (``_bf16_f32``: bf16 compute, float32 residuals; ``_f32_bf16``: the
+// reverse).  The dgates stream takes the residual type, the carry's
+// product dgates rounded to the compute type.
+extern "C" int rst_lstm_layer_bwd_bf16_f32(const float* dout, void* gates, const void* cseq,
+                                           const float* c0, const float* mask,
+                                           const void* w_h, void* par, float* dhc, float* dcc,
+                                           int T, int B, int H, void* stream) {
+  return launch(common<bf16, float>(dout, gates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H),
+                stream);
+}
+
+extern "C" int rst_lstm_layer_bwd_f32_bf16(const float* dout, void* gates, const void* cseq,
+                                           const float* c0, const float* mask,
+                                           const void* w_h, void* par, float* dhc, float* dcc,
+                                           int T, int B, int H, void* stream) {
+  return launch(common<float, bf16>(dout, gates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H),
+                stream);
+}
+
+// Mixed types, recompute mode: as rst_lstm_layer_bwd_bf16_f32 (res_f32 = 1)
+// or rst_lstm_layer_bwd_f32_bf16 (res_f32 = 0), dgates written fresh in
+// the residual type, the gates rebuilt by the float32 rebuild from the
+// float32 copies x32 (T, B, D), h32 (T, B, H), wx32 (D, 4H) and wh32
+// (H, 4H) of the residual-type operands and the compute-type weights: the
+// JAX kernel's product of the two types sums their float32 values.
+extern "C" int rst_lstm_layer_bwd_recompute_mixed(
+    const float* dout, void* dgates, const void* cseq, const float* c0, const float* mask,
+    const void* w_h, const float* x32, const float* h32, const float* wx32, const float* wh32,
+    const float* bias, void* par, float* dhc, float* dcc, float* act, const int* starts,
+    int n_chunks, int chunk, int T, int B, int H, int D, int res_f32, void* stream) {
+  if (T <= 0 || B <= 0 || n_chunks <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  auto rebuild = [&](int t0, int t1, cudaStream_t st) {
+    return rst_rebuild::launch_f32(x32, h32, wx32, wh32, t0 * B, (t1 - t0) * B, D, H, bias, act,
+                                   st);
+  };
+  if (res_f32) {
+    return launch_recompute(
+        common<bf16, float>(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H), rebuild,
+        act, starts, n_chunks, chunk, stream);
+  }
+  return launch_recompute(
+      common<float, bf16>(dout, dgates, cseq, c0, mask, w_h, par, dhc, dcc, T, B, H), rebuild,
+      act, starts, n_chunks, chunk, stream);
+}
+
 // Rebuild products that rst_lstm_layer_bwd_recompute{,_f32} have launched.
 extern "C" long long rst_rebuild_launches() { return g_rebuild_launches; }
 
@@ -460,7 +511,8 @@ extern "C" int rst_rebuild_gates(const void* x, const void* h_prev, const void* 
   return rst_rebuild::launch(maps, 0, rows, D, H, bias, act, static_cast<cudaStream_t>(stream));
 }
 
-// The float32 rebuild product alone: as above with float32 operands, any D.
+// The float32 rebuild product alone: as above with float32 operands, D a
+// multiple of 16.
 extern "C" int rst_rebuild_gates_f32(const float* x, const float* h_prev, const float* w_x,
                                      const float* w_h, const float* bias, float* act, int rows,
                                      int D, int H, void* stream) {

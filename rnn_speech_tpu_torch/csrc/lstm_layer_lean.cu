@@ -238,8 +238,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t wb = smem_addr(wbar);
       bar_expect_tx(wb, KS * kBox);
       for (int k = 0; k < KS; ++k) {
-        RST_CHECK(k * 64, 4 * p.H);
-        RST_CHECK(slice * 64, p.H);
+        RST_CHECK(k * 64, p.H);                  // K: the (4H, H) operand's columns
+        RST_CHECK(slice * 64, 4 * p.H);          // its rows: the slice's 64 gate columns
         load_box(smem_addr(w_s + (size_t)k * kBox), &map_w, wb, k * 64, slice * 64);
       }
       // f32 x_proj of step t into step buffer t % 2: the four gates' boxes

@@ -39,12 +39,12 @@ namespace {
 
 using rst::bf16;
 
-template <typename T>
+template <typename T, typename R>
 __global__ void __launch_bounds__(rst::kThreads)
-    layer_train_step(const float* xp_t, const T* xpr_t, const T* w_h, const float* mask_t,
-                     const T* h_in, T* h_out, float* h, float* c, float* out_t, T* gates_t,
-                     T* c_t, int B, int Bp, int H) {
-  rst::CellStepT<T> s;
+    layer_train_step(const float* xp_t, const R* xpr_t, const T* w_h, const float* mask_t,
+                     const T* h_in, T* h_out, float* h, float* c, float* out_t, R* gates_t,
+                     R* c_t, int B, int Bp, int H) {
+  rst::CellStepT<T, R> s;
   s.xp = xp_t;
   s.xp_res = xpr_t;
   s.bias = nullptr;
@@ -65,22 +65,23 @@ __global__ void __launch_bounds__(rst::kThreads)
   rst::lstm_cell_tile(s);
 }
 
-// x_proj f32 (gates mode) or in the residual type T (lean): (T, B, 4H);
-// the other null.
-template <typename T>
-int launch(const float* xp, const T* xpr, const void* w_h, const float* mask, void* hb,
+// x_proj f32 (gates mode) or in the residual type R (lean): (T, B, 4H);
+// the other null.  T is the operand type (W_h, the h buffers), R the
+// residual type (the gates and cseq residuals).
+template <typename T, typename R = T>
+int launch(const float* xp, const R* xpr, const void* w_h, const float* mask, void* hb,
            float* h, float* c, float* out, void* gates, void* cseq, int T_, int B, int H,
            void* stream) {
   const int Bp = (B + 15) / 16 * 16;
   const dim3 grid(H / rst::kJT, (Bp + rst::kRows - 1) / rst::kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   T* buf = static_cast<T*>(hb);
-  T* g = static_cast<T*>(gates);
-  T* cs = static_cast<T*>(cseq);
+  R* g = static_cast<R*>(gates);
+  R* cs = static_cast<R*>(cseq);
   const size_t plane = (size_t)Bp * H;
   const size_t x_step = (size_t)B * 4 * H, h_step = (size_t)B * H;
   for (int t = 0; t < T_; ++t) {
-    layer_train_step<T><<<grid, rst::kThreads, 0, st>>>(
+    layer_train_step<T, R><<<grid, rst::kThreads, 0, st>>>(
         xp != nullptr ? xp + t * x_step : nullptr,
         xpr != nullptr ? xpr + t * x_step : nullptr, static_cast<const T*>(w_h),
         mask + (size_t)t * B, buf + (size_t)(t & 1) * plane,
@@ -106,7 +107,7 @@ extern "C" int rst_lstm_layer_train(const float* x_proj, const void* w_h,
                                     const float* mask, void* hb, float* h, float* c,
                                     float* out, void* gates, void* cseq, int T, int B,
                                     int H, void* stream) {
-  return launch<bf16>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+  return launch<bf16, bf16>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
                       stream);
 }
 
@@ -125,7 +126,7 @@ extern "C" int rst_lstm_layer_train_f32(const float* x_proj, const void* w_h,
                                         const float* mask, void* hb, float* h, float* c,
                                         float* out, void* gates, void* cseq, int T, int B,
                                         int H, void* stream) {
-  return launch<float>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+  return launch<float, float>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
                        stream);
 }
 
@@ -137,4 +138,40 @@ extern "C" int rst_lstm_layer_train_lean_f32(const void* x_proj, const void* w_h
                                              int H, void* stream) {
   return launch<float>(nullptr, static_cast<const float*>(x_proj), w_h, mask, hb, h, c, out,
                        nullptr, cseq, T, B, H, stream);
+}
+
+// Mixed compute and residual types (the JAX kernels' compute_dtype and
+// residual_dtype apart): as the entries above with w_h and hb in the
+// compute type (bf16 for ``_bf16_f32``, float32 for ``_f32_bf16``) and
+// gates, cseq and the lean x_proj in the residual type (the other one).
+extern "C" int rst_lstm_layer_train_bf16_f32(const float* x_proj, const void* w_h,
+                                             const float* mask, void* hb, float* h, float* c,
+                                             float* out, void* gates, void* cseq, int T, int B,
+                                             int H, void* stream) {
+  return launch<bf16, float>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+                             stream);
+}
+
+extern "C" int rst_lstm_layer_train_f32_bf16(const float* x_proj, const void* w_h,
+                                             const float* mask, void* hb, float* h, float* c,
+                                             float* out, void* gates, void* cseq, int T, int B,
+                                             int H, void* stream) {
+  return launch<float, bf16>(x_proj, nullptr, w_h, mask, hb, h, c, out, gates, cseq, T, B, H,
+                             stream);
+}
+
+extern "C" int rst_lstm_layer_train_lean_bf16_f32(const void* x_proj, const void* w_h,
+                                                  const float* mask, void* hb, float* h,
+                                                  float* c, float* out, void* cseq, int T,
+                                                  int B, int H, void* stream) {
+  return launch<bf16, float>(nullptr, static_cast<const float*>(x_proj), w_h, mask, hb, h, c,
+                             out, nullptr, cseq, T, B, H, stream);
+}
+
+extern "C" int rst_lstm_layer_train_lean_f32_bf16(const void* x_proj, const void* w_h,
+                                                  const float* mask, void* hb, float* h,
+                                                  float* c, float* out, void* cseq, int T,
+                                                  int B, int H, void* stream) {
+  return launch<float, bf16>(nullptr, static_cast<const bf16*>(x_proj), w_h, mask, hb, h, c,
+                             out, nullptr, cseq, T, B, H, stream);
 }

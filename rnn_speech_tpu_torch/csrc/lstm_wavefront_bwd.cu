@@ -79,9 +79,14 @@
 // the weights, dout_top, dgates, their parity buffer and xdrop are
 // float32, the two carry products SIMT products over 64-wide float32 K
 // chunks (the drop masks of mode 1 stay bf16 {0, 1}).  The persistent
-// kernel and the fused dW_x are bf16 only: in float32 every shape runs
-// here unfused, and the caller takes dW_x from the weight-gradient kernel's
-// float32 tile (ops/lstm_wavefront.py).
+// kernel and the fused dW_x are bf16 only; in float32 the reverse diagonal
+// runs as the layer sweep of csrc/lstm_layer_bwd_f32.cu where
+// `wavefront_bwd_plan` says so, and here unfused for the other shapes; the
+// caller takes dW_x from the weight-gradient kernel's float32 tile
+// (ops/lstm_wavefront.py).  Mixed compute and residual types (entries
+// ``_bf16_f32`` and ``_f32_bf16``, unfused): the weights and the parity
+// buffer in the compute type, dout_top, the residuals, dgates and xdrop in
+// the residual type.
 
 #include <algorithm>
 
@@ -108,14 +113,16 @@ long long g_wgmma_products = 0;   // window products launched on the Hopper tile
 
 __device__ __forceinline__ float sig_grad(float a) { return a * (1.0f - a); }
 
-template <typename E>
+// E: the operand type (the weights and the dgates the carry products
+// read); R: the residual type (dout_top, gates, cseq, outs, xdrop).
+template <typename E, typename R = E>
 struct BwdArgs {
-  const E* dout_top;     // (T, B, H)
+  const R* dout_top;     // (T, B, H)
   const E* w_h;          // (L, H, 4H)
   const E* w_x;          // (L-1, H, 4H): layers 1..L-1
   const float* mask;     // (T, B)
-  E* gates;              // (L, T, B, 4H): activated gates in, dgates out
-  const E* cseq;         // (L, T, B, H)
+  R* gates;              // (L, T, B, 4H): activated gates in, dgates out
+  const R* cseq;         // (L, T, B, H)
   const float* c0;       // (L, B, H)
   E* par;                // (2, L, Bp, 4H) dgates by diagonal parity
   float* dhc;            // (L, B, H) (1-m)·dh_carry; dh0 at the end
@@ -123,8 +130,8 @@ struct BwdArgs {
   int T, B, Bp, H, L;
   // Inter-layer dropout (modes 1, 2; xdrop == nullptr in mode 0).
   const bf16* masks;     // (L-1, T, B, H) {0, 1} in mode 1, else null
-  const E* outs;         // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
-  E* xdrop;              // (L-1, T, B, H) dropped boundary inputs, out, or the
+  const R* outs;         // (L, T, B, H) masked outputs (boundaries 0..L-2 read)
+  R* xdrop;              // (L-1, T, B, H) dropped boundary inputs, out, or the
                          // (L-1, W, B, H) ring of the fused dW_x (W = ring)
   int ring;              // W when xdrop is the ring, else 0
   unsigned seed0, seed1, thr;
@@ -293,8 +300,8 @@ __device__ __forceinline__ void carry_products(float* smem, const float* a_h, co
 
 // s < T + L - 1: one reverse diagonal.  s == T + L - 1: the final pass
 // that turns each layer's dh carry into dh0.
-template <typename T>
-__global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdArgs<T> p) {
+template <typename T, typename R>
+__global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdArgs<T, R> p) {
   __shared__ __align__(128) bf16 smem[2 * kStage];
 
   const int T_ = p.T, B = p.B, Bp = p.Bp, H = p.H, L = p.L;
@@ -340,11 +347,11 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
   }
 
   const size_t step = (size_t)l * T_ + t;
-  T* gates = p.gates + step * B * G;
-  const T* c_t = p.cseq + step * B * H;
-  const T* c_p = t > 0 ? p.cseq + (step - 1) * B * H : nullptr;
+  R* gates = p.gates + step * B * G;
+  const R* c_t = p.cseq + step * B * H;
+  const R* c_p = t > 0 ? p.cseq + (step - 1) * B * H : nullptr;
   const float* c0 = p.c0 + (size_t)l * B * H;
-  const T* dtop = l == L - 1 ? p.dout_top + (size_t)t * B * H : nullptr;
+  const R* dtop = l == L - 1 ? p.dout_top + (size_t)t * B * H : nullptr;
   const float* mask = p.mask + (size_t)t * B;
   T* wpar = p.par + (size_t)((s & 1) * L + l) * pplane;
   const size_t step_b = step * B * H;  // (l, t) plane of a (·, T, B, H) stream
@@ -369,11 +376,11 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
       dout *= ks;
       const size_t xe =
           p.ring > 0 ? ((size_t)l * p.ring + (p.ring - 1 - s % p.ring)) * B * H + e : de;
-      p.xdrop[xe] = rst::from_f<T>(rst::to_f(p.outs[de]) * ks);
+      p.xdrop[xe] = rst::from_f<R>(rst::to_f(p.outs[de]) * ks);
     }
     const float dh_carry = dhc[e] + ph[idx];  // ph is zero at t = T-1
     const float dc_carry = dcc[e];
-    T* g = gates + (size_t)b * G;
+    R* g = gates + (size_t)b * G;
     const float i_a = rst::to_f(g[j]), g_a = rst::to_f(g[H + j]);
     const float f_a = rst::to_f(g[2 * H + j]), o_a = rst::to_f(g[3 * H + j]);
     const float tanh_c = tanhf(rst::to_f(c_t[e]));
@@ -381,19 +388,18 @@ __global__ void __launch_bounds__(rst::kThreads) wavefront_bwd_step(int s, BwdAr
     const float dh_new = m * (dout + dh_carry);
     const float do_pre = dh_new * tanh_c * sig_grad(o_a);
     const float dc_new = dh_new * o_a * (1.0f - tanh_c * tanh_c) + m * dc_carry;
-    const T di = rst::from_f<T>(dc_new * g_a * sig_grad(i_a));
-    const T dg = rst::from_f<T>(dc_new * i_a * (1.0f - g_a * g_a));
-    const T df = rst::from_f<T>(dc_new * c_prev * sig_grad(f_a));
-    const T dq = rst::from_f<T>(do_pre);
-    g[j] = di;
-    g[H + j] = dg;
-    g[2 * H + j] = df;
-    g[3 * H + j] = dq;
+    const float di = dc_new * g_a * sig_grad(i_a);
+    const float dg = dc_new * i_a * (1.0f - g_a * g_a);
+    const float df = dc_new * c_prev * sig_grad(f_a);
+    g[j] = rst::from_f<R>(di);
+    g[H + j] = rst::from_f<R>(dg);
+    g[2 * H + j] = rst::from_f<R>(df);
+    g[3 * H + j] = rst::from_f<R>(do_pre);
     T* w = wpar + (size_t)b * G;
-    w[j] = di;
-    w[H + j] = dg;
-    w[2 * H + j] = df;
-    w[3 * H + j] = dq;
+    w[j] = rst::from_f<T>(di);
+    w[H + j] = rst::from_f<T>(dg);
+    w[2 * H + j] = rst::from_f<T>(df);
+    w[3 * H + j] = rst::from_f<T>(do_pre);
     dhc[e] = (1.0f - m) * dh_carry;
     dcc[e] = (1.0f - m) * dc_carry + dc_new * f_a;
   }
@@ -408,23 +414,23 @@ int accumulate_dwx(const BwdArgs<bf16>& p, int s0, int s1, int W, int path, floa
                              g_wgmma_products, st);
 }
 
-template <typename T>
+template <typename T, typename R = T>
 int launch(const void* dout_top, const void* w_h, const void* w_x, const float* mask,
            void* gates, const void* cseq, const float* c0, void* par, float* dhc, float* dcc,
            int T_, int B, int H, int L, int drop_mode, const void* masks, const void* outs,
            void* xdrop, unsigned seed0, unsigned seed1, unsigned thr, float scale, int window,
            float* dwx, int dwx_path, void* stream) {
   if (window > 0 && (drop_mode == 1 || dwx == nullptr || outs == nullptr ||
-                     !std::is_same<T, bf16>::value)) {
+                     !std::is_same<T, bf16>::value || !std::is_same<R, bf16>::value)) {
     return (int)cudaErrorInvalidValue;
   }
-  BwdArgs<T> p;
-  p.dout_top = static_cast<const T*>(dout_top);
+  BwdArgs<T, R> p;
+  p.dout_top = static_cast<const R*>(dout_top);
   p.w_h = static_cast<const T*>(w_h);
   p.w_x = static_cast<const T*>(w_x);
   p.mask = mask;
-  p.gates = static_cast<T*>(gates);
-  p.cseq = static_cast<const T*>(cseq);
+  p.gates = static_cast<R*>(gates);
+  p.cseq = static_cast<const R*>(cseq);
   p.c0 = c0;
   p.par = static_cast<T*>(par);
   p.dhc = dhc;
@@ -435,8 +441,8 @@ int launch(const void* dout_top, const void* w_h, const void* w_x, const float* 
   p.H = H;
   p.L = L;
   p.masks = drop_mode == 1 ? static_cast<const bf16*>(masks) : nullptr;
-  p.outs = static_cast<const T*>(outs);
-  p.xdrop = drop_mode != 0 ? static_cast<T*>(xdrop) : nullptr;
+  p.outs = static_cast<const R*>(outs);
+  p.xdrop = drop_mode != 0 ? static_cast<R*>(xdrop) : nullptr;
   p.ring = window > 0 ? window : 0;
   p.seed0 = seed0;
   p.seed1 = seed1;
@@ -446,12 +452,12 @@ int launch(const void* dout_top, const void* w_h, const void* w_x, const float* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_diag = T_ + L - 1;
   for (int s = 0; s < T_ + L; ++s) {
-    wavefront_bwd_step<T><<<grid, rst::kThreads, 0, st>>>(s, p);
+    wavefront_bwd_step<T, R><<<grid, rst::kThreads, 0, st>>>(s, p);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    if constexpr (std::is_same<T, bf16>::value) {
+    if constexpr (std::is_same<T, bf16>::value && std::is_same<R, bf16>::value) {
       if (window > 0 && s < n_diag && ((s + 1) % window == 0 || s == n_diag - 1)) {
         const int err = accumulate_dwx(p, s - s % window, s, window, dwx_path, dwx, st);
         if (err != 0) return err;
@@ -504,6 +510,30 @@ extern "C" int rst_lstm_wavefront_bwd_f32(const void* dout_top, const void* w_h,
   return launch<float>(dout_top, w_h, w_x, mask, gates, cseq, c0, par, dhc, dcc, T, B, H, L,
                        drop_mode, masks, outs, xdrop, seed0, seed1, thr, scale, 0, nullptr, 0,
                        stream);
+}
+
+// Mixed compute and residual types, unfused: as rst_lstm_wavefront_bwd_f32
+// with the weights and par in the compute type and dout_top, gates, cseq,
+// outs and xdrop in the residual type (``_bf16_f32``: bf16 compute, float32
+// residuals; ``_f32_bf16``: the reverse).
+extern "C" int rst_lstm_wavefront_bwd_bf16_f32(
+    const void* dout_top, const void* w_h, const void* w_x, const float* mask, void* gates,
+    const void* cseq, const float* c0, void* par, float* dhc, float* dcc, int T, int B, int H,
+    int L, int drop_mode, const void* masks, const void* outs, void* xdrop, unsigned seed0,
+    unsigned seed1, unsigned thr, float scale, void* stream) {
+  return launch<bf16, float>(dout_top, w_h, w_x, mask, gates, cseq, c0, par, dhc, dcc, T, B, H,
+                             L, drop_mode, masks, outs, xdrop, seed0, seed1, thr, scale, 0,
+                             nullptr, 0, stream);
+}
+
+extern "C" int rst_lstm_wavefront_bwd_f32_bf16(
+    const void* dout_top, const void* w_h, const void* w_x, const float* mask, void* gates,
+    const void* cseq, const float* c0, void* par, float* dhc, float* dcc, int T, int B, int H,
+    int L, int drop_mode, const void* masks, const void* outs, void* xdrop, unsigned seed0,
+    unsigned seed1, unsigned thr, float scale, void* stream) {
+  return launch<float, bf16>(dout_top, w_h, w_x, mask, gates, cseq, c0, par, dhc, dcc, T, B, H,
+                             L, drop_mode, masks, outs, xdrop, seed0, seed1, thr, scale, 0,
+                             nullptr, 0, stream);
 }
 
 // Window products launched on the Hopper tile so far.

@@ -59,11 +59,11 @@ struct Drop {
   float scale;
 };
 
-template <typename T>
+template <typename T, typename R>
 __global__ void __launch_bounds__(rst::kThreads)
     wavefront_train_step(int s, const T* x, const T* w_x0, const T* w_h, const T* w_x,
                          const float* bias, const float* mask, T* hb, float* h, float* c,
-                         T* outs, T* gates, T* cseq, int T_, int B, int Bp, int H, int D, int L,
+                         R* outs, R* gates, R* cseq, int T_, int B, int Bp, int H, int D, int L,
                          Drop<T> drop) {
   const int l = blockIdx.z;
   const int t = s - l;
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(rst::kThreads)
   const size_t wsize = (size_t)H * 4 * H;
   const size_t step = ((size_t)l * T_ + t) * B;  // first row of (l, t) in a stream
   const int par = s & 1;
-  rst::CellStepT<T> st;
+  rst::CellStepT<T, R> st;
   st.xp = nullptr;
   st.bias = bias + (size_t)l * 4 * H;
   if (l == 0) {
@@ -112,7 +112,9 @@ __global__ void __launch_bounds__(rst::kThreads)
   rst::lstm_cell_tile(st);
 }
 
-template <typename T>
+// T: the operand type (x, the weights, the h buffers, the dropped
+// copies); R: the residual type (outs, gates, cseq).
+template <typename T, typename R = T>
 int launch(const void* x, const void* w_x0, const void* w_h, const void* w_x,
            const float* bias, const float* mask, void* hb, float* h, float* c, void* outs,
            void* gates, void* cseq, int T_, int B, int H, int D, int L, int drop_mode,
@@ -129,10 +131,10 @@ int launch(const void* x, const void* w_x0, const void* w_h, const void* w_x,
   drop.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int s = 0; s < T_ + L - 1; ++s) {
-    wavefront_train_step<T><<<grid, rst::kThreads, 0, st>>>(
+    wavefront_train_step<T, R><<<grid, rst::kThreads, 0, st>>>(
         s, static_cast<const T*>(x), static_cast<const T*>(w_x0), static_cast<const T*>(w_h),
         static_cast<const T*>(w_x), bias, mask, static_cast<T*>(hb), h, c,
-        static_cast<T*>(outs), static_cast<T*>(gates), static_cast<T*>(cseq), T_, B, Bp, H, D,
+        static_cast<R*>(outs), static_cast<R*>(gates), static_cast<R*>(cseq), T_, B, Bp, H, D,
         L, drop);
     if (s == 0) {
       const cudaError_t err = cudaGetLastError();
@@ -178,4 +180,28 @@ extern "C" int rst_lstm_wavefront_train_f32(const void* x, const void* w_x0, con
                                             void* stream) {
   return launch<float>(x, w_x0, w_h, w_x, bias, mask, hb, h, c, outs, gates, cseq, T, B, H,
                        D, L, drop_mode, masks, xb, seed0, seed1, thr, scale, stream);
+}
+
+// Mixed compute and residual types: as above with x, the weights, hb and xb
+// in the compute type and outs, gates and cseq in the residual type
+// (``_bf16_f32``: bf16 compute, float32 residuals; ``_f32_bf16``: the
+// reverse).
+extern "C" int rst_lstm_wavefront_train_bf16_f32(
+    const void* x, const void* w_x0, const void* w_h, const void* w_x, const float* bias,
+    const float* mask, void* hb, float* h, float* c, void* outs, void* gates, void* cseq, int T,
+    int B, int H, int D, int L, int drop_mode, const void* masks, void* xb, unsigned seed0,
+    unsigned seed1, unsigned thr, float scale, void* stream) {
+  return launch<rst::bf16, float>(x, w_x0, w_h, w_x, bias, mask, hb, h, c, outs, gates, cseq, T,
+                                  B, H, D, L, drop_mode, masks, xb, seed0, seed1, thr, scale,
+                                  stream);
+}
+
+extern "C" int rst_lstm_wavefront_train_f32_bf16(
+    const void* x, const void* w_x0, const void* w_h, const void* w_x, const float* bias,
+    const float* mask, void* hb, float* h, float* c, void* outs, void* gates, void* cseq, int T,
+    int B, int H, int D, int L, int drop_mode, const void* masks, void* xb, unsigned seed0,
+    unsigned seed1, unsigned thr, float scale, void* stream) {
+  return launch<float, rst::bf16>(x, w_x0, w_h, w_x, bias, mask, hb, h, c, outs, gates, cseq, T,
+                                  B, H, D, L, drop_mode, masks, xb, seed0, seed1, thr, scale,
+                                  stream);
 }

@@ -33,12 +33,13 @@
 //
 // Float32 compute (``launch_f32``; the JAX kernel's compute_dtype=float32
 // with float32 residuals): the same rebuild from float32 x, h_prev, W_x and
-// W_h by a SIMT product, 64x64 output tiles of 256 threads (4x4 sums each),
-// K in steps of 16 staged through shared memory with the D/H seam and the
-// K tail handled element by element, so any D is taken, as the JAX kernel
-// takes it.  What bounds it is the float32 rate (67 TFLOP/s).
+// W_h on the float32 GEMM tile of f32_gemm.cuh (128x128 block tiles, 8x8
+// register tiles, a cp.async ring; D and H multiples of 16, which the
+// wrappers' padding to 64 gives), the activations in its epilogue.  What
+// bounds it is the float32 rate (67 TFLOP/s).
 #pragma once
 
+#include "f32_gemm.cuh"
 #include "grad_matmul.cuh"
 #include "lstm_cell.cuh"
 
@@ -147,83 +148,42 @@ inline int launch(const Maps& m, int row0, int rows, int D, int H, const float* 
 
 // ------------------------------------------------------- float32 compute
 
-constexpr int kFM = 64, kFN = 64, kFK = 16, kFThreads = 256;
-
-// Block (x: 64-column tile of 4H, y: 64-row tile of the chunk); thread
-// (tx = tid % 16, ty = tid / 16) sums rows 4ty .. 4ty + 3 by columns
-// 4tx .. 4tx + 3 over K = D + H in ascending order (x·W_x, then
-// h_prev·W_h).
-__global__ void __launch_bounds__(kFThreads)
-    rebuild_kernel_f32(const float* x, const float* h_prev, const float* w_x,
-                       const float* w_h, Args p, int D) {
-  __shared__ __align__(16) float As[kFK][kFM + 4];   // As[k][row]
-  __shared__ __align__(16) float Bs[kFK][kFN + 4];   // Bs[k][col]
-  const int H = p.H, G = 4 * H, K = D + H;
-  const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    for (int i = threadIdx.x; i < kFM * kFK; i += kFThreads) {
-      const int m = i / kFK, kk = i % kFK, k = k0 + kk, r = m0 + m;
-      float v = 0.0f;
-      if (r < p.rows && k < K) {
-        const size_t row = (size_t)(p.row0 + r);
-        v = k < D ? x[row * D + k] : h_prev[row * H + (k - D)];
-      }
-      As[kk][m] = v;
-    }
-    for (int i = threadIdx.x; i < kFK * kFN; i += kFThreads) {
-      const int kk = i / kFN, n = i % kFN, k = k0 + kk;
-      float v = 0.0f;
-      if (k < K) v = k < D ? w_x[(size_t)k * G + n0 + n] : w_h[(size_t)(k - D) * G + n0 + n];
-      Bs[kk][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// The epilogue of the float32 rebuild: the bias and the activations, one
+// output at a time.
+struct ActEpi {
+  float* act;         // (rows, 4H)
+  const float* bias;  // (4H)
+  int H;
+  int rows;
+  __device__ __forceinline__ void operator()(int row, int col, float v) const {
+    RST_CHECK(col, 4 * H);
+    RST_CHECK(row, rows);
+    act[(size_t)row * 4 * H + col] = activate(col / H, v + bias[col]);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
-    if (row >= p.rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + 4 * tx + j;
-      p.act[(size_t)row * G + col] = activate(col / H, acc[i][j] + p.bias[col]);
-    }
-  }
-}
+};
 
 // act (rows, 4H) f32 = the activated gates of rows [row0, row0 + rows) of
 // the float32 x (·, D) and h_prev (·, H) with w_x (D, 4H), w_h (H, 4H),
-// on `st`.  Any D; H a multiple of 16.  Returns the CUDA error code.
+// on `st`: the float32 GEMM tile of f32_gemm.cuh, K over D then H.  D and
+// H multiples of 16 (the wrappers pad both to 64); x and h_prev hold
+// `total_rows` rows.  ``skip_k`` K stages are left out at the end (a
+// planted fault; 0).  Returns the CUDA error code.
 inline int launch_f32(const float* x, const float* h_prev, const float* w_x, const float* w_h,
                       int row0, int rows, int D, int H, const float* bias, float* act,
-                      cudaStream_t st) {
-  if (rows <= 0) return 0;
-  Args p;
-  p.row0 = row0;
-  p.rows = rows;
-  p.kx = p.kh = 0;
-  p.H = H;
-  p.bias = bias;
-  p.act = act;
-  const dim3 grid(4 * H / kFN, (rows + kFM - 1) / kFM);
-  rebuild_kernel_f32<<<grid, kFThreads, 0, st>>>(x, h_prev, w_x, w_h, p, D);
-  return (int)cudaGetLastError();
+                      cudaStream_t st, long long total_rows = 1ll << 62, int skip_k = 0) {
+  rst_f32::Operands op;
+  op.a1 = x;
+  op.a2 = h_prev;
+  op.b1 = w_x;
+  op.b2 = w_h;
+  op.M = rows;
+  op.N = 4 * H;
+  op.K1 = D;
+  op.K2 = H;
+  op.row0 = row0;
+  op.a_rows = total_rows;
+  op.skip_k = skip_k;
+  return rst_f32::launch<false>(op, ActEpi{act, bias, H, rows}, st);
 }
 
 }  // namespace rst_rebuild

@@ -65,15 +65,18 @@ per-step recompute kernel.
 weight-gradient kernel (``ops/grad_matmul.py``) and dx = dgates·W_xᵀ
 through a matmul.
 
-Both compute modes of the JAX kernels run on the card, chosen by W_h's
-dtype, with residuals of the same dtype (``kernel_dtype``; mixed modes
-raise): bf16, and float32 (the JAX kernels' default compute dtype:
-float32 operands, h buffers, residuals and dgates, nothing rounded).  The
-persistent kernels and the tensor-core rebuild are bf16 only (``lean_plan``
-and ``bwd_plan`` answer the per-step kernels for float32), so float32 runs
-the per-step kernels' float32 instances and the float32 rebuild product,
-which takes any input width D; ``<wrapper>.f32_launches`` counts those
-calls.
+Every compute and residual mode of the JAX kernels runs on the card,
+chosen by W_h's dtype and the residuals' (``kernel_dtype``): bf16, float32
+(the JAX kernels' default compute dtype: float32 operands, h buffers,
+residuals and dgates, nothing rounded) and the two mixed pairs.  Any H and
+D run: each wrapper zero-pads them to a multiple of 64 and slices the
+results back (``HiddenPad``).  The bf16 persistent kernels and the
+tensor-core rebuild take bf16 alone.  In float32 the recompute backward
+runs its own persistent kernel (``csrc/lstm_layer_bwd_f32.cu``, where
+``bwd_plan`` sends the shape: every batch at H=1024), with the float32
+rebuild on a float32 GEMM tile (``csrc/f32_gemm.cuh``); the other float32
+calls and the mixed modes run the per-step kernels' instances of their
+dtypes.  ``<wrapper>.f32_launches`` counts the float32 calls.
 """
 
 from __future__ import annotations
@@ -90,7 +93,8 @@ from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 # The persistent forward's plan and weight layout live beside the inference
 # recurrence, which shares the kernel.
 from rnn_speech_tpu_torch.ops.lstm_recurrence import (
-    H100_SMS, SMEM_LIMIT, check_kernel_inputs, kernel_dtype, lean_plan, lean_weights)
+    H100_SMS, PAD_KINDS, SMEM_LIMIT, HiddenPad, check_kernel_inputs, entry_suffix, kernel_dtype,
+    lean_plan, lean_weights)
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -167,20 +171,15 @@ def recurrence_train_lean_plain(x_proj, w_h, mask, h0, c0, res_dtype):
     return out, h, c, cseq
 
 
-def _suffix(mode) -> str:
-    """The C entry's suffix of a compute mode: none for bf16, ``_f32``."""
-    return "_f32" if mode == f32 else ""
-
-
 def _forward_launch(lib_name, x_proj, w_h, mask, h0, c0, res_dtype, keep_gates):
     """The per-step forward (csrc/lstm_layer_train.cu) in the compute mode
     of W_h's dtype: (out, hn, cn, gates or None, cseq)."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
-    mode = kernel_dtype(w_h.dtype, res_dtype)
+    mode, res = kernel_dtype(w_h.dtype, res_dtype)
     dev = x_proj.device
     check_kernel_inputs([
-        ("x_proj", x_proj, f32 if keep_gates else mode, (T, B, 4 * H)),
+        ("x_proj", x_proj, f32 if keep_gates else res, (T, B, 4 * H)),
         ("w_h", w_h, mode, (H, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
         ("h0", h0, f32, (B, H)),
@@ -192,19 +191,20 @@ def _forward_launch(lib_name, x_proj, w_h, mask, h0, c0, res_dtype, keep_gates):
         hb[0, :B] = h0.to(mode)
         h, c = h0.clone(), c0.clone()
         out = torch.empty((T, B, H), dtype=f32, device=dev)
-        gates = torch.empty((T, B, 4 * H), dtype=mode, device=dev) if keep_gates else None
-        cseq = torch.empty((T, B, H), dtype=mode, device=dev)
+        gates = torch.empty((T, B, 4 * H), dtype=res, device=dev) if keep_gates else None
+        cseq = torch.empty((T, B, H), dtype=res, device=dev)
         if T == 0:
             return out, h, c, gates, cseq
         stream = _build.launch_stream(dev)
         head = [x_proj.data_ptr(), w_h.data_ptr(), mask.data_ptr(), hb.data_ptr(),
                 h.data_ptr(), c.data_ptr(), out.data_ptr()]
         if keep_gates:
-            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train" + _suffix(mode),
+            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train" + entry_suffix(mode, res),
                          [P] * 9 + [I] * 3 + [P])
             rc = fn(*head, gates.data_ptr(), cseq.data_ptr(), T, B, H, stream)
         else:
-            fn = _lib_fn("lstm_layer_train", "rst_lstm_layer_train_lean" + _suffix(mode),
+            fn = _lib_fn("lstm_layer_train",
+                         "rst_lstm_layer_train_lean" + entry_suffix(mode, res),
                          [P] * 8 + [I] * 3 + [P])
             rc = fn(*head, cseq.data_ptr(), T, B, H, stream)
     if rc != 0:
@@ -265,12 +265,16 @@ def recurrence_train(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor, c0: 
         return recurrence_train_plain(x_proj, w_h, mask, h0, c0, res_dtype)
     T, B, four_h = x_proj.shape
     H = four_h // 4
-    mode = kernel_dtype(w_h.dtype, res_dtype)
+    pad = HiddenPad(H)
+    if pad.needed:
+        return pad.call(recurrence_train, (x_proj, w_h, mask, h0, c0),
+                        *PAD_KINDS["recurrence_train"], res_dtype=res_dtype)
+    mode, res_mode = kernel_dtype(w_h.dtype, res_dtype)
     sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
-    plan = lean_plan(B, H, sms, x_f32=True, dtype=mode)
+    plan = lean_plan(B, H, sms, x_f32=True, dtype=mode, res_dtype=res_mode)
     if plan["kernel"] == "per_step":
         res = _forward_launch("lstm_layer_train", x_proj, w_h, mask, h0, c0, res_dtype, True)
-        if mode == f32:
+        if (mode, res_mode) == (f32, f32):
             recurrence_train.f32_launches += 1
     else:
         check_kernel_inputs([
@@ -338,13 +342,17 @@ def recurrence_train_lean(x_proj: Tensor, w_h: Tensor, mask: Tensor, h0: Tensor,
         return recurrence_train_lean_plain(x_proj, w_h, mask, h0, c0, res_dtype)
     T, B, four_h = x_proj.shape
     H = four_h // 4
-    mode = kernel_dtype(w_h.dtype, res_dtype)
+    pad = HiddenPad(H)
+    if pad.needed:
+        return pad.call(recurrence_train_lean, (x_proj, w_h, mask, h0, c0),
+                        *PAD_KINDS["recurrence_train_lean"], res_dtype=res_dtype)
+    mode, res_mode = kernel_dtype(w_h.dtype, res_dtype)
     sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
-    plan = lean_plan(B, H, sms, dtype=mode)
+    plan = lean_plan(B, H, sms, dtype=mode, res_dtype=res_mode)
     if plan["kernel"] == "per_step":
         out, h, c, _, cseq = _forward_launch("lstm_layer_train_lean", x_proj, w_h, mask, h0,
                                              c0, res_dtype, False)
-        if mode == f32:
+        if (mode, res_mode) == (f32, f32):
             recurrence_train_lean.f32_launches += 1
     else:
         check_kernel_inputs([
@@ -435,14 +443,14 @@ def rebuild_chunks(T: int, chunk: int):
     return [(t0, min(T, t0 + chunk)) for t0 in reversed(range(0, T, chunk))]
 
 
-def _rebuild_checks(x, h_prev, w_x, b, mode=bf16):
-    """The rebuild product's operands in compute mode ``mode`` for
-    ``check_kernel_inputs``; in bf16 raises unless D is a multiple of 64
-    (the tensor-core product's K stage; the float32 product takes any D)."""
+def _rebuild_checks(x, h_prev, w_x, b, mode=bf16, res=None):
+    """The rebuild product's operands for ``check_kernel_inputs``: x and
+    h_prev in the residual dtype ``res`` (default: the compute dtype
+    ``mode``), w_x in ``mode``, b float32.  D is any width: the wrappers pad
+    it to a multiple of 64 (``HiddenPad``) before they check."""
     D, H = x.shape[-1], h_prev.shape[-1]
-    if mode == bf16 and D % 64:
-        raise ValueError(f"the recompute backward kernel needs D % 64 == 0 in bf16, got D={D}")
-    return [("x", x, mode, (*x.shape[:-1], D)), ("h_prev", h_prev, mode, (*x.shape[:-1], H)),
+    res = mode if res is None else res
+    return [("x", x, res, (*x.shape[:-1], D)), ("h_prev", h_prev, res, (*x.shape[:-1], H)),
             ("w_x", w_x, mode, (D, 4 * H)), ("b", b, f32, (4 * H,))]
 
 
@@ -456,15 +464,19 @@ def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor
         return rebuild_gates_plain(x, h_prev, w_x, w_h, b)
     rows, H = h_prev.shape[0], w_h.shape[0]
     D = x.shape[-1]
+    pad = HiddenPad(H, D)
+    if pad.needed:
+        return pad.call(lambda *a: (rebuild_gates(*a),), (x, h_prev, w_x, w_h, b),
+                        *PAD_KINDS["rebuild_gates"])[0]
     dev = x.device
-    mode = kernel_dtype(w_h.dtype)
+    mode, _ = kernel_dtype(w_h.dtype)
     check_kernel_inputs(_rebuild_checks(x, h_prev, w_x, b, mode)
                         + [("w_h", w_h, mode, (H, 4 * H))], dev, H)
     with torch.cuda.device(dev):
         act = torch.empty((rows, 4 * H), dtype=f32, device=dev)
         if rows == 0:
             return act
-        fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates" + _suffix(mode),
+        fn = _lib_fn("lstm_layer_bwd", "rst_rebuild_gates" + entry_suffix(mode),
                      [P] * 6 + [I] * 3 + [P])
         rc = fn(x.data_ptr(), h_prev.data_ptr(), w_x.data_ptr(), w_h.data_ptr(), b.data_ptr(),
                 act.data_ptr(), rows, D, H, _build.launch_stream(dev))
@@ -477,11 +489,11 @@ def rebuild_gates(x: Tensor, h_prev: Tensor, w_x: Tensor, w_h: Tensor, b: Tensor
 rebuild_gates.launches = 0
 
 
-def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra, mode=bf16):
+def _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, extra, mode=bf16, res=None):
     T, B, H = cseq.shape
     check_kernel_inputs([
         ("dout", dout, f32, (T, B, H)),
-        ("cseq", cseq, mode, (T, B, H)),
+        ("cseq", cseq, mode if res is None else res, (T, B, H)),
         ("c0", c0, f32, (B, H)),
         ("mask", mask, f32, (T, 1, B)),
         ("w_h", w_h, mode, (H, 4 * H)),
@@ -511,25 +523,36 @@ def bwd_smem(H: int, warpgroups: int = 1) -> int:
             + 8 * (1 + warpgroups + warpgroups * boxes) + 1024)
 
 
-def bwd_plan(B: int, H: int, sms: int = H100_SMS, dtype=bf16) -> dict:
+def bwd_plan(B: int, H: int, sms: int = H100_SMS, dtype=bf16, res_dtype=None,
+             recompute: bool = False) -> dict:
     """Which kernel runs the layer backward at (B, H) on a card of ``sms``
-    SMs, in either residual mode (``recurrence_bwd`` and
-    ``recurrence_bwd_recompute`` both ask), decided by shape and compute
-    dtype alone.  The persistent kernel computes in bf16: a float32
-    ``dtype`` always answers the per-step kernel.
+    SMs, in either residual mode (``recurrence_bwd`` asks with
+    ``recompute`` False, ``recurrence_bwd_recompute`` with True), decided by
+    shape and the compute and residual dtypes alone.
 
-    The persistent kernel needs its whole grid co-resident, one CTA an SM:
-    ``slices`` = H/64 unit slices times 8 CTAs, each an eighth of K = 4H,
-    whatever the batch.  Each CTA holds its eighth of the slice's W_h
-    columns and walks the ``groups`` = ceil(B/64) row groups of every step
-    in turn, streaming the same eighth of the group's dgates: one consumer
-    warpgroup for one group, two (each with its own A buffer) past it
-    (``bwd_smem``).  Shapes it cannot take (H not a multiple of 128, a grid
-    larger than the card, a W_h slice and A buffers that do not fit the
-    shared memory) go to the per-step kernel.  Returns {"kernel":
-    "persistent", "groups", "warpgroups", "slices", "grid", "rows" (the row
-    groups' rows), "smem"} or {"kernel": "per_step"}."""
+    In bf16 the persistent kernel (``csrc/lstm_layer_bwd_persistent.cu``)
+    needs its whole grid co-resident, one CTA an SM: ``slices`` = H/64 unit
+    slices times 8 CTAs, each an eighth of K = 4H, whatever the batch.  Each
+    CTA holds its eighth of the slice's W_h columns and walks the
+    ``groups`` = ceil(B/64) row groups of every step in turn, streaming the
+    same eighth of the group's dgates: one consumer warpgroup for one group,
+    two (each with its own A buffer) past it (``bwd_smem``).  Shapes it
+    cannot take (H not a multiple of 128, a grid larger than the card, a
+    W_h slice and A buffers that do not fit the shared memory) go to the
+    per-step kernel.  Returns {"kernel": "persistent", "groups",
+    "warpgroups", "slices", "grid", "rows" (the row groups' rows), "smem"}
+    or {"kernel": "per_step"}.
+
+    In float32 the recompute backward runs the float32 persistent kernel
+    (``csrc/lstm_layer_bwd_f32.cu``) where ``bwd_f32_plan`` takes the shape
+    ({"kernel": "persistent_f32", ...}); the gates mode (row 6) stays on the
+    per-step kernel in float32.  Mixed compute and residual dtypes run the
+    per-step kernel."""
     per_step = {"kernel": "per_step"}
+    if res_dtype not in (None, dtype):
+        return per_step
+    if dtype == f32:
+        return bwd_f32_plan(B, H, sms) if recompute else per_step
     if dtype != bf16 or B < 1 or H < 128 or H % 128:
         return per_step
     groups, slices = -(-B // BWD_ROWS), H // BWD_UNITS
@@ -542,10 +565,45 @@ def bwd_plan(B: int, H: int, sms: int = H100_SMS, dtype=bf16) -> dict:
             "smem": bwd_smem(H, warpgroups)}
 
 
+# The float32 persistent backward (csrc/lstm_layer_bwd_f32.cu): the bf16
+# kernel's grid (BWD_SPLIT CTAs of a BWD_UNITS-unit slice, BWD_ROWS-row
+# groups), a ring of BWD_F32_STAGES boxes of 64 rows x 64 K float32, and the
+# W_h slice resident in float32, its rows padded by four floats.
+BWD_F32_STAGES, BWD_F32_KBOX = 4, 64
+
+
+def bwd_f32_smem(H: int) -> int:
+    """Dynamic shared memory of the float32 persistent backward: the W_h
+    slice (64 units x H/2 K, rows padded by 4 floats), the box ring and the
+    second K half's (64, 64) sums (the kernel's ``smem_bytes``)."""
+    share = 4 * H // BWD_SPLIT
+    return 4 * (BWD_UNITS * (share + 4) + BWD_F32_STAGES * BWD_ROWS * (BWD_F32_KBOX + 4)
+                + BWD_ROWS * BWD_UNITS)
+
+
+def bwd_f32_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
+    """The float32 persistent backward's grid at (B, H) on a card of
+    ``sms`` SMs: H/64 slices x 8 CTAs (an eighth of K = 4H each, that
+    eighth of the slice's W_h rows resident in float32), the batch's
+    ceil(B/64) row groups walked in turn.  H a multiple of 128, the grid
+    within the card and the shared memory within a block's; else the
+    per-step kernel.  Returns {"kernel": "persistent_f32", "groups",
+    "slices", "grid", "stages", "smem"} or {"kernel": "per_step"}."""
+    if B < 1 or H < 128 or H % 128:
+        return {"kernel": "per_step"}
+    slices = H // BWD_UNITS
+    grid = slices * BWD_SPLIT
+    if grid > sms or bwd_f32_smem(H) > SMEM_LIMIT:
+        return {"kernel": "per_step"}
+    return {"kernel": "persistent_f32", "groups": -(-B // BWD_ROWS), "slices": slices,
+            "grid": grid, "stages": BWD_F32_STAGES, "smem": bwd_f32_smem(H)}
+
+
 def _bwd_scratch(plan, dev):
     """The persistent backward's partial products (groups, slices, 8, 64,
     64) float32 and its counters (a step counter a row group, then a slice
-    counter a row group and slice; the kernel zeroes them a launch)."""
+    counter a row group and slice; zeroed at each launch), for the bf16
+    kernel and the float32 one alike."""
     groups, slices = plan["groups"], plan["slices"]
     part = torch.empty((groups, slices, BWD_SPLIT, BWD_ROWS, BWD_UNITS), dtype=f32, device=dev)
     counter = torch.empty((groups * (1 + slices),), dtype=torch.int32, device=dev)
@@ -605,8 +663,8 @@ def _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn):
         if T == 0:
             return gates, dh, dc
         Bp = -(-B // 16) * 16
-        par = torch.zeros((2, Bp, 4 * H), dtype=gates.dtype, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd" + _suffix(gates.dtype),
+        par = torch.zeros((2, Bp, 4 * H), dtype=w_h.dtype, device=dev)
+        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd" + entry_suffix(w_h.dtype, gates.dtype),
                      [P] * 9 + [I] * 3 + [P])
         rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
                 mask.data_ptr(), w_h.data_ptr(), par.data_ptr(), dh.data_ptr(),
@@ -630,21 +688,27 @@ def recurrence_bwd(dout: Tensor, gates: Tensor, cseq: Tensor, c0: Tensor, mask: 
     if not gates.is_cuda:
         return recurrence_bwd_plain(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
     T, B, H = cseq.shape
-    mode = kernel_dtype(w_h.dtype, gates.dtype)
+    pad = HiddenPad(H)
+    if pad.needed:
+        dg, dh0, dc0 = pad.call(recurrence_bwd, (dout, gates, cseq, c0, mask, w_h, dhn, dcn),
+                                *PAD_KINDS["recurrence_bwd"])
+        return gates.copy_(dg), dh0, dc0
+    mode, res = kernel_dtype(w_h.dtype, gates.dtype)
     _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn,
-                [("gates", gates, mode, (T, B, 4 * H))], mode)
+                [("gates", gates, res, (T, B, 4 * H))], mode, res)
     dev = gates.device
-    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode)
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode,
+                    res)
     if plan["kernel"] == "persistent":
         before = bwd_persistent_launches()
-        res = _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan)
+        out = _bwd_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan)
         recurrence_bwd.persistent_launches += bwd_persistent_launches() - before
     else:
-        res = _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
-        if mode == f32:
+        out = _bwd_per_step_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn)
+        if (mode, res) == (f32, f32):
             recurrence_bwd.f32_launches += 1
     recurrence_bwd.launches += 1
-    return res
+    return out
 
 
 recurrence_bwd.launches = 0
@@ -663,30 +727,42 @@ def _recompute_chunks(T: int, B: int, H: int):
 def _recompute_per_step_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn):
     """The per-step recompute kernel (csrc/lstm_layer_bwd.cu: a rebuild
     product a chunk, then a launch a step), whatever the plan says: the
-    wrapper's choice for the shapes ``bwd_plan`` does not take, and the
-    design the persistent kernel replaced, for checks and timings beside
-    it.  Returns (dgates, dh0, dc0, rebuild products launched)."""
+    wrapper's choice for the shapes ``bwd_plan`` does not take and for the
+    mixed compute and residual dtypes, and the design the persistent
+    kernels replaced, for checks and timings beside them.  Returns (dgates,
+    dh0, dc0, rebuild products launched)."""
     T, B, H = cseq.shape
     D = x.shape[-1]
     dev = cseq.device
-    mode = cseq.dtype
+    mode, res = w_h.dtype, cseq.dtype
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        dgates = torch.empty((T, B, 4 * H), dtype=mode, device=dev)
+        dgates = torch.empty((T, B, 4 * H), dtype=res, device=dev)
         if T == 0 or B == 0:
             return dgates, dh, dc, 0
         chunk, starts = _recompute_chunks(T, B, H)
         Bp = -(-B // 16) * 16
         par = torch.zeros((2, Bp, 4 * H), dtype=mode, device=dev)
         act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
-        fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute" + _suffix(mode),
-                     [P] * 15 + [I] * 6 + [P])
+        head = [dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr()]
+        tail = [b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(), act.data_ptr(),
+                starts, len(starts), chunk, T, B, H, D]
         before = _lib_count("lstm_layer_bwd", "rst_rebuild_launches")
-        rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
-                mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
-                w_x.data_ptr(), b.data_ptr(), par.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-                act.data_ptr(), starts, len(starts), chunk, T, B, H, D,
-                _build.launch_stream(dev))
+        if mode == res:
+            fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute" + entry_suffix(mode),
+                         [P] * 15 + [I] * 6 + [P])
+            rc = fn(*head, x.data_ptr(), h_prev.data_ptr(), w_x.data_ptr(), *tail,
+                    _build.launch_stream(dev))
+        else:
+            # The JAX kernel's product of residual-dtype x with compute-dtype
+            # W_x sums their float32 values: the float32 rebuild on float32
+            # copies of both.
+            ops32 = [t.to(f32).contiguous() for t in (x, h_prev, w_x, w_h)]
+            fn = _lib_fn("lstm_layer_bwd", "rst_lstm_layer_bwd_recompute_mixed",
+                         [P] * 16 + [I] * 7 + [P])
+            rc = fn(*head, *[t.data_ptr() for t in ops32], *tail, int(res == f32),
+                    _build.launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"lstm_layer_bwd_recompute kernel launch failed: CUDA error {rc}")
     return dgates, dh, dc, _lib_count("lstm_layer_bwd", "rst_rebuild_launches") - before
@@ -732,6 +808,83 @@ def _recompute_persistent_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, d
     return dgates, dh, dc, rebuilds - before
 
 
+def _bwd_f32_persistent_launch(dout, gates, cseq, c0, mask, w_h, dhn, dcn, plan,
+                               skip_barrier=0):
+    """The float32 persistent backward in gates mode on the plan's grid
+    (``bwd_f32_plan``): one launch over T, dgates written over ``gates``;
+    the float32 layer sweep's chain (``lstm_wavefront._layer_sweep_launch``).
+    ``skip_barrier`` plants faults, for checks: bit 1, each CTA reads
+    dgates without waiting for the others; bit 2, it sums the slice's
+    partials without waiting for them; bit 4, it leaves the slice's last
+    partial out of the sum.  Returns (gates, dh0, dc0)."""
+    T, B, H = cseq.shape
+    dev = gates.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        if T == 0:
+            return gates, dh, dc
+        part, counter = _bwd_scratch(plan, dev)
+        fn = _lib_fn("lstm_layer_bwd_f32", "rst_lstm_layer_bwd_f32_persistent",
+                     [P] * 10 + [I] * 5 + [P])
+        rc = fn(dout.data_ptr(), gates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), dh.data_ptr(), dc.data_ptr(), part.data_ptr(),
+                counter.data_ptr(), T, B, H, plan["groups"], skip_barrier,
+                _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"float32 persistent lstm_layer_bwd kernel launch failed: CUDA error "
+                           f"{rc} (plan {plan})")
+    return gates, dh, dc
+
+
+def bwd_f32_launches() -> int:
+    """Launches of the float32 persistent backward in gates mode so far, as
+    its library counts them at the launch site."""
+    return _lib_count("lstm_layer_bwd_f32", "rst_layer_bwd_f32_launches")
+
+
+def _recompute_f32_persistent_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn,
+                                     plan, skip_barrier=0, dgates=None):
+    """The float32 recompute backward on the persistent kernel on the plan's
+    grid (``bwd_f32_plan``): for each rebuild chunk (``rebuild_chunks``,
+    last first) its float32 rebuild product on the GEMM tile, then one
+    persistent launch of its steps.  ``skip_barrier`` plants faults as
+    ``_bwd_f32_persistent_launch`` takes them; ``dgates``, (T, B, 4H)
+    float32, is the stream to write (a fresh one by default; a check hands
+    one filled with NaN).  Returns (dgates, dh0, dc0, rebuild products
+    launched)."""
+    T, B, H = cseq.shape
+    D = x.shape[-1]
+    dev = cseq.device
+    with torch.cuda.device(dev):
+        dh, dc = dhn.clone(), dcn.clone()
+        if dgates is None:
+            dgates = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
+        if T == 0 or B == 0:
+            return dgates, dh, dc, 0
+        chunk, starts = _recompute_chunks(T, B, H)
+        act = torch.empty((chunk * B, 4 * H), dtype=f32, device=dev)
+        part, counter = _bwd_scratch(plan, dev)
+        fn = _lib_fn("lstm_layer_bwd_f32", "rst_lstm_layer_bwd_recompute_f32_persistent",
+                     [P] * 16 + [I] * 8 + [P])
+        count = ("lstm_layer_bwd_f32", "rst_recompute_f32_rebuild_launches")
+        before = _lib_count(*count)
+        rc = fn(dout.data_ptr(), dgates.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                mask.data_ptr(), w_h.data_ptr(), x.data_ptr(), h_prev.data_ptr(),
+                w_x.data_ptr(), b.data_ptr(), dh.data_ptr(), dc.data_ptr(), act.data_ptr(),
+                part.data_ptr(), counter.data_ptr(), starts, len(starts), chunk, T, B, H, D,
+                plan["groups"], skip_barrier, _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"float32 persistent lstm_layer_bwd_recompute kernel launch failed: "
+                           f"CUDA error {rc} (plan {plan})")
+    return dgates, dh, dc, _lib_count(*count) - before
+
+
+def recompute_f32_launches() -> int:
+    """Launches of the float32 persistent backward in recompute mode so far
+    (one a rebuild chunk), as its library counts them at the launch site."""
+    return _lib_count("lstm_layer_bwd_f32", "rst_recompute_f32_launches")
+
+
 def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tensor,
                              c0: Tensor, mask: Tensor, w_x: Tensor, b: Tensor, w_h: Tensor,
                              dhn: Tensor, dcn: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -739,34 +892,45 @@ def recurrence_bwd_recompute(dout: Tensor, x: Tensor, h_prev: Tensor, cseq: Tens
     gates rebuilt from x (T, B, D) and h_prev (T, B, H) in the residual
     dtype, w_x (D, 4H) and the bias b (4H,) float32.  Returns (dgates
     (T, B, 4H) in the residual dtype, dh0, dc0).  On a CUDA device the
-    kernel ``bwd_plan`` picks by shape and compute dtype: the persistent
-    one, a launch a rebuild chunk (``persistent_launches`` adds the
-    library's count), or the per-step one (``per_step_launches`` counts its
-    calls, ``f32_launches`` its float32 calls, whose rebuild takes any D);
-    ``rebuild_launches`` adds the rebuild products either launched.  The
-    plain version on the CPU."""
+    kernel ``bwd_plan`` picks by shape and the compute and residual dtypes:
+    the bf16 persistent one, a launch a rebuild chunk (``persistent_launches``
+    adds the library's count), the float32 persistent one, likewise
+    (``f32_persistent_launches``), or the per-step one (``per_step_launches``
+    counts its calls); ``f32_launches`` counts the float32 calls,
+    ``rebuild_launches`` adds the rebuild products any of them launched.
+    The plain version on the CPU."""
     if not cseq.is_cuda:
         return recurrence_bwd_recompute_plain(dout, x, h_prev, cseq, c0, mask, w_x, b,
                                               w_h, dhn, dcn)
     T, B, H = cseq.shape
+    pad = HiddenPad(H, x.shape[-1])
+    if pad.needed:
+        return pad.call(recurrence_bwd_recompute,
+                        (dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn),
+                        *PAD_KINDS["recurrence_bwd_recompute"])
     dev = cseq.device
-    mode = kernel_dtype(w_h.dtype, cseq.dtype)
-    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn, _rebuild_checks(x, h_prev, w_x, b, mode),
-                mode)
+    mode, res = kernel_dtype(w_h.dtype, cseq.dtype)
+    _bwd_checks(dout, cseq, c0, mask, w_h, dhn, dcn,
+                _rebuild_checks(x, h_prev, w_x, b, mode, res), mode, res)
     args = (dout, x, h_prev, cseq, c0, mask, w_x, b, w_h, dhn, dcn)
-    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode)
+    plan = bwd_plan(B, H, torch.cuda.get_device_properties(dev).multi_processor_count, mode,
+                    res, recompute=True)
     if plan["kernel"] == "persistent":
         before = recompute_persistent_launches()
-        *res, rebuilds = _recompute_persistent_launch(*args, plan)
+        *out, rebuilds = _recompute_persistent_launch(*args, plan)
         recurrence_bwd_recompute.persistent_launches += recompute_persistent_launches() - before
+    elif plan["kernel"] == "persistent_f32":
+        before = recompute_f32_launches()
+        *out, rebuilds = _recompute_f32_persistent_launch(*args, plan)
+        recurrence_bwd_recompute.f32_persistent_launches += recompute_f32_launches() - before
     else:
-        *res, rebuilds = _recompute_per_step_launch(*args)
+        *out, rebuilds = _recompute_per_step_launch(*args)
         recurrence_bwd_recompute.per_step_launches += T > 0 and B > 0
-        if mode == f32:
-            recurrence_bwd_recompute.f32_launches += 1
+    if mode == f32 and res == f32:
+        recurrence_bwd_recompute.f32_launches += 1
     recurrence_bwd_recompute.launches += 1
     recurrence_bwd_recompute.rebuild_launches += rebuilds
-    return tuple(res)
+    return tuple(out)
 
 
 recurrence_bwd_recompute.launches = 0
@@ -774,6 +938,7 @@ recurrence_bwd_recompute.rebuild_launches = 0
 recurrence_bwd_recompute.persistent_launches = 0
 recurrence_bwd_recompute.per_step_launches = 0
 recurrence_bwd_recompute.f32_launches = 0
+recurrence_bwd_recompute.f32_persistent_launches = 0
 
 
 # ------------------------------------------------------- differentiable layer

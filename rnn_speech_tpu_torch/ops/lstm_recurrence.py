@@ -27,8 +27,12 @@ that launched a kernel, ``lstm_recurrence.persistent_launches`` those of
 the persistent kernel (read from its library's own count at the launch
 site).
 
-Both compute modes of the JAX kernel run on the card, chosen by W_h's
-dtype (``kernel_dtype``): bf16 (h rounded to bf16 for the product) and
+Any H runs on the card: the wrappers of the LSTM kernels zero-pad H (and
+the input width D) to a multiple of 64 gate block by gate block, run the
+kernel on the padded shapes and slice the results back (``HiddenPad``;
+exact, see there).  Both compute modes of the JAX kernel run on the card,
+chosen by W_h's dtype (``kernel_dtype``): bf16 (h rounded to bf16 for the
+product) and
 float32 (float32 W_h and h, no rounding: the JAX kernel's default
 ``compute_dtype=float32``).  The persistent kernel is bf16 only
 (``lean_plan``'s ``dtype``), so float32 runs the per-step kernel's
@@ -50,18 +54,122 @@ f32, bf16 = torch.float32, torch.bfloat16
 
 
 def kernel_dtype(w_dtype, res_dtype=None):
-    """The LSTM kernels' compute mode for weights of ``w_dtype``: bf16 or
-    float32, the JAX kernels' two compute dtypes.  Where the kernel also
-    stores residuals, ``res_dtype`` must be the same dtype: mixed modes
-    (bf16 compute with float32 residuals, or the reverse) are not ported
-    and raise ``TypeError``, as does any other dtype."""
-    if w_dtype not in (bf16, f32):
-        raise TypeError(f"the LSTM kernels compute in bfloat16 or float32, got {w_dtype}")
-    if res_dtype is not None and res_dtype != w_dtype:
-        raise TypeError(f"mixed compute and residual dtypes are not ported: {w_dtype} "
-                        f"compute with {res_dtype} residuals (the kernels take bfloat16 "
-                        f"or float32 for both)")
-    return w_dtype
+    """The LSTM kernels' compute mode for weights of ``w_dtype`` and, where
+    the kernel stores residuals, residuals of ``res_dtype`` (default: the
+    same): the pair (compute, residual), each bf16 or float32, the JAX
+    kernels' compute and residual dtypes.  The mixed pairs (bf16 compute
+    with float32 residuals, or the reverse) run on the per-step and
+    per-diagonal kernels' mixed instances; any other dtype raises
+    ``TypeError``."""
+    res_dtype = w_dtype if res_dtype is None else res_dtype
+    for dtype in (w_dtype, res_dtype):
+        if dtype not in (bf16, f32):
+            raise TypeError(f"the LSTM kernels compute and store in bfloat16 or float32, "
+                            f"got {dtype}")
+    return w_dtype, res_dtype
+
+
+def entry_suffix(mode, res=None) -> str:
+    """The C entries' suffix of a (compute, residual) mode: none for bf16,
+    ``_f32`` for float32, ``_bf16_f32`` and ``_f32_bf16`` for the mixed
+    pairs."""
+    res = mode if res is None else res
+    if res == mode:
+        return "_f32" if mode == f32 else ""
+    return "_bf16_f32" if mode == bf16 else "_f32_bf16"
+
+
+#: The width the LSTM kernels' K chunks and unit tiles take H and D in.
+PAD_TO = 64
+
+
+#: How each LSTM wrapper's positional arguments and results are padded
+#: (``HiddenPad`` kinds; the wavefront wrappers' trailing drop arguments
+#: as they are, drop mode 1's masks padded along H).
+PAD_KINDS = {
+    "lstm_recurrence": (("g", "wh", None, "h", "h"), ("h", "h", "h")),
+    "lstm_stack_wavefront": (("g", "wh", "wh", "g", None, "h", "h"), ("h", "h", "h")),
+    "recurrence_train": (("g", "wh", None, "h", "h"), ("h", "h", "h", "g", "h")),
+    "recurrence_train_lean": (("g", "wh", None, "h", "h"), ("h", "h", "h", "h")),
+    "recurrence_bwd": (("h", "g", "h", "h", None, "wh", "h", "h"), ("g", "h", "h")),
+    "recurrence_bwd_recompute": (("h", "d", "h", "h", "h", None, "wd", "g", "wh", "h", "h"),
+                                 ("g", "h", "h")),
+    "rebuild_gates": (("d", "h", "wd", "wh", "g"), ("g",)),
+    "wavefront_train": (("d", "wd", "wh", "wh", "g", None, "h", "h"), ("h", "g", "h", "h", "h")),
+    "wavefront_bwd": (("h", "wh", "wh", None, "g", "h", "h", "h", "h", "h"),
+                      ("g", "h", "h", "h")),
+}
+
+
+class HiddenPad:
+    """Zero padding of an LSTM's widths to the kernels' multiple of
+    ``PAD_TO``: H to Hp gate block by gate block (each of the four H-wide
+    gate blocks of a 4H axis grows to Hp), and the input width D to Dp.
+
+    A padded unit has pre-activation 0 (zero weights, bias and x_proj
+    columns), so i = f = o = 1/2 and g = 0 from c = h = 0: its c and h
+    stay 0, and in the backward its dout, carries and dgates are 0.  Real
+    units keep their index j, so the dropout bits drawn at (j/4, b, t, l)
+    do not move.  The padding is exact: the kernels run on the padded
+    shapes, and ``unpad`` slices their results back.
+
+    Kinds of axes (``pad``/``unpad``): "h" the last axis H, "d" the last
+    axis D, "g" the last axis 4H, "wh" a (.., H, 4H) weight, "wd" a
+    (.., D, 4H) weight; None leaves a tensor as it is."""
+
+    def __init__(self, H: int, D: int = None):
+        D = H if D is None else D
+        self.H, self.D = H, D
+        self.Hp, self.Dp = -(-H // PAD_TO) * PAD_TO, -(-D // PAD_TO) * PAD_TO
+        self.needed = (self.Hp, self.Dp) != (H, D)
+
+    def _gates(self, t, n, n_p):
+        if n_p == n:
+            return t
+        v = torch.nn.functional.pad(t.reshape(*t.shape[:-1], 4, n), (0, n_p - n))
+        return v.reshape(*t.shape[:-1], 4 * n_p)
+
+    def pad(self, t, kind):
+        """``t`` zero-padded along the axes of ``kind``, contiguous."""
+        if kind is None or t is None:
+            return t
+        H, Hp, D, Dp = self.H, self.Hp, self.D, self.Dp
+        if kind == "h":
+            t = torch.nn.functional.pad(t, (0, Hp - H))
+        elif kind == "d":
+            t = torch.nn.functional.pad(t, (0, Dp - D))
+        elif kind == "g":
+            t = self._gates(t, H, Hp)
+        elif kind in ("wh", "wd"):
+            k, kp = (H, Hp) if kind == "wh" else (D, Dp)
+            t = torch.nn.functional.pad(self._gates(t, H, Hp), (0, 0, 0, kp - k))
+        else:
+            raise ValueError(f"unknown pad kind {kind!r}")
+        return t.contiguous()
+
+    def unpad(self, t, kind):
+        """``t`` with the axes of ``kind`` sliced back to H and D."""
+        if kind is None or t is None:
+            return t
+        H, D = self.H, self.D
+        if kind == "h":
+            return t[..., :H]
+        if kind == "d":
+            return t[..., :D]
+        if kind == "g":
+            return t.reshape(*t.shape[:-1], 4, self.Hp)[..., :H].reshape(*t.shape[:-1], 4 * H)
+        if kind in ("wh", "wd"):
+            return self.unpad(t, "g")[..., :H if kind == "wh" else D, :]
+        raise ValueError(f"unknown pad kind {kind!r}")
+
+    def call(self, fn, args, kinds, out_kinds, **kw):
+        """``fn`` on the padded ``args`` (``kinds`` one a positional
+        argument; arguments past them as they are), its results sliced back
+        by ``out_kinds``; the results are contiguous copies."""
+        kinds = tuple(kinds) + (None,) * (len(args) - len(kinds))
+        res = fn(*[self.pad(a, k) for a, k in zip(args, kinds)], **kw)
+        return tuple(None if r is None else self.unpad(r, k).contiguous()
+                     for r, k in zip(res, out_kinds))
 
 
 def lstm_recurrence_plain(x_proj: Tensor, w_h: Tensor, mask: Tensor,
@@ -120,13 +228,14 @@ def lean_smem(H: int, tiles: int, stages: int, x_f32: bool = False) -> int:
 
 
 def lean_plan(B: int, H: int, sms: int = H100_SMS, x_f32: bool = False,
-              dtype=bf16) -> dict:
+              dtype=bf16, res_dtype=None) -> dict:
     """Which kernel runs the persistent forward's recurrence at (B, H) on a
     card of ``sms`` SMs, decided by shape and compute dtype alone: the
     recompute-mode training forward (bf16 x_proj) or, with ``x_f32``, the
     inference recurrence (f32 x_proj, staged through shared memory by TMA).
-    The persistent kernel computes in bf16: a float32 ``dtype`` always
-    answers the per-step kernel.
+    The persistent kernel computes and stores in bf16: a float32 ``dtype``
+    or a ``res_dtype`` other than bf16 (a mixed mode) always answers the
+    per-step kernel.
 
     The persistent kernel needs its whole grid co-resident, one CTA an SM:
     ``slices`` = H/16 unit slices times ``groups`` row groups of at most
@@ -140,7 +249,7 @@ def lean_plan(B: int, H: int, sms: int = H100_SMS, x_f32: bool = False,
     Returns {"kernel": "persistent", "groups", "tiles", "slices", "grid",
     "stages", "rows" (the padded h rows), "smem"} or {"kernel": "per_step"}."""
     per_step = {"kernel": "per_step"}
-    if dtype != bf16 or B < 1 or H < 64 or H % 64:
+    if dtype != bf16 or res_dtype not in (None, bf16) or B < 1 or H < 64 or H % 64:
         return per_step
     slices = H // LEAN_UNITS
     m_tiles = -(-B // 64)
@@ -175,8 +284,9 @@ def lean_weights(w_h: Tensor) -> Tensor:
 def check_kernel_inputs(named, device, H: int) -> None:
     """Raise unless every (name, tensor, dtype, shape) lies on ``device``,
     has that dtype and shape, is contiguous and 32-byte aligned (the WMMA
-    tile loads), and H is a multiple of 64 (the staged K chunk)."""
-    if H % 64:
+    tile loads), and H is a multiple of 64 (the staged K chunk: the
+    wrappers pad other widths first, ``HiddenPad``)."""
+    if H % PAD_TO:
         raise ValueError(f"the LSTM kernels need H % 64 == 0, got H={H}")
     for name, t, dtype, shape in named:
         if t.device != device:
@@ -240,8 +350,12 @@ def lstm_recurrence(x_proj: Tensor, w_h: Tensor, mask: Tensor,
         return lstm_recurrence_plain(x_proj, w_h, mask, h0, c0)
     T, B, four_h = x_proj.shape
     H = four_h // 4
+    pad = HiddenPad(H)
+    if pad.needed:
+        return pad.call(lstm_recurrence, (x_proj, w_h, mask, h0, c0),
+                        *PAD_KINDS["lstm_recurrence"])
     dev = x_proj.device
-    mode = kernel_dtype(w_h.dtype)
+    mode, _ = kernel_dtype(w_h.dtype)
     check_kernel_inputs([
         ("x_proj", x_proj, f32, (T, B, 4 * H)),
         ("w_h", w_h, mode, (H, 4 * H)),

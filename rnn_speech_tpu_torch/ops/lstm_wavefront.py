@@ -64,16 +64,24 @@ call); ``<wrapper>.persistent_launches`` of the three wrappers those of
 their persistent kernels, read from each library's own count at the
 launch site.
 
-Both compute modes of the JAX kernels run on the card, chosen by the
-weights' dtype, with residuals of the same dtype (``kernel_dtype``; mixed
-modes raise): bf16, and float32 (the JAX kernels' default compute dtype
-with float32 residuals: float32 operands, h buffers, residuals, dgates and
-xdrop, nothing rounded).  The persistent kernels are bf16 only (the plans'
-``dtype``), so float32 runs the per-diagonal kernels' float32 instances,
-whose calls ``<wrapper>.f32_launches`` counts.  The fused dW_x is bf16
-only: in float32 the stack's backward runs the reverse diagonal unfused
-and takes dW_x of layers 1..L-1 from the weight-gradient kernel's float32
-tile (the same sums in another order; ``_WavefrontStackTrain``).
+Every compute and residual mode of the JAX kernels runs on the card,
+chosen by the weights' dtype and the residuals' (``kernel_dtype``): bf16,
+float32 (the JAX kernels' default compute dtype with float32 residuals:
+float32 operands, h buffers, residuals, dgates and xdrop, nothing rounded)
+and the two mixed pairs; any H and D (the wrappers pad them to a multiple
+of 64, ``HiddenPad``).  The persistent kernels are bf16 only (the plans'
+``dtype`` and ``res_dtype``).  The float32 reverse diagonal runs as a
+layer sweep (``_layer_sweep_launch``, where ``wavefront_bwd_plan`` sends
+it): each layer's whole reverse walk on the float32 persistent layer
+backward (``csrc/lstm_layer_bwd_f32.cu``), then the layer below's
+cotangent and xdrop stream on a float32 GEMM tile (``sweep_dout``); its
+calls ``wavefront_bwd.sweep_launches`` counts.  The other float32 calls
+and the mixed modes run the per-diagonal kernels' instances of their
+dtypes; ``<wrapper>.f32_launches`` counts the float32 calls.  The fused
+dW_x is bf16 only: in float32 and the mixed modes the stack's backward
+runs the reverse diagonal unfused and takes dW_x of layers 1..L-1 from
+the weight-gradient kernel (the same sums in another order;
+``_WavefrontStackTrain``).
 """
 
 from __future__ import annotations
@@ -90,7 +98,7 @@ from rnn_speech_tpu_torch.ops.grad_matmul import dgates_weight_grads, weight_gra
 from rnn_speech_tpu_torch.ops.lstm import LayerState, dot_f32, length_mask
 from rnn_speech_tpu_torch.ops.lstm_layer_train import forward_plain
 from rnn_speech_tpu_torch.ops.lstm_recurrence import (
-    H100_SMS, SMEM_LIMIT, check_kernel_inputs, kernel_dtype)
+    H100_SMS, PAD_KINDS, SMEM_LIMIT, HiddenPad, check_kernel_inputs, entry_suffix, kernel_dtype)
 
 Tensor = torch.Tensor
 f32, bf16 = torch.float32, torch.bfloat16
@@ -299,8 +307,12 @@ def lstm_stack_wavefront(
         return lstm_stack_wavefront_plain(xp0, w_h, w_x_rest, b_rest, mask, h0, c0)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
+    pad = HiddenPad(H)
+    if pad.needed:
+        return pad.call(lstm_stack_wavefront, (xp0, w_h, w_x_rest, b_rest, mask, h0, c0),
+                        *PAD_KINDS["lstm_stack_wavefront"])
     dev = xp0.device
-    mode = kernel_dtype(w_h.dtype)
+    mode, _ = kernel_dtype(w_h.dtype)
     check_kernel_inputs([
         ("xp0", xp0, f32, (T, B, 4 * H)),
         ("w_h", w_h, mode, (L, H, 4 * H)),
@@ -480,15 +492,16 @@ def wavefront_layout(B: int, H: int, L: int, D: int, sms: int = H100_SMS):
 
 
 def wavefront_plan(B: int, H: int, L: int, D: int, sms: int = H100_SMS,
-                   dtype=bf16) -> dict:
+                   dtype=bf16, res_dtype=None) -> dict:
     """Which kernel runs the training forward at (B, H, L, D) on a card of
     ``sms`` SMs, decided by shape and compute dtype alone: the persistent
     one where ``wavefront_layout`` takes a bf16 shape (the default step's
     B=64 at H = D = 1024, L = 3: 3 x 43 = 129 CTAs), else the per-diagonal
     kernel (the wide step's B=394, D != H, more CTAs than SMs, float32
-    compute).  Returns {"kernel": "persistent", **layout} or {"kernel":
-    "per_diagonal"}."""
-    layout = wavefront_layout(B, H, L, D, sms) if dtype == bf16 else None
+    compute, a ``res_dtype`` other than bf16: the mixed modes).  Returns
+    {"kernel": "persistent", **layout} or {"kernel": "per_diagonal"}."""
+    bf16_only = dtype == bf16 and res_dtype in (None, bf16)
+    layout = wavefront_layout(B, H, L, D, sms) if bf16_only else None
     if layout is None:
         return {"kernel": "per_diagonal"}
     return {"kernel": "persistent", **layout}
@@ -595,9 +608,14 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
                                      keep_prob)
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
-    mode = kernel_dtype(w_h.dtype, res_dtype)
-    if D % 64:
-        raise ValueError(f"the training kernel needs D % 64 == 0, got D={D}")
+    pad = HiddenPad(H, D)
+    if pad.needed:
+        if drop_mode == 1:
+            drop_arr = pad.pad(drop_arr, "h")
+        return pad.call(wavefront_train, (x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, res_dtype,
+                                          drop_mode, drop_arr, drop_scale, keep_prob),
+                        *PAD_KINDS["wavefront_train"])
+    mode, res_mode = kernel_dtype(w_h.dtype, res_dtype)
     dev = x.device
     check_kernel_inputs([
         ("x", x, mode, (T, B, D)),
@@ -612,30 +630,32 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     masks, seed0, seed1, thr, scale = _drop_launch_args(
         drop_mode, drop_arr, keep_prob, drop_scale, (L - 1, T, B, H), dev)
     plan = wavefront_plan(B, H, L, D, torch.cuda.get_device_properties(dev).multi_processor_count,
-                          mode)
+                          mode, res_mode)
     drop = (drop_mode, masks, seed0, seed1, thr, scale)
     if plan["kernel"] == "persistent":
         before = persistent_launches()
         res = _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan)
         wavefront_train.persistent_launches += persistent_launches() - before
     else:
-        res = _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop)
+        res = _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, res_mode)
     if T:                                            # T = 0 launches nothing
         wavefront_train.launches += 1
-        if mode == f32:
+        if (mode, res_mode) == (f32, f32):
             wavefront_train.f32_launches += 1
     return res
 
 
-def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
+def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, res=None):
     """The per-diagonal forward (csrc/lstm_wavefront_train.cu): one launch
-    a diagonal, any B.  ``drop`` as ``_persistent_launch`` takes it.
-    Returns (outs, gates, cseq, hn, cn)."""
+    a diagonal, any B.  ``drop`` as ``_persistent_launch`` takes it; the
+    residual streams in ``res`` (default: the weights' dtype).  Returns
+    (outs, gates, cseq, hn, cn)."""
     T, B, D = x.shape
     L, H = w_h.shape[0], w_h.shape[1]
     drop_mode, masks, seed0, seed1, thr, scale = drop
     dev = x.device
     mode = w_h.dtype
+    res = mode if res is None else res
     with torch.cuda.device(dev):
         Bp = -(-B // 16) * 16
         # The dropped copies the layers above read, by diagonal parity.
@@ -646,13 +666,13 @@ def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop):
         hb = torch.zeros((2, L, Bp, H), dtype=mode, device=dev)
         hb[:, :, :B] = h0.to(mode)[None]
         h, c = h0.clone(), c0.clone()
-        outs = torch.empty((L, T, B, H), dtype=mode, device=dev)
-        gates = torch.empty((L, T, B, 4 * H), dtype=mode, device=dev)
-        cseq = torch.empty((L, T, B, H), dtype=mode, device=dev)
+        outs = torch.empty((L, T, B, H), dtype=res, device=dev)
+        gates = torch.empty((L, T, B, 4 * H), dtype=res, device=dev)
+        cseq = torch.empty((L, T, B, H), dtype=res, device=dev)
         if T == 0:
             return outs, gates, cseq, h, c
-        lib = _build.load("lstm_wavefront_train")
-        fn = lib.rst_lstm_wavefront_train if mode == bf16 else lib.rst_lstm_wavefront_train_f32
+        fn = getattr(_build.load("lstm_wavefront_train"),
+                     "rst_lstm_wavefront_train" + entry_suffix(mode, res))
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 2 + [ctypes.c_uint] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -820,21 +840,112 @@ def wavefront_bwd_layout(B: int, H: int, L: int, sms: int = H100_SMS, window: in
 
 
 def wavefront_bwd_plan(B: int, H: int, L: int, fuse_dwx: bool = False,
-                       sms: int = H100_SMS, dtype=bf16) -> dict:
+                       sms: int = H100_SMS, dtype=bf16, res_dtype=None) -> dict:
     """Which kernel runs the reverse diagonal at (B, H, L) on a card of
-    ``sms`` SMs, decided by shape and compute dtype alone: the persistent
-    one, unfused or with the fused dW_x (``window`` = FUSE_DWX_WINDOW),
-    where ``wavefront_bwd_layout`` takes a bf16 shape (every batch at
-    3x1024: 3 x 11 x 4 = 132 CTAs; the default step's B=64 in one launch,
-    the wide step's B=394 in four row groups a window), else the
-    per-diagonal kernel (more CTAs than SMs, H % 64, one layer, float32
-    compute, which runs unfused).  Returns {"kernel": "persistent",
-    **layout} or {"kernel": "per_diagonal"}."""
+    ``sms`` SMs, decided by shape and the compute and residual dtypes
+    alone: in bf16 the persistent one, unfused or with the fused dW_x
+    (``window`` = FUSE_DWX_WINDOW), where ``wavefront_bwd_layout`` takes the
+    shape (every batch at 3x1024: 3 x 11 x 4 = 132 CTAs; the default step's
+    B=64 in one launch, the wide step's B=394 in four row groups a window);
+    in float32, unfused, the layer sweep (``_layer_sweep_launch``) where the
+    float32 persistent layer backward takes (B, H) (``lstm_layer_train.
+    bwd_f32_plan``: every batch at H=1024); else the per-diagonal kernel
+    (more CTAs than SMs, one layer, the mixed modes, float32 past the
+    float32 plan).  Returns {"kernel": "persistent", **layout},
+    {"kernel": "layer_sweep", "chain": <bwd_f32_plan>} or {"kernel":
+    "per_diagonal"}."""
+    per_diagonal = {"kernel": "per_diagonal"}
+    if res_dtype not in (None, dtype) or L < 2:
+        return per_diagonal
+    if dtype == f32:
+        chain = lstm_layer_train.bwd_f32_plan(B, H, sms)
+        if fuse_dwx or chain["kernel"] != "persistent_f32":
+            return per_diagonal
+        return {"kernel": "layer_sweep", "chain": chain}
     layout = (wavefront_bwd_layout(B, H, L, sms, FUSE_DWX_WINDOW if fuse_dwx else 0)
               if dtype == bf16 else None)
     if layout is None:
-        return {"kernel": "per_diagonal"}
+        return per_diagonal
     return {"kernel": "persistent", **layout}
+
+
+def sweep_dout_plain(dgates: Tensor, w_x: Tensor, outs: Tensor = None, keep_scale=None):
+    """The float32 layer sweep's step between two layers in plain PyTorch:
+    the layer below's cotangent (dgates (T, B, 4H) · w_xᵀ) · keep_scale and,
+    with ``outs``, its dropped input outs · keep_scale (the xdrop stream);
+    ``keep_scale`` (T, B, H) is boundary l's keep·drop_scale, or None in
+    drop mode 0.  Returns (dout, xdrop or None), float32."""
+    dout = torch.matmul(dgates.to(f32), w_x.to(f32).t())
+    if keep_scale is None:
+        return dout, None
+    return dout * keep_scale, None if outs is None else outs.to(f32) * keep_scale
+
+
+def sweep_dout(dgates: Tensor, w_x: Tensor, drop, boundary: int, outs: Tensor = None,
+               skip_k: int = 0):
+    """The layer sweep's cotangent product (``rst_sweep_dout_f32``, the
+    float32 GEMM tile with the keep bits in its epilogue): dgates (T, B, 4H)
+    of the layer above boundary ``boundary``, its input weights w_x (H, 4H),
+    ``drop`` as ``_bwd_persistent_launch`` takes it, ``outs`` (T, B, H) the
+    boundary's masked outputs (drop modes 1 and 2).  Returns (dout, xdrop
+    or None) as ``sweep_dout_plain`` on the bits of ``drop``; float32, on
+    the card.  ``skip_k`` leaves out the tile's last K stages (a planted
+    fault, for checks).  ``sweep_dout.launches`` counts its launches."""
+    T, B, four_h = dgates.shape
+    H = four_h // 4
+    drop_mode, masks, seed0, seed1, thr, scale = drop
+    dev = dgates.device
+    with torch.cuda.device(dev):
+        dout = torch.empty((T, B, H), dtype=f32, device=dev)
+        xdrop = torch.empty((T, B, H), dtype=f32, device=dev) if drop_mode else None
+        if T * B == 0:
+            return dout, xdrop
+        fn = _build.load("lstm_layer_bwd_f32").rst_sweep_dout_f32
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_uint] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        rc = fn(dgates.data_ptr(), w_x.data_ptr(), _ptr(outs if drop_mode else None),
+                _ptr(masks[boundary] if drop_mode == 1 else None), _ptr(xdrop), dout.data_ptr(),
+                T * B, B, H, drop_mode, seed0, seed1, thr, scale, boundary, skip_k,
+                _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"sweep_dout kernel launch failed: CUDA error {rc}")
+    sweep_dout.launches += 1
+    return dout, xdrop
+
+
+sweep_dout.launches = 0
+
+
+def _layer_sweep_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, drop,
+                        plan, skip_barrier=0, skip_k=0):
+    """The float32 reverse diagonal as a layer sweep (the same function,
+    another schedule): from the top layer down, the layer's whole reverse
+    walk on the float32 persistent backward in gates mode
+    (``lstm_layer_train._bwd_f32_persistent_launch``: dgates written over
+    ``gates[l]``), then the cotangent of the layer below and, in drop modes
+    1 and 2, boundary l-1's xdrop stream (``sweep_dout``).  ``drop`` as
+    ``_bwd_persistent_launch`` takes it; ``skip_barrier`` and ``skip_k``
+    plant the chain's and the product's faults, for checks.  Returns
+    ``wavefront_bwd``'s results."""
+    L, T, B, four_h = gates.shape
+    H = four_h // 4
+    drop_mode = drop[0]
+    dev = gates.device
+    dh, dc = dhn.clone(), dcn.clone()
+    xdrop = torch.empty((L - 1, T, B, H), dtype=f32, device=dev) if drop_mode else None
+    dout = dout_top.contiguous()
+    for l in reversed(range(L)):
+        _, dh[l], dc[l] = lstm_layer_train._bwd_f32_persistent_launch(
+            dout, gates[l], cseq[l], c0[l], mask, w_h[l], dhn[l], dcn[l], plan["chain"],
+            skip_barrier)
+        if l > 0:
+            dout, xd = sweep_dout(gates[l], w_x_rest[l - 1], drop, l - 1,
+                                  outs[l - 1] if drop_mode else None, skip_k)
+            if xd is not None:
+                xdrop[l - 1] = xd
+    res = (gates, dh, dc)
+    return res if xdrop is None else res + (xdrop,)
 
 
 def _bwd_persistent_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs,
@@ -905,10 +1016,10 @@ def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn
     H = four_h // 4
     drop_mode, masks, seed0, seed1, thr, scale = drop
     dev = gates.device
-    mode = gates.dtype
+    mode, res_mode = w_h.dtype, gates.dtype
     with torch.cuda.device(dev):
         dh, dc = dhn.clone(), dcn.clone()
-        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev, mode)
+        xdrop, dwx, window = _bwd_buffers(L, T, B, H, drop_mode, fuse_dwx, dev, res_mode)
         if fuse_dwx:
             res = (gates, dh, dc, dwx)
         else:
@@ -925,13 +1036,13 @@ def _bwd_per_diagonal_launch(dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn
                 par.data_ptr(), dh.data_ptr(), dc.data_ptr(), T, B, H, L, drop_mode,
                 _ptr(masks), _ptr(outs if drop_mode or fuse_dwx else None), _ptr(xdrop),
                 seed0, seed1, thr, scale]
-        if mode == bf16:
+        if (mode, res_mode) == (bf16, bf16):
             fn = lib.rst_lstm_wavefront_bwd
             fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             args += [window, _ptr(dwx),
                      grad_matmul.PATH_IDS[grad_matmul.product_path([H], 4 * H, bf16)]]
         else:
-            fn = lib.rst_lstm_wavefront_bwd_f32
+            fn = getattr(lib, "rst_lstm_wavefront_bwd" + entry_suffix(mode, res_mode))
             fn.argtypes = head + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         products = lib.rst_wgmma_products
@@ -986,43 +1097,57 @@ def wavefront_bwd(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor, mask: Tensor,
     if L < 2:
         raise ValueError("the wavefront kernel needs >= 2 layers")
     _check_fuse(fuse_dwx, drop_mode, L, outs)
-    mode = kernel_dtype(w_h.dtype, gates.dtype)
-    if fuse_dwx and mode != bf16:
-        raise ValueError("the fused dW_x computes in bf16; the float32 reverse diagonal "
-                         "runs unfused")
+    mode, res = kernel_dtype(w_h.dtype, gates.dtype)
+    if fuse_dwx and (mode, res) != (bf16, bf16):
+        raise ValueError("the fused dW_x computes in bf16; the float32 and mixed reverse "
+                         "diagonals run unfused")
+    pad = HiddenPad(H)
+    if pad.needed:
+        if drop_mode == 1:
+            drop_arr = pad.pad(drop_arr, "h")
+        kinds, out_kinds = PAD_KINDS["wavefront_bwd"]
+        out = pad.call(wavefront_bwd, (dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn,
+                                       dcn, outs, drop_mode, drop_arr, drop_scale, keep_prob),
+                       kinds, out_kinds[:3] + ("wh" if fuse_dwx else "h",), fuse_dwx=fuse_dwx)
+        return (gates.copy_(out[0]),) + out[1:]
     dev = gates.device
     check_kernel_inputs([
-        ("dout_top", dout_top, mode, (T, B, H)),
+        ("dout_top", dout_top, res, (T, B, H)),
         ("w_h", w_h, mode, (L, H, 4 * H)),
         ("w_x_rest", w_x_rest, mode, (L - 1, H, 4 * H)),
         ("mask", mask, f32, (T, 1, B)),
-        ("gates", gates, mode, (L, T, B, 4 * H)),
-        ("cseq", cseq, mode, (L, T, B, H)),
+        ("gates", gates, res, (L, T, B, 4 * H)),
+        ("cseq", cseq, res, (L, T, B, H)),
         ("c0", c0, f32, (L, B, H)),
         ("dhn", dhn, f32, (L, B, H)),
         ("dcn", dcn, f32, (L, B, H)),
-    ] + ([("outs", outs, mode, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
+    ] + ([("outs", outs, res, (L, T, B, H))] if drop_mode or fuse_dwx else []), dev, H)
     drop = (drop_mode, *_drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale,
                                           (L - 1, T, B, H), dev))
     plan = wavefront_bwd_plan(B, H, L, fuse_dwx,
-                              torch.cuda.get_device_properties(dev).multi_processor_count, mode)
+                              torch.cuda.get_device_properties(dev).multi_processor_count, mode,
+                              res)
     args = (dout_top, w_h, w_x_rest, mask, gates, cseq, c0, dhn, dcn, outs, drop)
     persistent = plan["kernel"] == "persistent"
-    if persistent:
+    if plan["kernel"] == "layer_sweep":
+        before = lstm_layer_train.bwd_f32_launches()
+        out = _layer_sweep_launch(*args, plan)
+        wavefront_bwd.sweep_launches += lstm_layer_train.bwd_f32_launches() - before
+    elif persistent:
         count = ("lstm_wavefront_bwd_persistent", "rst_wavefront_bwd_persistent_launches")
         before = _library_launches(*count)
-        res = _bwd_persistent_launch(*args, plan, fuse_dwx)
+        out = _bwd_persistent_launch(*args, plan, fuse_dwx)
         wavefront_bwd.persistent_launches += _library_launches(*count) - before
     else:
-        res = _bwd_per_diagonal_launch(*args, fuse_dwx)
+        out = _bwd_per_diagonal_launch(*args, fuse_dwx)
     if T:                                            # T = 0 launches nothing
         wavefront_bwd.launches += 1
         wavefront_bwd.fused_launches += int(fuse_dwx)
         wavefront_bwd.fused_persistent_launches += int(fuse_dwx and persistent)
-        wavefront_bwd.per_diagonal_launches += int(not persistent)
-        if mode == f32:
+        wavefront_bwd.per_diagonal_launches += int(plan["kernel"] == "per_diagonal")
+        if (mode, res) == (f32, f32):
             wavefront_bwd.f32_launches += 1
-    return res
+    return out
 
 
 wavefront_bwd.launches = 0
@@ -1031,6 +1156,7 @@ wavefront_bwd.persistent_launches = 0
 wavefront_bwd.fused_launches = 0
 wavefront_bwd.fused_persistent_launches = 0
 wavefront_bwd.per_diagonal_launches = 0
+wavefront_bwd.sweep_launches = 0
 wavefront_bwd.wgmma_products = 0
 
 
@@ -1198,11 +1324,12 @@ class _WavefrontStackTrain(torch.autograd.Function):
         dwx = None
         if ctx.bwd_wavefront:
             L, T, B = gates.shape[:3]
-            # The fused dW_x is bf16 only on the card: the float32 reverse
-            # diagonal runs unfused and dW_x of layers 1..L-1 comes from the
-            # weight-gradient kernel's float32 tile (stack_weight_grads).
+            # The fused dW_x is bf16 only on the card: the float32 and mixed
+            # reverse diagonals run unfused and dW_x of layers 1..L-1 comes
+            # from the weight-gradient kernel (stack_weight_grads).
             fuse = fuse_dwx_enabled(L, T, B, w_h.shape[1], gates.element_size(),
-                                    ctx.drop[0]) and not (gates.is_cuda and gates.dtype == f32)
+                                    ctx.drop[0]) and not (gates.is_cuda
+                                                          and (cd, gates.dtype) != (bf16, bf16))
             res = wavefront_bwd(
                 dout_top.to(gates.dtype).contiguous(), w_h.to(cd).contiguous(),
                 w_x_rest.to(cd).contiguous(), mask, gates, cseq,

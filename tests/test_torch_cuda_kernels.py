@@ -202,7 +202,8 @@ def test_launch_counters_count_kernel_calls(cuda):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor the kernel cannot take raises; it never falls back to
-    the plain version."""
+    the plain version.  H = 32, which the kernels once refused, runs on the
+    kernel padded to 64 and matches the plain version."""
     x = _inputs(1, 4, 3, 64, seed=4, dev=cuda)
     good = dict(x_proj=x["xp0"], w_h=x["w_h"][0], mask=x["mask"],
                 h0=x["h0"][0], c0=x["c0"][0])
@@ -215,9 +216,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         with pytest.raises(exc):
             trec.lstm_recurrence(**{**good, **change})
     y = _inputs(1, 4, 3, 32, seed=5, dev=cuda)
-    with pytest.raises(ValueError, match="H % 64"):
-        trec.lstm_recurrence(y["xp0"], y["w_h"][0], y["mask"], y["h0"][0],
-                             y["c0"][0])
+    args = (y["xp0"], y["w_h"][0], y["mask"], y["h0"][0], y["c0"][0])
+    before = trec.lstm_recurrence.launches
+    got = trec.lstm_recurrence(*args)
+    torch.cuda.synchronize()
+    assert trec.lstm_recurrence.launches == before + 1
+    for g, r in zip(got, trec.lstm_recurrence_plain(*args)):
+        assert g.shape == r.shape
+        assert (g - r).abs().max().item() <= 2e-3
 
 
 # ------------------------------------------------------------- training
@@ -686,23 +692,24 @@ def test_layer_launch_counters_count_kernel_calls(cuda):
 
 def test_layer_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor the layer kernels cannot take raises; they never fall
-    back to the plain version.  Float32 compute with float32 residuals runs
-    (its own tests below); mixed compute and residual dtypes raise, and so
-    does the bf16 rebuild at D % 64 != 0."""
+    back to the plain version.  What they once refused runs on the kernels
+    and matches the plain versions: mixed compute and residual dtypes (bf16
+    compute with float32 residuals and the reverse) and the bf16 recompute
+    backward at D % 64 != 0 (D padded to 64)."""
     x = _layer_inputs(4, 3, 64, 64, seed=9, dev=cuda)
     bf = torch.bfloat16
     with pytest.raises(TypeError):          # the bf16 lean forward takes bf16 x_proj
         tlt.recurrence_train_lean(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"], bf)
-    with pytest.raises(TypeError, match="mixed"):     # bf16 compute, float32 residuals
-        tlt.recurrence_train(x["x_proj"], x["w_h"], x["mask"], x["h0"], x["c0"],
-                             torch.float32)
-    with pytest.raises(TypeError, match="mixed"):     # float32 compute, bf16 residuals
-        tlt.recurrence_train(x["x_proj"], x["w_h"].float(), x["mask"], x["h0"], x["c0"], bf)
+    for w_h, rd in ((x["w_h"], torch.float32), (x["w_h"].float(), bf)):   # the mixed modes
+        args = (x["x_proj"], w_h, x["mask"], x["h0"], x["c0"], rd)
+        _close_to(tlt.recurrence_train(*args), tlt.recurrence_train_plain(*args), TRAIN_TOL)
     y = _layer_inputs(4, 3, 64, 40, seed=10, dev=cuda)
     hc = torch.zeros((4, 3, 64), dtype=bf, device=cuda)
-    with pytest.raises(ValueError, match="D % 64"):
-        tlt.recurrence_bwd_recompute(y["dout"], y["x"], hc, hc, y["c0"], y["mask"],
-                                     y["w_x"], y["b"], y["w_h"], y["dhn"], y["dcn"])
+    rargs = (y["dout"], y["x"], hc, hc, y["c0"], y["mask"], y["w_x"], y["b"], y["w_h"],
+             y["dhn"], y["dcn"])
+    got = tlt.recurrence_bwd_recompute(*rargs)
+    torch.cuda.synchronize()
+    _close_to(got, tlt.recurrence_bwd_recompute_plain(*rargs), TRAIN_TOL)
 
 
 @pytest.mark.parametrize("rows,H,D", [(1, 64, 64), (70, 64, 128), (333, 128, 64),

@@ -2,10 +2,13 @@
 1-8, 14 and 15 of ``PERF.md``'s table): its routing and its arithmetic
 against the JAX package, on the CPU.
 
-* Routing: a float32 compute dtype never reaches a persistent or
-  tensor-core plan (the per-step and per-diagonal kernels and the float32
-  weight-gradient tile take it), the bf16 plans are unchanged at the
-  shapes the plan tests use, and mixed compute and residual dtypes raise.
+* Routing: a float32 compute dtype never reaches a bf16 persistent or
+  tensor-core plan: the recompute backward (row 8) takes the float32
+  persistent kernel and the reverse diagonal (row 4) the float32 layer
+  sweep where ``bwd_f32_plan`` takes the shape, the rest the per-step and
+  per-diagonal kernels and the float32 weight-gradient tile; the bf16
+  plans are unchanged at the shapes the plan tests use; mixed compute and
+  residual dtypes are a mode of their own, on the per-step kernels.
 * Arithmetic: ``lstm_layer_train`` (gates and recompute residuals) at the
   on-card parity tool's LSTM shape (T=96, B=8, D=16, H=256) and
   ``lstm_stack_wavefront_train`` at its wavefront shape (L=3, D=H=128,
@@ -46,13 +49,29 @@ WIDTHS = (64, 128, 256, 1024)
 @pytest.mark.parametrize("H", WIDTHS)
 @pytest.mark.parametrize("B", BATCHES)
 def test_float32_never_reaches_a_persistent_plan(B, H):
+    """No bf16 persistent kernel takes float32: rows 1-3, 5-7 stay on the
+    per-step and per-diagonal kernels, and rows 8 and 4 go to the float32
+    persistent backward and its layer sweep exactly where its plan fits
+    (H a multiple of 128, H/64 x 8 CTAs on the card), any batch in
+    ceil(B/64) row groups; the fused dW_x stays bf16 only."""
     for x_f32 in (False, True):
         assert trec.lean_plan(B, H, x_f32=x_f32, dtype=f32) == {"kernel": "per_step"}
     assert tlt.bwd_plan(B, H, dtype=f32) == {"kernel": "per_step"}
     assert twave.wavefront_eval_plan(B, H, 3, dtype=f32) == {"kernel": "per_diagonal"}
     assert twave.wavefront_plan(B, H, 3, H, dtype=f32) == {"kernel": "per_diagonal"}
-    for fuse in (False, True):
-        assert twave.wavefront_bwd_plan(B, H, 3, fuse, dtype=f32) == {"kernel": "per_diagonal"}
+    chain = tlt.bwd_f32_plan(B, H)
+    fits = H % 128 == 0 and H // 64 * 8 <= 132
+    assert tlt.bwd_plan(B, H, dtype=f32, recompute=True) == chain
+    if fits:
+        assert chain == {"kernel": "persistent_f32", "groups": -(-B // 64), "slices": H // 64,
+                         "grid": H // 64 * 8, "stages": 4, "smem": tlt.bwd_f32_smem(H)}
+        assert chain["smem"] <= trec.SMEM_LIMIT
+        assert twave.wavefront_bwd_plan(B, H, 3, False, dtype=f32) == {"kernel": "layer_sweep",
+                                                                        "chain": chain}
+    else:
+        assert chain == {"kernel": "per_step"}
+        assert twave.wavefront_bwd_plan(B, H, 3, False, dtype=f32) == {"kernel": "per_diagonal"}
+    assert twave.wavefront_bwd_plan(B, H, 3, True, dtype=f32) == {"kernel": "per_diagonal"}
 
 
 @pytest.mark.parametrize("H", WIDTHS)
@@ -88,22 +107,52 @@ def test_weight_grads_in_float32_take_the_float32_tile(dims, N, G):
 
 
 def test_mixed_compute_and_residual_dtypes_raise():
-    assert trec.kernel_dtype(bf16) == bf16 and trec.kernel_dtype(f32, f32) == f32
+    """Mixed compute and residual dtypes no longer raise: ``kernel_dtype``
+    answers the (compute, residual) pair, the C entries' suffix names it,
+    and every plan sends a mixed mode to the per-step and per-diagonal
+    kernels; other dtypes still raise."""
+    assert trec.kernel_dtype(bf16) == (bf16, bf16) and trec.kernel_dtype(f32, f32) == (f32, f32)
+    suffix = {(bf16, bf16): "", (f32, f32): "_f32", (bf16, f32): "_bf16_f32",
+              (f32, bf16): "_f32_bf16"}
+    for (w, r), tag in suffix.items():
+        assert trec.kernel_dtype(w, r) == (w, r)
+        assert trec.entry_suffix(w, r) == tag
     for w, r in ((bf16, f32), (f32, bf16)):
-        with pytest.raises(TypeError, match="mixed compute and residual"):
+        assert trec.lean_plan(64, 1024, dtype=w, res_dtype=r) == {"kernel": "per_step"}
+        assert tlt.bwd_plan(64, 1024, dtype=w, res_dtype=r) == {"kernel": "per_step"}
+        assert tlt.bwd_plan(400, 1024, dtype=w, res_dtype=r, recompute=True) == {
+            "kernel": "per_step"}
+        assert twave.wavefront_plan(64, 1024, 3, 1024, dtype=w, res_dtype=r) == {
+            "kernel": "per_diagonal"}
+        assert twave.wavefront_bwd_plan(64, 1024, 3, dtype=w, res_dtype=r) == {
+            "kernel": "per_diagonal"}
+    for w, r in ((torch.float16, bf16), (bf16, torch.float16)):
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
             trec.kernel_dtype(w, r)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        trec.kernel_dtype(torch.float16)
     with pytest.raises(TypeError, match="bf16 or float32"):
         gm._launch([torch.zeros((8, 8))], torch.zeros((8, 8)), torch.float16)
 
 
 def test_the_bf16_rebuild_alone_needs_d_a_multiple_of_64():
+    """The rebuild takes any D: ``_rebuild_checks`` no longer refuses one
+    that is not a multiple of 64 (x and h_prev in the residual dtype, w_x in
+    the compute dtype), and ``HiddenPad`` widens D to 64 with zero rows of
+    W_x and zero columns of x, which leaves the rebuilt gates as they are."""
     x, h = torch.zeros((4, 16)), torch.zeros((4, 64))
     w_x, b = torch.zeros((16, 256)), torch.zeros((256,))
     assert [c[2] for c in tlt._rebuild_checks(x, h, w_x, b, f32)][:3] == [f32] * 3
-    with pytest.raises(ValueError, match="D % 64"):
-        tlt._rebuild_checks(x.to(bf16), h.to(bf16), w_x.to(bf16), b)
+    assert [c[2] for c in tlt._rebuild_checks(x.to(bf16), h.to(bf16), w_x, b, f32, bf16)][:3] \
+        == [bf16, bf16, f32]
+    g = torch.Generator().manual_seed(3)
+    x, h = torch.randn((5, 16), generator=g), torch.randn((5, 64), generator=g)
+    w_x, w_h = torch.randn((16, 256), generator=g), torch.randn((64, 256), generator=g)
+    b = torch.randn((256,), generator=g)
+    pad = trec.HiddenPad(64, 16)
+    assert (pad.Hp, pad.Dp, pad.needed) == (64, 64, True)
+    got = pad.call(lambda *a: (tlt.rebuild_gates_plain(*a),), (x, h, w_x, w_h, b),
+                   ("d", "h", "wd", "wh", "g"), ("g",))[0]
+    torch.testing.assert_close(got, tlt.rebuild_gates_plain(x, h, w_x, w_h, b), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _rel(got, ref):

@@ -236,21 +236,28 @@ printing one JSON line:
            at T=256 against the plain versions' route within 1e-4 beside
            the planted fault, and the layered and recompute routes' at
            T=512 beside theirs; rows 1-8, 14 and 15 must run their float32
-           modes, row 4 its layer sweep and row 8 its float32 persistent
-           kernel, and no bf16 persistent kernel, tensor-core tile,
-           per-step recompute or per-diagonal reverse pass, or plain
-           version may run on the card.  Then each of those rows alone at
-           the float32 path's shapes against its plain version (1e-4 of
-           each output's largest magnitude), timed in turns with cuDNN or
-           torch.mm in float32 (TF32 off), beside its bound at 67 TFLOP/s;
-           row 8 at B=64 and B=400, T=512; rows 4 and 8 beside their
-           planted faults (a partial left out of the chain's sum, the GEMM
-           tile without its last K stage; the chain without its step wait
-           or its slice wait read, not gated).
+           modes, rows 3 and 4 their layer sweeps (a chain and an input
+           product a layer a step for row 3), row 8 its float32 persistent
+           kernel, row 15 the float32 skinny tile at both projections
+           every step, and no bf16 persistent kernel, tensor-core tile,
+           per-step recompute, per-diagonal training forward or reverse
+           pass, or plain version may run on the card.  Then each of those
+           rows alone at the float32 path's shapes against its plain version
+           (1e-4 of each output's largest magnitude), timed in turns with
+           cuDNN or torch.mm in float32 (TF32 off), beside its bound at 67
+           TFLOP/s; row 8 at B=64 and B=400, T=512; row 3 also in drop
+           modes 0 and 1 and mode 2 bit-equal to mode 1 fed its bits, its
+           input products timed alone (the sweep's split); rows 3, 4, 8 and
+           15 beside their planted faults (a partial left out of the
+           chain's sum, the GEMM tile without its last K stage, a skinny K
+           slice left out; the chains without their step wait or slice
+           wait read, not gated).
   f32_designs (opt-in)
-           f32_route's row timings and checks with rows 4 and 8 also in
-           the same turns with the per-diagonal and per-step designs they
-           replaced (row 8 at B=64 and B=400, T=512).
+           f32_route's row timings and checks with rows 3, 4, 8 and 15 also
+           in the same turns with the designs they replaced (the
+           per-diagonal training forward and reverse pass, the per-step
+           recompute backward at B=64 and B=400, T=512, the float32 tile at
+           the projections).
   odd_shapes (a few s)
            rows 1-8 at H=100, D=72 (L=3, T=40, B=24; the wrappers pad to
            128 and slice back) in bf16 and float32, rows 3-8 in both mixed
@@ -433,8 +440,12 @@ printing one JSON line:
            one), then ``--hunt_iters`` times (5 by default): the
            reverse-diagonal and fused card tests
            (``tests/test_torch_cuda_kernels.py -k "bwd or fuse"``), phase
-           ``train``, and the layer backwards' checks at B=70, 128 and the
-           recompute batch (``_hunt_layer_checks``); each iteration's
+           ``train``, the layer backwards' checks at B=70, 128 and the
+           recompute batch (``_hunt_layer_checks``), the float32 card tests
+           (``tests/test_torch_cuda_f32_persistent.py``), the float32
+           backwards' checks (``_hunt_f32_checks``) and the float32
+           training forward's sweep and skinny tile's checks
+           (``_hunt_f32_fwd_checks``); each iteration's
            outcome, the first trap or device assert it printed, and the
            tree's hash are recorded; fails if any run failed.
   flagship_accuracy (opt-in)
@@ -2415,10 +2426,14 @@ def _path_counters():
     diagonal (csrc/lstm_wavefront_bwd_persistent.cu; the default steps: its
     cooperative launches, one a window and row group), its fused passes
     (the wide step) and the reverse passes the plan sent to the
-    per-diagonal kernel (none at the card's width); in float32, the
-    recompute backward's float32 persistent launches (one a rebuild chunk)
-    and the reverse diagonal's layer sweeps (a persistent launch a layer)
-    and their cotangent products on the float32 GEMM tile."""
+    per-diagonal kernel (none at the card's width); the training forwards
+    the plan sent to the per-diagonal kernel (the wide step's; none in the
+    float32 default step); in float32, the recompute backward's float32
+    persistent launches (one a rebuild chunk), the reverse diagonal's layer
+    sweeps (a persistent launch a layer) and their cotangent products on
+    the float32 GEMM tile, the training forward's layer sweeps (a
+    persistent launch a layer) and their input products on the same tile,
+    and the projections' weight gradients on the float32 skinny tile."""
     from rnn_speech_tpu_torch.ops import grad_matmul as gm
     from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
     from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
@@ -2439,7 +2454,11 @@ def _path_counters():
             "wavefront_bwd_per_diagonal": wf.wavefront_bwd.per_diagonal_launches,
             "recompute_f32_persistent": tlt.recurrence_bwd_recompute.f32_persistent_launches,
             "wavefront_bwd_sweep": wf.wavefront_bwd.sweep_launches,
-            "sweep_dout": wf.sweep_dout.launches}
+            "sweep_dout": wf.sweep_dout.launches,
+            "wavefront_per_diagonal": wf.wavefront_train.per_diagonal_launches,
+            "wavefront_sweep": wf.wavefront_train.sweep_launches,
+            "wavefront_sweep_xp": wf.wavefront_train.sweep_xp_launches,
+            "weight_grad_skinny_f32": gm.weight_grad.skinny_f32_launches}
 
 
 def _zero_path_counters():
@@ -2460,6 +2479,8 @@ def _zero_path_counters():
     wf.wavefront_bwd.fused_persistent_launches = wf.wavefront_bwd.per_diagonal_launches = 0
     tlt.recurrence_bwd_recompute.f32_persistent_launches = 0
     wf.wavefront_bwd.sweep_launches = wf.sweep_dout.launches = 0
+    wf.wavefront_train.per_diagonal_launches = wf.wavefront_train.sweep_launches = 0
+    wf.wavefront_train.sweep_xp_launches = gm.weight_grad.skinny_f32_launches = 0
 
 
 @contextlib.contextmanager
@@ -3998,6 +4019,7 @@ HUNT_RUNS = {
     "f32_card_tests": ["-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
                        "tests/test_torch_cuda_f32_persistent.py"],
     "f32_bwd": ["-c", "import chip_smoke; chip_smoke._hunt_f32_checks()"],
+    "f32_fwd": ["-c", "import chip_smoke; chip_smoke._hunt_f32_fwd_checks()"],
 }
 # The checks' positive control, a child run before the loop: a launch that
 # states a bound one step short must trap in the checked build (non-zero
@@ -4054,6 +4076,33 @@ def _hunt_f32_checks():
     _rel_check("hunt f32 wavefront_bwd", wf.wavefront_bwd(*bargs, outs, *drop), ref,
                F32_KERNEL_TOL, checks)
     print(json.dumps({"f32_bwd_checks": len(checks)}), flush=True)
+
+
+def _hunt_f32_fwd_checks():
+    """The float32 training forward's layer sweep and the float32 skinny
+    tile's card checks alone (a fault hunt child): row 3 at B=64, T=512 in
+    drop mode 2 and at B=129 (three row groups), T=64 in drop mode 1; row
+    15 at both projections (N = 224,640); each against its plain version."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    f32, checks = torch.float32, []
+    for T, Bn, mode, seed in ((F32_LAYER_T, TRAIN_B, 2, 164), (64, 129, 1, 165)):
+        args = [_widen(_train_inputs(T, Bn, [T - (7 * b) % T for b in range(Bn)],
+                                     seed=seed))[k] for k in FWD_ARGS]
+        drop = _drop(mode, T, Bn, seed)
+        _rel_check(f"hunt f32 wavefront_train B={Bn}", wf.wavefront_train(*args, f32, *drop),
+                   wf.wavefront_train_plain(*args, f32, *drop), F32_KERNEL_TOL, checks)
+    g = torch.Generator().manual_seed(166)
+    N = TRAIN_T * TRAIN_B
+    for D, Gs in ((120, H), (H, V)):
+        x = torch.randn((N, D), generator=g).to(DEVICE)
+        dg = (torch.randn((N, Gs), generator=g) * 0.01).to(DEVICE)
+        _rel_check(f"hunt f32 weight_grad D={D}", gm.weight_grad(x, dg, compute_dtype=f32),
+                   gm.weight_grad_plain(x, dg, compute_dtype=f32), F32_KERNEL_TOL, checks)
+    print(json.dumps({"f32_fwd_checks": len(checks)}), flush=True)
 
 
 def _hunt_planted_overrun():
@@ -6790,12 +6839,14 @@ F32_GRAD_TOL = 1e-4
 F32_LAYER_T = 512          # frames of the layered and recompute routes' gates and timings
 F32_WIDE_B = 400           # row 8's second timed batch (the recompute step's, seven row groups)
 # ``_path_counters`` entries the float32 route runs: the float32 persistent
-# recompute backward with its rebuild products on the float32 GEMM tile, and
-# the reverse diagonal's float32 layer sweep with its cotangent products
-# (the others count bf16 persistent kernels, tensor-core tiles and the
-# per-step and per-diagonal designs these replace, which it must not run).
+# recompute backward with its rebuild products on the float32 GEMM tile, the
+# reverse diagonal's float32 layer sweep with its cotangent products, the
+# training forward's float32 layer sweep with its input products, and the
+# projections' float32 skinny tile (the others count bf16 persistent
+# kernels, tensor-core tiles and the per-step and per-diagonal designs these
+# replace, which it must not run).
 F32_PATHS = ("recompute_rebuild", "recompute_f32_persistent", "wavefront_bwd_sweep",
-             "sweep_dout")
+             "sweep_dout", "wavefront_sweep", "wavefront_sweep_xp", "weight_grad_skinny_f32")
 F32_ROWS = ("lstm_wavefront", "lstm_recurrence", "wavefront_train", "wavefront_bwd",
             "recurrence_train", "recurrence_bwd", "recurrence_train_lean",
             "recurrence_bwd_recompute", "dgates_weight_grads", "weight_grad")
@@ -7070,15 +7121,32 @@ def _f32_kernel_timing(checks, eval_frames, designs=False):
     T, Bn = TRAIN_T, TRAIN_B
     inp = _widen(_train_inputs(T, Bn, [T] * Bn, seed=270, on_device=True))
     args = [inp[k] for k in FWD_ARGS]
+    modes = _f32_fwd_mode_checks(args, checks)
     drop = _drop(2, T, Bn, 272)
     fwd = lambda: wf.wavefront_train(*args, f32, *drop)
+    fplan = wf.wavefront_plan(Bn, H, L, H, dtype=f32)
+    fdrop = (2, *wf._drop_launch_args(2, drop[1], drop[3], drop[2], (L - 1, T, Bn, H),
+                                      args[0].device))
+    fsweep = lambda **kw: wf._fwd_layer_sweep_launch(*args, fdrop, fplan, **kw)
     out["wavefront_train"] = _f32_row(
         "wavefront_train", fwd, fwd, lambda: wf.wavefront_train_plain(*args, f32, *drop),
         _nn_lstm_forward(T, Bn, L, f32), f"torch.nn.LSTM training forward ({L} layers, f32)",
         2 * T * Bn * H * G * 2 * L,
         T * Bn * H * 4 + 2 * L * H * G * 4 + L * G * 4 + T * Bn * 4 + 2 * L * Bn * H * 4
         + L * T * Bn * (H + G + H) * 4 + 2 * L * Bn * H * 4, checks, frames=T, batch=Bn,
-        drop_mode=2)
+        drop_mode=2, plan=fplan["kernel"],
+        designs={"per_diagonal": lambda: wf._per_diagonal_launch(*args, fdrop, f32)}
+        if designs else None,
+        faults={"chain with a partial left out": lambda: fsweep(skip_barrier=4),
+                "input product's last K stage left out": lambda: fsweep(skip_k=1)},
+        readings={"chain without its step wait": lambda: fsweep(skip_barrier=1),
+                  "chain without its slice wait": lambda: fsweep(skip_barrier=2)},
+        mode1_fed_equal=_f32_fwd_fed_check(args, drop, fwd))
+    row3 = out["wavefront_train"]
+    row3.update(modes)
+    row3["input_product"] = _f32_xp_timing(args)
+    row3["chain_ms_derived"] = row3["ms"] - row3["input_product"]["ms"]
+    row3["us_per_step"] = 1e3 * row3["chain_ms_derived"] / (L * T)
     torch.cuda.empty_cache()
     outs, gates, cseq, _, _ = fwd()
     b_in = _widen(_bwd_inputs(inp, outs, gates, cseq, seed=271, on_device=True))
@@ -7131,9 +7199,13 @@ def _f32_kernel_timing(checks, eval_frames, designs=False):
             f"weight_grad {name}", call, call,
             lambda: gm.weight_grad_plain(xx, dg, compute_dtype=f32),
             lambda: (torch.mm(xx.t(), dg), dg.sum(0)), "torch.mm + sum (f32)",
-            2 * N * D * Gs, N * (D + Gs) * 4 + (D + 1) * Gs * 4, checks, D=D, G=Gs)
+            2 * N * D * Gs, N * (D + Gs) * 4 + (D + 1) * Gs * 4, checks, D=D, G=Gs,
+            path=gm.product_path([D], Gs, f32, f32),
+            designs={"f32_tile": lambda: _f32_tile_weight_grad(xx, dg)} if designs else None,
+            faults={"a K slice left out": lambda: gm._launch([xx], dg, f32, skip_split=0)[:2]})
     out["weight_grad"] = {k: sum(per[n][k] for n in per)
-                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "flops")}
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms", "flops")
+                          + (("f32_tile_ms",) if designs else ())}
     out["weight_grad"].update(
         bound_by="bytes" if all(v["bound_by"] == "bytes" for v in per.values())
         else "operations", max_abs_err=max(v["max_abs_err"] for v in per.values()),
@@ -7185,6 +7257,86 @@ def _f32_kernel_timing(checks, eval_frames, designs=False):
     del no_dw, lay, lcseq, rargs
     torch.cuda.empty_cache()
     return out
+
+
+def _f32_fwd_mode_checks(args, checks):
+    """Row 3 in float32 (the layer sweep) in drop modes 0 and 1 (masks of
+    the seed words' bits) at the default step's shape: outs, gates, cseq,
+    hn, cn against ``wavefront_train_plain`` within F32_KERNEL_TOL, each
+    beside the chain with the slice's last partial left out.  Mode 2 is
+    ``_f32_kernel_timing``'s row."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    f32, (T, Bn) = torch.float32, args[0].shape[:2]
+    plan = wf.wavefront_plan(Bn, H, L, H, dtype=f32)
+    out = {}
+    for mode in (0, 1):
+        drop = (0, None, 1.0, 1.0) if mode == 0 else _drop(mode, T, Bn, 275)
+        ldrop = (mode, *wf._drop_launch_args(mode, drop[1], drop[3], drop[2], (L - 1, T, Bn, H),
+                                             args[0].device))
+        ref = wf.wavefront_train_plain(*args, f32, *drop)
+        err = _rel_check(f"f32 wavefront_train mode {mode}", wf.wavefront_train(*args, f32, *drop),
+                         ref, F32_KERNEL_TOL, checks)
+        _fault_check(f"f32 wavefront_train mode {mode} chain with a partial left out",
+                     wf._fwd_layer_sweep_launch(*args, ldrop, plan, skip_barrier=4), ref,
+                     F32_KERNEL_TOL, checks)
+        out[f"mode{mode}_max_abs_err"] = err
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _f32_fwd_fed_check(args, drop, fwd):
+    """Row 3 in float32 in drop mode 2 bit-equal to mode 1 fed the seed
+    words' bits (``wavefront_masks``): the chain draws the bits the
+    per-diagonal kernel and the reverse diagonal draw."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_wavefront as wf
+
+    T, Bn = args[0].shape[:2]
+    masks = wf.drop_keeps(2, drop[1], drop[3], (L - 1, T, Bn, H), args[0].device)
+    fed = wf.wavefront_train(*args, torch.float32, 1, masks, drop[2], drop[3])
+    equal = all(torch.equal(a, b) for a, b in zip(fwd(), fed))
+    if not equal:
+        fail("f32_route: row 3's sweep in drop mode 2 differs from mode 1 fed its bits")
+    return equal
+
+
+def _f32_xp_timing(args):
+    """Row 3's sweep split: its L layers' input products alone on the
+    float32 GEMM tile (``fwd_f32_xp``, on the sweep's operands: x for layer
+    0, a (T, B, H) input for the others), device ms by CUDA events and
+    TFLOP/s; the chains' share is the row's ms minus this."""
+    import torch
+
+    from rnn_speech_tpu_torch.ops import lstm_layer_train as tlt
+
+    x, w_x0, _, w_x_rest, b_all = args[:5]
+    T, Bn = x.shape[:2]
+    h_in = torch.randn((T, Bn, H), device=x.device)
+    ms, flops = 0.0, 0
+    for l in range(L):
+        x_in, w_x = (x, w_x0) if l == 0 else (h_in, w_x_rest[l - 1])
+        ms += cuda_ms(lambda: tlt.fwd_f32_xp(x_in, w_x, b_all[l]))
+        flops += 2 * T * Bn * 4 * H * x_in.shape[-1]
+    del h_in
+    return {"ms": ms, "tflops": flops / ms / 1e9, "flops": flops}
+
+
+def _f32_tile_weight_grad(x, dg):
+    """The projections' weight gradients on the float32 tile (``"f32"``,
+    the design the float32 skinny tile replaced), forced by its path."""
+    from unittest import mock
+
+    import torch
+
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+
+    with mock.patch.object(gm, "product_path", lambda *a: "f32"):
+        return gm.weight_grad(x, dg, compute_dtype=torch.float32)
 
 
 def _f32_recompute_row(rargs, no_dw, checks, designs=False):
@@ -7272,6 +7424,15 @@ def phase_f32_route():
     if not (step["wgmma_launches"]["wavefront_bwd_sweep"] and step["wgmma_launches"]["sweep_dout"]):
         fail(f"f32_route: the float32 step's reverse diagonal did not run the layer sweep "
              f"(row 4): {step['wgmma_launches']}")
+    paths = step["wgmma_launches"]
+    if not (paths["wavefront_sweep"] == paths["wavefront_sweep_xp"] == L * step["steps"]
+            and not paths["wavefront_per_diagonal"]):
+        fail(f"f32_route: the float32 step's training forward did not run the layer sweep "
+             f"(row 3, a chain and an input product a layer a step) or ran the per-diagonal "
+             f"kernel: {paths}")
+    if paths["weight_grad_skinny_f32"] != 2 * step["steps"]:
+        fail(f"f32_route: the float32 step's two projections did not run the float32 skinny "
+             f"tile (row 15) every step: {paths}")
     if plain_calls:
         fail(f"f32_route: plain versions ran on the card: {plain_calls}")
 
@@ -7288,8 +7449,9 @@ def phase_f32_route():
                                   fault=_layer_fault(fault), T=F32_LAYER_T)
         launches[name] = _f32_launches(zero=True)
         runs[name] = {k: v - before[k] for k, v in _path_counters().items()}
-    if not runs["default"]["wavefront_bwd_sweep"]:
-        fail(f"f32_route: the default route's gate did not run row 4's layer sweep: {runs}")
+    if not (runs["default"]["wavefront_bwd_sweep"] and runs["default"]["wavefront_sweep"]):
+        fail(f"f32_route: the default route's gate did not run rows 4 and 3's layer sweeps: "
+             f"{runs}")
     if not runs["recompute"]["recompute_f32_persistent"]:
         fail(f"f32_route: the recompute route's gate did not run row 8's float32 persistent "
              f"kernel: {runs}")
@@ -7314,18 +7476,20 @@ def phase_f32_route():
 
 
 def phase_f32_designs():
-    """Opt-in: ``_f32_kernel_timing`` with the designs rows 4 and 8
-    replaced in the same turns (the per-diagonal reverse pass at B=64,
-    T=3510; the per-step recompute backward at B=64 and B=F32_WIDE_B,
-    T=F32_LAYER_T), each row's checks and planted faults as in f32_route."""
+    """Opt-in: ``_f32_kernel_timing`` with the designs rows 3, 4, 8 and 15
+    replaced in the same turns (the per-diagonal training forward and
+    reverse pass at B=64, T=3510; the per-step recompute backward at B=64
+    and B=F32_WIDE_B, T=F32_LAYER_T; the float32 tile at the two
+    projections), each row's checks and planted faults as in f32_route."""
     from rnn_speech_tpu_torch.ops.frontend import DeviceFrontend
 
     frames = DeviceFrontend("fbank", sr=SR, max_samples=int(SR * SECONDS),
                             device=DEVICE).max_frames
     checks = []
     timing = _f32_kernel_timing(checks, frames, designs=True)
-    emit("f32_designs", timing={k: timing[k] for k in ("wavefront_bwd",
-                                                       "recurrence_bwd_recompute")},
+    emit("f32_designs", timing={k: timing[k] for k in ("wavefront_train", "wavefront_bwd",
+                                                       "recurrence_bwd_recompute",
+                                                       "weight_grad")},
          checks=checks)
 
 
@@ -7736,7 +7900,7 @@ def kernels_line():
     for name, src, replaces, run in (
         ("lstm_wavefront", "lstm_wavefront.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:90", "eval"),
         ("lstm_recurrence", "lstm_recurrence.cu", "rnn_speech_tpu/ops/lstm_pallas.py:62", "eval"),
-        ("wavefront_train", "lstm_wavefront_train.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:230",
+        ("wavefront_train", "lstm_layer_fwd_f32.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:230",
          "train"),
         ("wavefront_bwd", "lstm_layer_bwd_f32.cu", "rnn_speech_tpu/ops/lstm_wavefront.py:433",
          "train"),
@@ -7761,9 +7925,16 @@ def kernels_line():
             "library_ms": t.get("library_ms"), "compute_dtype": "float32",
             "tflops": t.get("tflops"),
         })
-        for extra in ("per_diagonal_ms", "per_step_ms", "plan"):
-            if extra in t:                           # rows 4 and 8: the designs replaced
+        for extra in ("per_diagonal_ms", "per_step_ms", "f32_tile_ms", "plan", "us_per_step",
+                      "chain_ms_derived"):
+            if extra in t:                           # rows 3, 4, 8, 15: the designs replaced
                 rows[-1][extra] = t[extra]
+        paths = fr.get("train", {}).get("wgmma_launches", {})
+        if name == "wavefront_train":                # row 3: the layer sweep's launches
+            rows[-1].update(sweep_launches=paths.get("wavefront_sweep"),
+                            input_product=t.get("input_product"))
+        if name == "weight_grad":                    # row 15: the float32 skinny tile's
+            rows[-1]["skinny_f32_launches"] = paths.get("weight_grad_skinny_f32")
         if "wide" in t:
             rows[-1]["wide"] = {k: t["wide"].get(k) for k in (
                 "batch", "ms", "per_step_ms", "library_ms", "bound_ms", "max_abs_err")}

@@ -1,14 +1,17 @@
 // A float32 GEMM tile for Hopper (sm_90a) without tensor cores: the
 // float32 compute mode's large products, which the JAX kernels compute
 // inside their steps and the port runs ahead of (or between) the serial
-// chains.  Two users:
+// chains.  Three users:
 //
 // * the recompute backward's gate rebuild in float32 (rebuild_gates.cuh
 //   ``launch_f32``, row 8 of PERF.md): [x | h_prev] · [W_x ; W_h], B in
 //   (K, N) rows;
 // * the float32 layer sweep of the reverse diagonal (row 4,
 //   lstm_layer_bwd_f32.cu ``rst_sweep_dout_f32``): the layer below's
-//   cotangent dgates · W_xᵀ, B in (N, K) rows (W_x itself).
+//   cotangent dgates · W_xᵀ, B in (N, K) rows (W_x itself);
+// * the float32 layer sweep of the training forward (row 3,
+//   lstm_layer_fwd_f32.cu): each layer's input product x·W_x + b into its
+//   gates residual, B in (K, N) rows.
 //
 // C (M, N) = [A1 | A2] (M, K1 + K2) · B (K1 + K2, N), float32 sums of
 // float32 operands, each output's K in ascending order, one owner thread
@@ -18,8 +21,9 @@
 // TFLOP/s); at the rebuild's shape (K = 2048, N = 4096) about 500
 // operations a byte.
 //
-// What this design does about it: 128x128 block tiles of 256 threads, an
-// 8x8 register tile a thread (64 FMAs for every 16 float4 shared loads),
+// What this design does about it: 128x128 block tiles of 256 threads, two
+// blocks an SM, an 8x8 register tile a thread (64 FMAs for every 16 float4
+// shared loads),
 // K in stages of 16 through a three-stage cp.async ring (zero-filled past
 // the last row or column, so no batch padding is copied).  A thread owns
 // rows ty + 16i and, with B in (N, K) rows, columns tx + 16j (both operands
@@ -48,6 +52,14 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !valid (src unread): for
+// rows that are not 16-byte aligned, and gathers.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
 struct Operands {
@@ -175,7 +187,7 @@ __device__ __forceinline__ void gemm_tile(float* smem, const Operands& op, int m
 // Block (x: 128-column tile of N, y: 128-row tile of M): the tile, then
 // epi(row, col, value) for every output inside (M, N).
 template <bool kBT, class Epi>
-__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Operands op, Epi epi) {
+__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Operands op, Epi epi) {
   extern __shared__ __align__(16) float smem_f32[];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   float acc[8][8];

@@ -65,7 +65,28 @@
 // the first row tile; K split into fixed-order partials as the other
 // tiles.  What bounds it on the H100 is the float32 rate (67 TFLOP/s):
 // the LSTM shape's 3.8 TFLOP a call take at least 56 ms at that rate.
+//
+// The float32 skinny tile (entry rst_weight_grad_skinny_f32, `skinny_f32`):
+// float32 compute for one A operand whose narrow side (min(D, G)) is at most
+// 256 columns: the projections in the float32 mode (D = 120 x G = 1024 and
+// D = 1024 x G = 80 at N = 224,640, 92 GFLOP the pair, 1.37 ms at 67
+// TFLOP/s: bound by the float32 rate, not by their 2.0 GB).  The float32
+// tile above fills 80 of an output tile's 128 columns at the output
+// projection and walks K in 8-row steps through registers.  Here, as in
+// the bf16 skinny tile, a block owns 128 columns of the wide operand and
+// the narrow side whole, over one K slice: the wide operand is read from
+// device memory once across the grid.  Both float32 operands stream
+// through a four-stage cp.async ring in 16-row stages (16-byte copies, or
+// 4-byte ones for rows that are not 16-byte aligned; zeros past the
+// edges); each of the 256 threads sums 8 wide x NJ narrow outputs by FMA
+// (NJ = 16ths of the narrow side, rounded up to one of a few instances:
+// 8 at n = 120, 5 at n = 80), the rows in order; db is summed from the
+// staged dg in the same pass, a thread a column, the rows in order.  K is
+// split so that the grid fills the card at two blocks an SM (33 slices of
+// 6,816 rows at the projections, 264 blocks), and the slices' partials
+// are summed in a fixed order: dW and db repeat bit for bit.
 
+#include "f32_gemm.cuh"
 #include "grad_matmul.cuh"
 
 namespace rst_grad {
@@ -571,6 +592,230 @@ __global__ void __launch_bounds__(kThreads) grad_kernel(Args p) {
 }
 
 }  // namespace f32
+
+// ---------------------------------------------- the float32 skinny tile
+
+namespace skinny_f32 {
+
+constexpr int kBM = 128;        // wide columns a block
+constexpr int kThreads = 256;   // thread (tx, ty) = (tid % 16, tid / 16)
+constexpr int kBK = 16;         // K rows a stage
+constexpr int kStages = 4;      // the cp.async ring
+constexpr int kMaxNarrow = 256;
+constexpr int kLdW = kBM + 4;   // a staged row of the wide operand
+
+// Narrow columns a thread sums: the narrow side n in 16 groups of NJ
+// columns, NJ from a few instances.
+__host__ __device__ constexpr int narrow_per_thread(int n) {
+  return n <= 32 ? 2 : n <= 64 ? 4 : n <= 80 ? 5 : n <= 96 ? 6 : n <= 128 ? 8 : n <= 192 ? 12 : 16;
+}
+
+// Narrow column of thread group ty's j-th sum, NJ = 4a + b: the first 4a
+// in float4s, 4ty + 64(j/4) + j%4 (columns [0, 64a)), the other b single,
+// 64a + ty + 16(j - 4a).
+template <int NJ>
+__device__ __forceinline__ int narrow_col(int ty, int j) {
+  constexpr int kA = NJ / 4;
+  return j < 4 * kA ? 4 * ty + 64 * (j / 4) + j % 4 : 64 * kA + ty + 16 * (j - 4 * kA);
+}
+
+// A staged row of the narrow operand (16·NJ columns, padded by four).
+__host__ __device__ constexpr int narrow_ld(int nj) { return 16 * nj + 4; }
+
+__host__ __device__ constexpr size_t smem_bytes(int nj) {
+  return (size_t)kStages * kBK * (kLdW + narrow_ld(nj)) * sizeof(float);
+}
+
+struct Args {
+  const float* wide;     // (N, w) row-major
+  const float* narrow;   // (N, n) row-major
+  int w, n, N;
+  int wide_dg;           // dg is the wide operand: dW is (n, w); else x is: dW (w, n)
+  int rows_per_split;
+  int skip_split;        // a planted fault: that slice stores zeros (-1: none)
+  float* out;            // dW, or the (splits, D, G) partials
+  float* out_db;         // db, or the (splits, G) partials; null: no db
+};
+
+// Rows [r0, r0 + kBK) (those < r_end) of the row-major (N, cols) array src
+// at columns [c0, c0 + width) into dst (kBK rows of ld floats): 16-byte
+// copies where the rows are 16-byte aligned (cols a multiple of 4), else
+// 4-byte ones; zeros past either edge.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, int cols, int c0,
+                                           int width, int r0, int r_end, int N) {
+  if (cols % 4 == 0) {
+    for (int v = threadIdx.x; v < kBK * (width / 4); v += kThreads) {
+      const int r = v / (width / 4), c = 4 * (v % (width / 4));
+      const int row = r0 + r, col = c0 + c;
+      const bool ok = row < r_end && col < cols;
+      const size_t off = ok ? (size_t)row * cols + col : 0;
+      if (ok) RST_CHECK(off + 3, (long long)N * cols);
+      rst_f32::cp_async16_zfill(dst + r * ld + c, src + off, ok);
+    }
+  } else {
+    for (int v = threadIdx.x; v < kBK * width; v += kThreads) {
+      const int r = v / width, c = v % width;
+      const int row = r0 + r, col = c0 + c;
+      const bool ok = row < r_end && col < cols;
+      const size_t off = ok ? (size_t)row * cols + col : 0;
+      if (ok) RST_CHECK(off, (long long)N * cols);
+      rst_f32::cp_async4_zfill(dst + r * ld + c, src + off, ok);
+    }
+  }
+}
+
+// Block (x: 128-column chunk of the wide operand, y: K slice): the
+// (128, n) tile of dW over the slice's rows, each thread 8 wide x NJ
+// narrow sums (``narrow_col``) by FMA over the rows in order; db (dg's columns of this
+// block, the wide chunk's or, in chunk 0's blocks, the narrow side) summed
+// from the staged rows in order by one thread a column.
+template <int NJ>
+__global__ void __launch_bounds__(kThreads, NJ <= 8 ? 2 : 1) skinny_f32_kernel(Args p) {
+  extern __shared__ __align__(16) float smem_sk[];
+  constexpr int kLdN = narrow_ld(NJ);
+  constexpr int kStageF = kBK * (kLdW + kLdN);
+  const int chunk = blockIdx.x, split = blockIdx.y;
+  const int m0 = chunk * kBM;
+  const int r_begin = split * p.rows_per_split;
+  const int r_end = min(p.N, r_begin + p.rows_per_split);
+  const int n_st = r_end > r_begin ? (r_end - r_begin + kBK - 1) / kBK : 0;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool db_wide = p.out_db != nullptr && p.wide_dg;
+  const bool db_narrow = p.out_db != nullptr && !p.wide_dg && chunk == 0;
+  const int db_cols = db_wide ? min(kBM, p.w - m0) : db_narrow ? p.n : 0;
+
+  auto issue = [&](int i) {
+    float* st = smem_sk + (size_t)(i % kStages) * kStageF;
+    const int r0 = r_begin + i * kBK;
+    stage_rows(st, kLdW, p.wide, p.w, m0, kBM, r0, r_end, p.N);
+    stage_rows(st + kBK * kLdW, kLdN, p.narrow, p.n, 0, 16 * NJ, r0, r_end, p.N);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_st) issue(s);
+    rst::cp_async_commit();
+  }
+  float acc[8][NJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+  float dsum = 0.0f;
+  for (int i = 0; i < n_st; ++i) {
+    rst::cp_async_wait<kStages - 2>();   // stage i has landed
+    __syncthreads();                     // every thread is done with stage i - 1
+    if (i + kStages - 1 < n_st) issue(i + kStages - 1);
+    rst::cp_async_commit();
+    const float* ws = smem_sk + (size_t)(i % kStages) * kStageF;
+    const float* ns = ws + kBK * kLdW;
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + k * kLdW + 4 * tx);
+      const float4 w1 = *reinterpret_cast<const float4*>(ws + k * kLdW + 64 + 4 * tx);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      float nv[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(ns + k * kLdN + 4 * ty + 64 * j);
+        nv[4 * j] = v.x;
+        nv[4 * j + 1] = v.y;
+        nv[4 * j + 2] = v.z;
+        nv[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 4 * (NJ / 4); j < NJ; ++j) nv[j] = ns[k * kLdN + narrow_col<NJ>(ty, j)];
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(wv[a], nv[j], acc[a][j]);
+    }
+    if (tid < db_cols) {
+      const float* d = db_wide ? ws + tid : ns + tid;
+      const int ld = db_wide ? kLdW : kLdN;
+#pragma unroll
+      for (int k = 0; k < kBK; ++k) dsum += d[k * ld];
+    }
+  }
+  rst::cp_async_wait<0>();
+
+  const bool zero = split == p.skip_split;
+  const int D = p.wide_dg ? p.n : p.w, G = p.wide_dg ? p.w : p.n;
+  float* out = p.out + (size_t)split * D * G;   // the slice's partial, or dW itself
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int m = m0 + 4 * tx + 64 * (a / 4) + a % 4;
+    if (m >= p.w) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int nc = narrow_col<NJ>(ty, j);
+      if (nc >= p.n) continue;
+      const size_t o = p.wide_dg ? (size_t)nc * G + m : (size_t)m * G + nc;
+      RST_CHECK(o, (long long)D * G);
+      out[o] = zero ? 0.0f : acc[a][j];
+    }
+  }
+  if (tid < db_cols) {
+    const int col = db_wide ? m0 + tid : tid;
+    RST_CHECK(col, G);
+    p.out_db[(size_t)split * G + col] = zero ? 0.0f : dsum;
+  }
+}
+
+template <int NJ>
+int run(const Args& p, int chunks, int splits, cudaStream_t st) {
+  const size_t smem = smem_bytes(NJ);
+  const cudaError_t err = cudaFuncSetAttribute(
+      skinny_f32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  skinny_f32_kernel<NJ><<<dim3(chunks, splits), kThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// x (N, D), dg (N, G) float32, 16-byte aligned, min(D, G) <= 256 on the
+// narrow side; wide_dg as the plan says; K slices of rows_per_split rows
+// (a multiple of kBK).  out: dW or the (splits, D, G) partials; out_db: db
+// or the (splits, G) partials.
+inline int launch(const float* x, int D, const float* dg, int N, int G, int wide_dg, int splits,
+                  int rows_per_split, int skip_split, float* out, float* out_db,
+                  cudaStream_t st) {
+  const int w = wide_dg ? G : D, n = wide_dg ? D : G;
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  if (D <= 0 || G <= 0 || n > kMaxNarrow || N <= 0 || splits < 1 || rows_per_split <= 0 ||
+      rows_per_split % kBK || !aligned(x) || !aligned(dg) ||
+      (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args p;
+  p.wide = wide_dg ? dg : x;
+  p.narrow = wide_dg ? x : dg;
+  p.w = w;
+  p.n = n;
+  p.N = N;
+  p.wide_dg = wide_dg;
+  p.rows_per_split = rows_per_split;
+  p.skip_split = skip_split;
+  p.out = out;
+  p.out_db = out_db;
+  const int chunks = (w + kBM - 1) / kBM;
+  switch (narrow_per_thread(n)) {
+    case 2:
+      return run<2>(p, chunks, splits, st);
+    case 4:
+      return run<4>(p, chunks, splits, st);
+    case 5:
+      return run<5>(p, chunks, splits, st);
+    case 6:
+      return run<6>(p, chunks, splits, st);
+    case 8:
+      return run<8>(p, chunks, splits, st);
+    case 12:
+      return run<12>(p, chunks, splits, st);
+    default:
+      return run<16>(p, chunks, splits, st);
+  }
+}
+
+}  // namespace skinny_f32
 }  // namespace rst_grad
 
 // h (N, dh) and x (N, dx) bf16, dgates (N, G) bf16 (dg_f32 = 0) or f32;
@@ -657,6 +902,31 @@ extern "C" int rst_weight_grad_skinny(const void* x, int x_f32, int D, const voi
   const int err = rst_grad::skinny::launch(
       x, x_f32, D, dg, dg_f32, N, G, wide_dg, splits, rows_per_split, stages, skip_split,
       splits > 1 ? partial : dw, splits > 1 ? partial_db : db, st);
+  if (err != 0 || splits == 1) return err;
+  const size_t count = (size_t)D * G;
+  rst_grad::sum_splits<<<(unsigned)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096),
+                         256, 0, st>>>(partial, splits, count, dw);
+  rst_grad::sum_splits<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(partial_db, splits,
+                                                                    (size_t)G, db);
+  return (int)cudaGetLastError();
+}
+
+// Float32 compute, one operand with a narrow side: x (N, D) and dg (N, G)
+// float32, 16-byte aligned, min(D, G) <= 256 -> dw (D, G) = xᵀ·dg, db (G,)
+// = Σ dg, on the float32 skinny tile, no operand rounded.  The plan
+// (ops/grad_matmul.py) gives wide_dg and the K partition (splits slices of
+// rows_per_split rows, a multiple of 16); with splits > 1, partial
+// (splits, D, G) and partial_db (splits, G) hold the slices' sums before
+// the fixed-order second pass.  skip_split >= 0 is a planted fault for
+// checks: that slice's blocks store zeros.  Returns the CUDA error code.
+extern "C" int rst_weight_grad_skinny_f32(const float* x, int D, const float* dg, int N, int G,
+                                          int wide_dg, int splits, int rows_per_split,
+                                          float* partial, float* partial_db, float* dw,
+                                          float* db, int skip_split, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = rst_grad::skinny_f32::launch(
+      x, D, dg, N, G, wide_dg, splits, rows_per_split, skip_split, splits > 1 ? partial : dw,
+      splits > 1 ? partial_db : db, st);
   if (err != 0 || splits == 1) return err;
   const size_t count = (size_t)D * G;
   rst_grad::sum_splits<<<(unsigned)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096),

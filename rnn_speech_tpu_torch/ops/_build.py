@@ -44,7 +44,7 @@ KERNELS = ("lstm_recurrence", "lstm_wavefront", "lstm_wavefront_train",
            "lstm_wavefront_bwd", "grad_matmul", "dropout", "ctc", "lstm_layer_train",
            "lstm_layer_bwd", "fbank", "lstm_layer_lean",
            "lstm_layer_bwd_persistent", "lstm_wavefront_persistent", "lstm_wavefront_eval",
-           "lstm_wavefront_bwd_persistent", "lstm_layer_bwd_f32")
+           "lstm_wavefront_bwd_persistent", "lstm_layer_bwd_f32", "lstm_layer_fwd_f32")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -26,12 +26,16 @@ rounded to bf16 in the kernel, db in the same pass) for one A operand
 where min(D, G) <= 256 and D, G are multiples of 8 (the input and output
 projections); the WMMA tile (``"wmma"``) for every other shape.  Those
 three compute in bf16.  With ``compute_dtype=float32`` (the JAX kernels'
-float32 mode) every shape runs the float32 tile (``"f32"``: SIMT FMA
-sums of float32 operands, 128x128 output tiles, nothing rounded).
+float32 mode) nothing is rounded and no tensor core runs: one A operand
+whose narrow side min(D, G) is at most 256 (the projections) runs the
+float32 skinny tile (``"skinny_f32"``: a block per 128 columns of the
+wider side, the narrow side whole, SIMT FMA sums, db in the same pass),
+every other shape the float32 tile (``"f32"``: 128x128 output tiles).
 ``<wrapper>.launches`` counts the calls that launched the kernel,
 ``<wrapper>.wgmma_launches`` those on the Hopper tile,
-``weight_grad.skinny_launches`` those on the skinny tile and
-``<wrapper>.f32_launches`` those on the float32 tile.
+``weight_grad.skinny_launches`` those on the skinny tile,
+``weight_grad.skinny_f32_launches`` those on the float32 skinny tile and
+``<wrapper>.f32_launches`` the float32 calls, on either float32 tile.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ f32, bf16 = torch.float32, torch.bfloat16
 #: of its wide operand, its columns the narrow side.
 PATH_IDS = {"wmma": 0, "wgmma": 1}
 TILES = {"wmma": (128, 128, 32), "wgmma": (128, 256, 64), "skinny": (128, 256, 64),
-         "f32": (128, 128, 8)}
+         "f32": (128, 128, 8), "skinny_f32": (128, 256, 16)}
 COLUMN_ROWS = 4096          # dg rows per db partial of the Hopper tile (kColRows in C)
 _MIN_ROWS_PER_SPLIT = 1024  # K slices shorter than this cost more than they add
 _MAX_SPLITS = 8             # of the Hopper tile, whose blocks fill an SM each
@@ -62,6 +66,8 @@ SKINNY_NARROW = 256         # the widest narrow side of the skinny tile (kMaxNar
 SKINNY_CHAIN_ROWS = 16384   # rows of one skinny slice at most: one accumulation chain
 SKINNY_MAX_STAGES = 8       # ring stages of the skinny tile (kMaxStages)
 SMEM_LIMIT = 232448         # the H100's 227 KB a block may use
+SKINNY_F32_STAGES = 4       # ring stages of the float32 skinny tile (kStages in C)
+SKINNY_F32_BLOCKS = 2       # its blocks an SM, the narrow side up to 128 (launch bounds)
 
 
 @dataclass(frozen=True)
@@ -82,12 +88,15 @@ class Plan:
 
 def product_path(dims: Sequence[int], G: int, dg_dtype, compute_dtype=bf16) -> str:
     """The tile product for A operands of widths ``dims`` and a dg of G
-    columns in ``dg_dtype``: ``"f32"`` (the float32 tile) for float32
-    compute, whatever the shape; in bf16 compute ``"wgmma"`` (the Hopper
-    tile) for bf16 dg, every width a positive multiple of 64 and G of 256;
-    ``"skinny"`` for one operand of D columns where D and G are positive
-    multiples of 8 and min(D, G) <= 256; else ``"wmma"``."""
+    columns in ``dg_dtype``: in float32 compute ``"skinny_f32"`` (the
+    float32 skinny tile) for one operand of D columns where min(D, G) <= 256,
+    else ``"f32"`` (the float32 tile); in bf16 compute ``"wgmma"`` (the
+    Hopper tile) for bf16 dg, every width a positive multiple of 64 and G of
+    256; ``"skinny"`` for one operand of D columns where D and G are
+    positive multiples of 8 and min(D, G) <= 256; else ``"wmma"``."""
     if compute_dtype == f32:
+        if len(dims) == 1 and dims[0] > 0 and G > 0 and min(dims[0], G) <= SKINNY_NARROW:
+            return "skinny_f32"
         return "f32"
     if (dg_dtype == bf16 and G > 0 and G % 256 == 0
             and all(d > 0 and d % 64 == 0 for d in dims)):
@@ -147,6 +156,38 @@ def _skinny_plan(D: int, N: int, G: int, dg_dtype, a_dtype, sms: int) -> Plan:
                 skinny_smem(w_bytes, n_bytes, n, stages))
 
 
+def skinny_f32_narrow(n: int) -> int:
+    """Narrow columns a thread of the float32 skinny tile sums (its NJ:
+    n/16 rounded up to an instance, ``skinny_f32::narrow_per_thread``)."""
+    return next(nj for lim, nj in ((32, 2), (64, 4), (80, 5), (96, 6), (128, 8), (192, 12),
+                                   (256, 16)) if n <= lim)
+
+
+def skinny_f32_smem(n: int) -> int:
+    """Shared memory of the float32 skinny tile (``skinny_f32::smem_bytes``):
+    the ring's stages of 16 rows, 128 wide columns and 16·NJ narrow ones,
+    each row padded by four floats."""
+    return SKINNY_F32_STAGES * TILES["skinny_f32"][2] * (132 + 16 * skinny_f32_narrow(n) + 4) * 4
+
+
+def _skinny_f32_plan(D: int, N: int, G: int, sms: int) -> Plan:
+    """The float32 skinny tile: the wider of x and dg is the wide operand
+    (dg on a tie), in 128-column chunks; K in slices of whole 16-row stages,
+    enough that the blocks (chunks x slices) fill ``sms`` at
+    SKINNY_F32_BLOCKS blocks an SM (one past a narrow side of 128, whose
+    threads hold more sums), at least 1024 rows each."""
+    bk = TILES["skinny_f32"][2]
+    wide = "dg" if G >= D else "x"
+    w, n = (G, D) if wide == "dg" else (D, G)
+    chunks = -(-w // TILES["skinny_f32"][0])
+    per_sm = SKINNY_F32_BLOCKS if skinny_f32_narrow(n) <= 8 else 1
+    splits = max(1, min(max(1, per_sm * sms // chunks), max(1, N // _MIN_ROWS_PER_SPLIT)))
+    steps = -(-N // bk)
+    per = max(1, -(-steps // splits))
+    return Plan("skinny_f32", max(1, -(-steps // per)), per * bk, wide, chunks,
+                SKINNY_F32_STAGES, skinny_f32_smem(n))
+
+
 def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int, a_dtype=bf16,
          compute_dtype=bf16) -> Plan:
     """The product's path and K partition on a card of ``sms`` SMs, from
@@ -160,6 +201,8 @@ def plan(dims: Sequence[int], N: int, G: int, dg_dtype, sms: int, a_dtype=bf16,
     path = product_path(dims, G, dg_dtype, compute_dtype)
     if path == "skinny":
         return _skinny_plan(dims[0], N, G, dg_dtype, a_dtype, sms)
+    if path == "skinny_f32":
+        return _skinny_f32_plan(dims[0], N, G, sms)
     bm, bn, bk = TILES[path]
     tiles = sum(-(-d // bm) for d in dims) * -(-G // bn)
     steps = -(-N // bk)
@@ -231,9 +274,9 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
     (dw (Σd, G) with the operands' rows stacked, db (G,), the path that
     ran).  In bf16 compute the skinny tile takes a float32 or bf16 operand
     as it is and rounds it in the kernel, the other tiles take it rounded to
-    bf16 here; in float32 compute the float32 tile takes every operand and
+    bf16 here; in float32 compute the float32 tiles take every operand and
     dg in float32 (a bf16 one widened exactly).  ``skip_split`` >= 0 plants
-    a fault on the skinny tile for checks: that K slice is left out."""
+    a fault on either skinny tile for checks: that K slice is left out."""
     if compute_dtype not in (bf16, f32):
         raise TypeError(f"the weight-gradient kernel computes in bf16 or float32, got "
                         f"{compute_dtype}")
@@ -242,7 +285,7 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
         raise TypeError(f"dg must be float32 or bfloat16, got {dg.dtype}")
     N, G = dg.shape
     path = product_path([a.shape[1] for a in operands], G, dg.dtype, compute_dtype)
-    if path == "f32":
+    if path in ("f32", "skinny_f32"):
         ops = [a.to(f32).contiguous() for a in operands]
         dg = dg.to(f32)
     else:
@@ -277,6 +320,11 @@ def _launch(operands: List[Tensor], dg: Tensor, compute_dtype,
             rc = fn(ops[0].data_ptr(), dims[0], ptr(second), dims[1] if second is not None else 0,
                     dg.data_ptr(), N, G, pl.splits, pl.rows_per_split, ptr(partial),
                     ptr(partial_db), dw.data_ptr(), db.data_ptr(), stream)
+        elif pl.path == "skinny_f32":
+            fn = _lib_fn("rst_weight_grad_skinny_f32", [P, I, P, I, I, I, I, I, P, P, P, P, I, P])
+            rc = fn(ops[0].data_ptr(), dims[0], dg.data_ptr(), N, G, int(pl.wide == "dg"),
+                    pl.splits, pl.rows_per_split, ptr(partial), ptr(partial_db),
+                    dw.data_ptr(), db.data_ptr(), skip_split, stream)
         elif pl.path == "skinny":
             fn = _lib_fn("rst_weight_grad_skinny", [P, I, I, P, I, I, I, I, I, I, I, P, P, P, P,
                                                     I, P])
@@ -308,7 +356,8 @@ def weight_grad(x: Tensor, dg: Tensor, *,
     weight_grad.launches += 1
     weight_grad.wgmma_launches += path == "wgmma"
     weight_grad.skinny_launches += path == "skinny"
-    if path == "f32":
+    weight_grad.skinny_f32_launches += path == "skinny_f32"
+    if path in ("f32", "skinny_f32"):
         weight_grad.f32_launches += 1
     return dw, db
 
@@ -316,6 +365,7 @@ def weight_grad(x: Tensor, dg: Tensor, *,
 weight_grad.launches = 0
 weight_grad.wgmma_launches = 0
 weight_grad.skinny_launches = 0
+weight_grad.skinny_f32_launches = 0
 weight_grad.f32_launches = 0
 
 

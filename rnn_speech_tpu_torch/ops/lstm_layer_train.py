@@ -76,7 +76,13 @@ runs its own persistent kernel (``csrc/lstm_layer_bwd_f32.cu``, where
 ``bwd_plan`` sends the shape: every batch at H=1024), with the float32
 rebuild on a float32 GEMM tile (``csrc/f32_gemm.cuh``); the other float32
 calls and the mixed modes run the per-step kernels' instances of their
-dtypes.  ``<wrapper>.f32_launches`` counts the float32 calls.
+dtypes.  ``<wrapper>.f32_launches`` counts the float32 calls.  The float32
+persistent forward (``csrc/lstm_layer_fwd_f32.cu``, ``fwd_f32_plan``) runs
+one layer's training forward, its input product on the same GEMM tile
+into the gates residual, then its recurrence in one launch: the float32
+layer sweep of the wavefront training forward
+(``lstm_wavefront._fwd_layer_sweep_launch``) calls it a layer at a time;
+the layered route's float32 forwards (rows 5 and 7) do not use it yet.
 """
 
 from __future__ import annotations
@@ -877,6 +883,116 @@ def _recompute_f32_persistent_launch(dout, x, h_prev, cseq, c0, mask, w_x, b, w_
         raise RuntimeError(f"float32 persistent lstm_layer_bwd_recompute kernel launch failed: "
                            f"CUDA error {rc} (plan {plan})")
     return dgates, dh, dc, _lib_count(*count) - before
+
+
+# The float32 persistent forward (csrc/lstm_layer_fwd_f32.cu): CTAs of a
+# slice (the carry product's K split in quarters), hidden units of a slice
+# (its four gates' 128 columns), K columns of a streamed box of h and the
+# ring's stages; BWD_ROWS-row groups.
+FWD_F32_SPLIT, FWD_F32_UNITS, FWD_F32_KBOX, FWD_F32_STAGES = 4, 32, 32, 8
+
+
+def fwd_f32_smem(H: int) -> int:
+    """Dynamic shared memory of the float32 persistent forward: the W_h
+    block (H/4 K rows of a slice's 128 gate columns, transposed, rows
+    padded by 4 floats) and the ring of (64, 32) h boxes, rows padded by 4
+    (the kernel's ``smem_bytes``)."""
+    return 4 * (4 * FWD_F32_UNITS * (H // FWD_F32_SPLIT + 4)
+                + FWD_F32_STAGES * BWD_ROWS * (FWD_F32_KBOX + 4))
+
+
+def fwd_f32_plan(B: int, H: int, sms: int = H100_SMS) -> dict:
+    """The float32 persistent forward's grid at (B, H) on a card of
+    ``sms`` SMs: H/32 slices of 32 units x 4 CTAs (a quarter of K = H each,
+    that quarter of W_h's rows for the slice's 128 gate columns resident in
+    float32), the batch's ceil(B/64) row groups walked in turn.  H a
+    multiple of 128, the grid within the card and the shared memory within
+    a block's; else {"kernel": "per_step"}.  Returns {"kernel":
+    "persistent_f32", "groups", "slices", "grid", "stages", "smem"}."""
+    if B < 1 or H < 128 or H % 128:
+        return {"kernel": "per_step"}
+    slices = H // FWD_F32_UNITS
+    grid = slices * FWD_F32_SPLIT
+    if grid > sms or fwd_f32_smem(H) > SMEM_LIMIT:
+        return {"kernel": "per_step"}
+    return {"kernel": "persistent_f32", "groups": -(-B // BWD_ROWS), "slices": slices,
+            "grid": grid, "stages": FWD_F32_STAGES, "smem": fwd_f32_smem(H)}
+
+
+def _fwd_f32_persistent_launch(x_in, w_x, b, w_h, mask, h0, c0, gates, cseq, outs, xnext,
+                               drop, boundary, plan, skip_barrier=0, skip_k=0):
+    """One layer of the float32 layer sweep's forward on the plan's grid
+    (``fwd_f32_plan``; ``lstm_wavefront._fwd_layer_sweep_launch``): the
+    input product xp = x_in·w_x + b into ``gates`` on the float32 GEMM tile,
+    then one persistent launch of the recurrence over T, which writes the
+    activated gates over xp, ``cseq``, ``outs`` and, where ``xnext`` is
+    given (below the top layer), the next layer's input h·keep·scale of
+    boundary ``boundary`` (``drop`` as ``lstm_wavefront._drop_launch_args``
+    gives it, the drop mode first).  x_in (T, B, K), w_x (K, 4H), b (4H,),
+    w_h (H, 4H), mask (T, 1, B), h0, c0 (B, H), all float32.
+    ``skip_barrier`` plants the chain's faults, for checks: bit 1, each CTA
+    loads h(t-1) without the step wait; bit 2, it sums the slice's
+    partials without waiting for them; bit 4, it leaves the slice's last
+    partial out of the sum; ``skip_k`` leaves out the input product's last
+    K stages.  Returns (hn, cn)."""
+    T, B, H = cseq.shape
+    K = x_in.shape[-1]
+    dev = gates.device
+    drop_mode, masks, seed0, seed1, thr, scale = drop
+    with torch.cuda.device(dev):
+        h, c = h0.clone(), c0.clone()
+        if T == 0:
+            return h, c
+        ring = torch.empty((2, B, H), dtype=f32, device=dev)
+        ring[1] = h0
+        groups, slices = plan["groups"], plan["slices"]
+        part = torch.empty((groups, slices, FWD_F32_SPLIT, BWD_ROWS, 4 * FWD_F32_UNITS),
+                           dtype=f32, device=dev)
+        counter = torch.empty((groups * (1 + slices),), dtype=torch.int32, device=dev)
+        mask_l = masks[boundary] if drop_mode == 1 and xnext is not None else None
+        U = ctypes.c_uint
+        fn = _lib_fn("lstm_layer_fwd_f32", "rst_lstm_layer_fwd_f32",
+                     [P] * 15 + [I] * 6 + [U] * 3 + [ctypes.c_float] + [I] * 3 + [P])
+        rc = fn(x_in.data_ptr(), w_x.data_ptr(), b.data_ptr(), w_h.data_ptr(), mask.data_ptr(),
+                gates.data_ptr(), cseq.data_ptr(), outs.data_ptr(),
+                None if xnext is None else xnext.data_ptr(), h.data_ptr(), c.data_ptr(),
+                ring.data_ptr(), part.data_ptr(), counter.data_ptr(),
+                None if mask_l is None else mask_l.data_ptr(), T, B, H, K, groups, drop_mode,
+                seed0, seed1, thr, scale, boundary, skip_barrier, skip_k,
+                _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"float32 persistent lstm_layer_fwd kernel launch failed: CUDA error "
+                           f"{rc} (plan {plan})")
+    return h, c
+
+
+def fwd_f32_xp(x_in: Tensor, w_x: Tensor, b: Tensor) -> Tensor:
+    """The float32 layer sweep's input product alone on the card
+    (``rst_layer_fwd_f32_xp``, uncounted; for timings of the sweep's split):
+    (T, B, 4H) = b + x_in (T, B, K)·w_x (K, 4H), float32."""
+    T, B, K = x_in.shape
+    G = w_x.shape[1]
+    dev = x_in.device
+    with torch.cuda.device(dev):
+        gates = torch.empty((T, B, G), dtype=f32, device=dev)
+        fn = _lib_fn("lstm_layer_fwd_f32", "rst_layer_fwd_f32_xp", [P] * 4 + [I] * 3 + [P])
+        rc = fn(x_in.data_ptr(), w_x.data_ptr(), b.data_ptr(), gates.data_ptr(), T * B, G // 4, K,
+                _build.launch_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"float32 input product launch failed: CUDA error {rc}")
+    return gates
+
+
+def fwd_f32_launches() -> int:
+    """Launches of the float32 persistent forward's chain so far (one a
+    layer), as its library counts them at the launch site."""
+    return _lib_count("lstm_layer_fwd_f32", "rst_layer_fwd_f32_launches")
+
+
+def fwd_f32_xp_launches() -> int:
+    """Input products of the float32 layer sweep's forward so far (one a
+    layer), as its library counts them at the launch site."""
+    return _lib_count("lstm_layer_fwd_f32", "rst_layer_fwd_f32_xp_launches")
 
 
 def recompute_f32_launches() -> int:

@@ -70,7 +70,13 @@ float32 (the JAX kernels' default compute dtype with float32 residuals:
 float32 operands, h buffers, residuals, dgates and xdrop, nothing rounded)
 and the two mixed pairs; any H and D (the wrappers pad them to a multiple
 of 64, ``HiddenPad``).  The persistent kernels are bf16 only (the plans'
-``dtype`` and ``res_dtype``).  The float32 reverse diagonal runs as a
+``dtype`` and ``res_dtype``).  The float32 training forward runs as a
+layer sweep (``_fwd_layer_sweep_launch``, where ``wavefront_plan`` sends
+it): from the bottom layer up, each layer's input product on a float32
+GEMM tile into its gates residual, then its whole recurrence on the
+float32 persistent forward (``csrc/lstm_layer_fwd_f32.cu``), which also
+writes the next layer's input; its calls ``wavefront_train.
+sweep_launches`` counts.  The float32 reverse diagonal runs as a
 layer sweep (``_layer_sweep_launch``, where ``wavefront_bwd_plan`` sends
 it): each layer's whole reverse walk on the float32 persistent layer
 backward (``csrc/lstm_layer_bwd_f32.cu``), then the layer below's
@@ -430,24 +436,38 @@ def wavefront_train_plain(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor
     ``res_dtype`` and (hn, cn) (L, B, H) float32."""
     L, H = w_h.shape[0], w_h.shape[1]
     T, B = x.shape[:2]
-    cd = w_h.dtype
     keeps = drop_keeps(drop_mode, drop_arr, keep_prob, (L - 1, T, B, H), x.device)
-    res = [], [], []
-    hn, cn = [], []
-    x_in, w_in = x, w_x0
+    res = [], [], [], [], []
+    x_in = x
     for l in range(L):
-        xp = b_all[l].to(f32) + torch.matmul(x_in.to(cd).to(f32), w_in.to(f32))
-        out, h, c, gates, cseq, hcar = forward_plain(
-            xp, w_h[l], mask, h0[l], c0[l], res_dtype, keep_gates=True, keep_h=True)
-        for acc, val in zip(res, (out.to(res_dtype), gates, cseq)):
+        keep_scale = None if keeps is None or l + 1 == L else keeps[l] * drop_scale
+        *out, x_in = sweep_fwd_plain(x_in, w_x0 if l == 0 else w_x_rest[l - 1], b_all[l],
+                                     w_h[l], mask, h0[l], c0[l], keep_scale, l + 1 < L,
+                                     res_dtype)
+        for acc, val in zip(res, out):
             acc.append(val)
-        hn.append(h)
-        cn.append(c)
-        if l + 1 < L:
-            x_in = hcar if keeps is None else hcar * (keeps[l] * drop_scale)
-            w_in = w_x_rest[l]
-    return (torch.stack(res[0]), torch.stack(res[1]), torch.stack(res[2]),
-            torch.stack(hn), torch.stack(cn))
+    return tuple(torch.stack(r) for r in res)
+
+
+def sweep_fwd_plain(x_in: Tensor, w_x: Tensor, b: Tensor, w_h: Tensor, mask: Tensor,
+                    h0: Tensor, c0: Tensor, keep_scale=None, feed: bool = True,
+                    res_dtype=f32):
+    """One layer of the training forward in plain PyTorch, as the float32
+    layer sweep (``rst_lstm_layer_fwd_f32``) runs it: the input product
+    xp = b + x_in·w_x over all T·B rows (x_in rounded to the weights'
+    dtype, float32 sums; into the gates residual on the card), then the
+    recurrence on xp (``forward_plain``: the activated gates written over
+    xp, c and the masked output stored), and with ``feed`` the next layer's
+    input, the carried h times ``keep_scale`` (T, B, H), the boundary's
+    keep·drop_scale (None: the carried h itself).  Returns (outs, gates,
+    cseq in ``res_dtype``, hn, cn, x_next float32 or None)."""
+    xp = b.to(f32) + torch.matmul(x_in.to(w_h.dtype).to(f32), w_x.to(f32))
+    outs, hn, cn, gates, cseq, hcar = forward_plain(xp, w_h, mask, h0, c0, res_dtype,
+                                                    keep_gates=True, keep_h=True)
+    x_next = None
+    if feed:
+        x_next = hcar if keep_scale is None else hcar * keep_scale
+    return outs.to(res_dtype), gates, cseq, hn, cn, x_next
 
 
 def _drop_launch_args(drop_mode, drop_arr, keep_prob, drop_scale, shape, dev):
@@ -494,12 +514,20 @@ def wavefront_layout(B: int, H: int, L: int, D: int, sms: int = H100_SMS):
 def wavefront_plan(B: int, H: int, L: int, D: int, sms: int = H100_SMS,
                    dtype=bf16, res_dtype=None) -> dict:
     """Which kernel runs the training forward at (B, H, L, D) on a card of
-    ``sms`` SMs, decided by shape and compute dtype alone: the persistent
-    one where ``wavefront_layout`` takes a bf16 shape (the default step's
-    B=64 at H = D = 1024, L = 3: 3 x 43 = 129 CTAs), else the per-diagonal
-    kernel (the wide step's B=394, D != H, more CTAs than SMs, float32
-    compute, a ``res_dtype`` other than bf16: the mixed modes).  Returns
-    {"kernel": "persistent", **layout} or {"kernel": "per_diagonal"}."""
+    ``sms`` SMs, decided by shape and the compute and residual dtypes
+    alone: in bf16 the persistent one where ``wavefront_layout`` takes the
+    shape (the default step's B=64 at H = D = 1024, L = 3: 3 x 43 = 129
+    CTAs); in float32 the layer sweep on the float32 persistent forward
+    where ``lstm_layer_train.fwd_f32_plan`` takes (B, H) (every batch at
+    H=1024); else the per-diagonal kernel (the wide step's B=394, D != H,
+    more CTAs than SMs, the mixed modes).  Returns {"kernel":
+    "persistent", **layout}, {"kernel": "layer_sweep", "chain": the chain's
+    plan} or {"kernel": "per_diagonal"}."""
+    if dtype == f32 and res_dtype in (None, f32):
+        chain = lstm_layer_train.fwd_f32_plan(B, H, sms)
+        if chain["kernel"] == "persistent_f32":
+            return {"kernel": "layer_sweep", "chain": chain}
+        return {"kernel": "per_diagonal"}
     bf16_only = dtype == bf16 and res_dtype in (None, bf16)
     layout = wavefront_layout(B, H, L, D, sms) if bf16_only else None
     if layout is None:
@@ -593,11 +621,14 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     w_x_rest (L-1, H, 4H) in the compute dtype; b_all (L, 4H), mask
     (T, 1, B), h0, c0 (L, B, H) float32.  Returns the residual streams
     (outs, gates, cseq) and (hn, cn) as ``wavefront_train_plain`` does;
-    on a CUDA device (bf16 or float32 operands and residuals, one dtype)
-    the kernel ``wavefront_plan`` picks by shape and compute dtype, the
-    persistent one (``persistent_launches`` adds the library's count of its
-    launches) or the per-diagonal one (``f32_launches`` counts its float32
-    calls); the plain version on the CPU."""
+    on a CUDA device the kernel ``wavefront_plan`` picks by shape and the
+    compute and residual dtypes: the bf16 persistent one
+    (``persistent_launches`` adds the library's count of its launches), the
+    float32 layer sweep (``sweep_launches`` and ``sweep_xp_launches`` add
+    the library's counts of its chains and input products, one each a
+    layer) or the per-diagonal one (``per_diagonal_launches`` counts those
+    calls); ``f32_launches`` counts the float32 calls; the plain version on
+    the CPU."""
     T, B, D = x.shape
     L, H = w_h.shape[0], w_h.shape[1]
     if w_x_rest.shape[0] != L - 1 or b_all.shape[0] != L:
@@ -632,17 +663,55 @@ def wavefront_train(x: Tensor, w_x0: Tensor, w_h: Tensor, w_x_rest: Tensor,
     plan = wavefront_plan(B, H, L, D, torch.cuda.get_device_properties(dev).multi_processor_count,
                           mode, res_mode)
     drop = (drop_mode, masks, seed0, seed1, thr, scale)
+    args = (x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop)
     if plan["kernel"] == "persistent":
         before = persistent_launches()
-        res = _persistent_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan)
+        res = _persistent_launch(*args, plan)
         wavefront_train.persistent_launches += persistent_launches() - before
+    elif plan["kernel"] == "layer_sweep":
+        before = (lstm_layer_train.fwd_f32_launches(), lstm_layer_train.fwd_f32_xp_launches())
+        res = _fwd_layer_sweep_launch(*args, plan)
+        wavefront_train.sweep_launches += lstm_layer_train.fwd_f32_launches() - before[0]
+        wavefront_train.sweep_xp_launches += lstm_layer_train.fwd_f32_xp_launches() - before[1]
     else:
-        res = _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, res_mode)
+        res = _per_diagonal_launch(*args, res_mode)
     if T:                                            # T = 0 launches nothing
         wavefront_train.launches += 1
+        wavefront_train.per_diagonal_launches += plan["kernel"] == "per_diagonal"
         if (mode, res_mode) == (f32, f32):
             wavefront_train.f32_launches += 1
     return res
+
+
+def _fwd_layer_sweep_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, plan,
+                            skip_barrier=0, skip_k=0):
+    """The float32 training forward as a layer sweep (the same function as
+    the diagonal, another schedule): from the bottom layer up, each
+    layer's input product and whole recurrence on the float32 persistent
+    forward (``lstm_layer_train._fwd_f32_persistent_launch``), which also
+    writes the next layer's input into one (T, B, H) scratch used again for
+    every layer.  ``drop`` as ``_persistent_launch`` takes it;
+    ``skip_barrier`` and ``skip_k`` plant the chain's and the product's
+    faults, for checks.  Returns ``wavefront_train``'s results."""
+    T, B, _ = x.shape
+    L, H = w_h.shape[0], w_h.shape[1]
+    dev = x.device
+    with torch.cuda.device(dev):
+        outs = torch.empty((L, T, B, H), dtype=f32, device=dev)
+        gates = torch.empty((L, T, B, 4 * H), dtype=f32, device=dev)
+        cseq = torch.empty((L, T, B, H), dtype=f32, device=dev)
+        hn, cn = h0.clone(), c0.clone()
+        if T == 0:
+            return outs, gates, cseq, hn, cn
+        xnext = torch.empty((T, B, H), dtype=f32, device=dev) if L > 1 else None
+        x_in = x
+        for l in range(L):
+            w_x = w_x0 if l == 0 else w_x_rest[l - 1]
+            hn[l], cn[l] = lstm_layer_train._fwd_f32_persistent_launch(
+                x_in, w_x, b_all[l], w_h[l], mask, h0[l], c0[l], gates[l], cseq[l], outs[l],
+                xnext if l + 1 < L else None, drop, l, plan["chain"], skip_barrier, skip_k)
+            x_in = xnext
+    return outs, gates, cseq, hn, cn
 
 
 def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, res=None):
@@ -690,6 +759,9 @@ def _per_diagonal_launch(x, w_x0, w_h, w_x_rest, b_all, mask, h0, c0, drop, res=
 wavefront_train.launches = 0
 wavefront_train.persistent_launches = 0
 wavefront_train.f32_launches = 0
+wavefront_train.sweep_launches = 0
+wavefront_train.sweep_xp_launches = 0
+wavefront_train.per_diagonal_launches = 0
 
 
 def wavefront_bwd_plain(dout_top: Tensor, w_h: Tensor, w_x_rest: Tensor,

@@ -1,14 +1,19 @@
 """The float32 persistent layer backward (row 8's recompute mode, and the
 gates mode of row 4's layer sweep), its GEMM tile (the float32 rebuild and
-the sweep's cotangent product) and the padded, mixed-dtype routes of rows
-1-8, on the card against their plain PyTorch versions.
+the sweep's cotangent product), the float32 persistent layer forward (row
+3's layer sweep, with its input product on the same tile), the float32
+skinny weight-gradient tile (row 15) and the padded, mixed-dtype routes of
+rows 1-8, on the card against their plain PyTorch versions.
 
 Shapes: one and several 64-row groups (B = 1, 70, 130), H = 128 and 256
 (2 and 4 unit slices), T across a rebuild chunk edge (``REBUILD_BYTES``
-patched down), drop modes 0, 1 and 2 for the sweep; odd widths H=100,
+patched down), drop modes 0, 1 and 2 for the sweeps; the forward sweep
+also at B=64 and 129, H=1024, ragged lengths; the skinny tile at both
+projections (N = 224,640) and at D=7, G=13, N=100,003; odd widths H=100,
 D=72 (padded to 128) in bf16, float32 and both mixed modes.  Beside them
-the planted fault that fails at these sizes: the tile with its last K
-stage left out.  The chain's barrier faults race with CTAs that finish
+the planted faults that fail at these sizes: the tile with its last K
+stage left out, the forward chain with a partial left out, a skinny K
+slice left out.  The chains' barrier faults race with CTAs that finish
 early at a few rows; chip_smoke.py plants them at the full width.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture,
@@ -184,6 +189,87 @@ def test_layer_sweep_matches_plain(cuda, mode, B, H):
         check([d[0]], [plain[0]], F32_TOL)
         if mode:
             _close([d[1]], [plain[1]], F32_TOL)
+
+
+def _stack(L, T, B, H, D, seed, dev, mode):
+    """The training forward's arguments at (L, T, B, H, D), ragged lengths
+    (the first row full, one row empty), float32, drop mode ``mode`` at
+    keep 0.6; ends with (drop_mode, drop_arr, drop_scale, keep_prob)."""
+    g = torch.Generator().manual_seed(seed)
+    lim = (6.0 / (5 * H)) ** 0.5
+    w = lambda *s: ((torch.rand(s, generator=g) * 2 - 1) * lim).to(dev)
+    r = lambda *s, scale: (torch.randn(s, generator=g) * scale).to(dev)
+    lens = torch.as_tensor([T - (5 * b) % (T + 1) for b in range(B)])
+    lens[0] = T
+    mask = (torch.arange(T)[:, None] < lens[None]).float()[:, None, :].to(dev)
+    keep = 0.6
+    drop = {0: (0, None, 1.0, 1.0),
+            1: (1, (torch.rand((L - 1, T, B, H), generator=g) < keep).float().to(dev),
+                1 / keep, keep),
+            2: (2, (12345 + seed, 678), 1 / keep, keep)}[mode]
+    return (r(T, B, D, scale=1.0), w(D, 4 * H), w(L, H, 4 * H), w(L - 1, H, 4 * H),
+            r(L, 4 * H, scale=0.1), mask, r(L, B, H, scale=0.2), r(L, B, H, scale=0.2), f32,
+            *drop)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("B,H,D", [(64, 1024, 1024), (70, 128, 40), (129, 256, 256)])
+def test_forward_layer_sweep_matches_plain(cuda, mode, B, H, D):
+    """Row 3 in float32 as the layer sweep: outs, gates, cseq, hn, cn
+    against ``wavefront_train_plain``, bit for bit on repeat, a chain and an
+    input product a layer counted; mode 2 equal to mode 1 fed the seed
+    words' masks; beside the chain with the slice's last partial left out
+    and the input product's last K stage left out."""
+    L, T = 3, 9
+    args = _stack(L, T, B, H, D, seed=B + H + mode, dev=cuda, mode=mode)
+    plan = twave.wavefront_plan(B, H, L, D, dtype=f32)
+    assert plan["kernel"] == "layer_sweep"
+    before = (twave.wavefront_train.sweep_launches, twave.wavefront_train.sweep_xp_launches,
+              twave.wavefront_train.per_diagonal_launches)
+    got = twave.wavefront_train(*args)
+    again = twave.wavefront_train(*args)
+    ref = twave.wavefront_train_plain(*args)
+    torch.cuda.synchronize()
+    assert (twave.wavefront_train.sweep_launches - before[0],
+            twave.wavefront_train.sweep_xp_launches - before[1],
+            twave.wavefront_train.per_diagonal_launches - before[2]) == (2 * L, 2 * L, 0)
+    _close(got, ref, F32_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if mode == 2:
+        masks = twave.drop_keeps(2, args[10], args[12], (L - 1, T, B, H), cuda)
+        fed = twave.wavefront_train(*args[:9], 1, masks, args[11], args[12])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, fed))
+    if D == H and H % 64 == 0:
+        drop = (mode, *twave._drop_launch_args(mode, args[10], args[12], args[11],
+                                               (L - 1, T, B, H), args[0].device))
+        for kw in ({"skip_barrier": 4}, {"skip_k": 1}):
+            bad = twave._fwd_layer_sweep_launch(*args[:8], drop, plan, **kw)
+            torch.cuda.synchronize()
+            _far(bad, ref, F32_TOL)
+
+
+@pytest.mark.parametrize("Dn,N,G", [(120, 224640, 1024), (1024, 224640, 80), (7, 100003, 13)])
+def test_skinny_f32_matches_plain(cuda, Dn, N, G):
+    """Row 15 in float32 on the float32 skinny tile: dW and db against the
+    plain version, bit for bit on repeat, beside a K slice left out."""
+    from rnn_speech_tpu_torch.ops import grad_matmul as gm
+
+    g = torch.Generator().manual_seed(Dn + G)
+    x = torch.randn((N, Dn), generator=g).to(cuda)
+    dg = (torch.randn((N, G), generator=g) * 0.01).to(cuda)
+    assert gm.plan([Dn], N, G, f32, torch.cuda.get_device_properties(0).multi_processor_count,
+                   f32, compute_dtype=f32).path == "skinny_f32"
+    before = gm.weight_grad.skinny_f32_launches
+    got = gm.weight_grad(x, dg, compute_dtype=f32)
+    again = gm.weight_grad(x, dg, compute_dtype=f32)
+    ref = gm.weight_grad_plain(x, dg, compute_dtype=f32)
+    bad = gm._launch([x], dg, f32, skip_split=0)[:2]
+    torch.cuda.synchronize()
+    assert gm.weight_grad.skinny_f32_launches - before == 2
+    _close(got, ref, F32_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _far(bad, ref, F32_TOL)
 
 
 ODD = dict(L=2, T=6, B=5, H=100, D=72)

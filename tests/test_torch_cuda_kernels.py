@@ -1773,8 +1773,10 @@ def test_alpha_modes_with_a_step_one_row_late_fail_the_check(cuda, mode):
 # magnitude at T <= 16, at the flagship width (H = 1024, the default step's
 # B=64 and the eval batch's B=128) and at small ragged shapes, with
 # xavier-uniform weights as the model initialises them.  Every float32 call
-# runs the per-step or per-diagonal kernel (or the float32 weight-gradient
-# tile), never a persistent one, and counts itself in ``f32_launches``.
+# runs a float32 kernel (the per-step or per-diagonal kernels, the float32
+# persistent layer kernels and their layer sweeps, the float32
+# weight-gradient tiles), never a bf16 persistent one, and counts itself in
+# ``f32_launches``.
 
 F32_TOL = 1e-5
 
@@ -1889,8 +1891,9 @@ def test_float32_layer_kernels_match_plain(cuda, B, H, D, T):
 @pytest.mark.parametrize("N,dims,G", [(20000, [1024, 1024], 4096), (333, [200, 24], 1030),
                                       (5000, [120], 1024), (5000, [1024], 80), (7, [5], 3)])
 def test_float32_weight_grads_match_plain(cuda, N, dims, G):
-    """Rows 14 and 15 in float32: both wrappers on the float32 tile, float32
-    x and dg not rounded, ragged edges, the K split of the plan."""
+    """Rows 14 and 15 in float32: both wrappers on the float32 tiles (the
+    skinny one for one operand with a narrow side), float32 x and dg not
+    rounded, ragged edges, the K split of the plan."""
     g = torch.Generator().manual_seed(N + G)
     a = [torch.randn((N, d), generator=g).to(cuda) for d in dims]
     dg = torch.randn((N, G), generator=g).to(cuda)

@@ -5,8 +5,10 @@ against the JAX package, on the CPU.
 * Routing: a float32 compute dtype never reaches a bf16 persistent or
   tensor-core plan: the recompute backward (row 8) takes the float32
   persistent kernel and the reverse diagonal (row 4) the float32 layer
-  sweep where ``bwd_f32_plan`` takes the shape, the rest the per-step and
-  per-diagonal kernels and the float32 weight-gradient tile; the bf16
+  sweep where ``bwd_f32_plan`` takes the shape, the training forward (row
+  3) the float32 layer sweep where ``fwd_f32_plan`` takes it, the rest the
+  per-step and per-diagonal kernels; the projections' weight gradients the
+  float32 skinny tile and every other product the float32 tile; the bf16
   plans are unchanged at the shapes the plan tests use; mixed compute and
   residual dtypes are a mode of their own, on the per-step kernels.
 * Arithmetic: ``lstm_layer_train`` (gates and recompute residuals) at the
@@ -43,23 +45,24 @@ TOL = 1e-4
 # Shapes of the existing plan tests (the layered, recompute, eval, default,
 # wide and card-test batches) at which the bf16 plans must not move.
 BATCHES = (1, 8, 16, 64, 70, 96, 128, 129, 200, 260, 394, 400, 473)
-WIDTHS = (64, 128, 256, 1024)
+WIDTHS = (64, 128, 256, 512, 1024, 1152)
 
 
 @pytest.mark.parametrize("H", WIDTHS)
 @pytest.mark.parametrize("B", BATCHES)
 def test_float32_never_reaches_a_persistent_plan(B, H):
-    """No bf16 persistent kernel takes float32: rows 1-3, 5-7 stay on the
-    per-step and per-diagonal kernels, and rows 8 and 4 go to the float32
-    persistent backward and its layer sweep exactly where its plan fits
-    (H a multiple of 128, H/64 x 8 CTAs on the card), any batch in
-    ceil(B/64) row groups; the fused dW_x stays bf16 only."""
+    """No bf16 persistent kernel takes float32: rows 1, 2, 5-7 stay on the
+    per-step and per-diagonal kernels; rows 8 and 4 go to the float32
+    persistent backward and its layer sweep, and row 3 to the float32
+    persistent forward's layer sweep (whatever D), exactly where their
+    plans fit (H a multiple of 128, H/64 x 8 and H/32 x 4 CTAs on the card:
+    the same widths), any batch in ceil(B/64) row groups, else to the
+    per-diagonal kernels; the fused dW_x stays bf16 only."""
     for x_f32 in (False, True):
         assert trec.lean_plan(B, H, x_f32=x_f32, dtype=f32) == {"kernel": "per_step"}
     assert tlt.bwd_plan(B, H, dtype=f32) == {"kernel": "per_step"}
     assert twave.wavefront_eval_plan(B, H, 3, dtype=f32) == {"kernel": "per_diagonal"}
-    assert twave.wavefront_plan(B, H, 3, H, dtype=f32) == {"kernel": "per_diagonal"}
-    chain = tlt.bwd_f32_plan(B, H)
+    chain, fwd = tlt.bwd_f32_plan(B, H), tlt.fwd_f32_plan(B, H)
     fits = H % 128 == 0 and H // 64 * 8 <= 132
     assert tlt.bwd_plan(B, H, dtype=f32, recompute=True) == chain
     if fits:
@@ -68,9 +71,18 @@ def test_float32_never_reaches_a_persistent_plan(B, H):
         assert chain["smem"] <= trec.SMEM_LIMIT
         assert twave.wavefront_bwd_plan(B, H, 3, False, dtype=f32) == {"kernel": "layer_sweep",
                                                                         "chain": chain}
+        assert fwd == {"kernel": "persistent_f32", "groups": -(-B // 64), "slices": H // 32,
+                       "grid": H // 32 * 4, "stages": 8, "smem": tlt.fwd_f32_smem(H)}
+        assert fwd["smem"] <= trec.SMEM_LIMIT
+        for D in (H, 120):
+            assert twave.wavefront_plan(B, H, 3, D, dtype=f32) == {"kernel": "layer_sweep",
+                                                                   "chain": fwd}
+            assert twave.wavefront_plan(B, H, 3, D, dtype=f32, res_dtype=f32) == {
+                "kernel": "layer_sweep", "chain": fwd}
     else:
-        assert chain == {"kernel": "per_step"}
+        assert chain == {"kernel": "per_step"} and fwd == {"kernel": "per_step"}
         assert twave.wavefront_bwd_plan(B, H, 3, False, dtype=f32) == {"kernel": "per_diagonal"}
+        assert twave.wavefront_plan(B, H, 3, H, dtype=f32) == {"kernel": "per_diagonal"}
     assert twave.wavefront_bwd_plan(B, H, 3, True, dtype=f32) == {"kernel": "per_diagonal"}
 
 
@@ -90,16 +102,21 @@ def test_bf16_plans_are_unchanged(B, H):
 
 @pytest.mark.parametrize("dims,N,G", [([1024, 1024], 224640, 4096), ([120], 224640, 1024),
                                       ([1024], 224640, 80), ([256, 120], 768, 1024),
-                                      ([1024], 3510 * 96, 4096), ([7], 100003, 13)])
+                                      ([1024], 3510 * 96, 4096), ([7], 100003, 13),
+                                      ([256], 5000, 1024), ([257], 4099, 300),
+                                      ([1024], 3510 * 394, 80), ([120, 1024], 224640, 80)])
 def test_weight_grads_in_float32_take_the_float32_tile(dims, N, G):
-    """Every float32-compute product runs the float32 tile (never the
-    Hopper, skinny or WMMA tiles, which round to bf16), its K split into
-    slices of a multiple of its 8-row step that cover N once; the bf16
-    plans stay as they were."""
+    """Every float32-compute product runs a float32 tile (never the Hopper,
+    skinny or WMMA tiles, which round to bf16): one operand with a narrow
+    side of at most 256 columns (the projections) the float32 skinny tile,
+    every other product (two operands: row 14; both sides wide: the dW_x of
+    layers 1..L-1) the float32 tile; its K split into slices of a multiple
+    of its K step that cover N once; the bf16 plans stay as they were."""
+    path = "skinny_f32" if len(dims) == 1 and min(dims[0], G) <= 256 else "f32"
     for dg_dtype in (f32, bf16):
-        assert gm.product_path(dims, G, dg_dtype, f32) == "f32"
+        assert gm.product_path(dims, G, dg_dtype, f32) == path
         pl = gm.plan(dims, N, G, dg_dtype, 132, f32, compute_dtype=f32)
-        assert pl.path == "f32" and pl.rows_per_split % gm.TILES["f32"][2] == 0
+        assert pl.path == path and pl.rows_per_split % gm.TILES[path][2] == 0
         assert pl.splits * pl.rows_per_split >= N > (pl.splits - 1) * pl.rows_per_split
         assert gm.plan(dims, N, G, dg_dtype, 132) == gm.plan(dims, N, G, dg_dtype, 132,
                                                              compute_dtype=bf16)
